@@ -8,24 +8,35 @@ Every phase's failure is fatal (non-zero exit, no result line):
 1. card    -- ``nvidia-smi --query-gpu=name,power.limit`` as it prints it;
 2. build   -- the CUDA kernels of geomx_tpu_torch/csrc, built at first use;
 3. kernels -- each hand-written kernel against its plain PyTorch version on
-              the card, at the flagship shapes (the ResNet-20 gradient tree
-              on the [2, 4] replica axes: one 272,512-element bucket,
-              k = ceil(0.01 n), two parties) and on the edge cases of the
-              CPU parity tests; all four must be bit-equal.  Each kernel's
-              median device time over 50 calls (CUDA events, L2 flushed
-              between calls), its plain version's time, one PyTorch call
-              computing the same function where there is one, and the
-              bytes bound at the card's 3.35 TB/s;
+              the card, at the shapes of the training paths (the ResNet-20
+              gradient tree on the [2, 4] replica axes: one 272,512-element
+              bucket, 8 replica rows, k = ceil(0.01 n), two parties) and on
+              the edge cases of the CPU parity tests; all eight must be
+              bit-equal.  Each kernel's median device time over 50 calls
+              (CUDA events, L2 flushed between calls), its plain version's
+              time, one PyTorch call computing the same function where
+              there is one, and the bytes bound at the card's 3.35 TB/s;
 4. reference -- two fp32 training steps of a small ResNet on the card and on
-              the CPU (plain versions) from the same weights and batches:
-              losses to rtol 1e-4, parameters to atol 2e-3 (TF32 off);
-5. main path -- Trainer(get_model("resnet20"), HiPSTopology(2, 4),
-              sgd(0.1, momentum=0.9), FSA + "bsc,0.01") at its default bf16
-              compute on the synthetic CIFAR-shaped set, 128 images a
-              replica (1,024 a step), 32 steps; finite loss, falling from
-              the first epoch of 8 steps to the second; replicas
-              identical; every kernel launched (launch counts reset just
-              before the run and read just after); samples/s.
+              the CPU (plain versions) from the same weights and batches,
+              for each path's configuration: losses to rtol 1e-4,
+              parameters to atol 2e-3 (TF32 off);
+5. paths   -- ResNet-20 at its default bf16 compute through Trainer on
+              HiPSTopology(2, 4), FSA with a bucketed dc tier, the
+              synthetic CIFAR-shaped set, 128 images a replica (1,024 a
+              step), each path with the launch counts reset just before
+              its run and read just after:
+              1  (flagship)    sgd(0.1, momentum=0.9), "bsc,0.01", 32 steps;
+              1f (fused_sgd)   the same with fused_optimizer("sgd") and
+                               GeoConfig(fused_optim=True), 16 steps;
+              2  (twobit_adam) fused_optimizer("adam", learning_rate=0.01),
+                               "2bit,0.5", fused_optim=True, 16 steps.
+              Each checks a finite loss, identical replicas and every
+              kernel of its configuration launched, and that the loss
+              falls from the first epoch of 8 steps to the second (for
+              path 2 as the JAX package's own trajectory falls, PERF.md);
+              path 2 also that the 2-bit wire carried non-zero codes.
+              Median step times of the three paths come from the same
+              call.
 
 The two last lines are the ``kernels`` JSON object and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -52,7 +63,52 @@ REPLACES = {
                         "geomx_tpu/ops/bsc_pallas.py:223"),
     "bsc_scatter_add": ("geomx_tpu_torch/csrc/bsc.cu",
                         "geomx_tpu/ops/bsc_pallas.py:332"),
+    "fused_sgd_momentum": ("geomx_tpu_torch/csrc/optim.cu",
+                           "geomx_tpu/ops/optim_pallas.py:195"),
+    "fused_adam": ("geomx_tpu_torch/csrc/optim.cu",
+                   "geomx_tpu/ops/optim_pallas.py:233"),
+    "quantize_2bit": ("geomx_tpu_torch/csrc/twobit.cu",
+                      "geomx_tpu/ops/twobit_pallas.py:89"),
+    "dequantize_2bit": ("geomx_tpu_torch/csrc/twobit.cu",
+                        "geomx_tpu/ops/twobit_pallas.py:116"),
 }
+
+# path -> (optimizer, compression, fused apply, steps, its kernels).  The
+# optimizer is (kind, learning rate): "sgd" is sgd(lr, momentum=0.9)
+# (fused_optimizer("sgd") when fused), "adam" fused_optimizer("adam").
+SLICE1 = ("fused_flatten", "fused_unflatten", "bsc_select_pack",
+          "bsc_scatter_add")
+PATHS = {
+    "flagship": (("sgd", 0.1), "bsc,0.01", False, None, SLICE1),
+    "fused_sgd": (("sgd", 0.1), "bsc,0.01", True, 16,
+                  SLICE1 + ("fused_sgd_momentum",)),
+    "twobit_adam": (("adam", 0.01), "2bit,0.5", True, 16,
+                    ("fused_flatten", "fused_unflatten", "quantize_2bit",
+                     "dequantize_2bit", "fused_adam")),
+}
+# the path whose launch counts the kernels line reports for each kernel
+FIRST_PATH = {name: next(p for p, cfg in PATHS.items() if name in cfg[4])
+              for name in REPLACES}
+
+
+def make_trainer(path: str, model, device=None, precision=None):
+    """The Trainer of one path of PATHS, on ``model``."""
+    from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from geomx_tpu_torch.ops.optim import fused_optimizer
+    from geomx_tpu_torch.optim import sgd
+    from geomx_tpu_torch.train import Trainer
+
+    (kind, lr), spec, fused, _, _ = PATHS[path]
+    if fused:
+        tx = fused_optimizer(kind, learning_rate=lr, momentum=0.9)
+    else:
+        tx = sgd(lr, momentum=0.9)
+    cfg = dict(num_parties=2, workers_per_party=4, compression=spec,
+               fused_optim=fused)
+    if precision is not None:
+        cfg["precision"] = precision
+    return Trainer(model, HiPSTopology(2, 4), tx, config=GeoConfig(**cfg),
+                   device=device)
 
 
 def log(msg: str) -> None:
@@ -219,70 +275,191 @@ def kernel_phase(torch, dev, timer=None):
     case("mixed ties", 20000, 0.02,
          lambda p: [torch.round(torch.randn(20000, generator=cpu) * 2) * 0.5,
                     torch.zeros(20000), torch.zeros(20000)])
+
+    out.update(optim_kernels(torch, dev, timer, gen, rows_shape + (n,)))
+    out.update(twobit_kernels(torch, dev, timer, gen, rows_shape + (n,)))
+    return out
+
+
+def optim_kernels(torch, dev, timer, gen, shape):
+    """fused_sgd_momentum and fused_adam at the fused paths' shape (every
+    replica row of the one bucket) and at the CPU tests' sizes."""
+    from geomx_tpu_torch.ops import optim
+    from geomx_tpu_torch.optim.adam import bias_corrections
+
+    def rand(*scales):
+        return [torch.randn(shape, generator=gen, device=dev) * s
+                for s in scales]
+
+    elems = math.prod(shape)
+    out = {}
+    p, g, m = rand(1.0, 1e-2, 1e-2)
+    kw = dict(lr=0.1, momentum=0.9)
+    lib = [t.clone() for t in (p, g, m)]
+    out["fused_sgd_momentum"] = dict(
+        max_abs_err=max_err(torch, optim.fused_sgd_momentum(p, g, m, **kw),
+                            optim.sgd_momentum_ref(p, g, m, **kw)),
+        ms=timer(lambda: optim.fused_sgd_momentum(p, g, m, **kw)),
+        plain_ms=timer(lambda: optim.sgd_momentum_ref(p, g, m, **kw)),
+        bound_ms=bound_ms(elems * 20), bound_by="bytes",
+        library_ms=timer(lambda: torch._fused_sgd_(
+            [lib[0]], [lib[1]], [lib[2]], weight_decay=0.0, momentum=0.9,
+            lr=0.1, dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False)))
+
+    v = rand(1e-2)[0].square()
+    bc1, bc2 = bias_corrections(0.9, 0.999, 7)
+    akw = dict(lr=0.01, b1=0.9, b2=0.999, eps=1e-8)
+    lib = [t.clone() for t in (p, g, m, v)]
+    steps = [torch.full((), 7.0, device=dev)]
+    out["fused_adam"] = dict(
+        max_abs_err=max_err(torch, optim.fused_adam(p, g, m, v, bc1, bc2,
+                                                    **akw),
+                            optim.adam_ref(p, g, m, v, bc1, bc2, **akw)),
+        ms=timer(lambda: optim.fused_adam(p, g, m, v, bc1, bc2, **akw)),
+        plain_ms=timer(lambda: optim.adam_ref(p, g, m, v, bc1, bc2, **akw)),
+        bound_ms=bound_ms(elems * 28), bound_by="bytes",
+        # the same function in another op order: a time, not a reference
+        library_ms=timer(lambda: torch._fused_adam_(
+            [lib[0]], [lib[1]], [lib[2]], [lib[3]], [], steps, lr=0.01,
+            beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+            amsgrad=False, maximize=False)))
+
+    cpu = torch.Generator().manual_seed(2)
+    for n in (1, 1000, 32_768, 300_000):
+        p, g, m, v = (torch.randn(n, generator=cpu).to(dev) * s
+                      for s in (1.0, 1e-2, 1e-2, 1e-2))
+        v = v.square()
+        bf = torch.bfloat16
+        max_err(torch, optim.fused_sgd_momentum(p, g, m, cast_dtype=bf, **kw),
+                optim.sgd_momentum_ref(p, g, m, cast_dtype=bf, **kw))
+        max_err(torch, optim.fused_adam(p, g, m, v, bc1, bc2, cast_dtype=bf,
+                                        **akw),
+                optim.adam_ref(p, g, m, v, bc1, bc2, cast_dtype=bf, **akw))
+        log(f"  edge case optimizer n={n} (+ bf16 copy): bit-equal")
+    return out
+
+
+def twobit_kernels(torch, dev, timer, gen, shape):
+    """quantize_2bit and the party-summing dequantize_2bit at path 2's
+    shape (every replica row, two parties) and at the CPU tests' sizes."""
+    from geomx_tpu_torch.ops import twobit
+    from geomx_tpu_torch.parallel.collectives import all_gather_dc
+
+    nrows, n = math.prod(shape[:-1]), shape[-1]
+    words = twobit.num_words(n)
+    out = {}
+    g = torch.randn(shape, generator=gen, device=dev) * 0.6
+    r = torch.randn(shape, generator=gen, device=dev) * 0.1
+    packed, _ = got = twobit.quantize_2bit(g, r, 0.5)
+    out["quantize_2bit"] = dict(
+        max_abs_err=max_err(torch, got, twobit.quantize_2bit_plain(g, r,
+                                                                   0.5)),
+        ms=timer(lambda: twobit.quantize_2bit(g, r, 0.5)),
+        plain_ms=timer(lambda: twobit.quantize_2bit_plain(g, r, 0.5)),
+        bound_ms=bound_ms(nrows * (n * 12 + words * 4)), bound_by="bytes",
+        library_ms=None)
+    wire = all_gather_dc(packed).contiguous()  # [2, 4, 2 parties, words]
+    parts = wire.shape[-2]
+    out["dequantize_2bit"] = dict(
+        max_abs_err=max_err(
+            torch, [twobit.dequantize_2bit(wire, n, 0.5, summed=True)],
+            [twobit.dequantize_2bit_plain(wire, n, 0.5, summed=True)]),
+        ms=timer(lambda: twobit.dequantize_2bit(wire, n, 0.5, summed=True)),
+        plain_ms=timer(lambda: twobit.dequantize_2bit_plain(wire, n, 0.5,
+                                                            summed=True)),
+        # the fused dequantize + in-order party sum: words in, sum out
+        bound_ms=bound_ms(nrows * (parts * words * 4 + n * 4)),
+        bound_by="bytes", library_ms=None)
+
+    cpu = torch.Generator().manual_seed(3)
+    for n_ in (1, 2047, 2048, 2049, 600_000):
+        for thr in (0.5, 0.3):
+            g_ = (torch.randn(3, n_, generator=cpu) * 0.6).to(dev)
+            r_ = (torch.randn(3, n_, generator=cpu) * 0.1).to(dev)
+            if n_ == 600_000 and thr == 0.3:
+                g_ = -g_.abs() - 1.0  # every code 2: every sign bit set
+            w_, _ = got = twobit.quantize_2bit(g_, r_, thr)
+            max_err(torch, got, twobit.quantize_2bit_plain(g_, r_, thr))
+            max_err(torch, [twobit.dequantize_2bit(w_, n_, thr)],
+                    [twobit.dequantize_2bit_plain(w_, n_, thr)])
+            w3 = w_.unsqueeze(0)  # three parties' parts, summed in order
+            max_err(torch, [twobit.dequantize_2bit(w3, n_, thr, summed=True)],
+                    [twobit.dequantize_2bit_plain(w3, n_, thr, summed=True)])
+        log(f"  edge case 2-bit n={n_} (thr 0.5, 0.3): bit-equal")
     return out
 
 
 def reference_phase(torch):
-    """Two fp32 steps of a small ResNet on the card vs on the CPU."""
-    from geomx_tpu_torch import GeoConfig, HiPSTopology
+    """Two fp32 steps of a small ResNet on the card vs on the CPU, for
+    each path's configuration."""
     from geomx_tpu_torch.data import load_dataset
     from geomx_tpu_torch.models import ResNet
-    from geomx_tpu_torch.optim import sgd
-    from geomx_tpu_torch.train import Trainer
 
     data = load_dataset("synthetic", synthetic_train_n=512)
     x = data["train_x"][:, :16, :16]
-    cfg = GeoConfig(num_parties=2, workers_per_party=4,
-                    compression="bsc,0.01", precision="fp32")
-    runs = {}
-    for device in ("cuda", "cpu"):
-        t = Trainer(ResNet((1, 1, 1), (8, 16, 32), dtype=torch.float32),
-                    HiPSTopology(2, 4), sgd(0.1, momentum=0.9), config=cfg,
-                    device=device)
-        st = t.init_state(seed=0)
-        losses = []
-        for i, (xb, yb) in enumerate(t.make_loader(x, data["train_y"],
-                                                   8).epoch(0)):
-            if i == 2:
-                break
-            st, m = t.train_step(st, xb, yb)
-            losses.append(float(m["loss"]))
-        runs[device] = (losses, {k: v.cpu() for k, v in st.params.items()})
-    (gl, gp), (cl, cp) = runs["cuda"], runs["cpu"]
-    for a, b in zip(gl, cl):
-        if not math.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
-            raise AssertionError(f"card losses {gl} vs CPU {cl}")
-    worst = max((gp[k] - cp[k]).abs().max().item() for k in cp)
-    if worst > 2e-3:
-        raise AssertionError(f"card and CPU params differ by {worst}")
-    log(f"reference: card losses {gl} CPU losses {cl} max param diff "
-        f"{worst:.3g}")
+    for path in PATHS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            t = make_trainer(path, ResNet((1, 1, 1), (8, 16, 32),
+                                          dtype=torch.float32),
+                             device=device, precision="fp32")
+            st = t.init_state(seed=0)
+            losses = []
+            for i, (xb, yb) in enumerate(t.make_loader(x, data["train_y"],
+                                                       8).epoch(0)):
+                if i == 2:
+                    break
+                st, m = t.train_step(st, xb, yb)
+                losses.append(float(m["loss"]))
+            runs[device] = (losses, {k: v.cpu()
+                                     for k, v in st.params.items()})
+        (gl, gp), (cl, cp) = runs["cuda"], runs["cpu"]
+        for a, b in zip(gl, cl):
+            if not math.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+                raise AssertionError(f"{path}: card losses {gl} vs CPU {cl}")
+        worst = max((gp[k] - cp[k]).abs().max().item() for k in cp)
+        if worst > 2e-3:
+            raise AssertionError(f"{path}: card and CPU params differ by "
+                                 f"{worst}")
+        log(f"reference {path}: card losses {gl} CPU losses {cl} max param "
+            f"diff {worst:.3g}")
 
 
-def main_path_phase(torch, steps: int, device=None, batch: int = 128):
-    from geomx_tpu_torch import GeoConfig, HiPSTopology, ops
+def code_density(torch, words, n: int) -> float:
+    """Share of non-zero 2-bit codes among the ``n`` elements of each
+    ``[..., words]`` part (padding codes are zero)."""
+    shifts = torch.arange(0, 32, 2, dtype=torch.int32, device=words.device)
+    codes = (words.unsqueeze(-1) >> shifts) & 3
+    return int((codes != 0).sum()) / (math.prod(words.shape[:-1]) * n)
+
+
+def main_path_phase(torch, path: str, steps: int, device=None,
+                    batch: int = 128):
+    """One path of PATHS at full width through Trainer.fit."""
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.compression import TwoBitCompressor
     from geomx_tpu_torch.data import load_dataset
     from geomx_tpu_torch.models import get_model
-    from geomx_tpu_torch.optim import sgd
-    from geomx_tpu_torch.train import Trainer
 
-    topo = HiPSTopology(2, 4)
     epochs = max(2, math.ceil(steps / 8))
     data = load_dataset("synthetic", synthetic_train_n=8 * batch * 8)
-    trainer = Trainer(get_model("resnet20"), topo, sgd(0.1, momentum=0.9),
-                      config=GeoConfig(num_parties=2, workers_per_party=4,
-                                       compression="bsc,0.01"),
-                      device=device)
+    trainer = make_trainer(path, get_model("resnet20"), device=device)
     state = trainer.init_state(seed=0)
     loader = trainer.make_loader(data["train_x"], data["train_y"], batch)
-    records = []
     on_card = trainer.device.type == "cuda"
+    # path 2: every step's wire words, read after the run (no device work
+    # or host wait inside the timed loop)
+    comp = getattr(trainer.sync.dc_compressor, "inner", None)
+    wires = []
+    log_fn = (lambda s: wires.append(comp.last_wire)) \
+        if isinstance(comp, TwoBitCompressor) else (lambda s: None)
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     state, records = trainer.fit(state, loader, epochs=epochs, log_every=1,
-                                 log_fn=lambda s: None)
+                                 log_fn=log_fn)
     if on_card:
         torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -290,36 +467,56 @@ def main_path_phase(torch, steps: int, device=None, batch: int = 128):
     losses = [r["loss"] for r in records if "loss" in r]
     times = [r["time"] for r in records if "loss" in r]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    # the loss falls over the first two epochs (8 steps each).  Later this
-    # configuration -- sgd momentum on top of BSC's momentum correction at
-    # lr 0.1 without warm-up -- turns unstable on the synthetic set, in the
-    # JAX package as well, so the check does not read the later steps.
+        raise AssertionError(f"{path}: non-finite loss: {losses}")
+    # the loss falls over the first two epochs (8 steps each).  Later the
+    # sgd configurations -- sgd momentum on top of BSC's momentum
+    # correction at lr 0.1 without warm-up -- turn unstable on the
+    # synthetic set, in the JAX package as well, so the check does not
+    # read the later steps.  Path 2's fall is small (its 2-bit wire sends
+    # few codes in 16 steps) and the JAX package's falls the same way.
     first, second = losses[:8], losses[8:16]
     if len(second) < 8 or not statistics.mean(second) < statistics.mean(first):
-        raise AssertionError(f"loss did not fall: {losses}")
+        raise AssertionError(f"{path}: loss did not fall: {losses}")
     for k_, v in state.params.items():
         if not torch.equal(v, v[:1, :1].expand_as(v)):
-            raise AssertionError(f"replicas diverged at {k_}")
-    missing = [name for name, c in launches.items() if c < 1]
+            raise AssertionError(f"{path}: replicas diverged at {k_}")
+    kernels = PATHS[path][4]
+    missing = [name for name in kernels if launches[name] < 1]
     if on_card and missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing} ({launches})")
+        raise AssertionError(f"{path}: kernels not launched: {missing} "
+                             f"({launches})")
+    res = dict(steps=len(losses), samples_per_step=8 * batch, losses=losses,
+               loss_first=losses[0], loss_last=losses[-1],
+               launches=launches)
+    if wires:
+        n = state.sync_state["dc_comp"][0].shape[-1]
+        density = [code_density(torch, w, n) for w in wires]
+        if not max(density) > 0:
+            raise AssertionError(f"{path}: the 2-bit wire carried no codes "
+                                 f"in {len(wires)} steps")
+        res.update(wire_code_density=statistics.mean(density),
+                   wire_code_density_per_step=density,
+                   wire_words_per_party=int(wires[-1].shape[-1]))
     warm = 2  # first steps pay cuDNN autotuning and the first allocations
     per_step = [b - a for a, b in zip(times[warm - 1:], times[warm:])]
-    sps = 8 * batch * len(per_step) / (times[-1] - times[warm - 1])
-    test_acc = trainer.evaluate(state, data["test_x"], data["test_y"])
-    res = dict(steps=len(losses), samples_per_step=8 * batch,
-               samples_per_s=sps, step_ms_median=1e3 * statistics.median(
-                   per_step), loss_first=losses[0], loss_last=losses[-1],
-               losses=losses, test_acc=test_acc,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
-               if on_card else None,
-               launches=launches)
-    log(f"main path: {len(losses)} steps, loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}, {sps:.1f} samples/s, step "
-        f"{res['step_ms_median']:.2f} ms (median), test_acc {test_acc:.3f}, "
-        f"peak {res['peak_mem_gb']} GB, launches {launches}")
+    res.update(
+        samples_per_s=8 * batch * len(per_step) / (times[-1] - times[warm - 1]),
+        step_ms_median=1e3 * statistics.median(per_step),
+        test_acc=trainer.evaluate(state, data["test_x"], data["test_y"]),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
+        if on_card else None)
+    log(f"path {path}: {len(losses)} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (first-8 mean {statistics.mean(first):.4f}, "
+        f"next-8 mean {statistics.mean(second):.4f}), "
+        f"{res['samples_per_s']:.1f} samples/s, step "
+        f"{res['step_ms_median']:.2f} ms (median), test_acc "
+        f"{res['test_acc']:.3f}, peak {res['peak_mem_gb']} GB"
+        + (f", 2-bit code density {res['wire_code_density']:.3g} (mean "
+           f"over the steps; per step "
+           f"{[f'{d:.3g}' for d in res['wire_code_density_per_step']]}) "
+           f"of {res['wire_words_per_party']} words a party"
+           if "wire_code_density" in res else "")
+        + f", launches {launches}")
     return res
 
 
@@ -327,7 +524,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--steps", type=int, default=32,
-                    help="main-path training steps (rounded up to epochs of "
+                    help="path 1 training steps (rounded up to epochs of "
                     "8; at least 16)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="show the compiler's output (ptxas register use)")
@@ -362,7 +559,11 @@ def main(argv=None) -> int:
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
             f"{r['bound_ms'] * 1e3:.2f} us), bit-equal")
     reference_phase(torch)
-    main = main_path_phase(torch, args.steps)
+    paths = {path: main_path_phase(torch, path, steps or args.steps)
+             for path, (_, _, _, steps, _) in PATHS.items()}
+    log("median step: " + ", ".join(
+        f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())
+        + " (this call)")
 
     kernels = []
     for name in KERNELS:
@@ -370,7 +571,7 @@ def main(argv=None) -> int:
         r = kern[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
-                            launches=main["launches"][name],
+                            launches=paths[FIRST_PATH[name]]["launches"][name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
@@ -378,7 +579,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": _build.build_seconds,
-                       "kernels": kernels, "main_path": main,
+                       "kernels": kernels, "paths": paths,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,8 +9,9 @@ without a GPU and without that request they raise.
 The two-tier HiPS topology ``[P, W]`` runs in one process on one card:
 every state tensor carries leading ``[P, W]`` replica axes, exactly as
 the JAX state does, and the collectives are reductions over those axes
-(``parallel/collectives.py``).  The four Pallas kernels of the main
-path (bucket flatten/unflatten, BSC select/pack and scatter-add) are
+(``parallel/collectives.py``).  The Pallas kernels of the training
+paths (bucket flatten/unflatten, BSC select/pack and scatter-add, the
+fused SGD-momentum and Adam apply, 2-bit quantize/dequantize) are
 hand-written CUDA C++ for Hopper under ``csrc/``.
 
 This package never imports ``jax`` or ``geomx_tpu``: it has to import on

@@ -6,7 +6,8 @@ from geomx_tpu_torch.compression.bisparse import BiSparseCompressor
 from geomx_tpu_torch.compression.bucketing import (BucketedCompressor,
                                                    GradientBucketer,
                                                    maybe_bucketed)
+from geomx_tpu_torch.compression.twobit import TwoBitCompressor
 
 __all__ = ["Compressor", "NoCompressor", "BiSparseCompressor",
            "BucketedCompressor", "GradientBucketer", "get_compressor",
-           "maybe_bucketed"]
+           "TwoBitCompressor", "maybe_bucketed"]

@@ -83,19 +83,22 @@ def _parse_int(v: str) -> int:
 # recognised so that they fail with the ROADMAP entry instead of as typos.
 _SPEC_GRAMMAR = {
     "none": ([], {}),
+    "2bit": (["threshold"], {"threshold": float, "sparse_agg": _parse_bool}),
     "bsc": (["ratio"], {"ratio": float, "select": str,
                         "min_sparse_size": _parse_int,
                         "approx": _parse_bool, "sparse_agg": _parse_bool}),
 }
-_NOT_PORTED = ("fp16", "2bit", "mpq")
+_NOT_PORTED = ("fp16", "mpq")
 
 
 def get_compressor(spec) -> Compressor:
     """Parse a reference-style ``"type,args"`` spec (``"bsc,0.01"``,
-    ``"bsc,0.01,select=sampled,min_sparse_size=2048"``) into a
+    ``"bsc,0.01,select=sampled,min_sparse_size=2048"``, ``"2bit,0.5"``)
+    into a
     Compressor.  Positional args precede keyword args; unknown keys are
     rejected with the valid vocabulary in the error."""
     from geomx_tpu_torch.compression.bisparse import BiSparseCompressor
+    from geomx_tpu_torch.compression.twobit import TwoBitCompressor
 
     if spec is None:
         return NoCompressor()
@@ -145,4 +148,6 @@ def get_compressor(spec) -> Compressor:
 
     if kind == "none":
         return NoCompressor()
+    if kind == "2bit":
+        return TwoBitCompressor(**kwargs)
     return BiSparseCompressor(**kwargs)

@@ -182,6 +182,14 @@ class BucketedCompressor(Compressor):
             bk.flatten(leaves), state, axis_name, axis_size, bk)
         return dict(zip(names, bk.unflatten(out_buckets))), new_states
 
+    def zero_bucketer(self, leaves: Sequence[torch.Tensor]
+                      ) -> GradientBucketer:
+        """The bucket layout of ``leaves`` (the same cache as the
+        all-reduce's), exposed so the fused optimizer apply
+        (``train/step.py``) flattens params and grads onto the
+        coordinates the dc tier uses."""
+        return self._bucketer(leaves)
+
     def allreduce_leaf(self, g: torch.Tensor, state: Any, axis_name: str,
                        axis_size: int):
         bk = self._bucketer([g])

@@ -24,6 +24,10 @@ def _env(names, default, cast):
     return default
 
 
+def _env_bool(names, default) -> bool:
+    return bool(_env(names, int(default), lambda s: int(float(s))))
+
+
 @dataclasses.dataclass(frozen=True)
 class GeoConfig:
     """The knobs of the ported slice, with the JAX package's defaults."""
@@ -35,8 +39,10 @@ class GeoConfig:
     # ---- synchronization algorithm: only "fsa" is ported so far
     sync_mode: str = "fsa"
 
-    # ---- gradient compression spec: "none" | "bsc,<ratio>[,key=val]"
+    # ---- gradient compression spec: "none" | "bsc,<ratio>[,key=val]" |
+    # "2bit,<threshold>"
     compression: str = "none"
+    twobit_threshold: float = 0.5
 
     # ---- bucketed dc-tier communication (compression/bucketing.py);
     # 0 restores the per-leaf path
@@ -44,6 +50,10 @@ class GeoConfig:
 
     # ---- compute precision: "fp32" or "bf16" (train/step.py)
     precision: str = "fp32"
+
+    # ---- fused optimizer apply over the dc tier's flat buckets (needs an
+    # optimizer built by ops.optim.fused_optimizer and bucketing on)
+    fused_optim: bool = False
 
     @classmethod
     def from_env(cls, **overrides) -> "GeoConfig":
@@ -54,9 +64,11 @@ class GeoConfig:
                                     "DMLC_NUM_WORKER"], 1, int),
             sync_mode=_env(["GEOMX_SYNC_MODE"], "fsa", str),
             compression=_env(["GEOMX_COMPRESSION"], "none", str),
+            twobit_threshold=_env(["GEOMX_2BIT_THRESHOLD"], 0.5, float),
             bucket_bytes=_env(["GEOMX_BUCKET_BYTES"], 4 * 1024 * 1024,
                               lambda s: int(float(s))),
             precision=_env(["GEOMX_PRECISION"], "fp32", str),
+            fused_optim=_env_bool(["GEOMX_FUSED_OPTIM"], False),
         )
         cfg.update(overrides)
         return cls(**cfg)

@@ -11,6 +11,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <initializer_list>
 #include <vector>
 
 #include "geomx_kernels.h"
@@ -254,10 +255,127 @@ void bsc_scatter_add(const at::Tensor& vals, const at::Tensor& idx,
                "bsc scatter-add");
 }
 
+namespace {
+
+// the optional bf16 copy of the new params: null, or n bf16 values
+void* cast_ptr(const c10::optional<at::Tensor>& cast, const at::Tensor& p) {
+  if (!cast.has_value()) return nullptr;
+  check_contiguous(*cast, at::kBFloat16, "cast");
+  TORCH_CHECK(cast->numel() == p.numel(), "cast must match the params");
+  TORCH_CHECK(cast->device() == p.device(), "cast on another device");
+  return cast->data_ptr();
+}
+
+void check_elementwise(std::initializer_list<const at::Tensor*> ts,
+                       const char* what) {
+  const at::Tensor& first = **ts.begin();
+  for (const auto* t : ts) {
+    check_contiguous(*t, at::kFloat, what);
+    TORCH_CHECK(t->sizes() == first.sizes(), what, " operands differ in shape");
+    TORCH_CHECK(t->device() == first.device(), what,
+                " operands on two devices");
+  }
+}
+
+}  // namespace
+
+// p, g, m, new_p, new_m: fp32, one shape, contiguous; every element
+// independent.  new_p/new_m must not alias the inputs.
+void fused_sgd_momentum(const at::Tensor& p, const at::Tensor& g,
+                        const at::Tensor& m, double lr, double momentum,
+                        const at::Tensor& new_p, const at::Tensor& new_m,
+                        const c10::optional<at::Tensor>& cast) {
+  check_elementwise({&p, &g, &m, &new_p, &new_m}, "fused_sgd_momentum");
+  const c10::cuda::CUDAGuard guard(p.device());
+  check_launch(gx_fused_sgd_momentum(
+                   p.data_ptr<float>(), g.data_ptr<float>(),
+                   m.data_ptr<float>(), p.numel(), static_cast<float>(lr),
+                   static_cast<float>(momentum), new_p.data_ptr<float>(),
+                   new_m.data_ptr<float>(), cast_ptr(cast, p),
+                   at::cuda::getCurrentCUDAStream()),
+               "fused_sgd_momentum");
+}
+
+// as fused_sgd_momentum, with v/new_v; bc1, bc2 the bias corrections.
+// Each constant is rounded once to fp32, 1 - b1 and 1 - b2 from double.
+void fused_adam(const at::Tensor& p, const at::Tensor& g, const at::Tensor& m,
+                const at::Tensor& v, double bc1, double bc2, double lr,
+                double b1, double b2, double eps, const at::Tensor& new_p,
+                const at::Tensor& new_m, const at::Tensor& new_v,
+                const c10::optional<at::Tensor>& cast) {
+  check_elementwise({&p, &g, &m, &v, &new_p, &new_m, &new_v}, "fused_adam");
+  const c10::cuda::CUDAGuard guard(p.device());
+  check_launch(
+      gx_fused_adam(p.data_ptr<float>(), g.data_ptr<float>(),
+                    m.data_ptr<float>(), v.data_ptr<float>(), p.numel(),
+                    static_cast<float>(bc1), static_cast<float>(bc2),
+                    static_cast<float>(lr), static_cast<float>(b1),
+                    static_cast<float>(1.0 - b1), static_cast<float>(b2),
+                    static_cast<float>(1.0 - b2), static_cast<float>(eps),
+                    new_p.data_ptr<float>(), new_m.data_ptr<float>(),
+                    new_v.data_ptr<float>(), cast_ptr(cast, p),
+                    at::cuda::getCurrentCUDAStream()),
+      "fused_adam");
+}
+
+// g, r, new_r [rows, n] fp32; packed [rows, ceil(n/2048)*128] int32.
+void quantize_2bit(const at::Tensor& g, const at::Tensor& r, double thr,
+                   const at::Tensor& packed, const at::Tensor& new_r) {
+  check_elementwise({&g, &r, &new_r}, "quantize_2bit");
+  check_contiguous(packed, at::kInt, "packed");
+  TORCH_CHECK(g.dim() == 2, "g must be [rows, n]");
+  const int64_t rows = g.size(0), n = g.size(1);
+  TORCH_CHECK(rows > 0 && rows < 65536, "rows out of range: ", rows);
+  TORCH_CHECK(n < INT_MAX / 2, "row length ", n, " out of range");
+  TORCH_CHECK(packed.dim() == 2 && packed.size(0) == rows &&
+                  packed.size(1) == gx_twobit_words(static_cast<int>(n)),
+              "packed must be [rows, ceil(n/2048)*128]");
+  TORCH_CHECK(packed.device() == g.device(), "packed on another device");
+  const c10::cuda::CUDAGuard guard(g.device());
+  check_launch(gx_quantize_2bit(g.data_ptr<float>(), r.data_ptr<float>(),
+                                static_cast<int>(rows), static_cast<int>(n),
+                                static_cast<float>(thr),
+                                packed.data_ptr<int>(),
+                                new_r.data_ptr<float>(),
+                                at::cuda::getCurrentCUDAStream()),
+               "quantize_2bit");
+}
+
+// packed [rows, parts, ceil(n/2048)*128] int32 -> out [rows, n] fp32, the
+// parts summed in order.
+void dequantize_2bit(const at::Tensor& packed, int64_t n, double thr,
+                     const at::Tensor& out) {
+  check_contiguous(packed, at::kInt, "packed");
+  check_contiguous(out, at::kFloat, "out");
+  TORCH_CHECK(n > 0 && n < INT_MAX / 2, "n out of range: ", n);
+  TORCH_CHECK(packed.dim() == 3, "packed must be [rows, parts, words]");
+  const int64_t rows = packed.size(0), parts = packed.size(1);
+  TORCH_CHECK(rows > 0 && rows < 65536, "rows out of range: ", rows);
+  TORCH_CHECK(parts > 0 && parts < INT_MAX, "parts out of range: ", parts);
+  TORCH_CHECK(packed.size(2) == gx_twobit_words(static_cast<int>(n)),
+              "packed rows must hold ceil(n/2048)*128 words");
+  TORCH_CHECK(out.dim() == 2 && out.size(0) == rows && out.size(1) == n,
+              "out must be [rows, n]");
+  TORCH_CHECK(out.device() == packed.device(), "out on another device");
+  const c10::cuda::CUDAGuard guard(packed.device());
+  check_launch(gx_dequantize_2bit(packed.data_ptr<int>(),
+                                  static_cast<int>(rows),
+                                  static_cast<int>(parts),
+                                  static_cast<int>(n),
+                                  static_cast<float>(thr),
+                                  out.data_ptr<float>(),
+                                  at::cuda::getCurrentCUDAStream()),
+               "dequantize_2bit");
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bucket_flatten", &bucket_flatten);
   m.def("bucket_unflatten", &bucket_unflatten);
   m.def("select_blocks", &select_blocks);
   m.def("bsc_select_pack", &bsc_select_pack);
   m.def("bsc_scatter_add", &bsc_scatter_add);
+  m.def("fused_sgd_momentum", &fused_sgd_momentum);
+  m.def("fused_adam", &fused_adam);
+  m.def("quantize_2bit", &quantize_2bit);
+  m.def("dequantize_2bit", &dequantize_2bit);
 }

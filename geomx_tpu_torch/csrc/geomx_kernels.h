@@ -52,6 +52,34 @@ int gx_bsc_select_pack(const float* g, const float* u, const float* v,
 int gx_bsc_scatter_add(const float* vals, const int* idx, int rows, int m,
                        int run, int n, float* out, cudaStream_t stream);
 
+// ---- fused optimizer apply (optim.cu) --------------------------------------
+// n independent fp32 elements (all replica rows of a bucket, contiguous).
+// Outputs must not alias inputs.  cast_bf16: null, or n bf16 values that
+// receive the new params rounded to nearest even.
+int gx_fused_sgd_momentum(const float* p, const float* g, const float* m,
+                          long long n, float lr, float momentum,
+                          float* new_p, float* new_m, void* cast_bf16,
+                          cudaStream_t stream);
+// bc1, bc2: the bias corrections 1 - b**t; one_minus_b1/b2: 1 - b rounded
+// once from double.
+int gx_fused_adam(const float* p, const float* g, const float* m,
+                  const float* v, long long n, float bc1, float bc2,
+                  float lr, float b1, float one_minus_b1, float b2,
+                  float one_minus_b2, float eps, float* new_p, float* new_m,
+                  float* new_v, void* cast_bf16, cudaStream_t stream);
+
+// ---- 2-bit quantize / dequantize (twobit.cu) -------------------------------
+// rows independent rows of n fp32 elements; each packs into
+// gx_twobit_words(n) = ceil(n / 2048) * 128 int32 words (lane-strided).
+int gx_twobit_words(int n);
+int gx_quantize_2bit(const float* g, const float* r, int rows, int n,
+                     float thr, int* packed, float* new_r,
+                     cudaStream_t stream);
+// packed [rows, parts, words] -> out [rows, n]: the parts' values summed
+// in part order.
+int gx_dequantize_2bit(const int* packed, int rows, int parts, int n,
+                       float thr, float* out, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -9,10 +9,9 @@
 ``torch.optim.SGD`` orders the same update differently (it scales by
 ``lr`` inside ``p.add_(buf, alpha=-lr)``), so the port keeps optax's op
 order, each op rounded on its own.  Parameters and state are flat dicts
-of tensors (with the ``[P, W]`` replica axes on the main path); the
-update is functional and returns new dicts.  The fused SGD-momentum
-kernel (``ops/optim_pallas.py`` in the JAX package) is opt-in there and
-is not ported yet (ROADMAP.md Queue 2).
+of tensors (with the ``[P, W]`` replica axes on the main path) or bucket
+lists; the update is functional and returns new trees.  The fused
+SGD-momentum kernel over the flat buckets is ``ops/optim.py``.
 """
 
 from __future__ import annotations

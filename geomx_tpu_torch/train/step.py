@@ -9,8 +9,13 @@ follows ``_device_step``: grads -> ``sync.sync_grads`` -> optimizer
 update -> ``sync.sync_params`` -> ``sync.sync_model_state``, with the
 loss and accuracy meaned over workers, then parties.
 
-Not ported yet: MultiGPS, ZeRO, the fused optimizer apply, sequence
-parallelism, telemetry probes and control operands.
+With ``GeoConfig(fused_optim=True)`` and an optimizer from
+``ops.optim.fused_optimizer`` the update runs over the dc tier's flat
+buckets: params and synced grads flatten onto the bucket layout, one
+fused kernel a bucket applies the step, and the params unflatten.
+
+Not ported yet: MultiGPS, ZeRO, sequence parallelism, telemetry probes
+and control operands.
 """
 
 from __future__ import annotations
@@ -23,7 +28,11 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.profiler import record_function
 
+from geomx_tpu_torch.compression.bucketing import BucketedCompressor
+from geomx_tpu_torch.ops.optim import (fused_apply, fused_optim_enabled,
+                                       fused_spec_of)
 from geomx_tpu_torch.train.state import TrainState
+from geomx_tpu_torch.tree import leaf_names
 
 
 def cross_entropy_loss(logits: torch.Tensor,
@@ -77,7 +86,34 @@ def make_loss_fn(model: torch.nn.Module, compute_dtype=None) -> Callable:
     return loss_fn
 
 
-def build_train_step(loss_fn: Callable, tx, sync, topology):
+def fused_bucketer(sync):
+    """The dc tier's bucketed engine, whose layout the fused apply and
+    its optimizer state use; raises if the dc tier is not bucketed."""
+    dc = getattr(sync, "dc_compressor", None)
+    if not isinstance(dc, BucketedCompressor):
+        raise ValueError(
+            "GEOMX_FUSED_OPTIM requires the bucketed dc-tier engine "
+            "(GEOMX_BUCKET_BYTES > 0): the kernels apply the update over "
+            "the flat fp32 buckets")
+    return dc.zero_bucketer
+
+
+def _fused_spec(tx, config):
+    """The fused-apply spec when ``fused_optim`` is on, else None."""
+    if not fused_optim_enabled(config):
+        return None
+    spec = fused_spec_of(tx)
+    if spec is None:
+        # fail loudly: silently falling back would report fused numbers
+        # from an unfused run
+        raise ValueError(
+            "GEOMX_FUSED_OPTIM requires an optimizer built by "
+            "ops.optim.fused_optimizer (the kernels need the static "
+            "hyperparameters a plain optimizer hides)")
+    return spec
+
+
+def build_train_step(loss_fn: Callable, tx, sync, topology, config=None):
     """Build ``train_step(state, x, y) -> (state, metrics)``.
 
     - state leaves carry ``[P, W]`` replica axes;
@@ -86,6 +122,8 @@ def build_train_step(loss_fn: Callable, tx, sync, topology):
     """
     sync.bind_topology(topology)
     P, W = topology.replica_shape
+    fopt_spec = _fused_spec(tx, config)
+    fopt_bucketer = fused_bucketer(sync) if fopt_spec is not None else None
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         names = list(state.params)
@@ -118,8 +156,19 @@ def build_train_step(loss_fn: Callable, tx, sync, topology):
             grads, sync_state = sync.sync_grads(grads, state.params,
                                                 state.sync_state, step)
         with record_function("train/optimizer"):
-            params, opt_state = tx.update(grads, state.opt_state,
-                                          state.params)
+            if fopt_spec is not None:
+                # fused apply: params and grads flatten onto the dc tier's
+                # bucket layout (opt_state lives there too,
+                # Trainer.init_state), one kernel a bucket
+                order = leaf_names(state.params)
+                bk = fopt_bucketer([state.params[k] for k in order])
+                new_pb, opt_state = fused_apply(
+                    fopt_spec, bk.flatten([state.params[k] for k in order]),
+                    bk.flatten([grads[k] for k in order]), state.opt_state)
+                params = dict(zip(order, bk.unflatten(new_pb)))
+            else:
+                params, opt_state = tx.update(grads, state.opt_state,
+                                              state.params)
         with record_function("train/sync_model_state"):
             params, sync_state = sync.sync_params(params, sync_state, step)
             model_state, sync_state = sync.sync_model_state(

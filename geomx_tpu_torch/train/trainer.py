@@ -25,12 +25,14 @@ import torch
 from geomx_tpu_torch.config import GeoConfig
 from geomx_tpu_torch.data.loader import GeoDataLoader
 from geomx_tpu_torch.device import resolve_device
+from geomx_tpu_torch.ops.optim import fused_optim_enabled
 from geomx_tpu_torch.sync import get_sync_algorithm
 from geomx_tpu_torch.topology import HiPSTopology
 from geomx_tpu_torch.train.state import (TrainState, replicate_tree,
                                          unreplicate_tree)
 from geomx_tpu_torch.train.step import (build_eval_step, build_train_step,
-                                        make_loss_fn, resolve_precision)
+                                        fused_bucketer, make_loss_fn,
+                                        resolve_precision)
 from geomx_tpu_torch.tree import leaf_names
 from geomx_tpu_torch.utils.metrics import Measure
 
@@ -59,7 +61,10 @@ class Trainer:
                 stacklevel=2)
         self.loss_fn = make_loss_fn(model, compute_dtype=compute_dtype)
         self.train_step = build_train_step(self.loss_fn, self.tx, self.sync,
-                                           topology)
+                                           topology, self.config)
+        # fused apply: init_state puts the optimizer state on the dc
+        # tier's bucket layout (build_train_step checked the stack)
+        self._fused_optim = fused_optim_enabled(self.config)
         self.eval_step = build_eval_step(model)
 
     def init_state(self, seed: int = 0,
@@ -87,8 +92,19 @@ class Trainer:
                        for k, v in (model_state or {}).items()}
         params = replicate_tree(params, self.topology, self.device)
         model_state = replicate_tree(model_state, self.topology, self.device)
+        if self._fused_optim:
+            # one [P, W, n] fp32 tensor a bucket, lane-padded sizes: the
+            # layout the dc tier fuses gradients onto
+            bk = fused_bucketer(self.sync)([params[k]
+                                            for k in leaf_names(params)])
+            lead = self.topology.replica_shape
+            opt_state = self.tx.init([
+                torch.zeros(lead + (n,), dtype=torch.float32,
+                            device=self.device) for n in bk.bucket_sizes])
+        else:
+            opt_state = self.tx.init(params)
         return TrainState(
-            step=0, params=params, opt_state=self.tx.init(params),
+            step=0, params=params, opt_state=opt_state,
             model_state=model_state,
             sync_state=self.sync.init_state(params, model_state=model_state))
 

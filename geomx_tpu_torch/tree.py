@@ -21,7 +21,10 @@ def leaf_names(tree: Tree) -> List[str]:
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``jax.tree.map`` over flat trees with the same paths."""
+    """``jax.tree.map`` over flat trees with the same paths, or over
+    lists of the same length (a bucket list)."""
+    if isinstance(tree, (list, tuple)):
+        return [fn(*xs) for xs in zip(tree, *rest, strict=True)]
     return {k: fn(tree[k], *(r[k] for r in rest)) for k in leaf_names(tree)}
 
 

@@ -8,7 +8,9 @@ on a GPU host without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerance everywhere: none (bit for bit).  The scatter-add folds each
-party's run of pairs in order, so it is bit-equal at any party count.
+party's run of pairs in order, so it is bit-equal at any party count;
+the optimizer kernels round every op on its own, as the plain versions
+do; the 2-bit dequantize sums the parties' parts in party order.
 """
 
 import numpy as np
@@ -18,7 +20,8 @@ import torch
 from geomx_tpu_torch.compression import BiSparseCompressor
 from geomx_tpu_torch.compression.bucketing import GradientBucketer
 from geomx_tpu_torch.models import get_model
-from geomx_tpu_torch.ops import bsc, bucket
+from geomx_tpu_torch.ops import bsc, bucket, optim, twobit
+from geomx_tpu_torch.optim.adam import bias_corrections
 from geomx_tpu_torch.parallel.collectives import all_gather_dc
 
 
@@ -166,17 +169,102 @@ def test_bsc_allreduce_on_replica_axes(dev):
     assert torch.equal(nu, ru) and torch.equal(nv, rv)
 
 
+def _optim_operands(dev, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p, g, m, v = (torch.randn(shape, generator=gen, device=dev) * s
+                  for s in (1.0, 1e-2, 1e-2, 1e-2))
+    return p, g, m, v.square()
+
+
 @pytest.mark.cuda
-def test_trainer_step_launches_every_kernel(dev):
+@pytest.mark.parametrize("shape", [(1,), (1000,), (32_768,), (300_000,),
+                                   (2, 4, 272_512)])
+def test_fused_sgd_momentum_matches_plain(dev, shape):
+    p, g, m, _ = _optim_operands(dev, shape, 4)
+    kw = dict(lr=0.1, momentum=0.9, cast_dtype=torch.bfloat16)
+    before = optim.fused_sgd_momentum.launches
+    got = optim.fused_sgd_momentum(p, g, m, **kw)
+    assert optim.fused_sgd_momentum.launches == before + 1
+    for a, b in zip(got, optim.sgd_momentum_ref(p, g, m, **kw)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1,), (1000,), (32_768,), (300_000,),
+                                   (2, 4, 272_512)])
+def test_fused_adam_matches_plain(dev, shape):
+    p, g, m, v = _optim_operands(dev, shape, 5)
+    bc1, bc2 = bias_corrections(0.9, 0.999, 3)
+    kw = dict(lr=0.01, b1=0.9, b2=0.999, eps=1e-8,
+              cast_dtype=torch.bfloat16)
+    got = optim.fused_adam(p, g, m, v, bc1, bc2, **kw)
+    for a, b in zip(got, optim.adam_ref(p, g, m, v, bc1, bc2, **kw)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.5, 0.3])
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 272_512, 600_000])
+def test_quantize_dequantize_2bit_match_plain(dev, n, thr):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    g = torch.randn(2, 4, n, generator=gen, device=dev) * 0.6
+    r = torch.randn(2, 4, n, generator=gen, device=dev) * 0.1
+    got = twobit.quantize_2bit(g, r, thr)
+    for a, b in zip(got, twobit.quantize_2bit_plain(g, r, thr)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    packed = got[0]
+    assert torch.equal(twobit.dequantize_2bit(packed, n, thr),
+                       twobit.dequantize_2bit_plain(packed, n, thr))
+    wire = all_gather_dc(packed).contiguous()
+    assert torch.equal(twobit.dequantize_2bit(wire, n, thr, summed=True),
+                       twobit.dequantize_2bit_plain(wire, n, thr,
+                                                    summed=True))
+
+
+@pytest.mark.cuda
+def test_quantize_2bit_all_negative_sets_sign_bits(dev):
+    g = torch.full((8, 4096), -1.0, device=dev)
+    packed, _ = twobit.quantize_2bit(g, torch.zeros_like(g), 0.5)
+    assert bool((packed == -0x55555556).all())  # 0xAAAAAAAA as int32
+    assert torch.equal(packed, twobit.quantize_2bit_plain(
+        g, torch.zeros_like(g), 0.5)[0])
+
+
+# each configuration's kernel launches in one step of the small ResNet
+# (one bucket): the fused apply flattens params and synced grads too
+_STEP_LAUNCHES = {
+    "flagship": {"fused_flatten": 1, "fused_unflatten": 1,
+                 "bsc_select_pack": 1, "bsc_scatter_add": 1},
+    "fused_sgd": {"fused_flatten": 3, "fused_unflatten": 2,
+                  "bsc_select_pack": 1, "bsc_scatter_add": 1,
+                  "fused_sgd_momentum": 1},
+    "twobit_adam": {"fused_flatten": 3, "fused_unflatten": 2,
+                    "quantize_2bit": 1, "dequantize_2bit": 1,
+                    "fused_adam": 1},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(_STEP_LAUNCHES))
+def test_trainer_step_launches_every_kernel(dev, path):
     from geomx_tpu_torch import GeoConfig, HiPSTopology, ops
     from geomx_tpu_torch.models import ResNet
     from geomx_tpu_torch.optim import sgd
     from geomx_tpu_torch.train import Trainer
 
-    t = Trainer(ResNet((1, 1, 1), (8, 16, 32)), HiPSTopology(2, 4),
-                sgd(0.1, momentum=0.9),
+    if path == "flagship":
+        tx, spec = sgd(0.1, momentum=0.9), "bsc,0.01"
+    elif path == "fused_sgd":
+        tx, spec = optim.fused_optimizer("sgd", learning_rate=0.1), \
+            "bsc,0.01"
+    else:
+        tx, spec = optim.fused_optimizer("adam", learning_rate=0.01), \
+            "2bit,0.5"
+    t = Trainer(ResNet((1, 1, 1), (8, 16, 32)), HiPSTopology(2, 4), tx,
                 config=GeoConfig(num_parties=2, workers_per_party=4,
-                                 compression="bsc,0.01"), device=dev)
+                                 compression=spec,
+                                 fused_optim=path != "flagship"),
+                device=dev)
     st = t.init_state(seed=0)
     rng = np.random.RandomState(0)
     x = torch.as_tensor(rng.randint(0, 256, (2, 4, 8, 16, 16, 3))
@@ -185,5 +273,5 @@ def test_trainer_step_launches_every_kernel(dev):
     ops.reset_launch_counts()
     st, m = t.train_step(st, x, y)
     assert torch.isfinite(m["loss"])
-    assert all(c == 1 for c in ops.launch_counts().values()), \
-        ops.launch_counts()
+    want = {name: _STEP_LAUNCHES[path].get(name, 0) for name in ops.KERNELS}
+    assert ops.launch_counts() == want

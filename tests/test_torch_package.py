@@ -13,7 +13,7 @@ from geomx_tpu.config import GeoConfig as JaxConfig
 from geomx_tpu_torch import GeoConfig, HiPSTopology, resolve_device
 from geomx_tpu_torch.compression import (BiSparseCompressor,
                                          BucketedCompressor, NoCompressor,
-                                         get_compressor)
+                                         TwoBitCompressor, get_compressor)
 from geomx_tpu_torch.sync import FSA, get_sync_algorithm
 
 torch.set_num_threads(2)
@@ -29,6 +29,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tools", "torch_profile_step.py")
 
 
 def _imported_roots(path):
@@ -43,6 +44,8 @@ def _imported_roots(path):
 
 
 def test_port_and_chip_smoke_import_no_jax_or_reference():
+    # the step profiler imports chip_smoke and the port: neither may pull
+    # in JAX
     sources = list(_port_sources())
     assert len(sources) > 20
     for path in sources:
@@ -65,9 +68,12 @@ def test_config_from_env_matches_jax(monkeypatch):
     monkeypatch.setenv("GEOMX_COMPRESSION", "bsc,0.01")
     monkeypatch.setenv("GEOMX_BUCKET_BYTES", "65536")
     monkeypatch.setenv("GEOMX_PRECISION", "bf16")
+    monkeypatch.setenv("GEOMX_2BIT_THRESHOLD", "0.25")
+    monkeypatch.setenv("GEOMX_FUSED_OPTIM", "1")
     port, ref = GeoConfig.from_env(), JaxConfig.from_env()
     for field in ("num_parties", "workers_per_party", "sync_mode",
-                  "compression", "bucket_bytes", "precision"):
+                  "compression", "bucket_bytes", "precision",
+                  "twobit_threshold", "fused_optim"):
         assert getattr(port, field) == getattr(ref, field), field
 
 
@@ -83,8 +89,12 @@ def test_compression_spec_grammar():
     for bad in ("bsc,0.01,nope=1", "bsc,ratio=0.1,0.2", "zip"):
         with pytest.raises(ValueError):
             get_compressor(bad)
-    for unported in ("2bit,0.5", "fp16", "mpq,0.01,1000",
-                     "bsc,0.01,select=exact"):
+    two, ref2 = get_compressor("2bit,0.5"), jax_get_compressor("2bit,0.5")
+    assert isinstance(two, TwoBitCompressor)
+    assert two.threshold == ref2.threshold == 0.5
+    assert get_compressor("2bit,threshold=0.3").threshold == 0.3
+    for unported in ("fp16", "mpq,0.01,1000", "bsc,0.01,select=exact",
+                     "2bit,0.5,sparse_agg=1"):
         with pytest.raises(NotImplementedError):
             get_compressor(unported)
 

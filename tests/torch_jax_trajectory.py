@@ -34,16 +34,36 @@ from geomx_tpu import HiPSTopology as JaxTopology  # noqa: E402
 from geomx_tpu.config import GeoConfig as JaxConfig  # noqa: E402
 from geomx_tpu.data import load_dataset  # noqa: E402
 from geomx_tpu.models.resnet import ResNet as FlaxResNet  # noqa: E402
+from geomx_tpu.ops import optim_pallas  # noqa: E402
 from geomx_tpu.train import Trainer as JaxTrainer  # noqa: E402
 from geomx_tpu_torch import GeoConfig, HiPSTopology  # noqa: E402
 from geomx_tpu_torch.models import ResNet  # noqa: E402
 from geomx_tpu_torch.models.convert import from_flax  # noqa: E402
+from geomx_tpu_torch.ops import optim  # noqa: E402
 from geomx_tpu_torch.optim import sgd  # noqa: E402
 from geomx_tpu_torch.train import Trainer  # noqa: E402
+
+# path -> (compression, fused, JAX optimizer, port optimizer)
+PATHS = {
+    "flagship": ("bsc,0.01,select=sampled", False,
+                 lambda: optax.sgd(0.1, momentum=0.9),
+                 lambda: sgd(0.1, momentum=0.9)),
+    "fused_sgd": ("bsc,0.01,select=sampled", True,
+                  lambda: optim_pallas.fused_optimizer(
+                      "sgd", learning_rate=0.1, momentum=0.9),
+                  lambda: optim.fused_optimizer(
+                      "sgd", learning_rate=0.1, momentum=0.9)),
+    "twobit_adam": ("2bit,0.5", True,
+                    lambda: optim_pallas.fused_optimizer(
+                        "adam", learning_rate=0.01),
+                    lambda: optim.fused_optimizer(
+                        "adam", learning_rate=0.01)),
+}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=sorted(PATHS), default="flagship")
     ap.add_argument("--batch", type=int, default=32,
                     help="images a replica a step")
     ap.add_argument("--steps", type=int, default=32)
@@ -54,11 +74,12 @@ def main(argv=None) -> int:
         else (jnp.float32, torch.float32)
     data = load_dataset("synthetic",
                         synthetic_train_n=8 * args.batch * args.steps)
-    cfg = dict(num_parties=2, workers_per_party=4,
-               compression="bsc,0.01,select=sampled", precision="fp32")
+    spec, fused, jax_tx, port_tx = PATHS[args.path]
+    cfg = dict(num_parties=2, workers_per_party=4, compression=spec,
+               precision="fp32", fused_optim=fused)
 
     jt = JaxTrainer(FlaxResNet((3, 3, 3), (16, 32, 64), dtype=jdt),
-                    JaxTopology(2, 4), optax.sgd(0.1, momentum=0.9),
+                    JaxTopology(2, 4), jax_tx(),
                     config=JaxConfig(**cfg), donate=False)
     jst = jt.init_state(jax.random.PRNGKey(0), data["train_x"][:2])
     p0 = jax.tree.map(lambda a: np.asarray(a)[0, 0], jst.params)
@@ -73,7 +94,7 @@ def main(argv=None) -> int:
     print(f"jax: {time.time() - t0:.1f} s", flush=True)
 
     pt = Trainer(ResNet((3, 3, 3), (16, 32, 64), dtype=tdt),
-                 HiPSTopology(2, 4), sgd(0.1, momentum=0.9),
+                 HiPSTopology(2, 4), port_tx(),
                  config=GeoConfig(**cfg), device="cpu")
     params, stats = from_flax(p0, s0)
     pst = pt.init_state(params=params, model_state=stats)
@@ -87,6 +108,10 @@ def main(argv=None) -> int:
     print("step jax port rel_diff")
     for i, (a, b) in enumerate(zip(jlosses, plosses)):
         print(i, a, b, abs(a - b) / abs(a))
+    for name, ls in (("jax", jlosses), ("port", plosses)):
+        if len(ls) >= 16:
+            print(f"{name}: mean loss steps 1-8 {np.mean(ls[:8]):.4f}, "
+                  f"steps 9-16 {np.mean(ls[8:16]):.4f}")
     return 0
 
 

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Where one training step of the PyTorch port spends its time on the card.
 
-    python3 tools/torch_profile_step.py [--steps 5] [--batch 128] [--out F]
+    python3 tools/torch_profile_step.py [--path flagship] [--steps 5]
+        [--batch 128] [--out F]
 
-Runs the main path of chip_smoke.py (ResNet-20 at bf16 on the HiPS [2, 4]
-replica axes, FSA with bucketed "bsc,0.01", sgd(0.1, momentum=0.9), the
-synthetic CIFAR-shaped set) for three warm-up steps, times --steps steps
+Runs one training path of chip_smoke.py (ResNet-20 at bf16 on the HiPS
+[2, 4] replica axes, FSA with a bucketed dc tier, the synthetic
+CIFAR-shaped set; --path flagship: "bsc,0.01" with sgd(0.1,
+momentum=0.9), fused_sgd: the same with the fused optimizer apply,
+twobit_adam: "2bit,0.5" with the fused Adam(0.01)) for three warm-up
+steps, times --steps steps
 with the host clock (ending in a synchronize), then runs --steps more
 under torch.profiler (CPU and CUDA activities) and reports:
 
@@ -34,8 +38,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 SPANS = ("train/forward_backward", "train/sync_grads", "bucket/flatten",
          "dc_allreduce/bucket0", "bsc/threshold", "bsc/select_pack",
-         "bsc/scatter_add", "bucket/unflatten", "train/optimizer",
-         "train/sync_model_state")
+         "bsc/scatter_add", "twobit/quantize", "twobit/dequantize",
+         "bucket/unflatten", "train/optimizer", "train/sync_model_state")
 
 
 def busy_us(intervals):
@@ -55,6 +59,8 @@ def busy_us(intervals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", default="flagship",
+                    choices=("flagship", "fused_sgd", "twobit_adam"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=128,
                     help="images a replica a step")
@@ -68,12 +74,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_step: no CUDA device", file=sys.stderr)
         return 2
-    from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from chip_smoke import make_trainer
     from geomx_tpu_torch.data import load_dataset
     from geomx_tpu_torch.models import get_model
     from geomx_tpu_torch.ops import _build
-    from geomx_tpu_torch.optim import sgd
-    from geomx_tpu_torch.train import Trainer
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -81,10 +85,7 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _build.kernels()
-    trainer = Trainer(get_model("resnet20"), HiPSTopology(2, 4),
-                      sgd(0.1, momentum=0.9),
-                      config=GeoConfig(num_parties=2, workers_per_party=4,
-                                       compression="bsc,0.01"))
+    trainer = make_trainer(args.path, get_model("resnet20"))
     need = 8 * args.batch * (3 + 2 * args.steps)
     data = load_dataset("synthetic", synthetic_train_n=need)
     loader = trainer.make_loader(data["train_x"], data["train_y"],
@@ -140,7 +141,7 @@ def main(argv=None) -> int:
                 calls_per_step=len(host) / args.steps)
     busy = busy_us(intervals)
     report = dict(
-        card=card, batch_per_replica=args.batch,
+        card=card, path=args.path, batch_per_replica=args.batch,
         samples_per_step=8 * args.batch, steps=args.steps,
         step_ms=step_s * 1e3, samples_per_s=8 * args.batch / step_s,
         profiled_step_ms=prof_step_s * 1e3,
