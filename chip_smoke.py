@@ -10,33 +10,42 @@ Every phase's failure is fatal (non-zero exit, no result line):
 3. kernels -- each hand-written kernel against its plain PyTorch version on
               the card, at the shapes of the training paths (the ResNet-20
               gradient tree on the [2, 4] replica axes: one 272,512-element
-              bucket, 8 replica rows, k = ceil(0.01 n), two parties) and on
-              the edge cases of the CPU parity tests; all eight must be
-              bit-equal.  Each kernel's median device time over 50 calls
+              bucket, 8 replica rows, k = ceil(0.01 n), two parties; the
+              merge at path 3's [4, 2]: 8 rows of 4 x 1,371 routed pairs)
+              and on the edge cases of the CPU parity tests; all nine must
+              be bit-equal.  Each kernel's median device time over 50 calls
               (CUDA events, L2 flushed between calls), its plain version's
               time, one PyTorch call computing the same function where
               there is one, and the bytes bound at the card's 3.35 TB/s;
 4. reference -- two fp32 training steps of a small ResNet on the card and on
               the CPU (plain versions) from the same weights and batches,
-              for each path's configuration: losses to rtol 1e-4,
-              parameters to atol 2e-3 (TF32 off);
-5. paths   -- ResNet-20 at its default bf16 compute through Trainer on
-              HiPSTopology(2, 4), FSA with a bucketed dc tier, the
-              synthetic CIFAR-shaped set, 128 images a replica (1,024 a
-              step), each path with the launch counts reset just before
-              its run and read just after:
-              1  (flagship)    sgd(0.1, momentum=0.9), "bsc,0.01", 32 steps;
+              for each path's configuration and four more compressors
+              (REFERENCE_ONLY: exact BSC, the fp16 and 2-bit lattices,
+              MPQ): losses to rtol 1e-4, parameters to atol 2e-3 (TF32
+              off);
+5. paths   -- ResNet-20 at its default bf16 compute through Trainer, FSA
+              with a bucketed dc tier, the synthetic CIFAR-shaped set, 128
+              images a replica (1,024 a step), each path with the launch
+              counts reset just before its run and read just after:
+              1  (flagship)    [2, 4], sgd(0.1, momentum=0.9), "bsc,0.01",
+                               32 steps;
               1f (fused_sgd)   the same with fused_optimizer("sgd") and
                                GeoConfig(fused_optim=True), 16 steps;
-              2  (twobit_adam) fused_optimizer("adam", learning_rate=0.01),
-                               "2bit,0.5", fused_optim=True, 16 steps.
+              2  (twobit_adam) [2, 4], fused_optimizer("adam",
+                               learning_rate=0.01), "2bit,0.5",
+                               fused_optim=True, 16 steps;
+              3  (sparse_agg)  [4, 2], fused_optimizer("sgd", 0.1),
+                               "bsc,0.01,select=sampled,sparse_agg=1"
+                               (the owner-routed merge), fused_optim=True,
+                               16 steps.
               Each checks a finite loss, identical replicas and every
               kernel of its configuration launched, and that the loss
               falls from the first epoch of 8 steps to the second (for
               path 2 as the JAX package's own trajectory falls, PERF.md);
-              path 2 also that the 2-bit wire carried non-zero codes.
-              Median step times of the three paths come from the same
-              call.
+              path 2 also that the 2-bit wire carried non-zero codes;
+              path 3 prints its last step's merge counts (overflow pairs
+              reinjected, merged, kept, the pull-dropped share).  Median
+              step times of the four paths come from the same call.
 
 The two last lines are the ``kernels`` JSON object and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -71,20 +80,39 @@ REPLACES = {
                       "geomx_tpu/ops/twobit_pallas.py:89"),
     "dequantize_2bit": ("geomx_tpu_torch/csrc/twobit.cu",
                         "geomx_tpu/ops/twobit_pallas.py:116"),
+    "merge_sorted_pairs": ("geomx_tpu_torch/csrc/merge.cu",
+                           "geomx_tpu/ops/merge_pallas.py:160"),
 }
 
-# path -> (optimizer, compression, fused apply, steps, its kernels).  The
-# optimizer is (kind, learning rate): "sgd" is sgd(lr, momentum=0.9)
-# (fused_optimizer("sgd") when fused), "adam" fused_optimizer("adam").
+# path -> (optimizer, compression, fused apply, steps, its kernels, its
+# topology [P, W]).  The optimizer is (kind, learning rate): "sgd" is
+# sgd(lr, momentum=0.9) (fused_optimizer("sgd") when fused), "adam"
+# fused_optimizer("adam").
 SLICE1 = ("fused_flatten", "fused_unflatten", "bsc_select_pack",
           "bsc_scatter_add")
 PATHS = {
-    "flagship": (("sgd", 0.1), "bsc,0.01", False, None, SLICE1),
+    "flagship": (("sgd", 0.1), "bsc,0.01", False, None, SLICE1, (2, 4)),
     "fused_sgd": (("sgd", 0.1), "bsc,0.01", True, 16,
-                  SLICE1 + ("fused_sgd_momentum",)),
+                  SLICE1 + ("fused_sgd_momentum",), (2, 4)),
     "twobit_adam": (("adam", 0.01), "2bit,0.5", True, 16,
                     ("fused_flatten", "fused_unflatten", "quantize_2bit",
-                     "dequantize_2bit", "fused_adam")),
+                     "dequantize_2bit", "fused_adam"), (2, 4)),
+    # four parties: the merge tree runs ceil(log2 4) = 2 rounds
+    "sparse_agg": (("sgd", 0.1), "bsc,0.01,select=sampled,sparse_agg=1",
+                   True, 16, SLICE1 + ("fused_sgd_momentum",
+                                       "merge_sorted_pairs"), (4, 2)),
+}
+# configurations the reference phase checks beside PATHS: the compressors
+# without a kernel of their own, on the card
+REFERENCE_ONLY = {
+    "bsc_exact": (("sgd", 0.1), "bsc,0.01,select=exact", False, None, (),
+                  (2, 4)),
+    "fp16_lattice": (("sgd", 0.1), "fp16,sparse_agg=1", False, None, (),
+                     (4, 2)),
+    "twobit_lattice": (("sgd", 0.1), "2bit,0.5,sparse_agg=1", False, None,
+                       (), (4, 2)),
+    # the small ResNet's one bucket is below 200k elements: fp16 gather
+    "mpq": (("sgd", 0.1), "mpq,0.01", False, None, (), (2, 4)),
 }
 # the path whose launch counts the kernels line reports for each kernel
 FIRST_PATH = {name: next(p for p, cfg in PATHS.items() if name in cfg[4])
@@ -92,22 +120,24 @@ FIRST_PATH = {name: next(p for p, cfg in PATHS.items() if name in cfg[4])
 
 
 def make_trainer(path: str, model, device=None, precision=None):
-    """The Trainer of one path of PATHS, on ``model``."""
+    """The Trainer of one configuration of PATHS or REFERENCE_ONLY, on
+    ``model``."""
     from geomx_tpu_torch import GeoConfig, HiPSTopology
     from geomx_tpu_torch.ops.optim import fused_optimizer
     from geomx_tpu_torch.optim import sgd
     from geomx_tpu_torch.train import Trainer
 
-    (kind, lr), spec, fused, _, _ = PATHS[path]
+    (kind, lr), spec, fused, _, _, (P, W) = \
+        PATHS[path] if path in PATHS else REFERENCE_ONLY[path]
     if fused:
         tx = fused_optimizer(kind, learning_rate=lr, momentum=0.9)
     else:
         tx = sgd(lr, momentum=0.9)
-    cfg = dict(num_parties=2, workers_per_party=4, compression=spec,
+    cfg = dict(num_parties=P, workers_per_party=W, compression=spec,
                fused_optim=fused)
     if precision is not None:
         cfg["precision"] = precision
-    return Trainer(model, HiPSTopology(2, 4), tx, config=GeoConfig(**cfg),
+    return Trainer(model, HiPSTopology(P, W), tx, config=GeoConfig(**cfg),
                    device=device)
 
 
@@ -278,6 +308,7 @@ def kernel_phase(torch, dev, timer=None):
 
     out.update(optim_kernels(torch, dev, timer, gen, rows_shape + (n,)))
     out.update(twobit_kernels(torch, dev, timer, gen, rows_shape + (n,)))
+    out.update(merge_kernels(torch, dev, timer, gen, n))
     return out
 
 
@@ -390,6 +421,94 @@ def twobit_kernels(torch, dev, timer, gen, shape):
     return out
 
 
+def merge_kernels(torch, dev, timer, gen, n):
+    """merge_sorted_pairs at path 3's shapes — the owner-routed pairs of a
+    sampled BSC select of the ResNet-20 bucket on [4, 2], after the
+    all_to_all — and on edge cases.  ``ms``/``plain_ms`` time the tree
+    over the sorted columns, the kernel's own work; the whole wrapper
+    (with the sort and the ranks in PyTorch ops) is logged beside."""
+    from geomx_tpu_torch.compression import BiSparseCompressor, sparseagg
+    from geomx_tpu_torch.ops import merge
+    from geomx_tpu_torch.parallel.collectives import all_to_all
+
+    P, W = PATHS["sparse_agg"][5]
+    comp = BiSparseCompressor(0.01)
+    k = comp.k_for(n)
+    g, u, v = (torch.randn(P, W, n, generator=gen, device=dev) * s
+               for s in (1.0, 0.1, 0.2))
+    vals, idx, _, _ = comp.compress(g, u, v)
+    slots = sparseagg.push_slots(k, P)
+    bv, bi, _, _ = sparseagg.owner_route(vals, idx, n, P, slots)
+    rv = all_to_all(bv, "dc").reshape(P, W, P * slots).contiguous()
+    ri = all_to_all(bi, "dc").reshape(P, W, P * slots).contiguous()
+    got = merge.merge_sorted_pairs(rv, ri, P)
+    err = max_err(torch, got, merge.merge_sorted_pairs_plain(rv, ri, P))
+    svals, skey = merge.sort_pairs(rv, ri)
+    rank, _ = merge.segment_ranks(skey)
+    rounds = merge.merge_rounds(P)
+    rows, m = P * W, P * slots
+    # another output format: one total per (row, key) segment, sentinel
+    # segments included
+    flat_key = (torch.arange(rows, device=dev).view(P, W, 1) << 32) + skey
+    _, lengths = torch.unique_consecutive(flat_key.view(-1),
+                                          return_counts=True)
+    flat_vals = svals.reshape(-1)
+    res = dict(
+        max_abs_err=err,
+        ms=timer(lambda: merge.merge_tree(svals, skey, rank, rounds)),
+        plain_ms=timer(lambda: merge.merge_tree_plain(svals, skey, rank,
+                                                      rounds)),
+        bound_ms=bound_ms(rows * m * 20), bound_by="bytes",
+        library_ms=timer(lambda: torch.segment_reduce(flat_vals, "sum",
+                                                      lengths=lengths)),
+        wrapper_ms=timer(lambda: merge.merge_sorted_pairs(rv, ri, P)),
+        plain_wrapper_ms=timer(lambda: merge.merge_sorted_pairs_plain(
+            rv, ri, P)),
+        merged_pairs=int((got[1] >= 0).sum()), pairs=rows * m)
+    log(f"  merge at path 3's shapes: [{P}, {W}] rows of {m} pairs, "
+        f"{res['merged_pairs']} merged of {rows * m}, bit-equal")
+
+    cpu = torch.Generator().manual_seed(4)
+
+    def pairs(parties, k_, n_, sentinel_frac=0.15):
+        vs, ix = [], []
+        for _ in range(parties):
+            i_ = torch.randperm(n_, generator=cpu)[:k_].to(torch.int32)
+            v_ = torch.randn(k_, generator=cpu)
+            drop = torch.rand(k_, generator=cpu) < sentinel_frac
+            vs.append(torch.where(drop, 0.0, v_))
+            ix.append(torch.where(drop, -1, i_))
+        return torch.cat(vs), torch.cat(ix)
+
+    same = torch.randperm(50_000, generator=cpu)[:700].to(torch.int32)
+    cases = {
+        "P=1": (*pairs(1, 900, 5000), 1),
+        "P=2": (*pairs(2, 1371, 272_512), 2),
+        "P=3": (*pairs(3, 1000, 4000), 3),
+        "P=8": (*pairs(8, 685, 20_000), 8),
+        "all sentinels": (torch.zeros(4000), torch.full((4000,), -1,
+                                                        dtype=torch.int32), 4),
+        "every party the same indices": (torch.randn(4 * 700, generator=cpu),
+                                         same.repeat(4), 4),
+        "segment longer than 2^rounds": (
+            torch.randn(40, generator=cpu),
+            torch.tensor([5] * 3 + [2] * 29 + [-1] * 4 + [0] * 4,
+                         dtype=torch.int32), 3),
+        "m=1": (torch.randn(1, generator=cpu),
+                torch.tensor([7], dtype=torch.int32), 4),
+        "m=5483": (*(t[:5483] for t in pairs(4, 1371, 272_512)), 4),
+    }
+    for name, (v_, i_, dup) in cases.items():
+        v_, i_ = v_.to(dev), i_.to(dev)
+        rows_ = torch.stack([v_, v_.flip(0)]), torch.stack([i_, i_.flip(0)])
+        for a, b in ((v_, i_), rows_):
+            max_err(torch, merge.merge_sorted_pairs(a, b, dup),
+                    merge.merge_sorted_pairs_plain(a, b, dup))
+        log(f"  edge case merge {name}: m={v_.numel()} max_duplicates={dup} "
+            "(one row and two rows): bit-equal")
+    return {"merge_sorted_pairs": res}
+
+
 def reference_phase(torch):
     """Two fp32 steps of a small ResNet on the card vs on the CPU, for
     each path's configuration."""
@@ -398,7 +517,7 @@ def reference_phase(torch):
 
     data = load_dataset("synthetic", synthetic_train_n=512)
     x = data["train_x"][:, :16, :16]
-    for path in PATHS:
+    for path in list(PATHS) + list(REFERENCE_ONLY):
         runs = {}
         for device in ("cuda", "cpu"):
             t = make_trainer(path, ResNet((1, 1, 1), (8, 16, 32),
@@ -488,6 +607,12 @@ def main_path_phase(torch, path: str, steps: int, device=None,
     res = dict(steps=len(losses), samples_per_step=8 * batch, losses=losses,
                loss_first=losses[0], loss_last=losses[-1],
                launches=launches)
+    last = getattr(comp, "last_wire", None)
+    if isinstance(last, dict):
+        # path 3: the owner-routed merge's counts of the last step
+        from geomx_tpu_torch.compression.sparseagg import wire_stats
+        res.update(wire_stats(last), wire_bytes_per_party=comp.wire_bytes_leaf(
+            state.sync_state["dc_comp"][0][0]))
     if wires:
         n = state.sync_state["dc_comp"][0].shape[-1]
         density = [code_density(torch, w, n) for w in wires]
@@ -511,6 +636,12 @@ def main_path_phase(torch, path: str, steps: int, device=None,
         f"{res['samples_per_s']:.1f} samples/s, step "
         f"{res['step_ms_median']:.2f} ms (median), test_acc "
         f"{res['test_acc']:.3f}, peak {res['peak_mem_gb']} GB"
+        + (f", last step's merge: {res['overflow_pairs']} overflow pairs "
+           f"reinjected, {res['merged_pairs']} merged pairs, "
+           f"{res['kept_pairs']} kept by the re-select, pull-dropped share "
+           f"{res['pull_dropped_fraction']:.4f}, "
+           f"{res['wire_bytes_per_party']} wire bytes a party (computed)"
+           if "merged_pairs" in res else "")
         + (f", 2-bit code density {res['wire_code_density']:.3g} (mean "
            f"over the steps; per step "
            f"{[f'{d:.3g}' for d in res['wire_code_density_per_step']]}) "
@@ -557,10 +688,13 @@ def main(argv=None) -> int:
             else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"kernel {name}: {r['ms'] * 1e3:.1f} us (plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
-            f"{r['bound_ms'] * 1e3:.2f} us), bit-equal")
+            f"{r['bound_ms'] * 1e3:.2f} us), bit-equal"
+            + (f"; with the sort and ranks {r['wrapper_ms'] * 1e3:.1f} us "
+               f"(plain {r['plain_wrapper_ms'] * 1e3:.1f} us)"
+               if "wrapper_ms" in r else ""))
     reference_phase(torch)
     paths = {path: main_path_phase(torch, path, steps or args.steps)
-             for path, (_, _, _, steps, _) in PATHS.items()}
+             for path, (_, _, _, steps, _, _) in PATHS.items()}
     log("median step: " + ", ".join(
         f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())
         + " (this call)")
@@ -579,7 +713,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": _build.build_seconds,
-                       "kernels": kernels, "paths": paths,
+                       "kernels": kernels, "kernel_phase": kern,
+                       "paths": paths,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,7 @@ walked in the JAX package's leaf order (``tree.leaf_names``).
 from __future__ import annotations
 
 import abc
+import math
 from typing import Any, Tuple
 
 import torch
@@ -53,6 +54,16 @@ class Compressor(abc.ABC):
                                                      axis_name, axis_size)
         return out_g, out_s
 
+    # -- accounting ----------------------------------------------------------
+    def wire_bytes_leaf(self, leaf: torch.Tensor) -> int:
+        """Bytes one ``[P, W, *shape]`` leaf puts on the wire per party
+        per sync.  The dense default sends the leaf as it is, so its
+        dtype sets the bytes an element."""
+        return math.prod(leaf.shape[REPLICA_DIMS:]) * leaf.element_size()
+
+    def wire_bytes(self, grads: dict) -> int:
+        return sum(self.wire_bytes_leaf(grads[k]) for k in leaf_names(grads))
+
 
 class NoCompressor(Compressor):
     """Dense fp32 all-reduce (the reference's default uncompressed path)."""
@@ -79,25 +90,31 @@ def _parse_int(v: str) -> int:
 
 
 # per-kind spec grammar: positional arg names (in order) and the key=value
-# vocabulary the port accepts.  Kinds the port does not have yet are
-# recognised so that they fail with the ROADMAP entry instead of as typos.
+# vocabulary, the JAX package's except bsc's ``fused`` (the port picks
+# its kernels by device), which is rejected as an unknown key.
 _SPEC_GRAMMAR = {
     "none": ([], {}),
+    "fp16": ([], {"bf16": _parse_bool, "sparse_agg": _parse_bool}),
     "2bit": (["threshold"], {"threshold": float, "sparse_agg": _parse_bool}),
     "bsc": (["ratio"], {"ratio": float, "select": str,
                         "min_sparse_size": _parse_int,
-                        "approx": _parse_bool, "sparse_agg": _parse_bool}),
+                        "approx": _parse_bool, "sparse_agg": _parse_bool,
+                        "sparse_agg_parties": _parse_int}),
+    "mpq": (["ratio", "size_lower_bound"],
+            {"ratio": float, "size_lower_bound": _parse_int,
+             "bf16": _parse_bool, "approx": _parse_bool}),
 }
-_NOT_PORTED = ("fp16", "mpq")
 
 
 def get_compressor(spec) -> Compressor:
     """Parse a reference-style ``"type,args"`` spec (``"bsc,0.01"``,
-    ``"bsc,0.01,select=sampled,min_sparse_size=2048"``, ``"2bit,0.5"``)
-    into a
-    Compressor.  Positional args precede keyword args; unknown keys are
-    rejected with the valid vocabulary in the error."""
+    ``"bsc,0.01,select=sampled,min_sparse_size=2048"``, ``"2bit,0.5"``,
+    ``"fp16,bf16=1"``, ``"mpq,0.01,100000"``) into a Compressor.
+    Positional args precede keyword args; unknown keys are rejected with
+    the valid vocabulary in the error."""
     from geomx_tpu_torch.compression.bisparse import BiSparseCompressor
+    from geomx_tpu_torch.compression.fp16 import FP16Compressor
+    from geomx_tpu_torch.compression.mpq import MPQCompressor
     from geomx_tpu_torch.compression.twobit import TwoBitCompressor
 
     if spec is None:
@@ -106,10 +123,6 @@ def get_compressor(spec) -> Compressor:
         return spec
     parts = [p.strip() for p in str(spec).split(",")]
     kind = parts[0].lower() or "none"
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compression {kind!r} is not ported yet (ROADMAP.md Queue 1, "
-            "slice 2 'Compression off the main path')")
     if kind not in _SPEC_GRAMMAR:
         raise ValueError(f"Unknown gradient compression type: {spec!r}")
     pos_names, vocab = _SPEC_GRAMMAR[kind]
@@ -148,6 +161,10 @@ def get_compressor(spec) -> Compressor:
 
     if kind == "none":
         return NoCompressor()
+    if kind == "fp16":
+        return FP16Compressor(**kwargs)
     if kind == "2bit":
         return TwoBitCompressor(**kwargs)
-    return BiSparseCompressor(**kwargs)
+    if kind == "bsc":
+        return BiSparseCompressor(**kwargs)
+    return MPQCompressor(**kwargs)

@@ -101,6 +101,11 @@ class GradientBucketer:
                                            self.leaf_dtypes)]
 
 
+def _bucket_leaf(n: int) -> torch.Tensor:
+    """A shape-only ``[1, 1, n]`` fp32 stand-in for one bucket."""
+    return torch.empty((1, 1, int(n)), dtype=torch.float32, device="meta")
+
+
 def _resolve_bucket_bytes(bucket_bytes: Optional[int]) -> int:
     if bucket_bytes is not None:
         return int(bucket_bytes)
@@ -189,6 +194,20 @@ class BucketedCompressor(Compressor):
         (``train/step.py``) flattens params and grads onto the
         coordinates the dc tier uses."""
         return self._bucketer(leaves)
+
+    def wire_bytes(self, grads: dict) -> int:
+        """The inner compressor's bytes summed over the bucket sizes of
+        ``grads`` (``[P, W]``-replicated leaves)."""
+        names = leaf_names(grads)
+        if not names:
+            return 0
+        bk = self._bucketer([grads[k] for k in names])
+        return sum(self.inner.wire_bytes_leaf(_bucket_leaf(n))
+                   for n in bk.bucket_sizes)
+
+    def wire_bytes_leaf(self, leaf: torch.Tensor) -> int:
+        bk = self._bucketer([leaf])
+        return self.inner.wire_bytes_leaf(_bucket_leaf(bk.bucket_sizes[0]))
 
     def allreduce_leaf(self, g: torch.Tensor, state: Any, axis_name: str,
                        axis_size: int):

@@ -9,7 +9,7 @@ run can show that its main path went through the kernels.
 ``KERNELS`` maps each ported TPU kernel's name to its wrapper.
 """
 
-from geomx_tpu_torch.ops import bsc, bucket, optim, twobit
+from geomx_tpu_torch.ops import bsc, bucket, merge, optim, twobit
 
 KERNELS = {
     "fused_flatten": bucket.flatten,
@@ -20,6 +20,7 @@ KERNELS = {
     "fused_adam": optim.fused_adam,
     "quantize_2bit": twobit.quantize_2bit,
     "dequantize_2bit": twobit.dequantize_2bit,
+    "merge_sorted_pairs": merge.merge_sorted_pairs,
 }
 
 

@@ -20,7 +20,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("binding.cpp", "bucket.cu", "bsc.cu", "optim.cu", "twobit.cu")
+SOURCES = ("binding.cpp", "bucket.cu", "bsc.cu", "optim.cu", "twobit.cu",
+           "merge.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")

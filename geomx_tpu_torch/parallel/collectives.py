@@ -83,6 +83,25 @@ def all_gather_dc(x: torch.Tensor) -> torch.Tensor:
     return all_gather(x, DC_AXIS)
 
 
+def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Maximum over one replica axis, as every replica on it receives it."""
+    d = axis_dim(axis_name)
+    return x.amax(dim=d, keepdim=True).expand_as(x)
+
+
+def all_to_all(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Personalised exchange along one axis: ``x`` is ``[P, W, A, *s]``
+    with one block a destination along the axis; replica ``(p, w)`` of
+    the result holds, at ``q``, the block that replica ``q`` of the axis
+    addressed to it (``lax.all_to_all`` with ``split_axis=0,
+    concat_axis=0``).  A view."""
+    if axis_dim(axis_name) == 0:
+        # out[p, w, q] = x[q, w, p]
+        return x.transpose(0, 2)
+    # out[p, w, q] = x[p, q, w]
+    return x.transpose(1, 2)
+
+
 def party_index(P: int, W: int, device=None) -> torch.Tensor:
     """``[P, W]`` int tensor: each replica's party index."""
     return torch.arange(P, device=device).view(P, 1).expand(P, W)

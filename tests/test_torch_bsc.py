@@ -211,10 +211,25 @@ def test_scatter_add_all_sentinel():
 
 
 def test_port_compressor_rejects_unported_modes():
-    with pytest.raises(NotImplementedError):
-        BiSparseCompressor(0.01, select="exact")
-    with pytest.raises(NotImplementedError):
-        BiSparseCompressor(0.01, sparse_agg=True)
+    """The selections and sparse_agg construct as the JAX package's do;
+    what stays unported (the ``fused`` switch: the port picks kernels by
+    device) and bad arguments still raise."""
+    for kw in (dict(select="exact"), dict(select="approx"),
+               dict(approx=False), dict(sparse_agg=True, select="sampled"),
+               dict(sparse_agg=True, sparse_agg_parties=4, approx=True)):
+        port = BiSparseCompressor(0.01, **kw)
+        ref = JaxBSC(0.01, fused=False, **kw)
+        assert (port.select, port.approx, port.sparse_agg,
+                port.sparse_agg_parties) == (ref.select, ref.approx,
+                                             ref.sparse_agg,
+                                             ref.sparse_agg_parties)
+        n = 272_512
+        assert port.wire_bytes_leaf(torch.zeros(1, 1, n)) == \
+            ref.wire_bytes_leaf(jnp.zeros((n,)))
+    with pytest.raises(TypeError):
+        BiSparseCompressor(0.01, fused=True)
+    with pytest.raises(ValueError):
+        BiSparseCompressor(0.01, select="topk")
     with pytest.raises(ValueError):
         BiSparseCompressor(0.0)
 

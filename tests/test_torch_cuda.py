@@ -10,7 +10,8 @@ on a GPU host without them:
 Tolerance everywhere: none (bit for bit).  The scatter-add folds each
 party's run of pairs in order, so it is bit-equal at any party count;
 the optimizer kernels round every op on its own, as the plain versions
-do; the 2-bit dequantize sums the parties' parts in party order.
+do; the 2-bit dequantize sums the parties' parts in party order; the
+merge kernel realizes the plain version's combining tree add for add.
 """
 
 import numpy as np
@@ -20,9 +21,10 @@ import torch
 from geomx_tpu_torch.compression import BiSparseCompressor
 from geomx_tpu_torch.compression.bucketing import GradientBucketer
 from geomx_tpu_torch.models import get_model
-from geomx_tpu_torch.ops import bsc, bucket, optim, twobit
+from geomx_tpu_torch.compression import sparseagg
+from geomx_tpu_torch.ops import bsc, bucket, merge, optim, twobit
 from geomx_tpu_torch.optim.adam import bias_corrections
-from geomx_tpu_torch.parallel.collectives import all_gather_dc
+from geomx_tpu_torch.parallel.collectives import all_gather_dc, all_to_all
 
 
 @pytest.fixture
@@ -230,6 +232,91 @@ def test_quantize_2bit_all_negative_sets_sign_bits(dev):
         g, torch.zeros_like(g), 0.5)[0])
 
 
+def _party_pairs(gen, parties, k, n, dev, sentinel_frac=0.15):
+    vals, idx = [], []
+    for _ in range(parties):
+        i = torch.randperm(n, generator=gen, device=dev)[:k].to(torch.int32)
+        v = torch.randn(k, generator=gen, device=dev)
+        drop = torch.rand(k, generator=gen, device=dev) < sentinel_frac
+        vals.append(torch.where(drop, 0.0, v))
+        idx.append(torch.where(drop, -1, i))
+    return torch.cat(vals), torch.cat(idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parties,k,n", [(1, 900, 5000), (2, 1371, 272_512),
+                                         (3, 1000, 4000), (4, 1371, 272_512),
+                                         (8, 685, 20_000), (64, 50, 300)])
+def test_merge_sorted_pairs_matches_plain(dev, parties, k, n):
+    gen = torch.Generator(device=dev).manual_seed(parties)
+    rows = [_party_pairs(gen, parties, k, n, dev) for _ in range(3)]
+    v = torch.stack([r[0] for r in rows])
+    i = torch.stack([r[1] for r in rows])
+    before = merge.merge_sorted_pairs.launches
+    got = merge.merge_sorted_pairs(v, i, parties)
+    assert merge.merge_sorted_pairs.launches == before + 1
+    ref = merge.merge_sorted_pairs_plain(v, i, parties)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_sentinel", "same_indices",
+                                  "too_long_segment", "m1", "m5483"])
+def test_merge_sorted_pairs_edge_cases(dev, case):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dup = 4
+    if case == "all_sentinel":
+        v, i = torch.zeros(4000, device=dev), torch.full(
+            (4000,), -1, dtype=torch.int32, device=dev)
+    elif case == "same_indices":
+        same = torch.randperm(50_000, generator=gen, device=dev)[:700]
+        v = torch.randn(2800, generator=gen, device=dev)
+        i = same.to(torch.int32).repeat(4)
+    elif case == "too_long_segment":
+        v = torch.randn(40, generator=gen, device=dev)
+        i = torch.tensor([5] * 3 + [2] * 29 + [-1] * 4 + [0] * 4,
+                         dtype=torch.int32, device=dev)
+        dup = 3
+    elif case == "m1":
+        v = torch.randn(1, generator=gen, device=dev)
+        i = torch.tensor([7], dtype=torch.int32, device=dev)
+    else:
+        v, i = (t[:5483] for t in _party_pairs(gen, 4, 1371, 272_512, dev))
+    got = merge.merge_sorted_pairs(v, i, dup)
+    for a, b in zip(got, merge.merge_sorted_pairs_plain(v, i, dup)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        merge.merge_sorted_pairs(v, i, 65)
+
+
+@pytest.mark.cuda
+def test_sparse_allreduce_on_replica_axes(dev):
+    """The owner-routed merge at path 3's shapes: the card's result equals
+    the plain versions' on the same pairs, and every replica agrees."""
+    n, P, W = 272_512, 4, 2
+    comp = BiSparseCompressor(0.01, sparse_agg=True)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    g = torch.randn(P, 1, n, generator=gen, device=dev).expand(P, W, n) \
+        .contiguous()
+    z = torch.zeros_like(g)
+    out, (_, nv) = comp.allreduce_leaf(g, (z, z), "dc", P)
+    k = comp.k_for(n)
+    thr = bsc.sampled_boundary_guv(g, z, z, k)
+    vals, idx, _, rv = bsc.select_pack_plain(g, z, z, thr, k)
+    slots = sparseagg.push_slots(k, P)
+    bv, bi, ofv, ofi = sparseagg.owner_route(vals, idx, n, P, slots)
+    mv, mi = merge.merge_sorted_pairs_plain(
+        all_to_all(bv, "dc").reshape(P, W, -1),
+        all_to_all(bi, "dc").reshape(P, W, -1), P)
+    assert torch.equal(comp.last_wire["merged_idx"], mi)
+    assert torch.equal(nv, sparseagg.reinject(rv, ofv, ofi))
+    assert torch.equal(out, out[:1, :1].expand_as(out))
+    # the new state feeds the next step's select kernel
+    out2, _ = comp.allreduce_leaf(g, (z, nv), "dc", P)
+    assert torch.isfinite(out2).all()
+
+
 # each configuration's kernel launches in one step of the small ResNet
 # (one bucket): the fused apply flattens params and synced grads too
 _STEP_LAUNCHES = {
@@ -241,6 +328,9 @@ _STEP_LAUNCHES = {
     "twobit_adam": {"fused_flatten": 3, "fused_unflatten": 2,
                     "quantize_2bit": 1, "dequantize_2bit": 1,
                     "fused_adam": 1},
+    "sparse_agg": {"fused_flatten": 3, "fused_unflatten": 2,
+                   "bsc_select_pack": 1, "bsc_scatter_add": 1,
+                   "fused_sgd_momentum": 1, "merge_sorted_pairs": 1},
 }
 
 
@@ -252,24 +342,29 @@ def test_trainer_step_launches_every_kernel(dev, path):
     from geomx_tpu_torch.optim import sgd
     from geomx_tpu_torch.train import Trainer
 
+    P, W = 2, 4
     if path == "flagship":
         tx, spec = sgd(0.1, momentum=0.9), "bsc,0.01"
     elif path == "fused_sgd":
         tx, spec = optim.fused_optimizer("sgd", learning_rate=0.1), \
             "bsc,0.01"
+    elif path == "sparse_agg":
+        tx, spec = optim.fused_optimizer("sgd", learning_rate=0.1), \
+            "bsc,0.01,select=sampled,sparse_agg=1"
+        P, W = 4, 2
     else:
         tx, spec = optim.fused_optimizer("adam", learning_rate=0.01), \
             "2bit,0.5"
-    t = Trainer(ResNet((1, 1, 1), (8, 16, 32)), HiPSTopology(2, 4), tx,
-                config=GeoConfig(num_parties=2, workers_per_party=4,
+    t = Trainer(ResNet((1, 1, 1), (8, 16, 32)), HiPSTopology(P, W), tx,
+                config=GeoConfig(num_parties=P, workers_per_party=W,
                                  compression=spec,
                                  fused_optim=path != "flagship"),
                 device=dev)
     st = t.init_state(seed=0)
     rng = np.random.RandomState(0)
-    x = torch.as_tensor(rng.randint(0, 256, (2, 4, 8, 16, 16, 3))
+    x = torch.as_tensor(rng.randint(0, 256, (P, W, 8, 16, 16, 3))
                         .astype(np.uint8), device=dev)
-    y = torch.as_tensor(rng.randint(0, 10, (2, 4, 8)), device=dev)
+    y = torch.as_tensor(rng.randint(0, 10, (P, W, 8)), device=dev)
     ops.reset_launch_counts()
     st, m = t.train_step(st, x, y)
     assert torch.isfinite(m["loss"])

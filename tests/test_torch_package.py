@@ -12,7 +12,8 @@ from geomx_tpu.compression import get_compressor as jax_get_compressor
 from geomx_tpu.config import GeoConfig as JaxConfig
 from geomx_tpu_torch import GeoConfig, HiPSTopology, resolve_device
 from geomx_tpu_torch.compression import (BiSparseCompressor,
-                                         BucketedCompressor, NoCompressor,
+                                         BucketedCompressor, FP16Compressor,
+                                         MPQCompressor, NoCompressor,
                                          TwoBitCompressor, get_compressor)
 from geomx_tpu_torch.sync import FSA, get_sync_algorithm
 
@@ -93,10 +94,22 @@ def test_compression_spec_grammar():
     assert isinstance(two, TwoBitCompressor)
     assert two.threshold == ref2.threshold == 0.5
     assert get_compressor("2bit,threshold=0.3").threshold == 0.3
-    for unported in ("fp16", "mpq,0.01,1000", "bsc,0.01,select=exact",
-                     "2bit,0.5,sparse_agg=1"):
-        with pytest.raises(NotImplementedError):
-            get_compressor(unported)
+    # the modes ported with the compressed-domain aggregation construct
+    # as the JAX package's do
+    for spec, cls in (("fp16", FP16Compressor),
+                      ("mpq,0.01,1000", MPQCompressor),
+                      ("bsc,0.01,select=exact", BiSparseCompressor),
+                      ("2bit,0.5,sparse_agg=1", TwoBitCompressor)):
+        port, ref = get_compressor(spec), jax_get_compressor(spec)
+        assert isinstance(port, cls) and type(ref).__name__ == cls.__name__
+        assert getattr(port, "sparse_agg", None) == \
+            getattr(ref, "sparse_agg", None)
+    assert get_compressor("mpq,0.01,1000").size_lower_bound == 1000
+    assert get_compressor("bsc,0.01,select=exact").select == "exact"
+    # what stays unported still raises: bsc's kernel switch (the port
+    # picks kernels by device)
+    with pytest.raises(ValueError, match="fused"):
+        get_compressor("bsc,0.01,fused=1")
 
 
 def test_fsa_buckets_the_dc_tier_by_default(monkeypatch):

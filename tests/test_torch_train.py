@@ -216,3 +216,24 @@ def test_collectives_match_jax_mesh(request, topo_name):
                            "all_gather_dc", "party_index", "worker_index",
                            "global_worker_rank"), got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+
+    # all_to_all (one block a destination along the axis) and pmax
+    rng = np.random.RandomState(4)
+    xd = rng.randint(-50, 50, (P_, W_, P_, 3)).astype(np.float32)
+    xw = rng.randint(-50, 50, (P_, W_, W_, 3)).astype(np.float32)
+
+    def device2(a, b, c):
+        a, b, c = a[0, 0], b[0, 0], c[0, 0]
+        out = (jax.lax.all_to_all(a, DC_AXIS, 0, 0),
+               jax.lax.all_to_all(b, WORKER_AXIS, 0, 0),
+               jax.lax.pmax(c, DC_AXIS), jax.lax.pmax(c, WORKER_AXIS))
+        return tuple(o[None, None] for o in out)
+
+    ref = jax.jit(shard_map_compat(device2, mesh, in_specs=(spec,) * 3,
+                                   out_specs=(spec,) * 4))(xd, xw, x)
+    got = (pc.all_to_all(torch.from_numpy(xd), DC_AXIS),
+           pc.all_to_all(torch.from_numpy(xw), WORKER_AXIS),
+           pc.pmax(t, DC_AXIS), pc.pmax(t, WORKER_AXIS))
+    for name, a, b in zip(("all_to_all dc", "all_to_all worker", "pmax dc",
+                           "pmax worker"), got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)

@@ -1,11 +1,13 @@
 """Loss trajectories of the JAX package and the PyTorch port, side by side,
 on the CPU (a script, not a pytest module: a full-width run takes minutes).
 
-    python tests/torch_jax_trajectory.py [--batch 32] [--steps 32] [--bf16]
+    python tests/torch_jax_trajectory.py [--path P] [--batch 32] [--steps 32] [--bf16]
 
-Both packages train the flagship configuration — ResNet-20 on HiPS
-[2, 4], FSA with bucketed "bsc,0.01" (sampled selection), sgd(0.1,
-momentum=0.9), the synthetic CIFAR-shaped set — from the same flax
+Both packages train one path of chip_smoke.py — by default the flagship
+configuration: ResNet-20 on HiPS [2, 4], FSA with bucketed "bsc,0.01"
+(sampled selection), sgd(0.1, momentum=0.9); --path sparse_agg runs
+[4, 2] with the owner-routed merge — on the synthetic CIFAR-shaped
+set, from the same flax
 initial weights and the same batches (the port starts from the converted
 JAX weights; its loader yields the JAX loader's bytes).  Prints one line
 a step: step, JAX loss, port loss, relative difference.
@@ -43,21 +45,26 @@ from geomx_tpu_torch.ops import optim  # noqa: E402
 from geomx_tpu_torch.optim import sgd  # noqa: E402
 from geomx_tpu_torch.train import Trainer  # noqa: E402
 
-# path -> (compression, fused, JAX optimizer, port optimizer)
+# path -> (compression, fused, JAX optimizer, port optimizer, [P, W])
 PATHS = {
     "flagship": ("bsc,0.01,select=sampled", False,
                  lambda: optax.sgd(0.1, momentum=0.9),
-                 lambda: sgd(0.1, momentum=0.9)),
+                 lambda: sgd(0.1, momentum=0.9), (2, 4)),
     "fused_sgd": ("bsc,0.01,select=sampled", True,
                   lambda: optim_pallas.fused_optimizer(
                       "sgd", learning_rate=0.1, momentum=0.9),
                   lambda: optim.fused_optimizer(
-                      "sgd", learning_rate=0.1, momentum=0.9)),
+                      "sgd", learning_rate=0.1, momentum=0.9), (2, 4)),
     "twobit_adam": ("2bit,0.5", True,
                     lambda: optim_pallas.fused_optimizer(
                         "adam", learning_rate=0.01),
                     lambda: optim.fused_optimizer(
-                        "adam", learning_rate=0.01)),
+                        "adam", learning_rate=0.01), (2, 4)),
+    "sparse_agg": ("bsc,0.01,select=sampled,sparse_agg=1", True,
+                   lambda: optim_pallas.fused_optimizer(
+                       "sgd", learning_rate=0.1, momentum=0.9),
+                   lambda: optim.fused_optimizer(
+                       "sgd", learning_rate=0.1, momentum=0.9), (4, 2)),
 }
 
 
@@ -74,12 +81,12 @@ def main(argv=None) -> int:
         else (jnp.float32, torch.float32)
     data = load_dataset("synthetic",
                         synthetic_train_n=8 * args.batch * args.steps)
-    spec, fused, jax_tx, port_tx = PATHS[args.path]
-    cfg = dict(num_parties=2, workers_per_party=4, compression=spec,
+    spec, fused, jax_tx, port_tx, (P, W) = PATHS[args.path]
+    cfg = dict(num_parties=P, workers_per_party=W, compression=spec,
                precision="fp32", fused_optim=fused)
 
     jt = JaxTrainer(FlaxResNet((3, 3, 3), (16, 32, 64), dtype=jdt),
-                    JaxTopology(2, 4), jax_tx(),
+                    JaxTopology(P, W), jax_tx(),
                     config=JaxConfig(**cfg), donate=False)
     jst = jt.init_state(jax.random.PRNGKey(0), data["train_x"][:2])
     p0 = jax.tree.map(lambda a: np.asarray(a)[0, 0], jst.params)
@@ -94,7 +101,7 @@ def main(argv=None) -> int:
     print(f"jax: {time.time() - t0:.1f} s", flush=True)
 
     pt = Trainer(ResNet((3, 3, 3), (16, 32, 64), dtype=tdt),
-                 HiPSTopology(2, 4), port_tx(),
+                 HiPSTopology(P, W), port_tx(),
                  config=GeoConfig(**cfg), device="cpu")
     params, stats = from_flax(p0, s0)
     pst = pt.init_state(params=params, model_state=stats)

@@ -4,12 +4,13 @@
     python3 tools/torch_profile_step.py [--path flagship] [--steps 5]
         [--batch 128] [--out F]
 
-Runs one training path of chip_smoke.py (ResNet-20 at bf16 on the HiPS
-[2, 4] replica axes, FSA with a bucketed dc tier, the synthetic
-CIFAR-shaped set; --path flagship: "bsc,0.01" with sgd(0.1,
-momentum=0.9), fused_sgd: the same with the fused optimizer apply,
-twobit_adam: "2bit,0.5" with the fused Adam(0.01)) for three warm-up
-steps, times --steps steps
+Runs one training path of chip_smoke.py (ResNet-20 at bf16 on the path's
+replica axes, FSA with a bucketed dc tier, the synthetic CIFAR-shaped
+set; --path flagship: [2, 4], "bsc,0.01" with sgd(0.1, momentum=0.9),
+fused_sgd: the same with the fused optimizer apply, twobit_adam:
+[2, 4], "2bit,0.5" with the fused Adam(0.01), sparse_agg: [4, 2], the
+owner-routed "bsc,0.01,select=sampled,sparse_agg=1" with the fused
+SGD) for three warm-up steps, times --steps steps
 with the host clock (ending in a synchronize), then runs --steps more
 under torch.profiler (CPU and CUDA activities) and reports:
 
@@ -38,6 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 SPANS = ("train/forward_backward", "train/sync_grads", "bucket/flatten",
          "dc_allreduce/bucket0", "bsc/threshold", "bsc/select_pack",
+         "sparseagg/route", "sparseagg/merge", "sparseagg/reselect",
          "bsc/scatter_add", "twobit/quantize", "twobit/dequantize",
          "bucket/unflatten", "train/optimizer", "train/sync_model_state")
 
@@ -60,7 +62,8 @@ def busy_us(intervals):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", default="flagship",
-                    choices=("flagship", "fused_sgd", "twobit_adam"))
+                    choices=("flagship", "fused_sgd", "twobit_adam",
+                             "sparse_agg"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=128,
                     help="images a replica a step")
