@@ -11,18 +11,28 @@ Every phase's failure is fatal (non-zero exit, no result line):
               the card, at the shapes of the training paths (the ResNet-20
               gradient tree on the [2, 4] replica axes: one 272,512-element
               bucket, 8 replica rows, k = ceil(0.01 n), two parties; the
-              merge at path 3's [4, 2]: 8 rows of 4 x 1,371 routed pairs)
-              and on the edge cases of the CPU parity tests; all nine must
-              be bit-equal.  Each kernel's median device time over 50 calls
-              (CUDA events, L2 flushed between calls), its plain version's
+              merge at path 3's [4, 2]: 8 rows of 4 x 1,371 routed pairs;
+              the flash kernels at seq_flash's q, k, v [16, 4096, 4, 16];
+              the ring hop at seq_ring's [32, 128, 4, 16]) and on the edge
+              cases of the CPU parity tests; the nine kernels of the
+              training plane must be bit-equal, the four attention kernels
+              within fp32 rtol/atol 1e-5 forward and 1e-4 backward and hop
+              (another order of sums; looser for bf16 inputs).  Each
+              kernel's median device time over 50 calls (20 for attention;
+              CUDA events, L2 flushed between calls), its plain version's
               time, one PyTorch call computing the same function where
-              there is one, and the bytes bound at the card's 3.35 TB/s;
-4. reference -- two fp32 training steps of a small ResNet on the card and on
-              the CPU (plain versions) from the same weights and batches,
+              there is one (scaled_dot_product_attention for the flash
+              kernels, naming the backend it ran), and its bound: bytes at
+              the card's 3.35 TB/s or flops at its 67 TFLOP/s fp32 rate,
+              whichever is larger;
+4. reference -- two fp32 training steps on the card and on the CPU (plain
+              versions) from the same weights and batches: a small ResNet
               for each path's configuration and four more compressors
               (REFERENCE_ONLY: exact BSC, the fp16 and 2-bit lattices,
-              MPQ): losses to rtol 1e-4, parameters to atol 2e-3 (TF32
-              off);
+              MPQ), losses to rtol 1e-4, parameters to atol 2e-3 (TF32
+              off); the SeqClassifier at L = 256 un-meshed, ring and
+              Ulysses on [2, 2] x sp 2 (SEQ_REFERENCE), losses to rtol
+              1e-4, parameters to atol 4e-3;
 5. paths   -- ResNet-20 at its default bf16 compute through Trainer, FSA
               with a bucketed dc tier, the synthetic CIFAR-shaped set, 128
               images a replica (1,024 a step), each path with the launch
@@ -44,8 +54,18 @@ Every phase's failure is fatal (non-zero exit, no result line):
               path 2 as the JAX package's own trajectory falls, PERF.md);
               path 2 also that the 2-bit wire carried non-zero codes;
               path 3 prints its last step's merge counts (overflow pairs
-              reinjected, merged, kept, the pull-dropped share).  Median
-              step times of the four paths come from the same call.
+              reinjected, merged, kept, the pull-dropped share);
+              seq_flash   get_model("transformer") at L = 4096, HiPS
+                          [2, 2], 16 sequences a replica, adam(1e-3), FSA,
+                          the needle task, 8 steps: flash kernels 10-12,
+                          8 launches a step each; then 64 sequences
+                          evaluated (the forward without the logsumexp);
+              seq_ring    examples/long_context.py's defaults: ring
+                          attention on [2, 2] x sp 2, L = 256, 16 a
+                          replica, 16 steps: the hop kernel, 16 launches a
+                          step; its loss falls as the JAX package's does;
+                          512 sequences evaluated on the un-meshed twin.
+              Median step times of the paths come from the same call.
 
 The two last lines are the ``kernels`` JSON object and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -63,6 +83,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS = 67e12         # H100 SXM fp32 on the CUDA cores (data sheet)
+TF32_FLOPS = 495e12        # dense TF32 tensor cores: the redesign's target
 REPLACES = {
     "fused_flatten": ("geomx_tpu_torch/csrc/bucket.cu",
                       "geomx_tpu/ops/bucket_pallas.py:92"),
@@ -82,6 +104,14 @@ REPLACES = {
                         "geomx_tpu/ops/twobit_pallas.py:116"),
     "merge_sorted_pairs": ("geomx_tpu_torch/csrc/merge.cu",
                            "geomx_tpu/ops/merge_pallas.py:160"),
+    "flash_attention_fwd": ("geomx_tpu_torch/csrc/flash_attention.cu",
+                            "geomx_tpu/ops/flash_attention.py:154"),
+    "flash_attention_dq": ("geomx_tpu_torch/csrc/flash_attention_dq.cu",
+                           "geomx_tpu/ops/flash_attention.py:339"),
+    "flash_attention_dkv": ("geomx_tpu_torch/csrc/flash_attention_dkv.cu",
+                            "geomx_tpu/ops/flash_attention.py:353"),
+    "fused_block": ("geomx_tpu_torch/csrc/ring_hop.cu",
+                    "geomx_tpu/parallel/_fused_block.py:100"),
 }
 
 # path -> (optimizer, compression, fused apply, steps, its kernels, its
@@ -114,8 +144,35 @@ REFERENCE_ONLY = {
     # the small ResNet's one bucket is below 200k elements: fp16 gather
     "mpq": (("sgd", 0.1), "mpq,0.01", False, None, (), (2, 4)),
 }
+# the attention paths, examples/long_context.py's SeqClassifier (vocab 256,
+# dim 64, 4 heads, 2 layers, 10 classes) under adam(1e-3) and FSA with the
+# uncompressed (bucketed) dc tier, on the needle task: path -> (sp mode,
+# topology [P, W, sp], sequence length, sequences a replica, steps, the
+# kernels of the path with their launches a step, sequences evaluated)
+_FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+SEQ_PATHS = {
+    # get_model("transformer") at its max_len: the flash kernels
+    "seq_flash": (None, (2, 2, 1), 4096, 16, 8,
+                  {name: 2 * 4 for name in _FLASH}, 64),
+    # the example's defaults: ring attention over sp 2, two hops a layer,
+    # one hop launch covering both shards
+    "seq_ring": ("ring", (2, 2, 2), 256, 16, 16, {"fused_block": 2 * 2 * 4},
+                 512),
+}
+# the paths whose loss must fall from the first half of the steps to the
+# second: seq_ring's does in the JAX package too (2.4197 -> 2.3303 over
+# 16 steps, tests/torch_jax_trajectory.py --path seq_ring); seq_flash's
+# needle signal is diluted 1/4096 and does not move in 8 steps
+LOSS_FALLS = ("seq_ring",)
+# the reference phase's attention configurations: (sp mode, topology, L)
+SEQ_REFERENCE = {"seq_flash": (None, (2, 2, 1), 256),
+                 "seq_ring": ("ring", (2, 2, 2), 256),
+                 "seq_ulysses": ("ulysses", (2, 2, 2), 256)}
 # the path whose launch counts the kernels line reports for each kernel
-FIRST_PATH = {name: next(p for p, cfg in PATHS.items() if name in cfg[4])
+_PATH_KERNELS = {**{p: cfg[4] for p, cfg in PATHS.items()},
+                 **{p: cfg[5] for p, cfg in SEQ_PATHS.items()}}
+FIRST_PATH = {name: next(p for p, kernels in _PATH_KERNELS.items()
+                         if name in kernels)
               for name in REPLACES}
 
 
@@ -139,6 +196,26 @@ def make_trainer(path: str, model, device=None, precision=None):
         cfg["precision"] = precision
     return Trainer(model, HiPSTopology(P, W), tx, config=GeoConfig(**cfg),
                    device=device)
+
+
+def make_seq_trainer(sp_mode, shape, seq_len: int, device=None):
+    """The Trainer of an attention configuration: SeqClassifier at
+    examples/long_context.py's widths (``get_model("transformer")`` when
+    un-meshed), adam(1e-3), FSA, HiPS ``shape = (P, W, sp)``."""
+    from geomx_tpu_torch import HiPSTopology
+    from geomx_tpu_torch.models import SeqClassifier, get_model
+    from geomx_tpu_torch.optim import adam
+    from geomx_tpu_torch.sync import FSA
+    from geomx_tpu_torch.train import Trainer
+
+    P, W, S = shape
+    if sp_mode is None:
+        model, twin = get_model("transformer"), None
+    else:
+        model = SeqClassifier(max_len=seq_len, sp_mode=sp_mode)
+        twin = SeqClassifier(max_len=seq_len)
+    return Trainer(model, HiPSTopology(P, W, sp_degree=S), adam(1e-3),
+                   sync=FSA(), device=device, single_device_model=twin)
 
 
 def log(msg: str) -> None:
@@ -167,6 +244,24 @@ def device_ms(torch, fn, reps: int = 50) -> float:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def close_err(torch, got, ref, rtol: float, atol: float) -> float:
+    """Max abs difference of kernel and plain outputs; raises where they
+    differ by more than ``atol + rtol * |plain|``."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol)
+        if a.numel():
+            worst = max(worst, (a.float() - b.float()).abs().max().item())
+    return worst
+
+
+def op_bound(nbytes: int, flops: int):
+    """(bound ms, "bytes" or "operations") at the fp32 CUDA-core rate."""
+    b, f = bound_ms(nbytes), flops / FP32_FLOPS * 1e3
+    return (f, "operations") if f >= b else (b, "bytes")
 
 
 def max_err(torch, got, ref) -> float:
@@ -509,6 +604,204 @@ def merge_kernels(torch, dev, timer, gen, n):
     return {"merge_sorted_pairs": res}
 
 
+def sdpa_kernels(torch, fn) -> str:
+    """Names of the CUDA kernels one call of ``fn`` runs (the backend
+    ``scaled_dot_product_attention`` picked), from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return ", ".join(dict.fromkeys(n[:60] for n in names)) or "not identified"
+
+
+def attention_kernels(torch, dev, timer=None):
+    """Rows 10-13 against their plain versions at the attention paths'
+    shapes (seq_flash: q, k, v [16, 4096, 4, 16]; seq_ring's hop: [32 = sp
+    2 x 16, 128, 4, 16]) and on the JAX tests' edge cases.  Held at fp32
+    rtol/atol 1e-5 forward, 1e-4 backward and hop, 2e-2/1e-2 for bf16
+    inputs: the kernels sum each row's products in another order than the
+    plain versions' matmuls.  Times over 20 calls; the bound is the larger
+    of the bytes at 3.35 TB/s and the flops at the 67 TFLOP/s fp32 rate,
+    with the 495 TFLOP/s TF32 tensor-core bound beside it."""
+    import torch.nn.functional as F
+
+    from geomx_tpu_torch.ops import flash_attention as fa
+    from geomx_tpu_torch.ops import ring_hop
+
+    timer = timer or (lambda fn: device_ms(torch, fn, reps=20))
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def rand(shape, n, dtype=torch.float32):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for _ in range(n)]
+
+    out = {}
+    B, L, H, D = 16, 4096, 4, 16
+    q, k, v, g = rand((B, L, H, D), 4)
+    elems, rows, pairs = B * L * H * D, B * H * L, B * H * L * L
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    ro, rlse = fa.flash_attention_with_lse_plain(q, k, v)
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    sdpa = (lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    bound, by = op_bound(4 * (4 * elems + rows), 4 * pairs * D)
+    out["flash_attention_fwd"] = dict(
+        max_abs_err=close_err(torch, [o, lse], [ro, rlse], 1e-5, 1e-5),
+        ms=timer(lambda: fa.flash_attention_with_lse(q, k, v)),
+        nolse_ms=timer(lambda: fa.flash_attention(q, k, v)),
+        plain_ms=timer(lambda: fa.flash_attention_with_lse_plain(q, k, v)),
+        bound_ms=bound, bound_by=by,
+        tf32_bound_ms=4 * pairs * D / TF32_FLOPS * 1e3,
+        library_ms=timer(sdpa),
+        library="scaled_dot_product_attention forward: "
+        + sdpa_kernels(torch, sdpa))
+    delta = fa.attention_delta(ro, g)
+    dq = fa.flash_dq(q, k, v, g, rlse, delta)
+    rdq = fa.flash_dq_plain(q, k, v, g, rlse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, g, rlse, delta)
+    rdk, rdv = fa.flash_dkv_plain(q, k, v, g, rlse, delta)
+    # the library's backward: one autograd call over a retained graph
+    # computes dq, dk and dv together (rows 11 and 12 at once)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    so = F.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_bwd = (lambda: torch.autograd.grad(so, (qg, kg, vg), gt,
+                                            retain_graph=True))
+    lib_bwd = timer(sdpa_bwd)
+    lib_fwd_bwd = timer(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), gt))
+    lib_name = ("scaled_dot_product_attention backward (dq, dk and dv): "
+                + sdpa_kernels(torch, sdpa_bwd))
+    bound, by = op_bound(4 * (5 * elems + 2 * rows), 6 * pairs * D)
+    out["flash_attention_dq"] = dict(
+        max_abs_err=close_err(torch, [dq], [rdq], 1e-4, 1e-4),
+        ms=timer(lambda: fa.flash_dq(q, k, v, g, rlse, delta)),
+        plain_ms=timer(lambda: fa.flash_dq_plain(q, k, v, g, rlse, delta)),
+        bound_ms=bound, bound_by=by,
+        tf32_bound_ms=6 * pairs * D / TF32_FLOPS * 1e3,
+        library_ms=lib_bwd, library=lib_name,
+        library_fwd_bwd_ms=lib_fwd_bwd)
+    bound, by = op_bound(4 * (6 * elems + 2 * rows), 8 * pairs * D)
+    out["flash_attention_dkv"] = dict(
+        max_abs_err=close_err(torch, [dk, dv], [rdk, rdv], 1e-4, 1e-4),
+        ms=timer(lambda: fa.flash_dkv(q, k, v, g, rlse, delta)),
+        plain_ms=timer(lambda: fa.flash_dkv_plain(q, k, v, g, rlse, delta)),
+        bound_ms=bound, bound_by=by,
+        tf32_bound_ms=8 * pairs * D / TF32_FLOPS * 1e3,
+        library_ms=lib_bwd, library=lib_name,
+        library_fwd_bwd_ms=lib_fwd_bwd)
+    del qg, kg, vg, so
+
+    # the ring hop at seq_ring's shape, a later hop (finite carries)
+    hs = (32, 128, 4, 16)
+    hq, hk, hv, ho = rand(hs, 4)
+    hm = rand(hs[:1] + (4, 128), 1)[0]
+    hl = hm.abs() + 0.5
+    scale = 0.25
+    got = ring_hop.hop(hq, hk, hv, hm, hl, ho, scale, False)
+    hop_pairs, hop_elems = 32 * 4 * 128 * 128, math.prod(hs)
+    bound, by = op_bound(4 * (6 * hop_elems + 4 * 32 * 4 * 128),
+                         4 * hop_pairs * 16)
+    hop_args = (hq, hk, hv, hm, hl, ho, scale, False)
+    out["fused_block"] = dict(
+        max_abs_err=close_err(torch, got, ring_hop.hop_plain(*hop_args),
+                              1e-4, 1e-4),
+        ms=timer(lambda: ring_hop.hop(*hop_args)),
+        plain_ms=timer(lambda: ring_hop.hop_plain(*hop_args)),
+        bound_ms=bound, bound_by=by,
+        tf32_bound_ms=4 * hop_pairs * 16 / TF32_FLOPS * 1e3,
+        library_ms=None)
+
+    # -- edge cases of the JAX tests ------------------------------------------
+    cases = [((1, 100, 2, 16), True, torch.float32),
+             ((1, 100, 2, 16), False, torch.float32),
+             ((1, 16, 1, 8), True, torch.float32),
+             ((2, 64, 4, 32), True, torch.float32),
+             ((2, 128, 4, 64), False, torch.float32),
+             ((1, 96, 2, 128), True, torch.float32),
+             ((1, 20, 1, 8), True, torch.float32),
+             ((2, 64, 4, 32), False, torch.bfloat16),
+             ((1, 100, 2, 16), True, torch.bfloat16)]
+    for shape, causal, dtype in cases:
+        fwd, bwd = ((1e-5, 1e-5), (1e-4, 1e-4)) if dtype == torch.float32 \
+            else ((2e-2, 2e-2), (1e-2, 1e-2))
+        eq, ek, ev, eg = rand(shape, 4, dtype)
+        eo, el = fa.flash_attention_with_lse(eq, ek, ev, causal)
+        po, pl = fa.flash_attention_with_lse_plain(eq, ek, ev, causal)
+        err = close_err(torch, [eo, el], [po, pl], *fwd)
+        if not torch.equal(fa.flash_attention(eq, ek, ev, causal), eo):
+            raise AssertionError(f"{shape}: the no-lse variant differs")
+        ed = fa.attention_delta(po, eg)
+        err = max(err, close_err(
+            torch, [fa.flash_dq(eq, ek, ev, eg, pl, ed, causal),
+                    *fa.flash_dkv(eq, ek, ev, eg, pl, ed, causal)],
+            [fa.flash_dq_plain(eq, ek, ev, eg, pl, ed, causal),
+             *fa.flash_dkv_plain(eq, ek, ev, eg, pl, ed, causal)], *bwd))
+        log(f"  edge case flash {shape} causal={causal} "
+            f"{str(dtype)[6:]}: forward, dq, dk/dv within tolerance "
+            f"(max abs err {err:.3g})")
+    # fully-masked rows: no key at all -> zeros and lse at the sentinel
+    z0, zl = fa.flash_attention_with_lse(q[:1, :100], k[:1, :0], v[:1, :0])
+    if not (torch.equal(z0, torch.zeros_like(z0)) and bool((zl <= -1e29)
+                                                           .all())):
+        raise AssertionError("fully-masked rows are not zero")
+    log("  edge case flash, no key for any row: zeros, lse -1e30")
+    for dtype in (torch.float32, torch.bfloat16):
+        for hops_done in (0, 1):
+            for diag in (False, True):
+                eq, ek, ev = rand(hs, 3, dtype)
+                if hops_done == 0:
+                    em = torch.full(hm.shape, -math.inf, device=dev)
+                    el, eo = torch.zeros_like(hl), torch.zeros_like(ho)
+                else:
+                    em, el, eo = hm, hl, ho
+                tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+                got = ring_hop.hop(eq, ek, ev, em, el, eo, scale, diag)
+                if not all(bool(torch.isfinite(t).all()) for t in got):
+                    raise AssertionError("ring hop: non-finite carries")
+                err = close_err(torch, got, ring_hop.hop_plain(
+                    eq, ek, ev, em, el, eo, scale, diag), *tol)
+                log(f"  edge case ring hop hops_done={hops_done} "
+                    f"diag={diag} {str(dtype)[6:]}: within tolerance "
+                    f"(max abs err {err:.3g})")
+    return out
+
+
+def seq_reference_phase(torch):
+    """Two fp32 steps of each attention configuration (SEQ_REFERENCE) on
+    the card vs on the CPU (plain versions), from the same weights and
+    batches: losses to rtol 1e-4; parameters to atol 4e-3 — Adam moves a
+    coordinate by about lr = 1e-3 a step whatever its gradient's size, so
+    a near-zero gradient whose sign differs between the devices (another
+    order of sums) can part them by 2 lr a step."""
+    from geomx_tpu_torch.data import make_needle_data, with_positions
+
+    for name, (sp_mode, shape, L) in SEQ_REFERENCE.items():
+        P, W, _ = shape
+        x, y = make_needle_data(P * W * 8 * 2, L, seed=2)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            t = make_seq_trainer(sp_mode, shape, L, device=device)
+            st = t.init_state(seed=0)
+            losses = []
+            for xb, yb in t.make_loader(with_positions(x), y, 8).epoch(0):
+                st, m = t.train_step(st, xb, yb)
+                losses.append(float(m["loss"]))
+            runs[device] = (losses, {k: v.cpu() for k, v in st.params.items()})
+        (gl, gp), (cl, cp) = runs["cuda"], runs["cpu"]
+        for a, b in zip(gl, cl):
+            if not math.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+                raise AssertionError(f"{name}: card losses {gl} vs CPU {cl}")
+        worst = max((gp[k] - cp[k]).abs().max().item() for k in cp)
+        if worst > 4e-3:
+            raise AssertionError(f"{name}: card and CPU params differ by "
+                                 f"{worst}")
+        log(f"reference {name}: card losses {gl} CPU losses {cl} max param "
+            f"diff {worst:.3g}")
+
+
 def reference_phase(torch):
     """Two fp32 steps of a small ResNet on the card vs on the CPU, for
     each path's configuration."""
@@ -651,6 +944,75 @@ def main_path_phase(torch, path: str, steps: int, device=None,
     return res
 
 
+def seq_path_phase(torch, path: str, device=None):
+    """One attention path of SEQ_PATHS at full width through Trainer.fit,
+    then the evaluation (the un-meshed twin, the forward without the
+    logsumexp)."""
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.data import make_needle_data, with_positions
+
+    sp_mode, shape, L, batch, steps, kernels, n_eval = SEQ_PATHS[path]
+    P, W, _ = shape
+    trainer = make_seq_trainer(sp_mode, shape, L, device=device)
+    x, y = make_needle_data(P * W * batch * steps, L)
+    xt, yt = make_needle_data(n_eval, L, seed=1)
+    state = trainer.init_state(seed=0)
+    loader = trainer.make_loader(with_positions(x), y, batch)
+    on_card = trainer.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, records = trainer.fit(state, loader, epochs=1, log_every=1,
+                                 log_fn=lambda s: None)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+
+    losses = [r["loss"] for r in records if "loss" in r]
+    times = [r["time"] for r in records if "loss" in r]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{path}: losses {losses}")
+    for k_, v in state.params.items():
+        if not torch.equal(v, v[:1, :1].expand_as(v)):
+            raise AssertionError(f"{path}: replicas diverged at {k_}")
+    want = {name: n * steps for name, n in kernels.items()}
+    if on_card and any(launches[name] != n for name, n in want.items()):
+        raise AssertionError(f"{path}: launches {launches}, want {want}")
+    first, second = losses[:steps // 2], losses[steps // 2:]
+    if path in LOSS_FALLS and \
+            not statistics.mean(second) < statistics.mean(first):
+        raise AssertionError(f"{path}: loss did not fall: {losses}")
+    nolse0 = ops.variant_launch_counts()["flash_attention_fwd_nolse"]
+    test_acc = trainer.evaluate(state, with_positions(xt), yt, batch_size=64)
+    nolse = ops.variant_launch_counts()["flash_attention_fwd_nolse"] - nolse0
+    if on_card and nolse < 1:
+        raise AssertionError(f"{path}: the evaluation launched no forward "
+                             "kernel without the logsumexp")
+    warm = 2  # the first steps pay the first allocations
+    per_step = [b - a for a, b in zip(times[warm - 1:], times[warm:])]
+    res = dict(steps=len(losses), samples_per_step=P * W * batch,
+               seq_len=L, losses=losses, loss_first=losses[0],
+               loss_last=losses[-1], launches=launches,
+               eval_nolse_launches=nolse,
+               samples_per_s=P * W * batch * len(per_step)
+               / (times[-1] - times[warm - 1]),
+               step_ms_median=1e3 * statistics.median(per_step),
+               test_acc=test_acc,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
+               if on_card else None)
+    res["tokens_per_s"] = res["samples_per_s"] * L
+    log(f"path {path}: {len(losses)} steps of {P}x{W}x{shape[2]} at L={L}, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (first-half mean "
+        f"{statistics.mean(first):.4f}, second-half mean "
+        f"{statistics.mean(second):.4f}), {res['samples_per_s']:.2f} "
+        f"sequences/s ({res['tokens_per_s']:.0f} tokens/s), step "
+        f"{res['step_ms_median']:.2f} ms (median), test_acc "
+        f"{test_acc:.3f} over {n_eval} ({nolse} no-lse forward launches), "
+        f"peak {res['peak_mem_gb']} GB, launches {launches}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -683,18 +1045,30 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     kern = kernel_phase(torch, torch.device("cuda"))
+    kern.update(attention_kernels(torch, torch.device("cuda")))
     for name, r in kern.items():
         lib = "-" if r["library_ms"] is None \
             else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"kernel {name}: {r['ms'] * 1e3:.1f} us (plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
-            f"{r['bound_ms'] * 1e3:.2f} us), bit-equal"
+            f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), "
+            + ("bit-equal" if "tf32_bound_ms" not in r else
+               f"max abs err {r['max_abs_err']:.3g}; TF32 bound "
+               f"{r['tf32_bound_ms'] * 1e3:.2f} us")
+            + (f"; without the logsumexp {r['nolse_ms'] * 1e3:.1f} us"
+               if "nolse_ms" in r else "")
+            + (f"; library: {r['library']}" if "library" in r else "")
+            + (f"; library forward+backward "
+               f"{r['library_fwd_bwd_ms'] * 1e3:.1f} us"
+               if "library_fwd_bwd_ms" in r else "")
             + (f"; with the sort and ranks {r['wrapper_ms'] * 1e3:.1f} us "
                f"(plain {r['plain_wrapper_ms'] * 1e3:.1f} us)"
                if "wrapper_ms" in r else ""))
     reference_phase(torch)
+    seq_reference_phase(torch)
     paths = {path: main_path_phase(torch, path, steps or args.steps)
              for path, (_, _, _, steps, _, _) in PATHS.items()}
+    paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
     log("median step: " + ", ".join(
         f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())
         + " (this call)")

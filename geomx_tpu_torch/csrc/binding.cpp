@@ -398,7 +398,146 @@ void merge_sorted_pairs(const at::Tensor& svals, const at::Tensor& skey,
                "merge_sorted_pairs");
 }
 
+namespace {
+
+// A [B, L, H, D] operand of the attention kernels: fp32 or bf16 (the type
+// of q), any strides with the head dim contiguous.
+GxSeqOperand seq_operand(const at::Tensor& t, const at::Tensor& q,
+                         const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.device() == q.device(), name, " on another device than q");
+  TORCH_CHECK(t.scalar_type() == q.scalar_type(), name,
+              " must have q's dtype");
+  TORCH_CHECK(t.dim() == 4, name, " must be [B, L, H, D]");
+  TORCH_CHECK(t.stride(3) == 1, name, " must have a contiguous head dim");
+  return GxSeqOperand{t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)};
+}
+
+GxAttnDims attn_dims(const at::Tensor& q, const at::Tensor& k, bool causal,
+                     double scale) {
+  TORCH_CHECK(q.scalar_type() == at::kFloat || q.scalar_type() == at::kBFloat16,
+              "attention operands must be fp32 or bf16");
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4, "q, k must be [B, L, H, D]");
+  TORCH_CHECK(k.size(0) == q.size(0) && k.size(2) == q.size(2) &&
+                  k.size(3) == q.size(3),
+              "q and k differ in batch, heads or head dim");
+  const int64_t D = q.size(3);
+  TORCH_CHECK(D == 8 || D == 16 || D == 32 || D == 64 || D == 128,
+              "head dim ", D, " not in {8, 16, 32, 64, 128}");
+  TORCH_CHECK(q.size(0) * q.size(2) <= 65535, "B * H out of range");
+  TORCH_CHECK(q.size(1) < INT_MAX && k.size(1) < INT_MAX,
+              "sequence too long");
+  return GxAttnDims{static_cast<int>(q.size(0)), static_cast<int>(q.size(2)),
+                    static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+                    static_cast<int>(D), causal ? 1 : 0,
+                    q.scalar_type() == at::kBFloat16 ? 1 : 0,
+                    static_cast<float>(scale)};
+}
+
+// fp32, contiguous, of the given shape, on q's device
+void check_f32(const at::Tensor& t, at::IntArrayRef shape, const at::Tensor& q,
+               const char* name) {
+  check_contiguous(t, at::kFloat, name);
+  TORCH_CHECK(t.sizes() == shape, name, " has the wrong shape");
+  TORCH_CHECK(t.device() == q.device(), name, " on another device than q");
+}
+
+}  // namespace
+
+// q [B, Lq, H, D], k, v [B, Lk, H, D] -> out [B, Lq, H, D] (contiguous, q's
+// dtype) and, when given, lse [B, H, Lq] fp32.
+void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+               bool causal, double scale, const at::Tensor& out,
+               const c10::optional<at::Tensor>& lse) {
+  const GxAttnDims dims = attn_dims(q, k, causal, scale);
+  TORCH_CHECK(v.sizes() == k.sizes(), "k and v differ in shape");
+  check_contiguous(out, q.scalar_type(), "out");
+  TORCH_CHECK(out.sizes() == q.sizes() && out.device() == q.device(),
+              "out must be q's shape on q's device");
+  float* lse_ptr = nullptr;
+  if (lse.has_value()) {
+    check_f32(*lse, {q.size(0), q.size(2), q.size(1)}, q, "lse");
+    lse_ptr = lse->data_ptr<float>();
+  }
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(gx_flash_fwd(seq_operand(q, q, "q"), seq_operand(k, q, "k"),
+                            seq_operand(v, q, "v"), dims, out.data_ptr(),
+                            lse_ptr, at::cuda::getCurrentCUDAStream()),
+               "flash_fwd");
+}
+
+// dq [B, Lq, H, D] fp32 from q, k, v, dout, lse and delta [B, H, Lq] fp32.
+void flash_bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                  const at::Tensor& dout, const at::Tensor& lse,
+                  const at::Tensor& delta, bool causal, double scale,
+                  const at::Tensor& dq) {
+  const GxAttnDims dims = attn_dims(q, k, causal, scale);
+  TORCH_CHECK(v.sizes() == k.sizes() && dout.sizes() == q.sizes(),
+              "v must match k, dout must match q");
+  const std::vector<int64_t> rows{q.size(0), q.size(2), q.size(1)};
+  check_f32(lse, rows, q, "lse");
+  check_f32(delta, rows, q, "delta");
+  check_f32(dq, q.sizes(), q, "dq");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(gx_flash_bwd_dq(seq_operand(q, q, "q"), seq_operand(k, q, "k"),
+                               seq_operand(v, q, "v"),
+                               seq_operand(dout, q, "dout"),
+                               lse.data_ptr<float>(), delta.data_ptr<float>(),
+                               dims, dq.data_ptr<float>(),
+                               at::cuda::getCurrentCUDAStream()),
+               "flash_bwd_dq");
+}
+
+// dk, dv [B, Lk, H, D] fp32 from q, k, v, dout, lse and delta.
+void flash_bwd_dkv(const at::Tensor& q, const at::Tensor& k,
+                   const at::Tensor& v, const at::Tensor& dout,
+                   const at::Tensor& lse, const at::Tensor& delta, bool causal,
+                   double scale, const at::Tensor& dk, const at::Tensor& dv) {
+  const GxAttnDims dims = attn_dims(q, k, causal, scale);
+  TORCH_CHECK(v.sizes() == k.sizes() && dout.sizes() == q.sizes(),
+              "v must match k, dout must match q");
+  const std::vector<int64_t> rows{q.size(0), q.size(2), q.size(1)};
+  check_f32(lse, rows, q, "lse");
+  check_f32(delta, rows, q, "delta");
+  check_f32(dk, k.sizes(), q, "dk");
+  check_f32(dv, k.sizes(), q, "dv");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(gx_flash_bwd_dkv(seq_operand(q, q, "q"), seq_operand(k, q, "k"),
+                                seq_operand(v, q, "v"),
+                                seq_operand(dout, q, "dout"),
+                                lse.data_ptr<float>(), delta.data_ptr<float>(),
+                                dims, dk.data_ptr<float>(), dv.data_ptr<float>(),
+                                at::cuda::getCurrentCUDAStream()),
+               "flash_bwd_dkv");
+}
+
+// One ring hop: carries m, l [B, H, Lq] and o [B, Lq, H, D] fp32 in, the
+// updated carries out; diag selects the causal diagonal mode.
+void ring_hop(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+              const at::Tensor& m, const at::Tensor& l, const at::Tensor& o,
+              bool diag, double scale, const at::Tensor& m_out,
+              const at::Tensor& l_out, const at::Tensor& o_out) {
+  const GxAttnDims dims = attn_dims(q, k, diag, scale);
+  TORCH_CHECK(v.sizes() == k.sizes(), "k and v differ in shape");
+  const std::vector<int64_t> rows{q.size(0), q.size(2), q.size(1)};
+  for (const auto* t : {&m, &l, &m_out, &l_out}) check_f32(*t, rows, q, "m/l");
+  check_f32(o, q.sizes(), q, "o");
+  check_f32(o_out, q.sizes(), q, "o_out");
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(gx_ring_hop(seq_operand(q, q, "q"), seq_operand(k, q, "k"),
+                           seq_operand(v, q, "v"), m.data_ptr<float>(),
+                           l.data_ptr<float>(), o.data_ptr<float>(), dims,
+                           m_out.data_ptr<float>(), l_out.data_ptr<float>(),
+                           o_out.data_ptr<float>(),
+                           at::cuda::getCurrentCUDAStream()),
+               "ring_hop");
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flash_fwd", &flash_fwd);
+  m.def("flash_bwd_dq", &flash_bwd_dq);
+  m.def("flash_bwd_dkv", &flash_bwd_dkv);
+  m.def("ring_hop", &ring_hop);
   m.def("merge_sorted_pairs", &merge_sorted_pairs);
   m.def("bucket_flatten", &bucket_flatten);
   m.def("bucket_unflatten", &bucket_unflatten);

@@ -90,6 +90,44 @@ int gx_merge_sorted_pairs(const float* svals, const int* skey,
                           const int* rank, int rows, int m, int rounds,
                           float* out_vals, int* out_idx, cudaStream_t stream);
 
+// ---- attention (flash_attention.cu, ring_hop.cu) --------------------------
+// A [B, L, H, D] operand: element (b, l, h, d) at ptr + b*sb + l*sl + h*sh + d
+// (the head dim contiguous), fp32, or bf16 where GxAttnDims.bf16 says so.
+typedef struct {
+  const void* ptr;
+  long long sb, sl, sh;
+} GxSeqOperand;
+
+// Shapes and options of one attention call.  D must be one of 8, 16, 32,
+// 64, 128 (else cudaErrorInvalidValue); B * H at most 65,535.  causal is
+// the causal mask of the flash kernels and the diagonal mode of the hop.
+typedef struct {
+  int B, H, Lq, Lk, D;
+  int causal;
+  int bf16;
+  float scale;
+} GxAttnDims;
+
+// Forward: out [B, Lq, H, D] contiguous, in the operands' type; lse [B, H,
+// Lq] fp32, or null (the inference variant writes none).
+int gx_flash_fwd(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                 GxAttnDims dims, void* out, float* lse, cudaStream_t stream);
+// Backward, dq: lse, delta [B, H, Lq] fp32 -> dq [B, Lq, H, D] fp32.
+int gx_flash_bwd_dq(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                    GxSeqOperand dout, const float* lse, const float* delta,
+                    GxAttnDims dims, float* dq, cudaStream_t stream);
+// Backward, dk/dv: -> dk, dv [B, Lk, H, D] fp32.
+int gx_flash_bwd_dkv(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                     GxSeqOperand dout, const float* lse, const float* delta,
+                     GxAttnDims dims, float* dk, float* dv,
+                     cudaStream_t stream);
+// One ring hop: the carries m_in, l_in [B, H, Lq] and o_in [B, Lq, H, D]
+// (fp32, contiguous) -> m_out, l_out, o_out alike; o stays un-normalised.
+int gx_ring_hop(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                const float* m_in, const float* l_in, const float* o_in,
+                GxAttnDims dims, float* m_out, float* l_out, float* o_out,
+                cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -6,10 +6,13 @@ version on CPU tensors; none falls back from one to the other.  Each
 wrapper counts its kernel launches in a ``launches`` attribute, so a
 run can show that its main path went through the kernels.
 
-``KERNELS`` maps each ported TPU kernel's name to its wrapper.
+``KERNELS`` maps each ported TPU kernel's name to its wrapper;
+``VARIANTS`` maps a kernel variant to the counter of its launches, which
+its kernel's count includes (the forward without the logsumexp).
 """
 
-from geomx_tpu_torch.ops import bsc, bucket, merge, optim, twobit
+from geomx_tpu_torch.ops import (bsc, bucket, flash_attention, merge, optim,
+                                 ring_hop, twobit)
 
 KERNELS = {
     "fused_flatten": bucket.flatten,
@@ -21,13 +24,25 @@ KERNELS = {
     "quantize_2bit": twobit.quantize_2bit,
     "dequantize_2bit": twobit.dequantize_2bit,
     "merge_sorted_pairs": merge.merge_sorted_pairs,
+    "flash_attention_fwd": flash_attention.flash_attention_with_lse,
+    "flash_attention_dq": flash_attention.flash_dq,
+    "flash_attention_dkv": flash_attention.flash_dkv,
+    "fused_block": ring_hop.hop,
+}
+
+VARIANTS = {
+    "flash_attention_fwd_nolse": flash_attention.flash_attention,
 }
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *VARIANTS.values()):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def variant_launch_counts() -> dict:
+    return {name: fn.launches for name, fn in VARIANTS.items()}

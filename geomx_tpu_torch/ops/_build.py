@@ -21,7 +21,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("binding.cpp", "bucket.cu", "bsc.cu", "optim.cu", "twobit.cu",
-           "merge.cu")
+           "merge.cu", "flash_attention.cu", "flash_attention_dq.cu",
+           "flash_attention_dkv.cu", "ring_hop.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")

@@ -124,8 +124,10 @@ def unflatten(buckets: Sequence[torch.Tensor], layout: Layout,
     batch = tuple(buckets[0].shape[:-1])
     out = [torch.empty(batch + (int(size),), dtype=torch.float32,
                        device=buckets[0].device) for _, _, size in layout]
+    # an uncompressed all-reduce hands back broadcast views (stride 0 over
+    # the reduced replica dim): the kernel reads contiguous buckets
     unflatten.launches += kernels().bucket_unflatten(
-        list(buckets), out, [b for b, _, _ in layout],
+        [b.contiguous() for b in buckets], out, [b for b, _, _ in layout],
         [off for _, off, _ in layout])
     return out
 

@@ -9,6 +9,11 @@ result every replica along it receives — the same value the per-device
 collective hands each device.  Results of the sums are broadcast views
 (stride 0 over the reduced dim); per-replica slices of them stay
 contiguous.
+
+The sequence-parallel axis ``sp`` is not a state axis: an sp-aware model
+holds one replica's ``S`` sequence shards as dim 0 of its activations
+(``[S, ...]``), and the ``*_sp`` helpers below exchange data over that
+dim as the per-device collectives over the ``sp`` mesh axis do.
 """
 
 from __future__ import annotations
@@ -115,3 +120,38 @@ def worker_index(P: int, W: int, device=None) -> torch.Tensor:
 def global_worker_rank(P: int, W: int, device=None) -> torch.Tensor:
     """Linear rank over all workers (reference: kvstore rank)."""
     return party_index(P, W, device) * W + worker_index(P, W, device)
+
+
+# ---- the sp axis: dim 0 of a replica's activations ------------------------
+
+def ppermute_sp(x: torch.Tensor) -> torch.Tensor:
+    """The ring step ``lax.ppermute(x, "sp", [(i, (i + 1) % n)])``: shard
+    ``i`` receives shard ``i - 1``'s block."""
+    return torch.roll(x, 1, dims=0)
+
+
+def pmean_sp(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the sp shards, as every shard receives it."""
+    return x.mean(dim=0, keepdim=True).expand_as(x)
+
+
+def all_to_all_sp(x: torch.Tensor, split_dim: int,
+                  concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(x, "sp", split_axis, concat_axis, tiled=True)``
+    over the shards of ``x = [S, *s]``: ``split_dim`` and ``concat_dim``
+    index a shard's own dims ``s``.  Shard ``j`` of the result is the
+    concatenation, along ``concat_dim`` and in shard order, of chunk
+    ``j`` (of ``S`` along ``split_dim``) of every shard.  A copy."""
+    S = x.shape[0]
+    nd = x.dim() - 1
+    split, concat = split_dim % nd + 1, concat_dim % nd + 1
+    if x.shape[split] % S:
+        raise ValueError(f"dim {split_dim} ({x.shape[split]}) does not "
+                         f"split into {S} sp chunks")
+    # [src, ..., (dst, chunk) at split, ...]
+    y = x.unflatten(split, (S, x.shape[split] // S))
+    c = concat + (concat > split)  # concat's index after the unflatten
+    y = y.movedim(split, 0)        # [dst, src, ...]
+    c += (c < split)               # shifted by the move to the front
+    y = y.movedim(1, c - 1)        # src just before the concat dim
+    return y.flatten(c - 1, c)

@@ -17,6 +17,10 @@ from typing import Tuple
 # tensor, in this order).
 DC_AXIS = "dc"          # cross-party / global tier: dim 0
 WORKER_AXIS = "worker"  # intra-party / local tier: dim 1
+# Sequence-parallel axis: not a state axis.  State replicates over it;
+# an sp-aware model holds one replica's sequence shards as the leading
+# dim of its activations (``parallel/collectives.py`` sp helpers).
+SP_AXIS = "sp"
 
 
 def normalize_live_mask(mask, num_parties: int) -> Tuple[bool, ...]:
@@ -38,13 +42,18 @@ class HiPSTopology:
 
     ``num_parties`` is the number of data centers (the ``dc`` axis),
     ``workers_per_party`` the workers inside each (the ``worker`` axis).
+    ``sp_degree`` is the number of sequence shards of each replica (the
+    ``sp`` axis): an sp-aware model splits its sequence into that many
+    chunks, and the state stays replicated over them.
     """
 
     num_parties: int = 1
     workers_per_party: int = 1
+    sp_degree: int = 1
 
     def __post_init__(self):
-        if self.num_parties < 1 or self.workers_per_party < 1:
+        if self.num_parties < 1 or self.workers_per_party < 1 \
+                or self.sp_degree < 1:
             raise ValueError("topology sizes must be >= 1")
 
     @property
@@ -53,5 +62,6 @@ class HiPSTopology:
 
     @property
     def replica_shape(self) -> Tuple[int, int]:
-        """The leading ``[P, W]`` dims of every state tensor."""
+        """The leading ``[P, W]`` dims of every state tensor (the state
+        replicates over ``sp``)."""
         return (self.num_parties, self.workers_per_party)

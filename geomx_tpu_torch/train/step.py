@@ -14,8 +14,15 @@ With ``GeoConfig(fused_optim=True)`` and an optimizer from
 buckets: params and synced grads flatten onto the bucket layout, one
 fused kernel a bucket applies the step, and the params unflatten.
 
-Not ported yet: MultiGPS, ZeRO, sequence parallelism, telemetry probes
-and control operands.
+With an sp-aware model (one with an ``sp_mode``) on a topology with
+``sp_degree = S``, each replica's token batch ``[b, L, 2]`` is cut into
+``S`` contiguous sequence chunks stacked as ``[S, b, L/S, 2]`` — the
+chunks the JAX step's ``P(dc, worker, None, sp)`` input spec gives each
+sp device — and the model runs them in one graph
+(``models/seq_classifier.py``), so its gradients are already the true
+ones: no psum over sp follows.
+
+Not ported yet: MultiGPS, ZeRO, telemetry probes and control operands.
 """
 
 from __future__ import annotations
@@ -113,15 +120,30 @@ def _fused_spec(tx, config):
     return spec
 
 
-def build_train_step(loss_fn: Callable, tx, sync, topology, config=None):
+def sp_chunks(x: torch.Tensor, sp: int) -> torch.Tensor:
+    """One replica's ``[b, L, ...]`` token batch as ``sp`` contiguous
+    sequence chunks ``[sp, b, L/sp, ...]``."""
+    b, L = x.shape[:2]
+    if L % sp:
+        raise ValueError(f"sequence length {L} does not split into "
+                         f"{sp} sp chunks")
+    return x.reshape(b, sp, L // sp, *x.shape[2:]).transpose(0, 1) \
+        .contiguous()
+
+
+def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
+                     sp_model: bool = False):
     """Build ``train_step(state, x, y) -> (state, metrics)``.
 
     - state leaves carry ``[P, W]`` replica axes;
     - ``x``, ``y`` are ``[P, W, local_batch, ...]``;
-    - metrics are global means (0-d tensors on the device).
+    - metrics are global means (0-d tensors on the device);
+    - ``sp_model``: the model takes its sequence as sp chunks
+      (:func:`sp_chunks`, ``topology.sp_degree`` of them).
     """
     sync.bind_topology(topology)
     P, W = topology.replica_shape
+    sp = getattr(topology, "sp_degree", 1) if sp_model else None
     fopt_spec = _fused_spec(tx, config)
     fopt_bucketer = fused_bucketer(sync) if fopt_spec is not None else None
 
@@ -136,8 +158,8 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None):
                               .requires_grad_() for k in names}
                     fwd = sync.forward_params(leaves, state.sync_state)
                     ms = {k: t[p, w] for k, t in state.model_state.items()}
-                    loss, (new_ms, logits) = loss_fn(fwd, ms, x[p, w],
-                                                     y[p, w])
+                    xb = x[p, w] if sp is None else sp_chunks(x[p, w], sp)
+                    loss, (new_ms, logits) = loss_fn(fwd, ms, xb, y[p, w])
                     grads = torch.autograd.grad(loss,
                                                 [leaves[k] for k in names])
                     per_grads.append(grads)

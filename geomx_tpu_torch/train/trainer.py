@@ -7,6 +7,11 @@ weights live in the ``TrainState`` with ``[P, W]`` replica axes, and
 each replica's forward substitutes its own slice
 (``torch.func.functional_call``).
 
+An sp-aware model (``SeqClassifier(sp_mode="ring")``) takes each
+replica's sequence as ``topology.sp_degree`` chunks (``train/step.py``);
+evaluation runs its ``single_device_model`` twin, which has the
+same parameters and no sp axis.
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without that request it raises.  Not ported yet: membership epochs,
 checkpoints, scanned epochs, prefetch, telemetry, control, capsules and
@@ -40,9 +45,13 @@ from geomx_tpu_torch.utils.metrics import Measure
 class Trainer:
     def __init__(self, model: torch.nn.Module, topology: HiPSTopology,
                  optimizer, sync=None, config: Optional[GeoConfig] = None,
-                 device=None):
+                 device=None, single_device_model=None):
+        """``single_device_model``: a twin of ``model`` with the same
+        parameters and no sp axis, for evaluation; required to evaluate
+        an sp-aware model."""
         self.device = resolve_device(device)
         self.model = model
+        self._sd_model = single_device_model or model
         self.topology = topology
         self.config = config or GeoConfig(
             num_parties=topology.num_parties,
@@ -59,13 +68,23 @@ class Trainer:
                 "float32: its layers will promote back to fp32. Build the "
                 "model with get_model(name, precision='bf16')",
                 stacklevel=2)
+        sp_model = getattr(model, "sp_mode", None) is not None
+        if getattr(topology, "sp_degree", 1) > 1 and not sp_model:
+            warnings.warn(
+                f"topology has sp_degree={topology.sp_degree} but the "
+                "model declares no sp_mode: inputs stay replicated over "
+                "the sp axis and every sp device computes the same thing "
+                "— correct but wasted chips. Use an sp-aware model (e.g. "
+                "SeqClassifier(sp_mode='ring')) or sp_degree=1.",
+                RuntimeWarning, stacklevel=2)
         self.loss_fn = make_loss_fn(model, compute_dtype=compute_dtype)
         self.train_step = build_train_step(self.loss_fn, self.tx, self.sync,
-                                           topology, self.config)
+                                           topology, self.config,
+                                           sp_model=sp_model)
         # fused apply: init_state puts the optimizer state on the dc
         # tier's bucket layout (build_train_step checked the stack)
         self._fused_optim = fused_optim_enabled(self.config)
-        self.eval_step = build_eval_step(model)
+        self.eval_step = build_eval_step(self._sd_model)
 
     def init_state(self, seed: int = 0,
                    generator: Optional[torch.Generator] = None,

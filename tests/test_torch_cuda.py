@@ -68,6 +68,21 @@ def test_flatten_unflatten_match_plain(dev, bucket_bytes, expand_workers):
 
 
 @pytest.mark.cuda
+def test_unflatten_takes_broadcast_buckets(dev):
+    """The uncompressed dc tier's all-reduce returns its sum as a
+    broadcast view over the parties; unflatten reads it as the copy."""
+    from geomx_tpu_torch.parallel.collectives import psum
+    leaves = _resnet20_leaves(dev)
+    bk = GradientBucketer(leaves, batch_dims=2)
+    buckets = [psum(b, "dc") for b in bucket.flatten(
+        leaves, bk.layout(), bk.bucket_sizes, 2)]
+    assert not buckets[0].is_contiguous()
+    for a, b in zip(bucket.unflatten(buckets, bk.layout(), 2),
+                    bucket.unflatten_plain(buckets, bk.layout())):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_flatten_table_larger_than_one_launch(dev):
     """More (leaf, row) entries than one launch's parameter table holds:
     the wrapper splits the table and counts every launch."""
@@ -370,3 +385,135 @@ def test_trainer_step_launches_every_kernel(dev, path):
     assert torch.isfinite(m["loss"])
     want = {name: _STEP_LAUNCHES[path].get(name, 0) for name in ops.KERNELS}
     assert ops.launch_counts() == want
+
+
+# ---- attention: rows 10-13 of the kernel table ------------------------------
+# Held at a tolerance, not bit for bit: the kernels sum each row's products
+# in another order than the plain versions' matmuls.  fp32: forward 1e-5,
+# backward and hop 1e-4 (rtol and atol); bf16 inputs: the bf16 output one
+# ulp apart (2e-2), the fp32 gradients to 1e-2.
+
+def _attn(dev, shape, dtype=torch.float32, seed=0, n=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for _ in range(n)]
+
+
+_ATTN_CASES = [((16, 4096, 4, 16), False), ((2, 64, 4, 32), True),
+               ((1, 100, 2, 16), True), ((1, 100, 2, 16), False),
+               ((1, 16, 1, 8), True), ((2, 128, 4, 64), False),
+               ((1, 96, 2, 128), True), ((32, 256, 2, 16), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", _ATTN_CASES)
+def test_flash_kernels_match_plain(dev, shape, causal, dtype):
+    from geomx_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _attn(dev, shape, dtype, n=4)
+    fwd = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=2e-2)
+    bwd = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    before = fa.flash_attention_with_lse.launches
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal)
+    assert fa.flash_attention_with_lse.launches == before + 1
+    ref, ref_lse = fa.flash_attention_with_lse_plain(q, k, v, causal)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(), **fwd)
+    torch.testing.assert_close(lse, ref_lse, **fwd)
+    nolse = fa.flash_attention(q, k, v, causal)
+    assert torch.equal(nolse, out)
+    delta = fa.attention_delta(ref, g)
+    torch.testing.assert_close(fa.flash_dq(q, k, v, g, ref_lse, delta, causal),
+                               fa.flash_dq_plain(q, k, v, g, ref_lse, delta,
+                                                 causal), **bwd)
+    for a, b in zip(fa.flash_dkv(q, k, v, g, ref_lse, delta, causal),
+                    fa.flash_dkv_plain(q, k, v, g, ref_lse, delta, causal)):
+        torch.testing.assert_close(a, b, **bwd)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_strided_operands_and_empty_keys(dev):
+    """q, k, v as the strided slices of a fused projection; no keys at
+    all (every row fully masked: zeros, not NaN)."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    qkv = _attn(dev, (2, 64, 3, 4, 16), n=1)[0]
+    q, k, v = qkv.unbind(2)
+    out, lse = fa.flash_attention_with_lse(q, k, v, True)
+    ref, _ = fa.flash_attention_with_lse_plain(q, k, v, True)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    out0, lse0 = fa.flash_attention_with_lse(q, k[:, :0], v[:, :0])
+    assert torch.equal(out0, torch.zeros_like(out0))
+    assert bool((lse0 <= -1e29).all())
+    with pytest.raises(ValueError):
+        fa.flash_attention(*_attn(dev, (1, 16, 1, 12)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("hops_done", [0, 1])
+def test_ring_hop_matches_plain(dev, hops_done, diag, dtype):
+    from geomx_tpu_torch.ops import ring_hop
+    shape = (32, 128, 4, 16)
+    q, k, v = _attn(dev, shape, dtype, seed=hops_done)
+    B, L, H, _ = shape
+    if hops_done == 0:
+        m = torch.full((B, H, L), float("-inf"), device=dev)
+        l_acc = torch.zeros((B, H, L), device=dev)
+        o = torch.zeros(shape, device=dev)
+    else:
+        m, o = _attn(dev, (B, H, L), seed=5, n=1)[0], _attn(dev, shape,
+                                                             seed=6, n=1)[0]
+        l_acc = m.abs() + 0.5
+    before = ring_hop.hop.launches
+    got = ring_hop.hop(q, k, v, m, l_acc, o, 0.25, diag)
+    assert ring_hop.hop.launches == before + 1
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    for a, b in zip(got, ring_hop.hop_plain(q, k, v, m, l_acc, o, 0.25, diag)):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, **tol)
+
+
+# one step's launches of the small SeqClassifier (2 layers) on [2, 1] x sp
+# 2: the flash kernels once a layer and replica; the ring hop twice (two
+# hops, both shards in one launch); the uncompressed dc tier's bucket
+# flatten and unflatten once (two parties: its sum is a broadcast view)
+_FLASH = {"flash_attention_fwd": 4, "flash_attention_dq": 4,
+          "flash_attention_dkv": 4}
+_BUCKET = {"fused_flatten": 1, "fused_unflatten": 1}
+_SEQ_LAUNCHES = {None: {**_FLASH, **_BUCKET}, "ulysses": {**_FLASH, **_BUCKET},
+                 "ring": {"fused_block": 8, **_BUCKET}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "ring", "ulysses"])
+def test_seq_trainer_step_launches_attention_kernels(dev, mode):
+    from geomx_tpu_torch import HiPSTopology, ops
+    from geomx_tpu_torch.models import SeqClassifier
+    from geomx_tpu_torch.optim import adam
+    from geomx_tpu_torch.train import Trainer
+
+    mk = dict(vocab=64, max_len=64, dim=32, num_heads=4, num_layers=2,
+              num_classes=4)
+    t = Trainer(SeqClassifier(sp_mode=mode, **mk),
+                HiPSTopology(2, 1, sp_degree=1 if mode is None else 2),
+                adam(1e-3), device=dev,
+                single_device_model=SeqClassifier(**mk))
+    st = t.init_state(seed=0)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(4, 64, (2, 1, 4, 64))
+    pos = np.broadcast_to(np.arange(64), tok.shape)
+    x = torch.as_tensor(np.stack([tok, pos], -1).astype(np.int32), device=dev)
+    y = torch.as_tensor(rng.randint(0, 4, (2, 1, 4)), device=dev)
+    ops.reset_launch_counts()
+    st, m = t.train_step(st, x, y)
+    assert torch.isfinite(m["loss"])
+    want = {name: _SEQ_LAUNCHES[mode].get(name, 0) for name in ops.KERNELS}
+    assert ops.launch_counts() == want
+    t.evaluate(st, np.stack([tok[0, 0], pos[0, 0]], -1).astype(np.int32),
+               np.zeros(4, np.int64))
+    assert ops.variant_launch_counts()["flash_attention_fwd_nolse"] == 2

@@ -10,7 +10,9 @@ set; --path flagship: [2, 4], "bsc,0.01" with sgd(0.1, momentum=0.9),
 fused_sgd: the same with the fused optimizer apply, twobit_adam:
 [2, 4], "2bit,0.5" with the fused Adam(0.01), sparse_agg: [4, 2], the
 owner-routed "bsc,0.01,select=sampled,sparse_agg=1" with the fused
-SGD) for three warm-up steps, times --steps steps
+SGD; seq_flash and seq_ring: chip_smoke.py's attention paths, the
+SeqClassifier on the needle task, --batch sequences a replica, 16 by
+default) for three warm-up steps, times --steps steps
 with the host clock (ending in a synchronize), then runs --steps more
 under torch.profiler (CPU and CUDA activities) and reports:
 
@@ -37,7 +39,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-SPANS = ("train/forward_backward", "train/sync_grads", "bucket/flatten",
+SPANS = ("train/forward_backward", "attention/forward",
+         "attention/backward", "train/sync_grads", "bucket/flatten",
          "dc_allreduce/bucket0", "bsc/threshold", "bsc/select_pack",
          "sparseagg/route", "sparseagg/merge", "sparseagg/reselect",
          "bsc/scatter_add", "twobit/quantize", "twobit/dequantize",
@@ -63,10 +66,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", default="flagship",
                     choices=("flagship", "fused_sgd", "twobit_adam",
-                             "sparse_agg"))
+                             "sparse_agg", "seq_flash", "seq_ring"))
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--batch", type=int, default=128,
-                    help="images a replica a step")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="images (sequences) a replica a step: 128 (16)")
     ap.add_argument("--out", help="write the report to this JSON file")
     args = ap.parse_args(argv)
 
@@ -77,8 +80,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_step: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import make_trainer
-    from geomx_tpu_torch.data import load_dataset
+    from chip_smoke import SEQ_PATHS, make_seq_trainer, make_trainer
+    from geomx_tpu_torch.data import (load_dataset, make_needle_data,
+                                      with_positions)
     from geomx_tpu_torch.models import get_model
     from geomx_tpu_torch.ops import _build
 
@@ -88,11 +92,22 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _build.kernels()
-    trainer = make_trainer(args.path, get_model("resnet20"))
-    need = 8 * args.batch * (3 + 2 * args.steps)
-    data = load_dataset("synthetic", synthetic_train_n=need)
-    loader = trainer.make_loader(data["train_x"], data["train_y"],
-                                 args.batch)
+    if args.path in SEQ_PATHS:
+        sp_mode, shape, seq_len, batch = SEQ_PATHS[args.path][:4]
+        args.batch = args.batch or batch
+        trainer = make_seq_trainer(sp_mode, shape, seq_len)
+        replicas = shape[0] * shape[1]
+        x, y = make_needle_data(
+            replicas * args.batch * (3 + 2 * args.steps), seq_len)
+        loader = trainer.make_loader(with_positions(x), y, args.batch)
+    else:
+        args.batch = args.batch or 128
+        trainer = make_trainer(args.path, get_model("resnet20"))
+        replicas = 8
+        need = replicas * args.batch * (3 + 2 * args.steps)
+        data = load_dataset("synthetic", synthetic_train_n=need)
+        loader = trainer.make_loader(data["train_x"], data["train_y"],
+                                     args.batch)
     batches = iter(loader.epoch(0))
     state = trainer.init_state(seed=0)
 
@@ -145,8 +160,8 @@ def main(argv=None) -> int:
     busy = busy_us(intervals)
     report = dict(
         card=card, path=args.path, batch_per_replica=args.batch,
-        samples_per_step=8 * args.batch, steps=args.steps,
-        step_ms=step_s * 1e3, samples_per_s=8 * args.batch / step_s,
+        samples_per_step=replicas * args.batch, steps=args.steps,
+        step_ms=step_s * 1e3, samples_per_s=replicas * args.batch / step_s,
         profiled_step_ms=prof_step_s * 1e3,
         kernels_per_step=len(kern) / args.steps,
         device_busy_ms_per_step=busy / args.steps / 1e3,
