@@ -24,7 +24,11 @@ Every phase's failure is fatal (non-zero exit, no result line):
               there is one (scaled_dot_product_attention for the flash
               kernels, naming the backend it ran), and its bound: bytes at
               the card's 3.35 TB/s or flops at its 67 TFLOP/s fp32 rate,
-              whichever is larger;
+              whichever is larger; for the four attention kernels the
+              larger of the bytes, the products as split TF32 (3x the
+              flops) at 495 TFLOP/s and the exponentials at the MUFU
+              rate, the fp32 figure beside it; two calls of the flash
+              backward's dq and dk/dv kernels give the same bits;
 4. reference -- two fp32 training steps on the card and on the CPU (plain
               versions) from the same weights and batches: a small ResNet
               for each path's configuration and four more compressors
@@ -84,7 +88,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12         # H100 SXM fp32 on the CUDA cores (data sheet)
-TF32_FLOPS = 495e12        # dense TF32 tensor cores: the redesign's target
+TF32_FLOPS = 495e12        # dense TF32 tensor cores (data sheet)
+# the MUFU unit's exponentials: 16 a clock an SM, 132 SMs at 1.98 GHz
+EXP_PER_S = 132 * 16 * 1.98e9
 REPLACES = {
     "fused_flatten": ("geomx_tpu_torch/csrc/bucket.cu",
                       "geomx_tpu/ops/bucket_pallas.py:92"),
@@ -262,6 +268,27 @@ def op_bound(nbytes: int, flops: int):
     """(bound ms, "bytes" or "operations") at the fp32 CUDA-core rate."""
     b, f = bound_ms(nbytes), flops / FP32_FLOPS * 1e3
     return (f, "operations") if f >= b else (b, "bytes")
+
+
+def attn_bound(nbytes: int, flops: int, exps: int):
+    """The attention kernels' bound: (ms, "bytes" or "operations", which
+    of the three it is) -- the larger of the bytes at 3.35 TB/s, the
+    products as split TF32 (3 TF32 products for each fp32 one, the
+    tensor-core route to fp32 accuracy) at 495 TFLOP/s and the
+    exponentials at the MUFU rate; the fp32 CUDA-core figure of
+    op_bound() stays beside it as fp32_bound_ms."""
+    cands = [(bound_ms(nbytes), "bytes", "bytes"),
+             (3 * flops / TF32_FLOPS * 1e3, "operations",
+              "split-TF32 tensor operations"),
+             (exps / EXP_PER_S * 1e3, "operations", "exponentials")]
+    return max(cands, key=lambda c: c[0])
+
+
+def attn_record(nbytes: int, flops: int, exps: int, **kw) -> dict:
+    """A kernel-phase record of rows 10-13 with both bounds."""
+    bound, by, kind = attn_bound(nbytes, flops, exps)
+    return dict(kw, bound_ms=bound, bound_by=by, bound_kind=kind,
+                fp32_bound_ms=op_bound(nbytes, flops)[0])
 
 
 def max_err(torch, got, ref) -> float:
@@ -624,9 +651,10 @@ def attention_kernels(torch, dev, timer=None):
     2 x 16, 128, 4, 16]) and on the JAX tests' edge cases.  Held at fp32
     rtol/atol 1e-5 forward, 1e-4 backward and hop, 2e-2/1e-2 for bf16
     inputs: the kernels sum each row's products in another order than the
-    plain versions' matmuls.  Times over 20 calls; the bound is the larger
-    of the bytes at 3.35 TB/s and the flops at the 67 TFLOP/s fp32 rate,
-    with the 495 TFLOP/s TF32 tensor-core bound beside it."""
+    plain versions' matmuls, the backward's in split TF32 on the tensor
+    cores).  Two calls of dq and of dk/dv must give the same bits.  Times
+    over 20 calls; the bound is attn_bound()'s, with the fp32 CUDA-core
+    bound beside it."""
     import torch.nn.functional as F
 
     from geomx_tpu_torch.ops import flash_attention as fa
@@ -647,14 +675,12 @@ def attention_kernels(torch, dev, timer=None):
     ro, rlse = fa.flash_attention_with_lse_plain(q, k, v)
     qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
     sdpa = (lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    bound, by = op_bound(4 * (4 * elems + rows), 4 * pairs * D)
-    out["flash_attention_fwd"] = dict(
+    out["flash_attention_fwd"] = attn_record(
+        4 * (4 * elems + rows), 4 * pairs * D, pairs,
         max_abs_err=close_err(torch, [o, lse], [ro, rlse], 1e-5, 1e-5),
         ms=timer(lambda: fa.flash_attention_with_lse(q, k, v)),
         nolse_ms=timer(lambda: fa.flash_attention(q, k, v)),
         plain_ms=timer(lambda: fa.flash_attention_with_lse_plain(q, k, v)),
-        bound_ms=bound, bound_by=by,
-        tf32_bound_ms=4 * pairs * D / TF32_FLOPS * 1e3,
         library_ms=timer(sdpa),
         library="scaled_dot_product_attention forward: "
         + sdpa_kernels(torch, sdpa))
@@ -663,6 +689,12 @@ def attention_kernels(torch, dev, timer=None):
     rdq = fa.flash_dq_plain(q, k, v, g, rlse, delta)
     dk, dv = fa.flash_dkv(q, k, v, g, rlse, delta)
     rdk, rdv = fa.flash_dkv_plain(q, k, v, g, rlse, delta)
+    # no atomics: a second call gives the same bits
+    if not (torch.equal(dq, fa.flash_dq(q, k, v, g, rlse, delta)) and all(
+            torch.equal(a, b) for a, b in
+            zip((dk, dv), fa.flash_dkv(q, k, v, g, rlse, delta)))):
+        raise AssertionError("flash backward: two calls differ")
+    log("  flash dq, dk/dv: two calls give the same bits")
     # the library's backward: one autograd call over a retained graph
     # computes dq, dk and dv together (rows 11 and 12 at once)
     qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
@@ -674,22 +706,18 @@ def attention_kernels(torch, dev, timer=None):
         F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), gt))
     lib_name = ("scaled_dot_product_attention backward (dq, dk and dv): "
                 + sdpa_kernels(torch, sdpa_bwd))
-    bound, by = op_bound(4 * (5 * elems + 2 * rows), 6 * pairs * D)
-    out["flash_attention_dq"] = dict(
+    out["flash_attention_dq"] = attn_record(
+        4 * (5 * elems + 2 * rows), 6 * pairs * D, pairs,
         max_abs_err=close_err(torch, [dq], [rdq], 1e-4, 1e-4),
         ms=timer(lambda: fa.flash_dq(q, k, v, g, rlse, delta)),
         plain_ms=timer(lambda: fa.flash_dq_plain(q, k, v, g, rlse, delta)),
-        bound_ms=bound, bound_by=by,
-        tf32_bound_ms=6 * pairs * D / TF32_FLOPS * 1e3,
         library_ms=lib_bwd, library=lib_name,
         library_fwd_bwd_ms=lib_fwd_bwd)
-    bound, by = op_bound(4 * (6 * elems + 2 * rows), 8 * pairs * D)
-    out["flash_attention_dkv"] = dict(
+    out["flash_attention_dkv"] = attn_record(
+        4 * (6 * elems + 2 * rows), 8 * pairs * D, pairs,
         max_abs_err=close_err(torch, [dk, dv], [rdk, rdv], 1e-4, 1e-4),
         ms=timer(lambda: fa.flash_dkv(q, k, v, g, rlse, delta)),
         plain_ms=timer(lambda: fa.flash_dkv_plain(q, k, v, g, rlse, delta)),
-        bound_ms=bound, bound_by=by,
-        tf32_bound_ms=8 * pairs * D / TF32_FLOPS * 1e3,
         library_ms=lib_bwd, library=lib_name,
         library_fwd_bwd_ms=lib_fwd_bwd)
     del qg, kg, vg, so
@@ -702,16 +730,14 @@ def attention_kernels(torch, dev, timer=None):
     scale = 0.25
     got = ring_hop.hop(hq, hk, hv, hm, hl, ho, scale, False)
     hop_pairs, hop_elems = 32 * 4 * 128 * 128, math.prod(hs)
-    bound, by = op_bound(4 * (6 * hop_elems + 4 * 32 * 4 * 128),
-                         4 * hop_pairs * 16)
     hop_args = (hq, hk, hv, hm, hl, ho, scale, False)
-    out["fused_block"] = dict(
+    out["fused_block"] = attn_record(
+        4 * (6 * hop_elems + 4 * 32 * 4 * 128), 4 * hop_pairs * 16,
+        hop_pairs,
         max_abs_err=close_err(torch, got, ring_hop.hop_plain(*hop_args),
                               1e-4, 1e-4),
         ms=timer(lambda: ring_hop.hop(*hop_args)),
         plain_ms=timer(lambda: ring_hop.hop_plain(*hop_args)),
-        bound_ms=bound, bound_by=by,
-        tf32_bound_ms=4 * hop_pairs * 16 / TF32_FLOPS * 1e3,
         library_ms=None)
 
     # -- edge cases of the JAX tests ------------------------------------------
@@ -1051,10 +1077,11 @@ def main(argv=None) -> int:
             else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"kernel {name}: {r['ms'] * 1e3:.1f} us (plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
-            f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), "
-            + ("bit-equal" if "tf32_bound_ms" not in r else
-               f"max abs err {r['max_abs_err']:.3g}; TF32 bound "
-               f"{r['tf32_bound_ms'] * 1e3:.2f} us")
+            f"{r['bound_ms'] * 1e3:.2f} us by "
+            f"{r.get('bound_kind', r['bound_by'])}), "
+            + ("bit-equal" if "fp32_bound_ms" not in r else
+               f"max abs err {r['max_abs_err']:.3g}; fp32 CUDA-core bound "
+               f"{r['fp32_bound_ms'] * 1e3:.2f} us")
             + (f"; without the logsumexp {r['nolse_ms'] * 1e3:.1f} us"
                if "nolse_ms" in r else "")
             + (f"; library: {r['library']}" if "library" in r else "")

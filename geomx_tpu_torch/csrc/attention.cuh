@@ -1,14 +1,16 @@
-// Device helpers shared by the attention kernels (flash_attention.cu,
-// flash_attention_dq.cu, flash_attention_dkv.cu, ring_hop.cu): operand access, tile staging, the online-softmax tile step
-// and the dispatch over the operands' type and head dim.
+// Device helpers of the CUDA-core attention kernels (flash_attention.cu,
+// ring_hop.cu): operand access, tile staging, the online-softmax tile step;
+// and, for those and the tensor-core backward (flash_attention_dq.cu,
+// flash_attention_dkv.cu, attention_mma.cuh), the dispatch over the
+// operands' type and head dim.
 //
 // Layout: one thread owns one row of the operand its block walks (a query
-// row for the forward, dq and the hop; a key row for dk/dv) and keeps that
-// row, its accumulators and its softmax state in registers.  The other
-// operand streams through shared memory kTile rows at a time, converted to
-// fp32 once; every thread of a warp reads the same staged element, so the
-// reads are broadcasts.  Rows and tiles past the sequence ends are masked
-// in the kernels, never padded in memory.
+// row for the forward and the hop) and keeps that row, its accumulators
+// and its softmax state in registers.  The other operand streams through
+// shared memory kTile rows at a time, converted to fp32 once; every thread
+// of a warp reads the same staged element, so the reads are broadcasts.
+// Rows and tiles past the sequence ends are masked in the kernels, never
+// padded in memory.
 #pragma once
 
 #include <cuda_bf16.h>

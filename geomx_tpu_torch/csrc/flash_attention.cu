@@ -1,43 +1,34 @@
-// Flash attention for Hopper, fp32 on the CUDA cores: the design of the three
-// kernels, and the forward.
+// Flash attention for Hopper: the forward, fp32 on the CUDA cores.
 //
-// The backward's two passes live in flash_attention_dq.cu and
-// flash_attention_dkv.cu: three sources, so the build compiles them in
+// The backward's two passes (dq, dk/dv) live in flash_attention_dq.cu and
+// flash_attention_dkv.cu, on the tensor cores (split-TF32 wgmma,
+// attention_mma.cuh): three sources, so the build compiles them in
 // parallel.
 //
-// Replaces the Pallas kernels of geomx_tpu/ops/flash_attention.py:
-//   - flash_fwd_kernel: flash_attention_with_lse / flash_attention
-//     (_fa_kernel, _fa_kernel_nolse; pallas_call :154) — the online-softmax
-//     forward with -1e30 masking (keys past kv_len, the causal triangle),
-//     l = max(l, 1e-20) so a fully-masked row gives 0, and lse = m + log(l)
-//     on the with-lse variant only;
-//   - flash_dq_kernel: flash_attention_bwd's dq (_dq_kernel; :339) —
-//     p = exp(s - lse) masked, ds = p (dO V^T - delta), dq = sum_k ds K scale;
-//   - flash_dkv_kernel: flash_attention_bwd's dk/dv (_dkv_kernel; :353) —
-//     dk = sum_q ds^T Q scale, dv = sum_q p^T dO.
+// Replaces flash_attention_with_lse / flash_attention of
+// geomx_tpu/ops/flash_attention.py (_fa_kernel, _fa_kernel_nolse;
+// pallas_call :154): the online-softmax forward with -1e30 masking (keys
+// past kv_len, the causal triangle), l = max(l, 1e-20) so a fully-masked
+// row gives 0, and lse = m + log(l) on the with-lse variant only.
 //
-// Design.  The TPU kernels walk a sequential grid dimension (keys for the
-// forward and dq, queries for dk/dv) with the accumulators in VMEM scratch.
-// Here that dimension is a loop inside a block: one thread owns one row
-// (a query row, or a key row for dk/dv), holds it and its accumulators in
-// registers, and the other operand streams through shared memory 32 rows a
-// stage (attention.cuh).  The split into a dq pass and a dk/dv pass keeps
-// every sum in one thread, in a fixed order: no atomics, and the result
-// does not change from run to run.  Causal tiles wholly in every row's
-// future (forward, dq) or wholly above the diagonal (dk/dv) are skipped;
-// ragged ends are masked, never padded in memory.  Operands are read in
-// place through their [B, L, H, D] strides (the head dim contiguous), fp32
-// or bf16, and every product and sum is fp32 on the CUDA cores: no TF32,
-// no tensor cores.
+// Design.  The TPU kernel walks the keys as a sequential grid dimension
+// with the accumulators in VMEM scratch.  Here that dimension is a loop
+// inside a block: one thread owns one query row, holds it and its
+// accumulators in registers, and the keys stream through shared memory 32
+// rows a stage (attention.cuh).  Causal tiles wholly in every row's future
+// are skipped; ragged ends are masked, never padded in memory.  Operands
+// are read in place through their [B, L, H, D] strides (the head dim
+// contiguous), fp32 or bf16, and every product and sum is fp32 on the CUDA
+// cores.
 //
-// Bound: operations.  The forward does 4 B H Lq Lk D flops (QK^T and PV),
-// dq 6 and dk/dv 8 B H Lq Lk D (about half of each when causal), plus
-// B H Lq Lk exponentials, against the card's 67 TFLOP/s fp32 rate; the
-// bytes (each operand read once, each output written once) are a few MB.
-// At head dim 16 a thread does 2 D fused multiply-adds a key between
-// broadcast shared-memory reads, so instruction throughput holds the
-// kernels well below that peak.  The tensor-core redesign (TF32 or bf16
-// wgmma) is later work.
+// Bound: operations.  The forward does 4 B H Lq Lk D flops (QK^T and PV)
+// and B H Lq Lk exponentials; on the tensor cores in split TF32 (3x the
+// flops at 495 TFLOP/s) that is the larger bound; the bytes (each operand
+// read once, each output written once) are a few MB.  At head dim 16 a
+// thread does 2 D fused multiply-adds a key between broadcast
+// shared-memory reads, so instruction throughput on the CUDA cores holds
+// the kernel well above that bound.  Its tensor-core redesign is the next
+// kernel work.
 #include "attention.cuh"
 
 namespace {

@@ -1,68 +1,240 @@
-// The flash backward's dk/dv pass for Hopper, fp32 on the CUDA cores.
+// The flash backward's dk/dv pass for Hopper, on the tensor cores: wgmma
+// in split TF32 (3 TF32 products for each fp32 one), fp32 accumulators.
 //
 // Replaces geomx_tpu/ops/flash_attention.py flash_attention_bwd's
-// _dkv_kernel (pallas_call :353).
-// Design and bound: flash_attention.cu.
-#include "attention.cuh"
+// _dkv_kernel (pallas_call :353): for the keys of a block,
+//   s = (q k^T) scale, p = exp(s - lse) (0 where masked: queries past Lq,
+//   the causal triangle), dp = dO v^T, ds = p (dp - delta),
+//   dk = sum_q ds^T q scale, dv = sum_q p^T dO.
+//
+// Design.  A block is one warpgroup and owns 192 keys of one (b, h) (64
+// for head dims above 16): their K and V rows stay in shared memory, split
+// hi/lo.  It walks the query tiles of kBq rows (32 for head dims up to 16,
+// 64, 32, 16 for 32, 64, 128), staged by cp.async one tile ahead and split
+// once into Q, dO (the B operands of the score products, as they are) and
+// Q^T, dO^T (the B operands of the gradient products, depth permuted,
+// attention_mma.cuh); then, for each group of 64 keys,
+//   S^T = K Q^T, dP^T = V dO^T     (wgmma SS, M 64 keys, N kBq, depth D)
+//   P^T, dS^T in the accumulators  (exp2 of one FFMA: the scale and lse
+//                                   folded with log2(e); masks only on
+//                                   ragged and diagonal tiles)
+//   dV += P^T dO, dK += dS^T Q     (wgmma RS: P^T, dS^T as register A
+//                                   fragments, M 64, N D, depth kBq; a
+//                                   tile's sum added to the fp32 total in
+//                                   round-to-nearest, since the tensor
+//                                   cores' own sums truncate).
+// The staged tile's copy and split are the kernel's largest cost after
+// the products, and three key groups share each.
+// Every product is hi hi + hi lo + lo hi (fp32 inputs) or, for bf16
+// inputs (exact in TF32), one product for S^T and dP^T and the two of the
+// fp32 P^T and dS^T against the exact operand.  No atomics: each dk/dv
+// element is summed by one warpgroup in a fixed order, so a call gives the
+// same bits every time.
+//
+// Bound: operations.  At seq_flash's shape (B 16, L 4096, H 4, D 16) the
+// four products are 8 B H L^2 D = 137 GFLOP, 412 GFLOP of TF32 with the
+// split: 833 us at the card's 495 TFLOP/s; the B H L^2 = 1.07 G
+// exponentials take 257 us of the MUFU unit (16 a clock an SM); the bytes
+// (q, k, v, dO read, dk, dv written) take 12 us.  Shared memory feeds
+// wgmma at 128 bytes a clock an SM, which a 64 x 64 x 8 TF32 product from
+// two shared operands already uses in full; the conversion pass's stores
+// share that port.
+#include "attention.cuh"  // dims_ok and the dispatch
+#include "attention_mma.cuh"
 
 namespace {
 
-using gx_attn::kRows;
-using gx_attn::kTile;
+using namespace gx_mma;
+
+// query rows a stage and the 64-key groups a block owns: for narrow heads
+// three groups share each staged query tile, which cuts the copies and
+// splits a key pays for to a third; 32 rows keep the registers of three
+// groups' accumulators without spills (on the H100 this measured faster
+// than two groups of 64 rows)
+__host__ __device__ constexpr int dkv_rows(int D) {
+  return D <= 16 ? 32 : (D <= 32 ? 64 : (D == 64 ? 32 : 16));
+}
+__host__ __device__ constexpr int dkv_groups(int D) {
+  return D <= 16 ? 3 : 1;
+}
+
+// the shared memory of one block, in floats
+template <typename T, int D>
+struct DkvSmem {
+  static constexpr int kBq = dkv_rows(D), kG = dkv_groups(D);
+  static constexpr int kP = parts<T>();
+  static constexpr int kFixed = kP * kG * kRows * D;  // K or V, all parts
+  static constexpr int kOp = kP * kBq * D;  // one layout of Q or dO
+  static constexpr int kRaw = kBq * D * sizeof(T) / 4;  // a staged tile
+  static constexpr int kK = 0, kV = kFixed, kQn = 2 * kFixed,
+                       kQt = kQn + kOp, kDOn = kQt + kOp, kDOt = kDOn + kOp,
+                       kLse = kDOt + kOp, kDelta = kLse + kBq,
+                       kRawAt = kDelta + kBq,       // [stage][q, dO]
+                       kVecAt = kRawAt + 4 * kRaw,  // [stage][lse, delta]
+                       kEnd = kVecAt + 4 * kBq;
+  static constexpr int kBytes = kEnd * 4;
+  static_assert(kBytes <= 227 * 1024, "dk/dv tiles exceed shared memory");
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                  GxSeqOperand dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, GxAttnDims dims,
-                 float* __restrict__ dk, float* __restrict__ dv) {
-  __shared__ __align__(16) float qs[kTile * D];
-  __shared__ __align__(16) float dos[kTile * D];
-  __shared__ float lses[kTile];
-  __shared__ float deltas[kTile];
+                 int async16, float* __restrict__ dk,
+                 float* __restrict__ dv) {
+  using S = DkvSmem<T, D>;
+  constexpr int Bq = S::kBq, G = S::kG, P = S::kP, NB = Bq / 8;
+  constexpr int kKeys = G * kRows;  // keys a block owns
+  extern __shared__ __align__(128) float sm[];
   const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
-  const int c0 = blockIdx.x * kRows, col = c0 + threadIdx.x;
-  const bool live = col < dims.Lk;
-  float kr[D], vr[D], dka[D], dva[D];
-  gx_attn::load_row<T, D>(k, b, col, h, live, kr);
-  gx_attn::load_row<T, D>(v, b, col, h, live, vr);
-#pragma unroll
-  for (int d = 0; d < D; ++d) dka[d] = dva[d] = 0.f;
-  // causal: query rows before the block's first key attend to none of it
-  const int istart = dims.causal ? min(c0, dims.Lq) / kTile * kTile : 0;
+  const int c0 = blockIdx.x * kKeys;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
+            tq = threadIdx.x % 4;
+  T* raw = reinterpret_cast<T*>(sm + S::kRawAt);
+  float* vec = sm + S::kVecAt;
   const long long rbase = static_cast<long long>(bh) * dims.Lq;
-  for (int i0 = istart; i0 < dims.Lq; i0 += kTile) {
-    gx_attn::stage_tile<T, D>(q, b, h, i0, dims.Lq, qs);
-    gx_attn::stage_tile<T, D>(dout, b, h, i0, dims.Lq, dos);
-    for (int i = threadIdx.x; i < kTile; i += kRows) {
-      const bool in = i0 + i < dims.Lq;
-      lses[i] = in ? lse[rbase + i0 + i] : 0.f;
-      deltas[i] = in ? delta[rbase + i0 + i] : 0.f;
-    }
-    __syncthreads();
-    const bool whole = i0 + kTile <= dims.Lq &&
-                       (!dims.causal || i0 >= c0 + kRows - 1);
-#pragma unroll 4
-    for (int i = 0; i < kTile; ++i) {
-      const int row = i0 + i;
-      const bool keep = live && (whole || (row < dims.Lq &&
-                                           !(dims.causal && col > row)));
-      const float s = gx_attn::dot_row<D>(kr, qs + i * D) * dims.scale;
-      const float dp = gx_attn::dot_row<D>(vr, dos + i * D);
-      const float p = keep ? expf(s - lses[i]) : 0.f;
-      gx_attn::axpy_row<D>(p * (dp - deltas[i]), qs + i * D, dka);
-      gx_attn::axpy_row<D>(p, dos + i * D, dva);
-    }
-    __syncthreads();
-  }
-  if (!live) return;
-  const long long off =
-      (static_cast<long long>(b) * dims.Lk + col) * dims.H * D +
-      static_cast<long long>(h) * D;
+  // causal: query rows before the block's first key attend to none of it
+  const int istart = dims.causal ? min(c0, dims.Lq) / Bq * Bq : 0;
+  const int ntiles = (dims.Lq - istart + Bq - 1) / Bq;
+  // tile t's rows of Q, dO, lse and delta into raw stage t % 2
+  auto stage = [&](int t) {
+    const int i0 = istart + t * Bq, st = t & 1;
+    stage_rows<T, D, Bq>(q, b, h, i0, dims.Lq, async16,
+                         raw + 2 * st * Bq * D);
+    stage_rows<T, D, Bq>(dout, b, h, i0, dims.Lq, async16,
+                         raw + (2 * st + 1) * Bq * D);
+    stage_vec(lse + rbase, i0, dims.Lq, Bq, vec + 2 * st * Bq);
+    stage_vec(delta + rbase, i0, dims.Lq, Bq, vec + (2 * st + 1) * Bq);
+  };
+  if (ntiles > 0) stage(0);
+  cp_async_commit();
+  load_fixed<T, D, kKeys>(k, b, h, c0, dims.Lk, sm + S::kK,
+                          sm + S::kK + kKeys * D);
+  load_fixed<T, D, kKeys>(v, b, h, c0, dims.Lk, sm + S::kV,
+                          sm + S::kV + kKeys * D);
+
+  float dka[G][D / 2], dva[G][D / 2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dk[off + d] = dka[d] * dims.scale;
-    dv[off + d] = dva[d];
+  for (int u = 0; u < G; ++u) {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dka[u][e] = dva[u][e] = 0.f;
+  }
+  const float c = dims.scale * kLog2e;
+  for (int t = 0; t < ntiles; ++t) {
+    const int i0 = istart + t * Bq, st = t & 1;
+    if (t + 1 < ntiles) stage(t + 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    convert<T, D, Bq>(raw + 2 * st * Bq * D, sm + S::kQn, sm + S::kQt);
+    convert<T, D, Bq>(raw + (2 * st + 1) * Bq * D, sm + S::kDOn,
+                      sm + S::kDOt);
+    for (int i = threadIdx.x; i < Bq; i += kThreads) {
+      sm[S::kLse + i] = vec[2 * st * Bq + i] * kLog2e;
+      sm[S::kDelta + i] = vec[(2 * st + 1) * Bq + i];
+    }
+    fence_async_smem();
+    __syncthreads();
+
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int k0 = c0 + u * kRows;  // this group's first key
+      // S^T = K Q^T and dP^T = V dO^T: [64 keys][Bq queries]
+      float s[Bq / 2], dp[Bq / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float* kj = sm + S::kK + u * kRows * D + j * 64;
+        const float* vj = sm + S::kV + u * kRows * D + j * 64;
+        const float* qj = sm + S::kQn + j * 64;
+        const float* oj = sm + S::kDOn + j * 64;
+        Wgmma<Bq>::ss(s, desc(kj, D), desc(qj, D), j > 0);
+        Wgmma<Bq>::ss(dp, desc(vj, D), desc(oj, D), j > 0);
+        if (P == 2) {
+          Wgmma<Bq>::ss(s, desc(kj, D), desc(qj + Bq * D, D), 1);
+          Wgmma<Bq>::ss(s, desc(kj + kKeys * D, D), desc(qj, D), 1);
+          Wgmma<Bq>::ss(dp, desc(vj, D), desc(oj + Bq * D, D), 1);
+          Wgmma<Bq>::ss(dp, desc(vj + kKeys * D, D), desc(oj, D), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(s);
+      reg_fence(dp);
+
+      // P^T and dS^T in place; accumulator e is (key row, query column)
+      const bool whole = i0 + Bq <= dims.Lq &&
+                         (!dims.causal || i0 >= k0 + kRows - 1);
+      const float* ls = sm + S::kLse;
+      const float* dts = sm + S::kDelta;
+#pragma unroll
+      for (int e = 0; e < Bq / 2; ++e) {
+        const int col = 8 * (e >> 2) + 2 * tq + (e & 1);
+        float p = ex2(fmaf(s[e], c, -ls[col]));
+        if (!whole) {
+          const int row = i0 + col, key = k0 + 16 * warp + g + (e & 2) * 4;
+          if (row >= dims.Lq || (dims.causal && key > row)) p = 0.f;
+        }
+        s[e] = p;
+        dp[e] = p * (dp[e] - dts[col]);
+      }
+      // this tile's P^T dO, then dS^T Q: depth Bq (slot order), N = D;
+      // one set of A fragments at a time keeps the registers down
+      uint32_t fh[NB][4], fl[NB][4];
+      float tv[D / 2], tk[D / 2];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) a_frag(s, i, fh[i], fl[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const float* oi = sm + S::kDOt + i * 64;
+        Wgmma<D>::rs(tv, fh[i], desc(oi, Bq), i > 0);
+        Wgmma<D>::rs(tv, fl[i], desc(oi, Bq), 1);
+        if (P == 2) Wgmma<D>::rs(tv, fh[i], desc(oi + Bq * D, Bq), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int i = 0; i < NB; ++i) a_frag(dp, i, fh[i], fl[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const float* qi = sm + S::kQt + i * 64;
+        Wgmma<D>::rs(tk, fh[i], desc(qi, Bq), i > 0);
+        Wgmma<D>::rs(tk, fl[i], desc(qi, Bq), 1);
+        if (P == 2) Wgmma<D>::rs(tk, fh[i], desc(qi + Bq * D, Bq), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(tv);
+      reg_fence(tk);
+      // the tensor cores' fp32 sums truncate; a tile's sum is added in
+      // round-to-nearest, so the error does not grow with Lq
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) {
+        dva[u][e] += tv[e];
+        dka[u][e] += tk[e];
+      }
+    }
+    __syncthreads();  // the operand tiles are rewritten next tile
+  }
+
+  // accumulator e of dK/dV is (key row, head element)
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+#pragma unroll
+    for (int e = 0; e < D / 2; e += 2) {
+      const int key = c0 + u * kRows + 16 * warp + g + (e & 2) * 4;
+      if (key >= dims.Lk) continue;
+      const long long off =
+          (static_cast<long long>(b) * dims.Lk + key) * dims.H * D +
+          static_cast<long long>(h) * D + 8 * (e >> 2) + 2 * tq;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(dka[u][e] * dims.scale, dka[u][e + 1] * dims.scale);
+      *reinterpret_cast<float2*>(dv + off) =
+          make_float2(dva[u][e], dva[u][e + 1]);
+    }
   }
 }
 
@@ -70,9 +242,14 @@ template <typename T, int D>
 int launch_dkv(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                GxSeqOperand dout, const float* lse, const float* delta,
                GxAttnDims dims, float* dk, float* dv, cudaStream_t stream) {
-  flash_dkv_kernel<T, D><<<gx_attn::grid_of(dims.Lk, dims), kRows, 0,
-                          stream>>>(
-      q, k, v, dout, lse, delta, dims, dk, dv);
+  constexpr int bytes = DkvSmem<T, D>::kBytes;
+  const int err = allow_smem(flash_dkv_kernel<T, D>, bytes);
+  if (err != 0) return err;
+  const int async16 = aligned16<T>(q) && aligned16<T>(dout);
+  constexpr int keys = dkv_groups(D) * kRows;
+  const dim3 grid((dims.Lk + keys - 1) / keys, dims.B * dims.H);
+  flash_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, dout, lse, delta, dims, async16, dk, dv);
   return static_cast<int>(cudaGetLastError());
 }
 

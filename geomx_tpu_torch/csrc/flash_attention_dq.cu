@@ -1,67 +1,224 @@
-// The flash backward's dq pass for Hopper, fp32 on the CUDA cores.
+// The flash backward's dq pass for Hopper, on the tensor cores: wgmma in
+// split TF32 (3 TF32 products for each fp32 one), fp32 accumulators.
 //
 // Replaces geomx_tpu/ops/flash_attention.py flash_attention_bwd's
-// _dq_kernel (pallas_call :339).
-// Design and bound: flash_attention.cu.
-#include "attention.cuh"
+// _dq_kernel (pallas_call :339): for the query rows of a block,
+//   s = (q k^T) scale, p = exp(s - lse) (0 where masked: keys past Lk,
+//   the causal triangle), ds = p (dO v^T - delta), dq = sum_k ds k scale.
+//
+// Design.  A block is one warpgroup and owns 128 query rows of one (b, h)
+// (64 for head dims above 16): their Q and dO rows stay in shared memory,
+// split hi/lo, and each thread keeps the lse and delta of its rows.  It
+// walks the key tiles of kBk rows (64; 32 and 16 for head dims 64 and
+// 128), staged by cp.async one tile ahead and split once into K, V (the B
+// operands of the score products, as they are) and K^T (the B operand of
+// dS K, depth permuted, attention_mma.cuh); then, for each group of 64
+// rows,
+//   S = Q K^T, dP = dO V^T   (wgmma SS, M 64 queries, N kBk, depth D)
+//   P, dS in the accumulators (exp2 of one FFMA; masks only on ragged and
+//                              diagonal tiles)
+//   dQ += dS K               (wgmma RS: dS as register A fragments, M 64,
+//                              N D, depth kBk; a tile's sum added to the
+//                              fp32 total in round-to-nearest).
+// Every product is hi hi + hi lo + lo hi for fp32 inputs; for bf16 inputs
+// (exact in TF32) S and dP take one product and dS K two.  No atomics:
+// each dq element is summed by one warpgroup in a fixed order, so a call
+// gives the same bits every time.
+//
+// Bound: operations.  At seq_flash's shape (B 16, L 4096, H 4, D 16) the
+// three products are 6 B H L^2 D = 103 GFLOP, 309 GFLOP of TF32 with the
+// split: 625 us at the card's 495 TFLOP/s; the 1.07 G exponentials take
+// 257 us of the MUFU unit; the bytes take 10 us.  As for dk/dv (see
+// flash_attention_dkv.cu) the score products from two shared operands
+// also fill the shared-memory port.
+#include "attention.cuh"  // dims_ok and the dispatch
+#include "attention_mma.cuh"
 
 namespace {
 
-using gx_attn::kRows;
-using gx_attn::kTile;
+using namespace gx_mma;
+
+// key rows a stage (64, fewer for wide heads) and the 64-row groups a
+// block owns (two for narrow heads: each staged key tile then serves 128
+// query rows, which halves the copies and splits a row pays for)
+__host__ __device__ constexpr int dq_rows(int D) {
+  return D <= 32 ? 64 : (D == 64 ? 32 : 16);
+}
+__host__ __device__ constexpr int dq_groups(int D) {
+  return D <= 16 ? 2 : 1;
+}
+
+// the shared memory of one block, in floats
+template <typename T, int D>
+struct DqSmem {
+  static constexpr int kBk = dq_rows(D), kG = dq_groups(D);
+  static constexpr int kP = parts<T>();
+  static constexpr int kFixed = kP * kG * kRows * D;  // Q or dO, all parts
+  static constexpr int kOp = kP * kBk * D;  // one layout of K or V
+  static constexpr int kRaw = kBk * D * sizeof(T) / 4;  // a staged tile
+  static constexpr int kQ = 0, kDO = kFixed, kKn = 2 * kFixed,
+                       kKt = kKn + kOp, kVn = kKt + kOp,
+                       kRawAt = kVn + kOp,  // [stage][k, v]
+                       kEnd = kRawAt + 4 * kRaw;
+  static constexpr int kBytes = kEnd * 4;
+  static_assert(kBytes <= 227 * 1024, "dq tiles exceed shared memory");
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                 GxSeqOperand dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, GxAttnDims dims,
+                const float* __restrict__ delta, GxAttnDims dims, int async16,
                 float* __restrict__ dq) {
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
+  using S = DqSmem<T, D>;
+  constexpr int Bk = S::kBk, G = S::kG, P = S::kP, NB = Bk / 8;
+  constexpr int kRowsAll = G * kRows;  // query rows a block owns
+  extern __shared__ __align__(128) float sm[];
   const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
-  const int q0 = blockIdx.x * kRows, row = q0 + threadIdx.x;
-  const bool live = row < dims.Lq;
-  float qr[D], dor[D], acc[D];
-  gx_attn::load_row<T, D>(q, b, row, h, live, qr);
-  gx_attn::load_row<T, D>(dout, b, row, h, live, dor);
+  const int q0 = blockIdx.x * kRowsAll;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
+            tq = threadIdx.x % 4;
+  T* raw = reinterpret_cast<T*>(sm + S::kRawAt);
+  // causal: keys past the block's last row are in every row's future
+  const int kend = dims.causal ? min(dims.Lk, q0 + kRowsAll) : dims.Lk;
+  const int ntiles = (kend + Bk - 1) / Bk;
+  // tile t's rows of K and V into raw stage t % 2
+  auto stage = [&](int t) {
+    const int k0 = t * Bk, st = t & 1;
+    stage_rows<T, D, Bk>(k, b, h, k0, dims.Lk, async16,
+                         raw + 2 * st * Bk * D);
+    stage_rows<T, D, Bk>(v, b, h, k0, dims.Lk, async16,
+                         raw + (2 * st + 1) * Bk * D);
+  };
+  if (ntiles > 0) stage(0);
+  cp_async_commit();
+  load_fixed<T, D, kRowsAll>(q, b, h, q0, dims.Lq, sm + S::kQ,
+                             sm + S::kQ + kRowsAll * D);
+  load_fixed<T, D, kRowsAll>(dout, b, h, q0, dims.Lq, sm + S::kDO,
+                             sm + S::kDO + kRowsAll * D);
+  // the thread's rows of each group: 16 warp + g and 8 below
+  float lse2[G][2], dlt[G][2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  const long long r = static_cast<long long>(bh) * dims.Lq + row;
-  const float lr = live ? lse[r] : 0.f;
-  const float dr = live ? delta[r] : 0.f;
-  const int kend = dims.causal ? min(dims.Lk, q0 + kRows) : dims.Lk;
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    gx_attn::stage_tile<T, D>(k, b, h, k0, dims.Lk, ks);
-    gx_attn::stage_tile<T, D>(v, b, h, k0, dims.Lk, vs);
-    __syncthreads();
-    const bool whole = k0 + kTile <= dims.Lk &&
-                       (!dims.causal || k0 + kTile - 1 <= q0);
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const int col = k0 + j;
-      const bool keep = live && (whole || (col < dims.Lk &&
-                                           !(dims.causal && col > row)));
-      const float s = gx_attn::dot_row<D>(qr, ks + j * D) * dims.scale;
-      const float dp = gx_attn::dot_row<D>(dor, vs + j * D);
-      const float p = keep ? expf(s - lr) : 0.f;
-      gx_attn::axpy_row<D>(p * (dp - dr), ks + j * D, acc);
+  for (int u = 0; u < G; ++u) {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const int row = q0 + u * kRows + 16 * warp + g + 8 * w;
+      const long long r = static_cast<long long>(bh) * dims.Lq + row;
+      lse2[u][w] = row < dims.Lq ? lse[r] * kLog2e : 0.f;
+      dlt[u][w] = row < dims.Lq ? delta[r] : 0.f;
     }
-    __syncthreads();
   }
-  if (!live) return;
-  float* o = dq + (static_cast<long long>(b) * dims.Lq + row) * dims.H * D +
-             static_cast<long long>(h) * D;
+
+  float acc[G][D / 2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) o[d] = acc[d] * dims.scale;
+  for (int u = 0; u < G; ++u) {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[u][e] = 0.f;
+  }
+  const float c = dims.scale * kLog2e;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * Bk, st = t & 1;
+    if (t + 1 < ntiles) stage(t + 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    convert<T, D, Bk>(raw + 2 * st * Bk * D, sm + S::kKn, sm + S::kKt);
+    convert<T, D, Bk>(raw + (2 * st + 1) * Bk * D, sm + S::kVn, nullptr);
+    fence_async_smem();
+    __syncthreads();
+
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int r0 = q0 + u * kRows;  // this group's first row
+      // S = Q K^T and dP = dO V^T: [64 queries][Bk keys]
+      float s[Bk / 2], dp[Bk / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float* qj = sm + S::kQ + u * kRows * D + j * 64;
+        const float* oj = sm + S::kDO + u * kRows * D + j * 64;
+        const float* kj = sm + S::kKn + j * 64;
+        const float* vj = sm + S::kVn + j * 64;
+        Wgmma<Bk>::ss(s, desc(qj, D), desc(kj, D), j > 0);
+        Wgmma<Bk>::ss(dp, desc(oj, D), desc(vj, D), j > 0);
+        if (P == 2) {
+          Wgmma<Bk>::ss(s, desc(qj, D), desc(kj + Bk * D, D), 1);
+          Wgmma<Bk>::ss(s, desc(qj + kRowsAll * D, D), desc(kj, D), 1);
+          Wgmma<Bk>::ss(dp, desc(oj, D), desc(vj + Bk * D, D), 1);
+          Wgmma<Bk>::ss(dp, desc(oj + kRowsAll * D, D), desc(vj, D), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(s);
+      reg_fence(dp);
+
+      // dS in place of dP; accumulator e is (query row, key column)
+      const bool whole = k0 + Bk <= dims.Lk &&
+                         (!dims.causal || k0 + Bk - 1 <= r0);
+#pragma unroll
+      for (int e = 0; e < Bk / 2; ++e) {
+        const int w = (e >> 1) & 1;
+        float p = ex2(fmaf(s[e], c, -lse2[u][w]));
+        if (!whole) {
+          const int col = k0 + 8 * (e >> 2) + 2 * tq + (e & 1),
+                    row = r0 + 16 * warp + g + 8 * w;
+          if (col >= dims.Lk || (dims.causal && col > row)) p = 0.f;
+        }
+        dp[e] = p * (dp[e] - dlt[u][w]);
+      }
+      uint32_t dh[NB][4], dl[NB][4];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) a_frag(dp, i, dh[i], dl[i]);
+
+      // this tile's dS K: depth Bk (slot order), N = D
+      float tq_[D / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const float* ki = sm + S::kKt + i * 64;
+        Wgmma<D>::rs(tq_, dh[i], desc(ki, Bk), i > 0);
+        Wgmma<D>::rs(tq_, dl[i], desc(ki, Bk), 1);
+        if (P == 2) Wgmma<D>::rs(tq_, dh[i], desc(ki + Bk * D, Bk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(tq_);
+      // a tile's (truncated) tensor-core sum, added in round-to-nearest
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[u][e] += tq_[e];
+    }
+    __syncthreads();  // the operand tiles are rewritten next tile
+  }
+
+  // accumulator e of dQ is (query row, head element)
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+#pragma unroll
+    for (int e = 0; e < D / 2; e += 2) {
+      const int row = q0 + u * kRows + 16 * warp + g + (e & 2) * 4;
+      if (row >= dims.Lq) continue;
+      const long long off =
+          (static_cast<long long>(b) * dims.Lq + row) * dims.H * D +
+          static_cast<long long>(h) * D + 8 * (e >> 2) + 2 * tq;
+      *reinterpret_cast<float2*>(dq + off) =
+          make_float2(acc[u][e] * dims.scale, acc[u][e + 1] * dims.scale);
+    }
+  }
 }
 
 template <typename T, int D>
 int launch_dq(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
               GxSeqOperand dout, const float* lse, const float* delta,
               GxAttnDims dims, float* dq, cudaStream_t stream) {
-  flash_dq_kernel<T, D><<<gx_attn::grid_of(dims.Lq, dims), kRows, 0,
-                         stream>>>(
-      q, k, v, dout, lse, delta, dims, dq);
+  constexpr int bytes = DqSmem<T, D>::kBytes;
+  const int err = allow_smem(flash_dq_kernel<T, D>, bytes);
+  if (err != 0) return err;
+  const int async16 = aligned16<T>(k) && aligned16<T>(v);
+  constexpr int rows = dq_groups(D) * kRows;
+  const dim3 grid((dims.Lq + rows - 1) / rows, dims.B * dims.H);
+  flash_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, dout, lse, delta, dims, async16, dq);
   return static_cast<int>(cudaGetLastError());
 }
 

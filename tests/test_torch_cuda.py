@@ -434,6 +434,87 @@ def test_flash_kernels_match_plain(dev, shape, causal, dtype):
         torch.testing.assert_close(a, b, **bwd)
 
 
+# the tile edges of the tensor-core backward (64-row tiles; 32 and 16 rows
+# of the streamed operand at head dims 64 and 128): Lq and Lk off the
+# tiles and unequal, Lq below one tile, the causal diagonal inside a
+# tile, keys no query attends to, the narrowest and widest heads in bf16
+_BWD_EDGE_CASES = [((1, 100, 2, 16), 70, False, torch.float32),
+                   ((1, 70, 2, 16), 130, True, torch.float32),
+                   ((2, 40, 2, 16), 40, True, torch.float32),
+                   ((1, 40, 2, 32), 200, True, torch.float32),
+                   ((1, 200, 2, 16), 200, True, torch.float32),
+                   ((1, 90, 2, 64), 75, True, torch.float32),
+                   ((1, 50, 2, 128), 37, False, torch.float32),
+                   ((1, 100, 2, 8), 130, True, torch.bfloat16),
+                   ((1, 70, 2, 128), 90, True, torch.bfloat16)]
+
+
+def _bwd_inputs(dev, qshape, lk, causal, dtype, strided=False):
+    """q, k, v, dO, lse and delta of one backward case (lse and delta from
+    the plain forward); ``strided``: every operand a slice 4 bytes into
+    rows of D + 1, so neither base nor row stride is 16-byte aligned."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    B, Lq, H, D = qshape
+    pad = 1 if strided else 0
+    q, g = _attn(dev, (B, Lq, H, D + pad), dtype, seed=1, n=2)
+    k, v = _attn(dev, (B, lk, H, D + pad), dtype, seed=2, n=2)
+    q, g, k, v = (x[..., pad:] for x in (q, g, k, v))
+    ref, lse = fa.flash_attention_with_lse_plain(q, k, v, causal)
+    return q, k, v, g, lse, fa.attention_delta(ref, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qshape,lk,causal,dtype", _BWD_EDGE_CASES)
+def test_flash_backward_tile_edges(dev, qshape, lk, causal, dtype):
+    from geomx_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _bwd_inputs(dev, qshape, lk, causal, dtype)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(fa.flash_dq(*args, causal),
+                               fa.flash_dq_plain(*args, causal), **tol)
+    for a, b in zip(fa.flash_dkv(*args, causal),
+                    fa.flash_dkv_plain(*args, causal)):
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_unaligned_operands(dev, dtype):
+    """Operands the tiles cannot reach by 16-byte copies: the same
+    results by plain loads."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _bwd_inputs(dev, (2, 100, 2, 16), 100, True, dtype, strided=True)
+    assert args[0].stride(1) * args[0].element_size() % 16 != 0
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(fa.flash_dq(*args, True),
+                               fa.flash_dq_plain(*args, True), **tol)
+    for a, b in zip(fa.flash_dkv(*args, True),
+                    fa.flash_dkv_plain(*args, True)):
+        torch.testing.assert_close(a, b, **tol)
+    # no key at all: every row of dq is zero
+    q, k, v, g, lse, delta = args
+    dq0 = fa.flash_dq(q, k[:, :0], v[:, :0], g, lse, delta, False)
+    assert torch.equal(dq0, torch.zeros_like(dq0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((4, 1024, 4, 16), False),
+                                          ((1, 200, 2, 64), True),
+                                          ((1, 100, 2, 128), False)])
+def test_flash_backward_gives_the_same_bits_every_call(dev, shape, causal):
+    """No atomics: each gradient element is summed in one fixed order."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    args = _bwd_inputs(dev, shape, shape[1], causal, torch.float32)
+    dq = fa.flash_dq(*args, causal)
+    dk, dv = fa.flash_dkv(*args, causal)
+    assert torch.equal(dq, fa.flash_dq(*args, causal))
+    dk2, dv2 = fa.flash_dkv(*args, causal)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
 @pytest.mark.cuda
 def test_flash_kernels_strided_operands_and_empty_keys(dev):
     """q, k, v as the strided slices of a fused projection; no keys at
