@@ -27,8 +27,9 @@ Every phase's failure is fatal (non-zero exit, no result line):
               whichever is larger; for the four attention kernels the
               larger of the bytes, the products as split TF32 (3x the
               flops) at 495 TFLOP/s and the exponentials at the MUFU
-              rate, the fp32 figure beside it; two calls of the flash
-              backward's dq and dk/dv kernels give the same bits;
+              rate, the fp32 figure beside it; two calls of each
+              attention kernel give the same bits (the forward's no-lse
+              variant too);
 4. reference -- two fp32 training steps on the card and on the CPU (plain
               versions) from the same weights and batches: a small ResNet
               for each path's configuration and four more compressors
@@ -651,8 +652,8 @@ def attention_kernels(torch, dev, timer=None):
     2 x 16, 128, 4, 16]) and on the JAX tests' edge cases.  Held at fp32
     rtol/atol 1e-5 forward, 1e-4 backward and hop, 2e-2/1e-2 for bf16
     inputs: the kernels sum each row's products in another order than the
-    plain versions' matmuls, the backward's in split TF32 on the tensor
-    cores).  Two calls of dq and of dk/dv must give the same bits.  Times
+    plain versions' matmuls, all four in split TF32 on the tensor
+    cores).  Two calls of each kernel must give the same bits.  Times
     over 20 calls; the bound is attn_bound()'s, with the fp32 CUDA-core
     bound beside it."""
     import torch.nn.functional as F
@@ -673,6 +674,15 @@ def attention_kernels(torch, dev, timer=None):
     elems, rows, pairs = B * L * H * D, B * H * L, B * H * L * L
     o, lse = fa.flash_attention_with_lse(q, k, v)
     ro, rlse = fa.flash_attention_with_lse_plain(q, k, v)
+    # no atomics: a second call, and the variant without the logsumexp,
+    # give the same bits
+    o2, lse2 = fa.flash_attention_with_lse(q, k, v)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and torch.equal(fa.flash_attention(q, k, v), o)):
+        raise AssertionError("flash forward: two calls, or the two "
+                             "variants, differ")
+    log("  flash forward: two calls, and the no-lse variant, give the "
+        "same bits")
     qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
     sdpa = (lambda: F.scaled_dot_product_attention(qt, kt, vt))
     out["flash_attention_fwd"] = attn_record(
@@ -731,6 +741,12 @@ def attention_kernels(torch, dev, timer=None):
     got = ring_hop.hop(hq, hk, hv, hm, hl, ho, scale, False)
     hop_pairs, hop_elems = 32 * 4 * 128 * 128, math.prod(hs)
     hop_args = (hq, hk, hv, hm, hl, ho, scale, False)
+    for diag in (False, True):
+        a = ring_hop.hop(*hop_args[:-1], diag)
+        if not all(torch.equal(x, y) for x, y in
+                   zip(a, ring_hop.hop(*hop_args[:-1], diag))):
+            raise AssertionError(f"ring hop diag={diag}: two calls differ")
+    log("  ring hop, full and diagonal: two calls give the same bits")
     out["fused_block"] = attn_record(
         4 * (6 * hop_elems + 4 * 32 * 4 * 128), 4 * hop_pairs * 16,
         hop_pairs,

@@ -1,7 +1,8 @@
-// Tensor-core pieces of the flash backward (flash_attention_dq.cu,
-// flash_attention_dkv.cu) for Hopper (sm_90a): the wgmma wrappers, the
-// split-TF32 operands, the shared-memory layout wgmma reads, the fragment
-// maps and the cp.async tile staging.
+// Tensor-core pieces of the attention kernels for Hopper (sm_90a): the
+// flash backward (flash_attention_dq.cu, flash_attention_dkv.cu) and,
+// through attention_fwd.cuh, the forward and the ring hop: the wgmma
+// wrappers, the split-TF32 operands, the shared-memory layout wgmma
+// reads, the fragment maps and the cp.async tile staging.
 //
 // Products.  wgmma.mma_async .m64nNk8.f32.tf32.tf32: a warpgroup (128
 // threads) multiplies a 64-row A (from shared memory, or from registers)
@@ -24,7 +25,8 @@
 // (Kd * 32 bytes), and one k8 step advances the start by 256 bytes.
 //
 // Register A operands.  A product whose depth is the row dimension of a
-// score tile (P^T dO and dS^T Q for dk/dv, dS K for dq) takes the scores
+// score tile (P^T dO and dS^T Q for dk/dv, dS K for dq, P V for the
+// forward) takes the scores
 // from the accumulators of the first product: thread (warp w, lane 4g+t)
 // holds accumulator elements (16w + g [+8], 8i + 2t [+1]), and a tf32 A
 // fragment of depth chunk i holds (16w + g [+8], t [+4]).  Reading depth
@@ -269,10 +271,12 @@ struct Wgmma<128> {
 
 // ---- split-TF32 -----------------------------------------------------------
 
+// x rounded to TF32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32 for every value but NaN, in two integer operations
+// (on the H100 the cvt measured 8% slower in the flash forward, which
+// splits every probability it multiplies)
 __device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // hi = tf32(x) rounded to nearest; lo = x - hi exactly, left in fp32: the
@@ -304,6 +308,14 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// two consecutive output elements, rounded to nearest for bf16
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T>
@@ -388,6 +400,10 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+// all of this thread's copies have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 // The 16-byte chunk of staged row r at which chunk c of that row lies: fp32
 // rows are XOR-swizzled so that 8 consecutive rows' chunk c, and one row's
@@ -455,14 +471,14 @@ __device__ __forceinline__ void load4(const T* raw, int r, int g,
 }
 
 // The conversion of one group: x = elements 4 g .. 4 g + 3 of row r, split
-// and stored into nat and (where given) tr.  rot: the lane's rotation.
+// and stored into nat and tr, each where given.  rot: the lane's rotation.
 template <int P, int D, int R>
 __device__ __forceinline__ void convert_group(const float (&x)[4], int r,
                                               int g, float* nat, float* tr,
                                               int rot) {
   uint32_t h[4], l[4];
   split4<P>(x, h, l);
-  store4<P>(h, l, nat, nat + R * D, kmaj(r, 4 * g, D));
+  if (nat != nullptr) store4<P>(h, l, nat, nat + R * D, kmaj(r, 4 * g, D));
   if (tr == nullptr) return;
   // lane stores element (c + rot) % 4 at step c: rotate h, l by rot
   uint32_t a[4], b[4];
@@ -499,8 +515,8 @@ __device__ __forceinline__ int lane_rot() {
   return ((lane >> 3) & 2) | (lane & 1);
 }
 
-// Splits the staged [R][D] tile raw into the K-major operand tiles: nat
-// ([R][D], the tile as it is) and, where tr is given, tr ([D][R], the rows
+// Splits the staged [R][D] tile raw into the K-major operand tiles, each
+// where given: nat ([R][D], the tile as it is) and tr ([D][R], the rows
 // as depth in slot() order).  Each of the P parts (hi, lo) of a layout is
 // R * D floats, the parts back to back.  Thread i takes 4 consecutive
 // depth elements of one row, 8 consecutive i 8 consecutive rows, so the

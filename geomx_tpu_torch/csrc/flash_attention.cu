@@ -1,9 +1,5 @@
-// Flash attention for Hopper: the forward, fp32 on the CUDA cores.
-//
-// The backward's two passes (dq, dk/dv) live in flash_attention_dq.cu and
-// flash_attention_dkv.cu, on the tensor cores (split-TF32 wgmma,
-// attention_mma.cuh): three sources, so the build compiles them in
-// parallel.
+// The flash forward for Hopper, on the tensor cores: wgmma in split TF32
+// (3 TF32 products for each fp32 one), fp32 accumulators.
 //
 // Replaces flash_attention_with_lse / flash_attention of
 // geomx_tpu/ops/flash_attention.py (_fa_kernel, _fa_kernel_nolse;
@@ -12,75 +8,91 @@
 // row gives 0, and lse = m + log(l) on the with-lse variant only.
 //
 // Design.  The TPU kernel walks the keys as a sequential grid dimension
-// with the accumulators in VMEM scratch.  Here that dimension is a loop
-// inside a block: one thread owns one query row, holds it and its
-// accumulators in registers, and the keys stream through shared memory 32
-// rows a stage (attention.cuh).  Causal tiles wholly in every row's future
-// are skipped; ragged ends are masked, never padded in memory.  Operands
-// are read in place through their [B, L, H, D] strides (the head dim
-// contiguous), fp32 or bf16, and every product and sum is fp32 on the CUDA
-// cores.
+// with the state in VMEM scratch; here that dimension is a loop inside a
+// block, the tile body of attention_fwd.cuh (shared with the ring hop):
+// a block is one warpgroup and owns G groups of 64 query rows of one (b,
+// h) (2 for head dims up to 16, so each staged K/V tile serves 128 rows);
+// K and V stream through shared memory by cp.async one tile ahead, split
+// once a tile for all groups.  This kernel starts the state at (-1e30, 0,
+// 0) and ends with out = o / max(l, 1e-20) (in the operands' type) and,
+// where lse is given, lse = m + log(max(l, 1e-20)); the no-lse variant is
+// the same code with the store skipped, so it gives the same bits.
+// Operands are read in place through their [B, L, H, D] strides (the
+// head dim contiguous); where K's base or strides are not 16-byte aligned
+// its copies are plain loads.
 //
-// Bound: operations.  The forward does 4 B H Lq Lk D flops (QK^T and PV)
-// and B H Lq Lk exponentials; on the tensor cores in split TF32 (3x the
-// flops at 495 TFLOP/s) that is the larger bound; the bytes (each operand
-// read once, each output written once) are a few MB.  At head dim 16 a
-// thread does 2 D fused multiply-adds a key between broadcast
-// shared-memory reads, so instruction throughput on the CUDA cores holds
-// the kernel well above that bound.  Its tensor-core redesign is the next
-// kernel work.
-#include "attention.cuh"
+// Bound: operations.  At seq_flash's shape (B 16, L 4096, H 4, D 16) the
+// two products are 4 B H L^2 D = 68.7 GFLOP, 206 GFLOP of TF32 with the
+// split: 416 us at the card's 495 TFLOP/s; the B H L^2 = 1.07 G
+// exponentials take 257 us of the MUFU unit (16 a clock an SM); the bytes
+// take 2.5 us.  What holds the kernel above that is the chain inside a
+// warpgroup: S, the softmax, the split of P and P V run one after the
+// other for each 64 x 64 tile, the P V as 24 narrow (N = D = 16) products,
+// and only the four blocks an SM holds (118 registers, 48 KB of shared
+// memory) overlap one block's softmax with another's products.  Each part
+// costs its share (PERF.md): none dominates.
+#include "attention_fwd.cuh"
 
 namespace {
 
-using gx_attn::kNegInf;
-using gx_attn::kRows;
-using gx_attn::kTile;
+using namespace gx_fwd;
+
+// the 64-row groups a block owns: two for narrow heads, so each staged
+// K/V tile serves 128 rows (on the H100 at head dim 16 one group measured
+// 25% slower, three and four within 3% of two, with more registers)
+__host__ __device__ constexpr int fwd_groups(int D) { return D <= 16 ? 2 : 1; }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
-                 GxAttnDims dims, T* __restrict__ out,
+                 GxAttnDims dims, int async16, T* __restrict__ out,
                  float* __restrict__ lse) {
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
+  constexpr int G = fwd_groups(D);
+  extern __shared__ __align__(128) float sm[];
   const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
-  const int q0 = blockIdx.x * kRows, row = q0 + threadIdx.x;
-  const bool live = row < dims.Lq;
-  float qr[D], acc[D];
-  gx_attn::load_row<T, D>(q, b, row, h, live, qr);
+  const int q0 = blockIdx.x * G * kRows;
+  float o[G][D / 2], m[G][2], l[G][2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
-  // causal: keys past the block's last row are in every row's future
-  const int kend = dims.causal ? min(dims.Lk, q0 + kRows) : dims.Lk;
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    gx_attn::stage_tile<T, D>(k, b, h, k0, dims.Lk, ks);
-    gx_attn::stage_tile<T, D>(v, b, h, k0, dims.Lk, vs);
-    __syncthreads();
-    const bool whole = k0 + kTile <= dims.Lk &&
-                       (!dims.causal || k0 + kTile - 1 <= q0);
-    gx_attn::softmax_tile<D>(ks, vs, qr, acc, m, l, dims.scale, k0, row,
-                             dims.Lk, dims.causal, whole);
-    __syncthreads();
+  for (int u = 0; u < G; ++u) {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[u][e] = 0.f;
+    m[u][0] = m[u][1] = kNegInf;
+    l[u][0] = l[u][1] = 0.f;
   }
-  if (!live) return;
-  const float l_sum = fmaxf(l, 1e-20f);  // fully-masked rows -> 0 out
-  T* o = out + (static_cast<long long>(b) * dims.Lq + row) * dims.H * D +
-         static_cast<long long>(h) * D;
+  fold_keys<T, D, G>(q, k, v, dims, b, h, q0, async16, sm, o, m, l);
+
 #pragma unroll
-  for (int d = 0; d < D; ++d) gx_attn::store(o + d, acc[d] / l_sum);
-  if (lse != nullptr) {
-    lse[static_cast<long long>(bh) * dims.Lq + row] = m + logf(l_sum);
+  for (int u = 0; u < G; ++u) {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const int row = my_row(q0 + u * kRows, w);
+      // fully-masked rows -> 0 out
+      const float l_sum = fmaxf(quad_sum(l[u][w]), 1e-20f);
+      if (row >= dims.Lq) continue;
+#pragma unroll
+      for (int e = 2 * w; e < D / 2; e += 4) {
+        store2(out + acc_offset<D>(dims, b, h, row, e), o[u][e] / l_sum,
+               o[u][e + 1] / l_sum);
+      }
+      if (lse != nullptr && threadIdx.x % 4 == 0) {
+        lse[static_cast<long long>(bh) * dims.Lq + row] =
+            m[u][w] + logf(l_sum);
+      }
+    }
   }
 }
 
 template <typename T, int D>
 int launch_fwd(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                GxAttnDims dims, void* out, float* lse, cudaStream_t stream) {
-  flash_fwd_kernel<T, D><<<gx_attn::grid_of(dims.Lq, dims), kRows, 0,
-                            stream>>>(q, k, v, dims, static_cast<T*>(out),
-                                      lse);
+  constexpr int bytes = FwdSmem<T, D, fwd_groups(D)>::kBytes;
+  const int err = allow_smem(flash_fwd_kernel<T, D>, bytes);
+  if (err != 0) return err;
+  const int async16 = aligned16<T>(k) && aligned16<T>(v);
+  constexpr int rows = fwd_groups(D) * kRows;
+  const dim3 grid((dims.Lq + rows - 1) / rows, dims.B * dims.H);
+  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, dims, async16, static_cast<T*>(out), lse);
   return static_cast<int>(cudaGetLastError());
 }
 

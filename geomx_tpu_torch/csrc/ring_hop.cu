@@ -1,4 +1,5 @@
-// One ring-attention hop for Hopper, fp32 on the CUDA cores.
+// One ring-attention hop for Hopper, on the tensor cores: wgmma in split
+// TF32 (3 TF32 products for each fp32 one), fp32 accumulators.
 //
 // Replaces geomx_tpu/parallel/_fused_block.py fused_block (_hop_kernel,
 // _hop_pallas; pallas_call :100): the streaming-softmax carries (m, l, o)
@@ -6,69 +7,81 @@
 // ring currently holds is folded in, and the carries go out — o stays
 // un-normalised (o_new = o corr + p V), exactly as the jnp _block.  Mask
 // modes: full (dims.causal = 0) or the causal diagonal block (dims.causal =
-// 1: -1e30 masking, tiles wholly in every row's future skipped).  A row
+// 1: -1e30 masking, tiles wholly in a group's future skipped).  A row
 // seeded with m = -inf (the ring's first hop) gets corr = exp(-inf - m_new)
-// = 0, never NaN: a processed tile's running max starts at the sentinel.
+// = 0, never NaN: a tile's running max starts at the sentinel.
 //
-// Design: the forward kernel's (flash_attention.cu) with the state seeded
-// from and written back to device memory instead of initialised and
-// normalised: one thread a query row, K/V streamed through shared memory 32
-// rows a stage, every sum in one thread in a fixed order.  The in-process
-// ring stacks its sp shards into B, so one launch covers every shard of a
-// hop.  There is no backward kernel: as in the reference, the hop's
-// gradient is the autograd VJP of the plain _block, recomputed.
+// Design: the hop is the forward's tile step, so it runs the forward's
+// tile body (attention_fwd.cuh) and differs only at the ends: it seeds
+// (m, l, o) from the carries (l as lane 0's share of the quad's partial
+// sums) and writes them back, l summed over the quad.  A block is one
+// warpgroup of 64 query rows: at the ring's shapes a hop has one or two
+// key tiles a group, so blocks, not the reuse of a staged tile, keep the
+// SMs busy.  The in-process ring stacks its sp shards into B, so one
+// launch covers every shard of a hop.  There is no backward kernel: as in
+// the reference, the hop's gradient is the autograd VJP of the plain
+// _block, recomputed.
 //
-// Bound: operations, 4 B H Lq Lk D flops (about half on the diagonal) plus
-// B H Lq Lk exponentials at the card's 67 TFLOP/s fp32 rate; the bytes
-// (q, k, v, the carries in and out) are a few MB at the ring's shapes.
-#include "attention.cuh"
+// Bound: bytes.  At seq_ring's hop ([32, 128, 4, 16]) q, k, v and the
+// carries in and out are 6.55 MB, 1.96 us at 3.35 TB/s; the products (4 B
+// H Lq Lk D = 134 MFLOP, 403 MFLOP of split TF32) take 0.81 us and the 8.4
+// M exponentials 2.0 us.  What holds the kernel is latency: one wave of
+// 256 blocks on 132 SMs, each a chain of dependent steps (the carries' and
+// Q's loads, the first tile's copy, two products and the softmax a tile);
+// the next tile's copy overlaps the current one's work.
+#include "attention_fwd.cuh"
 
 namespace {
 
-using gx_attn::kNegInf;
-using gx_attn::kRows;
-using gx_attn::kTile;
+using namespace gx_fwd;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
 ring_hop_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                 const float* __restrict__ m_in, const float* __restrict__ l_in,
-                const float* __restrict__ o_in, GxAttnDims dims,
+                const float* __restrict__ o_in, GxAttnDims dims, int async16,
                 float* __restrict__ m_out, float* __restrict__ l_out,
                 float* __restrict__ o_out) {
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
+  extern __shared__ __align__(128) float sm[];
   const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
-  const int q0 = blockIdx.x * kRows, row = q0 + threadIdx.x;
-  const bool live = row < dims.Lq;
-  const long long r = static_cast<long long>(bh) * dims.Lq + row;
-  const long long off =
-      (static_cast<long long>(b) * dims.Lq + row) * dims.H * D +
-      static_cast<long long>(h) * D;
-  float qr[D], acc[D];
-  gx_attn::load_row<T, D>(q, b, row, h, live, qr);
+  const int q0 = blockIdx.x * kRows;
+  const bool lane0 = threadIdx.x % 4 == 0;
+  float o[1][D / 2], m[1][2], l[1][2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = live ? o_in[off + d] : 0.f;
-  float m = live ? m_in[r] : kNegInf;
-  float l = live ? l_in[r] : 0.f;
-  // diagonal block: keys past the block's last row are in every row's
-  // future
-  const int kend = dims.causal ? min(dims.Lk, q0 + kRows) : dims.Lk;
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    gx_attn::stage_tile<T, D>(k, b, h, k0, dims.Lk, ks);
-    gx_attn::stage_tile<T, D>(v, b, h, k0, dims.Lk, vs);
-    __syncthreads();
-    const bool whole = k0 + kTile <= dims.Lk &&
-                       (!dims.causal || k0 + kTile - 1 <= q0);
-    gx_attn::softmax_tile<D>(ks, vs, qr, acc, m, l, dims.scale, k0, row,
-                             dims.Lk, dims.causal, whole);
-    __syncthreads();
+  for (int w = 0; w < 2; ++w) {
+    const int row = my_row(q0, w);
+    const bool live = row < dims.Lq;
+    const long long r = static_cast<long long>(bh) * dims.Lq + row;
+    m[0][w] = live ? m_in[r] : kNegInf;
+    l[0][w] = live && lane0 ? l_in[r] : 0.f;
+#pragma unroll
+    for (int e = 2 * w; e < D / 2; e += 4) {
+      const float2 x =
+          live ? *reinterpret_cast<const float2*>(
+                     o_in + acc_offset<D>(dims, b, h, row, e))
+               : make_float2(0.f, 0.f);
+      o[0][e] = x.x;
+      o[0][e + 1] = x.y;
+    }
   }
-  if (!live) return;
-  m_out[r] = m;
-  l_out[r] = l;
+  fold_keys<T, D, 1>(q, k, v, dims, b, h, q0, async16, sm, o, m, l);
+
 #pragma unroll
-  for (int d = 0; d < D; ++d) o_out[off + d] = acc[d];
+  for (int w = 0; w < 2; ++w) {
+    const int row = my_row(q0, w);
+    const float l_sum = quad_sum(l[0][w]);
+    if (row >= dims.Lq) continue;
+    if (lane0) {
+      const long long r = static_cast<long long>(bh) * dims.Lq + row;
+      m_out[r] = m[0][w];
+      l_out[r] = l_sum;
+    }
+#pragma unroll
+    for (int e = 2 * w; e < D / 2; e += 4) {
+      store2(o_out + acc_offset<D>(dims, b, h, row, e), o[0][e],
+             o[0][e + 1]);
+    }
+  }
 }
 
 template <typename T, int D>
@@ -76,9 +89,13 @@ int launch_hop(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                const float* m_in, const float* l_in, const float* o_in,
                GxAttnDims dims, float* m_out, float* l_out, float* o_out,
                cudaStream_t stream) {
-  ring_hop_kernel<T, D><<<gx_attn::grid_of(dims.Lq, dims), kRows, 0,
-                           stream>>>(
-      q, k, v, m_in, l_in, o_in, dims, m_out, l_out, o_out);
+  constexpr int bytes = FwdSmem<T, D, 1>::kBytes;
+  const int err = allow_smem(ring_hop_kernel<T, D>, bytes);
+  if (err != 0) return err;
+  const int async16 = aligned16<T>(k) && aligned16<T>(v);
+  const dim3 grid((dims.Lq + kRows - 1) / kRows, dims.B * dims.H);
+  ring_hop_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, m_in, l_in, o_in, dims, async16, m_out, l_out, o_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,11 @@ lane-replicated ``[BH, L, 128]`` logsumexp of the TPU kernels is a TPU
 tiling artifact: the port's ``lse`` and ``delta`` are ``[B, H, L]``
 fp32.  Inputs are fp32 or bf16; every sum is fp32; outputs are in q's
 dtype (forward) and fp32 (gradients).  The kernels take head dims
-:data:`HEAD_DIMS`; the wrappers raise on others.  The plain versions
+:data:`HEAD_DIMS`; the wrappers run any head dim up to the widest of
+them by zero-padding the operands to the next built dim
+(:func:`kernel_dim`) with the true dim's scale, and slicing the outputs
+back: zero columns add nothing to ``q k^T`` and give zero output
+columns, so the padding is exact.  The plain versions
 follow the Pallas kernels' operations tile by tile over the key (or
 query) dim, with the same sentinel and floor; the kernels sum in another
 order, so the two agree to fp32 tolerance, not bit for bit.
@@ -70,12 +74,23 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def kernel_dim(D: int) -> int:
+    """The built head dim the kernels run a ``D``-wide head at: the
+    narrowest of :data:`HEAD_DIMS` that holds it."""
+    for d in HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(f"the attention kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {D}")
+
+
 def kernel_operand(x: torch.Tensor) -> torch.Tensor:
     """A ``[B, L, H, D]`` CUDA operand as the kernels take it: any
-    strides with the head dim contiguous (else a contiguous copy)."""
-    if x.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels take head dims {HEAD_DIMS}, "
-                         f"got {x.shape[-1]}")
+    strides with the head dim contiguous (else a contiguous copy), and
+    zero columns up to :func:`kernel_dim` where ``D`` is not built."""
+    D = x.shape[-1]
+    if D != kernel_dim(D):
+        return torch.nn.functional.pad(x, (0, kernel_dim(D) - D))
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
@@ -202,7 +217,8 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_with_lse_plain(q, k, v, causal, with_lse)
     from geomx_tpu_torch.ops._build import kernels
     B, Lq, H, D = q.shape
-    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Lq, H, kernel_dim(D)), dtype=q.dtype,
+                      device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     kernels().flash_fwd(kernel_operand(q), kernel_operand(k),
@@ -210,7 +226,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     flash_attention_with_lse.launches += 1
     if not with_lse:
         flash_attention.launches += 1
-    return out, lse
+    return out[..., :D], lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -245,13 +261,15 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = False) -> torch.Tensor:
     if not on_cuda([q, k, v, do, lse, delta]):
         return flash_dq_plain(q, k, v, do, lse, delta, causal)
     from geomx_tpu_torch.ops._build import kernels
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    D = q.shape[-1]
+    dq = torch.empty((*q.shape[:-1], kernel_dim(D)), dtype=torch.float32,
+                     device=q.device)
     kernels().flash_bwd_dq(
         kernel_operand(q), kernel_operand(k), kernel_operand(v),
         kernel_operand(do), lse.float().contiguous(),
-        delta.float().contiguous(), causal, _scale(q.shape[-1]), dq)
+        delta.float().contiguous(), causal, _scale(D), dq)
     flash_dq.launches += 1
-    return dq
+    return dq[..., :D]
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool = False):
@@ -260,14 +278,16 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = False):
     if not on_cuda([q, k, v, do, lse, delta]):
         return flash_dkv_plain(q, k, v, do, lse, delta, causal)
     from geomx_tpu_torch.ops._build import kernels
-    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    D = q.shape[-1]
+    shape = (*k.shape[:-1], kernel_dim(D))
+    dk = torch.empty(shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(shape, dtype=torch.float32, device=v.device)
     kernels().flash_bwd_dkv(
         kernel_operand(q), kernel_operand(k), kernel_operand(v),
         kernel_operand(do), lse.float().contiguous(),
-        delta.float().contiguous(), causal, _scale(q.shape[-1]), dk, dv)
+        delta.float().contiguous(), causal, _scale(D), dk, dv)
     flash_dkv.launches += 1
-    return dk, dv
+    return dk[..., :D], dv[..., :D]
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False):

@@ -28,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from geomx_tpu_torch.ops.bucket import on_cuda
-from geomx_tpu_torch.ops.flash_attention import NEG_INF, kernel_operand
+from geomx_tpu_torch.ops.flash_attention import (NEG_INF, kernel_dim,
+                                                  kernel_operand)
 
 
 def _check(q, k, v, m, l_acc, o, block):
@@ -91,15 +92,18 @@ def hop(q, k, v, m, l_acc, o, scale: float, diag: bool, block: int = 128):
     if not on_cuda([q, k, v, m, l_acc, o]):
         return hop_plain(q, k, v, m, l_acc, o, scale, diag, block)
     from geomx_tpu_torch.ops._build import kernels
+    D = q.shape[-1]
     m_o, l_o = torch.empty_like(m, dtype=torch.float32), \
         torch.empty_like(l_acc, dtype=torch.float32)
-    o_o = torch.empty(o.shape, dtype=torch.float32, device=o.device)
+    o_o = torch.empty((*o.shape[:-1], kernel_dim(D)), dtype=torch.float32,
+                      device=o.device)
     kernels().ring_hop(kernel_operand(q), kernel_operand(k),
                        kernel_operand(v), m.float().contiguous(),
-                       l_acc.float().contiguous(), o.float().contiguous(),
+                       l_acc.float().contiguous(),
+                       kernel_operand(o.float()).contiguous(),
                        diag, float(scale), m_o, l_o, o_o)
     hop.launches += 1
-    return m_o, l_o, o_o
+    return m_o, l_o, o_o[..., :D]
 
 
 hop.launches = 0

@@ -225,6 +225,112 @@ def test_hop_plain_and_vjp_match_pallas(hops_done, diag):
     assert torch.isfinite(targs[3].grad).all()
 
 
+def test_head_dim_gates_are_the_references(monkeypatch):
+    """The ring and Ulysses gates take the reference's ``D % 8 == 0``: a
+    head dim of 24 (not built; the wrappers pad it) goes to the kernels'
+    route, 20 to the plain hop and the streaming path."""
+    from geomx_tpu_torch.parallel import ulysses as uly
+    from geomx_tpu_torch.parallel.ring_attention import fused_hop_aligned
+    assert fused_hop_aligned(128, 16) and fused_hop_aligned(128, 24)
+    assert not fused_hop_aligned(128, 20)
+    routes = []
+    monkeypatch.setattr(fa, "fused_attention",
+                        lambda q, *a: routes.append("fused") or q)
+    monkeypatch.setattr(uly, "_streaming_attention",
+                        lambda q, *a: routes.append("streaming") or q)
+    for D in (16, 24, 20):
+        q = torch.zeros((2, 1, 32, 2, D))
+        ulysses_attention(q, q, q, True)
+    assert routes == ["fused", "fused", "streaming"]
+
+
+class _PlainKernels:
+    """The kernels' calls done by their plain versions, at the padded
+    width the wrappers hand over: q is rescaled so that the plain
+    versions' ``1/sqrt(width)`` gives the scale passed in, and dq is
+    scaled back by the same ratio."""
+
+    def __init__(self):
+        self.widths = []
+
+    def _q(self, q, scale):
+        self.widths.append(q.shape[-1])
+        r = scale / fa._scale(q.shape[-1])
+        return q * r, r
+
+    def flash_fwd(self, q, k, v, causal, scale, out, lse):
+        q, _ = self._q(q, scale)
+        o, l_ = fa.flash_attention_with_lse_plain(q, k, v, causal,
+                                                  lse is not None)
+        out.copy_(o)
+        if lse is not None:
+            lse.copy_(l_)
+
+    def flash_bwd_dq(self, q, k, v, do, lse, delta, causal, scale, dq):
+        q, r = self._q(q, scale)
+        dq.copy_(fa.flash_dq_plain(q, k, v, do, lse, delta, causal) * r)
+
+    def flash_bwd_dkv(self, q, k, v, do, lse, delta, causal, scale, dk,
+                      dv):
+        q, _ = self._q(q, scale)
+        a, b = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal)
+        dk.copy_(a)
+        dv.copy_(b)
+
+    def ring_hop(self, q, k, v, m, l_acc, o, diag, scale, m_o, l_o, o_o):
+        self.widths.append(q.shape[-1])
+        for dst, src in zip((m_o, l_o, o_o),
+                            ring_hop.hop_plain(q, k, v, m, l_acc, o, scale,
+                                               diag)):
+            dst.copy_(src)
+
+
+@pytest.mark.parametrize("D,width", [(24, 32), (40, 64), (4, 8), (16, 16)])
+def test_wrappers_pad_head_dims_to_the_built_ones(monkeypatch, D, width):
+    """On the kernel route the wrappers zero-pad a head dim the kernels
+    are not built for up to the next built one, pass the true dim's
+    scale and slice the outputs back: the same results as the plain
+    versions at the true dim.  The kernels' calls are played by their
+    plain versions here."""
+    from geomx_tpu_torch.ops import _build
+    plain = _PlainKernels()
+    monkeypatch.setattr(_build, "kernels", lambda: plain)
+    assert fa.kernel_dim(D) == width
+    rng = np.random.RandomState(13)
+    q, k, v, g = _t(*_rand(rng, (2, 48, 2, D), 4))
+    m, l_acc, o = _t(*_hop_inputs(rng, (2, 48, 2, D), 1))[3:]
+    ref_fwd = fa.flash_attention_with_lse(q, k, v, True)
+    lse, delta = ref_fwd[1], fa.attention_delta(ref_fwd[0], g)
+    refs = (ref_fwd, fa.flash_dq(q, k, v, g, lse, delta, True),
+            fa.flash_dkv(q, k, v, g, lse, delta, True),
+            ring_hop.hop(q, k, v, m, l_acc, o, 0.3, True))
+    for mod in (fa, ring_hop):
+        monkeypatch.setattr(mod, "on_cuda", lambda ts: True)
+    gots = (fa.flash_attention_with_lse(q, k, v, True),
+            fa.flash_dq(q, k, v, g, lse, delta, True),
+            fa.flash_dkv(q, k, v, g, lse, delta, True),
+            ring_hop.hop(q, k, v, m, l_acc, o, 0.3, True))
+    assert plain.widths == [width] * 4
+    for got, ref in zip(gots, refs):
+        for a, b in zip(*((x,) if torch.is_tensor(x) else x
+                          for x in (got, ref))):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **BWD)
+    assert torch.equal(fa.flash_attention(q, k, v, True), gots[0][0])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sp_attention_head_dim_24_matches_jax_shard_map(causal):
+    """Ring and Ulysses at a head dim the kernels are not built for
+    against the JAX package's."""
+    rng = np.random.RandomState(12)
+    q, k, v = _rand(rng, (2, 64, 4, 24))
+    for fn, jfn in ((ring_attention, jring), (ulysses_attention, julysses)):
+        ref = _jax_sp(jfn, q, k, v, 2, causal)
+        out = fn(*(_shards(x, 2) for x in (q, k, v)), causal)
+        np.testing.assert_allclose(_unshard(out), ref, **BWD)
+
+
 def test_hop_raises_on_untiled_lengths():
     args = _t(*_hop_inputs(np.random.RandomState(8), (1, 24, 1, 8), 1))
     with pytest.raises(ValueError):

@@ -14,6 +14,8 @@ do; the 2-bit dequantize sums the parties' parts in party order; the
 merge kernel realizes the plain version's combining tree add for add.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -528,8 +530,15 @@ def test_flash_kernels_strided_operands_and_empty_keys(dev):
     out0, lse0 = fa.flash_attention_with_lse(q, k[:, :0], v[:, :0])
     assert torch.equal(out0, torch.zeros_like(out0))
     assert bool((lse0 <= -1e29).all())
+    # a head dim between the built ones runs zero-padded to the next;
+    # past the widest the wrapper raises
+    q, k, v = _attn(dev, (1, 16, 1, 12))
+    torch.testing.assert_close(
+        fa.flash_attention(q, k, v),
+        fa.flash_attention_with_lse_plain(q, k, v, with_lse=False)[0],
+        rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
-        fa.flash_attention(*_attn(dev, (1, 16, 1, 12)))
+        fa.flash_attention(*_attn(dev, (1, 16, 1, 136)))
 
 
 @pytest.mark.cuda
@@ -557,6 +566,191 @@ def test_ring_hop_matches_plain(dev, hops_done, diag, dtype):
     for a, b in zip(got, ring_hop.hop_plain(q, k, v, m, l_acc, o, 0.25, diag)):
         assert a.dtype == torch.float32 and torch.isfinite(a).all()
         torch.testing.assert_close(a, b, **tol)
+
+
+# the tile edges of the tensor-core forward (64-row query groups, two a
+# block up to head dim 16; 64-key tiles, 32 and 16 at head dims 64 and
+# 128): Lq and Lk off the tiles and unequal, Lk below one tile and zero,
+# the causal diagonal inside a tile, the narrowest and widest heads in
+# fp32 and bf16
+_FWD_EDGE_CASES = [((1, 100, 2, 16), 70, False, torch.float32),
+                   ((1, 70, 2, 16), 130, True, torch.float32),
+                   ((1, 100, 2, 16), 30, False, torch.float32),
+                   ((2, 40, 2, 16), 40, True, torch.float32),
+                   ((1, 50, 2, 16), 0, False, torch.float32),
+                   ((1, 200, 2, 32), 200, True, torch.float32),
+                   ((1, 90, 2, 64), 75, True, torch.float32),
+                   ((1, 100, 2, 8), 130, True, torch.float32),
+                   ((1, 100, 2, 8), 130, True, torch.bfloat16),
+                   ((1, 70, 2, 128), 90, True, torch.float32),
+                   ((1, 70, 2, 128), 90, True, torch.bfloat16),
+                   ((1, 50, 2, 128), 37, False, torch.float32)]
+
+
+def _fwd_close(fa, q, k, v, causal):
+    """The forward against its plain version; the no-lse variant and a
+    second call give the same bits."""
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal)
+    ref, ref_lse = fa.flash_attention_with_lse_plain(q, k, v, causal)
+    tol = dict(rtol=1e-5, atol=1e-5) if q.dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=2e-2)
+    assert out.dtype == q.dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, **tol)
+    assert torch.equal(fa.flash_attention(q, k, v, causal), out)
+    out2, lse2 = fa.flash_attention_with_lse(q, k, v, causal)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qshape,lk,causal,dtype", _FWD_EDGE_CASES)
+def test_flash_forward_tile_edges(dev, qshape, lk, causal, dtype):
+    from geomx_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _bwd_inputs(dev, qshape, lk, causal, dtype)[:3]
+    _fwd_close(fa, q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 128])
+def test_flash_forward_unaligned_operands(dev, D, dtype):
+    """Operands the key tiles cannot reach by 16-byte copies: the same
+    results by plain loads."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _bwd_inputs(dev, (2, 100, 2, D), 100, True, dtype,
+                          strided=True)[:3]
+    assert k.stride(1) * k.element_size() % 16 != 0
+    _fwd_close(fa, q, k, v, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((4, 1024, 4, 16), False),
+                                          ((2, 300, 2, 16), True),
+                                          ((1, 200, 2, 64), True)])
+def test_flash_forward_gives_the_same_bits_every_call(dev, shape, causal):
+    """Each output element is summed by one warpgroup in a fixed order."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    q, k, v = _attn(dev, shape, seed=3)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal)
+    for _ in range(2):
+        o2, l2 = fa.flash_attention_with_lse(q, k, v, causal)
+        assert torch.equal(o2, out) and torch.equal(l2, lse)
+
+
+def _hop_carries(dev, shape, hops_done, seed=5):
+    B, L, H, _ = shape
+    if hops_done == 0:
+        return (torch.full((B, H, L), float("-inf"), device=dev),
+                torch.zeros((B, H, L), device=dev),
+                torch.zeros(shape, device=dev))
+    m, o = _attn(dev, (B, H, L), seed=seed, n=1)[0], \
+        _attn(dev, shape, seed=seed + 1, n=1)[0]
+    return m, m.abs() + 0.5, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("hops_done", [0, 1])
+@pytest.mark.parametrize("shape", [(2, 40, 2, 16), (3, 24, 2, 8),
+                                   (1, 48, 2, 128)])
+def test_ring_hop_below_one_query_group(dev, shape, hops_done, diag, dtype):
+    """Lq below the 64 rows of a warpgroup: the carries match the plain
+    hop's, and two calls give the same bits."""
+    from geomx_tpu_torch.ops import ring_hop
+    q, k, v = _attn(dev, shape, dtype, seed=hops_done)
+    m, l_acc, o = _hop_carries(dev, shape, hops_done)
+    got = ring_hop.hop(q, k, v, m, l_acc, o, 0.25, diag)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    for a, b in zip(got, ring_hop.hop_plain(q, k, v, m, l_acc, o, 0.25, diag)):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, **tol)
+    for a, b in zip(got, ring_hop.hop(q, k, v, m, l_acc, o, 0.25, diag)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [24, 40, 100])
+def test_attention_kernels_at_unbuilt_head_dims(dev, D, dtype):
+    """A head dim the kernels are not built for runs on the next built
+    one, zero-padded, with the true dim's scale: the forward, dq, dk/dv
+    and the hop (both modes) against their plain versions at the true
+    dim, at the tile-edge tolerances; the outputs keep the true dim."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    from geomx_tpu_torch.ops import ring_hop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32 = dtype == torch.float32
+    n = fa.flash_dq.launches
+    q, k, v = _bwd_inputs(dev, (1, 90, 2, D), 75, True, dtype)[:3]
+    _fwd_close(fa, q, k, v, True)
+    args = _bwd_inputs(dev, (1, 90, 2, D), 75, True, dtype)
+    tol = dict(rtol=1e-4, atol=1e-4) if fp32 else dict(rtol=1e-2, atol=1e-2)
+    dq = fa.flash_dq(*args, True)
+    assert dq.shape == q.shape and fa.flash_dq.launches == n + 1
+    torch.testing.assert_close(dq, fa.flash_dq_plain(*args, True), **tol)
+    for a, b in zip(fa.flash_dkv(*args, True),
+                    fa.flash_dkv_plain(*args, True)):
+        assert a.shape == k.shape
+        torch.testing.assert_close(a, b, **tol)
+    shape = (2, 40, 2, D)
+    q, k, v = _attn(dev, shape, dtype, seed=4)
+    m, l_acc, o = _hop_carries(dev, shape, 1)
+    for diag in (False, True):
+        got = ring_hop.hop(q, k, v, m, l_acc, o, 0.2, diag)
+        assert got[2].shape == shape
+        for a, b in zip(got, ring_hop.hop_plain(q, k, v, m, l_acc, o, 0.2,
+                                                diag)):
+            torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "ring", "ulysses"])
+def test_seq_classifier_head_dim_24_trains_on_the_card(dev, mode):
+    """Head dim 24 (dim 96, 4 heads), which the kernels run zero-padded
+    to 32: a step runs on the card through the attention kernels of its
+    mode, and its loss and parameters match the CPU's to chip_smoke.py's
+    reference tolerances for the seq paths (loss rtol 1e-4, parameters
+    atol 4e-3)."""
+    from geomx_tpu_torch import HiPSTopology, ops
+    from geomx_tpu_torch.models import SeqClassifier
+    from geomx_tpu_torch.optim import adam
+    from geomx_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mk = dict(vocab=64, max_len=64, dim=96, num_heads=4, num_layers=2,
+              num_classes=4)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(4, 64, (2, 1, 4, 64))
+    pos = np.broadcast_to(np.arange(64), tok.shape)
+    x = torch.as_tensor(np.stack([tok, pos], -1).astype(np.int32))
+    y = torch.as_tensor(rng.randint(0, 4, (2, 1, 4)))
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        t = Trainer(SeqClassifier(sp_mode=mode, **mk),
+                    HiPSTopology(2, 1, sp_degree=1 if mode is None else 2),
+                    adam(1e-3), device=device,
+                    single_device_model=SeqClassifier(**mk))
+        st = t.init_state(seed=0)
+        ops.reset_launch_counts()
+        st, m = t.train_step(st, x.to(device), y.to(device))
+        runs[device.type] = (float(m["loss"]),
+                             {k: p.cpu() for k, p in st.params.items()})
+        if device.type == "cuda":
+            attn = ("fused_block",) if mode == "ring" else (
+                "flash_attention_fwd", "flash_attention_dq",
+                "flash_attention_dkv")
+            assert all(ops.launch_counts()[n] > 0 for n in attn)
+    (loss, params), (ref_loss, ref_params) = runs["cuda"], runs["cpu"]
+    assert math.isfinite(loss)
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+    assert params.keys() == ref_params.keys()
+    for name, p in params.items():
+        torch.testing.assert_close(p, ref_params[name], rtol=0, atol=4e-3,
+                                   msg=name)
 
 
 # one step's launches of the small SeqClassifier (2 layers) on [2, 1] x sp
