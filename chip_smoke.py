@@ -30,6 +30,10 @@ Every phase's failure is fatal (non-zero exit, no result line):
               rate, the fp32 figure beside it; two calls of each
               attention kernel give the same bits (the forward's no-lse
               variant too);
+   head dims -- the four attention kernels at head dim 256 on the wide
+              route (seq_flash's [16, 4096, 4] and seq_ring's hop [32,
+              128, 4]): the fp32 gates, two calls the same bits, times,
+              attn_bound() and scaled_dot_product_attention's time;
 4. reference -- two fp32 training steps on the card and on the CPU (plain
               versions) from the same weights and batches: a small ResNet
               for each path's configuration and four more compressors
@@ -358,8 +362,13 @@ def kernel_phase(torch, dev, timer=None):
     u = torch.randn(g.shape, generator=gen, device=dev) * 0.1
     v = torch.randn(g.shape, generator=gen, device=dev) * 0.2
     thr = bsc.sampled_boundary_guv(g, u, v, k)
+    launches = bsc.select_pack.launches
     sel = bsc.select_pack(g, u, v, thr, k)
+    if bsc.select_pack.launches != launches + 1:
+        raise AssertionError("select/pack: not one launch a call")
     err = max_err(torch, sel, bsc.select_pack_plain(g, u, v, thr, k))
+    max_err(torch, sel, bsc.select_pack(g, u, v, thr, k))
+    log("  select/pack: one launch a call; two calls give the same bits")
     out["bsc_select_pack"] = dict(
         max_abs_err=err,
         ms=timer(lambda: bsc.select_pack(g, u, v, thr, k)),
@@ -433,6 +442,21 @@ def kernel_phase(torch, dev, timer=None):
     out.update(twobit_kernels(torch, dev, timer, gen, rows_shape + (n,)))
     out.update(merge_kernels(torch, dev, timer, gen, n))
     return out
+
+
+def timer_floors(torch, dev, timer=None) -> dict:
+    """What device_ms() reads for work that is not a kernel of the port:
+    one fill of a 4-byte tensor (a launch and nothing else) and a device
+    copy of the flatten's bytes (8 rows of the 272,512-element bucket, in
+    and out), so each kernel's time can be read against the least this
+    timer shows for a launch and for moving those bytes."""
+    timer = timer or (lambda fn: device_ms(torch, fn))
+    tiny = torch.zeros(1, device=dev)
+    src = torch.ones(8 * 272_512, device=dev)
+    dst = torch.empty_like(src)
+    return dict(launch_ms=timer(lambda: tiny.fill_(1.0)),
+                copy_ms=timer(lambda: dst.copy_(src)),
+                copy_bytes=2 * src.numel() * 4)
 
 
 def optim_kernels(torch, dev, timer, gen, shape):
@@ -811,6 +835,113 @@ def attention_kernels(torch, dev, timer=None):
     return out
 
 
+def head_dim_phase(torch, dev, timer=None):
+    """Rows 10-13 at head dim 256, which the kernels run on the wide route
+    (each block one 128-wide chunk of its output): the forward, dq and
+    dk/dv at seq_flash's B, L, H (q, k, v [16, 4096, 4, 256]) and the hop
+    at seq_ring's ([32, 128, 4, 256]), held to the fp32 gates (1e-5
+    forward, 1e-4 backward and hop), two calls giving the same bits, with
+    times over 20 calls, attn_bound()'s bound, and
+    scaled_dot_product_attention's time at the same shape."""
+    import torch.nn.functional as F
+
+    from geomx_tpu_torch.ops import flash_attention as fa
+    from geomx_tpu_torch.ops import ring_hop
+
+    timer = timer or (lambda fn: device_ms(torch, fn, reps=20))
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(shape, n):
+        return [torch.randn(shape, generator=gen, device=dev)
+                for _ in range(n)]
+
+    out = {}
+    B, L, H, D = 16, 4096, 4, 256
+    q, k, v, g = rand((B, L, H, D), 4)
+    elems, rows, pairs = B * L * H * D, B * H * L, B * H * L * L
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    ro, rlse = fa.flash_attention_with_lse_plain(q, k, v)
+    o2, lse2 = fa.flash_attention_with_lse(q, k, v)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError("flash forward, D = 256: two calls differ")
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    sdpa = (lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    out["flash_attention_fwd"] = attn_record(
+        4 * (4 * elems + rows), 4 * pairs * D, pairs,
+        max_abs_err=close_err(torch, [o, lse], [ro, rlse], 1e-5, 1e-5),
+        ms=timer(lambda: fa.flash_attention_with_lse(q, k, v)),
+        plain_ms=timer(lambda: fa.flash_attention_with_lse_plain(q, k, v)),
+        library_ms=timer(sdpa),
+        library="scaled_dot_product_attention forward: "
+        + sdpa_kernels(torch, sdpa))
+    del o, o2, lse2
+    delta = fa.attention_delta(ro, g)
+    dq = fa.flash_dq(q, k, v, g, rlse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, g, rlse, delta)
+    if not (torch.equal(dq, fa.flash_dq(q, k, v, g, rlse, delta)) and all(
+            torch.equal(a, b) for a, b in
+            zip((dk, dv), fa.flash_dkv(q, k, v, g, rlse, delta)))):
+        raise AssertionError("flash backward, D = 256: two calls differ")
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    so = F.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_bwd = (lambda: torch.autograd.grad(so, (qg, kg, vg), gt,
+                                            retain_graph=True))
+    lib_bwd = timer(sdpa_bwd)
+    lib_name = ("scaled_dot_product_attention backward (dq, dk and dv): "
+                + sdpa_kernels(torch, sdpa_bwd))
+    del qg, kg, vg, so
+    out["flash_attention_dq"] = attn_record(
+        4 * (5 * elems + 2 * rows), 6 * pairs * D, pairs,
+        max_abs_err=close_err(
+            torch, [dq], [fa.flash_dq_plain(q, k, v, g, rlse, delta)],
+            1e-4, 1e-4),
+        ms=timer(lambda: fa.flash_dq(q, k, v, g, rlse, delta)),
+        plain_ms=timer(lambda: fa.flash_dq_plain(q, k, v, g, rlse, delta)),
+        library_ms=lib_bwd, library=lib_name)
+    del dq
+    out["flash_attention_dkv"] = attn_record(
+        4 * (6 * elems + 2 * rows), 8 * pairs * D, pairs,
+        max_abs_err=close_err(
+            torch, [dk, dv], fa.flash_dkv_plain(q, k, v, g, rlse, delta),
+            1e-4, 1e-4),
+        ms=timer(lambda: fa.flash_dkv(q, k, v, g, rlse, delta)),
+        plain_ms=timer(lambda: fa.flash_dkv_plain(q, k, v, g, rlse, delta)),
+        library_ms=lib_bwd, library=lib_name)
+    del dk, dv, q, k, v, g, qt, kt, vt, gt, ro, rlse, delta
+
+    hs = (32, 128, 4, D)
+    hq, hk, hv, ho = rand(hs, 4)
+    hm = rand(hs[:1] + (4, 128), 1)[0]
+    hop_args = (hq, hk, hv, hm, hm.abs() + 0.5, ho, 1.0 / 16, False)
+    got = ring_hop.hop(*hop_args)
+    for diag in (False, True):
+        a = ring_hop.hop(*hop_args[:-1], diag)
+        if not all(torch.equal(x, y) for x, y in
+                   zip(a, ring_hop.hop(*hop_args[:-1], diag))):
+            raise AssertionError(f"ring hop D = 256 diag={diag}: two calls "
+                                 "differ")
+        close_err(torch, a, ring_hop.hop_plain(*hop_args[:-1], diag),
+                  1e-4, 1e-4)
+    hop_pairs, hop_elems = 32 * 4 * 128 * 128, math.prod(hs)
+    out["fused_block"] = attn_record(
+        4 * (6 * hop_elems + 4 * 32 * 4 * 128), 4 * hop_pairs * D,
+        hop_pairs,
+        max_abs_err=close_err(torch, got, ring_hop.hop_plain(*hop_args),
+                              1e-4, 1e-4),
+        ms=timer(lambda: ring_hop.hop(*hop_args)),
+        plain_ms=timer(lambda: ring_hop.hop_plain(*hop_args)),
+        library_ms=None)
+    for name, r in out.items():
+        lib = "-" if r["library_ms"] is None \
+            else f"{r['library_ms'] * 1e3:.1f} us"
+        log(f"head dim 256 {name}: {r['ms'] * 1e3:.1f} us (plain "
+            f"{r['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_kind']}), max abs "
+            f"err {r['max_abs_err']:.3g}; two calls give the same bits"
+            + (f"; library: {r['library']}" if "library" in r else ""))
+    return out
+
+
 def seq_reference_phase(torch):
     """Two fp32 steps of each attention configuration (SEQ_REFERENCE) on
     the card vs on the CPU (plain versions), from the same weights and
@@ -1088,6 +1219,11 @@ def main(argv=None) -> int:
 
     kern = kernel_phase(torch, torch.device("cuda"))
     kern.update(attention_kernels(torch, torch.device("cuda")))
+    wide = head_dim_phase(torch, torch.device("cuda"))
+    floors = timer_floors(torch, torch.device("cuda"))
+    log(f"timer floors: a 4-byte fill {floors['launch_ms'] * 1e3:.1f} us; a "
+        f"device copy of {floors['copy_bytes'] / 1e6:.1f} MB (in and out) "
+        f"{floors['copy_ms'] * 1e3:.1f} us")
     for name, r in kern.items():
         lib = "-" if r["library_ms"] is None \
             else f"{r['library_ms'] * 1e3:.1f} us"
@@ -1131,6 +1267,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": _build.build_seconds,
                        "kernels": kernels, "kernel_phase": kern,
+                       "head_dim_phase": wide, "timer_floors": floors,
                        "paths": paths,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s")

@@ -12,6 +12,8 @@
 namespace gx_attn {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' masking sentinel
+// head elements of an output chunk on the wide route (attention_wide.cuh)
+constexpr int kChunk = 128;
 
 inline bool dims_ok(const GxAttnDims& dims) {
   return dims.B >= 0 && dims.H > 0 && dims.Lq >= 0 && dims.Lk >= 0 &&
@@ -21,12 +23,20 @@ inline bool dims_ok(const GxAttnDims& dims) {
 }  // namespace gx_attn
 
 // return LAUNCH<T, D>(args...) for the operands' type and head dim, or
-// cudaErrorInvalidValue for a head dim the kernels are not built for
+// cudaErrorInvalidValue for a head dim the kernels are not built for;
+// head dims above 128 go to WIDE<T>(args...) (attention_wide.cuh)
 #define GX_ATTN_CASE(DIM, LAUNCH, ...)                               \
   case DIM:                                                          \
     return dims.bf16 ? LAUNCH<__nv_bfloat16, DIM>(__VA_ARGS__)       \
                      : LAUNCH<float, DIM>(__VA_ARGS__);
-#define GX_ATTN_DISPATCH(LAUNCH, ...)                                \
+#define GX_ATTN_DISPATCH(LAUNCH, WIDE, ...)                          \
+  if (dims.D > gx_attn::kChunk) {                                    \
+    if (dims.D % gx_attn::kChunk != 0) {                             \
+      return static_cast<int>(cudaErrorInvalidValue);                \
+    }                                                                \
+    return dims.bf16 ? WIDE<__nv_bfloat16>(__VA_ARGS__)              \
+                     : WIDE<float>(__VA_ARGS__);                     \
+  }                                                                  \
   switch (dims.D) {                                                  \
     GX_ATTN_CASE(8, LAUNCH, __VA_ARGS__)                             \
     GX_ATTN_CASE(16, LAUNCH, __VA_ARGS__)                            \

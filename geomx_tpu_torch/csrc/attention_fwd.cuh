@@ -47,6 +47,7 @@
 
 #include "attention.cuh"
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace gx_fwd {
 
@@ -115,25 +116,93 @@ __device__ __forceinline__ void stage_kv(const GxSeqOperand& k,
   }
 }
 
-// Splits the N floats at hi in place into their TF32 hi parts, the lo
-// parts going to hi + N (16-byte accesses in order: no bank conflicts)
-template <int N>
-__device__ __forceinline__ void split_tile(float* hi) {
-#pragma unroll
-  for (int n = 0; n < N / 4 / kThreads; ++n) {
-    const unsigned i = threadIdx.x + n * kThreads;
-    const float4 x = reinterpret_cast<const float4*>(hi)[i];
-    const float x4[4] = {x.x, x.y, x.z, x.w};
-    uint32_t h4[4], l4[4];
-    split4<2>(x4, h4, l4);
-    store4<2>(h4, l4, hi, hi + N, 4 * i);
-  }
-}
-
 // The query rows of this thread in a group starting at r0: 16 warp + g
 // and 8 below (accumulator rows w = 0, 1).
 __device__ __forceinline__ int my_row(int r0, int w) {
   return r0 + 16 * (threadIdx.x / 32) + threadIdx.x % 32 / 4 + 8 * w;
+}
+
+// Folds one tile's scores s (accumulator layout; unscaled q k^T, keys [k0,
+// k0 + Bk) of the group of rows [r0, r0 + 64)) into the state (o, m, l):
+// the masks, the online softmax, and this tile's P V from V^T (depth Bk
+// in slot order, N = Dv) with its hi part at vt and its lo part at vt +
+// vlo.
+template <int P, int Dv, int Bk>
+__device__ __forceinline__ void fold_tile(float (&s)[Bk / 2], const float* vt,
+                                          int vlo, const GxAttnDims& dims,
+                                          int k0, int r0, float (&o)[Dv / 2],
+                                          float (&m)[2], float (&l)[2]) {
+  constexpr int NB = Bk / 8;
+  const int t4 = threadIdx.x % 4;
+  const float c = dims.scale * kLog2e;
+  // the rows' maxima over the live scores; a masked score is -inf
+  // here and its p is set to 0 below
+  const bool whole = k0 + Bk <= dims.Lk &&
+                     (!dims.causal || k0 + Bk - 1 <= r0);
+  if (!whole) {
+#pragma unroll
+    for (int e = 0; e < Bk / 2; ++e) {
+      const int col = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+      if (col >= dims.Lk ||
+          (dims.causal && col > my_row(r0, (e >> 1) & 1))) {
+        s[e] = -INFINITY;
+      }
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < Bk / 2; ++e) {
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+  }
+  float corr[2], mb[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    mx[w] = fmaxf(mx[w], __shfl_xor_sync(0xffffffffu, mx[w], 1));
+    mx[w] = fmaxf(mx[w], __shfl_xor_sync(0xffffffffu, mx[w], 2));
+    // the tile's running max starts at the sentinel
+    const float m_new = fmaxf(m[w], fmaxf(mx[w] * dims.scale, kNegInf));
+    corr[w] = ex2((m[w] - m_new) * kLog2e);
+    mb[w] = m_new * kLog2e;
+    m[w] = m_new;
+  }
+  if (whole) {
+#pragma unroll
+    for (int e = 0; e < Bk / 2; ++e) {
+      s[e] = ex2(fmaf(s[e], c, -mb[(e >> 1) & 1]));
+      psum[(e >> 1) & 1] += s[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < Bk / 2; ++e) {
+      const float p = ex2(fmaf(s[e], c, -mb[(e >> 1) & 1]));
+      s[e] = s[e] == -INFINITY ? 0.f : p;
+      psum[(e >> 1) & 1] += s[e];
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < 2; ++w) l[w] = fmaf(l[w], corr[w], psum[w]);
+
+  // this tile's P V: depth Bk (slot order), N = Dv
+  uint32_t ph[NB][4], pl[NB][4];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) a_frag(s, i, ph[i], pl[i]);
+  float ot[Dv / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const float* vi = vt + i * 64;
+    Wgmma<Dv>::rs(ot, ph[i], desc(vi, Bk), i > 0);
+    Wgmma<Dv>::rs(ot, pl[i], desc(vi, Bk), 1);
+    if (P == 2) Wgmma<Dv>::rs(ot, ph[i], desc(vi + vlo, Bk), 1);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  reg_fence(ot);
+  // the tile's (truncated) tensor-core sum, added in round-to-nearest
+#pragma unroll
+  for (int e = 0; e < Dv / 2; ++e) {
+    o[e] = fmaf(o[e], corr[(e >> 1) & 1], ot[e]);
+  }
 }
 
 // Folds keys [0, kend) of head (b, h) into the state of the G groups of
@@ -148,8 +217,7 @@ __device__ __forceinline__ void fold_keys(
     const GxAttnDims& dims, int b, int h, int q0, int async16, float* sm,
     float (&o)[G][D / 2], float (&m)[G][2], float (&l)[G][2]) {
   using S = FwdSmem<T, D, G>;
-  constexpr int Bk = S::kBk, P = S::kP, NB = Bk / 8;
-  const int t4 = threadIdx.x % 4;
+  constexpr int Bk = S::kBk, P = S::kP;
   T* raw = reinterpret_cast<T*>(sm + S::kRawAt);
   const int kend = dims.causal ? min(dims.Lk, q0 + G * kRows) : dims.Lk;
   const int ntiles = (kend + Bk - 1) / Bk;
@@ -168,7 +236,6 @@ __device__ __forceinline__ void fold_keys(
   cp_async_commit();
   load_fixed<T, D, G * kRows>(q, b, h, q0, dims.Lq, sm + S::kQ,
                               sm + S::kQ + G * kRows * D);
-  const float c = dims.scale * kLog2e;
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * Bk;
@@ -214,77 +281,51 @@ __device__ __forceinline__ void fold_keys(
       wgmma_wait();
       reg_fence(s);
 
-      // the rows' maxima over the live scores; a masked score is -inf
-      // here and its p is set to 0 below
-      const bool whole = k0 + Bk <= dims.Lk &&
-                         (!dims.causal || k0 + Bk - 1 <= r0);
-      if (!whole) {
-#pragma unroll
-        for (int e = 0; e < Bk / 2; ++e) {
-          const int col = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
-          if (col >= dims.Lk ||
-              (dims.causal && col > my_row(r0, (e >> 1) & 1))) {
-            s[e] = -INFINITY;
-          }
-        }
-      }
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int e = 0; e < Bk / 2; ++e) {
-        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
-      }
-      float corr[2], mb[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        mx[w] = fmaxf(mx[w], __shfl_xor_sync(0xffffffffu, mx[w], 1));
-        mx[w] = fmaxf(mx[w], __shfl_xor_sync(0xffffffffu, mx[w], 2));
-        // the tile's running max starts at the sentinel
-        const float m_new = fmaxf(m[u][w], fmaxf(mx[w] * dims.scale,
-                                                 kNegInf));
-        corr[w] = ex2((m[u][w] - m_new) * kLog2e);
-        mb[w] = m_new * kLog2e;
-        m[u][w] = m_new;
-      }
-      if (whole) {
-#pragma unroll
-        for (int e = 0; e < Bk / 2; ++e) {
-          s[e] = ex2(fmaf(s[e], c, -mb[(e >> 1) & 1]));
-          psum[(e >> 1) & 1] += s[e];
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < Bk / 2; ++e) {
-          const float p = ex2(fmaf(s[e], c, -mb[(e >> 1) & 1]));
-          s[e] = s[e] == -INFINITY ? 0.f : p;
-          psum[(e >> 1) & 1] += s[e];
-        }
-      }
-#pragma unroll
-      for (int w = 0; w < 2; ++w) l[u][w] = fmaf(l[u][w], corr[w], psum[w]);
-
-      // this tile's P V: depth Bk (slot order), N = D
-      uint32_t ph[NB][4], pl[NB][4];
-#pragma unroll
-      for (int i = 0; i < NB; ++i) a_frag(s, i, ph[i], pl[i]);
-      float ot[D / 2];
-      wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const float* vi = kt + Bk * D + i * 64;
-        Wgmma<D>::rs(ot, ph[i], desc(vi, Bk), i > 0);
-        Wgmma<D>::rs(ot, pl[i], desc(vi, Bk), 1);
-        if (P == 2) Wgmma<D>::rs(ot, ph[i], desc(vi + S::kLo, Bk), 1);
-      }
-      wgmma_commit();
-      wgmma_wait();
-      reg_fence(ot);
-      // the tile's (truncated) tensor-core sum, added in round-to-nearest
-#pragma unroll
-      for (int e = 0; e < D / 2; ++e) {
-        o[u][e] = fmaf(o[u][e], corr[(e >> 1) & 1], ot[e]);
-      }
+      fold_tile<P, D, Bk>(s, kt + Bk * D, S::kLo, dims, k0, r0, o[u], m[u],
+                          l[u]);
     }
     __syncthreads();  // tile t + 2's copies rewrite this stage
+  }
+}
+
+// The shared memory of fold_keys_wide, in floats: a chunk of Q, of a K
+// tile and of a V^T tile, each P parts, and the bf16 staging
+template <typename T>
+constexpr int wide_fwd_floats() {
+  return parts<T>() * (kRows + 2 * gx_wide::kTileRows) * gx_attn::kChunk +
+         gx_wide::raw_floats<T, gx_wide::kTileRows, 1>();
+}
+
+// fold_keys for a head above 128 (attention_wide.cuh): folds keys [0,
+// kend) of head (b, h) into the state of the group of rows [q0, q0 + 64)
+// for head elements [128 oc, 128 oc + 128) of o; each 16-key tile's scores
+// over the whole head from wide_scores(), then its V^T chunk oc.  vec: the
+// operands' alignment bits (gx_wide::vec_bits).
+template <typename T>
+__device__ __forceinline__ void fold_keys_wide(
+    const GxSeqOperand& q, const GxSeqOperand& k, const GxSeqOperand& v,
+    const GxAttnDims& dims, int b, int h, int q0, int oc, int vec, float* sm,
+    float (&o)[gx_attn::kChunk / 2], float (&m)[2], float (&l)[2]) {
+  constexpr int Bk = gx_wide::kTileRows, P = parts<T>();
+  constexpr int C = gx_attn::kChunk;
+  float* sq = sm;
+  float* sk = sq + P * kRows * C;
+  float* svt = sk + P * Bk * C;
+  float* raw = svt + P * Bk * C;
+  const int kend = dims.causal ? min(dims.Lk, q0 + kRows) : dims.Lk;
+  for (int k0 = 0; k0 < kend; k0 += Bk) {
+    float s[Bk / 2];
+    // V^T chunk oc comes beside the scores' last chunk
+    T* rv = gx_wide::raw_more<T, Bk>(raw, 0);
+    gx_wide::wide_scores<T, Bk>(
+        q, q0, dims.Lq, vec & 1, k, k0, dims.Lk, vec & 2, b, h, dims.D / C,
+        sq, sk, raw, s,
+        [&] {
+          gx_wide::stage_chunk<T, Bk, true>(v, b, h, k0, dims.Lk, oc * C,
+                                            vec & 4, svt, rv);
+        },
+        [&] { gx_wide::finish_chunk<T, Bk, true>(svt, rv); });
+    fold_tile<P, C, Bk>(s, svt, Bk * C, dims, k0, q0, o, m, l);
   }
 }
 

@@ -359,6 +359,21 @@ __device__ __forceinline__ void store4(const uint32_t (&h)[4],
   }
 }
 
+// Splits the N floats at hi in place into their TF32 hi parts, the lo
+// parts going to hi + N (16-byte accesses in order: no bank conflicts)
+template <int N>
+__device__ __forceinline__ void split_tile(float* hi) {
+#pragma unroll
+  for (int n = 0; n < N / 4 / kThreads; ++n) {
+    const unsigned i = threadIdx.x + n * kThreads;
+    const float4 x = reinterpret_cast<const float4*>(hi)[i];
+    const float x4[4] = {x.x, x.y, x.z, x.w};
+    uint32_t h4[4], l4[4];
+    split4<2>(x4, h4, l4);
+    store4<2>(h4, l4, hi, hi + N, 4 * i);
+  }
+}
+
 // rows [l0, l0 + R) of head (b, h) of t (zeros past len) into the K-major
 // [R][D] tile hi (and lo): the operand a block keeps
 template <typename T, int D, int R>

@@ -41,22 +41,50 @@ int64_t rows_of(const at::Tensor& t) {
   return rows;
 }
 
-// element offset of row r of a [*B, n] tensor with arbitrary batch strides
-int64_t row_offset(const at::Tensor& t, int64_t r) {
-  int64_t off = 0;
-  for (int64_t d = t.dim() - 2; d >= 0; --d) {
-    const int64_t s = t.size(d);
-    off += (r % s) * t.stride(d);
-    r /= s;
-  }
-  return off;
-}
-
+// One entry of the copy table: rows of n floats; row r reads src + (r /
+// inner) * src_outer + (r % inner) * src_inner (src null: zeros) and
+// writes dst + r * dst_stride.
 struct Copy {
-  const float* src;  // nullptr: write zeros
+  const float* src;
   float* dst;
-  int64_t n;
+  int64_t n, rows, inner, src_outer, src_inner, dst_stride;
 };
+
+// The entries copying the rows of a [*B, n] leaf (arbitrary batch
+// strides) to dst + r * dst_stride: the batch dims are merged where their
+// strides allow; the last two remaining ones are an entry's two strides,
+// and each index of any dims before them is an entry of its own.
+void leaf_copies(const at::Tensor& leaf, float* dst, int64_t dst_stride,
+                 std::vector<Copy>& out) {
+  std::vector<int64_t> size, stride;  // batch dims, merged, size-1 dropped
+  for (int64_t d = 0; d + 1 < leaf.dim(); ++d) {
+    if (leaf.size(d) == 1) continue;
+    if (!size.empty() && stride.back() == leaf.stride(d) * leaf.size(d)) {
+      size.back() *= leaf.size(d);
+      stride.back() = leaf.stride(d);
+    } else {
+      size.push_back(leaf.size(d));
+      stride.push_back(leaf.stride(d));
+    }
+  }
+  const int64_t m = static_cast<int64_t>(size.size());
+  const int64_t inner = m >= 1 ? size[m - 1] : 1;
+  const int64_t rows = m >= 2 ? size[m - 2] * inner : inner;
+  const int64_t s_inner = m >= 1 ? stride[m - 1] : 0;
+  const int64_t s_outer = m >= 2 ? stride[m - 2] : 0;
+  int64_t outer = 1;
+  for (int64_t d = 0; d + 2 < m; ++d) outer *= size[d];
+  const float* base = leaf.data_ptr<float>();
+  for (int64_t o = 0; o < outer; ++o) {
+    int64_t off = 0;
+    for (int64_t d = m - 3, rest = o; d >= 0; --d) {
+      off += (rest % size[d]) * stride[d];
+      rest /= size[d];
+    }
+    out.push_back({base + off, dst + o * rows * dst_stride, leaf.size(-1),
+                   rows, inner, s_outer, s_inner, dst_stride});
+  }
+}
 
 // Launches the copy table, GX_MAX_COPIES entries a launch; returns the
 // number of launches.
@@ -66,23 +94,26 @@ int64_t launch_copies(const std::vector<Copy>& copies, cudaStream_t stream) {
   size_t i = 0;
   GxCopyTable table;
   while (i < copies.size()) {
-    int64_t blocks = 0;
+    int64_t units = 0;
     table.count = 0;
     while (i < copies.size() && table.count < GX_MAX_COPIES) {
-      const int64_t nb = (copies[i].n + tile - 1) / tile;
-      TORCH_CHECK(nb < INT_MAX, "a bucket copy of ", copies[i].n,
-                  " elements is too large for one launch");
-      if (blocks + nb > INT_MAX) break;
-      table.block_start[table.count] = static_cast<int>(blocks);
-      table.src[table.count] = copies[i].src;
-      table.dst[table.count] = copies[i].dst;
-      table.n[table.count] = copies[i].n;
-      blocks += nb;
+      const Copy& c = copies[i];
+      const int64_t per_row = (c.n + 6) / 4;
+      const int64_t nu = per_row * c.rows;
+      TORCH_CHECK(nu < INT_MAX && c.n < INT_MAX, "a bucket copy of ",
+                  c.rows, " x ", c.n, " elements is too large for one launch");
+      if ((units + nu + tile - 1) / tile > INT_MAX) break;
+      table.e[table.count] = GxCopy{units, c.src, c.dst, c.src_outer,
+                                    c.src_inner, c.dst_stride,
+                                    static_cast<int>(c.n),
+                                    static_cast<int>(per_row),
+                                    static_cast<int>(c.inner), 0};
+      units += nu;
       ++table.count;
       ++i;
     }
-    table.block_start[table.count] = static_cast<int>(blocks);
-    table.total_blocks = static_cast<int>(blocks);
+    table.total_units = units;
+    table.total_blocks = static_cast<int>((units + tile - 1) / tile);
     check_launch(gx_bucket_copy(&table, stream), "bucket copy");
     ++launches;
   }
@@ -126,7 +157,9 @@ void check_layout(const std::vector<at::Tensor>& leaves,
 }  // namespace
 
 // leaves [*B, n_i] (last dim contiguous) -> buckets [*B, N_b]; every
-// bucket's tail past its last leaf is zero-filled.  Returns launches.
+// bucket's tail past its last leaf is zero-filled.  One table entry a
+// leaf and a pad (more where a leaf's batch strides do not merge into
+// two).  Returns launches.
 int64_t bucket_flatten(const std::vector<at::Tensor>& leaves,
                        const std::vector<at::Tensor>& buckets,
                        const std::vector<int64_t>& bucket_of,
@@ -134,36 +167,32 @@ int64_t bucket_flatten(const std::vector<at::Tensor>& leaves,
   check_layout(leaves, buckets, bucket_of, offset_of);
   const c10::cuda::CUDAGuard guard(buckets[0].device());
   const int64_t rows = rows_of(buckets[0]);
+  if (rows == 0) return 0;
   std::vector<int64_t> fill(buckets.size(), 0);
   for (size_t i = 0; i < leaves.size(); ++i) {
     fill[bucket_of[i]] =
         std::max(fill[bucket_of[i]], offset_of[i] + leaves[i].size(-1));
   }
   std::vector<Copy> copies;
-  copies.reserve(rows * (leaves.size() + buckets.size()));
-  for (int64_t r = 0; r < rows; ++r) {
-    for (size_t i = 0; i < leaves.size(); ++i) {
-      const int64_t n = leaves[i].size(-1);
-      if (n == 0) continue;
-      const auto& b = buckets[bucket_of[i]];
-      copies.push_back({leaves[i].data_ptr<float>() + row_offset(leaves[i], r),
-                        b.data_ptr<float>() + r * b.size(-1) + offset_of[i],
-                        n});
-    }
-    for (size_t j = 0; j < buckets.size(); ++j) {
-      const int64_t total = buckets[j].size(-1);
-      if (fill[j] < total) {
-        copies.push_back({nullptr,
-                          buckets[j].data_ptr<float>() + r * total + fill[j],
-                          total - fill[j]});
-      }
+  copies.reserve(leaves.size() + buckets.size());
+  for (size_t i = 0; i < leaves.size(); ++i) {
+    if (leaves[i].size(-1) == 0) continue;
+    const auto& b = buckets[bucket_of[i]];
+    leaf_copies(leaves[i], b.data_ptr<float>() + offset_of[i], b.size(-1),
+                copies);
+  }
+  for (size_t j = 0; j < buckets.size(); ++j) {
+    const int64_t total = buckets[j].size(-1);
+    if (fill[j] < total) {
+      copies.push_back({nullptr, buckets[j].data_ptr<float>() + fill[j],
+                        total - fill[j], rows, rows, 0, 0, total});
     }
   }
   return launch_copies(copies, at::cuda::getCurrentCUDAStream());
 }
 
-// buckets [*B, N_b] -> leaves [*B, n_i] (contiguous outputs).  Returns
-// launches.
+// buckets [*B, N_b] -> leaves [*B, n_i] (contiguous outputs), one table
+// entry a leaf.  Returns launches.
 int64_t bucket_unflatten(const std::vector<at::Tensor>& buckets,
                          const std::vector<at::Tensor>& leaves,
                          const std::vector<int64_t>& bucket_of,
@@ -172,37 +201,38 @@ int64_t bucket_unflatten(const std::vector<at::Tensor>& buckets,
   for (const auto& leaf : leaves) check_contiguous(leaf, at::kFloat, "leaf");
   const c10::cuda::CUDAGuard guard(buckets[0].device());
   const int64_t rows = rows_of(buckets[0]);
+  if (rows == 0) return 0;
   std::vector<Copy> copies;
-  copies.reserve(rows * leaves.size());
-  for (int64_t r = 0; r < rows; ++r) {
-    for (size_t i = 0; i < leaves.size(); ++i) {
-      const int64_t n = leaves[i].size(-1);
-      if (n == 0) continue;
-      const auto& b = buckets[bucket_of[i]];
-      copies.push_back({b.data_ptr<float>() + r * b.size(-1) + offset_of[i],
-                        leaves[i].data_ptr<float>() + r * n, n});
-    }
+  copies.reserve(leaves.size());
+  for (size_t i = 0; i < leaves.size(); ++i) {
+    const int64_t n = leaves[i].size(-1);
+    if (n == 0) continue;
+    const auto& b = buckets[bucket_of[i]];
+    copies.push_back({b.data_ptr<float>() + offset_of[i],
+                      leaves[i].data_ptr<float>(), n, rows, rows, 0,
+                      b.size(-1), n});
   }
   return launch_copies(copies, at::cuda::getCurrentCUDAStream());
 }
 
-int64_t select_blocks(int64_t n) {
+int64_t select_scratch(int64_t rows, int64_t n) {
   TORCH_CHECK(n > 0 && n < INT_MAX / 2, "row length ", n, " out of range");
-  return gx_bsc_select_blocks(static_cast<int>(n));
+  TORCH_CHECK(rows > 0 && rows < 65536, "rows out of range: ", rows);
+  return gx_bsc_select_scratch(static_cast<int>(rows), static_cast<int>(n));
 }
 
 // g, u, v, new_u, new_v [rows, n]; thr [rows]; vals, idx [rows, k];
-// scratch counts [rows, nblk], before [rows, nblk, 2], totals [rows, 2].
+// scratch select_scratch(rows, n) int32 words; tie_vals, tie_idx [rows, k].
 void bsc_select_pack(const at::Tensor& g, const at::Tensor& u,
                      const at::Tensor& v, const at::Tensor& thr, int64_t k,
-                     const at::Tensor& counts, const at::Tensor& before,
-                     const at::Tensor& totals, const at::Tensor& new_u,
+                     const at::Tensor& scratch, const at::Tensor& tie_vals,
+                     const at::Tensor& tie_idx, const at::Tensor& new_u,
                      const at::Tensor& new_v, const at::Tensor& vals,
                      const at::Tensor& idx) {
-  for (const auto* t : {&g, &u, &v, &thr, &new_u, &new_v, &vals}) {
+  for (const auto* t : {&g, &u, &v, &thr, &new_u, &new_v, &vals, &tie_vals}) {
     check_contiguous(*t, at::kFloat, "select_pack float operand");
   }
-  for (const auto* t : {&counts, &before, &totals, &idx}) {
+  for (const auto* t : {&scratch, &idx, &tie_idx}) {
     check_contiguous(*t, at::kInt, "select_pack int operand");
   }
   TORCH_CHECK(g.dim() == 2, "g must be [rows, n]");
@@ -210,22 +240,22 @@ void bsc_select_pack(const at::Tensor& g, const at::Tensor& u,
   for (const auto* t : {&u, &v, &new_u, &new_v}) {
     TORCH_CHECK(t->sizes() == g.sizes(), "g, u, v, new_u, new_v differ in shape");
   }
-  TORCH_CHECK(rows > 0 && rows < 65536, "rows out of range: ", rows);
   TORCH_CHECK(k > 0 && k < INT_MAX, "k out of range: ", k);
-  const int64_t nblk = select_blocks(n);
+  const int64_t words = select_scratch(rows, n);
   TORCH_CHECK(thr.numel() == rows, "thr needs one value a row");
-  TORCH_CHECK(vals.numel() == rows * k && idx.numel() == rows * k,
-              "vals/idx must be [rows, k]");
-  TORCH_CHECK(counts.numel() >= rows * nblk && before.numel() >= rows * nblk * 2 &&
-                  totals.numel() >= rows * 2,
-              "select_pack scratch too small");
+  TORCH_CHECK(vals.numel() == rows * k && idx.numel() == rows * k &&
+                  tie_vals.numel() == rows * k && tie_idx.numel() == rows * k,
+              "vals/idx and the tie buffers must be [rows, k]");
+  TORCH_CHECK(scratch.numel() >= words, "select_pack scratch too small");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(scratch.data_ptr()) % 8 == 0,
+              "select_pack scratch must be 8-byte aligned");
   const c10::cuda::CUDAGuard guard(g.device());
   check_launch(
       gx_bsc_select_pack(g.data_ptr<float>(), u.data_ptr<float>(),
                          v.data_ptr<float>(), thr.data_ptr<float>(),
                          static_cast<int>(rows), static_cast<int>(n),
-                         static_cast<int>(k), counts.data_ptr<int>(),
-                         before.data_ptr<int>(), totals.data_ptr<int>(),
+                         static_cast<int>(k), scratch.data_ptr<int>(),
+                         tie_vals.data_ptr<float>(), tie_idx.data_ptr<int>(),
                          new_u.data_ptr<float>(), new_v.data_ptr<float>(),
                          vals.data_ptr<float>(), idx.data_ptr<int>(),
                          at::cuda::getCurrentCUDAStream()),
@@ -422,8 +452,9 @@ GxAttnDims attn_dims(const at::Tensor& q, const at::Tensor& k, bool causal,
                   k.size(3) == q.size(3),
               "q and k differ in batch, heads or head dim");
   const int64_t D = q.size(3);
-  TORCH_CHECK(D == 8 || D == 16 || D == 32 || D == 64 || D == 128,
-              "head dim ", D, " not in {8, 16, 32, 64, 128}");
+  TORCH_CHECK(D == 8 || D == 16 || D == 32 || D == 64 || D % 128 == 0,
+              "head dim ", D, " not in {8, 16, 32, 64} nor a multiple of 128");
+  TORCH_CHECK(D > 0 && D / 128 <= 65535, "head dim ", D, " out of range");
   TORCH_CHECK(q.size(0) * q.size(2) <= 65535, "B * H out of range");
   TORCH_CHECK(q.size(1) < INT_MAX && k.size(1) < INT_MAX,
               "sequence too long");
@@ -541,7 +572,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("merge_sorted_pairs", &merge_sorted_pairs);
   m.def("bucket_flatten", &bucket_flatten);
   m.def("bucket_unflatten", &bucket_unflatten);
-  m.def("select_blocks", &select_blocks);
+  m.def("select_scratch", &select_scratch);
   m.def("bsc_select_pack", &bsc_select_pack);
   m.def("bsc_scatter_add", &bsc_scatter_add);
   m.def("fused_sgd_momentum", &fused_sgd_momentum);

@@ -31,6 +31,10 @@
 // and only the four blocks an SM holds (118 registers, 48 KB of shared
 // memory) overlap one block's softmax with another's products.  Each part
 // costs its share (PERF.md): none dominates.
+//
+// Head dims above 128: a block owns one 128-wide chunk of its output
+// (blockIdx.z) and streams Q and K in 128-deep chunks for the scores
+// (flash_fwd_wide_kernel, attention_wide.cuh).
 #include "attention_fwd.cuh"
 
 namespace {
@@ -96,6 +100,54 @@ int launch_fwd(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Head dims above 128 (attention_wide.cuh): block (x, bh, z) owns 64
+// query rows and head elements [128 z, 128 z + 128) of their output; only
+// chunk 0 writes lse.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                      GxAttnDims dims, int vec, T* __restrict__ out,
+                      float* __restrict__ lse) {
+  constexpr int C = gx_attn::kChunk;
+  extern __shared__ __align__(128) float sm[];
+  const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
+  const int q0 = blockIdx.x * kRows, oc = blockIdx.z;
+  float o[C / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < C / 2; ++e) o[e] = 0.f;
+  fold_keys_wide<T>(q, k, v, dims, b, h, q0, oc, vec, sm, o, m, l);
+
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const int row = my_row(q0, w);
+    const float l_sum = fmaxf(quad_sum(l[w]), 1e-20f);
+    if (row >= dims.Lq) continue;
+#pragma unroll
+    for (int e = 2 * w; e < C / 2; e += 4) {
+      store2(out + gx_wide::chunk_offset(dims, dims.Lq, b, h, row, oc, e),
+             o[e] / l_sum, o[e + 1] / l_sum);
+    }
+    if (lse != nullptr && oc == 0 && threadIdx.x % 4 == 0) {
+      lse[static_cast<long long>(bh) * dims.Lq + row] = m[w] + logf(l_sum);
+    }
+  }
+}
+
+template <typename T>
+int launch_fwd_wide(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                    GxAttnDims dims, void* out, float* lse,
+                    cudaStream_t stream) {
+  constexpr int bytes = wide_fwd_floats<T>() * 4;
+  const int err = allow_smem(flash_fwd_wide_kernel<T>, bytes);
+  if (err != 0) return err;
+  const dim3 grid((dims.Lq + kRows - 1) / kRows, dims.B * dims.H,
+                  dims.D / gx_attn::kChunk);
+  flash_fwd_wide_kernel<T><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, dims, gx_wide::vec_bits<T>(q, k, v, nullptr),
+      static_cast<T*>(out), lse);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int gx_flash_fwd(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
@@ -103,5 +155,6 @@ extern "C" int gx_flash_fwd(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                             cudaStream_t stream) {
   if (!gx_attn::dims_ok(dims)) return static_cast<int>(cudaErrorInvalidValue);
   if (dims.B == 0 || dims.Lq == 0) return 0;
-  GX_ATTN_DISPATCH(launch_fwd, q, k, v, dims, out, lse, stream)
+  GX_ATTN_DISPATCH(launch_fwd, launch_fwd_wide, q, k, v, dims, out, lse,
+                   stream)
 }

@@ -41,6 +41,7 @@
 // share that port.
 #include "attention.cuh"  // dims_ok and the dispatch
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -253,6 +254,147 @@ int launch_dkv(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Head dims above 128 (attention_wide.cuh): block (x, bh, z) owns 64 keys
+// and head elements [128 z, 128 z + 128) of their dk and dv.  For each
+// 16-row query tile: S^T and dP^T over the whole head (wide_scores), then
+// Q^T and dO^T chunk z, P^T and dS^T, dV_z += P^T dO_z and dK_z += dS^T
+// Q_z, one after the other through one temporary (three accumulator sets
+// of 64 registers, not four).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                      GxSeqOperand dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, GxAttnDims dims,
+                      int vec, float* __restrict__ dk,
+                      float* __restrict__ dv) {
+  constexpr int C = gx_attn::kChunk, Bq = gx_wide::kTileRows;
+  constexpr int P = parts<T>(), NB = Bq / 8;
+  extern __shared__ __align__(128) float sm[];
+  float* sa = sm;                  // a chunk of K or V rows
+  float* sb = sa + P * kRows * C;  // a chunk of Q or dO rows
+  float* sqt = sb + P * Bq * C;    // Q^T, chunk z
+  float* sot = sqt + P * Bq * C;   // dO^T, chunk z
+  float* sl = sot + P * Bq * C;    // the tile's lse * log2(e)
+  float* sd = sl + Bq;             // and delta
+  float* raw = sd + Bq;            // bf16 staging
+  const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
+  const int c0 = blockIdx.x * kRows, oc = blockIdx.z, nc = dims.D / C;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
+            tq = threadIdx.x % 4;
+  const long long rbase = static_cast<long long>(bh) * dims.Lq;
+  float dka[C / 2], dva[C / 2];
+#pragma unroll
+  for (int e = 0; e < C / 2; ++e) dka[e] = dva[e] = 0.f;
+  const float c = dims.scale * kLog2e;
+  // causal: query rows before the block's first key attend to none of it
+  const int istart = dims.causal ? min(c0, dims.Lq) / Bq * Bq : 0;
+  for (int i0 = istart; i0 < dims.Lq; i0 += Bq) {
+    float s[Bq / 2], dp[Bq / 2];
+    gx_wide::wide_scores<T, Bq>(k, c0, dims.Lk, vec & 2, q, i0, dims.Lq,
+                                vec & 1, b, h, nc, sa, sb, raw, s);
+    // Q^T and dO^T chunk z come beside dP^T's last chunk
+    T* rq = gx_wide::raw_more<T, Bq>(raw, 0);
+    T* ro = gx_wide::raw_more<T, Bq>(raw, 1);
+    gx_wide::wide_scores<T, Bq>(
+        v, c0, dims.Lk, vec & 4, dout, i0, dims.Lq, vec & 8, b, h, nc, sa,
+        sb, raw, dp,
+        [&] {
+          gx_wide::stage_chunk<T, Bq, true>(q, b, h, i0, dims.Lq, oc * C,
+                                            vec & 1, sqt, rq);
+          gx_wide::stage_chunk<T, Bq, true>(dout, b, h, i0, dims.Lq, oc * C,
+                                            vec & 8, sot, ro);
+        },
+        [&] {
+          gx_wide::finish_chunk<T, Bq, true>(sqt, rq);
+          gx_wide::finish_chunk<T, Bq, true>(sot, ro);
+        });
+    for (int i = threadIdx.x; i < Bq; i += kThreads) {
+      const bool live = i0 + i < dims.Lq;
+      sl[i] = live ? lse[rbase + i0 + i] * kLog2e : 0.f;
+      sd[i] = live ? delta[rbase + i0 + i] : 0.f;
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // P^T and dS^T in place; accumulator e is (key row, query column)
+    const bool whole = i0 + Bq <= dims.Lq &&
+                       (!dims.causal || i0 >= c0 + kRows - 1);
+#pragma unroll
+    for (int e = 0; e < Bq / 2; ++e) {
+      const int col = 8 * (e >> 2) + 2 * tq + (e & 1);
+      float p = ex2(fmaf(s[e], c, -sl[col]));
+      if (!whole) {
+        const int row = i0 + col, key = c0 + 16 * warp + g + (e & 2) * 4;
+        if (row >= dims.Lq || (dims.causal && key > row)) p = 0.f;
+      }
+      s[e] = p;
+      dp[e] = p * (dp[e] - sd[col]);
+    }
+    uint32_t fh[NB][4], fl[NB][4];
+    float t[C / 2];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) a_frag(s, i, fh[i], fl[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float* oi = sot + i * 64;
+      Wgmma<C>::rs(t, fh[i], desc(oi, Bq), i > 0);
+      Wgmma<C>::rs(t, fl[i], desc(oi, Bq), 1);
+      if (P == 2) Wgmma<C>::rs(t, fh[i], desc(oi + Bq * C, Bq), 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(t);
+#pragma unroll
+    for (int e = 0; e < C / 2; ++e) dva[e] += t[e];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) a_frag(dp, i, fh[i], fl[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float* qi = sqt + i * 64;
+      Wgmma<C>::rs(t, fh[i], desc(qi, Bq), i > 0);
+      Wgmma<C>::rs(t, fl[i], desc(qi, Bq), 1);
+      if (P == 2) Wgmma<C>::rs(t, fh[i], desc(qi + Bq * C, Bq), 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(t);
+#pragma unroll
+    for (int e = 0; e < C / 2; ++e) dka[e] += t[e];
+  }
+
+#pragma unroll
+  for (int e = 0; e < C / 2; e += 2) {
+    const int key = c0 + 16 * warp + g + (e & 2) * 4;
+    if (key >= dims.Lk) continue;
+    const long long off =
+        gx_wide::chunk_offset(dims, dims.Lk, b, h, key, oc, e);
+    *reinterpret_cast<float2*>(dk + off) =
+        make_float2(dka[e] * dims.scale, dka[e + 1] * dims.scale);
+    *reinterpret_cast<float2*>(dv + off) = make_float2(dva[e], dva[e + 1]);
+  }
+}
+
+template <typename T>
+int launch_dkv_wide(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                    GxSeqOperand dout, const float* lse, const float* delta,
+                    GxAttnDims dims, float* dk, float* dv,
+                    cudaStream_t stream) {
+  constexpr int Bq = gx_wide::kTileRows;
+  constexpr int bytes = (parts<T>() * (kRows + 3 * Bq) * gx_attn::kChunk +
+                        2 * Bq + gx_wide::raw_floats<T, Bq, 2>()) *
+                       4;
+  const int err = allow_smem(flash_dkv_wide_kernel<T>, bytes);
+  if (err != 0) return err;
+  const dim3 grid((dims.Lk + kRows - 1) / kRows, dims.B * dims.H,
+                  dims.D / gx_attn::kChunk);
+  flash_dkv_wide_kernel<T><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, dout, lse, delta, dims, gx_wide::vec_bits<T>(q, k, v, &dout),
+      dk, dv);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int gx_flash_bwd_dkv(GxSeqOperand q, GxSeqOperand k,
@@ -262,6 +404,6 @@ extern "C" int gx_flash_bwd_dkv(GxSeqOperand q, GxSeqOperand k,
                                 cudaStream_t stream) {
   if (!gx_attn::dims_ok(dims)) return static_cast<int>(cudaErrorInvalidValue);
   if (dims.B == 0 || dims.Lk == 0) return 0;
-  GX_ATTN_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dims, dk, dv,
-                   stream)
+  GX_ATTN_DISPATCH(launch_dkv, launch_dkv_wide, q, k, v, dout, lse, delta,
+                   dims, dk, dv, stream)
 }

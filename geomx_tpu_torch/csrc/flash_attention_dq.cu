@@ -33,6 +33,7 @@
 // also fill the shared-memory port.
 #include "attention.cuh"  // dims_ok and the dispatch
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -222,6 +223,115 @@ int launch_dq(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Head dims above 128 (attention_wide.cuh): block (x, bh, z) owns 64
+// query rows and head elements [128 z, 128 z + 128) of their dq.  For
+// each 16-key tile: S and dP over the whole head (wide_scores), then K^T
+// chunk z, dS, and dQ_z += dS K_z as above.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                     GxSeqOperand dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, GxAttnDims dims,
+                     int vec, float* __restrict__ dq) {
+  constexpr int C = gx_attn::kChunk, Bk = gx_wide::kTileRows;
+  constexpr int P = parts<T>(), NB = Bk / 8;
+  extern __shared__ __align__(128) float sm[];
+  float* sa = sm;                 // a chunk of Q or dO rows
+  float* sb = sa + P * kRows * C;  // a chunk of K or V rows
+  float* skt = sb + P * Bk * C;    // K^T, chunk z
+  float* raw = skt + P * Bk * C;   // bf16 staging
+  const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
+  const int q0 = blockIdx.x * kRows, oc = blockIdx.z, nc = dims.D / C;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
+            tq = threadIdx.x % 4;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const int row = q0 + 16 * warp + g + 8 * w;
+    const long long r = static_cast<long long>(bh) * dims.Lq + row;
+    lse2[w] = row < dims.Lq ? lse[r] * kLog2e : 0.f;
+    dlt[w] = row < dims.Lq ? delta[r] : 0.f;
+  }
+  float acc[C / 2];
+#pragma unroll
+  for (int e = 0; e < C / 2; ++e) acc[e] = 0.f;
+  const float c = dims.scale * kLog2e;
+  const int kend = dims.causal ? min(dims.Lk, q0 + kRows) : dims.Lk;
+  for (int k0 = 0; k0 < kend; k0 += Bk) {
+    float s[Bk / 2], dp[Bk / 2];
+    gx_wide::wide_scores<T, Bk>(q, q0, dims.Lq, vec & 1, k, k0, dims.Lk,
+                                vec & 2, b, h, nc, sa, sb, raw, s);
+    // K^T chunk z comes beside dP's last chunk
+    T* rk = gx_wide::raw_more<T, Bk>(raw, 0);
+    gx_wide::wide_scores<T, Bk>(
+        dout, q0, dims.Lq, vec & 8, v, k0, dims.Lk, vec & 4, b, h, nc, sa,
+        sb, raw, dp,
+        [&] {
+          gx_wide::stage_chunk<T, Bk, true>(k, b, h, k0, dims.Lk, oc * C,
+                                            vec & 2, skt, rk);
+        },
+        [&] { gx_wide::finish_chunk<T, Bk, true>(skt, rk); });
+
+    const bool whole = k0 + Bk <= dims.Lk &&
+                       (!dims.causal || k0 + Bk - 1 <= q0);
+#pragma unroll
+    for (int e = 0; e < Bk / 2; ++e) {
+      const int w = (e >> 1) & 1;
+      float p = ex2(fmaf(s[e], c, -lse2[w]));
+      if (!whole) {
+        const int col = k0 + 8 * (e >> 2) + 2 * tq + (e & 1),
+                  row = q0 + 16 * warp + g + 8 * w;
+        if (col >= dims.Lk || (dims.causal && col > row)) p = 0.f;
+      }
+      dp[e] = p * (dp[e] - dlt[w]);
+    }
+    uint32_t dh[NB][4], dl[NB][4];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) a_frag(dp, i, dh[i], dl[i]);
+    float t[C / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float* ki = skt + i * 64;
+      Wgmma<C>::rs(t, dh[i], desc(ki, Bk), i > 0);
+      Wgmma<C>::rs(t, dl[i], desc(ki, Bk), 1);
+      if (P == 2) Wgmma<C>::rs(t, dh[i], desc(ki + Bk * C, Bk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(t);
+#pragma unroll
+    for (int e = 0; e < C / 2; ++e) acc[e] += t[e];
+  }
+
+#pragma unroll
+  for (int e = 0; e < C / 2; e += 2) {
+    const int row = q0 + 16 * warp + g + (e & 2) * 4;
+    if (row >= dims.Lq) continue;
+    *reinterpret_cast<float2*>(
+        dq + gx_wide::chunk_offset(dims, dims.Lq, b, h, row, oc, e)) =
+        make_float2(acc[e] * dims.scale, acc[e + 1] * dims.scale);
+  }
+}
+
+template <typename T>
+int launch_dq_wide(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                   GxSeqOperand dout, const float* lse, const float* delta,
+                   GxAttnDims dims, float* dq, cudaStream_t stream) {
+  constexpr int bytes =
+      (parts<T>() * (kRows + 2 * gx_wide::kTileRows) * gx_attn::kChunk +
+       gx_wide::raw_floats<T, gx_wide::kTileRows, 1>()) *
+      4;
+  const int err = allow_smem(flash_dq_wide_kernel<T>, bytes);
+  if (err != 0) return err;
+  const dim3 grid((dims.Lq + kRows - 1) / kRows, dims.B * dims.H,
+                  dims.D / gx_attn::kChunk);
+  flash_dq_wide_kernel<T><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, dout, lse, delta, dims, gx_wide::vec_bits<T>(q, k, v, &dout),
+      dq);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int gx_flash_bwd_dq(GxSeqOperand q, GxSeqOperand k,
@@ -231,5 +341,6 @@ extern "C" int gx_flash_bwd_dq(GxSeqOperand q, GxSeqOperand k,
                                cudaStream_t stream) {
   if (!gx_attn::dims_ok(dims)) return static_cast<int>(cudaErrorInvalidValue);
   if (dims.B == 0 || dims.Lq == 0) return 0;
-  GX_ATTN_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dims, dq, stream)
+  GX_ATTN_DISPATCH(launch_dq, launch_dq_wide, q, k, v, dout, lse, delta, dims,
+                   dq, stream)
 }

@@ -13,36 +13,51 @@ extern "C" {
 #endif
 
 // ---- bucket flatten / unflatten (bucket.cu) -------------------------------
-// One multi-tensor copy launch: entry e copies n[e] floats from src[e] to
-// dst[e], or writes n[e] zeros when src[e] is null (bucket tail padding).
-// The table rides in the kernel's parameter space (about 28 KB, within
-// the 32,764-byte limit of CUDA 12.1+ on sm_70 and later), so the
-// per-step data pointers of fresh gradient tensors need no device-side
-// table upload.  Block b of the launch works on entry e where
-// block_start[e] <= b < block_start[e + 1]; each block covers
-// gx_bucket_tile() elements of its entry.
-#define GX_MAX_COPIES 1024
+// One multi-tensor copy launch: entry e is a 2-D copy of rows of n floats
+// from src (or zeros when src is null: a bucket's tail pad) to dst.  Row
+// r of the entry starts at dst + r * dst_stride and at src + (r / inner)
+// * src_outer + (r % inner) * src_inner: two batch strides, so a stride-0
+// worker dim needs no copy.  Each row is cut into units = (n + 6) / 4
+// quads, 16-byte aligned in the destination (the first and last partial,
+// some empty); entry e owns quads [unit_start, next entry's unit_start)
+// of the launch (the last up to total_units), and block b quads [b, b +
+// 1) * gx_bucket_tile().  One entry's fields share one 64-byte line of
+// the kernel's parameter space, which holds the table, so the per-step
+// data pointers of fresh gradient tensors need no device-side upload.
+// Every launch copies the whole table, used or not: 128 entries make it
+// 8,208 bytes, room for ResNet-20 on [2, 4] (66 entries) twice over,
+// where the most the 32,764-byte parameter limit holds (511 entries)
+// would copy 32,720 bytes a launch for the same 66.  A model with more
+// entries takes one more launch for each 128.
+#define GX_MAX_COPIES 128
+
+typedef struct {
+  long long unit_start;
+  const float* src;
+  float* dst;
+  long long src_outer, src_inner, dst_stride;
+  int n, units, inner, pad;
+} GxCopy;
 
 typedef struct {
   int count;
   int total_blocks;
-  int block_start[GX_MAX_COPIES + 1];
-  const float* src[GX_MAX_COPIES];
-  float* dst[GX_MAX_COPIES];
-  long long n[GX_MAX_COPIES];
+  long long total_units;
+  GxCopy e[GX_MAX_COPIES];
 } GxCopyTable;
 
 int gx_bucket_tile(void);
 int gx_bucket_copy(const GxCopyTable* table, cudaStream_t stream);
 
 // ---- BSC select/pack (bsc.cu) ---------------------------------------------
-// rows independent rows of n elements; thr[rows]; k output slots a row.
-// Scratch: counts[rows * nblk], before[rows * nblk * 2], totals[rows * 2]
-// int32, nblk = gx_bsc_select_blocks(n).
-int gx_bsc_select_blocks(int n);
+// rows independent rows of n elements; thr[rows]; k output slots a row;
+// one launch (after a memset of the scratch).  Scratch:
+// gx_bsc_select_scratch(rows, n) int32 words, 8-byte aligned; tie_vals,
+// tie_idx [rows * k].
+long long gx_bsc_select_scratch(int rows, int n);
 int gx_bsc_select_pack(const float* g, const float* u, const float* v,
                        const float* thr, int rows, int n, int k,
-                       int* counts, int* before, int* totals,
+                       int* scratch, float* tie_vals, int* tie_idx,
                        float* new_u, float* new_v, float* vals, int* idx,
                        cudaStream_t stream);
 
@@ -99,7 +114,8 @@ typedef struct {
 } GxSeqOperand;
 
 // Shapes and options of one attention call.  D must be one of 8, 16, 32,
-// 64, 128 (else cudaErrorInvalidValue); B * H at most 65,535.  causal is
+// 64, 128 or a multiple of 128 (else cudaErrorInvalidValue); B * H at
+// most 65,535.  causal is
 // the causal mask of the flash kernels and the diagonal mode of the hop.
 typedef struct {
   int B, H, Lq, Lk, D;

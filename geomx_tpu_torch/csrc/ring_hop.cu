@@ -99,6 +99,77 @@ int launch_hop(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Head dims above 128 (attention_wide.cuh): block (x, bh, z) owns 64
+// query rows and head elements [128 z, 128 z + 128) of their o carry;
+// every chunk seeds m and l, only chunk 0 stores them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ring_hop_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                     const float* __restrict__ m_in,
+                     const float* __restrict__ l_in,
+                     const float* __restrict__ o_in, GxAttnDims dims, int vec,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     float* __restrict__ o_out) {
+  constexpr int C = gx_attn::kChunk;
+  extern __shared__ __align__(128) float sm[];
+  const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
+  const int q0 = blockIdx.x * kRows, oc = blockIdx.z;
+  const bool lane0 = threadIdx.x % 4 == 0;
+  float o[C / 2], m[2], l[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const int row = my_row(q0, w);
+    const bool live = row < dims.Lq;
+    const long long r = static_cast<long long>(bh) * dims.Lq + row;
+    m[w] = live ? m_in[r] : kNegInf;
+    l[w] = live && lane0 ? l_in[r] : 0.f;
+#pragma unroll
+    for (int e = 2 * w; e < C / 2; e += 4) {
+      const float2 x =
+          live ? *reinterpret_cast<const float2*>(
+                     o_in + gx_wide::chunk_offset(dims, dims.Lq, b, h, row,
+                                                  oc, e))
+               : make_float2(0.f, 0.f);
+      o[e] = x.x;
+      o[e + 1] = x.y;
+    }
+  }
+  fold_keys_wide<T>(q, k, v, dims, b, h, q0, oc, vec, sm, o, m, l);
+
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const int row = my_row(q0, w);
+    const float l_sum = quad_sum(l[w]);
+    if (row >= dims.Lq) continue;
+    if (lane0 && oc == 0) {
+      const long long r = static_cast<long long>(bh) * dims.Lq + row;
+      m_out[r] = m[w];
+      l_out[r] = l_sum;
+    }
+#pragma unroll
+    for (int e = 2 * w; e < C / 2; e += 4) {
+      store2(o_out + gx_wide::chunk_offset(dims, dims.Lq, b, h, row, oc, e),
+             o[e], o[e + 1]);
+    }
+  }
+}
+
+template <typename T>
+int launch_hop_wide(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
+                    const float* m_in, const float* l_in, const float* o_in,
+                    GxAttnDims dims, float* m_out, float* l_out, float* o_out,
+                    cudaStream_t stream) {
+  constexpr int bytes = wide_fwd_floats<T>() * 4;
+  const int err = allow_smem(ring_hop_wide_kernel<T>, bytes);
+  if (err != 0) return err;
+  const dim3 grid((dims.Lq + kRows - 1) / kRows, dims.B * dims.H,
+                  dims.D / gx_attn::kChunk);
+  ring_hop_wide_kernel<T><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, m_in, l_in, o_in, dims, gx_wide::vec_bits<T>(q, k, v, nullptr),
+      m_out, l_out, o_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int gx_ring_hop(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
@@ -107,6 +178,6 @@ extern "C" int gx_ring_hop(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                            float* l_out, float* o_out, cudaStream_t stream) {
   if (!gx_attn::dims_ok(dims)) return static_cast<int>(cudaErrorInvalidValue);
   if (dims.B == 0 || dims.Lq == 0) return 0;
-  GX_ATTN_DISPATCH(launch_hop, q, k, v, m_in, l_in, o_in, dims, m_out, l_out,
-                   o_out, stream)
+  GX_ATTN_DISPATCH(launch_hop, launch_hop_wide, q, k, v, m_in, l_in, o_in,
+                   dims, m_out, l_out, o_out, stream)
 }

@@ -18,8 +18,8 @@ hand-written kernels of ``csrc/bsc.cu`` and raise if they fail; on CPU
 tensors they run the plain PyTorch versions beside them, which follow
 the JAX op order.  ``sampled_boundary_guv`` stays in PyTorch ops on
 every device.  ``select_pack.launches`` and ``scatter_add.launches``
-count kernel calls (one select/pack call is three launches: count,
-scan, emit).
+count kernel launches: one a call each (select/pack is one single-pass
+kernel, after a memset of its scratch).
 
 Rounding: the plain versions round after every multiply, and so does
 the kernel (``__fmul_rn``/``__fadd_rn``).  XLA on the CPU contracts
@@ -99,18 +99,18 @@ def select_pack(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     thr = torch.as_tensor(thr, dtype=torch.float32, device=g.device)
     thr = thr.expand(batch).reshape(rows).contiguous()
     ext = kernels()
-    nblk = ext.select_blocks(n)
     dev = g.device
-    counts = torch.empty(rows * nblk, dtype=torch.int32, device=dev)
-    before = torch.empty(rows * nblk * 2, dtype=torch.int32, device=dev)
-    totals = torch.empty(rows * 2, dtype=torch.int32, device=dev)
+    scratch = torch.empty(ext.select_scratch(rows, n), dtype=torch.int32,
+                          device=dev)
+    tie_vals = torch.empty(rows * k, dtype=torch.float32, device=dev)
+    tie_idx = torch.empty(rows * k, dtype=torch.int32, device=dev)
     new_u = torch.empty_like(g)
     new_v = torch.empty_like(g)
     vals = torch.empty(batch + (k,), dtype=torch.float32, device=dev)
     idx = torch.empty(batch + (k,), dtype=torch.int32, device=dev)
     ext.bsc_select_pack(g.reshape(rows, n), u.reshape(rows, n),
-                        v.reshape(rows, n), thr, k, counts, before, totals,
-                        new_u.view(rows, n), new_v.view(rows, n),
+                        v.reshape(rows, n), thr, k, scratch, tie_vals,
+                        tie_idx, new_u.view(rows, n), new_v.view(rows, n),
                         vals.view(rows, k), idx.view(rows, k))
     select_pack.launches += 1
     return vals, idx, new_u, new_v

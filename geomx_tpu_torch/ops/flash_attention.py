@@ -30,14 +30,16 @@ lane-replicated ``[BH, L, 128]`` logsumexp of the TPU kernels is a TPU
 tiling artifact: the port's ``lse`` and ``delta`` are ``[B, H, L]``
 fp32.  Inputs are fp32 or bf16; every sum is fp32; outputs are in q's
 dtype (forward) and fp32 (gradients).  The kernels take head dims
-:data:`HEAD_DIMS`; the wrappers run any head dim up to the widest of
-them by zero-padding the operands to the next built dim
-(:func:`kernel_dim`) with the true dim's scale, and slicing the outputs
-back: zero columns add nothing to ``q k^T`` and give zero output
-columns, so the padding is exact.  The plain versions
-follow the Pallas kernels' operations tile by tile over the key (or
-query) dim, with the same sentinel and floor; the kernels sum in another
-order, so the two agree to fp32 tolerance, not bit for bit.
+:data:`HEAD_DIMS` and any multiple of 128 above them (each block then
+owns one 128-wide chunk of its output and streams the scores' depth in
+chunks); the wrappers run any other head dim by zero-padding the
+operands to the next of those (:func:`kernel_dim`) with the true dim's
+scale, and slicing the outputs back: zero columns add nothing to ``q
+k^T`` and give zero output columns, so the padding is exact.  The
+plain versions follow the Pallas kernels' operations tile by tile over
+the key (or query) dim, with the same sentinel and floor; the kernels
+sum in another order, so the two agree to fp32 tolerance, not bit for
+bit.
 
 Each wrapper counts its kernel launches in ``launches``;
 ``flash_attention.launches`` counts the no-lse variant among
@@ -57,6 +59,7 @@ from geomx_tpu_torch.ops.bucket import on_cuda
 
 NEG_INF = -1e30  # large-but-finite: -inf breaks the m-correction exp
 HEAD_DIMS = (8, 16, 32, 64, 128)  # head dims the kernels are built for
+WIDE_CHUNK = HEAD_DIMS[-1]  # above it: multiples of it, chunked over the grid
 BLOCK = 128  # the Pallas kernels' default tile; the plain versions' tile
 
 
@@ -75,13 +78,16 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def kernel_dim(D: int) -> int:
-    """The built head dim the kernels run a ``D``-wide head at: the
-    narrowest of :data:`HEAD_DIMS` that holds it."""
+    """The head dim the kernels run a ``D``-wide head at: the narrowest
+    of :data:`HEAD_DIMS` that holds it, and above the widest the next
+    multiple of it (:data:`WIDE_CHUNK`), which the kernels split into
+    output chunks over their grid."""
+    if D < 1:
+        raise ValueError(f"head dim must be positive, got {D}")
     for d in HEAD_DIMS:
         if D <= d:
             return d
-    raise ValueError(f"the attention kernels take head dims up to "
-                     f"{HEAD_DIMS[-1]}, got {D}")
+    return -(-D // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def kernel_operand(x: torch.Tensor) -> torch.Tensor:

@@ -285,7 +285,8 @@ class _PlainKernels:
             dst.copy_(src)
 
 
-@pytest.mark.parametrize("D,width", [(24, 32), (40, 64), (4, 8), (16, 16)])
+@pytest.mark.parametrize("D,width", [(24, 32), (40, 64), (4, 8), (16, 16),
+                                     (136, 256), (256, 256), (300, 384)])
 def test_wrappers_pad_head_dims_to_the_built_ones(monkeypatch, D, width):
     """On the kernel route the wrappers zero-pad a head dim the kernels
     are not built for up to the next built one, pass the true dim's
@@ -325,6 +326,18 @@ def test_sp_attention_head_dim_24_matches_jax_shard_map(causal):
     against the JAX package's."""
     rng = np.random.RandomState(12)
     q, k, v = _rand(rng, (2, 64, 4, 24))
+    for fn, jfn in ((ring_attention, jring), (ulysses_attention, julysses)):
+        ref = _jax_sp(jfn, q, k, v, 2, causal)
+        out = fn(*(_shards(x, 2) for x in (q, k, v)), causal)
+        np.testing.assert_allclose(_unshard(out), ref, **BWD)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sp_attention_head_dim_136_matches_jax_shard_map(causal):
+    """Ring and Ulysses at a head dim above 128 (the kernels' wide route,
+    zero-padded to 256) against the JAX package's."""
+    rng = np.random.RandomState(14)
+    q, k, v = _rand(rng, (2, 64, 4, 136))
     for fn, jfn in ((ring_attention, jring), (ulysses_attention, julysses)):
         ref = _jax_sp(jfn, q, k, v, 2, causal)
         out = fn(*(_shards(x, 2) for x in (q, k, v)), causal)

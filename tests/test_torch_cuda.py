@@ -86,8 +86,9 @@ def test_unflatten_takes_broadcast_buckets(dev):
 
 @pytest.mark.cuda
 def test_flatten_table_larger_than_one_launch(dev):
-    """More (leaf, row) entries than one launch's parameter table holds:
-    the wrapper splits the table and counts every launch."""
+    """More leaves than one launch's parameter table holds (200 against
+    GX_MAX_COPIES = 128 entries, one a leaf and a tail pad): the wrapper
+    splits the table and counts every launch."""
     gen = torch.Generator(device=dev).manual_seed(1)
     leaves = [torch.randn(2, 4, 1 + (7 * i) % 300, generator=gen,
                           device=dev) for i in range(200)]
@@ -98,6 +99,35 @@ def test_flatten_table_larger_than_one_launch(dev):
     for a, b in zip(got, bucket.flatten_plain(leaves, bk.layout(),
                                               bk.bucket_sizes)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand_workers", [False, True])
+def test_flatten_unflatten_leaves_off_16_byte_alignment(dev, expand_workers):
+    """Leaves of 10, 3 and 17 elements among multiples of 4 put their
+    neighbours' offsets off 16-byte alignment in the bucket, and rows of
+    an odd leaf off it in the leaf: quads whose source and destination
+    are not co-aligned go word by word, the partial quads at each row's
+    ends too; a stride-0 worker dim reads one row for every worker."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sizes = (16, 10, 64, 3, 8, 17, 256, 12, 1, 40, 4096, 5)
+    leaves = []
+    for s in sizes:
+        if expand_workers:
+            x = torch.randn((2, 1, s), generator=gen, device=dev)
+            leaves.append(x.expand(2, 4, s))
+        else:
+            leaves.append(torch.randn((2, 4, s), generator=gen, device=dev))
+    bk = GradientBucketer(leaves, bucket_bytes=8 << 10, batch_dims=2)
+    offsets = [off for _, off, _ in bk.layout()]
+    assert any(off % 4 for off in offsets)
+    got = bucket.flatten(leaves, bk.layout(), bk.bucket_sizes, 2)
+    ref = bucket.flatten_plain(leaves, bk.layout(), bk.bucket_sizes)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    for a, b, src in zip(bucket.unflatten(got, bk.layout(), 2),
+                         bucket.unflatten_plain(ref, bk.layout()), leaves):
+        assert torch.equal(a, b) and torch.equal(a, src)
 
 
 def _rows(dev, n, scale_u=0.1, seed=0):
@@ -111,7 +141,7 @@ def _rows(dev, n, scale_u=0.1, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,ratio", [(272_512, 0.01), (5000, 0.01),
                                      (1023, 0.03), (10, 0.5),
-                                     (131_072, 0.01)])
+                                     (131_072, 0.01), (272_513, 0.01)])
 def test_select_pack_matches_plain(dev, n, ratio):
     g, u, v = _rows(dev, n)
     k = BiSparseCompressor(ratio).k_for(n)
@@ -120,6 +150,34 @@ def test_select_pack_matches_plain(dev, n, ratio):
     ref = bsc.select_pack_plain(g, u, v, thr, k)
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [272_512, 272_513])
+def test_select_pack_straddles_k_over_many_tiles(dev, n):
+    """Values on a grid of 0.5 put the boundary on a level shared by ~13%
+    of each row, spread over all of the row's ~133 tiles: the primaries
+    fall short of k and the ties overflow it, so the tie buffer, the
+    last tile's move of ties 0 .. k - n_primary - 1 and the zeroing of
+    their u' and v' all run (n = 272,513 on the scalar route).  Bit-equal
+    to the plain version, the same bits on a second call, one launch a
+    call."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g = torch.round(torch.randn(2, 4, n, generator=gen, device=dev) * 2) * 0.5
+    z = torch.zeros_like(g)
+    k = BiSparseCompressor(0.1).k_for(n)
+    thr = bsc.sampled_boundary_guv(g, z, z, k)
+    mag = g.abs()
+    primaries = (mag > thr[..., None]).sum(-1)
+    ties = (mag == thr[..., None]).sum(-1)
+    assert bool((primaries < k).all()) and bool((primaries + ties > k).all())
+    before = bsc.select_pack.launches
+    got = bsc.select_pack(g, z, z, thr, k)
+    assert bsc.select_pack.launches == before + 1
+    for a, b in zip(got, bsc.select_pack_plain(g, z, z, thr, k)):
+        assert torch.equal(a, b)
+    for a, b in zip(got, bsc.select_pack(g, z, z, thr, k)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -530,15 +588,14 @@ def test_flash_kernels_strided_operands_and_empty_keys(dev):
     out0, lse0 = fa.flash_attention_with_lse(q, k[:, :0], v[:, :0])
     assert torch.equal(out0, torch.zeros_like(out0))
     assert bool((lse0 <= -1e29).all())
-    # a head dim between the built ones runs zero-padded to the next;
-    # past the widest the wrapper raises
-    q, k, v = _attn(dev, (1, 16, 1, 12))
-    torch.testing.assert_close(
-        fa.flash_attention(q, k, v),
-        fa.flash_attention_with_lse_plain(q, k, v, with_lse=False)[0],
-        rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError):
-        fa.flash_attention(*_attn(dev, (1, 16, 1, 136)))
+    # a head dim between the built ones runs zero-padded to the next; past
+    # the widest, zero-padded to a multiple of 128 on the wide route
+    for D in (12, 136):
+        q, k, v = _attn(dev, (1, 16, 1, D))
+        torch.testing.assert_close(
+            fa.flash_attention(q, k, v),
+            fa.flash_attention_with_lse_plain(q, k, v, with_lse=False)[0],
+            rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -708,26 +765,69 @@ def test_attention_kernels_at_unbuilt_head_dims(dev, D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [None, "ring", "ulysses"])
-def test_seq_classifier_head_dim_24_trains_on_the_card(dev, mode):
-    """Head dim 24 (dim 96, 4 heads), which the kernels run zero-padded
-    to 32: a step runs on the card through the attention kernels of its
-    mode, and its loss and parameters match the CPU's to chip_smoke.py's
-    reference tolerances for the seq paths (loss rtol 1e-4, parameters
-    atol 4e-3)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [136, 256, 384])
+def test_attention_kernels_above_head_dim_128(dev, D, dtype):
+    """Head dims above 128 run on the wide route: 136 zero-padded to 256,
+    each block one 128-wide chunk of its output with the scores' depth
+    streamed in chunks.  The forward, dq, dk/dv and the hop (both modes)
+    against their plain versions at the true dim, at the tile-edge
+    tolerances (fp32: 1e-5 forward, 1e-4 backward and hop); two calls
+    give the same bits; the outputs keep the true dim."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    from geomx_tpu_torch.ops import ring_hop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32 = dtype == torch.float32
+    q, k, v = _bwd_inputs(dev, (1, 90, 2, D), 75, True, dtype)[:3]
+    _fwd_close(fa, q, k, v, True)
+    q, k, v = _bwd_inputs(dev, (2, 70, 2, D), 130, False, dtype)[:3]
+    _fwd_close(fa, q, k, v, False)
+    tol = dict(rtol=1e-4, atol=1e-4) if fp32 else dict(rtol=1e-2, atol=1e-2)
+    for causal in (True, False):
+        args = _bwd_inputs(dev, (1, 90, 2, D), 75, causal, dtype)
+        dq = fa.flash_dq(*args, causal)
+        assert dq.shape == args[0].shape
+        torch.testing.assert_close(dq, fa.flash_dq_plain(*args, causal),
+                                   **tol)
+        assert torch.equal(dq, fa.flash_dq(*args, causal))
+        dkv = fa.flash_dkv(*args, causal)
+        for a, b, c in zip(dkv, fa.flash_dkv_plain(*args, causal),
+                           fa.flash_dkv(*args, causal)):
+            assert a.shape == args[1].shape and torch.equal(a, c)
+            torch.testing.assert_close(a, b, **tol)
+    shape = (2, 40, 2, D)
+    q, k, v = _attn(dev, shape, dtype, seed=4)
+    for hops_done in (0, 1):
+        m, l_acc, o = _hop_carries(dev, shape, hops_done)
+        for diag in (False, True):
+            got = ring_hop.hop(q, k, v, m, l_acc, o, 0.2, diag)
+            assert got[2].shape == shape
+            for a, b, c in zip(got, ring_hop.hop_plain(q, k, v, m, l_acc, o,
+                                                       0.2, diag),
+                               ring_hop.hop(q, k, v, m, l_acc, o, 0.2,
+                                            diag)):
+                assert torch.isfinite(a).all() and torch.equal(a, c)
+                torch.testing.assert_close(a, b, **tol)
+
+
+def _seq_trains_on_the_card(dev, mode, mk):
+    """One adam step of a SeqClassifier ``mk`` on [2, 1] (x sp 2) on the
+    card and on the CPU: the card's runs through the attention kernels of
+    its mode, and its loss and parameters match the CPU's to
+    chip_smoke.py's reference tolerances for the seq paths (loss rtol
+    1e-4, parameters atol 4e-3)."""
     from geomx_tpu_torch import HiPSTopology, ops
     from geomx_tpu_torch.models import SeqClassifier
     from geomx_tpu_torch.optim import adam
     from geomx_tpu_torch.train import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    mk = dict(vocab=64, max_len=64, dim=96, num_heads=4, num_layers=2,
-              num_classes=4)
+    L = mk["max_len"]
     rng = np.random.RandomState(0)
-    tok = rng.randint(4, 64, (2, 1, 4, 64))
-    pos = np.broadcast_to(np.arange(64), tok.shape)
+    tok = rng.randint(4, mk["vocab"], (2, 1, 4, L))
+    pos = np.broadcast_to(np.arange(L), tok.shape)
     x = torch.as_tensor(np.stack([tok, pos], -1).astype(np.int32))
-    y = torch.as_tensor(rng.randint(0, 4, (2, 1, 4)))
+    y = torch.as_tensor(rng.randint(0, mk["num_classes"], (2, 1, 4)))
     runs = {}
     for device in (dev, torch.device("cpu")):
         t = Trainer(SeqClassifier(sp_mode=mode, **mk),
@@ -751,6 +851,26 @@ def test_seq_classifier_head_dim_24_trains_on_the_card(dev, mode):
     for name, p in params.items():
         torch.testing.assert_close(p, ref_params[name], rtol=0, atol=4e-3,
                                    msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "ring", "ulysses"])
+def test_seq_classifier_head_dim_256_trains_on_the_card(dev, mode):
+    """Head dim 256 (dim 512, 2 heads, 1 layer, L = 64), which the kernels
+    run on the wide route: the twin of the head-dim-24 test below."""
+    _seq_trains_on_the_card(dev, mode, dict(
+        vocab=64, max_len=64, dim=512, num_heads=2, num_layers=1,
+        num_classes=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "ring", "ulysses"])
+def test_seq_classifier_head_dim_24_trains_on_the_card(dev, mode):
+    """Head dim 24 (dim 96, 4 heads, 2 layers, L = 64), which the kernels
+    run zero-padded to 32 (see _seq_trains_on_the_card)."""
+    _seq_trains_on_the_card(dev, mode, dict(
+        vocab=64, max_len=64, dim=96, num_heads=4, num_layers=2,
+        num_classes=4))
 
 
 # one step's launches of the small SeqClassifier (2 layers) on [2, 1] x sp

@@ -175,6 +175,45 @@ def _port_train(mode, parties, workers, sp, p0):
         trainer, state
 
 
+def test_head_dim_192_logits_and_gradients_match_flax():
+    """A head dim above 128 (dim 384, 2 heads, 1 layer, L = 32) on the
+    CPU, where the attention takes its plain route: logits and gradients
+    against the flax model at test_logits_and_gradients_match_flax's
+    tolerances.  The kernels' wide route at such head dims is checked on
+    the card by tests/test_torch_cuda.py
+    test_seq_classifier_head_dim_256_trains_on_the_card."""
+    mk = dict(vocab=64, max_len=32, dim=384, num_heads=2, num_layers=1,
+              num_classes=4)
+    model = FlaxSeq(**mk)
+    rng = np.random.RandomState(3)
+    x = rng.randint(4, 64, size=(4, 32)).astype(np.int32)
+    x = np.stack([x, np.broadcast_to(np.arange(32, dtype=np.int32),
+                                     x.shape)], axis=-1)
+    y = rng.randint(0, 4, size=(4,)).astype(np.int32)
+    p = jax.jit(lambda r: model.init(r, x[:2]))(jax.random.PRNGKey(3))
+    params = jax.tree.map(lambda a: np.asarray(a) + rng.normal(
+        0, 0.05, a.shape).astype(np.float32), p["params"])
+
+    def loss(p, xl, yl):
+        logits = model.apply({"params": p}, xl)
+        ce = optax.softmax_cross_entropy_with_integer_labels(logits, yl)
+        return ce.mean(), logits
+
+    (_, jl), jg = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        params, x, y)
+    tm = SeqClassifier(**mk)
+    load_flax(tm, params)
+    logits = tm(torch.from_numpy(x))
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jl),
+                               atol=2e-5)
+    torch.nn.functional.cross_entropy(
+        logits, torch.from_numpy(y).long()).backward()
+    ref = from_nested(jax.tree.map(np.asarray, jg))
+    for k, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref[k], atol=2e-5,
+                                   rtol=1e-4, err_msg=k)
+
+
 @pytest.mark.parametrize("mode", ["ring", "ulysses"])
 def test_sp_trainer_steps_match_jax(mode):
     p0, jlosses, jparams = _jax_train(mode, 1, 2, 2)
