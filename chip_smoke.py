@@ -29,7 +29,10 @@ Every phase's failure is fatal (non-zero exit, no result line):
               flops) at 495 TFLOP/s and the exponentials at the MUFU
               rate, the fp32 figure beside it; two calls of each
               attention kernel give the same bits (the forward's no-lse
-              variant too);
+              variant too); quantize_2bit and the scatter-add also one
+              launch a call and the same bits twice, and on the card
+              tests' edge cases (8 replica rows, P = 2-4 runs of odd
+              length, operands one float off 16-byte alignment);
    head dims -- the four attention kernels at head dim 256 on the wide
               route (seq_flash's [16, 4096, 4] and seq_ring's hop [32,
               128, 4]): the fp32 gates, two calls the same bits, times,
@@ -384,6 +387,9 @@ def kernel_phase(torch, dev, timer=None):
         idx >= 0, idx.long() + torch.arange(nrows, device=dev)
         .view(2, 4, 1) * n, nrows * n).view(-1)
     flat_vals = vals.view(-1)
+    once_same_bits(torch, bsc.scatter_add,
+                   lambda: [bsc.scatter_add(vals, idx, n, run=k)], [dense])
+    log("  scatter-add: one launch a call; two calls give the same bits")
     out["bsc_scatter_add"] = dict(
         max_abs_err=err,
         ms=timer(lambda: bsc.scatter_add(vals, idx, n, run=k)),
@@ -393,6 +399,7 @@ def kernel_phase(torch, dev, timer=None):
         bound_by="bytes",
         library_ms=timer(lambda: torch.zeros(
             nrows * n + 1, device=dev).index_add_(0, flat_idx, flat_vals)))
+    scatter_edge_cases(torch, dev, n)
 
     # -- edge cases of the CPU parity tests, two parties each ---------------
     def case(name, n_, ratio, make):
@@ -442,6 +449,71 @@ def kernel_phase(torch, dev, timer=None):
     out.update(twobit_kernels(torch, dev, timer, gen, rows_shape + (n,)))
     out.update(merge_kernels(torch, dev, timer, gen, n))
     return out
+
+
+def once_same_bits(torch, wrapper, call, first) -> None:
+    """``call()`` launches ``wrapper``'s kernel exactly once and gives the
+    bits of ``first`` (an earlier call's outputs) again."""
+    before = wrapper.launches
+    again = call()
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{wrapper.__name__}: "
+                             f"{wrapper.launches - before} launches a call")
+    max_err(torch, again, first)
+
+
+def scatter_runs(torch, dev, parties, k, n, seed, rows=8):
+    """``[2, 4]`` rows of ``parties`` runs of ``k`` pairs in any order:
+    indices unique inside a run, 200 shared by every run of the row
+    (collisions across parties), none in [65_536, 98_304) (four output
+    slices of the kernel's 8,192 floats that no pair touches), a sentinel
+    tail of 50 a run, and row 5 all sentinels."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pick = torch.cat([torch.arange(0, 65_536),
+                      torch.arange(98_304, n)]).to(dev)
+    vals, idx = [], []
+    for row in range(rows):
+        perm = pick[torch.randperm(len(pick), generator=gen, device=dev)]
+        shared, rest = perm[:200], perm[200:]
+        for _ in range(parties):
+            ix = torch.cat([shared, rest[torch.randperm(
+                len(rest), generator=gen, device=dev)[:k - 200]]])
+            ix = ix[torch.randperm(k, generator=gen, device=dev)]
+            ix[k - 50:] = -1
+            if row == 5:
+                ix[:] = -1
+            idx.append(ix.to(torch.int32))
+            vals.append(torch.randn(k, generator=gen, device=dev))
+    shape = (2, 4, parties * k)
+    return torch.cat(vals).view(shape), torch.cat(idx).view(shape)
+
+
+def scatter_edge_cases(torch, dev, n) -> None:
+    """The scatter-add on the card tests' edge cases, bit-equal to the
+    plain version: 8 rows of P = 2, 3, 4 runs (run starts off 16-byte
+    alignment at k = 2,726 and odd k), n and n + 1 (output rows off
+    alignment), and vals/idx views one float off 16-byte alignment."""
+    from geomx_tpu_torch.ops import bsc
+    for parties, k in ((2, 2726), (3, 2726), (4, 2726), (3, 1001),
+                       (4, 2727)):
+        for n_ in (n, n + 1):
+            v, i = scatter_runs(torch, dev, parties, k, n_, parties * k + n_)
+            got = bsc.scatter_add(v, i, n_, run=k)
+            max_err(torch, [got], [bsc.scatter_add_plain(v, i, n_, run=k)])
+            if got[..., 65_536:98_304].any() or got[1, 1].any():
+                raise AssertionError("scatter-add wrote where no pair is")
+        log(f"  edge case scatter-add P={parties} k={k}, 8 rows, n={n} and "
+            f"{n + 1}: bit-equal")
+    v, i = scatter_runs(torch, dev, 3, 2726, n, seed=7)
+    va = torch.empty(v.numel() + 1, device=dev)[1:].view(v.shape)
+    ia = torch.empty(i.numel() + 1, dtype=torch.int32,
+                     device=dev)[1:].view(i.shape)
+    va.copy_(v)
+    ia.copy_(i)
+    max_err(torch, [bsc.scatter_add(va, ia, n, run=2726)],
+            [bsc.scatter_add_plain(v, i, n, run=2726)])
+    log("  edge case scatter-add pairs one float off 16-byte alignment: "
+        "bit-equal")
 
 
 def timer_floors(torch, dev, timer=None) -> dict:
@@ -530,9 +602,12 @@ def twobit_kernels(torch, dev, timer, gen, shape):
     g = torch.randn(shape, generator=gen, device=dev) * 0.6
     r = torch.randn(shape, generator=gen, device=dev) * 0.1
     packed, _ = got = twobit.quantize_2bit(g, r, 0.5)
+    err = max_err(torch, got, twobit.quantize_2bit_plain(g, r, 0.5))
+    once_same_bits(torch, twobit.quantize_2bit,
+                   lambda: twobit.quantize_2bit(g, r, 0.5), got)
+    log("  quantize: one launch a call; two calls give the same bits")
     out["quantize_2bit"] = dict(
-        max_abs_err=max_err(torch, got, twobit.quantize_2bit_plain(g, r,
-                                                                   0.5)),
+        max_abs_err=err,
         ms=timer(lambda: twobit.quantize_2bit(g, r, 0.5)),
         plain_ms=timer(lambda: twobit.quantize_2bit_plain(g, r, 0.5)),
         bound_ms=bound_ms(nrows * (n * 12 + words * 4)), bound_by="bytes",
@@ -565,7 +640,49 @@ def twobit_kernels(torch, dev, timer, gen, shape):
             max_err(torch, [twobit.dequantize_2bit(w3, n_, thr, summed=True)],
                     [twobit.dequantize_2bit_plain(w3, n_, thr, summed=True)])
         log(f"  edge case 2-bit n={n_} (thr 0.5, 0.3): bit-equal")
+    quantize_edge_cases(torch, dev, n)
     return out
+
+
+def quantize_edge_cases(torch, dev, n) -> None:
+    """quantize_2bit on the card tests' edge cases, bit-equal to the plain
+    version: [2, 4, n_] for n_ % 4 != 0 (the element-wise branch), inputs
+    and outputs one float off 16-byte alignment passed to the binding
+    directly, and every code 2 over 8 rows of n (the sign bits)."""
+    from geomx_tpu_torch.ops import twobit
+    from geomx_tpu_torch.ops._build import kernels
+    cpu = torch.Generator().manual_seed(5)
+    for n_ in (4093, 4094, 4095):
+        g_ = (torch.randn(2, 4, n_, generator=cpu) * 0.6).to(dev)
+        r_ = (torch.randn(2, 4, n_, generator=cpu) * 0.1).to(dev)
+        got = twobit.quantize_2bit(g_, r_, 0.5)
+        max_err(torch, got, twobit.quantize_2bit_plain(g_, r_, 0.5))
+    log("  edge case 2-bit [2, 4, n] n=4093, 4094, 4095: bit-equal")
+    words = twobit.num_words(n)
+    for off_in, off_out in ((1, 0), (0, 1)):
+        def rows(count, off, scale=1.0, dtype=torch.float32):
+            flat = torch.randn(8 * count + 1, generator=cpu) * scale
+            return flat.to(dev, dtype)[off:off + 8 * count].view(8, count)
+        g_, r_ = rows(n, off_in, 0.6), rows(n, off_in, 0.1)
+        new_r, packed = rows(n, off_out), rows(words, off_out,
+                                               dtype=torch.int32)
+        if g_.data_ptr() % 16 != 4 * off_in or \
+                new_r.data_ptr() % 16 != 4 * off_out:
+            raise AssertionError("2-bit edge case: not the alignment meant")
+        kernels().quantize_2bit(g_, r_, 0.5, packed, new_r)
+        max_err(torch, [packed, new_r], twobit.quantize_2bit_plain(g_, r_,
+                                                                   0.5))
+    log(f"  edge case 2-bit 8 x {n}, inputs and outputs one float off "
+        "16-byte alignment: bit-equal")
+    g_ = torch.full((2, 4, n), -1.0, device=dev)
+    packed, _ = got = twobit.quantize_2bit(g_, torch.zeros_like(g_), 0.5)
+    max_err(torch, got, twobit.quantize_2bit_plain(g_, torch.zeros_like(g_),
+                                                   0.5))
+    full = (n // 2048) * 128
+    if not bool((packed[..., :full] == -0x55555556).all()):
+        raise AssertionError("2-bit: a complete word of code 2 is not "
+                             "0xAAAAAAAA")
+    log(f"  edge case 2-bit every code 2, 8 x {n}: bit-equal, sign bits set")
 
 
 def merge_kernels(torch, dev, timer, gen, n):

@@ -45,17 +45,32 @@
 //
 // scatter-add replaces bsc_pallas.py bsc_scatter_add (_scatter_kernel):
 // out[idx] += val over all gathered pairs, idx < 0 dropped.  Each block
-// owns an 8192-float slice of one output row in shared memory, streams
-// every pair of the row past it, and folds the m / run runs of pairs
-// (one run per party) strictly in order, with a barrier between runs.
-// Within one party's run the indices are unique, so the shared-memory
-// atomicAdd never collides there and the fold order is fixed: the sum is
-// ((0 + run_0) + run_1) + ..., the order the JAX package's scatter applies
-// updates in — deterministic for any number of parties, with no global
-// atomics.  (Pairs that collide inside one run, which the BSC wire never
-// produces, accumulate in an unspecified order.)
-// Bound: bytes (pairs read once, the dense row written once); every block
-// rereads its row's pairs from L2, which is the cost of this first version.
+// owns an 8,192-float slice of one output row in shared memory (32 KB,
+// 512 threads, three or more blocks an SM, so the flagship's 272 blocks
+// all start at once), streams every pair of the row past it, and folds the
+// m / run runs of pairs (one run per party) strictly in order, with a
+// barrier between runs.  Within one party's run the indices are unique,
+// so the shared-memory atomicAdd never collides there and the fold order
+// is fixed: the sum is ((0 + run_0) + run_1) + ..., the order the JAX
+// package's scatter applies updates in — deterministic for any number of
+// parties, with no global atomics.  (Pairs that collide inside one run,
+// which the BSC wire never produces, accumulate in an unspecified order.)
+// The pairs may come in any order; indices outside the slice are dropped
+// by one unsigned compare.
+// Bound: bytes (pairs read once, the dense row written once).  A block's
+// reads of the pairs are L2 round trips, so a thread loads the indices of
+// up to kScatterChunk of its pairs of a run (coalesced 4-byte loads)
+// before its first atomic, then for each pair that hits the slice (about
+// 3% at the flagship shape) its value and the atomic: at the flagship
+// shape (runs of 2,726 pairs, 512 threads) one chunk a run, so the index
+// loads are one round trip, not one a pair in turn.  The slice is zeroed
+// and written out in 16-byte accesses where the output rows are 16-byte
+// aligned (n % 4 == 0), element by element otherwise; the write-out keeps
+// the default cache policy, since the next op of the step reads it.
+// Every block still reads its row's indices from L2 (11.9 MB at the
+// flagship shape for 0.35 MB of pairs); the other forms tried, and what
+// each measured, are in PERF.md.  A shared-memory float atomicAdd is a
+// compare-and-swap loop on Hopper (ATOMS.CAST.SPIN).
 #include <stdint.h>
 
 #include "geomx_kernels.h"
@@ -81,6 +96,7 @@ constexpr unsigned long long kCounts = (1ull << 62) - 1;
 
 constexpr int kScatterThreads = 512;
 constexpr int kSlice = 8192;  // output floats per scatter block (32 KB)
+constexpr int kScatterChunk = 6;  // pair indices a thread holds at once
 
 // v' = v + (0.9u + g) with u' returned through u2, each op rounded alone
 __device__ __forceinline__ float momentum(float g, float u, float v,
@@ -371,28 +387,50 @@ select_pack_kernel(const float* __restrict__ g, const float* __restrict__ u,
   }
 }
 
+// vec: out's rows 16-byte aligned (n % 4 == 0 and out aligned)
 __global__ void __launch_bounds__(kScatterThreads)
 scatter_add_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
-                   int m, int run, int n, float* __restrict__ out) {
-  __shared__ float acc[kSlice];
-  const int r = blockIdx.y;
+                   int m, int run, int n, int vec, float* __restrict__ out) {
+  __shared__ float4 acc4[kSlice / 4];
+  float* acc = reinterpret_cast<float*>(acc4);
+  const int tid = threadIdx.x;
   const int lo = blockIdx.x * kSlice;
   const int width = min(kSlice, n - lo);
-  for (int i = threadIdx.x; i < width; i += kScatterThreads) acc[i] = 0.0f;
+  for (int i = tid; i < (width + 3) / 4; i += kScatterThreads) {
+    acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   __syncthreads();
-  const float* rv = vals + static_cast<long long>(r) * m;
-  const int* ri = idx + static_cast<long long>(r) * m;
+  const float* rv = vals + static_cast<long long>(blockIdx.y) * m;
+  const int* ri = idx + static_cast<long long>(blockIdx.y) * m;
   for (int start = 0; start < m; start += run) {
     const int end = min(start + run, m);
-    for (int j = start + threadIdx.x; j < end; j += kScatterThreads) {
-      const int x = ri[j];
-      // negative (sentinel) indices and other slices' indices fall outside
-      if (x >= lo && x - lo < width) atomicAdd(&acc[x - lo], rv[j]);
+    for (int j0 = start + tid; j0 < end;
+         j0 += kScatterThreads * kScatterChunk) {
+      int x[kScatterChunk];
+#pragma unroll
+      for (int c = 0; c < kScatterChunk; ++c) {
+        const int j = j0 + c * kScatterThreads;
+        x[c] = j < end ? __ldg(ri + j) : -1;
+      }
+#pragma unroll
+      for (int c = 0; c < kScatterChunk; ++c) {
+        // negative (sentinel) and other slices' indices wrap past width
+        const unsigned d = static_cast<unsigned>(x[c] - lo);
+        if (d < static_cast<unsigned>(width)) {
+          atomicAdd(acc + d, __ldg(rv + j0 + c * kScatterThreads));
+        }
+      }
     }
     __syncthreads();  // runs fold in order
   }
-  float* o = out + static_cast<long long>(r) * n + lo;
-  for (int i = threadIdx.x; i < width; i += kScatterThreads) o[i] = acc[i];
+  float* o = out + static_cast<long long>(blockIdx.y) * n + lo;
+  if (vec) {  // width % 4 == 0: n % 4 == 0 and kSlice % 4 == 0
+    for (int i = tid; i < width / 4; i += kScatterThreads) {
+      reinterpret_cast<float4*>(o)[i] = acc4[i];
+    }
+  } else {
+    for (int i = tid; i < width; i += kScatterThreads) o[i] = acc[i];
+  }
 }
 
 }  // namespace
@@ -433,8 +471,9 @@ extern "C" int gx_bsc_scatter_add(const float* vals, const int* idx, int rows,
                                   cudaStream_t stream) {
   if (rows <= 0 || n <= 0) return 0;
   if (run <= 0) run = m > 0 ? m : 1;
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const dim3 grid((n + kSlice - 1) / kSlice, rows);
   scatter_add_kernel<<<grid, kScatterThreads, 0, stream>>>(vals, idx, m, run,
-                                                           n, out);
+                                                           n, vec, out);
   return static_cast<int>(cudaGetLastError());
 }

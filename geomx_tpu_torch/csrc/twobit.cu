@@ -18,11 +18,24 @@
 //
 // Bound: bytes.  quantize reads g, r and writes r' (12 B an element) plus
 // the words (1/4 B an element); dequantize reads parts words (parts/4 B an
-// element) and writes the sum (4 B).  Design for that: one thread a word.
-// For each j the threads of a warp take 32 neighbouring lanes, so the
-// element loads and stores at row*2048 + lane + 128*j coalesce, and so do
-// the word stores; no shared memory, no second pass.  One launch covers
-// every replica row (blockIdx.y).
+// element) and writes the sum (4 B).
+// quantize: a thread owns four neighbouring lanes of one 2,048-element
+// block row, so four words.  For each j it loads g and r at row*2048 +
+// 4q + 128*j as 16-byte quads (a warp covers one block row, neighbours on
+// neighbouring 16 bytes), all 32 loads issued before its first store; then
+// it stores r' as 16 quads and its four words as one 16-byte store.  g,
+// r and r' carry streaming cache hints: nothing reads them again in the
+// step.  The words go out with the default policy, since the all-gather
+// and the dequantize read them next.  That is 49 memory instructions for
+// 64 elements.  Where n % 4 != 0 or an operand is off 16-byte alignment,
+// the same kernel runs the same (row, quad) units element by element (the
+// vec flag).  One launch covers every replica row: one unit a thread, in
+// one pass.
+// dequantize: one thread a word.  For each j the threads of a warp take
+// 32 neighbouring lanes, so the stores at row*2048 + lane + 128*j
+// coalesce; no shared memory, no second pass (blockIdx.y: the row).
+#include <stdint.h>
+
 #include "geomx_kernels.h"
 
 namespace {
@@ -30,33 +43,104 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kPack = 16;
 constexpr int kBlockCols = kPack * kLanes;  // 2048 elements -> 128 words
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;          // dequantize block
+constexpr int kQuantThreads = 128;     // quantize block
+constexpr int kQuadWords = 4;          // words (lanes) a quantize unit
+constexpr int kUnitsPerBlockRow = kLanes / kQuadWords;  // 32: one warp
 
 __device__ __forceinline__ float code_value(unsigned code, float thr) {
   return code == 1u ? thr : (code == 2u ? -thr : 0.0f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ g, const float* __restrict__ r,
-                int n, int words, float thr, int* __restrict__ packed,
-                float* __restrict__ new_r) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  if (w >= words) return;
-  const long long row = static_cast<long long>(blockIdx.y) * n;
-  const int base = (w / kLanes) * kBlockCols + (w % kLanes);
-  unsigned bits = 0u;
+// One (row, quad) unit: the words w[0 .. 3] and their 64 elements from
+// row + first (word 0's lane at j = 0).  kVec: 16-byte accesses (n % 4 ==
+// 0, every operand aligned), so a quad of elements lies wholly below n or
+// wholly past it; else element by element.  Every load is issued before
+// the first store.  g, r and r' carry streaming hints (touched once a
+// step); the words do not (the all-gather and dequantize read them next).
+template <bool kVec>
+__device__ __forceinline__ void quantize_unit(
+    const float* __restrict__ g, const float* __restrict__ r, int n,
+    long long row, int first, float thr, float* __restrict__ new_r,
+    int* __restrict__ w) {
+  float acc[kPack][4];
 #pragma unroll
   for (int j = 0; j < kPack; ++j) {
-    const int i = base + j * kLanes;
-    if (i < n) {
-      const float acc = g[row + i] + r[row + i];
-      const unsigned code = acc >= thr ? 1u : (acc <= -thr ? 2u : 0u);
-      new_r[row + i] = acc - code_value(code, thr);
-      bits |= code << (2 * j);
+    const int i = first + j * kLanes;
+    if (kVec) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+      if (i < n) {
+        x = __ldcs(reinterpret_cast<const float4*>(g + row + i));
+        y = __ldcs(reinterpret_cast<const float4*>(r + row + i));
+      }
+      acc[j][0] = __fadd_rn(x.x, y.x);
+      acc[j][1] = __fadd_rn(x.y, y.y);
+      acc[j][2] = __fadd_rn(x.z, y.z);
+      acc[j][3] = __fadd_rn(x.w, y.w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[j][e] = i + e < n ? __fadd_rn(__ldcs(g + row + i + e),
+                                          __ldcs(r + row + i + e))
+                              : 0.0f;  // code 0 past n
+      }
     }
   }
-  packed[static_cast<long long>(blockIdx.y) * words + w] =
-      static_cast<int>(bits);
+  unsigned bits[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kPack; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = acc[j][e];
+      const unsigned code = a >= thr ? 1u : (a <= -thr ? 2u : 0u);
+      acc[j][e] = __fsub_rn(a, code_value(code, thr));
+      bits[e] |= code << (2 * j);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPack; ++j) {
+    const int i = first + j * kLanes;
+    if (kVec) {
+      if (i < n) {
+        __stcs(reinterpret_cast<float4*>(new_r + row + i),
+               make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (i + e < n) __stcs(new_r + row + i + e, acc[j][e]);
+      }
+    }
+  }
+  if (kVec) {
+    *reinterpret_cast<int4*>(w) =
+        make_int4(static_cast<int>(bits[0]), static_cast<int>(bits[1]),
+                  static_cast<int>(bits[2]), static_cast<int>(bits[3]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e] = static_cast<int>(bits[e]);
+  }
+}
+
+// one unit a thread: unit u is row u / quads, quad u % quads, whose four
+// lanes lie in block row q / 32
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_kernel(const float* __restrict__ g, const float* __restrict__ r,
+                int n, int words, int units, int vec, float thr,
+                int* __restrict__ packed, float* __restrict__ new_r) {
+  const int u = blockIdx.x * kQuantThreads + threadIdx.x;
+  if (u >= units) return;
+  const int quads = words / kQuadWords;
+  const int q = u % quads;
+  const long long row = static_cast<long long>(u / quads) * n;
+  const int first = (q / kUnitsPerBlockRow) * kBlockCols +
+                    kQuadWords * (q % kUnitsPerBlockRow);
+  int* w = packed + static_cast<long long>(u / quads) * words + kQuadWords * q;
+  if (vec) {
+    quantize_unit<true>(g, r, n, row, first, thr, new_r, w);
+  } else {
+    quantize_unit<false>(g, r, n, row, first, thr, new_r, w);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -96,9 +180,17 @@ extern "C" int gx_quantize_2bit(const float* g, const float* r, int rows,
                                 cudaStream_t stream) {
   if (rows <= 0 || n < 0) return 0;
   const int words = gx_twobit_words(n);
-  const dim3 grid((words + kThreads - 1) / kThreads, rows);
-  quantize_kernel<<<grid, kThreads, 0, stream>>>(g, r, n, words, thr, packed,
-                                                 new_r);
+  const long long units = static_cast<long long>(rows) * (words / kQuadWords);
+  if (units > 0x3fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec =
+      n % 4 == 0 && a16(g) && a16(r) && a16(new_r) && a16(packed);
+  const int blocks =
+      static_cast<int>((units + kQuantThreads - 1) / kQuantThreads);
+  quantize_kernel<<<blocks, kQuantThreads, 0, stream>>>(
+      g, r, n, words, static_cast<int>(units), vec, thr, packed, new_r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -201,6 +201,31 @@ def test_scatter_add_two_party_wire_random_floats(rng):
     np.testing.assert_array_equal(got.numpy(), fus)
 
 
+@pytest.mark.parametrize("n", [272_512, 272_513])
+@pytest.mark.parametrize("parties,k", [(3, 1001), (4, 1001), (3, 2727),
+                                       (4, 2727)])
+def test_scatter_add_odd_runs_match_pallas(rng, parties, k, n):
+    """Two rows of P runs of odd length (run starts off 16-byte alignment
+    on the card), indices unique inside a run and shared across runs,
+    sentinel tails, integer values (exact in any order): each row against
+    the Pallas kernel on that row's pairs.  Tolerance: none."""
+    vals = np.round(rng.normal(0, 8, (2, parties * k))).astype(np.float32)
+    idx = np.full((2, parties * k), -1, np.int32)
+    for row in range(2):
+        shared = rng.choice(n, 100, replace=False)
+        for p in range(parties):
+            ix = np.concatenate([shared, rng.choice(n, k - 100)])
+            ix = np.unique(ix)[:k - 30]  # unique inside the run
+            idx[row, p * k:p * k + len(ix)] = rng.permutation(ix)
+    got = bsc_ops.scatter_add(torch.from_numpy(vals), torch.from_numpy(idx),
+                              n, run=k)
+    assert got.shape == (2, n)
+    for row in range(2):
+        want = bsc_scatter_add(jnp.asarray(vals[row]), jnp.asarray(idx[row]),
+                               n, interpret=True)
+        np.testing.assert_array_equal(got[row].numpy(), np.asarray(want))
+
+
 def test_scatter_add_all_sentinel():
     out = bsc_scatter_add(jnp.zeros((64,)), jnp.full((64,), -1, jnp.int32),
                           500, interpret=True)

@@ -228,6 +228,67 @@ def test_scatter_add_matches_plain(dev, parties):
     assert torch.equal(got, bsc.scatter_add(v, i, n, run=k))
 
 
+def _scatter_runs(dev, parties, k, n, seed, rows=8):
+    """``[2, 4]`` rows of ``parties`` runs of ``k`` pairs in any order:
+    indices unique inside a run, 200 shared by every run of the row
+    (collisions across parties), none in [65_536, 98_304) (four output
+    slices of the kernel's 8,192 floats that no pair touches), a sentinel
+    tail of 50 a run, and row 5 all sentinels."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pick = torch.cat([torch.arange(0, 65_536),
+                      torch.arange(98_304, n)]).to(dev)
+    vals, idx = [], []
+    for row in range(rows):
+        perm = pick[torch.randperm(len(pick), generator=gen, device=dev)]
+        shared, rest = perm[:200], perm[200:]
+        for _ in range(parties):
+            ix = torch.cat([shared, rest[torch.randperm(
+                len(rest), generator=gen, device=dev)[:k - 200]]])
+            ix = ix[torch.randperm(k, generator=gen, device=dev)]
+            ix[k - 50:] = -1
+            if row == 5:
+                ix[:] = -1
+            idx.append(ix.to(torch.int32))
+            vals.append(torch.randn(k, generator=gen, device=dev))
+    shape = (2, 4, parties * k)
+    return torch.cat(vals).view(shape), torch.cat(idx).view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [272_512, 272_513])
+@pytest.mark.parametrize("parties,k", [(2, 2726), (3, 2726), (4, 2726),
+                                       (3, 1001), (4, 2727)])
+def test_scatter_add_runs_on_replica_rows(dev, parties, k, n):
+    """8 rows of P runs; k = 2,726 and odd k put the run starts off 16-byte
+    alignment; n = 272,513 writes the output element by element.  One
+    launch a call, bit-equal to the plain version, the same bits twice."""
+    v, i = _scatter_runs(dev, parties, k, n, seed=parties * k + n)
+    before = bsc.scatter_add.launches
+    got = bsc.scatter_add(v, i, n, run=k)
+    assert bsc.scatter_add.launches == before + 1
+    assert torch.equal(got, bsc.scatter_add_plain(v, i, n, run=k))
+    assert torch.equal(got, bsc.scatter_add(v, i, n, run=k))
+    assert not got[..., 65_536:98_304].any() and not got[1, 1].any()
+    assert bool((got[0, 0] != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_scatter_add_pairs_off_16_byte_alignment(dev, offset):
+    """vals and idx views 4-12 bytes off 16-byte alignment give the plain
+    version's bits."""
+    v, i = _scatter_runs(dev, 3, 2726, 272_512, seed=offset)
+    vb = torch.empty(v.numel() + offset, device=dev)
+    ib = torch.empty(i.numel() + offset, dtype=torch.int32, device=dev)
+    va = vb[offset:].view(v.shape)
+    ia = ib[offset:].view(i.shape)
+    va.copy_(v)
+    ia.copy_(i)
+    assert va.data_ptr() % 16 == 4 * offset and va.is_contiguous()
+    got = bsc.scatter_add(va, ia, 272_512, run=2726)
+    assert torch.equal(got, bsc.scatter_add_plain(v, i, 272_512, run=2726))
+
+
 @pytest.mark.cuda
 def test_bsc_allreduce_on_replica_axes(dev):
     """The compressor's all-gather path: every replica's dense result
@@ -303,6 +364,66 @@ def test_quantize_2bit_all_negative_sets_sign_bits(dev):
     g = torch.full((8, 4096), -1.0, device=dev)
     packed, _ = twobit.quantize_2bit(g, torch.zeros_like(g), 0.5)
     assert bool((packed == -0x55555556).all())  # 0xAAAAAAAA as int32
+    assert torch.equal(packed, twobit.quantize_2bit_plain(
+        g, torch.zeros_like(g), 0.5)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4093, 4094, 4095, 272_512])
+def test_quantize_2bit_replica_rows(dev, n):
+    """[2, 4, n]: n % 4 != 0 runs the element-wise branch, n = 272,512 the
+    16-byte one.  One launch a call, bit-equal, the same bits twice."""
+    gen = torch.Generator(device=dev).manual_seed(n + 1)
+    g = torch.randn(2, 4, n, generator=gen, device=dev) * 0.6
+    r = torch.randn(2, 4, n, generator=gen, device=dev) * 0.1
+    before = twobit.quantize_2bit.launches
+    got = twobit.quantize_2bit(g, r, 0.5)
+    assert twobit.quantize_2bit.launches == before + 1
+    for a, b, c in zip(got, twobit.quantize_2bit_plain(g, r, 0.5),
+                       twobit.quantize_2bit(g, r, 0.5)):
+        assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, c)
+    codes = twobit.dequantize_2bit_plain(got[0], n, 0.5)
+    assert bool((codes > 0).any()) and bool((codes < 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4095, 272_512])
+@pytest.mark.parametrize("which", ["inputs", "outputs"])
+def test_quantize_2bit_off_16_byte_alignment(dev, n, which):
+    """Operands one float off 16-byte alignment, passed to the binding
+    directly (the wrapper's .contiguous() keeps such a view as it is, but
+    the binding is what the kernel sees): the element-wise branch."""
+    from geomx_tpu_torch.ops._build import kernels
+    gen = torch.Generator(device=dev).manual_seed(n)
+
+    def rows(scale, off):
+        flat = torch.randn(8 * n + 1, generator=gen, device=dev) * scale
+        return flat[off:off + 8 * n].view(8, n)
+
+    off_in, off_out = (1, 0) if which == "inputs" else (0, 1)
+    g, r = rows(0.6, off_in), rows(0.1, off_in)
+    new_r = rows(0.0, off_out)
+    words = twobit.num_words(n)
+    packed = torch.empty(8 * words + 1, dtype=torch.int32, device=dev)
+    packed = packed[off_out:off_out + 8 * words].view(8, words)
+    assert (g.data_ptr() % 16 == 4) == (which == "inputs")
+    assert (new_r.data_ptr() % 16 == 4) == (which == "outputs")
+    kernels().quantize_2bit(g, r, 0.5, packed, new_r)
+    want = twobit.quantize_2bit_plain(g, r, 0.5)
+    assert torch.equal(packed, want[0]) and torch.equal(new_r, want[1])
+
+
+@pytest.mark.cuda
+def test_quantize_2bit_sign_bits_at_the_bucket(dev):
+    """Every code 2 over 8 rows of 272,512: each complete block row's word
+    is 0xAAAAAAAA (the sign bit set without a signed overflow); the last
+    block row holds 128 elements, code 2 at j = 0 only."""
+    n = 272_512
+    g = torch.full((2, 4, n), -1.0, device=dev)
+    packed, _ = twobit.quantize_2bit(g, torch.zeros_like(g), 0.5)
+    full = (n // 2048) * 128
+    assert bool((packed[..., :full] == -0x55555556).all())
+    assert bool((packed[..., full:] == 2).all())
     assert torch.equal(packed, twobit.quantize_2bit_plain(
         g, torch.zeros_like(g), 0.5)[0])
 

@@ -67,6 +67,26 @@ def test_quantize_dequantize_plain_match_pallas(n, thr):
         assert len(np.unique(pd)) == 3
 
 
+@pytest.mark.parametrize("thr", [0.5, 0.3])
+@pytest.mark.parametrize("n", [4093, 4094, 4095])
+def test_quantize_replica_rows_plain_match_pallas(n, thr):
+    """``[2, 4, n]`` rows at n % 4 != 0 (the card kernel's element-wise
+    branch): each row of the port's plain version against the Pallas
+    kernel on that row alone.  Tolerance: none."""
+    rng = np.random.RandomState(n)
+    g = rng.normal(0, 0.6, (2, 4, n)).astype(np.float32)
+    r = rng.normal(0, 0.1, (2, 4, n)).astype(np.float32)
+    pw, pr = pt.quantize_2bit(torch.from_numpy(g), torch.from_numpy(r), thr)
+    assert pw.shape == (2, 4, pt.num_words(n)) and pr.shape == (2, 4, n)
+    for b in range(2):
+        for w in range(4):
+            jw, jr = jt.quantize_2bit(jnp.asarray(g[b, w]),
+                                      jnp.asarray(r[b, w]), thr,
+                                      interpret=True)
+            np.testing.assert_array_equal(pw[b, w].numpy(), np.asarray(jw))
+            np.testing.assert_array_equal(pr[b, w].numpy(), np.asarray(jr))
+
+
 def test_all_negative_input_sets_every_sign_bit():
     n = 4096 + 77
     g = np.full(n, -1.0, np.float32)
