@@ -293,7 +293,7 @@ __device__ __forceinline__ void fold_keys(
 template <typename T>
 constexpr int wide_fwd_floats() {
   return parts<T>() * (kRows + 2 * gx_wide::kTileRows) * gx_attn::kChunk +
-         gx_wide::raw_floats<T, gx_wide::kTileRows, 1>();
+         gx_wide::raw_floats<T, gx_wide::kTileRows>();
 }
 
 // fold_keys for a head above 128 (attention_wide.cuh): folds keys [0,
@@ -316,13 +316,13 @@ __device__ __forceinline__ void fold_keys_wide(
   for (int k0 = 0; k0 < kend; k0 += Bk) {
     float s[Bk / 2];
     // V^T chunk oc comes beside the scores' last chunk
-    T* rv = gx_wide::raw_more<T, Bk>(raw, 0);
+    T* rv = gx_wide::raw_more<T, Bk>(raw);
     gx_wide::wide_scores<T, Bk>(
         q, q0, dims.Lq, vec & 1, k, k0, dims.Lk, vec & 2, b, h, dims.D / C,
         sq, sk, raw, s,
         [&] {
           gx_wide::stage_chunk<T, Bk, true>(v, b, h, k0, dims.Lk, oc * C,
-                                            vec & 4, svt, rv);
+                                            vec & 4, svt, rv, threadIdx.x);
         },
         [&] { gx_wide::finish_chunk<T, Bk, true>(svt, rv); });
     fold_tile<P, C, Bk>(s, svt, Bk * C, dims, k0, q0, o, m, l);

@@ -255,124 +255,136 @@ int launch_dkv(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
 }
 
 // Head dims above 128 (attention_wide.cuh): block (x, bh, z) owns 64 keys
-// and head elements [128 z, 128 z + 128) of their dk and dv.  For each
-// 16-row query tile: S^T and dP^T over the whole head (wide_scores), then
-// Q^T and dO^T chunk z, P^T and dS^T, dV_z += P^T dO_z and dK_z += dS^T
-// Q_z, one after the other through one temporary (three accumulator sets
-// of 64 registers, not four).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// and head elements [256 z, 256 z + 256) of their dk and dv (two output
+// chunks).  Its K and V rows stay in shared memory, raw, for the whole
+// walk over the query tiles (resident_walk): warpgroup 0 keeps K and
+// computes S^T = K Q^T, warpgroup 1 keeps V and computes dP^T = V dO^T,
+// each over the whole head with its fixed rows as register A fragments;
+// they trade the scores, and then warpgroup 0 sums dV_j += P^T dO_j and
+// warpgroup 1 dK_j += dS^T Q_j for both output chunks j.  The first
+// version re-staged K and V, chunk by chunk, for every 16-row tile (128 of
+// the 180 KB a tile staged) and recomputed the scores for each output
+// chunk: 178 ms at D = 256 on the H100 against a 13.3 ms bound; this one
+// takes 65 ms.  What bounds it now is issue, not bandwidth: a 224 KB
+// block an SM, two warpgroups, each splitting its A fragments and
+// staging, splitting and transposing its tiles between N = 16 products
+// that run at half the tensor cores' rate (tools/wgmma_rate.cu).
+template <typename T, bool kAll>
+__global__ void __launch_bounds__(gx_wide::kWalkThreads, 1)
 flash_dkv_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                       GxSeqOperand dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, GxAttnDims dims,
                       int vec, float* __restrict__ dk,
                       float* __restrict__ dv) {
   constexpr int C = gx_attn::kChunk, Bq = gx_wide::kTileRows;
-  constexpr int P = parts<T>(), NB = Bq / 8;
+  constexpr int P = parts<T>(), NB = Bq / 8, G = gx_wide::kOutChunks;
+  constexpr int Ch = C / 2;  // head elements a half of an output chunk
+  constexpr int kTr = gx_wide::WalkSmem<T, 2>::kTr;
   extern __shared__ __align__(128) float sm[];
-  float* sa = sm;                  // a chunk of K or V rows
-  float* sb = sa + P * kRows * C;  // a chunk of Q or dO rows
-  float* sqt = sb + P * Bq * C;    // Q^T, chunk z
-  float* sot = sqt + P * Bq * C;   // dO^T, chunk z
-  float* sl = sot + P * Bq * C;    // the tile's lse * log2(e)
-  float* sd = sl + Bq;             // and delta
-  float* raw = sd + Bq;            // bf16 staging
   const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
-  const int c0 = blockIdx.x * kRows, oc = blockIdx.z, nc = dims.D / C;
-  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
-            tq = threadIdx.x % 4;
+  const int c0 = blockIdx.x * kRows, oc0 = G * blockIdx.z;
+  const int nc = dims.D / C;
+  // warpgroup w: 0 sums dV (S^T, K resident), 1 dK (dP^T, V resident)
+  const int w = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int warp = tid / 32, g = tid % 32 / 4, tq = tid % 4;
   const long long rbase = static_cast<long long>(bh) * dims.Lq;
-  float dka[C / 2], dva[C / 2];
+  float acc[G][C / 2];
 #pragma unroll
-  for (int e = 0; e < C / 2; ++e) dka[e] = dva[e] = 0.f;
+  for (int j = 0; j < G; ++j) {
+#pragma unroll
+    for (int e = 0; e < C / 2; ++e) acc[j][e] = 0.f;
+  }
   const float c = dims.scale * kLog2e;
   // causal: query rows before the block's first key attend to none of it
   const int istart = dims.causal ? min(c0, dims.Lq) / Bq * Bq : 0;
-  for (int i0 = istart; i0 < dims.Lq; i0 += Bq) {
-    float s[Bq / 2], dp[Bq / 2];
-    gx_wide::wide_scores<T, Bq>(k, c0, dims.Lk, vec & 2, q, i0, dims.Lq,
-                                vec & 1, b, h, nc, sa, sb, raw, s);
-    // Q^T and dO^T chunk z come beside dP^T's last chunk
-    T* rq = gx_wide::raw_more<T, Bq>(raw, 0);
-    T* ro = gx_wide::raw_more<T, Bq>(raw, 1);
-    gx_wide::wide_scores<T, Bq>(
-        v, c0, dims.Lk, vec & 4, dout, i0, dims.Lq, vec & 8, b, h, nc, sa,
-        sb, raw, dp,
-        [&] {
-          gx_wide::stage_chunk<T, Bq, true>(q, b, h, i0, dims.Lq, oc * C,
-                                            vec & 1, sqt, rq);
-          gx_wide::stage_chunk<T, Bq, true>(dout, b, h, i0, dims.Lq, oc * C,
-                                            vec & 8, sot, ro);
-        },
-        [&] {
-          gx_wide::finish_chunk<T, Bq, true>(sqt, rq);
-          gx_wide::finish_chunk<T, Bq, true>(sot, ro);
-        });
-    for (int i = threadIdx.x; i < Bq; i += kThreads) {
-      const bool live = i0 + i < dims.Lq;
-      sl[i] = live ? lse[rbase + i0 + i] * kLog2e : 0.f;
-      sd[i] = live ? delta[rbase + i0 + i] : 0.f;
+  // the tile's lse * log2(e) and delta: loaded in its first step, stored
+  // for grad in its last
+  float pl = 0.f, pd = 0.f;
+  auto prep = [&](int i0, float* vecs, bool store) {
+    const int i = threadIdx.x;
+    if (i >= Bq) return;
+    if (store) {
+      vecs[i] = pl;
+      vecs[Bq + i] = pd;
+    } else if (i0 + i < dims.Lq) {
+      pl = lse[rbase + i0 + i] * kLog2e;
+      pd = delta[rbase + i0 + i];
+    } else {
+      pl = pd = 0.f;
     }
-    fence_async_smem();
-    __syncthreads();
-
+  };
+  auto grad = [&](int i0, float (&s)[Bq / 2], float (&dp)[Bq / 2],
+                  const float* trs, const float* vecs) {
     // P^T and dS^T in place; accumulator e is (key row, query column)
     const bool whole = i0 + Bq <= dims.Lq &&
                        (!dims.causal || i0 >= c0 + kRows - 1);
 #pragma unroll
     for (int e = 0; e < Bq / 2; ++e) {
       const int col = 8 * (e >> 2) + 2 * tq + (e & 1);
-      float p = ex2(fmaf(s[e], c, -sl[col]));
+      float p = ex2(fmaf(s[e], c, -vecs[col]));
       if (!whole) {
         const int row = i0 + col, key = c0 + 16 * warp + g + (e & 2) * 4;
         if (row >= dims.Lq || (dims.causal && key > row)) p = 0.f;
       }
       s[e] = p;
-      dp[e] = p * (dp[e] - sd[col]);
+      dp[e] = p * (dp[e] - vecs[Bq + col]);
     }
+    // this tile's P^T dO_j (warpgroup 0) or dS^T Q_j (1): depth Bq (slot
+    // order), summed into acc[j] in round-to-nearest
+    float a[Bq / 2];
+#pragma unroll
+    for (int e = 0; e < Bq / 2; ++e) a[e] = w ? dp[e] : s[e];
     uint32_t fh[NB][4], fl[NB][4];
-    float t[C / 2];
 #pragma unroll
-    for (int i = 0; i < NB; ++i) a_frag(s, i, fh[i], fl[i]);
-    wgmma_fence();
+    for (int i = 0; i < NB; ++i) a_frag(a, i, fh[i], fl[i]);
 #pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const float* oi = sot + i * 64;
-      Wgmma<C>::rs(t, fh[i], desc(oi, Bq), i > 0);
-      Wgmma<C>::rs(t, fl[i], desc(oi, Bq), 1);
-      if (P == 2) Wgmma<C>::rs(t, fh[i], desc(oi + Bq * C, Bq), 1);
+    for (int j = 0; j < G; ++j) {
+      // dO^T_j (staged by warpgroup 1) or Q^T_j (by 0), in its two halves
+      // of 64 head elements: accumulator e of half u is element 32 u + e
+      // of the chunk's
+      const float* bt = trs + ((1 - w) * G + j) * kTr;
+      float t[2][Ch / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const float* bi = bt + u * P * Bq * Ch + i * 64;
+          Wgmma<Ch>::rs(t[u], fh[i], desc(bi, Bq), i > 0);
+          Wgmma<Ch>::rs(t[u], fl[i], desc(bi, Bq), 1);
+          if (P == 2) Wgmma<Ch>::rs(t[u], fh[i], desc(bi + Bq * Ch, Bq), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        reg_fence(t[u]);
+#pragma unroll
+        for (int e = 0; e < Ch / 2; ++e) acc[j][Ch / 2 * u + e] += t[u][e];
+      }
     }
-    wgmma_commit();
-    wgmma_wait();
-    reg_fence(t);
-#pragma unroll
-    for (int e = 0; e < C / 2; ++e) dva[e] += t[e];
-#pragma unroll
-    for (int i = 0; i < NB; ++i) a_frag(dp, i, fh[i], fl[i]);
-    wgmma_fence();
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const float* qi = sqt + i * 64;
-      Wgmma<C>::rs(t, fh[i], desc(qi, Bq), i > 0);
-      Wgmma<C>::rs(t, fl[i], desc(qi, Bq), 1);
-      if (P == 2) Wgmma<C>::rs(t, fh[i], desc(qi + Bq * C, Bq), 1);
-    }
-    wgmma_commit();
-    wgmma_wait();
-    reg_fence(t);
-#pragma unroll
-    for (int e = 0; e < C / 2; ++e) dka[e] += t[e];
-  }
+  };
+  gx_wide::resident_walk<T, kAll, 2>(
+      k, v, c0, dims.Lk, q, dout, vec & 1, vec & 8, istart,
+      (dims.Lq - istart + Bq - 1) / Bq, dims.Lq, b, h, nc, oc0, sm, prep,
+      grad);
 
+  // accumulator e is (key row, head element)
+  float* out = w ? dk : dv;
+  const float scale = w ? dims.scale : 1.f;
 #pragma unroll
-  for (int e = 0; e < C / 2; e += 2) {
-    const int key = c0 + 16 * warp + g + (e & 2) * 4;
-    if (key >= dims.Lk) continue;
-    const long long off =
-        gx_wide::chunk_offset(dims, dims.Lk, b, h, key, oc, e);
-    *reinterpret_cast<float2*>(dk + off) =
-        make_float2(dka[e] * dims.scale, dka[e + 1] * dims.scale);
-    *reinterpret_cast<float2*>(dv + off) = make_float2(dva[e], dva[e + 1]);
+  for (int j = 0; j < G; ++j) {
+    if (oc0 + j >= nc) break;
+#pragma unroll
+    for (int e = 0; e < C / 2; e += 2) {
+      const int key = c0 + 16 * warp + g + (e & 2) * 4;
+      if (key >= dims.Lk) continue;
+      *reinterpret_cast<float2*>(
+          out + gx_wide::chunk_offset(dims, dims.Lk, b, h, key, oc0 + j,
+                                      e)) =
+          make_float2(acc[j][e] * scale, acc[j][e + 1] * scale);
+    }
   }
 }
 
@@ -381,15 +393,18 @@ int launch_dkv_wide(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                     GxSeqOperand dout, const float* lse, const float* delta,
                     GxAttnDims dims, float* dk, float* dv,
                     cudaStream_t stream) {
-  constexpr int Bq = gx_wide::kTileRows;
-  constexpr int bytes = (parts<T>() * (kRows + 3 * Bq) * gx_attn::kChunk +
-                        2 * Bq + gx_wide::raw_floats<T, Bq, 2>()) *
-                       4;
-  const int err = allow_smem(flash_dkv_wide_kernel<T>, bytes);
+  const int nc = dims.D / gx_attn::kChunk;
+  const bool all = nc <= gx_wide::max_resident<T>();
+  const int bytes = gx_wide::WalkSmem<T, 2>::bytes(
+      all ? nc : gx_wide::max_resident<T>());
+  auto kernel = all ? flash_dkv_wide_kernel<T, true>
+                    : flash_dkv_wide_kernel<T, false>;
+  const int err = allow_smem(kernel, bytes);
   if (err != 0) return err;
+  constexpr int G = gx_wide::kOutChunks;
   const dim3 grid((dims.Lk + kRows - 1) / kRows, dims.B * dims.H,
-                  dims.D / gx_attn::kChunk);
-  flash_dkv_wide_kernel<T><<<grid, kThreads, bytes, stream>>>(
+                  (nc + G - 1) / G);
+  kernel<<<grid, gx_wide::kWalkThreads, bytes, stream>>>(
       q, k, v, dout, lse, delta, dims, gx_wide::vec_bits<T>(q, k, v, &dout),
       dk, dv);
   return static_cast<int>(cudaGetLastError());

@@ -224,92 +224,104 @@ int launch_dq(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
 }
 
 // Head dims above 128 (attention_wide.cuh): block (x, bh, z) owns 64
-// query rows and head elements [128 z, 128 z + 128) of their dq.  For
-// each 16-key tile: S and dP over the whole head (wide_scores), then K^T
-// chunk z, dS, and dQ_z += dS K_z as above.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// query rows and head elements [256 z, 256 z + 256) of their dq (two
+// output chunks).  Its Q and dO rows stay in shared memory, raw, for the
+// whole walk over the key tiles (resident_walk): warpgroup 0 keeps Q and
+// computes S = Q K^T, warpgroup 1 keeps dO and computes dP = dO V^T, each
+// over the whole head with its fixed rows as register A fragments; they
+// trade the scores, both form dS, and warpgroup j sums dQ_j += dS K_j for
+// output chunk j.  The first version re-staged Q and dO, chunk by chunk,
+// for every 16-key tile (128 of the 168 KB a tile staged) and recomputed
+// the scores for each output chunk: 161 ms at D = 256 on the H100
+// against a 10.0 ms bound; this one takes 52 ms.  What bounds it now is
+// issue, as for dk/dv (flash_attention_dkv.cu), one 192 KB block an SM.
+template <typename T, bool kAll>
+__global__ void __launch_bounds__(gx_wide::kWalkThreads, 1)
 flash_dq_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                      GxSeqOperand dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, GxAttnDims dims,
                      int vec, float* __restrict__ dq) {
   constexpr int C = gx_attn::kChunk, Bk = gx_wide::kTileRows;
-  constexpr int P = parts<T>(), NB = Bk / 8;
+  constexpr int P = parts<T>(), NB = Bk / 8, G = gx_wide::kOutChunks;
+  constexpr int Ch = C / 2;  // head elements a half of an output chunk
+  constexpr int kTr = gx_wide::WalkSmem<T, 1>::kTr;
   extern __shared__ __align__(128) float sm[];
-  float* sa = sm;                 // a chunk of Q or dO rows
-  float* sb = sa + P * kRows * C;  // a chunk of K or V rows
-  float* skt = sb + P * Bk * C;    // K^T, chunk z
-  float* raw = skt + P * Bk * C;   // bf16 staging
   const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
-  const int q0 = blockIdx.x * kRows, oc = blockIdx.z, nc = dims.D / C;
-  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
-            tq = threadIdx.x % 4;
+  const int q0 = blockIdx.x * kRows, oc0 = G * blockIdx.z;
+  const int nc = dims.D / C;
+  // warpgroup w: S (Q resident) or dP (dO resident), then output chunk
+  // oc0 + w of dq
+  const int w = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int warp = tid / 32, g = tid % 32 / 4, tq = tid % 4;
   float lse2[2], dlt[2];
 #pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    const int row = q0 + 16 * warp + g + 8 * w;
+  for (int u = 0; u < 2; ++u) {
+    const int row = q0 + 16 * warp + g + 8 * u;
     const long long r = static_cast<long long>(bh) * dims.Lq + row;
-    lse2[w] = row < dims.Lq ? lse[r] * kLog2e : 0.f;
-    dlt[w] = row < dims.Lq ? delta[r] : 0.f;
+    lse2[u] = row < dims.Lq ? lse[r] * kLog2e : 0.f;
+    dlt[u] = row < dims.Lq ? delta[r] : 0.f;
   }
   float acc[C / 2];
 #pragma unroll
   for (int e = 0; e < C / 2; ++e) acc[e] = 0.f;
   const float c = dims.scale * kLog2e;
   const int kend = dims.causal ? min(dims.Lk, q0 + kRows) : dims.Lk;
-  for (int k0 = 0; k0 < kend; k0 += Bk) {
-    float s[Bk / 2], dp[Bk / 2];
-    gx_wide::wide_scores<T, Bk>(q, q0, dims.Lq, vec & 1, k, k0, dims.Lk,
-                                vec & 2, b, h, nc, sa, sb, raw, s);
-    // K^T chunk z comes beside dP's last chunk
-    T* rk = gx_wide::raw_more<T, Bk>(raw, 0);
-    gx_wide::wide_scores<T, Bk>(
-        dout, q0, dims.Lq, vec & 8, v, k0, dims.Lk, vec & 4, b, h, nc, sa,
-        sb, raw, dp,
-        [&] {
-          gx_wide::stage_chunk<T, Bk, true>(k, b, h, k0, dims.Lk, oc * C,
-                                            vec & 2, skt, rk);
-        },
-        [&] { gx_wide::finish_chunk<T, Bk, true>(skt, rk); });
-
+  auto grad = [&](int k0, float (&s)[Bk / 2], float (&dp)[Bk / 2],
+                  const float* trs, const float*) {
     const bool whole = k0 + Bk <= dims.Lk &&
                        (!dims.causal || k0 + Bk - 1 <= q0);
 #pragma unroll
     for (int e = 0; e < Bk / 2; ++e) {
-      const int w = (e >> 1) & 1;
-      float p = ex2(fmaf(s[e], c, -lse2[w]));
+      const int u = (e >> 1) & 1;
+      float p = ex2(fmaf(s[e], c, -lse2[u]));
       if (!whole) {
         const int col = k0 + 8 * (e >> 2) + 2 * tq + (e & 1),
-                  row = q0 + 16 * warp + g + 8 * w;
+                  row = q0 + 16 * warp + g + 8 * u;
         if (col >= dims.Lk || (dims.causal && col > row)) p = 0.f;
       }
-      dp[e] = p * (dp[e] - dlt[w]);
+      dp[e] = p * (dp[e] - dlt[u]);
     }
+    // this tile's dS K_w: depth Bk (slot order), summed into acc in
+    // round-to-nearest
     uint32_t dh[NB][4], dl[NB][4];
 #pragma unroll
     for (int i = 0; i < NB; ++i) a_frag(dp, i, dh[i], dl[i]);
-    float t[C / 2];
+    // K^T_w in its two halves of 64 head elements: accumulator e of half
+    // u is element 32 u + e of the chunk's
+    const float* kt = trs + w * kTr;
+    float t[2][Ch / 2];
     wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const float* ki = skt + i * 64;
-      Wgmma<C>::rs(t, dh[i], desc(ki, Bk), i > 0);
-      Wgmma<C>::rs(t, dl[i], desc(ki, Bk), 1);
-      if (P == 2) Wgmma<C>::rs(t, dh[i], desc(ki + Bk * C, Bk), 1);
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const float* ki = kt + u * P * Bk * Ch + i * 64;
+        Wgmma<Ch>::rs(t[u], dh[i], desc(ki, Bk), i > 0);
+        Wgmma<Ch>::rs(t[u], dl[i], desc(ki, Bk), 1);
+        if (P == 2) Wgmma<Ch>::rs(t[u], dh[i], desc(ki + Bk * Ch, Bk), 1);
+      }
     }
     wgmma_commit();
     wgmma_wait();
-    reg_fence(t);
 #pragma unroll
-    for (int e = 0; e < C / 2; ++e) acc[e] += t[e];
-  }
+    for (int u = 0; u < 2; ++u) {
+      reg_fence(t[u]);
+#pragma unroll
+      for (int e = 0; e < Ch / 2; ++e) acc[Ch / 2 * u + e] += t[u][e];
+    }
+  };
+  gx_wide::resident_walk<T, kAll, 1>(
+      q, dout, q0, dims.Lq, k, v, vec & 2, vec & 4, 0, (kend + Bk - 1) / Bk,
+      dims.Lk, b, h, nc, oc0, sm, [](int, float*, bool) {}, grad);
 
+  // accumulator e is (query row, head element)
+  if (oc0 + w >= nc) return;
 #pragma unroll
   for (int e = 0; e < C / 2; e += 2) {
     const int row = q0 + 16 * warp + g + (e & 2) * 4;
     if (row >= dims.Lq) continue;
     *reinterpret_cast<float2*>(
-        dq + gx_wide::chunk_offset(dims, dims.Lq, b, h, row, oc, e)) =
+        dq + gx_wide::chunk_offset(dims, dims.Lq, b, h, row, oc0 + w, e)) =
         make_float2(acc[e] * dims.scale, acc[e + 1] * dims.scale);
   }
 }
@@ -318,15 +330,18 @@ template <typename T>
 int launch_dq_wide(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                    GxSeqOperand dout, const float* lse, const float* delta,
                    GxAttnDims dims, float* dq, cudaStream_t stream) {
-  constexpr int bytes =
-      (parts<T>() * (kRows + 2 * gx_wide::kTileRows) * gx_attn::kChunk +
-       gx_wide::raw_floats<T, gx_wide::kTileRows, 1>()) *
-      4;
-  const int err = allow_smem(flash_dq_wide_kernel<T>, bytes);
+  const int nc = dims.D / gx_attn::kChunk;
+  const bool all = nc <= gx_wide::max_resident<T>();
+  const int bytes = gx_wide::WalkSmem<T, 1>::bytes(
+      all ? nc : gx_wide::max_resident<T>());
+  auto kernel = all ? flash_dq_wide_kernel<T, true>
+                    : flash_dq_wide_kernel<T, false>;
+  const int err = allow_smem(kernel, bytes);
   if (err != 0) return err;
+  constexpr int G = gx_wide::kOutChunks;
   const dim3 grid((dims.Lq + kRows - 1) / kRows, dims.B * dims.H,
-                  dims.D / gx_attn::kChunk);
-  flash_dq_wide_kernel<T><<<grid, kThreads, bytes, stream>>>(
+                  (nc + G - 1) / G);
+  kernel<<<grid, gx_wide::kWalkThreads, bytes, stream>>>(
       q, k, v, dout, lse, delta, dims, gx_wide::vec_bits<T>(q, k, v, &dout),
       dq);
   return static_cast<int>(cudaGetLastError());

@@ -931,6 +931,43 @@ def test_attention_kernels_above_head_dim_128(dev, D, dtype):
                 torch.testing.assert_close(a, b, **tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "fused"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 384, 640])
+def test_wide_backward_long_ragged_lengths(dev, D, dtype, causal, layout):
+    """dq and dk/dv on the wide route over many 16-row tiles, off every
+    tile and block edge (Lq 333, Lk 301): the streamed tiles pass through
+    both stages many times, and the causal start and the ragged last tile
+    mask as the plain versions do.  D = 384 fp32 and D = 640 bf16 hold
+    more chunks than stay in shared memory.  "fused": q, dO and k, v as
+    the strided slices of fused projections.  Against the plain versions
+    at fp32 1e-4 (bf16 1e-2); two calls give the same bits."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Lq, Lk = 2, 2, 333, 301
+    if layout == "fused":
+        q, g = _attn(dev, (B, Lq, 2, H, D), dtype, seed=1, n=1)[0].unbind(2)
+        k, v = _attn(dev, (B, Lk, 2, H, D), dtype, seed=2, n=1)[0].unbind(2)
+    else:
+        q, g = _attn(dev, (B, Lq, H, D), dtype, seed=1, n=2)
+        k, v = _attn(dev, (B, Lk, H, D), dtype, seed=2, n=2)
+    ref, lse = fa.flash_attention_with_lse_plain(q, k, v, causal)
+    args = (q, k, v, g, lse, fa.attention_delta(ref, g))
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    dq = fa.flash_dq(*args, causal)
+    assert dq.shape == q.shape
+    torch.testing.assert_close(dq, fa.flash_dq_plain(*args, causal), **tol)
+    assert torch.equal(dq, fa.flash_dq(*args, causal))
+    for a, b, c in zip(fa.flash_dkv(*args, causal),
+                       fa.flash_dkv_plain(*args, causal),
+                       fa.flash_dkv(*args, causal)):
+        assert a.shape == k.shape and torch.equal(a, c)
+        torch.testing.assert_close(a, b, **tol)
+
+
 def _seq_trains_on_the_card(dev, mode, mk):
     """One adam step of a SeqClassifier ``mk`` on [2, 1] (x sp 2) on the
     card and on the CPU: the card's runs through the attention kernels of
