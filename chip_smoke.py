@@ -954,7 +954,7 @@ def attention_kernels(torch, dev, timer=None):
 
 def head_dim_phase(torch, dev, timer=None):
     """Rows 10-13 at head dim 256, which the kernels run on the wide route
-    (each block one 128-wide chunk of its output): the forward, dq and
+    (each block two 128-wide chunks of its output): the forward, dq and
     dk/dv at seq_flash's B, L, H (q, k, v [16, 4096, 4, 256]) and the hop
     at seq_ring's ([32, 128, 4, 256]), held to the fp32 gates (1e-5
     forward, 1e-4 backward and hop), two calls giving the same bits, with

@@ -41,6 +41,20 @@
 // groups run one after another rather than pipelined (the next group's S
 // issued under this one's softmax): both alternatives cost registers and
 // so blocks an SM, and measured slower on the H100 (PERF.md).
+//
+// Head dims above 128 (fold_keys_wide, attention_wide.cuh): a block is two
+// warpgroups, one 64-row group and two 128-wide output chunks, one a
+// warpgroup.  Warpgroup w keeps depth half w of Q resident, raw, and
+// streams the same half of each 32-key tile of K, 64 head elements a
+// step, three stages deep, each thread splitting the next step's chunks it
+// copied under this step's products; its partial S comes from RS products
+// (A fragments split in registers).  The two trade their partial S through
+// shared memory once a tile and add them in one order, so both hold the
+// same bits of S, m, l and P; each then folds the tile into its output
+// chunk with fold_tile(), from the tile's V^T for that chunk, which lands
+// as it lies beside the K steps and is transposed and split at the tile's
+// end.  What bounds it is latency: one block of 8 warps an SM, each phase
+// a chain of dependent instructions (PERF.md).
 #pragma once
 
 #include <math.h>
@@ -117,9 +131,10 @@ __device__ __forceinline__ void stage_kv(const GxSeqOperand& k,
 }
 
 // The query rows of this thread in a group starting at r0: 16 warp + g
-// and 8 below (accumulator rows w = 0, 1).
+// and 8 below (accumulator rows w = 0, 1), warp in the thread's warpgroup.
 __device__ __forceinline__ int my_row(int r0, int w) {
-  return r0 + 16 * (threadIdx.x / 32) + threadIdx.x % 32 / 4 + 8 * w;
+  const int tid = threadIdx.x % kThreads;  // in its warpgroup
+  return r0 + 16 * (tid / 32) + tid % 32 / 4 + 8 * w;
 }
 
 // Folds one tile's scores s (accumulator layout; unscaled q k^T, keys [k0,
@@ -288,44 +303,330 @@ __device__ __forceinline__ void fold_keys(
   }
 }
 
-// The shared memory of fold_keys_wide, in floats: a chunk of Q, of a K
-// tile and of a V^T tile, each P parts, and the bf16 staging
+// key rows a tile of fold_keys_wide() (16 measured 25% slower at D = 256
+// on the H100: m64n16k8 products run at half the tensor cores' rate), and
+// the stages of its K steps
+constexpr int kWideKeys = 32;
+constexpr int kKStages = 3;
+
+// The shared memory of fold_keys_wide(), in floats: Q's resident pieces (R
+// a warpgroup, each 64 rows x 64 head elements, raw), kKStages stages x 2
+// warpgroups of K steps ([N][64], P parts), a V^T tile a warpgroup ([128][N],
+// P parts), and the bf16 staging of both
 template <typename T>
-constexpr int wide_fwd_floats() {
-  return parts<T>() * (kRows + 2 * gx_wide::kTileRows) * gx_attn::kChunk +
-         gx_wide::raw_floats<T, gx_wide::kTileRows>();
+struct WideFwdSmem {
+  static constexpr int N = kWideKeys, KD = gx_wide::kStepDepth;
+  static constexpr int kStep = parts<T>() * N * KD;
+  static constexpr int kVt = parts<T>() * gx_attn::kChunk * N;
+  static constexpr int kRawStep = sizeof(T) == 4 ? 0 : N * KD / 2;
+  static constexpr int kRawVt = sizeof(T) == 4 ? 0 : N * gx_attn::kChunk / 2;
+  static constexpr int kStream = 2 * kKStages * (kStep + kRawStep) +
+                                 2 * (kVt + kRawVt);
+  // one piece for both warpgroups
+  static constexpr int kPiece = 2 * kRows * KD * sizeof(T) / 4;
+  // the pieces a warpgroup keeps at most: the rest of 227 KB
+  static constexpr int kMaxPieces = (227 * 1024 / 4 - kStream) / kPiece;
+  static_assert(kMaxPieces >= 2, "D = 256 keeps Q resident");
+  static constexpr int bytes(int R) { return (R * kPiece + kStream) * 4; }
+};
+
+// A warpgroup copies a tile of 32 rows of K or V (kWideKeys), KD head
+// elements of each, a row a lane: lane l copies row l, 16-byte columns
+// w + 4 n for its warp w (a phase's 8 accesses fill one 128-byte line of a
+// K-major tile), and, for K, splits the same chunks once they have landed,
+// so the split waits only on its own copies.  Every address is the
+// thread's row and column base plus a constant.
+template <typename T, int KD>
+__host__ __device__ constexpr int row_chunks() {
+  return KD * static_cast<int>(sizeof(T)) / 16 / 4;
 }
 
-// fold_keys for a head above 128 (attention_wide.cuh): folds keys [0,
-// kend) of head (b, h) into the state of the group of rows [q0, q0 + 64)
-// for head elements [128 oc, 128 oc + 128) of o; each 16-key tile's scores
-// over the whole head from wide_scores(), then its V^T chunk oc.  vec: the
-// operands' alignment bits (gx_wide::vec_bits).
-template <typename T>
+// Starts the copies of the thread's chunks of its row, whose head
+// elements of the tile start at src (live: the row is below the sequence
+// end; else zeros): fp32 into op's hi part as K-major, bf16 into raw (the
+// thread's chunk n at tid + 128 n); 16-byte cp.async where the operand is
+// 16-byte aligned, plain loads otherwise.
+template <typename T, int KD>
+__device__ __forceinline__ void stage_row(const T* src, bool live,
+                                          bool async16, float* op, T* raw,
+                                          int tid) {
+  constexpr int E = 16 / sizeof(T);
+  const int lane = tid % 32, warp = tid / 32;
+  T* dst = sizeof(T) == 4
+               ? reinterpret_cast<T*>(op + kmaj(lane, 4 * warp, KD))
+               : raw + tid * E;
+  constexpr int kDst = sizeof(T) == 4 ? 128 : kThreads * E;  // chunk to chunk
+  src += warp * E;
+  if (async16) {
+#pragma unroll
+    for (int n = 0; n < row_chunks<T, KD>(); ++n) {
+      cp_async16(dst + n * kDst, src + 4 * n * E, live);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < row_chunks<T, KD>(); ++n) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        dst[n * kDst + e] = live ? src[4 * n * E + e] : T();
+      }
+    }
+  }
+}
+
+// Splits chunk n of the thread's K chunks once it has landed: fp32 in
+// place (hi, lo N KD floats behind), bf16 converted from raw into op
+template <typename T, int N, int KD>
+__device__ __forceinline__ void split_row(float* op, const T* raw, int tid,
+                                          int n) {
+  const int lane = tid % 32, warp = tid / 32;
+  if constexpr (sizeof(T) == 4) {
+    const int at = kmaj(lane, 4 * warp, KD) + 128 * n;
+    const float4 v = *reinterpret_cast<const float4*>(op + at);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hi[4], lo[4];
+    split4<2>(x, hi, lo);
+    store4<2>(hi, lo, op, op + N * KD, at);
+  } else {
+    const uint4 v = reinterpret_cast<const uint4*>(raw)[tid + kThreads * n];
+    const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+    const int at = kmaj(lane, 8 * warp, KD) + 256 * n;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w4[2 * q]));
+      const float2 e = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w4[2 * q + 1]));
+      *reinterpret_cast<float4*>(op + at + 32 * q) =
+          make_float4(a.x, a.y, e.x, e.y);
+    }
+  }
+}
+
+// A V tile of N keys, 128 head elements, lands as it lies (stage_row()):
+// fp32 into the lo part of its V^T tile ([N][128] K-major; 4-byte copies
+// straight into the transposed layout measured slower on the H100), bf16
+// into raw.  vt_load() reads a thread's share of it into x, vt_store()
+// writes that share transposed ([128][N], the keys as depth in slot()
+// order) and split into the hi and lo parts: stored only once every thread
+// of the warpgroup has read, as the lo part is rewritten.
+template <int N>
+__host__ __device__ constexpr int vt_groups() {
+  return N * gx_attn::kChunk / 4 / kThreads;
+}
+
+// Thread tid's share: groups n = 0 .. 7 of 4 head elements, row (key) 8 (n
+// / 2) + tid % 8, head elements 4 (tid / 8) + 64 (n % 2) on: the
+// addresses are the thread's first plus constants.
+template <typename T, int N>
+__device__ __forceinline__ void vt_load(const float* vt, const T* raw, int tid,
+                                        float (&x)[vt_groups<N>()][4]) {
+  static_assert(N == 32 && vt_groups<N>() == 8, "a row a lane");
+  constexpr int C = gx_attn::kChunk;
+  const int r = tid % 8, g = tid / 8;
+#pragma unroll
+  for (int n = 0; n < vt_groups<N>(); ++n) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          vt + C * N + kmaj(r, 4 * g, C) + 1024 * (n / 2) + 512 * (n % 2));
+      x[n][0] = v.x, x[n][1] = v.y, x[n][2] = v.z, x[n][3] = v.w;
+    } else {
+      // 16-byte chunk g / 2 of row r is the copying thread's (stage_row())
+      const uint2 p = reinterpret_cast<const uint2*>(
+          raw)[2 * (g / 2 * 32 + r) + g % 2 + 512 * (n % 2) + 16 * (n / 2)];
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&p.x));
+      const float2 e = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&p.y));
+      x[n][0] = a.x, x[n][1] = a.y, x[n][2] = e.x, x[n][3] = e.y;
+    }
+  }
+}
+
+// vt_store() stores as convert_group() does, each lane starting at
+// another of its 4 elements (rot) so that a warp's 32 stores meet 32
+// banks, but rotates the 4 values before the split rather than its 8
+// parts after it.
+template <typename T, int N>
+__device__ __forceinline__ void vt_store(float* vt, int tid,
+                                         const float (&x)[vt_groups<N>()][4]) {
+  constexpr int C = gx_attn::kChunk, P = parts<T>();
+  const int rot = lane_rot();
+  const int base = kmaj(4 * (tid / 8), slot(tid % 8), N);
+  int off[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) off[c] = base + 4 * ((c + rot) & 3);
+#pragma unroll
+  for (int n = 0; n < vt_groups<N>(); ++n) {
+    float a[4], y[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[c] = rot & 1 ? x[n][(c + 1) & 3] : x[n][c];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[c] = rot & 2 ? a[(c + 2) & 3] : a[c];
+    uint32_t hi[4], lo[4];
+    split4<P>(y, hi, lo);
+    // head elements + 64 (n % 2), keys + 8 (n / 2)
+    const int at = 64 * N * (n % 2) + 64 * (n / 2);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      vt[off[c] + at] = __uint_as_float(hi[c]);
+      if (P == 2) vt[N * C + off[c] + at] = __uint_as_float(lo[c]);
+    }
+  }
+}
+
+// fold_keys for a head above 128 (attention_wide.cuh), by two warpgroups:
+// folds keys [0, kend) of head (b, h) into the state of the group of rows
+// [q0, q0 + 64) for head elements [128 oc, 128 oc + 128) of o, oc = oc0 +
+// w for warpgroup w (past the last chunk, a copy of the last, which the
+// caller does not store).  Warpgroup w keeps head elements [w D / 2, (w +
+// 1) D / 2) of the rows of Q, R pieces of 64 in shared memory (all when
+// kAll, else the rest from L2), and streams the same elements of each
+// N-key tile of K, 64 a step, kKStages deep: under each step's products
+// every thread splits its own chunks of the next step, which have landed.
+// Its partial S sums the steps in round-to-nearest.  The V tile of chunk
+// oc is copied from the tile's first step on (the previous tile's P V
+// done) and transposed and split at its end.  vec: the operands'
+// alignment bits (gx_wide::vec_bits).
+template <typename T, bool kAll>
 __device__ __forceinline__ void fold_keys_wide(
     const GxSeqOperand& q, const GxSeqOperand& k, const GxSeqOperand& v,
-    const GxAttnDims& dims, int b, int h, int q0, int oc, int vec, float* sm,
+    const GxAttnDims& dims, int b, int h, int q0, int oc0, int vec, float* sm,
     float (&o)[gx_attn::kChunk / 2], float (&m)[2], float (&l)[2]) {
-  constexpr int Bk = gx_wide::kTileRows, P = parts<T>();
-  constexpr int C = gx_attn::kChunk;
-  float* sq = sm;
-  float* sk = sq + P * kRows * C;
-  float* svt = sk + P * Bk * C;
-  float* raw = svt + P * Bk * C;
+  using S = WideFwdSmem<T>;
+  constexpr int N = S::N, KD = S::KD, C = gx_attn::kChunk, P = parts<T>();
+  constexpr int kChunks = row_chunks<T, KD>(), kPairs = KD / 16;
+  static_assert(N == 32, "a row a lane");
+  const int w = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int nc = dims.D / C;  // also the steps a warpgroup takes a tile
+  const int half = w * (dims.D / 2);
+  // by value: a reference to one of two operands would put them on the
+  // stack
+  const GxSeqOperand qw{static_cast<const T*>(q.ptr) + half, q.sb, q.sl, q.sh};
+  const GxSeqOperand kw{static_cast<const T*>(k.ptr) + half, k.sb, k.sl, k.sh};
+  const int oc = min(oc0 + w, nc - 1);
+  const int R = kAll ? nc : S::kMaxPieces, W = R * KD;
+  T* res = reinterpret_cast<T*>(sm) + w * kRows * W;
+  float* stg = sm + R * S::kPiece;  // [stage][warpgroup]
+  float* vt = stg + 2 * kKStages * S::kStep + w * S::kVt;
+  T* rawk = reinterpret_cast<T*>(stg + 2 * kKStages * S::kStep + 2 * S::kVt);
+  T* rawv = rawk + 2 * kKStages * N * KD + w * N * C;
   const int kend = dims.causal ? min(dims.Lk, q0 + kRows) : dims.Lk;
-  for (int k0 = 0; k0 < kend; k0 += Bk) {
-    float s[Bk / 2];
-    // V^T chunk oc comes beside the scores' last chunk
-    T* rv = gx_wide::raw_more<T, Bk>(raw);
-    gx_wide::wide_scores<T, Bk>(
-        q, q0, dims.Lq, vec & 1, k, k0, dims.Lk, vec & 2, b, h, dims.D / C,
-        sq, sk, raw, s,
-        [&] {
-          gx_wide::stage_chunk<T, Bk, true>(v, b, h, k0, dims.Lk, oc * C,
-                                            vec & 4, svt, rv, threadIdx.x);
-        },
-        [&] { gx_wide::finish_chunk<T, Bk, true>(svt, rv); });
-    fold_tile<P, C, Bk>(s, svt, Bk * C, dims, k0, q0, o, m, l);
+  const int ntiles = (kend + N - 1) / N, steps = ntiles * nc;
+  // the thread's rows of K (its half) and V (chunk oc): row `lane` of each
+  // tile
+  const int lane = tid % 32;
+  const T* krow = static_cast<const T*>(kw.ptr) + b * k.sb + h * k.sh +
+                  lane * k.sl;
+  const T* vrow = static_cast<const T*>(v.ptr) + b * v.sb + h * v.sh +
+                  oc * C + lane * v.sl;
+  // step (tile t, head elements [KD u, KD u + KD) of the half) into stage
+  // step % kKStages
+  auto at = [&](int step) { return 2 * (step % kKStages) + w; };
+  auto stage = [&](int step) {
+    const int t = step / nc, u = step - t * nc;
+    const bool live = t * N + lane < dims.Lk;
+    stage_row<T, KD>(live ? krow + t * N * k.sl + u * KD
+                          : static_cast<const T*>(k.ptr),
+                     live, vec & 2, stg + at(step) * S::kStep,
+                     rawk + at(step) * N * KD, tid);
+  };
+  auto stage_v = [&](int t) {
+    const bool live = t * N + lane < dims.Lk;
+    stage_row<T, C>(live ? vrow + t * N * v.sl : static_cast<const T*>(v.ptr),
+                    live, vec & 4, vt + C * N, rawv, tid);
+  };
+  // One commit group a step, step s's copies in the s-th (V's of tile t
+  // in its first step's), the first kKStages here: when all but the newest
+  // group have landed, the next step's have.
+  for (int s = 0; s < kKStages; ++s) {
+    if (s < steps) stage(s);
+    if (s == 0 && steps > 0) stage_v(0);
+    cp_async_commit();
+  }
+  gx_wide::load_resident<T>(qw, b, h, q0, dims.Lq, W, res, tid);
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kKStages - 1) : "memory");
+  if (steps > 0) {
+#pragma unroll
+    for (int n = 0; n < kChunks; ++n) {
+      split_row<T, N, KD>(stg + w * S::kStep, rawk + w * N * KD, tid, n);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();  // Q and step 0's split in place for every thread
+  auto from_smem = [&](int r, int s, float (&x)[4]) {
+    gx_wide::res_frag<T>(res, r, s, W, x);
+  };
+  auto from_l2 = [&](int r, int s, float (&x)[4]) {
+    gx_wide::l2_frag<T>(qw, b, h, q0 + r, dims.Lq, s, x);
+  };
+  for (int t = 0, step = 0; t < ntiles; ++t) {
+    const int k0 = t * N;
+    float d[N / 2];
+    for (int u = 0; u < nc; ++u, ++step) {
+      const float* mine = stg + at(step) * S::kStep;
+      // this thread's copies of step + 1 have landed: split them under
+      // this step's products
+      cp_async_wait_prior();
+      float* nop = stg + at(step + 1) * S::kStep;
+      const T* nraw = rawk + at(step + 1) * N * KD;
+      const bool more = step + 1 < steps;
+      auto side = [&](int sp) {
+        if (more) {
+#pragma unroll
+          for (int n = sp; n < kChunks; n += kPairs) {
+            split_row<T, N, KD>(nop, nraw, tid, n);
+          }
+        }
+      };
+      float e[N / 2];
+      if constexpr (kAll) {
+        gx_wide::step_scores<T, N, KD>(from_smem, u * (KD / 16), tid, mine,
+                                       e, side);
+      } else if (u < R) {
+        gx_wide::step_scores<T, N, KD>(from_smem, u * (KD / 16), tid, mine,
+                                       e, side);
+      } else {
+        gx_wide::step_scores<T, N, KD>(from_l2, u * (KD / 16), tid, mine, e,
+                                       side);
+      }
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) d[j] = u == 0 ? e[j] : d[j] + e[j];
+      fence_async_smem();
+      if (u + 1 < nc) {
+        // step + 1's split in place for every thread, and no product
+        // reads this step's stage any more; in a tile's first step, every
+        // P V of the previous tile is done, so its V^T tile is free
+        __syncthreads();
+        if (step + kKStages < steps) stage(step + kKStages);
+        if (u == 0 && t > 0) stage_v(t);
+        cp_async_commit();
+      }
+    }
+    // The partial scores traded through the V^T tiles' hi parts, which no
+    // product reads until the transposed tile is stored; a + b is b + a,
+    // so both warpgroups hold the same bits of S.  Tile t's V has landed
+    // once every group (nc > 2: all but the newest) has.
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) vt[j * kThreads + tid] = d[j];
+    if (nc > 2) {
+      cp_async_wait_prior();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    if (step - 1 + kKStages < steps) stage(step - 1 + kKStages);
+    cp_async_commit();
+    const float* theirs = vt + (w ? -S::kVt : S::kVt);
+    float s[N / 2], x[vt_groups<N>()][4];
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) s[j] = d[j] + theirs[j * kThreads + tid];
+    vt_load<T, N>(vt, rawv, tid, x);
+    __syncthreads();  // every thread has read both V^T tiles
+    vt_store<T, N>(vt, tid, x);
+    fence_async_smem();
+    // the warpgroup's V^T tile in place for its products
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "n"(kThreads) : "memory");
+    fold_tile<P, C, N>(s, vt, C * N, dims, k0, q0, o, m, l);
   }
 }
 

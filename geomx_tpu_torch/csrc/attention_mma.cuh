@@ -75,12 +75,19 @@ __device__ __forceinline__ int slot(int r) {
 }
 
 // descriptor of a K-major tile of depth Kd (no swizzle) at p, in shared
-// memory: 14-bit start, leading and stride byte offsets, all >> 4
-__device__ __forceinline__ uint64_t desc(const float* p, int Kd) {
+// memory: 14-bit start, leading and stride byte offsets, all >> 4.  Its
+// low word (start and leading offset) depends on p alone, its high word
+// (stride offset) on Kd alone; a start below 256 KB plus a few KB stays in
+// its 14 bits, so a step along a tile adds to the low word alone.
+__device__ __forceinline__ uint32_t desc_lo(const float* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  const uint64_t lead = 128 >> 4, stride = (Kd * 32) >> 4;
-  return static_cast<uint64_t>((a & 0x3ffff) >> 4) | (lead << 16) |
-         (stride << 32);
+  return ((a & 0x3ffff) >> 4) | ((128 >> 4) << 16);
+}
+__host__ __device__ constexpr uint64_t desc_hi(int Kd) {
+  return static_cast<uint64_t>((Kd * 32) >> 4) << 32;
+}
+__device__ __forceinline__ uint64_t desc(const float* p, int Kd) {
+  return desc_hi(Kd) | desc_lo(p);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

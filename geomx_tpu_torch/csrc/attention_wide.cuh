@@ -6,39 +6,34 @@
 // Pallas; the built instances stop at 128, where the output accumulators
 // already take 64 registers a thread (dk and dv together 128).  So a head
 // D = 128 nc (the wrappers zero-pad any other D above 128 to the next
-// multiple of 128) is split into output chunks of 128 head elements, one
-// a block for the forward and the hop (O, or the hop's o) and two a block
-// for dq and dk/dv, over the grid's z, and no accumulator set is wider
-// than at D = 128.  Every block still needs the full-depth scores (S = Q
-// K^T, and dP = dO V^T for the backward), summed a piece of the depth at
-// a time: each piece's tensor-core sum is added to the scores in
-// round-to-nearest, in head order, so the blocks of all output chunks
-// compute the same bits of m, l, P and dS; only chunk 0 writes lse (and
-// the hop's m and l).
+// multiple of 128) is split into output chunks of 128 head elements, two
+// a block (O or the hop's o, dq, dk and dv), one a warpgroup, over the
+// grid's z, and no accumulator set is wider than at D = 128.  Every block
+// still needs the full-depth scores (S = Q K^T, and dP = dO V^T for the
+// backward), summed a piece of the depth at a time: each piece's
+// tensor-core sum is added to the scores in round-to-nearest, in head
+// order, so the blocks of all output chunks compute the same bits of m,
+// l, P and dS; only chunk 0 writes lse (and the hop's m and l).
 //
-// The forward and the hop (wide_scores(), the first version, not yet
-// redesigned) stream 16-row tiles and re-stage the block's fixed 64 rows
-// (Q) chunk by chunk for every tile, each chunk's copies waited on before
-// its products.
-//
-// The backward (resident_walk()) keeps its fixed 64 rows -- K and V for
-// dk/dv, Q and dO for dq -- in shared memory for the whole walk, raw (128
-// KB at D = 256 fp32: split hi/lo they would need 256 KB, more than a
-// block has), one operand a warpgroup.  In all four score products the
-// fixed rows are wgmma's A operand, so each thread reads its A fragments
-// from them (one 16-byte load covers two k8 steps, res_at()), splits them
-// into hi/lo in registers and issues the products in the RS form.  The
-// streamed operands (each warpgroup its own) come 16 rows by 64 head
-// elements a step by cp.async into two stages, the next step's copies
-// landing under this step's products.  A block sums two output chunks, so
-// the scores are computed once for both (the first version's blocks each
-// recomputed them for their one chunk); the steps of those chunks also
-// fill the transposed tiles of the gradient products.  The two warpgroups
-// trade their scores (S and dP) through shared memory once a tile.  At D
-// = 256 fp32 a dk/dv block takes 224 KB, one an SM.  At D >= 384 the
-// blocks split the output chunks over the grid again, two a block, and
-// past max_resident() (D >= 384 fp32, D >= 640 bf16) the fixed rows'
-// further chunks give their A fragments from L2.
+// Every wide kernel keeps its block's fixed 64 rows in shared memory for
+// the whole walk over the streamed rows, raw (128 KB at D = 256 fp32 for
+// the backward's two operands: split hi/lo they would need 256 KB, more
+// than a block has): K and V for dk/dv, Q and dO for dq (resident_walk(),
+// one operand a warpgroup), Q for the forward and the hop (fold_keys_wide,
+// a depth half a warpgroup).  In every score product the fixed rows are
+// wgmma's A operand, so each thread reads its A fragments from them (one
+// 16-byte load covers two k8 steps, res_at()), splits them into hi/lo in
+// registers and issues the products in the RS form.  The streamed
+// operands (each warpgroup its own) come N rows by 64 head elements a step
+// by cp.async (16 rows into two stages for the backward, 32 into three for
+// the forward), the next step's copies landing under this step's
+// products.  A block sums two output chunks, so the scores are
+// computed once for both; the two warpgroups trade their scores (S and dP
+// for the backward, the two depth halves of S for the forward) through
+// shared memory once a tile.  Past the resident limit (max_resident() for
+// the backward, D >= 384 fp32 and D >= 640 bf16; WideFwdSmem for the
+// forward, D >= 384 fp32 and D >= 896 bf16) the fixed rows' further chunks
+// give their A fragments from L2.
 #pragma once
 
 #include "attention.cuh"
@@ -49,23 +44,21 @@ namespace gx_wide {
 using namespace gx_mma;
 using gx_attn::kChunk;
 
-constexpr int kTileRows = 16;  // streamed rows a tile
+constexpr int kTileRows = 16;  // streamed rows a tile of the backward
 
 // Starts the copies of rows [l0, l0 + R) of head (b, h) of t, head
-// elements [c0, c0 + KD) (zeros past len), for the K-major operand tile
-// op: nat ([R][KD], as they lie) or, with kTr, tr ([128][R], the rows as
-// depth in slot() order).  fp32 lands straight in op's hi part by
-// cp.async (16-byte copies for nat where t is 16-byte aligned, 4-byte for
-// tr), bf16 in raw (R rows of KD, as stage_rows() lays them, for the
-// conversion); finish_chunk() (or finish_step()) then splits or converts,
-// after the copies have landed and a barrier.  tid: the thread's index in
-// the warpgroup that stages the tile.
-template <typename T, int R, bool kTr, int KD = kChunk>
+// elements [c0, c0 + KD) (zeros past len), for the K-major [R][KD] operand
+// tile op.  fp32 lands straight in op's hi part by cp.async (16-byte
+// copies where t is 16-byte aligned, plain loads otherwise), bf16 in raw
+// (R rows of KD, as stage_rows() lays them, for the conversion);
+// finish_step() then splits or converts, after the copies have landed and
+// a barrier.  tid: the thread's index in the warpgroup that stages the
+// tile.
+template <typename T, int R, int KD>
 __device__ __forceinline__ void stage_chunk(const GxSeqOperand& t, int b,
                                             int h, int l0, int len, int c0,
                                             bool async16, float* op, T* raw,
                                             int tid) {
-  static_assert(!kTr || KD == kChunk, "transposed tiles are 128 deep");
   const GxSeqOperand tc{static_cast<const T*>(t.ptr) + c0, t.sb, t.sl, t.sh};
   if constexpr (sizeof(T) != 4) {
     constexpr int E = 16 / sizeof(T), G = KD / E;  // a row's 16 bytes
@@ -81,15 +74,6 @@ __device__ __forceinline__ void stage_chunk(const GxSeqOperand& t, int b,
 #pragma unroll
         for (int e = 0; e < E; ++e) dst[e] = live ? src[e] : T();
       }
-    }
-  } else if constexpr (kTr) {
-    for (int i = tid; i < R * kChunk; i += kThreads) {
-      const int r = i / kChunk, d = i % kChunk;
-      const bool live = l0 + r < len;
-      cp_async4(op + kmaj(d, slot(r), R),
-                live ? row_ptr<float>(tc, b, l0 + r, h) + d
-                     : static_cast<const float*>(t.ptr),
-                live);
     }
   } else {
     // lanes over rows: a phase's 8 stores fill one 128-byte line of op
@@ -109,85 +93,7 @@ __device__ __forceinline__ void stage_chunk(const GxSeqOperand& t, int b,
   }
 }
 
-template <typename T, int R, bool kTr>
-__device__ __forceinline__ void finish_chunk(float* op, const T* raw) {
-  if constexpr (sizeof(T) == 4) {
-    split_tile<R * kChunk>(op);  // hi in place, lo behind
-  } else {
-    convert<T, kChunk, R>(raw, kTr ? nullptr : op, kTr ? op : nullptr);
-  }
-}
-
-// The bf16 staging floats of fold_keys_wide(): the 64 + N rows of a
-// wide_scores() chunk and the tile of N rows staged beside its last chunk
-// (fp32 lands in place: none)
-template <typename T, int N>
-__host__ __device__ constexpr int raw_floats() {
-  return sizeof(T) == 4 ? 0 : (kRows + 2 * N) * kChunk * sizeof(T) / 4;
-}
-
-// the bf16 staging of the tile staged beside the last chunk
-template <typename T, int N>
-__device__ __forceinline__ T* raw_more(float* raw) {
-  return reinterpret_cast<T*>(raw) + (kRows + N) * kChunk;
-}
-
-// The scores s = A B^T (unscaled) of rows [a0, a0 + 64) of a against rows
-// [b0, b0 + N) of bo over the whole head, nc chunks of 128: each chunk's
-// rows are staged into sa (P * 64 * 128 floats) and sb (P * N * 128; bf16
-// through raw, raw_floats()), multiplied in split TF32 (hi hi + hi lo +
-// lo hi; one product for bf16), and the chunk's (truncated) tensor-core
-// sum is added to s in round-to-nearest.  Starts with a barrier, so the
-// caller's last reads of sa, sb and raw are done.  stage_more() starts
-// the copies of a further tile beside the last chunk's (the V^T tile of
-// the forward's P V products), and finish_more() splits it, so it costs
-// no round trip of their own.
-template <typename T, int N, typename Stage, typename Finish>
-__device__ __forceinline__ void wide_scores(
-    const GxSeqOperand& a, int a0, int alen, bool avec,
-    const GxSeqOperand& bo, int b0, int blen, bool bvec, int b, int h,
-    int nc, float* sa, float* sb, float* raw, float (&s)[N / 2],
-    Stage stage_more, Finish finish_more) {
-  constexpr int P = parts<T>();
-  T* ra = reinterpret_cast<T*>(raw);
-  T* rb = ra + kRows * kChunk;
-  for (int c = 0; c < nc; ++c) {
-    __syncthreads();
-    stage_chunk<T, kRows, false>(a, b, h, a0, alen, c * kChunk, avec, sa, ra,
-                                 threadIdx.x);
-    stage_chunk<T, N, false>(bo, b, h, b0, blen, c * kChunk, bvec, sb, rb,
-                             threadIdx.x);
-    if (c == nc - 1) stage_more();
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    finish_chunk<T, kRows, false>(sa, ra);
-    finish_chunk<T, N, false>(sb, rb);
-    if (c == nc - 1) finish_more();
-    fence_async_smem();
-    __syncthreads();
-    float sc[N / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kChunk / 8; ++j) {
-      const float* aj = sa + j * 64;
-      const float* bj = sb + j * 64;
-      Wgmma<N>::ss(sc, desc(aj, kChunk), desc(bj, kChunk), j > 0);
-      if (P == 2) {
-        Wgmma<N>::ss(sc, desc(aj, kChunk), desc(bj + N * kChunk, kChunk), 1);
-        Wgmma<N>::ss(sc, desc(aj + kRows * kChunk, kChunk), desc(bj, kChunk),
-                     1);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait();
-    reg_fence(sc);
-#pragma unroll
-    for (int e = 0; e < N / 2; ++e) s[e] = c == 0 ? sc[e] : s[e] + sc[e];
-  }
-}
-
-// ---- the backward: the fixed rows resident ---------------------------------
+// ---- the fixed rows resident -----------------------------------------------
 
 // all but the newest of this thread's wgmma commit groups are done
 __device__ __forceinline__ void wgmma_wait_prior() {
@@ -295,14 +201,21 @@ __device__ __forceinline__ void finish_step(float* op, const T* raw,
 // [N][KD], hi then lo).  Products are hi hi + hi lo + lo hi (one for
 // bf16); one commit group a 16-byte load of A (two k8 steps), the
 // previous one still in flight; the next group's A loads are issued
-// before the wait.
-template <typename T, int N, int KD, typename Frag>
+// before the wait, and side(sp) runs under group sp's products (work of
+// the caller's that touches neither d nor bs).
+struct NoSide {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+template <typename T, int N, int KD, typename Frag, typename Side = NoSide>
 __device__ __forceinline__ void step_scores(Frag frag, int s0, int tid,
                                             const float* bs,
-                                            float (&d)[N / 2]) {
+                                            float (&d)[N / 2],
+                                            Side side = Side()) {
   constexpr int P = parts<T>(), kPairs = KD / 16;
   const int r = 16 * (tid / 32) + tid % 32 / 4;
-  const uint64_t bd = desc(bs, KD);  // + 16 a k8 step (256 bytes)
+  // the descriptor's low word: + 16 a k8 step (256 bytes)
+  const uint32_t bd = desc_lo(bs);
   float x[2][4];                     // rows r, r + 8
   frag(r, s0, x[0]);
   frag(r + 8, s0, x[1]);
@@ -323,14 +236,15 @@ __device__ __forceinline__ void step_scores(Frag frag, int s0, int tid,
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int j = 2 * sp + k;
-      const uint64_t bj = bd + 16 * j;
-      Wgmma<N>::rs(d, hi[k], bj, j > 0);
+      const uint32_t bj = bd + 16 * j;
+      Wgmma<N>::rs(d, hi[k], desc_hi(KD) | bj, j > 0);
       if constexpr (P == 2) {
-        Wgmma<N>::rs(d, hi[k], bj + N * KD / 4, 1);
-        Wgmma<N>::rs(d, lo[k], bj, 1);
+        Wgmma<N>::rs(d, hi[k], desc_hi(KD) | (bj + N * KD / 4), 1);
+        Wgmma<N>::rs(d, lo[k], desc_hi(KD) | bj, 1);
       }
     }
     wgmma_commit();
+    side(sp);
     wgmma_wait_prior();
   }
   wgmma_wait();
@@ -396,7 +310,7 @@ __device__ __forceinline__ void resident_walk(
   // step (tile t, head elements [KD u, KD u + KD)) into stage step % 2
   auto stage = [&](int step) {
     const int t = step / spt, u = step - t * spt, i = 2 * (step & 1) + w;
-    stage_chunk<T, N, false, KD>(bo, b, h, first + t * N, blen, u * KD, vo,
+    stage_chunk<T, N, KD>(bo, b, h, first + t * N, blen, u * KD, vo,
                                  stg + i * S::kStep, raw + i * N * KD, tid);
   };
   if (steps > 0) stage(0);

@@ -100,10 +100,14 @@ int launch_hop(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
 }
 
 // Head dims above 128 (attention_wide.cuh): block (x, bh, z) owns 64
-// query rows and head elements [128 z, 128 z + 128) of their o carry;
-// every chunk seeds m and l, only chunk 0 stores them.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// query rows and head elements [256 z, 256 z + 256) of their o carry (two
+// output chunks, one a warpgroup; fold_keys_wide); every warpgroup seeds m
+// and l, only chunk 0's stores them.  At [32, 128, 4, 256] fp32 on the
+// H100: 86 us against a 30 us bound; its 4 key tiles a block take most of
+// it, the Q load and the first steps' copies about a tenth each
+// (PERF.md).
+template <typename T, bool kAll>
+__global__ void __launch_bounds__(gx_wide::kWalkThreads, 1)
 ring_hop_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                      const float* __restrict__ m_in,
                      const float* __restrict__ l_in,
@@ -113,8 +117,9 @@ ring_hop_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
   constexpr int C = gx_attn::kChunk;
   extern __shared__ __align__(128) float sm[];
   const int bh = blockIdx.y, b = bh / dims.H, h = bh % dims.H;
-  const int q0 = blockIdx.x * kRows, oc = blockIdx.z;
-  const bool lane0 = threadIdx.x % 4 == 0;
+  const int q0 = blockIdx.x * kRows, oc0 = gx_wide::kOutChunks * blockIdx.z;
+  const int oc = oc0 + threadIdx.x / kThreads;  // this warpgroup's chunk
+  const bool lane0 = threadIdx.x % 4 == 0, mine = oc < dims.D / C;
   float o[C / 2], m[2], l[2];
 #pragma unroll
   for (int w = 0; w < 2; ++w) {
@@ -126,15 +131,16 @@ ring_hop_wide_kernel(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
 #pragma unroll
     for (int e = 2 * w; e < C / 2; e += 4) {
       const float2 x =
-          live ? *reinterpret_cast<const float2*>(
-                     o_in + gx_wide::chunk_offset(dims, dims.Lq, b, h, row,
-                                                  oc, e))
-               : make_float2(0.f, 0.f);
+          live && mine ? *reinterpret_cast<const float2*>(
+                             o_in + gx_wide::chunk_offset(dims, dims.Lq, b, h,
+                                                          row, oc, e))
+                       : make_float2(0.f, 0.f);
       o[e] = x.x;
       o[e + 1] = x.y;
     }
   }
-  fold_keys_wide<T>(q, k, v, dims, b, h, q0, oc, vec, sm, o, m, l);
+  fold_keys_wide<T, kAll>(q, k, v, dims, b, h, q0, oc0, vec, sm, o, m, l);
+  if (!mine) return;
 
 #pragma unroll
   for (int w = 0; w < 2; ++w) {
@@ -159,12 +165,18 @@ int launch_hop_wide(GxSeqOperand q, GxSeqOperand k, GxSeqOperand v,
                     const float* m_in, const float* l_in, const float* o_in,
                     GxAttnDims dims, float* m_out, float* l_out, float* o_out,
                     cudaStream_t stream) {
-  constexpr int bytes = wide_fwd_floats<T>() * 4;
-  const int err = allow_smem(ring_hop_wide_kernel<T>, bytes);
+  using S = WideFwdSmem<T>;
+  const int nc = dims.D / gx_attn::kChunk;
+  const bool all = nc <= S::kMaxPieces;
+  const int bytes = S::bytes(all ? nc : S::kMaxPieces);
+  auto kernel = all ? ring_hop_wide_kernel<T, true>
+                    : ring_hop_wide_kernel<T, false>;
+  const int err = allow_smem(kernel, bytes);
   if (err != 0) return err;
+  constexpr int G = gx_wide::kOutChunks;
   const dim3 grid((dims.Lq + kRows - 1) / kRows, dims.B * dims.H,
-                  dims.D / gx_attn::kChunk);
-  ring_hop_wide_kernel<T><<<grid, kThreads, bytes, stream>>>(
+                  (nc + G - 1) / G);
+  kernel<<<grid, gx_wide::kWalkThreads, bytes, stream>>>(
       q, k, v, m_in, l_in, o_in, dims, gx_wide::vec_bits<T>(q, k, v, nullptr),
       m_out, l_out, o_out);
   return static_cast<int>(cudaGetLastError());

@@ -890,11 +890,11 @@ def test_attention_kernels_at_unbuilt_head_dims(dev, D, dtype):
 @pytest.mark.parametrize("D", [136, 256, 384])
 def test_attention_kernels_above_head_dim_128(dev, D, dtype):
     """Head dims above 128 run on the wide route: 136 zero-padded to 256,
-    each block one 128-wide chunk of its output with the scores' depth
-    streamed in chunks.  The forward, dq, dk/dv and the hop (both modes)
-    against their plain versions at the true dim, at the tile-edge
-    tolerances (fp32: 1e-5 forward, 1e-4 backward and hop); two calls
-    give the same bits; the outputs keep the true dim."""
+    each block two 128-wide chunks of its output over scores it computes
+    once, its 64 fixed rows resident.  The forward, dq, dk/dv and the hop
+    (both modes) against their plain versions at the true dim, at the
+    tile-edge tolerances (fp32: 1e-5 forward, 1e-4 backward and hop); two
+    calls give the same bits; the outputs keep the true dim."""
     from geomx_tpu_torch.ops import flash_attention as fa
     from geomx_tpu_torch.ops import ring_hop
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -966,6 +966,52 @@ def test_wide_backward_long_ragged_lengths(dev, D, dtype, causal, layout):
                        fa.flash_dkv(*args, causal)):
         assert a.shape == k.shape and torch.equal(a, c)
         torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "fused"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 384, 640])
+def test_wide_forward_long_ragged_lengths(dev, D, dtype, causal, layout):
+    """The forward (with lse) and the hop (first and later hops, full and
+    diagonal) on the wide route over many key tiles, off every tile and
+    block edge (Lq 333, Lk 301): the K steps and V^T tiles pass through
+    their stages many times, and the causal start and the ragged last
+    tile mask as the plain versions do.  D = 640 fp32 holds more of Q
+    than stays in shared memory.  "fused": q and k, v as the strided
+    slices of fused projections.  Against the plain versions at fp32
+    1e-5 forward and 1e-4 hop (bf16 1e-2); two calls give the same
+    bits."""
+    from geomx_tpu_torch.ops import flash_attention as fa
+    from geomx_tpu_torch.ops import ring_hop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Lq, Lk = 2, 2, 333, 301
+    if layout == "fused":
+        q = _attn(dev, (B, Lq, 2, H, D), dtype, seed=1, n=1)[0][:, :, 0]
+        k, v = _attn(dev, (B, Lk, 2, H, D), dtype, seed=2, n=1)[0].unbind(2)
+    else:
+        q = _attn(dev, (B, Lq, H, D), dtype, seed=1, n=1)[0]
+        k, v = _attn(dev, (B, Lk, H, D), dtype, seed=2, n=2)
+    fp32 = dtype == torch.float32
+    fwd = dict(rtol=1e-5, atol=1e-5) if fp32 else dict(rtol=1e-2, atol=1e-2)
+    hop = dict(rtol=1e-4, atol=1e-4) if fp32 else dict(rtol=1e-2, atol=1e-2)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal)
+    ref, ref_lse = fa.flash_attention_with_lse_plain(q, k, v, causal)
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **fwd)
+    torch.testing.assert_close(lse, ref_lse, **fwd)
+    out2, lse2 = fa.flash_attention_with_lse(q, k, v, causal)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    for hops_done in (0, 1):
+        m, l_acc, o = _hop_carries(dev, q.shape, hops_done)
+        for diag in (False, True):
+            args = (q, k, v, m, l_acc, o, 0.2, diag, Lq)
+            got = ring_hop.hop(*args)
+            for a, b, c in zip(got, ring_hop.hop_plain(*args),
+                               ring_hop.hop(*args)):
+                assert torch.isfinite(a).all() and torch.equal(a, c)
+                torch.testing.assert_close(a, b, **hop)
 
 
 def _seq_trains_on_the_card(dev, mode, mk):
