@@ -299,10 +299,20 @@ def attn_record(nbytes: int, flops: int, exps: int, **kw) -> dict:
                 fp32_bound_ms=op_bound(nbytes, flops)[0])
 
 
+def bits(torch, t):
+    """t's bits as integers of its width, so -0.0 and +0.0 differ."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
 def max_err(torch, got, ref) -> float:
-    """0.0 when bit-equal; raises otherwise."""
+    """0.0 when bit-equal (the sign of a zero included); raises
+    otherwise."""
     for a, b in zip(got, ref):
-        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+        if a.shape != b.shape or a.dtype != b.dtype or \
+                not torch.equal(bits(torch, a), bits(torch, b)):
             diff = (a.double() - b.double()).abs().max().item() \
                 if a.shape == b.shape else math.inf
             raise AssertionError(f"kernel and plain version differ "
@@ -590,18 +600,27 @@ def optim_kernels(torch, dev, timer, gen, shape):
     return out
 
 
+def twobit_inputs(torch, dev, gen, shape):
+    """Path 2's quantize operands (g, r) and the all-gathered wire of their
+    words, [2, 4, 2 parties, words], through the plain quantize."""
+    from geomx_tpu_torch.ops import twobit
+    from geomx_tpu_torch.parallel.collectives import all_gather_dc
+    g = torch.randn(shape, generator=gen, device=dev) * 0.6
+    r = torch.randn(shape, generator=gen, device=dev) * 0.1
+    packed, _ = twobit.quantize_2bit_plain(g, r, 0.5)
+    return g, r, all_gather_dc(packed).contiguous()
+
+
 def twobit_kernels(torch, dev, timer, gen, shape):
     """quantize_2bit and the party-summing dequantize_2bit at path 2's
     shape (every replica row, two parties) and at the CPU tests' sizes."""
     from geomx_tpu_torch.ops import twobit
-    from geomx_tpu_torch.parallel.collectives import all_gather_dc
 
     nrows, n = math.prod(shape[:-1]), shape[-1]
     words = twobit.num_words(n)
     out = {}
-    g = torch.randn(shape, generator=gen, device=dev) * 0.6
-    r = torch.randn(shape, generator=gen, device=dev) * 0.1
-    packed, _ = got = twobit.quantize_2bit(g, r, 0.5)
+    g, r, wire = twobit_inputs(torch, dev, gen, shape)
+    got = twobit.quantize_2bit(g, r, 0.5)
     err = max_err(torch, got, twobit.quantize_2bit_plain(g, r, 0.5))
     once_same_bits(torch, twobit.quantize_2bit,
                    lambda: twobit.quantize_2bit(g, r, 0.5), got)
@@ -612,12 +631,16 @@ def twobit_kernels(torch, dev, timer, gen, shape):
         plain_ms=timer(lambda: twobit.quantize_2bit_plain(g, r, 0.5)),
         bound_ms=bound_ms(nrows * (n * 12 + words * 4)), bound_by="bytes",
         library_ms=None)
-    wire = all_gather_dc(packed).contiguous()  # [2, 4, 2 parties, words]
     parts = wire.shape[-2]
+    got = [twobit.dequantize_2bit(wire, n, 0.5, summed=True)]
+    err = max_err(torch, got,
+                  [twobit.dequantize_2bit_plain(wire, n, 0.5, summed=True)])
+    once_same_bits(torch, twobit.dequantize_2bit,
+                   lambda: [twobit.dequantize_2bit(wire, n, 0.5,
+                                                   summed=True)], got)
+    log("  dequantize: one launch a call; two calls give the same bits")
     out["dequantize_2bit"] = dict(
-        max_abs_err=max_err(
-            torch, [twobit.dequantize_2bit(wire, n, 0.5, summed=True)],
-            [twobit.dequantize_2bit_plain(wire, n, 0.5, summed=True)]),
+        max_abs_err=err,
         ms=timer(lambda: twobit.dequantize_2bit(wire, n, 0.5, summed=True)),
         plain_ms=timer(lambda: twobit.dequantize_2bit_plain(wire, n, 0.5,
                                                             summed=True)),
@@ -641,7 +664,53 @@ def twobit_kernels(torch, dev, timer, gen, shape):
                     [twobit.dequantize_2bit_plain(w3, n_, thr, summed=True)])
         log(f"  edge case 2-bit n={n_} (thr 0.5, 0.3): bit-equal")
     quantize_edge_cases(torch, dev, n)
+    dequantize_edge_cases(torch, dev, n)
     return out
+
+
+def dequantize_edge_cases(torch, dev, n) -> None:
+    """The summed dequantize on the card tests' edge cases, bit-equal to
+    the plain version: [2, 4] rows of 1, 2, 3 and 8 parties' parts at n
+    (16-byte quads) and n - 1 (the element-wise branch); packed one word
+    off 16-byte alignment (the element-wise branch at n); every code 2
+    (every sign bit set), each sum -parts * thr, and at threshold 0
+    through the binding, each sum -0.0."""
+    from geomx_tpu_torch.ops import twobit
+    from geomx_tpu_torch.ops._build import kernels
+    cpu = torch.Generator().manual_seed(6)
+    for parts in (1, 2, 3, 8):
+        for n_ in (n, n - 1):
+            g_ = (torch.randn(2, 4, parts, n_, generator=cpu) * 0.6).to(dev)
+            w_, _ = twobit.quantize_2bit_plain(g_, torch.zeros_like(g_), 0.5)
+            max_err(torch, [twobit.dequantize_2bit(w_, n_, 0.5, summed=True)],
+                    [twobit.dequantize_2bit_plain(w_, n_, 0.5, summed=True)])
+        g_ = (torch.randn(2, 4, parts, n, generator=cpu) * 0.6).to(dev)
+        w_, _ = twobit.quantize_2bit_plain(g_, torch.zeros_like(g_), 0.5)
+        off = torch.empty(w_.numel() + 1, dtype=torch.int32,
+                          device=dev)[1:].view(w_.shape)
+        off.copy_(w_)
+        if off.data_ptr() % 16 != 4:
+            raise AssertionError("dequantize edge case: packed is aligned")
+        max_err(torch, [twobit.dequantize_2bit(off, n, 0.5, summed=True)],
+                [twobit.dequantize_2bit_plain(w_, n, 0.5, summed=True)])
+        neg = torch.full((2, 4, parts, n), -1.0, device=dev)
+        w_, _ = twobit.quantize_2bit_plain(neg, torch.zeros_like(neg), 0.5)
+        got = twobit.dequantize_2bit(w_, n, 0.5, summed=True)
+        max_err(torch, [got],
+                [twobit.dequantize_2bit_plain(w_, n, 0.5, summed=True)])
+        if not bool((got == -0.5 * parts).all()):
+            raise AssertionError("dequantize: every code 2 does not sum to "
+                                 "-parts * thr")
+        # threshold 0 (the wrappers refuse it; the binding takes it): a
+        # code 2 decodes to -0.0, and the sum of -0.0s is -0.0
+        kernels().dequantize_2bit(w_.view(8, parts, -1), n, 0.0,
+                                  got.view(8, n))
+        if not bool((bits(torch, got) == -0x80000000).all()):
+            raise AssertionError("dequantize: threshold 0 loses the sign "
+                                 "of -0.0")
+        log(f"  edge case dequantize {parts} parts, [2, 4] rows of n={n} and "
+            f"{n - 1}, packed one word off 16-byte alignment, every code 2 "
+            "(threshold 0.5 and 0): bit-equal")
 
 
 def quantize_edge_cases(torch, dev, n) -> None:
@@ -685,14 +754,11 @@ def quantize_edge_cases(torch, dev, n) -> None:
     log(f"  edge case 2-bit every code 2, 8 x {n}: bit-equal, sign bits set")
 
 
-def merge_kernels(torch, dev, timer, gen, n):
-    """merge_sorted_pairs at path 3's shapes — the owner-routed pairs of a
-    sampled BSC select of the ResNet-20 bucket on [4, 2], after the
-    all_to_all — and on edge cases.  ``ms``/``plain_ms`` time the tree
-    over the sorted columns, the kernel's own work; the whole wrapper
-    (with the sort and the ranks in PyTorch ops) is logged beside."""
+def merge_inputs(torch, dev, gen, n):
+    """Path 3's merge operands: the owner-routed pairs of a sampled BSC
+    select of the ResNet-20 bucket on [4, 2], after the all_to_all
+    ([4, 2, 4 x 1,371] values and indices), and the party count."""
     from geomx_tpu_torch.compression import BiSparseCompressor, sparseagg
-    from geomx_tpu_torch.ops import merge
     from geomx_tpu_torch.parallel.collectives import all_to_all
 
     P, W = PATHS["sparse_agg"][5]
@@ -705,32 +771,58 @@ def merge_kernels(torch, dev, timer, gen, n):
     bv, bi, _, _ = sparseagg.owner_route(vals, idx, n, P, slots)
     rv = all_to_all(bv, "dc").reshape(P, W, P * slots).contiguous()
     ri = all_to_all(bi, "dc").reshape(P, W, P * slots).contiguous()
-    got = merge.merge_sorted_pairs(rv, ri, P)
+    return rv, ri, P
+
+
+def merge_kernels(torch, dev, timer, gen, n):
+    """merge_sorted_pairs at path 3's shapes (merge_inputs) and on edge
+    cases.  ``ms`` times the kernel over the sorted columns, ``plain_ms``
+    its plain version (the ranks and the tree); the whole wrapper (with
+    the sort in PyTorch ops) is logged beside.  On the card the wrapper
+    computes no ranks: the kernel finds the heads from the keys."""
+    from geomx_tpu_torch.ops import merge
+
+    rv, ri, P = merge_inputs(torch, dev, gen, n)
+    ranks_built = []
+    segment_ranks = merge.segment_ranks
+    merge.segment_ranks = lambda skey: ranks_built.append(1) or \
+        segment_ranks(skey)
+    try:
+        got = merge.merge_sorted_pairs(rv, ri, P)
+    finally:
+        merge.segment_ranks = segment_ranks
+    if ranks_built:
+        raise AssertionError("merge_sorted_pairs built ranks on the card")
     err = max_err(torch, got, merge.merge_sorted_pairs_plain(rv, ri, P))
+    once_same_bits(torch, merge.merge_sorted_pairs,
+                   lambda: merge.merge_sorted_pairs(rv, ri, P), got)
+    log("  merge: one launch a call, no ranks built; two calls give the "
+        "same bits")
     svals, skey = merge.sort_pairs(rv, ri)
-    rank, _ = merge.segment_ranks(skey)
     rounds = merge.merge_rounds(P)
-    rows, m = P * W, P * slots
+    rows, m = math.prod(rv.shape[:-1]), rv.shape[-1]
     # another output format: one total per (row, key) segment, sentinel
     # segments included
-    flat_key = (torch.arange(rows, device=dev).view(P, W, 1) << 32) + skey
+    flat_key = (torch.arange(rows, device=dev).view(rv.shape[:-1] + (1,))
+                << 32) + skey
     _, lengths = torch.unique_consecutive(flat_key.view(-1),
                                           return_counts=True)
     flat_vals = svals.reshape(-1)
     res = dict(
         max_abs_err=err,
-        ms=timer(lambda: merge.merge_tree(svals, skey, rank, rounds)),
-        plain_ms=timer(lambda: merge.merge_tree_plain(svals, skey, rank,
-                                                      rounds)),
-        bound_ms=bound_ms(rows * m * 20), bound_by="bytes",
+        ms=timer(lambda: merge.merge_tree(svals, skey, rounds)),
+        plain_ms=timer(lambda: merge.merge_tree_plain(
+            svals, skey, merge.segment_ranks(skey)[0], rounds)),
+        # the values and keys in, the merged pairs out
+        bound_ms=bound_ms(rows * m * 16), bound_by="bytes",
         library_ms=timer(lambda: torch.segment_reduce(flat_vals, "sum",
                                                       lengths=lengths)),
         wrapper_ms=timer(lambda: merge.merge_sorted_pairs(rv, ri, P)),
         plain_wrapper_ms=timer(lambda: merge.merge_sorted_pairs_plain(
             rv, ri, P)),
         merged_pairs=int((got[1] >= 0).sum()), pairs=rows * m)
-    log(f"  merge at path 3's shapes: [{P}, {W}] rows of {m} pairs, "
-        f"{res['merged_pairs']} merged of {rows * m}, bit-equal")
+    log(f"  merge at path 3's shapes: {list(rv.shape[:-1])} rows of {m} "
+        f"pairs, {res['merged_pairs']} merged of {rows * m}, bit-equal")
 
     cpu = torch.Generator().manual_seed(4)
 
@@ -745,6 +837,11 @@ def merge_kernels(torch, dev, timer, gen, n):
         return torch.cat(vs), torch.cat(ix)
 
     same = torch.randperm(50_000, generator=cpu)[:700].to(torch.int32)
+    # keys 0, 1, 2, ... with one index 7 times from position 252 on: its
+    # segment straddles the kernel's 256-position tile; the last key is
+    # unique, so column m - 1 is a head
+    straddle = torch.cat([torch.arange(253), torch.full((6,), 252),
+                          torch.arange(253, 600)]).to(torch.int32)
     cases = {
         "P=1": (*pairs(1, 900, 5000), 1),
         "P=2": (*pairs(2, 1371, 272_512), 2),
@@ -758,18 +855,24 @@ def merge_kernels(torch, dev, timer, gen, n):
             torch.randn(40, generator=cpu),
             torch.tensor([5] * 3 + [2] * 29 + [-1] * 4 + [0] * 4,
                          dtype=torch.int32), 3),
+        "segment across a tile, head at m - 1": (
+            torch.randn(straddle.numel(), generator=cpu), straddle, 8),
         "m=1": (torch.randn(1, generator=cpu),
                 torch.tensor([7], dtype=torch.int32), 4),
+        "m below the halo": (torch.randn(5, generator=cpu),
+                             torch.tensor([3, 1, 3, 9, 1],
+                                          dtype=torch.int32), 64),
         "m=5483": (*(t[:5483] for t in pairs(4, 1371, 272_512)), 4),
     }
     for name, (v_, i_, dup) in cases.items():
         v_, i_ = v_.to(dev), i_.to(dev)
-        rows_ = torch.stack([v_, v_.flip(0)]), torch.stack([i_, i_.flip(0)])
+        rows_ = (torch.stack([v_, v_.flip(0), v_ * 2]),
+                 torch.stack([i_, i_.flip(0), i_]))
         for a, b in ((v_, i_), rows_):
             max_err(torch, merge.merge_sorted_pairs(a, b, dup),
                     merge.merge_sorted_pairs_plain(a, b, dup))
         log(f"  edge case merge {name}: m={v_.numel()} max_duplicates={dup} "
-            "(one row and two rows): bit-equal")
+            "(one row and three rows): bit-equal")
     return {"merge_sorted_pairs": res}
 
 
@@ -1357,7 +1460,7 @@ def main(argv=None) -> int:
             + (f"; library forward+backward "
                f"{r['library_fwd_bwd_ms'] * 1e3:.1f} us"
                if "library_fwd_bwd_ms" in r else "")
-            + (f"; with the sort and ranks {r['wrapper_ms'] * 1e3:.1f} us "
+            + (f"; with the sort {r['wrapper_ms'] * 1e3:.1f} us "
                f"(plain {r['plain_wrapper_ms'] * 1e3:.1f} us)"
                if "wrapper_ms" in r else ""))
     reference_phase(torch)

@@ -4,12 +4,22 @@ An adapted copy of ``GeoConfig`` holding only the fields the ported main
 path reads.  Every knob reads the same ``GEOMX_*`` variable first and
 falls back to the reference's original ``DMLC_*`` name, exactly as the
 JAX package does, so one launch environment configures both packages.
+
+The reference's knobs that change its training step but that the port
+does not run yet are read too, under the same names and casts, and
+refused: a config that sets one to anything but its default raises
+``NotImplementedError`` naming the ROADMAP.md Queue 1 item that ports it
+(``UNPORTED``), so a launch environment is never half obeyed.  A
+pipeline depth with one party only warns, as it does in the reference
+(``geomx_tpu/sync/__init__.py:50-60``): there is no dc-tier collective
+to pipeline.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 
 def _env(names, default, cast):
@@ -26,6 +36,17 @@ def _env(names, default, cast):
 
 def _env_bool(names, default) -> bool:
     return bool(_env(names, int(default), lambda s: int(float(s))))
+
+
+# field -> (its variables, the ROADMAP.md Queue 1 item that ports it);
+# each item removes its fields from here when it lands
+UNPORTED = {
+    "pipeline_depth": ("GEOMX_PIPELINE_DEPTH", "Other sync algorithms"),
+    "enable_dgt": ("GEOMX_ENABLE_DGT / ENABLE_DGT", "Other sync algorithms"),
+    "zero": ("GEOMX_ZERO", "Sharded updates"),
+    "multi_gps": ("GEOMX_MULTI_GPS", "Sharded updates"),
+    "control": ("GEOMX_CONTROL", "Control"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +76,28 @@ class GeoConfig:
     # optimizer built by ops.optim.fused_optimizer and bucketing on)
     fused_optim: bool = False
 
+    # ---- read and refused unless at their defaults (UNPORTED): the
+    # pipelined sync, the DGT wrap, ZeRO, MultiGPS and the control plane
+    pipeline_depth: int = 0
+    enable_dgt: int = 0
+    zero: bool = False
+    multi_gps: bool = False
+    control: bool = False
+
+    def __post_init__(self):
+        for field, (names, item) in UNPORTED.items():
+            value = getattr(self, field)
+            if not value:
+                continue
+            if field == "pipeline_depth" and self.num_parties <= 1:
+                warnings.warn(
+                    "GEOMX_PIPELINE_DEPTH ignored: num_parties == 1 has no "
+                    "dc-tier collective to pipeline", stacklevel=3)
+                continue
+            raise NotImplementedError(
+                f"{field}={value!r} ({names}) changes the training step and "
+                f"is not ported yet (ROADMAP.md Queue 1, {item!r})")
+
     @classmethod
     def from_env(cls, **overrides) -> "GeoConfig":
         cfg = dict(
@@ -69,6 +112,12 @@ class GeoConfig:
                               lambda s: int(float(s))),
             precision=_env(["GEOMX_PRECISION"], "fp32", str),
             fused_optim=_env_bool(["GEOMX_FUSED_OPTIM"], False),
+            pipeline_depth=_env(["GEOMX_PIPELINE_DEPTH"], 0,
+                                lambda s: int(float(s))),
+            enable_dgt=_env(["GEOMX_ENABLE_DGT", "ENABLE_DGT"], 0, int),
+            zero=_env_bool(["GEOMX_ZERO"], False),
+            multi_gps=_env_bool(["GEOMX_MULTI_GPS"], False),
+            control=_env_bool(["GEOMX_CONTROL"], False),
         )
         cfg.update(overrides)
         return cls(**cfg)

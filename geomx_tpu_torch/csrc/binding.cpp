@@ -398,18 +398,18 @@ void dequantize_2bit(const at::Tensor& packed, int64_t n, double thr,
                "dequantize_2bit");
 }
 
-// svals fp32, skey and rank int32, out_vals fp32, out_idx int32, all
-// [rows, m] contiguous on one device; 0 <= rounds <= GX_MERGE_MAX_ROUNDS.
+// svals fp32, skey int32, out_vals fp32, out_idx int32, all [rows, m]
+// contiguous on one device; 0 <= rounds <= GX_MERGE_MAX_ROUNDS.
 void merge_sorted_pairs(const at::Tensor& svals, const at::Tensor& skey,
-                        const at::Tensor& rank, int64_t rounds,
-                        const at::Tensor& out_vals, const at::Tensor& out_idx) {
+                        int64_t rounds, const at::Tensor& out_vals,
+                        const at::Tensor& out_idx) {
   check_contiguous(svals, at::kFloat, "svals");
   check_contiguous(out_vals, at::kFloat, "out_vals");
-  for (const auto* t : {&skey, &rank, &out_idx}) {
+  for (const auto* t : {&skey, &out_idx}) {
     check_contiguous(*t, at::kInt, "merge int operand");
   }
   TORCH_CHECK(svals.dim() == 2, "svals must be [rows, m]");
-  for (const auto* t : {&skey, &rank, &out_vals, &out_idx}) {
+  for (const auto* t : {&skey, &out_vals, &out_idx}) {
     TORCH_CHECK(t->sizes() == svals.sizes(), "merge operands differ in shape");
     TORCH_CHECK(t->device() == svals.device(), "merge operands on two devices");
   }
@@ -419,7 +419,7 @@ void merge_sorted_pairs(const at::Tensor& svals, const at::Tensor& skey,
               "merge rounds out of range: ", rounds);
   const c10::cuda::CUDAGuard guard(svals.device());
   check_launch(gx_merge_sorted_pairs(svals.data_ptr<float>(),
-                                     skey.data_ptr<int>(), rank.data_ptr<int>(),
+                                     skey.data_ptr<int>(),
                                      static_cast<int>(rows), static_cast<int>(m),
                                      static_cast<int>(rounds),
                                      out_vals.data_ptr<float>(),

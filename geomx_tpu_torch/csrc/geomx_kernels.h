@@ -96,14 +96,15 @@ int gx_dequantize_2bit(const int* packed, int rows, int parts, int n,
                        float thr, float* out, cudaStream_t stream);
 
 // ---- sorted-index segment-sum merge (merge.cu) -----------------------------
-// rows independent rows of m index-sorted pairs (svals, skey, rank: the
-// in-segment rank) -> out_vals, out_idx [rows, m]: the combining tree of
-// `rounds` passes, totals at segment heads, (0.0, -1) elsewhere.  rounds
-// above GX_MERGE_MAX_ROUNDS returns cudaErrorInvalidValue.
+// rows independent rows of m index-sorted pairs (svals, skey) -> out_vals,
+// out_idx [rows, m]: the combining tree of `rounds` passes, totals at
+// segment heads (column 0, or a key unlike the one before), (0.0, -1)
+// elsewhere.  rounds above GX_MERGE_MAX_ROUNDS returns
+// cudaErrorInvalidValue.
 #define GX_MERGE_MAX_ROUNDS 6
-int gx_merge_sorted_pairs(const float* svals, const int* skey,
-                          const int* rank, int rows, int m, int rounds,
-                          float* out_vals, int* out_idx, cudaStream_t stream);
+int gx_merge_sorted_pairs(const float* svals, const int* skey, int rows,
+                          int m, int rounds, float* out_vals, int* out_idx,
+                          cudaStream_t stream);
 
 // ---- attention (flash_attention.cu, ring_hop.cu) --------------------------
 // A [B, L, H, D] operand: element (b, l, h, d) at ptr + b*sb + l*sl + h*sh + d

@@ -31,9 +31,20 @@
 // the same kernel runs the same (row, quad) units element by element (the
 // vec flag).  One launch covers every replica row: one unit a thread, in
 // one pass.
-// dequantize: one thread a word.  For each j the threads of a warp take
-// 32 neighbouring lanes, so the stores at row*2048 + lane + 128*j
-// coalesce; no shared memory, no second pass (blockIdx.y: the row).
+// dequantize: a thread owns one quad's four lanes at kDequantJs = 4
+// neighbouring j of the 16, so the four warps of one block row split its
+// 16 rows of 128 elements (137,216 threads at path 2's shape, as many as
+// one thread a word, with a quarter of the memory instructions).  It loads
+// each part's four words as one 16-byte int4, two parts' loads in flight
+// before their adds, folds the parts in party order with __fadd_rn from
+// -0.0f (-0 + v is v exactly for every v, -0 and +0 included, so the
+// sum's bits are the plain version's, which starts from part 0), and
+// stores its sums as four float4 quads at row*n + 4q + 128*j: a warp
+// writes 512 contiguous bytes for each j, with the default policy (the
+// optimizer reads the sum next; streaming stores measured slower).  The same vec flag and element-by-element fallback as
+// quantize (n % 4 != 0, or packed or out off 16-byte alignment).  The
+// sizes (kDequantJs, kPartsInFlight, kDequantThreads) were chosen by
+// timing edited copies with tools/torch_wide_variants.py --kernels plane.
 #include <stdint.h>
 
 #include "geomx_kernels.h"
@@ -43,10 +54,22 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kPack = 16;
 constexpr int kBlockCols = kPack * kLanes;  // 2048 elements -> 128 words
-constexpr int kThreads = 256;          // dequantize block
 constexpr int kQuantThreads = 128;     // quantize block
-constexpr int kQuadWords = 4;          // words (lanes) a quantize unit
+constexpr int kQuadWords = 4;          // words (lanes) a unit
 constexpr int kUnitsPerBlockRow = kLanes / kQuadWords;  // 32: one warp
+
+constexpr int kDequantJs = 4;        // j a dequantize thread, of kPack
+constexpr int kJGroups = kPack / kDequantJs;
+constexpr int kPartsInFlight = 2;    // parts loaded before their adds
+constexpr int kDequantThreads = 128;  // dequantize block
+static_assert(kPack % kDequantJs == 0, "a thread's j divide the 16");
+
+// the element of word 0 at j = 0 of quad q of a replica row: its four
+// lanes lie in block row q / 32
+__device__ __forceinline__ int unit_first(int q) {
+  return (q / kUnitsPerBlockRow) * kBlockCols +
+         kQuadWords * (q % kUnitsPerBlockRow);
+}
 
 __device__ __forceinline__ float code_value(unsigned code, float thr) {
   return code == 1u ? thr : (code == 2u ? -thr : 0.0f);
@@ -133,38 +156,104 @@ quantize_kernel(const float* __restrict__ g, const float* __restrict__ r,
   const int quads = words / kQuadWords;
   const int q = u % quads;
   const long long row = static_cast<long long>(u / quads) * n;
-  const int first = (q / kUnitsPerBlockRow) * kBlockCols +
-                    kQuadWords * (q % kUnitsPerBlockRow);
   int* w = packed + static_cast<long long>(u / quads) * words + kQuadWords * q;
   if (vec) {
-    quantize_unit<true>(g, r, n, row, first, thr, new_r, w);
+    quantize_unit<true>(g, r, n, row, unit_first(q), thr, new_r, w);
   } else {
-    quantize_unit<false>(g, r, n, row, first, thr, new_r, w);
+    quantize_unit<false>(g, r, n, row, unit_first(q), thr, new_r, w);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-dequantize_kernel(const int* __restrict__ packed, int parts, int words,
-                  int n, float thr, float* __restrict__ out) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  if (w >= words) return;
-  const int* src = packed + static_cast<long long>(blockIdx.y) * parts * words;
-  float acc[kPack];
-  for (int a = 0; a < parts; ++a) {
-    const unsigned bits = static_cast<unsigned>(src[static_cast<long long>(a) *
-                                                        words + w]);
+// One unit of the summed dequantize: quad q's four lanes at kDequantJs
+// neighbouring j from j0.  src is the row's part 0 at the quad's four
+// words (part a at src + a * words), out the row's first element, first
+// the element of word 0 at j0.  kVec: 16-byte loads and stores.
+template <bool kVec>
+__device__ __forceinline__ void dequantize_unit(
+    const int* __restrict__ src, int parts, int words, int n, int j0,
+    int first, float thr, float* __restrict__ out) {
+  float acc[kDequantJs][4];
 #pragma unroll
-    for (int j = 0; j < kPack; ++j) {
-      const float val = code_value((bits >> (2 * j)) & 3u, thr);
-      acc[j] = a == 0 ? val : acc[j] + val;
+  for (int j = 0; j < kDequantJs; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = -0.0f;  // the identity of +
+  }
+  for (int a0 = 0; a0 < parts; a0 += kPartsInFlight) {
+    unsigned bits[kPartsInFlight][4];
+#pragma unroll
+    for (int b = 0; b < kPartsInFlight; ++b) {
+      if (a0 + b < parts) {
+        const int* p = src + static_cast<long long>(a0 + b) * words;
+        if (kVec) {
+          const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+          bits[b][0] = static_cast<unsigned>(x.x);
+          bits[b][1] = static_cast<unsigned>(x.y);
+          bits[b][2] = static_cast<unsigned>(x.z);
+          bits[b][3] = static_cast<unsigned>(x.w);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bits[b][e] = static_cast<unsigned>(__ldg(p + e));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kPartsInFlight; ++b) {
+      if (a0 + b < parts) {
+#pragma unroll
+        for (int j = 0; j < kDequantJs; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned code = (bits[b][e] >> (2 * (j0 + j))) & 3u;
+            acc[j][e] = __fadd_rn(acc[j][e], code_value(code, thr));
+          }
+        }
+      }
     }
   }
-  const long long row = static_cast<long long>(blockIdx.y) * n;
-  const int base = (w / kLanes) * kBlockCols + (w % kLanes);
 #pragma unroll
-  for (int j = 0; j < kPack; ++j) {
-    const int i = base + j * kLanes;
-    if (i < n) out[row + i] = acc[j];
+  for (int j = 0; j < kDequantJs; ++j) {
+    const int i = first + j * kLanes;
+    if (kVec) {
+      if (i < n) {
+        *reinterpret_cast<float4*>(out + i) =
+            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (i + e < n) out[i + e] = acc[j][e];
+      }
+    }
+  }
+}
+
+// unit u: lane u % 32 of a warp; the warp's j group, block row and replica
+// row from u / 32 (j group fastest), so a warp's 32 threads take one block
+// row's 32 quads and store 512 contiguous bytes for each j; the kJGroups
+// warps of one block row load the same 512 bytes of words a part
+__global__ void __launch_bounds__(kDequantThreads)
+dequantize_kernel(const int* __restrict__ packed, int parts, int words,
+                  int n, int units, int vec, float thr,
+                  float* __restrict__ out) {
+  const int u = blockIdx.x * kDequantThreads + threadIdx.x;
+  if (u >= units) return;
+  const int lane = u % kUnitsPerBlockRow;
+  const int warp = u / kUnitsPerBlockRow;
+  const int j0 = (warp % kJGroups) * kDequantJs;
+  const int brows = words / kLanes;
+  const int brow = (warp / kJGroups) % brows;
+  const long long row = warp / kJGroups / brows;
+  const int q = brow * kUnitsPerBlockRow + lane;
+  const int* src = packed + row * parts * words + kQuadWords * q;
+  const int first = unit_first(q) + j0 * kLanes;
+  if (vec) {
+    dequantize_unit<true>(src, parts, words, n, j0, first, thr,
+                          out + row * n);
+  } else {
+    dequantize_unit<false>(src, parts, words, n, j0, first, thr,
+                           out + row * n);
   }
 }
 
@@ -199,8 +288,14 @@ extern "C" int gx_dequantize_2bit(const int* packed, int rows, int parts,
                                   cudaStream_t stream) {
   if (rows <= 0 || parts <= 0 || n <= 0) return 0;
   const int words = gx_twobit_words(n);
-  const dim3 grid((words + kThreads - 1) / kThreads, rows);
-  dequantize_kernel<<<grid, kThreads, 0, stream>>>(packed, parts, words, n,
-                                                   thr, out);
+  const long long units =
+      static_cast<long long>(rows) * (words / kQuadWords) * kJGroups;
+  if (units > 0x3fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int blocks =
+      static_cast<int>((units + kDequantThreads - 1) / kDequantThreads);
+  dequantize_kernel<<<blocks, kDequantThreads, 0, stream>>>(
+      packed, parts, words, n, static_cast<int>(units), vec, thr, out);
   return static_cast<int>(cudaGetLastError());
 }

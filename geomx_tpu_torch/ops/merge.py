@@ -12,13 +12,16 @@ sentinel.  Each segment's total lands at its head (rank 0), ``(0.0,
 -1)`` everywhere else — a sparse stream of the input's length.
 
 Every function takes ``[*B, m]`` rows (the replica axes ride in ``B``).
-The sort and the ranks stay in PyTorch ops on every device, as they stay
-in XLA in the JAX package.  On CUDA tensors the tree and the head
-extraction launch the hand-written kernel of ``csrc/merge.cu`` (segments
-of at most ``2^MAX_ROUNDS`` parties; the wrapper raises above that); on
-CPU tensors they run :func:`merge_tree_plain`, which follows the JAX
-reference tree op for op.  ``merge_sorted_pairs.launches`` counts
-kernel calls (made in :func:`merge_tree`).
+The sort stays in PyTorch ops on every device, as it stays in XLA in the
+JAX package.  On CUDA tensors the tree and the head extraction launch
+the hand-written kernel of ``csrc/merge.cu`` (segments of at most
+``2^MAX_ROUNDS`` parties; the wrapper raises above that), which finds
+the heads from the keys itself (a head is column 0 or a key unlike the
+one before, which is ``rank == 0``), so no ranks are computed there; on
+CPU tensors the ranks come from :func:`segment_ranks` and the tree runs
+as :func:`merge_tree_plain`, which follows the JAX reference tree op for
+op.  ``merge_sorted_pairs.launches`` counts kernel calls (made in
+:func:`merge_tree`).
 """
 
 from __future__ import annotations
@@ -98,12 +101,14 @@ def merge_sorted_pairs_plain(vals: torch.Tensor, idx: torch.Tensor,
     return merge_tree_plain(svals, skey, rank, merge_rounds(max_duplicates))
 
 
-def merge_tree(svals: torch.Tensor, skey: torch.Tensor, rank: torch.Tensor,
-               rounds: int):
+def merge_tree(svals: torch.Tensor, skey: torch.Tensor, rounds: int):
     """The combining tree and head extraction over sorted ``[*B, m]``
-    columns (:func:`sort_pairs`, :func:`segment_ranks`): the CUDA kernel
-    on CUDA tensors, :func:`merge_tree_plain` on CPU tensors."""
-    if not on_cuda([svals, skey, rank]):
+    columns (:func:`sort_pairs`): the CUDA kernel on CUDA tensors, which
+    finds the heads from the keys and reads no ranks;
+    :func:`merge_tree_plain` over ``segment_ranks(skey)`` on CPU
+    tensors."""
+    if not on_cuda([svals, skey]):
+        rank, _ = segment_ranks(skey)
         return merge_tree_plain(svals, skey, rank, rounds)
     if rounds > MAX_ROUNDS:
         raise ValueError(
@@ -115,8 +120,7 @@ def merge_tree(svals: torch.Tensor, skey: torch.Tensor, rank: torch.Tensor,
     out_v = torch.empty(lead + (m,), dtype=torch.float32, device=svals.device)
     out_i = torch.empty(lead + (m,), dtype=torch.int32, device=svals.device)
     kernels().merge_sorted_pairs(svals.reshape(-1, m).contiguous(),
-                                 skey.reshape(-1, m).contiguous(),
-                                 rank.reshape(-1, m).contiguous(), rounds,
+                                 skey.reshape(-1, m).contiguous(), rounds,
                                  out_v.view(-1, m), out_i.view(-1, m))
     merge_sorted_pairs.launches += 1
     return out_v, out_i
@@ -135,8 +139,7 @@ def merge_sorted_pairs(vals: torch.Tensor, idx: torch.Tensor,
     if vals.shape != idx.shape:
         raise ValueError("vals and idx differ in shape")
     svals, skey = sort_pairs(vals.to(torch.float32), idx.to(torch.int32))
-    rank, _ = segment_ranks(skey)
-    return merge_tree(svals, skey, rank, merge_rounds(max_duplicates))
+    return merge_tree(svals, skey, merge_rounds(max_duplicates))
 
 
 merge_sorted_pairs.launches = 0

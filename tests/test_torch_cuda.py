@@ -414,6 +414,51 @@ def test_quantize_2bit_off_16_byte_alignment(dev, n, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("parts", [1, 2, 3, 8])
+@pytest.mark.parametrize("layout", ["aligned", "odd_n", "packed_off_16"])
+def test_dequantize_2bit_parts_and_layouts(dev, parts, layout):
+    """The summed dequantize over [2, 4] rows of 1-8 parties' parts:
+    16-byte quads (n = 272,512), the element-wise branch for n % 4 != 0
+    and for packed one word off 16-byte alignment; every code 2 sums to
+    -parts * thr.  One launch a call, bit-equal, the same bits twice."""
+    n = 272_511 if layout == "odd_n" else 272_512
+    gen = torch.Generator(device=dev).manual_seed(parts)
+    g = torch.randn(2, 4, parts, n, generator=gen, device=dev) * 0.6
+    g[1, 3] = -1.0  # one replica row of code 2 only: every sign bit set
+    packed, _ = twobit.quantize_2bit_plain(g, torch.zeros_like(g), 0.5)
+    if layout == "packed_off_16":
+        off = torch.empty(packed.numel() + 1, dtype=torch.int32,
+                          device=dev)[1:].view(packed.shape)
+        off.copy_(packed)
+        assert off.data_ptr() % 16 == 4
+        packed = off
+    before = twobit.dequantize_2bit.launches
+    got = twobit.dequantize_2bit(packed, n, 0.5, summed=True)
+    assert twobit.dequantize_2bit.launches == before + 1
+    bits = got.view(torch.int32)
+    assert torch.equal(bits, twobit.dequantize_2bit_plain(
+        packed, n, 0.5, summed=True).view(torch.int32))
+    assert torch.equal(bits, twobit.dequantize_2bit(
+        packed, n, 0.5, summed=True).view(torch.int32))
+    assert bool((got[1, 3] == -0.5 * parts).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [1, 2, 3])
+@pytest.mark.parametrize("n", [272_512, 272_511])
+def test_dequantize_2bit_keeps_the_sign_of_zero(dev, parts, n):
+    """At threshold 0 (which the wrappers refuse, so through the binding)
+    a code 2 decodes to -0.0, and any number of -0.0 parts sums to -0.0:
+    the kernel's sum starts from the identity of +, not from +0.0."""
+    from geomx_tpu_torch.ops._build import kernels
+    g = torch.full((8, parts, n), -1.0, device=dev)
+    packed, _ = twobit.quantize_2bit_plain(g, torch.zeros_like(g), 0.5)
+    out = torch.empty(8, n, device=dev)
+    kernels().dequantize_2bit(packed, n, 0.0, out)
+    assert bool((out.view(torch.int32) == -0x80000000).all())
+
+
+@pytest.mark.cuda
 def test_quantize_2bit_sign_bits_at_the_bucket(dev):
     """Every code 2 over 8 rows of 272,512: each complete block row's word
     is 0xAAAAAAAA (the sign bit set without a signed overflow); the last
@@ -456,9 +501,18 @@ def test_merge_sorted_pairs_matches_plain(dev, parties, k, n):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def _tile_straddle(dev, m=600):
+    """Sorted keys 0, 1, 2, ... with key 252 seven times from position 252
+    on (across the kernel's 256-position tile) and a unique last key (a
+    head at column m - 1)."""
+    return torch.cat([torch.arange(253), torch.full((6,), 252),
+                      torch.arange(253, m - 6)]).to(torch.int32).to(dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["all_sentinel", "same_indices",
-                                  "too_long_segment", "m1", "m5483"])
+                                  "too_long_segment", "m1", "m5483",
+                                  "straddle_tile", "m_below_halo"])
 def test_merge_sorted_pairs_edge_cases(dev, case):
     gen = torch.Generator(device=dev).manual_seed(7)
     dup = 4
@@ -477,6 +531,13 @@ def test_merge_sorted_pairs_edge_cases(dev, case):
     elif case == "m1":
         v = torch.randn(1, generator=gen, device=dev)
         i = torch.tensor([7], dtype=torch.int32, device=dev)
+    elif case == "straddle_tile":
+        i, dup = _tile_straddle(dev), 8
+        v = torch.randn(i.numel(), generator=gen, device=dev)
+    elif case == "m_below_halo":
+        v = torch.randn(5, generator=gen, device=dev)
+        i = torch.tensor([3, 1, 3, 9, 1], dtype=torch.int32, device=dev)
+        dup = 64
     else:
         v, i = (t[:5483] for t in _party_pairs(gen, 4, 1371, 272_512, dev))
     got = merge.merge_sorted_pairs(v, i, dup)
@@ -484,6 +545,26 @@ def test_merge_sorted_pairs_edge_cases(dev, case):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         merge.merge_sorted_pairs(v, i, 65)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_merge_kernel_finds_heads_without_ranks(dev, rows, monkeypatch):
+    """The wrapper builds no ranks on the card; a segment across the
+    kernel's tile and a head at column m - 1, at one row and at several,
+    bit-equal to the plain version (ranks, then the tree); two calls give
+    the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    i = _tile_straddle(dev).repeat(rows, 1)
+    v = torch.randn(i.shape, generator=gen, device=dev)
+    monkeypatch.setattr(merge, "segment_ranks", None)  # must not be called
+    got = merge.merge_sorted_pairs(v, i, 8)
+    again = merge.merge_sorted_pairs(v, i, 8)
+    monkeypatch.undo()
+    for a, b, c in zip(got, merge.merge_sorted_pairs_plain(v, i, 8), again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert bool((got[1][:, 252] == 252).all())
+    assert bool((got[1][:, -1] == 593).all())
 
 
 @pytest.mark.cuda

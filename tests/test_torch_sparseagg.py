@@ -4,7 +4,10 @@ geomx_tpu, on the CPU).
 - The plain merge (``ops.merge``) against the JAX ``merge_sorted_pairs``,
   jnp and Pallas interpret, bit for bit: the shapes of
   tests/test_sparseagg.py, all sentinels, every party on one index, a
-  segment longer than ``2^rounds``, and ``[P, W]`` rows.
+  segment longer than ``2^rounds``, ``[P, W]`` rows, and the CUDA
+  kernel's edges (a segment across its tile, a head at column ``m - 1``,
+  ``m`` below its halo); the kernel's head test (a key change) against
+  ``rank == 0`` of both packages' ``segment_ranks``.
 - ``owner_route`` against JAX bit for bit, overflow included; the top-k
   helper against ``lax.top_k`` on ties and zeros.
 - The bucketed ``"bsc,0.01,select=sampled,sparse_agg=1"`` FSA sync on
@@ -36,6 +39,8 @@ from geomx_tpu.compression.twobit import TwoBitCompressor as JaxTwoBit
 from geomx_tpu.config import GeoConfig as JaxConfig
 from geomx_tpu.models.resnet import ResNet as FlaxResNet
 from geomx_tpu.ops.merge_pallas import merge_sorted_pairs as jax_merge
+from geomx_tpu.ops.merge_pallas import segment_ranks as jranks
+from geomx_tpu.ops.merge_pallas import sort_pairs as jsort
 from geomx_tpu.parallel.collectives import shard_map_compat
 from geomx_tpu.sync import get_sync_algorithm as jax_sync
 from geomx_tpu.topology import DC_AXIS, WORKER_AXIS
@@ -132,6 +137,73 @@ def test_merge_edge_cases_match_jax(case):
     else:
         s = v[3:14]  # the segment in input order (a stable sort)
         assert mv[mi == 3].item() == (s[0] + s[1]) + (s[2] + s[3])
+
+
+def _straddle_pairs(rng, m=600):
+    """Keys 0, 1, 2, ... with key 252 seven times from position 252 on
+    (across the CUDA kernel's 256-position tile) and a unique last key (a
+    head at column m - 1), shuffled; max_duplicates 8."""
+    i = np.concatenate([np.arange(253), np.full(6, 252),
+                        np.arange(253, m - 6)]).astype(np.int32)
+    return (rng.normal(0, 1, m).astype(np.float32), rng.permutation(i), 8)
+
+
+@pytest.mark.parametrize("case", ["random", "straddle_tile", "tiny",
+                                  "all_sentinel"])
+def test_merge_heads_are_key_changes(rng, case):
+    """The CUDA kernel's head test, ``col == 0 | skey[i-1] != skey[i]``, is
+    ``rank == 0`` of ``segment_ranks`` in both packages on the same sorted
+    pairs (and is the head mask segment_ranks returns)."""
+    if case == "random":
+        v, i = _rand_pairs(rng, 4, 300, 700)
+    elif case == "straddle_tile":
+        v, i, _ = _straddle_pairs(rng)
+    elif case == "tiny":
+        v, i = np.float32([1, 2, 3]), np.int32([4, -1, 4])
+    else:
+        v, i = np.zeros(9, np.float32), np.full(9, -1, np.int32)
+    _, jkey = jax.jit(jsort)(v, i)
+    _, pkey = pm.sort_pairs(torch.from_numpy(v), torch.from_numpy(i))
+    np.testing.assert_array_equal(pkey.numpy(), np.asarray(jkey))
+    skey = np.asarray(jkey)
+    heads = np.ones(len(skey), bool)
+    heads[1:] = skey[1:] != skey[:-1]
+    jrank, jhead = jax.jit(jranks)(jkey)
+    prank, phead = pm.segment_ranks(pkey)
+    np.testing.assert_array_equal(np.asarray(jrank) == 0, heads)
+    np.testing.assert_array_equal(prank.numpy() == 0, heads)
+    np.testing.assert_array_equal(phead.numpy(), heads)
+    np.testing.assert_array_equal(np.asarray(jhead), heads)
+
+
+@pytest.mark.parametrize("case", ["straddle_tile", "head_at_m_minus_1",
+                                  "m_below_halo"])
+def test_merge_plain_matches_pallas_at_kernel_edges(rng, case):
+    """merge_sorted_pairs_plain bit for bit against the JAX fused merge
+    (Pallas interpret) where the CUDA kernel's tiling has edges: a segment
+    across its 256-position tile, a head at column m - 1, and m smaller
+    than its halo of 2^rounds - 1 positions."""
+    if case == "straddle_tile":
+        v, i, dup = _straddle_pairs(rng)
+    elif case == "head_at_m_minus_1":
+        v, i = _rand_pairs(rng, 2, 300, 5000, sentinel_frac=0.0)
+        i[-1] = 5000  # one more index than any other: the last segment
+        dup = 2
+    else:
+        v = rng.normal(0, 1, 5).astype(np.float32)
+        i, dup = np.int32([3, 1, 3, 9, 1]), 64
+    got = pm.merge_sorted_pairs_plain(torch.from_numpy(v),
+                                      torch.from_numpy(i), dup)
+    fus = jax.jit(lambda a, b: jax_merge(a, b, dup, fused=True,
+                                         interpret=True))(v, i)
+    for g, f in zip(got, fus):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(f))
+    if case != "m_below_halo":  # the jnp tree breaks shape there (ROADMAP)
+        _assert_merge_parity(v, i, dup)
+    if case == "head_at_m_minus_1":
+        assert got[1][-1].item() == 5000
+    elif case == "straddle_tile":
+        assert got[1][252].item() == 252
 
 
 def test_merge_rows_are_independent(rng):

@@ -22,7 +22,7 @@ under torch.profiler (CPU and CUDA activities) and reports:
 - for each span of the step (train/forward_backward, train/sync_grads,
   bucket/flatten, bsc/select_pack, ...): host ms a step, the span's
   length on the device timeline and the kernel time inside it;
-- the kernels with the most device time.
+- the kernels with the most device time, and those named by --kernel.
 
 Needs a CUDA device; exits 2 without one.
 """
@@ -70,6 +70,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=None,
                     help="images (sequences) a replica a step: 128 (16)")
+    ap.add_argument("--kernel", action="append", default=[],
+                    help="also report the device ms and calls a step of "
+                    "the kernels whose name holds this string")
     ap.add_argument("--out", help="write the report to this JSON file")
     args = ap.parse_args(argv)
 
@@ -171,6 +174,11 @@ def main(argv=None) -> int:
         device_busy_share_est=busy / args.steps / 1e6 / step_s
         if kern else None,
         spans=spans,
+        kernels={sub: dict(
+            ms_per_step=sum(v[0] for n, v in by_name.items() if sub in n)
+            / args.steps / 1e3,
+            calls_per_step=sum(v[1] for n, v in by_name.items() if sub in n)
+            / args.steps) for sub in args.kernel},
         top_kernels=[dict(name=n[:120], ms_per_step=v[0] / args.steps / 1e3,
                           calls_per_step=v[1] / args.steps)
                      for n, v in top])
