@@ -39,16 +39,18 @@ Every phase's failure is fatal (non-zero exit, no result line):
               attn_bound() and scaled_dot_product_attention's time;
 4. reference -- two fp32 training steps on the card and on the CPU (plain
               versions) from the same weights and batches: a small ResNet
-              for each path's configuration and four more compressors
+              for each path's configuration (HFA at K1 1, K2 2, so that
+              both tiers fire) and four more compressors
               (REFERENCE_ONLY: exact BSC, the fp16 and 2-bit lattices,
               MPQ), losses to rtol 1e-4, parameters to atol 2e-3 (TF32
               off); the SeqClassifier at L = 256 un-meshed, ring and
               Ulysses on [2, 2] x sp 2 (SEQ_REFERENCE), losses to rtol
               1e-4, parameters to atol 4e-3;
 5. paths   -- ResNet-20 at its default bf16 compute through Trainer, FSA
-              with a bucketed dc tier, the synthetic CIFAR-shaped set, 128
-              images a replica (1,024 a step), each path with the launch
-              counts reset just before its run and read just after:
+              with a bucketed dc tier unless named, the synthetic
+              CIFAR-shaped set, 128 images a replica (1,024 a step), each
+              path with the launch counts reset just before its run and
+              read just after:
               1  (flagship)    [2, 4], sgd(0.1, momentum=0.9), "bsc,0.01",
                                32 steps;
               1f (fused_sgd)   the same with fused_optimizer("sgd") and
@@ -59,11 +61,22 @@ Every phase's failure is fatal (non-zero exit, no result line):
               3  (sparse_agg)  [4, 2], fused_optimizer("sgd", 0.1),
                                "bsc,0.01,select=sampled,sparse_agg=1"
                                (the owner-routed merge), fused_optim=True,
-                               16 steps.
-              Each checks a finite loss, identical replicas and every
-              kernel of its configuration launched, and that the loss
-              falls from the first epoch of 8 steps to the second (for
-              path 2 as the JAX package's own trajectory falls, PERF.md);
+                               16 steps;
+              mixed_dcasgd     [2, 4], MixedSync with DCASGD (lambda 0.04,
+                               a pull every 2 steps), fused_optimizer(
+                               "adam", 0.01), "bsc,0.01", 16 steps;
+              hfa_dgt          [2, 4], HFA (K1 4, K2 2) over DGT (4096-byte
+                               blocks, k 0.8, 3 channels, alpha 0.3) with
+                               "bsc,0.01" inside, adam(0.01), 16 steps;
+              pipelined_fsa    path 1 with GEOMX_PIPELINE_DEPTH=1, 16 steps,
+                               then Trainer.drain_pipeline: one apply of
+                               the parked aggregate, the CPU's bits.
+              Each checks a finite loss, identical replicas (HFA: the 16
+              steps end on a global sync) and every kernel of its
+              configuration launched, and that the loss falls from the
+              first epoch of 8 steps to the second (for path 2 and the
+              three sync paths as the JAX package's own trajectories
+              fall, PERF.md);
               path 2 also that the 2-bit wire carried non-zero codes;
               path 3 prints its last step's merge counts (overflow pairs
               reinjected, merged, kept, the pull-dropped share);
@@ -129,34 +142,57 @@ REPLACES = {
 }
 
 # path -> (optimizer, compression, fused apply, steps, its kernels, its
-# topology [P, W]).  The optimizer is (kind, learning rate): "sgd" is
-# sgd(lr, momentum=0.9) (fused_optimizer("sgd") when fused), "adam"
-# fused_optimizer("adam").
+# topology [P, W], its other GeoConfig fields).  The optimizer is (kind,
+# learning rate): "sgd" is sgd(lr, momentum=0.9), "adam" adam(lr); each
+# fused_optimizer(kind) when fused.  Every path runs FSA but for its
+# GeoConfig fields.
 SLICE1 = ("fused_flatten", "fused_unflatten", "bsc_select_pack",
           "bsc_scatter_add")
 PATHS = {
-    "flagship": (("sgd", 0.1), "bsc,0.01", False, None, SLICE1, (2, 4)),
+    "flagship": (("sgd", 0.1), "bsc,0.01", False, None, SLICE1, (2, 4), {}),
     "fused_sgd": (("sgd", 0.1), "bsc,0.01", True, 16,
-                  SLICE1 + ("fused_sgd_momentum",), (2, 4)),
+                  SLICE1 + ("fused_sgd_momentum",), (2, 4), {}),
     "twobit_adam": (("adam", 0.01), "2bit,0.5", True, 16,
                     ("fused_flatten", "fused_unflatten", "quantize_2bit",
-                     "dequantize_2bit", "fused_adam"), (2, 4)),
+                     "dequantize_2bit", "fused_adam"), (2, 4), {}),
     # four parties: the merge tree runs ceil(log2 4) = 2 rounds
     "sparse_agg": (("sgd", 0.1), "bsc,0.01,select=sampled,sparse_agg=1",
                    True, 16, SLICE1 + ("fused_sgd_momentum",
-                                       "merge_sorted_pairs"), (4, 2)),
+                                       "merge_sorted_pairs"), (4, 2), {}),
+    # examples/cnn.py -ms -dc (scripts' run_mixed_sync.sh with --dcasgd):
+    # a pull every 2 steps, so the stale copy lags and the DCASGD term is
+    # not zero
+    "mixed_dcasgd": (("adam", 0.01), "bsc,0.01", True, 16,
+                     SLICE1 + ("fused_adam",), (2, 4),
+                     dict(sync_mode="mixed", dcasgd=True, dcasgd_lambda=0.04,
+                          mixed_pull_interval=2)),
+    # examples/cnn_hfa.py with run_dgt.sh's DGT settings; K1 20, K2 10
+    # cut to 4, 2 so that two global syncs fall inside 16 steps.  DGT
+    # fuses the tree itself (no bucket copies) and its inner BSC runs on
+    # the two global steps
+    "hfa_dgt": (("adam", 0.01), "bsc,0.01", False, 16,
+                ("bsc_select_pack", "bsc_scatter_add"), (2, 4),
+                dict(sync_mode="hfa", hfa_k1=4, hfa_k2=2, enable_dgt=2,
+                     dgt_k=0.8, udp_channel_num=3, dgt_block_size=4096,
+                     dgt_contri_alpha=0.3)),
+    # the flagship with the pipelined WAN sync; Trainer.drain_pipeline
+    # after the run
+    "pipelined_fsa": (("sgd", 0.1), "bsc,0.01", False, 16, SLICE1, (2, 4),
+                      dict(pipeline_depth=1)),
 }
+# the reference phase's two steps: HFA's periods such that both tiers fire
+REFERENCE_FIELDS = {"hfa_dgt": dict(hfa_k1=1, hfa_k2=2)}
 # configurations the reference phase checks beside PATHS: the compressors
 # without a kernel of their own, on the card
 REFERENCE_ONLY = {
     "bsc_exact": (("sgd", 0.1), "bsc,0.01,select=exact", False, None, (),
-                  (2, 4)),
+                  (2, 4), {}),
     "fp16_lattice": (("sgd", 0.1), "fp16,sparse_agg=1", False, None, (),
-                     (4, 2)),
+                     (4, 2), {}),
     "twobit_lattice": (("sgd", 0.1), "2bit,0.5,sparse_agg=1", False, None,
-                       (), (4, 2)),
+                       (), (4, 2), {}),
     # the small ResNet's one bucket is below 200k elements: fp16 gather
-    "mpq": (("sgd", 0.1), "mpq,0.01", False, None, (), (2, 4)),
+    "mpq": (("sgd", 0.1), "mpq,0.01", False, None, (), (2, 4), {}),
 }
 # the attention paths, examples/long_context.py's SeqClassifier (vocab 256,
 # dim 64, 4 heads, 2 layers, 10 classes) under adam(1e-3) and FSA with the
@@ -190,22 +226,24 @@ FIRST_PATH = {name: next(p for p, kernels in _PATH_KERNELS.items()
               for name in REPLACES}
 
 
-def make_trainer(path: str, model, device=None, precision=None):
+def make_trainer(path: str, model, device=None, precision=None, **fields):
     """The Trainer of one configuration of PATHS or REFERENCE_ONLY, on
-    ``model``."""
+    ``model``; ``fields`` override its GeoConfig fields."""
     from geomx_tpu_torch import GeoConfig, HiPSTopology
     from geomx_tpu_torch.ops.optim import fused_optimizer
-    from geomx_tpu_torch.optim import sgd
+    from geomx_tpu_torch.optim import adam, sgd
     from geomx_tpu_torch.train import Trainer
 
-    (kind, lr), spec, fused, _, _, (P, W) = \
+    (kind, lr), spec, fused, _, _, (P, W), extra = \
         PATHS[path] if path in PATHS else REFERENCE_ONLY[path]
     if fused:
         tx = fused_optimizer(kind, learning_rate=lr, momentum=0.9)
+    elif kind == "adam":
+        tx = adam(lr)
     else:
         tx = sgd(lr, momentum=0.9)
     cfg = dict(num_parties=P, workers_per_party=W, compression=spec,
-               fused_optim=fused)
+               fused_optim=fused, **{**extra, **fields})
     if precision is not None:
         cfg["precision"] = precision
     return Trainer(model, HiPSTopology(P, W), tx, config=GeoConfig(**cfg),
@@ -1197,7 +1235,7 @@ def seq_reference_phase(torch):
 
 def reference_phase(torch):
     """Two fp32 steps of a small ResNet on the card vs on the CPU, for
-    each path's configuration."""
+    each path's configuration (HFA at K1 1, K2 2: both tiers fire)."""
     from geomx_tpu_torch.data import load_dataset
     from geomx_tpu_torch.models import ResNet
 
@@ -1208,7 +1246,8 @@ def reference_phase(torch):
         for device in ("cuda", "cpu"):
             t = make_trainer(path, ResNet((1, 1, 1), (8, 16, 32),
                                           dtype=torch.float32),
-                             device=device, precision="fp32")
+                             device=device, precision="fp32",
+                             **REFERENCE_FIELDS.get(path, {}))
             st = t.init_state(seed=0)
             losses = []
             for i, (xb, yb) in enumerate(t.make_loader(x, data["train_y"],
@@ -1239,6 +1278,74 @@ def code_density(torch, words, n: int) -> float:
     return int((codes != 0).sum()) / (math.prod(words.shape[:-1]) * n)
 
 
+def to_device(torch, obj, device):
+    """A state tree (tensors in dicts, lists and tuples) on ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: to_device(torch, v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(torch, v, device) for v in obj)
+    return obj
+
+
+def drain_check(torch, path: str, trainer, state, res: dict):
+    """A pipelined path after its run: ``Trainer.drain_pipeline`` moves
+    the params by exactly one optimizer apply of the parked aggregate
+    (the in-flight buckets unflattened and divided by P), lands the
+    parked BatchNorm statistics, zeroes the buffer, and gives the bits
+    the same drain of the same state gives on the CPU.  Returns the
+    drained state."""
+    import dataclasses
+
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.tree import leaf_names
+
+    names = leaf_names(state.params)
+    inflight = state.sync_state["inner"]["dc_comp"]["inflight"]
+    bk = trainer.sync.inner.dc_compressor.inner._bucketer(
+        [state.params[k] for k in names])
+    P = trainer.topology.num_parties
+    g = {k: v / P for k, v in zip(names, bk.unflatten(inflight))}
+    want, _ = trainer.tx.update(g, state.opt_state, state.params)
+    drained = trainer.drain_pipeline(state)
+    for k in names:
+        if not torch.equal(drained.params[k], want[k]):
+            raise AssertionError(f"{path}: the drain is not one apply of "
+                                 f"the parked aggregate at {k}")
+        if not torch.equal(drained.params[k],
+                           drained.params[k][:1, :1].expand_as(want[k])):
+            raise AssertionError(f"{path}: replicas diverged at {k} in "
+                                 "the drain")
+    for k, v in state.sync_state["inflight_ms"].items():
+        if not torch.equal(drained.model_state[k], v):
+            raise AssertionError(f"{path}: the drain did not land the "
+                                 f"parked statistics at {k}")
+    if any(b.any() for b in
+           drained.sync_state["inner"]["dc_comp"]["inflight"]):
+        raise AssertionError(f"{path}: the drain left the buffer full")
+    moved = max((drained.params[k] - state.params[k]).abs().max().item()
+                for k in names)
+    if not moved > 0:
+        raise AssertionError(f"{path}: the parked aggregate is empty")
+    cpu = make_trainer(path, get_model("resnet20"), device="cpu")
+    on_cpu = cpu.drain_pipeline(dataclasses.replace(
+        state, params=to_device(torch, state.params, "cpu"),
+        opt_state=to_device(torch, state.opt_state, "cpu"),
+        model_state=to_device(torch, state.model_state, "cpu"),
+        sync_state=to_device(torch, state.sync_state, "cpu")))
+    cpu_diff = max((drained.params[k].cpu() - on_cpu.params[k])
+                   .abs().max().item() for k in names)
+    if cpu_diff > 1e-6:
+        raise AssertionError(f"{path}: the card's drain and the CPU's "
+                             f"differ by {cpu_diff}")
+    res.update(drain_max_param_change=moved, drain_cpu_max_abs_diff=cpu_diff)
+    log(f"path {path}: the drain moved the params by up to {moved:.3g}, one "
+        f"apply of the parked aggregate; card vs CPU drain max abs diff "
+        f"{cpu_diff:.3g}")
+    return drained
+
+
 def main_path_phase(torch, path: str, steps: int, device=None,
                     batch: int = 128):
     """One path of PATHS at full width through Trainer.fit."""
@@ -1255,7 +1362,8 @@ def main_path_phase(torch, path: str, steps: int, device=None,
     on_card = trainer.device.type == "cuda"
     # path 2: every step's wire words, read after the run (no device work
     # or host wait inside the timed loop)
-    comp = getattr(trainer.sync.dc_compressor, "inner", None)
+    comp = getattr(getattr(trainer.sync, "dc_compressor", None), "inner",
+                   None)
     wires = []
     log_fn = (lambda s: wires.append(comp.last_wire)) \
         if isinstance(comp, TwoBitCompressor) else (lambda s: None)
@@ -1279,9 +1387,20 @@ def main_path_phase(torch, path: str, steps: int, device=None,
     # synthetic set, in the JAX package as well, so the check does not
     # read the later steps.  Path 2's fall is small (its 2-bit wire sends
     # few codes in 16 steps) and the JAX package's falls the same way.
+    # The JAX package's 16 fp32 steps of the three sync paths fall too
+    # (tests/torch_jax_trajectory.py --batch 128 --steps 16, mean of steps
+    # 1-8 -> 9-16): mixed_dcasgd 2.2702 -> 1.9595, hfa_dgt 2.0416 ->
+    # 1.3433, pipelined_fsa 2.3837 -> 2.2991.
     first, second = losses[:8], losses[8:16]
     if len(second) < 8 or not statistics.mean(second) < statistics.mean(first):
         raise AssertionError(f"{path}: loss did not fall: {losses}")
+    # every replica identical: FSA, MixedSync and the pipeline replicate
+    # the update; HFA's replicas drift between syncs, and the 16 steps
+    # end on a global sync (16 is a multiple of K1 * K2 = 8)
+    sync = trainer.sync
+    if getattr(sync, "k1", None) and len(losses) % (sync.k1 * sync.k2):
+        raise AssertionError(f"{path}: {len(losses)} steps do not end on "
+                             "an HFA global sync")
     for k_, v in state.params.items():
         if not torch.equal(v, v[:1, :1].expand_as(v)):
             raise AssertionError(f"{path}: replicas diverged at {k_}")
@@ -1293,6 +1412,8 @@ def main_path_phase(torch, path: str, steps: int, device=None,
     res = dict(steps=len(losses), samples_per_step=8 * batch, losses=losses,
                loss_first=losses[0], loss_last=losses[-1],
                launches=launches)
+    if hasattr(sync, "drain_grads"):
+        state = drain_check(torch, path, trainer, state, res)
     last = getattr(comp, "last_wire", None)
     if isinstance(last, dict):
         # path 3: the owner-routed merge's counts of the last step
@@ -1466,7 +1587,7 @@ def main(argv=None) -> int:
     reference_phase(torch)
     seq_reference_phase(torch)
     paths = {path: main_path_phase(torch, path, steps or args.steps)
-             for path, (_, _, _, steps, _, _) in PATHS.items()}
+             for path, (_, _, _, steps, _, _, _) in PATHS.items()}
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
     log("median step: " + ", ".join(
         f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())

@@ -9,17 +9,13 @@ The reference's knobs that change its training step but that the port
 does not run yet are read too, under the same names and casts, and
 refused: a config that sets one to anything but its default raises
 ``NotImplementedError`` naming the ROADMAP.md Queue 1 item that ports it
-(``UNPORTED``), so a launch environment is never half obeyed.  A
-pipeline depth with one party only warns, as it does in the reference
-(``geomx_tpu/sync/__init__.py:50-60``): there is no dc-tier collective
-to pipeline.
+(``UNPORTED``), so a launch environment is never half obeyed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import warnings
 
 
 def _env(names, default, cast):
@@ -41,8 +37,6 @@ def _env_bool(names, default) -> bool:
 # field -> (its variables, the ROADMAP.md Queue 1 item that ports it);
 # each item removes its fields from here when it lands
 UNPORTED = {
-    "pipeline_depth": ("GEOMX_PIPELINE_DEPTH", "Other sync algorithms"),
-    "enable_dgt": ("GEOMX_ENABLE_DGT / ENABLE_DGT", "Other sync algorithms"),
     "zero": ("GEOMX_ZERO", "Sharded updates"),
     "multi_gps": ("GEOMX_MULTI_GPS", "Sharded updates"),
     "control": ("GEOMX_CONTROL", "Control"),
@@ -57,8 +51,19 @@ class GeoConfig:
     num_parties: int = 1              # data centers (global tier width)
     workers_per_party: int = 1        # intra-DC workers (local tier width)
 
-    # ---- synchronization algorithm: only "fsa" is ported so far
+    # ---- synchronization algorithm: "fsa" (dist_sync), "mixed"
+    # (dist_async [+ dcasgd]), "hfa"
     sync_mode: str = "fsa"
+    # HFA periods (reference scripts/cpu/run_hfa_sync.sh: K1=20, K2=10)
+    hfa_k1: int = 20
+    hfa_k2: int = 10
+    # MixedSync: parties refresh their stale copy of the global
+    # parameters every `mixed_pull_interval` steps
+    mixed_pull_interval: int = 1
+    # DCASGD compensation is opt-in, as in the reference
+    # (examples/cnn.py --dcasgd); MXNet's default lamda 0.04
+    dcasgd: bool = False
+    dcasgd_lambda: float = 0.04
 
     # ---- gradient compression spec: "none" | "bsc,<ratio>[,key=val]" |
     # "2bit,<threshold>"
@@ -76,10 +81,23 @@ class GeoConfig:
     # optimizer built by ops.optim.fused_optimizer and bucketing on)
     fused_optim: bool = False
 
-    # ---- read and refused unless at their defaults (UNPORTED): the
-    # pipelined sync, the DGT wrap, ZeRO, MultiGPS and the control plane
+    # ---- pipelined WAN sync (sync/pipeline.py): 0 = a synchronous dc
+    # tier, 1 = double buffering (staleness 1); FSA and MixedSync only
     pipeline_depth: int = 0
+    # DCASGD-style compensation of the pipelined aggregate; 0 disables
+    pipeline_dcasgd: float = 0.0
+
+    # ---- DGT (reference 3rdparty/ps-lite/include/ps/kv_app.h:1036-1045)
     enable_dgt: int = 0
+    dgt_block_size: int = 4096        # bytes in the reference; elements/4
+    dgt_k: float = 0.5                # DMLC_K: fraction sent reliably
+    dgt_k_min: float = 0.2            # DMLC_K_MIN (read, not acted on)
+    dgt_contri_alpha: float = 0.3     # DGT_CONTRI_ALPHA EWMA factor
+    adaptive_k: bool = False          # ADAPTIVE_K_FLAG (read, not acted on)
+    udp_channel_num: int = 1          # DMLC_UDP_CHANNEL_NUM
+
+    # ---- read and refused unless at their defaults (UNPORTED): ZeRO,
+    # MultiGPS and the control plane
     zero: bool = False
     multi_gps: bool = False
     control: bool = False
@@ -88,11 +106,6 @@ class GeoConfig:
         for field, (names, item) in UNPORTED.items():
             value = getattr(self, field)
             if not value:
-                continue
-            if field == "pipeline_depth" and self.num_parties <= 1:
-                warnings.warn(
-                    "GEOMX_PIPELINE_DEPTH ignored: num_parties == 1 has no "
-                    "dc-tier collective to pipeline", stacklevel=3)
                 continue
             raise NotImplementedError(
                 f"{field}={value!r} ({names}) changes the training step and "
@@ -106,6 +119,11 @@ class GeoConfig:
             workers_per_party=_env(["GEOMX_WORKERS_PER_PARTY",
                                     "DMLC_NUM_WORKER"], 1, int),
             sync_mode=_env(["GEOMX_SYNC_MODE"], "fsa", str),
+            hfa_k1=_env(["GEOMX_HFA_K1", "DMLC_K1"], 20, int),
+            hfa_k2=_env(["GEOMX_HFA_K2", "DMLC_K2"], 10, int),
+            mixed_pull_interval=_env(["GEOMX_MIXED_PULL_INTERVAL"], 1, int),
+            dcasgd=_env_bool(["GEOMX_DCASGD"], False),
+            dcasgd_lambda=_env(["GEOMX_DCASGD_LAMBDA"], 0.04, float),
             compression=_env(["GEOMX_COMPRESSION"], "none", str),
             twobit_threshold=_env(["GEOMX_2BIT_THRESHOLD"], 0.5, float),
             bucket_bytes=_env(["GEOMX_BUCKET_BYTES"], 4 * 1024 * 1024,
@@ -114,7 +132,18 @@ class GeoConfig:
             fused_optim=_env_bool(["GEOMX_FUSED_OPTIM"], False),
             pipeline_depth=_env(["GEOMX_PIPELINE_DEPTH"], 0,
                                 lambda s: int(float(s))),
+            pipeline_dcasgd=_env(["GEOMX_PIPELINE_DCASGD"], 0.0, float),
             enable_dgt=_env(["GEOMX_ENABLE_DGT", "ENABLE_DGT"], 0, int),
+            dgt_block_size=_env(["GEOMX_DGT_BLOCK_SIZE", "DGT_BLOCK_SIZE"],
+                                4096, int),
+            dgt_k=_env(["GEOMX_DGT_K", "DMLC_K"], 0.5, float),
+            dgt_k_min=_env(["GEOMX_DGT_K_MIN", "DMLC_K_MIN"], 0.2, float),
+            dgt_contri_alpha=_env(["GEOMX_DGT_CONTRI_ALPHA",
+                                   "DGT_CONTRI_ALPHA"], 0.3, float),
+            adaptive_k=_env_bool(["GEOMX_ADAPTIVE_K", "ADAPTIVE_K_FLAG"],
+                                 False),
+            udp_channel_num=_env(["GEOMX_UDP_CHANNEL_NUM",
+                                  "DMLC_UDP_CHANNEL_NUM"], 1, int),
             zero=_env_bool(["GEOMX_ZERO"], False),
             multi_gps=_env_bool(["GEOMX_MULTI_GPS"], False),
             control=_env_bool(["GEOMX_CONTROL"], False),

@@ -9,7 +9,9 @@ statistics).  In the port every tensor they see carries the leading
 
 Not ported yet, and raising ``NotImplementedError``: degraded-mode
 membership (``bind_membership`` with a dead party), the ZeRO-sharded
-update (``bind_zero``) and MultiGPS (ROADMAP.md Queue 1, slices 2-3).
+update (``bind_zero``) and MultiGPS (ROADMAP.md Queue 1, items 2 and 6).
+Nor are ``sync_grad_shards``, ``reset_comm_state``,
+``telemetry_scalars`` and ``wire_accounting`` (items 2, 6 and 7).
 """
 
 from __future__ import annotations
@@ -23,6 +25,12 @@ class SyncAlgorithm(abc.ABC):
 
     num_parties: int = 1
     workers_per_party: int = 1
+
+    # True when sync_grads returns a gradient replicated across the
+    # [P, W] axes (hierarchical aggregation: FSA, MixedSync,
+    # PipelinedSync); HFA's identity sync_grads keeps per-replica
+    # gradients.  The telemetry probes that read it are not ported.
+    grads_replicated_after_sync: bool = False
 
     def bind_topology(self, topology) -> "SyncAlgorithm":
         self.num_parties = topology.num_parties

@@ -8,7 +8,8 @@ One hierarchical compressed all-reduce per step:
 followed by an optimizer step applied identically on every replica.  By
 default the dc compressor is wrapped in the bucketed engine
 (compression/bucketing.py); ``GEOMX_BUCKET_BYTES=0`` opts out.  The
-degraded-membership, ZeRO and pipelined forms are not ported yet.
+pipelined form is ``sync/pipeline.py``; the degraded-membership and ZeRO
+forms are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from geomx_tpu_torch.tree import tree_map
 
 class FSA(SyncAlgorithm):
     name = "fsa"
+    grads_replicated_after_sync = True  # hierarchical psum output
 
     def __init__(self, dc_compressor: Optional[Compressor] = None,
                  worker_compressor: Optional[Compressor] = None,

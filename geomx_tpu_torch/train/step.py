@@ -1,13 +1,14 @@
-"""The training step (port of geomx_tpu/train/step.py, FSA branch).
+"""The training step (port of geomx_tpu/train/step.py, its replicated branch).
 
 The JAX package runs one ``jit(shard_map(...))`` program over the
 ``[P, W]`` device mesh.  The port holds all replicas on one card: the
 forward and backward run once per replica (a plain loop), the
 per-replica gradients are stacked onto the ``[P, W]`` axes, and the
 sync algorithm's collectives reduce over those axes.  The step then
-follows ``_device_step``: grads -> ``sync.sync_grads`` -> optimizer
-update -> ``sync.sync_params`` -> ``sync.sync_model_state``, with the
-loss and accuracy meaned over workers, then parties.
+follows ``_device_step``: gradients at ``sync.forward_params`` (the
+params themselves, or MixedSync's stale copy) -> ``sync.sync_grads`` ->
+optimizer update -> ``sync.sync_params`` -> ``sync.sync_model_state``,
+with the loss and accuracy meaned over workers, then parties.
 
 With ``GeoConfig(fused_optim=True)`` and an optimizer from
 ``ops.optim.fused_optimizer`` the update runs over the dc tier's flat
@@ -95,8 +96,14 @@ def make_loss_fn(model: torch.nn.Module, compute_dtype=None) -> Callable:
 
 def fused_bucketer(sync):
     """The dc tier's bucketed engine, whose layout the fused apply and
-    its optimizer state use; raises if the dc tier is not bucketed."""
-    dc = getattr(sync, "dc_compressor", None)
+    its optimizer state use (a pipelined sync's inner one); raises if the
+    dc tier is not bucketed."""
+    from geomx_tpu_torch.sync.pipeline import PipelinedCompressor
+    dc = getattr(sync, "dc_compressor",
+                 getattr(getattr(sync, "inner", None), "dc_compressor",
+                         None))
+    if isinstance(dc, PipelinedCompressor):
+        dc = dc.inner
     if not isinstance(dc, BucketedCompressor):
         raise ValueError(
             "GEOMX_FUSED_OPTIM requires the bucketed dc-tier engine "
@@ -152,14 +159,17 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
         step = state.step
         per_grads, per_stats, losses, accs = [], [], [], []
         with record_function("train/forward_backward"):
+            # the weights each replica computes its gradients at, taken
+            # on the whole [P, W] tree (MixedSync: the stale copy)
+            fwd = sync.forward_params(state.params, state.sync_state)
             for p in range(P):
                 for w in range(W):
-                    leaves = {k: state.params[k][p, w].detach()
-                              .requires_grad_() for k in names}
-                    fwd = sync.forward_params(leaves, state.sync_state)
+                    leaves = {k: fwd[k][p, w].detach().requires_grad_()
+                              for k in names}
                     ms = {k: t[p, w] for k, t in state.model_state.items()}
                     xb = x[p, w] if sp is None else sp_chunks(x[p, w], sp)
-                    loss, (new_ms, logits) = loss_fn(fwd, ms, xb, y[p, w])
+                    loss, (new_ms, logits) = loss_fn(leaves, ms, xb,
+                                                     y[p, w])
                     grads = torch.autograd.grad(loss,
                                                 [leaves[k] for k in names])
                     per_grads.append(grads)

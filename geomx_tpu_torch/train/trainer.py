@@ -12,6 +12,9 @@ replica's sequence as ``topology.sp_degree`` chunks (``train/step.py``);
 evaluation runs its ``single_device_model`` twin, which has the
 same parameters and no sp axis.
 
+``drain_pipeline`` applies a pipelined sync's last in-flight aggregate
+after ``fit``.
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without that request it raises.  Not ported yet: membership epochs,
 checkpoints, scanned epochs, prefetch, telemetry, control, capsules and
@@ -26,6 +29,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from geomx_tpu_torch.config import GeoConfig
 from geomx_tpu_torch.data.loader import GeoDataLoader
@@ -126,6 +130,38 @@ class Trainer:
             step=0, params=params, opt_state=opt_state,
             model_state=model_state,
             sync_state=self.sync.init_state(params, model_state=model_state))
+
+    def drain_pipeline(self, state: TrainState) -> TrainState:
+        """Apply a pipelined sync's completed in-flight dc-tier aggregate
+        without feeding a batch (``sync/pipeline.py``): after the last
+        ``fit``, the last launched gradient and its model-state
+        (BatchNorm) aggregate have not been applied.  A no-op for
+        algorithms without ``drain_grads``.  No collectives run: the
+        buffers hold reduced values.  The gradient buffer comes back
+        zeroed (a later ``fit`` warms up again); the model-state buffer
+        keeps the applied value."""
+        sync = self.sync
+        if not hasattr(sync, "drain_grads"):
+            return state
+        if self._fused_optim:
+            # the JAX package's drain (geomx_tpu/train/trainer.py:789)
+            # hands the leaf-tree aggregate to tx.update against the
+            # optimizer state on the bucket layout, and raises
+            # ValueError for the mismatched trees; so does the port
+            raise ValueError(
+                "Trainer.drain_pipeline does not compose with "
+                "GEOMX_FUSED_OPTIM: the drained aggregate is a leaf tree "
+                "and the fused optimizer state lives on the dc tier's "
+                "flat buckets (the JAX package's drain raises too)")
+        with record_function("train/drain"):
+            g, sync_state = sync.drain_grads(state.params, state.sync_state)
+            params, opt_state = self.tx.update(g, state.opt_state,
+                                               state.params)
+            model_state, sync_state = sync.drain_model_state(
+                state.model_state, sync_state)
+        return TrainState(step=state.step, params=params,
+                          opt_state=opt_state, model_state=model_state,
+                          sync_state=sync_state)
 
     def make_loader(self, x, y, batch_size: int, split_by_class: bool = False,
                     seed: int = 0, augment: bool = False) -> GeoDataLoader:

@@ -1,11 +1,15 @@
-"""Port parity: the reference's launch knobs that the port does not run yet.
+"""Port parity: the reference's launch knobs.
 
-``GeoConfig.from_env`` reads ``GEOMX_PIPELINE_DEPTH``, ``GEOMX_ENABLE_DGT``
-/ ``ENABLE_DGT``, ``GEOMX_ZERO``, ``GEOMX_MULTI_GPS`` and ``GEOMX_CONTROL``
-under the JAX package's names and casts, and refuses a value that changes
-the JAX step with ``NotImplementedError`` naming the ROADMAP.md Queue 1
-item; a pipeline depth with one party only warns, as the reference's
-``get_sync_algorithm`` does; the defaults, set or not, still build FSA.
+``GeoConfig.from_env`` reads the sync algorithms' knobs
+(``GEOMX_SYNC_MODE``, the HFA periods, MixedSync's pull interval and
+DCASGD, ``GEOMX_PIPELINE_DEPTH``, the DGT wrap) under the JAX package's
+names and casts, and ``get_sync_algorithm`` builds the same algorithm
+structure from them, raising the JAX package's errors where it raises.
+The knobs the port does not run yet (``GEOMX_ZERO``, ``GEOMX_MULTI_GPS``,
+``GEOMX_CONTROL``) are refused with ``NotImplementedError`` naming the
+ROADMAP.md Queue 1 item; a pipeline depth with one party only warns, as
+the reference's ``get_sync_algorithm`` does; the defaults, set or not,
+still build FSA.
 """
 
 import warnings
@@ -14,19 +18,22 @@ import pytest
 
 from geomx_tpu.config import GeoConfig as JaxConfig
 from geomx_tpu.control.actuators import control_enabled
+from geomx_tpu.sync import get_sync_algorithm as jax_sync
 from geomx_tpu_torch import GeoConfig
-from geomx_tpu_torch.sync import FSA, get_sync_algorithm
+from geomx_tpu_torch.sync import (FSA, HFA, DGTCompressor, MixedSync,
+                                  PipelinedSync, get_sync_algorithm)
 
 KNOBS = ("GEOMX_PIPELINE_DEPTH", "GEOMX_ENABLE_DGT", "ENABLE_DGT",
          "GEOMX_ZERO", "GEOMX_MULTI_GPS", "GEOMX_CONTROL",
          "GEOMX_NUM_PARTIES")
+# every variable a test here sets
+ENV = KNOBS + ("GEOMX_SYNC_MODE", "GEOMX_DCASGD", "GEOMX_DCASGD_LAMBDA",
+               "GEOMX_HFA_K1", "DMLC_K1", "GEOMX_HFA_K2",
+               "GEOMX_MIXED_PULL_INTERVAL", "GEOMX_PIPELINE_DCASGD",
+               "GEOMX_DGT_BLOCK_SIZE", "DGT_BLOCK_SIZE", "DMLC_K",
+               "DMLC_UDP_CHANNEL_NUM", "GEOMX_COMPRESSION")
 # variable, a value that changes the JAX step, the port's field, the item
 REFUSED = [
-    ("GEOMX_PIPELINE_DEPTH", "1", "pipeline_depth", "Other sync algorithms"),
-    ("GEOMX_PIPELINE_DEPTH", "2.0", "pipeline_depth",
-     "Other sync algorithms"),
-    ("GEOMX_ENABLE_DGT", "1", "enable_dgt", "Other sync algorithms"),
-    ("ENABLE_DGT", "1", "enable_dgt", "Other sync algorithms"),
     ("GEOMX_ZERO", "1", "zero", "Sharded updates"),
     ("GEOMX_MULTI_GPS", "1", "multi_gps", "Sharded updates"),
     ("GEOMX_CONTROL", "1", "control", "Control"),
@@ -39,7 +46,7 @@ DEFAULTS = [(var, value) for var in KNOBS[:-1] for value in ("0", "")] + [
 
 @pytest.fixture(autouse=True)
 def clean_env(monkeypatch):
-    for var in KNOBS:
+    for var in ENV:
         monkeypatch.delenv(var, raising=False)
 
 
@@ -63,12 +70,90 @@ def test_knob_that_changes_the_step_raises(monkeypatch, var, value, field,
 
 def test_pipeline_depth_with_one_party_only_warns(monkeypatch):
     monkeypatch.setenv("GEOMX_PIPELINE_DEPTH", "1")
-    with pytest.warns(UserWarning, match="num_parties == 1"):
-        cfg = GeoConfig.from_env()
+    cfg = GeoConfig.from_env()
     assert cfg.pipeline_depth == JaxConfig.from_env().pipeline_depth == 1
-    assert isinstance(get_sync_algorithm(cfg), FSA)
-    with pytest.raises(NotImplementedError, match="'Other sync algorithms'"):
-        GeoConfig.from_env(num_parties=2)
+    with pytest.warns(UserWarning, match="num_parties == 1"):
+        algo = get_sync_algorithm(cfg)
+    assert isinstance(algo, FSA)
+    algo = get_sync_algorithm(GeoConfig.from_env(num_parties=2))
+    assert isinstance(algo, PipelinedSync) and isinstance(algo.inner, FSA)
+
+
+def structure(algo):
+    """The algorithm's classes and their knobs, wrappers first, in the
+    names both packages share."""
+    out = [type(algo).__name__]
+    for attr in ("inner", "k1", "k2", "pull_interval", "dcasgd_lambda",
+                 "depth"):
+        v = getattr(algo, attr, None)
+        if v is not None:
+            out.append((attr, structure(v) if attr == "inner" else v))
+    dc = getattr(algo, "dc_compressor", None)
+    while dc is not None:
+        out.append(type(dc).__name__)
+        out += [(a, getattr(dc, a)) for a in ("block_elems", "k", "alpha",
+                                              "flush_every", "ratio")
+                if hasattr(dc, a)]
+        dc = getattr(dc, "inner", None)
+    return out
+
+
+# environment -> the port class it builds (every case: two parties)
+KNOB_CASES = [
+    ({"GEOMX_PIPELINE_DEPTH": "1"}, PipelinedSync),
+    ({"GEOMX_PIPELINE_DEPTH": "1.0", "GEOMX_PIPELINE_DCASGD": "0.04"},
+     PipelinedSync),
+    ({"GEOMX_PIPELINE_DEPTH": "2.0"}, ValueError),
+    ({"GEOMX_PIPELINE_DEPTH": "1", "GEOMX_SYNC_MODE": "hfa"}, ValueError),
+    ({"GEOMX_PIPELINE_DEPTH": "1", "GEOMX_SYNC_MODE": "mixed",
+      "GEOMX_DCASGD": "1"}, PipelinedSync),
+    ({"GEOMX_ENABLE_DGT": "1"}, FSA),
+    ({"ENABLE_DGT": "2", "GEOMX_COMPRESSION": "bsc,0.01",
+      "DGT_BLOCK_SIZE": "4096", "DMLC_K": "0.8",
+      "DMLC_UDP_CHANNEL_NUM": "3"}, FSA),
+    ({"GEOMX_ENABLE_DGT": "1", "GEOMX_DGT_BLOCK_SIZE": "2",
+      "GEOMX_SYNC_MODE": "hfa"}, HFA),
+    ({"GEOMX_SYNC_MODE": "mixed"}, MixedSync),
+    ({"GEOMX_SYNC_MODE": "dist_async", "GEOMX_DCASGD": "1",
+      "GEOMX_DCASGD_LAMBDA": "0.1", "GEOMX_MIXED_PULL_INTERVAL": "3"},
+     MixedSync),
+    ({"GEOMX_SYNC_MODE": "async", "GEOMX_DCASGD": "0"}, MixedSync),
+    ({"GEOMX_SYNC_MODE": "hfa", "GEOMX_HFA_K1": "4", "GEOMX_HFA_K2": "2"},
+     HFA),
+    ({"GEOMX_SYNC_MODE": "hfa", "DMLC_K1": "5"}, HFA),
+    ({"GEOMX_SYNC_MODE": "hfa", "GEOMX_HFA_K1": "3", "DMLC_K1": "5"}, HFA),
+]
+
+
+@pytest.mark.parametrize("env,want", KNOB_CASES)
+def test_knob_builds_the_reference_algorithm(monkeypatch, env, want):
+    """Each environment configures both packages alike: the same fields,
+    the same algorithm structure, or the same error."""
+    monkeypatch.setenv("GEOMX_NUM_PARTIES", "2")
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    ref, cfg = JaxConfig.from_env(), GeoConfig.from_env()
+    for field in ("sync_mode", "hfa_k1", "hfa_k2", "mixed_pull_interval",
+                  "dcasgd", "dcasgd_lambda", "pipeline_depth",
+                  "pipeline_dcasgd", "enable_dgt", "dgt_block_size", "dgt_k",
+                  "dgt_k_min", "dgt_contri_alpha", "adaptive_k",
+                  "udp_channel_num"):
+        assert getattr(cfg, field) == getattr(ref, field), field
+    if want is ValueError:
+        with pytest.raises(ValueError) as jexc:
+            jax_sync(ref)
+        with pytest.raises(ValueError) as pexc:
+            get_sync_algorithm(cfg)
+        assert str(pexc.value) == str(jexc.value)
+        return
+    algo = get_sync_algorithm(cfg)
+    assert isinstance(algo, want)
+    assert structure(algo) == structure(jax_sync(ref))
+    if cfg.enable_dgt:
+        dc = algo.dc_compressor
+        assert isinstance(dc, DGTCompressor)
+        assert dc.block_elems == max(1, cfg.dgt_block_size // 4)
+        assert (dc.k, dc.flush_every) == (cfg.dgt_k, cfg.udp_channel_num)
 
 
 @pytest.mark.parametrize("var,value", [(None, None)] + DEFAULTS)

@@ -123,7 +123,11 @@ def test_fsa_buckets_the_dc_tier_by_default(monkeypatch):
     off = get_sync_algorithm(GeoConfig(compression="bsc,0.01",
                                        bucket_bytes=0))
     assert isinstance(off.dc_compressor, BiSparseCompressor)
-    with pytest.raises(NotImplementedError):
-        get_sync_algorithm(GeoConfig(sync_mode="hfa"))
+    # HFA is ported and gets the same bucketed dc-tier default
+    hfa = get_sync_algorithm(GeoConfig(sync_mode="hfa"))
+    assert type(hfa).__name__ == "HFA"
+    assert isinstance(hfa.dc_compressor, BucketedCompressor)
+    with pytest.raises(ValueError, match="Unknown sync mode"):
+        get_sync_algorithm(GeoConfig(sync_mode="esync"))
     with pytest.raises(NotImplementedError):
         sync.bind_membership((True, False))

@@ -6,7 +6,10 @@ on the CPU (a script, not a pytest module: a full-width run takes minutes).
 Both packages train one path of chip_smoke.py — by default the flagship
 configuration: ResNet-20 on HiPS [2, 4], FSA with bucketed "bsc,0.01"
 (sampled selection), sgd(0.1, momentum=0.9); --path sparse_agg runs
-[4, 2] with the owner-routed merge — on the synthetic CIFAR-shaped
+[4, 2] with the owner-routed merge; mixed_dcasgd MixedSync with DCASGD
+(pull every 2 steps) and the fused Adam(0.01); hfa_dgt HFA (K1 4, K2
+2) over DGT (k 0.8, 3 channels) with Adam(0.01); pipelined_fsa the
+flagship with GEOMX_PIPELINE_DEPTH=1 — on the synthetic CIFAR-shaped
 set, from the same flax
 initial weights and the same batches (the port starts from the converted
 JAX weights; its loader yields the JAX loader's bytes).  --path seq_ring
@@ -54,26 +57,43 @@ from geomx_tpu_torch.optim import adam, sgd  # noqa: E402
 from geomx_tpu_torch.sync import FSA  # noqa: E402
 from geomx_tpu_torch.train import Trainer  # noqa: E402
 
-# path -> (compression, fused, JAX optimizer, port optimizer, [P, W])
+# path -> (compression, fused, JAX optimizer, port optimizer, [P, W],
+# the GeoConfig overrides of chip_smoke.py's PATHS)
 PATHS = {
     "flagship": ("bsc,0.01,select=sampled", False,
                  lambda: optax.sgd(0.1, momentum=0.9),
-                 lambda: sgd(0.1, momentum=0.9), (2, 4)),
+                 lambda: sgd(0.1, momentum=0.9), (2, 4), {}),
     "fused_sgd": ("bsc,0.01,select=sampled", True,
                   lambda: optim_pallas.fused_optimizer(
                       "sgd", learning_rate=0.1, momentum=0.9),
                   lambda: optim.fused_optimizer(
-                      "sgd", learning_rate=0.1, momentum=0.9), (2, 4)),
+                      "sgd", learning_rate=0.1, momentum=0.9), (2, 4), {}),
     "twobit_adam": ("2bit,0.5", True,
                     lambda: optim_pallas.fused_optimizer(
                         "adam", learning_rate=0.01),
                     lambda: optim.fused_optimizer(
-                        "adam", learning_rate=0.01), (2, 4)),
+                        "adam", learning_rate=0.01), (2, 4), {}),
     "sparse_agg": ("bsc,0.01,select=sampled,sparse_agg=1", True,
                    lambda: optim_pallas.fused_optimizer(
                        "sgd", learning_rate=0.1, momentum=0.9),
                    lambda: optim.fused_optimizer(
-                       "sgd", learning_rate=0.1, momentum=0.9), (4, 2)),
+                       "sgd", learning_rate=0.1, momentum=0.9), (4, 2), {}),
+    "mixed_dcasgd": ("bsc,0.01,select=sampled", True,
+                     lambda: optim_pallas.fused_optimizer(
+                         "adam", learning_rate=0.01),
+                     lambda: optim.fused_optimizer(
+                         "adam", learning_rate=0.01), (2, 4),
+                     dict(sync_mode="mixed", dcasgd=True,
+                          dcasgd_lambda=0.04, mixed_pull_interval=2)),
+    "hfa_dgt": ("bsc,0.01,select=sampled", False,
+                lambda: optax.adam(0.01), lambda: adam(0.01), (2, 4),
+                dict(sync_mode="hfa", hfa_k1=4, hfa_k2=2, enable_dgt=2,
+                     dgt_k=0.8, udp_channel_num=3, dgt_block_size=4096,
+                     dgt_contri_alpha=0.3)),
+    "pipelined_fsa": ("bsc,0.01,select=sampled", False,
+                      lambda: optax.sgd(0.1, momentum=0.9),
+                      lambda: sgd(0.1, momentum=0.9), (2, 4),
+                      dict(pipeline_depth=1)),
 }
 
 
@@ -130,9 +150,9 @@ def main(argv=None) -> int:
         else (jnp.float32, torch.float32)
     data = load_dataset("synthetic",
                         synthetic_train_n=8 * args.batch * args.steps)
-    spec, fused, jax_tx, port_tx, (P, W) = PATHS[args.path]
+    spec, fused, jax_tx, port_tx, (P, W), extra = PATHS[args.path]
     cfg = dict(num_parties=P, workers_per_party=W, compression=spec,
-               precision="fp32", fused_optim=fused)
+               precision="fp32", fused_optim=fused, **extra)
 
     jt = JaxTrainer(FlaxResNet((3, 3, 3), (16, 32, 64), dtype=jdt),
                     JaxTopology(P, W), jax_tx(),

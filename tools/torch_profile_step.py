@@ -10,7 +10,9 @@ set; --path flagship: [2, 4], "bsc,0.01" with sgd(0.1, momentum=0.9),
 fused_sgd: the same with the fused optimizer apply, twobit_adam:
 [2, 4], "2bit,0.5" with the fused Adam(0.01), sparse_agg: [4, 2], the
 owner-routed "bsc,0.01,select=sampled,sparse_agg=1" with the fused
-SGD; seq_flash and seq_ring: chip_smoke.py's attention paths, the
+SGD; mixed_dcasgd, hfa_dgt and pipelined_fsa: chip_smoke.py's MixedSync
+with DCASGD, HFA over DGT and pipelined FSA paths; seq_flash and
+seq_ring: chip_smoke.py's attention paths, the
 SeqClassifier on the needle task, --batch sequences a replica, 16 by
 default) for three warm-up steps, times --steps steps
 with the host clock (ending in a synchronize), then runs --steps more
@@ -41,7 +43,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 SPANS = ("train/forward_backward", "attention/forward",
          "attention/backward", "train/sync_grads", "bucket/flatten",
-         "dc_allreduce/bucket0", "bsc/threshold", "bsc/select_pack",
+         "dc_allreduce/bucket0", "dc_pipeline/launch", "dc_pipeline/apply",
+         "bsc/threshold", "bsc/select_pack",
          "sparseagg/route", "sparseagg/merge", "sparseagg/reselect",
          "bsc/scatter_add", "twobit/quantize", "twobit/dequantize",
          "bucket/unflatten", "train/optimizer", "train/sync_model_state")
@@ -66,7 +69,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", default="flagship",
                     choices=("flagship", "fused_sgd", "twobit_adam",
-                             "sparse_agg", "seq_flash", "seq_ring"))
+                             "sparse_agg", "mixed_dcasgd", "hfa_dgt",
+                             "pipelined_fsa", "seq_flash", "seq_ring"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=None,
                     help="images (sequences) a replica a step: 128 (16)")
