@@ -37,13 +37,21 @@ Every phase's failure is fatal (non-zero exit, no result line):
               route (seq_flash's [16, 4096, 4] and seq_ring's hop [32,
               128, 4]): the fp32 gates, two calls the same bits, times,
               attn_bound() and scaled_dot_product_attention's time;
+   shards  -- kernels 3-6 at the sharded paths' shapes (shard_phase()):
+              ZeRO's [2, 4, 68,224] bucket shards, MultiGPS's per-leaf
+              shards of 576 to 9,216 elements, the operands as the
+              collectives' broadcast and transposed views; bit-equal, with
+              times at the ZeRO shape;
 4. reference -- two fp32 training steps on the card and on the CPU (plain
               versions) from the same weights and batches: a small ResNet
               for each path's configuration (HFA at K1 1, K2 2, so that
               both tiers fire) and four more compressors
               (REFERENCE_ONLY: exact BSC, the fp16 and 2-bit lattices,
-              MPQ), losses to rtol 1e-4, parameters to atol 2e-3 (TF32
-              off); the SeqClassifier at L = 256 un-meshed, ring and
+              MPQ; MixedSync with DCASGD under ZeRO with the fused
+              SGD-momentum over the shards; ZeRO over the dense dc tier),
+              losses to rtol 1e-4, parameters to atol 2e-3 (TF32
+              off); zero_dense's three steps within 1e-6 of the
+              replicated update's on the card; the SeqClassifier at L = 256 un-meshed, ring and
               Ulysses on [2, 2] x sp 2 (SEQ_REFERENCE), losses to rtol
               1e-4, parameters to atol 4e-3;
 5. paths   -- ResNet-20 at its default bf16 compute through Trainer, FSA
@@ -70,7 +78,22 @@ Every phase's failure is fatal (non-zero exit, no result line):
                                "bsc,0.01" inside, adam(0.01), 16 steps;
               pipelined_fsa    path 1 with GEOMX_PIPELINE_DEPTH=1, 16 steps,
                                then Trainer.drain_pipeline: one apply of
-                               the parked aggregate, the CPU's bits.
+                               the parked aggregate, the CPU's bits;
+              zero_sgd         path 1 with GEOMX_ZERO=1: the update on
+                               [2, 4, 68,224] bucket shards, 16 steps;
+              zero_pipelined_adam  ZeRO with fused_optimizer("adam",
+                               0.01) over the shards and
+                               GEOMX_PIPELINE_DEPTH=1, 16 steps, then the
+                               drain: one apply_shard_update of the parked
+                               shard aggregates, the CPU's bits;
+              multigps_bsc     path 1 with GEOMX_MULTI_GPS=1,
+                               bigarray_bound 1,000: 19 leaves as worker
+                               shards, BSC per leaf, 16 steps.
+              The sharded paths also check their optimizer state
+              shard-shaped, the same in every party and distinct across
+              workers, the dc-tier state shard-shaped, and print the
+              per-slot bytes of that state and the dc wire bytes against
+              the replicated twin's (SHARDED_TWIN).
               Each checks a finite loss, identical replicas (HFA: the 16
               steps end on a global sync) and every kernel of its
               configuration launched, and that the loss falls from the
@@ -179,7 +202,30 @@ PATHS = {
     # after the run
     "pipelined_fsa": (("sgd", 0.1), "bsc,0.01", False, 16, SLICE1, (2, 4),
                       dict(pipeline_depth=1)),
+    # bench.py --compare-zero's ZeRO run (GEOMX_ZERO=1): each worker
+    # updates one 68,224-element shard of the 272,896-element bucket
+    # (pad_to 512) and the dc tier's BSC runs on the shards
+    "zero_sgd": (("sgd", 0.1), "bsc,0.01", False, 16, SLICE1, (2, 4),
+                 dict(zero=True)),
+    # ZeRO with the fused Adam over the shards and the pipelined dc tier;
+    # Trainer.drain_pipeline after the run (the JAX package's ZeRO drain
+    # runs the fused apply too)
+    "zero_pipelined_adam": (("adam", 0.01), "bsc,0.01", True, 16,
+                            SLICE1 + ("fused_adam",), (2, 4),
+                            dict(zero=True, pipeline_depth=1)),
+    # scripts/tpu/run_multi_gps.sh (GEOMX_MULTI_GPS=1,
+    # GEOMX_BIGARRAY_BOUND=1000) with the bsc dc tier: 19 of ResNet-20's
+    # 65 leaves update as worker shards; the bucket is unwrapped, so BSC
+    # runs per leaf where a leaf (or shard) has 1,024 elements or more
+    "multigps_bsc": (("sgd", 0.1), "bsc,0.01", False, 16,
+                     ("bsc_select_pack", "bsc_scatter_add"), (2, 4),
+                     dict(multi_gps=True, bigarray_bound=1000)),
 }
+# the sharded paths and the GeoConfig fields of their replicated twins,
+# whose per-slot state and wire bytes they are held against
+SHARDED_TWIN = {"zero_sgd": dict(zero=False),
+                "zero_pipelined_adam": dict(zero=False),
+                "multigps_bsc": dict(multi_gps=False)}
 # the reference phase's two steps: HFA's periods such that both tiers fire
 REFERENCE_FIELDS = {"hfa_dgt": dict(hfa_k1=1, hfa_k2=2)}
 # configurations the reference phase checks beside PATHS: the compressors
@@ -193,6 +239,15 @@ REFERENCE_ONLY = {
                        (), (4, 2), {}),
     # the small ResNet's one bucket is below 200k elements: fp16 gather
     "mpq": (("sgd", 0.1), "mpq,0.01", False, None, (), (2, 4), {}),
+    # MixedSync with DCASGD under ZeRO: the shard-wise DCASGD term and
+    # the fused SGD-momentum (kernel 5) over the shards
+    "zero_mixed_dcasgd": (("sgd", 0.1), "bsc,0.01", True, None, (), (2, 4),
+                          dict(zero=True, sync_mode="mixed", dcasgd=True,
+                               dcasgd_lambda=0.04, mixed_pull_interval=2)),
+    # ZeRO over the uncompressed dc tier: the replicated update's params
+    # (zero_identity(); tests/test_zero.py:93-100)
+    "zero_dense": (("sgd", 0.1), "none", False, None, (), (2, 4),
+                   dict(zero=True)),
 }
 # the attention paths, examples/long_context.py's SeqClassifier (vocab 256,
 # dim 64, 4 heads, 2 layers, 10 classes) under adam(1e-3) and FSA with the
@@ -577,6 +632,107 @@ def timer_floors(torch, dev, timer=None) -> dict:
     return dict(launch_ms=timer(lambda: tiny.fill_(1.0)),
                 copy_ms=timer(lambda: dst.copy_(src)),
                 copy_bytes=2 * src.numel() * 4)
+
+
+def shard_phase(torch, dev, timer=None) -> dict:
+    """Kernels 3-6 at the sharded paths' shapes, bit-equal to their plain
+    versions: select/pack and the scatter-add on zero_sgd's [2, 4, 68,224]
+    bucket shards (k = 683) and on multigps_bsc's per-leaf shards of
+    ceil(n / 4) = 576 to 9,216 elements (two parties' pairs gathered);
+    select/pack's g as a broadcast view over the workers and as a
+    transposed view, the scatter-add's pairs as the tiled all-gather's
+    broadcast view (four runs); the fused SGD-momentum and Adam over
+    [2, 4, 68,224].  Times and bounds at the ZeRO shard shape."""
+    timer = timer or (lambda fn: device_ms(torch, fn))
+    from geomx_tpu_torch.compression import BiSparseCompressor
+    from geomx_tpu_torch.ops import bsc, optim
+    from geomx_tpu_torch.optim.adam import bias_corrections
+    from geomx_tpu_torch.parallel.collectives import (all_gather,
+                                                      all_gather_dc)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    comp = BiSparseCompressor(0.01)
+    out = {}
+
+    def rows(n, *scales, lead=(2, 4)):
+        return [torch.randn(lead + (n,), generator=gen, device=dev) * s
+                for s in scales]
+
+    for n in (68_224, 576, 1_152, 2_304, 4_608, 9_216):
+        k = comp.k_for(n)
+        g, u, v = rows(n, 1.0, 0.1, 0.2)
+        thr = bsc.sampled_boundary_guv(g, u, v, k)
+        sel = bsc.select_pack(g, u, v, thr, k)
+        max_err(torch, sel, bsc.select_pack_plain(g, u, v, thr, k))
+        vals = all_gather_dc(sel[0]).reshape(2, 4, -1)
+        idx = all_gather_dc(sel[1]).reshape(2, 4, -1)
+        max_err(torch, [bsc.scatter_add(vals, idx, n, run=k)],
+                [bsc.scatter_add_plain(vals, idx, n, k)])
+        rec = dict(n=n, k=k)
+        if n == 68_224:
+            rec.update(
+                select_pack_ms=timer(lambda: bsc.select_pack(g, u, v, thr,
+                                                             k)),
+                select_pack_bound_ms=bound_ms(8 * (5 * n * 4 + k * 8)
+                                              + 8 * 4),
+                scatter_add_ms=timer(lambda: bsc.scatter_add(vals, idx, n,
+                                                             run=k)),
+                scatter_add_bound_ms=bound_ms(vals.numel() * 8
+                                              + 8 * n * 4))
+        out[f"bsc_{n}"] = rec
+        log(f"  shard n={n} k={k}: select/pack and scatter-add bit-equal"
+            + (f"; select/pack {rec['select_pack_ms'] * 1e3:.1f} us "
+               f"(bound {rec['select_pack_bound_ms'] * 1e3:.2f}), "
+               f"scatter-add {rec['scatter_add_ms'] * 1e3:.1f} us (bound "
+               f"{rec['scatter_add_bound_ms'] * 1e3:.2f})"
+               if "select_pack_ms" in rec else ""))
+
+    n = 68_224
+    k = comp.k_for(n)
+    u, v = rows(n, 0.1, 0.2)
+    for name, g in (
+            ("broadcast over the workers",
+             rows(n, 1.0, lead=(2, 1))[0].expand(2, 4, n)),
+            ("transposed", rows(n, 1.0, lead=(4, 2))[0].transpose(0, 1))):
+        thr = bsc.sampled_boundary_guv(g, u, v, k)
+        sel = bsc.select_pack(g, u, v, thr, k)
+        max_err(torch, sel, bsc.select_pack_plain(g.contiguous(), u, v,
+                                                  thr, k))
+        log(f"  shard select/pack on a {name} view: bit-equal")
+    vals = all_gather(sel[0], "worker", tiled=True)
+    idx = all_gather(sel[1], "worker", tiled=True)
+    if vals.stride(1) != 0:
+        raise AssertionError("the tiled all-gather is not a broadcast view")
+    max_err(torch, [bsc.scatter_add(vals, idx, n, run=k)],
+            [bsc.scatter_add_plain(vals.contiguous(), idx.contiguous(), n,
+                                   k)])
+    log("  shard scatter-add of the tiled all-gather's broadcast view (four "
+        "runs): bit-equal")
+
+    p, g, m, v = rows(n, 1.0, 1e-2, 1e-2, 1e-2)
+    v = v.square()
+    kw = dict(lr=0.1, momentum=0.9)
+    bc1, bc2 = bias_corrections(0.9, 0.999, 7)
+    akw = dict(lr=0.01, b1=0.9, b2=0.999, eps=1e-8)
+    max_err(torch, optim.fused_sgd_momentum(p, g, m, **kw),
+            optim.sgd_momentum_ref(p, g, m, **kw))
+    max_err(torch, optim.fused_adam(p, g, m, v, bc1, bc2, **akw),
+            optim.adam_ref(p, g, m, v, bc1, bc2, **akw))
+    elems = 8 * n
+    out["optim_68224"] = dict(
+        fused_sgd_momentum_ms=timer(lambda: optim.fused_sgd_momentum(
+            p, g, m, **kw)),
+        fused_sgd_momentum_bound_ms=bound_ms(elems * 20),
+        fused_adam_ms=timer(lambda: optim.fused_adam(p, g, m, v, bc1, bc2,
+                                                     **akw)),
+        fused_adam_bound_ms=bound_ms(elems * 28))
+    r = out["optim_68224"]
+    log(f"  shard fused SGD-momentum and Adam over [2, 4, {n}]: bit-equal; "
+        f"{r['fused_sgd_momentum_ms'] * 1e3:.1f} us (bound "
+        f"{r['fused_sgd_momentum_bound_ms'] * 1e3:.2f}), "
+        f"{r['fused_adam_ms'] * 1e3:.1f} us (bound "
+        f"{r['fused_adam_bound_ms'] * 1e3:.2f})")
+    return out
 
 
 def optim_kernels(torch, dev, timer, gen, shape):
@@ -1270,6 +1426,164 @@ def reference_phase(torch):
             f"diff {worst:.3g}")
 
 
+def zero_identity(torch) -> float:
+    """zero_dense's three fp32 steps on the card against the replicated
+    update's from the same weights and batches (the uncompressed dc
+    tier): the params within 1e-6 (tests/test_zero.py:93-100).  Returns
+    the largest difference."""
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import ResNet
+
+    data = load_dataset("synthetic", synthetic_train_n=512)
+    x = data["train_x"][:, :16, :16]
+    params = []
+    for zero in (True, False):
+        t = make_trainer("zero_dense", ResNet((1, 1, 1), (8, 16, 32),
+                                              dtype=torch.float32),
+                         device="cuda", precision="fp32", zero=zero)
+        st = t.init_state(seed=0)
+        for i, (xb, yb) in enumerate(t.make_loader(x, data["train_y"],
+                                                   8).epoch(0)):
+            if i == 3:
+                break
+            st, _ = t.train_step(st, xb, yb)
+        params.append(st.params)
+    worst = max((params[0][k] - params[1][k]).abs().max().item()
+                for k in params[0])
+    if not worst <= 1e-6:
+        raise AssertionError(f"zero_dense: the ZeRO params differ from the "
+                             f"replicated update's by {worst}")
+    log(f"reference zero_dense: 3 steps on the card, ZeRO vs the replicated "
+        f"update max param diff {worst:.3g} (limit 1e-6)")
+    return worst
+
+
+def state_bytes(torch, tree) -> int:
+    """Bytes of the tensors of a state tree (dicts, lists, tuples)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(state_bytes(torch, v) for v in tree)
+    return 0
+
+
+def tensors(torch, tree, path=""):
+    """(path, tensor) pairs of a state tree."""
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tensors(torch, v, f"{path}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tensors(torch, v, f"{path}[{i}]")]
+    return []
+
+
+def dc_tier(sync):
+    """A sync algorithm's dc-tier compressor, and its dc state's key
+    path (a pipelined sync's lives under its inner algorithm)."""
+    if hasattr(sync, "dc_compressor"):
+        return sync.dc_compressor, ("dc_comp",)
+    return sync.inner.dc_compressor, ("inner", "dc_comp")
+
+
+def sharded_checks(torch, path: str, trainer, state, res: dict) -> None:
+    """A sharded path after its run.  The optimizer state of a shard
+    ([P, W, s]) is the same in every party and differs across the
+    workers, by design (a replicated leaf's, under MultiGPS, is the same
+    in every slot); the dc-tier state is shard-shaped (each party keeps
+    its own residuals, so it is not compared across parties).  Then the
+    per-slot bytes of the optimizer plus dc-tier state and the computed
+    dc wire bytes a slot, against the replicated twin (SHARDED_TWIN) on
+    the same weights."""
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.tree import leaf_names
+
+    P, W = trainer.topology.replica_shape
+    zplan, mgps = trainer._zero_plan, trainer._mgps
+    names = list(state.params)
+    sizes = {k: state.params[k][0, 0].numel() for k in names}
+    if zplan is not None:
+        bk = zplan.bucketed.zero_bucketer([state.params[k] for k in
+                                           leaf_names(state.params)])
+        shard_lens = {n // W for n in bk.bucket_sizes}
+    else:
+        shard_lens = {mgps.shard_len(n) for n in sizes.values()
+                      if mgps.is_big(n)}
+
+    def big(name):
+        """Whether a state tensor at ``name`` belongs to a sharded leaf
+        (every tensor under ZeRO; a big leaf's under MultiGPS)."""
+        if zplan is not None:
+            return True
+        base = name.split("[")[0]
+        leaf = next(k for k in names if base.endswith("." + k))
+        return mgps.is_big(sizes[leaf])
+
+    n_sharded = 0
+    for name, t in tensors(torch, state.opt_state):
+        if not big(name):
+            if not torch.equal(t, t[:1, :1].expand_as(t)):
+                raise AssertionError(f"{path}: replicated optimizer state "
+                                     f"{name} diverged across slots")
+            continue
+        if t.shape[:2] != (P, W) or t.shape[2] not in shard_lens:
+            raise AssertionError(f"{path}: optimizer state {name} "
+                                 f"{tuple(t.shape)} is not shard-shaped")
+        if not torch.equal(t, t[:1].expand_as(t)):
+            raise AssertionError(f"{path}: optimizer shard {name} differs "
+                                 "across parties")
+        if torch.equal(t[:, 0], t[:, 1]):
+            raise AssertionError(f"{path}: optimizer shard {name} is the "
+                                 "same on workers 0 and 1")
+        n_sharded += 1
+    if not n_sharded:
+        raise AssertionError(f"{path}: no sharded optimizer state")
+    _, key = dc_tier(trainer.sync)
+    dc_state = state.sync_state
+    for k in key:
+        dc_state = dc_state[k]
+    for name, t in tensors(torch, dc_state):
+        if big(name):
+            if t.shape[2] not in shard_lens:
+                raise AssertionError(f"{path}: dc-tier state {name} "
+                                     f"{tuple(t.shape)} is not "
+                                     "shard-shaped")
+
+    twin = make_trainer(path, get_model("resnet20"), device=trainer.device,
+                        **SHARDED_TWIN[path])
+    tstate = twin.init_state(seed=0)
+    _, tkey = dc_tier(twin.sync)
+    tdc = tstate.sync_state
+    for k in tkey:
+        tdc = tdc[k]
+    slot = {"sharded": (state_bytes(torch, state.opt_state)
+                        + state_bytes(torch, dc_state)) / (P * W),
+            "replicated": (state_bytes(torch, tstate.opt_state)
+                           + state_bytes(torch, tdc)) / (P * W)}
+    twin_dc, _ = dc_tier(twin.sync)
+    if zplan is not None:
+        wire = zplan.bucketed.shard_wire_bytes(state.params, W)
+    else:
+        wire = trainer.sync.dc_compressor.wire_bytes(
+            mgps.mixed_example(state.params))
+    res.update(slot_state_bytes=slot,
+               slot_state_ratio=slot["sharded"] / slot["replicated"],
+               dc_wire_bytes_per_slot=wire,
+               dc_wire_bytes_replicated=twin_dc.wire_bytes(tstate.params),
+               sharded_optimizer_tensors=n_sharded)
+    del twin, tstate, tdc
+    log(f"path {path}: optimizer + dc-tier state a slot "
+        f"{slot['sharded']:.0f} B sharded vs {slot['replicated']:.0f} B "
+        f"replicated (ratio {res['slot_state_ratio']:.4f}); dc wire bytes a "
+        f"slot {wire} vs {res['dc_wire_bytes_replicated']} replicated "
+        f"(computed); {n_sharded} sharded optimizer tensors, each the same "
+        "in both parties and distinct across workers")
+
+
 def code_density(torch, words, n: int) -> float:
     """Share of non-zero 2-bit codes among the ``n`` elements of each
     ``[..., words]`` part (padding codes are zero)."""
@@ -1292,7 +1606,8 @@ def to_device(torch, obj, device):
 def drain_check(torch, path: str, trainer, state, res: dict):
     """A pipelined path after its run: ``Trainer.drain_pipeline`` moves
     the params by exactly one optimizer apply of the parked aggregate
-    (the in-flight buckets unflattened and divided by P), lands the
+    (the in-flight buckets unflattened and divided by P; under ZeRO the
+    in-flight shards divided by P through ``apply_shard_update``), lands the
     parked BatchNorm statistics, zeroes the buffer, and gives the bits
     the same drain of the same state gives on the CPU.  Returns the
     drained state."""
@@ -1303,11 +1618,18 @@ def drain_check(torch, path: str, trainer, state, res: dict):
 
     names = leaf_names(state.params)
     inflight = state.sync_state["inner"]["dc_comp"]["inflight"]
-    bk = trainer.sync.inner.dc_compressor.inner._bucketer(
-        [state.params[k] for k in names])
     P = trainer.topology.num_parties
-    g = {k: v / P for k, v in zip(names, bk.unflatten(inflight))}
-    want, _ = trainer.tx.update(g, state.opt_state, state.params)
+    if trainer._zero_plan is not None:
+        # ZeRO: the parked [P, W, n/W] shard aggregates through the one
+        # shard-update path (the fused kernels when bound)
+        want, _ = trainer._zero_plan.apply_shard_update(
+            trainer.tx, [b / P for b in inflight], state.params,
+            state.opt_state)
+    else:
+        bk = trainer.sync.inner.dc_compressor.inner._bucketer(
+            [state.params[k] for k in names])
+        g = {k: v / P for k, v in zip(names, bk.unflatten(inflight))}
+        want, _ = trainer.tx.update(g, state.opt_state, state.params)
     drained = trainer.drain_pipeline(state)
     for k in names:
         if not torch.equal(drained.params[k], want[k]):
@@ -1390,7 +1712,9 @@ def main_path_phase(torch, path: str, steps: int, device=None,
     # The JAX package's 16 fp32 steps of the three sync paths fall too
     # (tests/torch_jax_trajectory.py --batch 128 --steps 16, mean of steps
     # 1-8 -> 9-16): mixed_dcasgd 2.2702 -> 1.9595, hfa_dgt 2.0416 ->
-    # 1.3433, pipelined_fsa 2.3837 -> 2.2991.
+    # 1.3433, pipelined_fsa 2.3837 -> 2.2991; and of the sharded paths:
+    # zero_sgd 2.3329 -> 2.2110, zero_pipelined_adam 2.3137 -> 2.0533,
+    # multigps_bsc 2.3326 -> 2.2185.
     first, second = losses[:8], losses[8:16]
     if len(second) < 8 or not statistics.mean(second) < statistics.mean(first):
         raise AssertionError(f"{path}: loss did not fall: {losses}")
@@ -1411,7 +1735,11 @@ def main_path_phase(torch, path: str, steps: int, device=None,
                              f"({launches})")
     res = dict(steps=len(losses), samples_per_step=8 * batch, losses=losses,
                loss_first=losses[0], loss_last=losses[-1],
-               launches=launches)
+               launches=launches,
+               launches_per_step={name: n / len(losses)
+                                  for name, n in launches.items() if n})
+    if path in SHARDED_TWIN:
+        sharded_checks(torch, path, trainer, state, res)
     if hasattr(sync, "drain_grads"):
         state = drain_check(torch, path, trainer, state, res)
     last = getattr(comp, "last_wire", None)
@@ -1454,7 +1782,9 @@ def main_path_phase(torch, path: str, steps: int, device=None,
            f"{[f'{d:.3g}' for d in res['wire_code_density_per_step']]}) "
            f"of {res['wire_words_per_party']} words a party"
            if "wire_code_density" in res else "")
-        + f", launches {launches}")
+        + f", launches {launches}"
+        + (f" ({res['launches_per_step']} a step)"
+           if path in SHARDED_TWIN else ""))
     return res
 
 
@@ -1561,6 +1891,7 @@ def main(argv=None) -> int:
     kern = kernel_phase(torch, torch.device("cuda"))
     kern.update(attention_kernels(torch, torch.device("cuda")))
     wide = head_dim_phase(torch, torch.device("cuda"))
+    shards = shard_phase(torch, torch.device("cuda"))
     floors = timer_floors(torch, torch.device("cuda"))
     log(f"timer floors: a 4-byte fill {floors['launch_ms'] * 1e3:.1f} us; a "
         f"device copy of {floors['copy_bytes'] / 1e6:.1f} MB (in and out) "
@@ -1585,6 +1916,7 @@ def main(argv=None) -> int:
                f"(plain {r['plain_wrapper_ms'] * 1e3:.1f} us)"
                if "wrapper_ms" in r else ""))
     reference_phase(torch)
+    zero_diff = zero_identity(torch)
     seq_reference_phase(torch)
     paths = {path: main_path_phase(torch, path, steps or args.steps)
              for path, (_, _, _, steps, _, _, _) in PATHS.items()}
@@ -1609,6 +1941,8 @@ def main(argv=None) -> int:
             json.dump({"card": card, "build_s": _build.build_seconds,
                        "kernels": kernels, "kernel_phase": kern,
                        "head_dim_phase": wide, "timer_floors": floors,
+                       "shard_phase": shards,
+                       "zero_dense_max_param_diff": zero_diff,
                        "paths": paths,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s")

@@ -14,6 +14,12 @@ The copies run through ``ops.bucket`` (one CUDA kernel launch a
 direction on the card).  ``GEOMX_BUCKET_BYTES`` sets the capacity
 (default 4 MiB of fp32); ``GEOMX_BUCKET_BYTES=0`` restores the per-leaf
 path.
+
+The ZeRO shard view (``init_shard_state``, ``allreduce_shards``,
+``shard_wire_bytes``) runs the inner compressor on each replica's
+``1/W`` slice of every bucket; ``ZeroPlan.bind_compressor``
+(``train/zero.py``) re-aligns ``pad_to`` so the buckets split into W
+shards and clears the cached layouts.
 """
 
 from __future__ import annotations
@@ -191,9 +197,64 @@ class BucketedCompressor(Compressor):
                       ) -> GradientBucketer:
         """The bucket layout of ``leaves`` (the same cache as the
         all-reduce's), exposed so the fused optimizer apply
-        (``train/step.py``) flattens params and grads onto the
-        coordinates the dc tier uses."""
+        (``train/step.py``) and the ZeRO path (``train/zero.py``) flatten
+        params and grads onto the coordinates the dc tier uses."""
         return self._bucketer(leaves)
+
+    # -- the ZeRO shard view (train/zero.py) ---------------------------------
+    def init_shard_state(self, grads: dict, num_shards: int) -> list:
+        """Per-bucket inner state sized for one contiguous ``1/W`` bucket
+        shard, ``[P, W, n / W]`` (the ZeRO form of :meth:`init_state`):
+        error-feedback residuals live shard-local, so their memory drops
+        by ``W`` as the optimizer's does.  Needs ``pad_to`` a multiple of
+        ``num_shards`` times the lane width (``ZeroPlan.bind_compressor``
+        sets it)."""
+        leaves = [grads[k] for k in leaf_names(grads)]
+        bk = self._bucketer(leaves)
+        for n in bk.bucket_sizes:
+            if n % num_shards:
+                raise ValueError(
+                    f"bucket of {n} elements does not split into "
+                    f"{num_shards} equal shards — the ZeRO path needs "
+                    "pad_to to be a multiple of num_shards*lane "
+                    "(ZeroPlan.bind_compressor sets this before the "
+                    "first trace)")
+        lead = tuple(leaves[0].shape[:REPLICA_DIMS])
+        return [self.inner.init_leaf_state(
+            torch.empty(lead + (n // num_shards,), dtype=torch.float32,
+                        device=leaves[0].device))
+            for n in bk.bucket_sizes]
+
+    def allreduce_shards(self, shards: Sequence[torch.Tensor], state: list,
+                         axis_name: str, axis_size: int,
+                         bk: GradientBucketer):
+        """One compressed collective per ``1/W`` bucket shard (the ZeRO
+        dc tier): each replica compresses and sends only its shard, so
+        the per-link payload drops by ``W``."""
+        if len(state) != bk.num_buckets:
+            raise ValueError(
+                f"sharded state has {len(state)} buckets but the layout "
+                f"needs {bk.num_buckets} — state was initialized from a "
+                "different tree (init_shard_state and allreduce_shards "
+                "must see the same pytree structure)")
+        out_shards, new_states = [], []
+        for i, (b, s) in enumerate(zip(shards, state)):
+            with record_function(f"{axis_name}_allreduce/bucket{i}_shard"):
+                ob, ns = self.inner.allreduce_leaf(b, s, axis_name,
+                                                   axis_size)
+            out_shards.append(ob)
+            new_states.append(ns)
+        return out_shards, new_states
+
+    def shard_wire_bytes(self, grads: dict, num_shards: int) -> int:
+        """A replica's dc-tier wire bytes on the ZeRO path: the inner
+        compressor's payload for each ``1/W`` bucket shard."""
+        names = leaf_names(grads)
+        if not names:
+            return 0
+        bk = self._bucketer([grads[k] for k in names])
+        return sum(self.inner.wire_bytes_leaf(_bucket_leaf(n // num_shards))
+                   for n in bk.bucket_sizes)
 
     def wire_bytes(self, grads: dict) -> int:
         """The inner compressor's bytes summed over the bucket sizes of

@@ -37,8 +37,6 @@ def _env_bool(names, default) -> bool:
 # field -> (its variables, the ROADMAP.md Queue 1 item that ports it);
 # each item removes its fields from here when it lands
 UNPORTED = {
-    "zero": ("GEOMX_ZERO", "Sharded updates"),
-    "multi_gps": ("GEOMX_MULTI_GPS", "Sharded updates"),
     "control": ("GEOMX_CONTROL", "Control"),
 }
 
@@ -96,10 +94,19 @@ class GeoConfig:
     adaptive_k: bool = False          # ADAPTIVE_K_FLAG (read, not acted on)
     udp_channel_num: int = 1          # DMLC_UDP_CHANNEL_NUM
 
-    # ---- read and refused unless at their defaults (UNPORTED): ZeRO,
-    # MultiGPS and the control plane
+    # ---- the ZeRO-sharded weight update over the dc tier's fused
+    # buckets (train/zero.py); needs bucketing and sync_mode fsa or mixed
+    # (pipelined composes)
     zero: bool = False
+
+    # ---- MultiGPS (parallel/multigps.py): leaves of at least
+    # bigarray_bound elements update as worker-axis shards (reference
+    # MXNET_KVSTORE_BIGARRAY_BOUND, src/kvstore/kvstore_dist.h:69)
+    bigarray_bound: int = 1_000_000
     multi_gps: bool = False
+
+    # ---- read and refused unless at its default (UNPORTED): the
+    # control plane
     control: bool = False
 
     def __post_init__(self):
@@ -145,6 +152,9 @@ class GeoConfig:
             udp_channel_num=_env(["GEOMX_UDP_CHANNEL_NUM",
                                   "DMLC_UDP_CHANNEL_NUM"], 1, int),
             zero=_env_bool(["GEOMX_ZERO"], False),
+            bigarray_bound=_env(
+                ["GEOMX_BIGARRAY_BOUND", "MXNET_KVSTORE_BIGARRAY_BOUND"],
+                1_000_000, int),
             multi_gps=_env_bool(["GEOMX_MULTI_GPS"], False),
             control=_env_bool(["GEOMX_CONTROL"], False),
         )

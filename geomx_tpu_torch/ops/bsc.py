@@ -83,8 +83,9 @@ def select_pack(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                 thr, k: int):
     """Fused momentum + boundary select + fixed-k pack + EF reset.
 
-    ``g``, ``u``, ``v``: fp32 ``[*B, n]``; ``thr``: the boundary, a
-    scalar or ``[*B]``; ``k``: the slots a row.  Returns ``(vals [*B,
+    ``g``, ``u``, ``v``: fp32 ``[*B, n]`` of any layout (copied to
+    dense rows when they are not); ``thr``: the boundary, a scalar or
+    ``[*B]``; ``k``: the slots a row.  Returns ``(vals [*B,
     k], idx [*B, k] int32, new_u [*B, n], new_v [*B, n])``."""
     _check_rows(g, u, v)
     k = int(k)
@@ -92,9 +93,9 @@ def select_pack(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         return select_pack_plain(g, u, v, thr, k)
     from geomx_tpu_torch.ops._build import kernels
     batch, n = tuple(g.shape[:-1]), g.shape[-1]
-    for t in (g, u, v):
-        if not t.is_contiguous():
-            raise ValueError("select_pack takes contiguous g, u, v")
+    # the kernel reads dense rows: a broadcast or gathered view (a
+    # collective's result) is copied first, as scatter_add copies
+    g, u, v = (t.contiguous() for t in (g, u, v))
     rows = math.prod(batch)
     thr = torch.as_tensor(thr, dtype=torch.float32, device=g.device)
     thr = thr.expand(batch).reshape(rows).contiguous()

@@ -70,17 +70,50 @@ def hier_pmean(x: torch.Tensor) -> torch.Tensor:
     return pmean_dc(pmean_worker(x))
 
 
-def all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+def psum_scatter(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Reduce-scatter over one replica axis (``lax.psum_scatter`` with
+    ``scatter_dimension=0, tiled=True``): ``x`` is ``[P, W, A * s]``
+    with ``A`` the axis size, and slot ``a`` of the axis receives the
+    sum over the axis of every replica's chunk ``a`` (of ``A`` along
+    the last dim), so the result is ``[P, W, s]``, contiguous.
+
+    The sum is ``torch.sum`` over the axis dim, the reduction
+    :func:`psum` runs, so on one device a slot's chunk holds the bits of
+    the same chunk of ``psum(x)``.  It is not the order the JAX
+    package's CPU reduction folds in: the two agree bit for bit only on
+    inputs whose partial sums are exact (the parity tests use signed
+    powers of two)."""
+    d = axis_dim(axis_name)
+    P, W = x.shape[:2]
+    A = x.shape[d]
+    if x.dim() != 3 or x.shape[-1] % A:
+        raise ValueError(f"psum_scatter takes [P, W, {A} * s] rows, got "
+                         f"{tuple(x.shape)}")
+    s = x.shape[-1] // A
+    if d == 1:
+        # out[p, w] = sum_q x[p, q, w*s:(w+1)*s]
+        return x.view(P, W, W, s).sum(dim=1)
+    # out[p, w] = sum_q x[q, w, p*s:(p+1)*s]
+    return x.view(P, W, P, s).sum(dim=0).transpose(0, 1).contiguous()
+
+
+def all_gather(x: torch.Tensor, axis_name: str,
+               tiled: bool = False) -> torch.Tensor:
     """Gather every replica's payload along one axis: ``x`` is
     ``[P, W, *s]``; replica ``(p, w)`` of the result holds the stack of
     the payloads along the axis, so the result is ``[P, W, A, *s]``
-    with ``A`` the axis size (``lax.all_gather`` with ``axis=0``)."""
+    with ``A`` the axis size (``lax.all_gather`` with ``axis=0``).
+    ``tiled``: the payloads are concatenated along their first dim
+    instead, ``[P, W, A * s0, *s[1:]]`` (``tiled=True``): the inverse of
+    :func:`psum_scatter`'s layout.  A view where it can be one."""
     P, W = x.shape[:2]
     if axis_dim(axis_name) == 0:
         # out[p, w, q] = x[q, w]
-        return x.transpose(0, 1).unsqueeze(0).expand(P, W, P, *x.shape[2:])
-    # out[p, w, q] = x[p, q]
-    return x.unsqueeze(1).expand(P, W, W, *x.shape[2:])
+        out = x.transpose(0, 1).unsqueeze(0).expand(P, W, P, *x.shape[2:])
+    else:
+        # out[p, w, q] = x[p, q]
+        out = x.unsqueeze(1).expand(P, W, W, *x.shape[2:])
+    return out.flatten(2, 3) if tiled else out
 
 
 def all_gather_dc(x: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,13 @@ steps (the asynchronous pull, a Python branch on the host step).  Each
 step the global update applies the mean of all parties'
 delay-compensated gradients.
 
-Not ported yet: ``sync_grad_shards`` (ZeRO, ROADMAP.md Queue 1 item 2),
-the degraded-membership mean and ``reset_comm_state`` (item 6),
-``telemetry_scalars`` (item 7).
+Under a bound ZeRO plan (``train/zero.py``) ``sync_grad_shards``
+scatters the bucketed party mean over the workers and computes the
+DCASGD term shard-wise against each worker's slice of the true and stale
+weights; the stale copy stays full and replicated (the forward runs at
+it).  Not ported yet: the degraded-membership mean and
+``reset_comm_state`` (ROADMAP.md Queue 1 item 6), ``telemetry_scalars``
+(item 7).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from geomx_tpu_torch.compression.bucketing import maybe_bucketed
 from geomx_tpu_torch.parallel.collectives import pmean
 from geomx_tpu_torch.sync.base import SyncAlgorithm
 from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
-from geomx_tpu_torch.tree import tree_map
+from geomx_tpu_torch.tree import leaf_names, tree_map
 
 
 def dcasgd_term(g: torch.Tensor, w: torch.Tensor, w_stale: torch.Tensor,
@@ -46,6 +50,7 @@ def dcasgd_term(g: torch.Tensor, w: torch.Tensor, w_stale: torch.Tensor,
 class MixedSync(SyncAlgorithm):
     name = "mixed"
     grads_replicated_after_sync = True  # hierarchical psum output
+    supports_zero = True  # bucket-shard form (train/zero.py)
 
     def __init__(self, dc_compressor: Optional[Compressor] = None,
                  pull_interval: int = 1, dcasgd_lambda: float = 0.0,
@@ -59,12 +64,19 @@ class MixedSync(SyncAlgorithm):
         self.pull_interval = int(pull_interval)
         self.dcasgd_lambda = float(dcasgd_lambda)
 
+    def _dc_init(self, params: dict) -> Any:
+        if self.zero_plan is not None:
+            return self.dc_compressor.init_shard_state(params,
+                                                       self.zero_plan.W)
+        return self.dc_compressor.init_state(params)
+
     def init_state(self, params: dict, model_state: Any = None) -> Any:
         # the stale copy is a clone: the JAX package stores the
         # (immutable) params arrays themselves, and a PyTorch caller's
-        # params may be written in place
+        # params may be written in place.  It stays full and replicated
+        # under ZeRO: the forward runs at it
         return {"stale": tree_map(torch.clone, params),
-                "dc_comp": self.dc_compressor.init_state(params)}
+                "dc_comp": self._dc_init(params)}
 
     def forward_params(self, params: dict, state: Any) -> dict:
         # parties train at their stale pull of the global weights
@@ -86,6 +98,31 @@ class MixedSync(SyncAlgorithm):
         if np_ > 1:  # single-party configs skip the dead g/1 divide
             grads = tree_map(lambda g: g / np_, grads)
         return grads, dict(state, dc_comp=dstate)
+
+    def sync_grad_shards(self, grads: dict, params: dict, state: Any,
+                         step: int) -> Tuple[list, Any]:
+        """The ZeRO form of :meth:`sync_grads`: the worker-tier
+        psum_scatter of the fused buckets, the DCASGD term computed
+        shard-wise against each worker's slice of the true and stale
+        weights (both replicated, so the slice is free), then the
+        per-shard compressed dc tier."""
+        plan = self.zero_plan
+        leaves = [grads[k] for k in leaf_names(grads)]
+        bk = self.dc_compressor.zero_bucketer(leaves)
+        shards = [plan.scatter_bucket(b, WORKER_AXIS)
+                  for b in bk.flatten(leaves)]
+        if self.dcasgd_lambda > 0.0:
+            lam = self.dcasgd_lambda
+            p_sh = plan.tree_shards(params, bk)
+            s_sh = plan.tree_shards(state["stale"], bk)
+            shards = [dcasgd_term(g, w, ws, lam)
+                      for g, w, ws in zip(shards, p_sh, s_sh)]
+        np_ = self.num_parties
+        shards, dstate = self.dc_compressor.allreduce_shards(
+            shards, state["dc_comp"], DC_AXIS, np_, bk)
+        if np_ > 1:
+            shards = [g / np_ for g in shards]
+        return shards, dict(state, dc_comp=dstate)
 
     def sync_params(self, params: dict, state: Any,
                     step: int) -> Tuple[dict, Any]:

@@ -30,11 +30,13 @@ stay, as ``record_function``.
 
 Composes with FSA and MixedSync by wrapping their dc-tier compressor;
 HFA is rejected (its global tier already fires off the critical path,
-and a stale milestone delta would corrupt the milestone algebra).  Not
-ported yet: the ZeRO shard forms (``init_shard_state``,
-``allreduce_shards``, ``sync_grad_shards``, ``drain_grad_shards``;
-ROADMAP.md Queue 1 item 2), ``reset_comm_state`` and membership (item
-6), ``telemetry_scalars``, ``wire_accounting`` and the in-flight byte
+and a stale milestone delta would corrupt the milestone algebra).  Under
+a bound ZeRO plan the in-flight buffers hold ``1/W`` bucket shards
+(``init_shard_state``, ``allreduce_shards``, ``peek_shards``) and the
+drain returns the parked shard aggregates (``drain_grad_shards``);
+``GEOMX_PIPELINE_DCASGD`` is rejected there.  Not ported yet:
+``reset_comm_state`` and membership (ROADMAP.md Queue 1 item 6),
+``telemetry_scalars``, ``wire_accounting`` and the in-flight byte
 counter (item 7).
 """
 
@@ -104,8 +106,44 @@ class PipelinedCompressor(Compressor):
             "PipelinedCompressor is tree-level (the in-flight buffer "
             "spans the whole gradient); per-leaf state is not supported")
 
+    def init_shard_state(self, grads: dict, num_shards: int) -> Any:
+        """ZeRO: the in-flight double buffer holds ``1/W`` bucket shards
+        ``[P, W, n / W]``, so the parked aggregate shrinks with the
+        worker axis as the optimizer state does."""
+        if not self._bucketed:
+            raise ValueError(
+                "GEOMX_ZERO requires the bucketed dc-tier engine under "
+                "the pipelined compressor (GEOMX_BUCKET_BYTES > 0)")
+        _, leaves = self._leaves(grads)
+        bk = self.inner._bucketer(leaves)
+        lead = tuple(leaves[0].shape[:2])
+        inflight = [torch.zeros(lead + (n // num_shards,),
+                                dtype=torch.float32, device=leaves[0].device)
+                    for n in bk.bucket_sizes]
+        return {"inflight": inflight,
+                "inner": self.inner.init_shard_state(grads, num_shards)}
+
     def zero_bucketer(self, leaves):
         return self.inner.zero_bucketer(leaves)
+
+    def allreduce_shards(self, shards, state: Any, axis_name: str,
+                         axis_size: int, bk) -> Tuple[list, Any]:
+        """The double-buffered ZeRO dc tier: launch this step's per-shard
+        compressed collectives and return the previous step's completed
+        shard aggregates."""
+        with record_function(f"{axis_name}_pipeline/launch"):
+            launched, inner_state = self.inner.allreduce_shards(
+                shards, state["inner"], axis_name, axis_size, bk)
+        with record_function(f"{axis_name}_pipeline/apply"):
+            out = list(state["inflight"])
+        return out, {"inflight": launched, "inner": inner_state}
+
+    def peek_shards(self, state: Any) -> Tuple[list, Any]:
+        """The completed in-flight shard aggregates, and the state with
+        the buffer zeroed: the ZeRO drain path."""
+        prev = state["inflight"]
+        zeroed = [torch.zeros_like(b) for b in prev]
+        return list(prev), dict(state, inflight=zeroed)
 
     def allreduce(self, grads: dict, state: Any, axis_name: str,
                   axis_size: int) -> Tuple[dict, Any]:
@@ -200,6 +238,48 @@ class PipelinedSync(SyncAlgorithm):
         super().bind_topology(topology)
         self.inner.bind_topology(topology)
         return self
+
+    # -- the ZeRO-sharded update (train/zero.py) ------------------------------
+    supports_zero = True
+
+    def bind_zero(self, plan) -> "PipelinedSync":
+        """Bind the ZeRO plan through to the wrapped algorithm, which
+        owns the shard-form sync; the pipelined compressor double-buffers
+        shard-sized aggregates.  A copy, as the base contract.  The
+        pipeline's DCASGD term is rejected: its previous-weights copy has
+        no shard-local form, and a full copy would forfeit the 1/W
+        memory the mode exists for."""
+        if self.dcasgd_lambda > 0.0:
+            raise ValueError(
+                "GEOMX_ZERO does not compose with GEOMX_PIPELINE_DCASGD: "
+                "the compensation's prev-params copy has no shard-local "
+                "form; disable one of the two")
+        bound = copy.copy(self)
+        bound.inner = self.inner.bind_zero(plan)
+        bound.zero_plan = plan
+        return bound
+
+    def sync_grad_shards(self, grads: dict, params: dict, state: Any,
+                         step: int) -> Tuple[list, Any]:
+        # the wrapped algorithm's shard-form sync over a pipelined dc
+        # tier: the shards are the previous step's aggregates, divided
+        shards, inner_state = self.inner.sync_grad_shards(
+            grads, params, state["inner"], step)
+        return shards, dict(state, inner=inner_state)
+
+    def drain_grad_shards(self, params: dict,
+                          state: Any) -> Tuple[list, Any]:
+        """The ZeRO drain: the completed in-flight shard aggregates,
+        divided as ``sync_grad_shards`` would have, with the buffer
+        zeroed.  No collectives; ``ZeroPlan.apply_shard_update`` then
+        runs the all_gather that rebuilds the params."""
+        comp = self.inner.dc_compressor
+        shards, dc_state = comp.peek_shards(state["inner"]["dc_comp"])
+        np_ = self.num_parties
+        if np_ > 1:
+            shards = [g / np_ for g in shards]
+        return shards, dict(state,
+                            inner=dict(state["inner"], dc_comp=dc_state))
 
     def init_state(self, params: dict, model_state: Any = None) -> Any:
         state = {"inner": self.inner.init_state(params)}

@@ -23,12 +23,23 @@ sp device — and the model runs them in one graph
 (``models/seq_classifier.py``), so its gradients are already the true
 ones: no psum over sp follows.
 
-Not ported yet: MultiGPS, ZeRO, telemetry probes and control operands.
+With ``GeoConfig(zero=True)`` (``train/zero.py``) the sync and the
+update fuse: ``sync.sync_grad_shards`` returns each worker's ``1/W``
+shard of every bucket, the optimizer (or the fused kernels) updates the
+shards, and one all-gather a bucket rebuilds the params.  With
+``GeoConfig(multi_gps=True)`` (``parallel/multigps.py``) the leaves of
+at least ``bigarray_bound`` elements take the same route one leaf at a
+time, and the dc tier runs per leaf on the mixed tree.  The composition
+checks raise or warn with the JAX package's types and messages.
+
+Not ported yet: telemetry probes and control operands.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import warnings
 from typing import Callable
 
 import torch
@@ -39,8 +50,9 @@ from torch.profiler import record_function
 from geomx_tpu_torch.compression.bucketing import BucketedCompressor
 from geomx_tpu_torch.ops.optim import (fused_apply, fused_optim_enabled,
                                        fused_spec_of)
+from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
 from geomx_tpu_torch.train.state import TrainState
-from geomx_tpu_torch.tree import leaf_names
+from geomx_tpu_torch.tree import leaf_names, tree_map
 
 
 def cross_entropy_loss(logits: torch.Tensor,
@@ -127,6 +139,82 @@ def _fused_spec(tx, config):
     return spec
 
 
+def _mgps_plan(sync, topology, config):
+    """The MultiGPS plan when ``config.multi_gps`` is set (else None),
+    after the JAX package's composition checks.  Unwraps a bucketed dc
+    tier of ``sync`` in place, as the JAX package does: MultiGPS keeps
+    per-leaf dc semantics."""
+    if config is None or not getattr(config, "multi_gps", False):
+        return None
+    from geomx_tpu_torch.compression.base import NoCompressor
+    from geomx_tpu_torch.parallel.multigps import MultiGPSPlan
+    from geomx_tpu_torch.sync.dgt import DGTCompressor
+    from geomx_tpu_torch.sync.fsa import FSA
+    from geomx_tpu_torch.sync.pipeline import PipelinedSync
+    if isinstance(sync, PipelinedSync):
+        # the sharded update needs this step's dc-tier result before the
+        # optimizer runs: no next-step slot to double-buffer into
+        raise ValueError(
+            "GEOMX_MULTI_GPS does not compose with "
+            "GEOMX_PIPELINE_DEPTH: the sharded update needs this "
+            "step's dc-tier result before the optimizer can run; "
+            "disable one of the two")
+    if not isinstance(sync, FSA):
+        raise ValueError(
+            "GEOMX_MULTI_GPS requires sync_mode=fsa: the ZeRO-1 "
+            "sharded update lives in gradient space; param-space "
+            f"algorithms ({sync.name}) do not compose with it")
+    mgps = MultiGPSPlan(config.bigarray_bound, topology.workers_per_party)
+    if isinstance(sync.dc_compressor, BucketedCompressor):
+        # big leaves cross the dc tier as shards and small ones
+        # replicated: fusing both into one bucket would pool their top-k
+        # budgets across layouts, so the dc tier runs per leaf
+        sync.dc_compressor = sync.dc_compressor.inner
+    if isinstance(sync.worker_compressor, DGTCompressor):
+        raise ValueError(
+            "GEOMX_MULTI_GPS does not compose with DGT as the "
+            "worker-tier compressor; configure DGT on the dc tier "
+            "(enable_dgt wraps the dc compressor)")
+    if not isinstance(sync.worker_compressor, NoCompressor):
+        warnings.warn(
+            "multi_gps: leaves >= bigarray_bound use the sharded "
+            "psum_scatter reduce and BYPASS the worker-tier "
+            f"compressor ({sync.worker_compressor.name}); it still "
+            "applies to smaller leaves", stacklevel=3)
+    return mgps
+
+
+def _bind_zero_plan(sync, topology, config):
+    """``(sync, plan)``: under ``config.zero``, ``sync`` bound to a
+    :class:`~geomx_tpu_torch.train.zero.ZeroPlan` (a copy; an already
+    bound sync keeps its plan) after the JAX package's checks; else
+    ``(sync, None)``."""
+    if config is None or not getattr(config, "zero", False):
+        return sync, None
+    from geomx_tpu_torch.compression.base import NoCompressor
+    from geomx_tpu_torch.train.zero import ZeroPlan
+    if getattr(config, "multi_gps", False):
+        raise ValueError(
+            "GEOMX_ZERO does not compose with GEOMX_MULTI_GPS: both "
+            "shard the weight update over the worker axis (ZeRO per "
+            "fused bucket, MultiGPS per big leaf); pick one")
+    zplan = getattr(sync, "zero_plan", None)
+    if zplan is None:
+        # rejects HFA and a dc tier without bucketing, and re-pads the
+        # buckets so each splits into W lane-aligned shards
+        zplan = ZeroPlan(topology.workers_per_party)
+        sync = sync.bind_zero(zplan)
+    wc = getattr(sync, "worker_compressor",
+                 getattr(getattr(sync, "inner", None), "worker_compressor",
+                         None))
+    if wc is not None and not isinstance(wc, NoCompressor):
+        warnings.warn(
+            "GEOMX_ZERO: the worker-tier reduce is the bucket "
+            "psum_scatter; the configured worker compressor "
+            f"({wc.name}) is bypassed", stacklevel=3)
+    return sync, zplan
+
+
 def sp_chunks(x: torch.Tensor, sp: int) -> torch.Tensor:
     """One replica's ``[b, L, ...]`` token batch as ``sp`` contiguous
     sequence chunks ``[sp, b, L/sp, ...]``."""
@@ -151,8 +239,111 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
     sync.bind_topology(topology)
     P, W = topology.replica_shape
     sp = getattr(topology, "sp_degree", 1) if sp_model else None
+    mgps = _mgps_plan(sync, topology, config)
+    sync, zplan = _bind_zero_plan(sync, topology, config)
     fopt_spec = _fused_spec(tx, config)
-    fopt_bucketer = fused_bucketer(sync) if fopt_spec is not None else None
+    fopt_bucketer = None
+    if fopt_spec is not None:
+        if mgps is not None:
+            raise ValueError(
+                "GEOMX_FUSED_OPTIM does not compose with GEOMX_MULTI_GPS: "
+                "the mixed shard/replicated per-leaf layout does not "
+                "flatten into uniform buckets; use GEOMX_ZERO for a "
+                "sharded fused update")
+        if zplan is None:
+            fopt_bucketer = fused_bucketer(sync)
+        else:
+            # the shard-local update runs the same kernels over the
+            # 1/W bucket shards
+            zplan.fused_spec = fopt_spec
+
+    def zero_sync_update(grads, params, opt_state, sync_state, step):
+        """ZeRO: the shard-form sync, the shard-local optimizer and the
+        all-gather of the params (train/zero.py)."""
+        with record_function("train/sync_grads"):
+            shard_g, sync_state = sync.sync_grad_shards(grads, params,
+                                                        sync_state, step)
+        with record_function("train/optimizer"):
+            params, opt_state = zplan.apply_shard_update(
+                tx, shard_g, params, opt_state, WORKER_AXIS)
+        return params, opt_state, sync_state
+
+    def mgps_sync_update(grads, params, opt_state, sync_state):
+        """MultiGPS: the hierarchical reduce with the big leaves
+        reduce-scattered over the workers, the optimizer on the mixed
+        tree, the big leaves all-gathered back."""
+        names = leaf_names(params)
+        sizes = [math.prod(params[k].shape[2:]) for k in names]
+        with record_function("train/sync_grads"):
+            mixed_g, new_ws = {}, {}
+            ws_all = sync_state["worker_comp"]
+            for k, n in zip(names, sizes):
+                if mgps.is_big(n):
+                    # the scatter is the worker-tier reduce
+                    mixed_g[k] = mgps.scatter_grad_leaf(grads[k], WORKER_AXIS)
+                    new_ws[k] = ws_all[k]
+                else:
+                    g, new_ws[k] = sync.worker_compressor.allreduce_leaf(
+                        grads[k], ws_all[k], WORKER_AXIS, W)
+                    mixed_g[k] = g / W if W > 1 else g
+            dc = sync.dc_compressor
+            if getattr(dc, "fuses_tree", False):
+                # a tree-fusing dc compressor (DGT) runs one schedule a
+                # layout group (MultiGPSPlan.split_mixed); the groups are
+                # sub-trees in leaf order
+                big_names, small_names = mgps.split_mixed(sizes, names)
+                dst = sync_state["dc_comp"]
+                big_s, small_s = dst["sharded"], dst["replicated"]
+                if big_names:
+                    out, big_s = dc.allreduce(
+                        {k: mixed_g[k] for k in big_names}, big_s, DC_AXIS,
+                        P)
+                    mixed_g.update(out)
+                if small_names:
+                    out, small_s = dc.allreduce(
+                        {k: mixed_g[k] for k in small_names}, small_s,
+                        DC_AXIS, P)
+                    mixed_g.update(out)
+                dstate = {"sharded": big_s, "replicated": small_s}
+            else:
+                mixed_g, dstate = dc.allreduce(mixed_g,
+                                               sync_state["dc_comp"],
+                                               DC_AXIS, P)
+            if P > 1:
+                mixed_g = tree_map(lambda x: x / P, mixed_g)
+        with record_function("train/optimizer"):
+            mixed_p = {k: mgps.shard_param_leaf(params[k])
+                       if mgps.is_big(n) else params[k]
+                       for k, n in zip(names, sizes)}
+            new_mixed, opt_state = tx.update(mixed_g, opt_state, mixed_p)
+            params = {k: mgps.unshard_param_leaf(new_mixed[k], params[k],
+                                                 WORKER_AXIS)
+                      if mgps.is_big(n) else new_mixed[k]
+                      for k, n in zip(names, sizes)}
+        return params, opt_state, {"dc_comp": dstate,
+                                   "worker_comp": new_ws}
+
+    def replicated_update(grads, state, step):
+        """The replicated branch: sync_grads, then one optimizer step on
+        every replica (the fused kernels over the buckets when on)."""
+        with record_function("train/sync_grads"):
+            grads, sync_state = sync.sync_grads(grads, state.params,
+                                                state.sync_state, step)
+        with record_function("train/optimizer"):
+            if fopt_spec is not None:
+                # fused apply: params and grads flatten onto the dc tier's
+                # bucket layout (opt_state lives there too,
+                # Trainer.init_state), one kernel a bucket
+                order = leaf_names(state.params)
+                bk = fopt_bucketer([state.params[k] for k in order])
+                new_pb, opt_state = fused_apply(
+                    fopt_spec, bk.flatten([state.params[k] for k in order]),
+                    bk.flatten([grads[k] for k in order]), state.opt_state)
+                params = dict(zip(order, bk.unflatten(new_pb)))
+            else:
+                params, opt_state = tx.update(grads, state.opt_state,
+                                              state.params)
+        return params, opt_state, sync_state
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         names = list(state.params)
@@ -184,25 +375,20 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                            .view(state.model_state[k].shape)
                            for k in state.model_state}
 
-        with record_function("train/sync_grads"):
-            grads, sync_state = sync.sync_grads(grads, state.params,
-                                                state.sync_state, step)
-        with record_function("train/optimizer"):
-            if fopt_spec is not None:
-                # fused apply: params and grads flatten onto the dc tier's
-                # bucket layout (opt_state lives there too,
-                # Trainer.init_state), one kernel a bucket
-                order = leaf_names(state.params)
-                bk = fopt_bucketer([state.params[k] for k in order])
-                new_pb, opt_state = fused_apply(
-                    fopt_spec, bk.flatten([state.params[k] for k in order]),
-                    bk.flatten([grads[k] for k in order]), state.opt_state)
-                params = dict(zip(order, bk.unflatten(new_pb)))
-            else:
-                params, opt_state = tx.update(grads, state.opt_state,
-                                              state.params)
+        if mgps is not None:
+            params, opt_state, sync_state = mgps_sync_update(
+                grads, state.params, state.opt_state, state.sync_state)
+        elif zplan is not None:
+            params, opt_state, sync_state = zero_sync_update(
+                grads, state.params, state.opt_state, state.sync_state,
+                step)
+        else:
+            params, opt_state, sync_state = replicated_update(
+                grads, state, step)
         with record_function("train/sync_model_state"):
-            params, sync_state = sync.sync_params(params, sync_state, step)
+            if mgps is None:
+                params, sync_state = sync.sync_params(params, sync_state,
+                                                      step)
             model_state, sync_state = sync.sync_model_state(
                 model_state, sync_state, step)
 
@@ -215,6 +401,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                           model_state=model_state,
                           sync_state=sync_state), metrics
 
+    train_step.mgps = mgps  # Trainer.init_state shapes the state by it
     return train_step
 
 

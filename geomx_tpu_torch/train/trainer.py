@@ -13,17 +13,24 @@ evaluation runs its ``single_device_model`` twin, which has the
 same parameters and no sp axis.
 
 ``drain_pipeline`` applies a pipelined sync's last in-flight aggregate
-after ``fit``.
+after ``fit`` (under ZeRO, the parked shard aggregates through
+``ZeroPlan.apply_shard_update``).
+
+``GeoConfig(zero=True)`` binds a ``ZeroPlan`` into a copy of the sync
+algorithm here (the caller's is never changed) and allocates the
+optimizer state on the bucket shards; ``GeoConfig(multi_gps=True)``
+allocates it on the mixed tree (``MultiGPSPlan.mixed_example``).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without that request it raises.  Not ported yet: membership epochs,
-checkpoints, scanned epochs, prefetch, telemetry, control, capsules and
-the flight recorder.
+checkpoints (with the re-sharding of ZeRO state), scanned epochs,
+prefetch, telemetry, control, capsules and the flight recorder.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import warnings
 from typing import Callable, Optional
 
@@ -42,6 +49,7 @@ from geomx_tpu_torch.train.state import (TrainState, replicate_tree,
 from geomx_tpu_torch.train.step import (build_eval_step, build_train_step,
                                         fused_bucketer, make_loss_fn,
                                         resolve_precision)
+from geomx_tpu_torch.train.zero import ZeroPlan
 from geomx_tpu_torch.tree import leaf_names
 from geomx_tpu_torch.utils.metrics import Measure
 
@@ -82,9 +90,26 @@ class Trainer:
                 "SeqClassifier(sp_mode='ring')) or sp_degree=1.",
                 RuntimeWarning, stacklevel=2)
         self.loss_fn = make_loss_fn(model, compute_dtype=compute_dtype)
+        # the ZeRO plan binds here, onto the copy bind_zero returns, so
+        # the trainer's own sync carries it (shard-shaped state, the
+        # sharded drain); build_train_step reuses it
+        if getattr(self.config, "zero", False):
+            if getattr(self.sync, "supports_zero", False) \
+                    and self.sync.zero_plan is None:
+                self.sync = self.sync.bind_zero(
+                    ZeroPlan(topology.workers_per_party))
+        elif getattr(self.sync, "zero_plan", None) is not None:
+            raise ValueError(
+                "sync algorithm is ZeRO-bound (zero_plan set) but this "
+                "trainer's config has zero=False: the step program would "
+                "run the replicated update against shard-shaped sync "
+                "state.  Pass a fresh (unbound) sync algorithm, or "
+                "enable GEOMX_ZERO/GeoConfig(zero=True) to match")
         self.train_step = build_train_step(self.loss_fn, self.tx, self.sync,
                                            topology, self.config,
                                            sp_model=sp_model)
+        self._mgps = self.train_step.mgps
+        self._zero_plan = getattr(self.sync, "zero_plan", None)
         # fused apply: init_state puts the optimizer state on the dc
         # tier's bucket layout (build_train_step checked the stack)
         self._fused_optim = fused_optim_enabled(self.config)
@@ -115,7 +140,31 @@ class Trainer:
                        for k, v in (model_state or {}).items()}
         params = replicate_tree(params, self.topology, self.device)
         model_state = replicate_tree(model_state, self.topology, self.device)
-        if self._fused_optim:
+        sync_state = None
+        if self._mgps is not None:
+            # MultiGPS: the optimizer and dc-tier state of the big leaves
+            # are allocated a worker shard each
+            mixed = self._mgps.mixed_example(params)
+            opt_state = self.tx.init(mixed)
+            sync_state = self.sync.init_state(mixed, model_state=model_state)
+            dc = getattr(self.sync, "dc_compressor", None)
+            if dc is not None and getattr(dc, "fuses_tree", False):
+                # a tree-fusing dc compressor (DGT) runs one schedule a
+                # layout group (train/step.py splits the same way)
+                names = leaf_names(params)
+                sizes = [math.prod(params[k].shape[2:]) for k in names]
+                big, small = self._mgps.split_mixed(sizes, names)
+                sync_state = dict(sync_state, dc_comp={
+                    "sharded": dc.init_state({k: mixed[k] for k in big}),
+                    "replicated": dc.init_state({k: mixed[k]
+                                                 for k in small})})
+        elif self._zero_plan is not None:
+            # ZeRO: the optimizer runs on [P, W, n/W] bucket shards, so
+            # its state is allocated shard-shaped; the sync's init sizes
+            # the dc-tier residuals the same way
+            opt_state = self.tx.init(self._zero_plan.shard_example(
+                params, self._zero_plan.bucketed))
+        elif self._fused_optim:
             # one [P, W, n] fp32 tensor a bucket, lane-padded sizes: the
             # layout the dc tier fuses gradients onto
             bk = fused_bucketer(self.sync)([params[k]
@@ -126,23 +175,39 @@ class Trainer:
                             device=self.device) for n in bk.bucket_sizes])
         else:
             opt_state = self.tx.init(params)
-        return TrainState(
-            step=0, params=params, opt_state=opt_state,
-            model_state=model_state,
-            sync_state=self.sync.init_state(params, model_state=model_state))
+        if sync_state is None:
+            sync_state = self.sync.init_state(params,
+                                              model_state=model_state)
+        return TrainState(step=0, params=params, opt_state=opt_state,
+                          model_state=model_state, sync_state=sync_state)
 
     def drain_pipeline(self, state: TrainState) -> TrainState:
         """Apply a pipelined sync's completed in-flight dc-tier aggregate
         without feeding a batch (``sync/pipeline.py``): after the last
         ``fit``, the last launched gradient and its model-state
         (BatchNorm) aggregate have not been applied.  A no-op for
-        algorithms without ``drain_grads``.  No collectives run: the
-        buffers hold reduced values.  The gradient buffer comes back
-        zeroed (a later ``fit`` warms up again); the model-state buffer
-        keeps the applied value."""
+        algorithms without ``drain_grads``.  No collectives run but
+        ZeRO's all-gather of the params: the buffers hold reduced values.
+        The gradient buffer comes back zeroed (a later ``fit`` warms up
+        again); the model-state buffer keeps the applied value.  Under
+        ZeRO the parked shard aggregates go through
+        ``ZeroPlan.apply_shard_update``, the fused kernels included, as
+        in the JAX package."""
         sync = self.sync
         if not hasattr(sync, "drain_grads"):
             return state
+        zplan = self._zero_plan
+        if zplan is not None:
+            with record_function("train/drain"):
+                g_sh, sync_state = sync.drain_grad_shards(state.params,
+                                                          state.sync_state)
+                params, opt_state = zplan.apply_shard_update(
+                    self.tx, g_sh, state.params, state.opt_state)
+                model_state, sync_state = sync.drain_model_state(
+                    state.model_state, sync_state)
+            return TrainState(step=state.step, params=params,
+                              opt_state=opt_state, model_state=model_state,
+                              sync_state=sync_state)
         if self._fused_optim:
             # the JAX package's drain (geomx_tpu/train/trainer.py:789)
             # hands the leaf-tree aggregate to tx.update against the

@@ -2,26 +2,37 @@
 
 ``GeoConfig.from_env`` reads the sync algorithms' knobs
 (``GEOMX_SYNC_MODE``, the HFA periods, MixedSync's pull interval and
-DCASGD, ``GEOMX_PIPELINE_DEPTH``, the DGT wrap) under the JAX package's
-names and casts, and ``get_sync_algorithm`` builds the same algorithm
-structure from them, raising the JAX package's errors where it raises.
-The knobs the port does not run yet (``GEOMX_ZERO``, ``GEOMX_MULTI_GPS``,
-``GEOMX_CONTROL``) are refused with ``NotImplementedError`` naming the
-ROADMAP.md Queue 1 item; a pipeline depth with one party only warns, as
-the reference's ``get_sync_algorithm`` does; the defaults, set or not,
-still build FSA.
+DCASGD, ``GEOMX_PIPELINE_DEPTH``, the DGT wrap) and the sharded updates'
+(``GEOMX_ZERO``, ``GEOMX_MULTI_GPS`` with ``GEOMX_BIGARRAY_BOUND`` or
+``MXNET_KVSTORE_BIGARRAY_BOUND``) under the JAX package's names and
+casts; ``get_sync_algorithm`` builds the same algorithm structure from
+them and the Trainer binds the same sharded-update plan, raising the
+JAX package's errors where it raises.  The knob the port does not run
+yet (``GEOMX_CONTROL``) is refused with ``NotImplementedError`` naming
+the ROADMAP.md Queue 1 item; a pipeline depth with one party only warns,
+as the reference's ``get_sync_algorithm`` does; the defaults, set or
+not, still build FSA.
 """
 
 import warnings
 
+import optax
 import pytest
+from test_torch_train import FILTERS, STAGES
 
 from geomx_tpu.config import GeoConfig as JaxConfig
 from geomx_tpu.control.actuators import control_enabled
+from geomx_tpu.models.resnet import ResNet as FlaxResNet
 from geomx_tpu.sync import get_sync_algorithm as jax_sync
-from geomx_tpu_torch import GeoConfig
+from geomx_tpu.topology import HiPSTopology as JaxTopology
+from geomx_tpu.train import Trainer as JaxTrainer
+from geomx_tpu_torch import GeoConfig, HiPSTopology
+from geomx_tpu_torch.models import ResNet
+from geomx_tpu_torch.optim import sgd
 from geomx_tpu_torch.sync import (FSA, HFA, DGTCompressor, MixedSync,
                                   PipelinedSync, get_sync_algorithm)
+from geomx_tpu_torch.train import Trainer
+from geomx_tpu_torch.train.zero import ZeroPlan
 
 KNOBS = ("GEOMX_PIPELINE_DEPTH", "GEOMX_ENABLE_DGT", "ENABLE_DGT",
          "GEOMX_ZERO", "GEOMX_MULTI_GPS", "GEOMX_CONTROL",
@@ -31,11 +42,11 @@ ENV = KNOBS + ("GEOMX_SYNC_MODE", "GEOMX_DCASGD", "GEOMX_DCASGD_LAMBDA",
                "GEOMX_HFA_K1", "DMLC_K1", "GEOMX_HFA_K2",
                "GEOMX_MIXED_PULL_INTERVAL", "GEOMX_PIPELINE_DCASGD",
                "GEOMX_DGT_BLOCK_SIZE", "DGT_BLOCK_SIZE", "DMLC_K",
-               "DMLC_UDP_CHANNEL_NUM", "GEOMX_COMPRESSION")
+               "DMLC_UDP_CHANNEL_NUM", "GEOMX_COMPRESSION",
+               "GEOMX_WORKERS_PER_PARTY", "GEOMX_BIGARRAY_BOUND",
+               "MXNET_KVSTORE_BIGARRAY_BOUND")
 # variable, a value that changes the JAX step, the port's field, the item
 REFUSED = [
-    ("GEOMX_ZERO", "1", "zero", "Sharded updates"),
-    ("GEOMX_MULTI_GPS", "1", "multi_gps", "Sharded updates"),
     ("GEOMX_CONTROL", "1", "control", "Control"),
     ("GEOMX_CONTROL", "1.0", "control", "Control"),
 ]
@@ -122,6 +133,17 @@ KNOB_CASES = [
      HFA),
     ({"GEOMX_SYNC_MODE": "hfa", "DMLC_K1": "5"}, HFA),
     ({"GEOMX_SYNC_MODE": "hfa", "GEOMX_HFA_K1": "3", "DMLC_K1": "5"}, HFA),
+    # the sharded updates: the Trainer binds the plan ("trainer" cases
+    # build both packages' Trainers on four workers a party)
+    ({"GEOMX_ZERO": "1"}, "trainer"),
+    ({"GEOMX_ZERO": "1.0", "GEOMX_PIPELINE_DEPTH": "1",
+      "GEOMX_SYNC_MODE": "mixed"}, "trainer"),
+    ({"GEOMX_MULTI_GPS": "1", "GEOMX_BIGARRAY_BOUND": "1000"}, "trainer"),
+    ({"GEOMX_MULTI_GPS": "1", "MXNET_KVSTORE_BIGARRAY_BOUND": "2048"},
+     "trainer"),
+    ({"GEOMX_MULTI_GPS": "1", "GEOMX_BIGARRAY_BOUND": "4096",
+      "MXNET_KVSTORE_BIGARRAY_BOUND": "5"}, "trainer"),
+    ({"GEOMX_ZERO": "1", "GEOMX_MULTI_GPS": "1"}, "trainer"),
 ]
 
 
@@ -137,8 +159,10 @@ def test_knob_builds_the_reference_algorithm(monkeypatch, env, want):
                   "dcasgd", "dcasgd_lambda", "pipeline_depth",
                   "pipeline_dcasgd", "enable_dgt", "dgt_block_size", "dgt_k",
                   "dgt_k_min", "dgt_contri_alpha", "adaptive_k",
-                  "udp_channel_num"):
+                  "udp_channel_num", "zero", "multi_gps", "bigarray_bound"):
         assert getattr(cfg, field) == getattr(ref, field), field
+    if want == "trainer":
+        return check_trainers(ref, cfg)
     if want is ValueError:
         with pytest.raises(ValueError) as jexc:
             jax_sync(ref)
@@ -178,3 +202,42 @@ def test_bad_value_raises_like_the_reference(monkeypatch):
         JaxConfig.from_env()
     with pytest.raises(ValueError, match="GEOMX_ZERO"):
         GeoConfig.from_env()
+
+
+def check_trainers(ref, cfg):
+    """Both packages' Trainers from the same config on [2, 4]: the same
+    ZeRO plan (W, the bucket padding) or MultiGPS bound, or the same
+    ValueError."""
+    ref = JaxConfig(**{**vars(ref), "workers_per_party": 4})
+    cfg = GeoConfig(**{**vars(cfg), "workers_per_party": 4})
+
+    def build_jax():
+        return JaxTrainer(FlaxResNet(stage_sizes=STAGES,
+                                     stage_filters=FILTERS),
+                          JaxTopology(2, 4), optax.sgd(0.1), config=ref)
+
+    def build_port():
+        return Trainer(ResNet(STAGES, FILTERS), HiPSTopology(2, 4), sgd(0.1),
+                       config=cfg, device="cpu")
+
+    if cfg.zero and cfg.multi_gps:
+        with pytest.raises(ValueError) as jexc:
+            build_jax()
+        with pytest.raises(ValueError) as pexc:
+            build_port()
+        assert str(pexc.value) == str(jexc.value)
+        assert "GEOMX_ZERO does not compose with GEOMX_MULTI_GPS" in \
+            str(pexc.value)
+        return
+    jt, pt = build_jax(), build_port()
+    assert structure(pt.sync) == structure(jt.sync)
+    if cfg.zero:
+        assert isinstance(pt._zero_plan, ZeroPlan)
+        assert pt._zero_plan.W == jt._zero_plan.W == 4
+        assert pt._zero_plan.bucketed.pad_to == \
+            jt._zero_plan.bucketed.pad_to == 512
+        assert pt._mgps is None
+    else:
+        assert pt._zero_plan is None
+        assert pt._mgps.bound == jt._mgps.bound == cfg.bigarray_bound
+        assert pt._mgps.W == jt._mgps.W == 4

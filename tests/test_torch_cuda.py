@@ -649,6 +649,116 @@ def test_trainer_step_launches_every_kernel(dev, path):
     assert ops.launch_counts() == want
 
 
+# ---- the sharded updates: kernels 3-6 on shards -----------------------------
+# ZeRO's [2, 4, 68,224] bucket shards (ResNet-20's 272,896-element bucket at
+# pad_to 512, W = 4) and MultiGPS's per-leaf shards of ceil(n / 4)
+# elements; the operands also as the views the collectives return.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [576, 1_152, 9_216, 68_224])
+def test_select_pack_and_scatter_add_on_shards(dev, n):
+    g, u, v = _rows(dev, n)
+    k = BiSparseCompressor(0.01).k_for(n)
+    thr = bsc.sampled_boundary_guv(g, u, v, k)
+    got = bsc.select_pack(g, u, v, thr, k)
+    for a, b in zip(got, bsc.select_pack_plain(g, u, v, thr, k)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    vals = all_gather_dc(got[0]).reshape(2, 4, -1)
+    idx = all_gather_dc(got[1]).reshape(2, 4, -1)
+    assert torch.equal(bsc.scatter_add(vals, idx, n, run=k),
+                       bsc.scatter_add_plain(vals, idx, n, k))
+
+
+@pytest.mark.cuda
+def test_select_pack_and_scatter_add_on_gathered_views(dev):
+    """select/pack copies a broadcast (stride 0 over the workers) or
+    transposed g to dense rows; the scatter-add reads the tiled
+    all-gather's broadcast view of four workers' pairs: both bit-equal
+    to their plain versions on the dense copies."""
+    from geomx_tpu_torch.parallel.collectives import all_gather
+    n = 68_224
+    k = BiSparseCompressor(0.01).k_for(n)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    _, u, v = _rows(dev, n)
+    for g in (torch.randn(2, 1, n, generator=gen, device=dev)
+              .expand(2, 4, n),
+              torch.randn(4, 2, n, generator=gen, device=dev)
+              .transpose(0, 1)):
+        assert not g.is_contiguous()
+        thr = bsc.sampled_boundary_guv(g, u, v, k)
+        got = bsc.select_pack(g, u, v, thr, k)
+        for a, b in zip(got, bsc.select_pack_plain(g.contiguous(), u, v,
+                                                   thr, k)):
+            assert torch.equal(a, b)
+    vals = all_gather(got[0], "worker", tiled=True)
+    idx = all_gather(got[1], "worker", tiled=True)
+    assert vals.stride(1) == 0 and vals.shape == (2, 4, 4 * k)
+    assert torch.equal(bsc.scatter_add(vals, idx, n, run=k),
+                       bsc.scatter_add_plain(vals.contiguous(),
+                                             idx.contiguous(), n, k))
+
+
+@pytest.mark.cuda
+def test_fused_optimizers_over_zero_shards(dev):
+    p, g, m, v = _optim_operands(dev, (2, 4, 68_224), 8)
+    got = optim.fused_sgd_momentum(p, g, m, lr=0.1, momentum=0.9)
+    for a, b in zip(got, optim.sgd_momentum_ref(p, g, m, lr=0.1,
+                                                momentum=0.9)):
+        assert torch.equal(a, b)
+    bc1, bc2 = bias_corrections(0.9, 0.999, 3)
+    kw = dict(lr=0.01, b1=0.9, b2=0.999, eps=1e-8)
+    got = optim.fused_adam(p, g, m, v, bc1, bc2, **kw)
+    for a, b in zip(got, optim.adam_ref(p, g, m, v, bc1, bc2, **kw)):
+        assert torch.equal(a, b)
+
+
+# one step of the small ResNet ((1, 1, 1) stages of 8, 16, 32 filters,
+# one 19,968-element bucket at pad_to 512): ZeRO flattens the gradient
+# and the params (two flatten launches) and unflattens the gathered
+# params; MultiGPS at bound 1000 shards four leaves, two of whose shards
+# (1,152 and 2,304 elements) reach BSC's min_sparse_size of 1,024
+_SHARDED_STEP_LAUNCHES = {
+    "zero_sgd": {"fused_flatten": 2, "fused_unflatten": 1,
+                 "bsc_select_pack": 1, "bsc_scatter_add": 1},
+    "zero_fused_adam": {"fused_flatten": 2, "fused_unflatten": 1,
+                        "bsc_select_pack": 1, "bsc_scatter_add": 1,
+                        "fused_adam": 1},
+    "multigps_bsc": {"bsc_select_pack": 2, "bsc_scatter_add": 2},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(_SHARDED_STEP_LAUNCHES))
+def test_sharded_trainer_step_launches_every_kernel(dev, path):
+    from geomx_tpu_torch import GeoConfig, HiPSTopology, ops
+    from geomx_tpu_torch.models import ResNet
+    from geomx_tpu_torch.optim import sgd
+    from geomx_tpu_torch.train import Trainer
+
+    fields = {"zero_sgd": dict(zero=True),
+              "zero_fused_adam": dict(zero=True, fused_optim=True),
+              "multigps_bsc": dict(multi_gps=True, bigarray_bound=1000)}
+    tx = optim.fused_optimizer("adam", learning_rate=0.01) \
+        if path == "zero_fused_adam" else sgd(0.1, momentum=0.9)
+    t = Trainer(ResNet((1, 1, 1), (8, 16, 32)), HiPSTopology(2, 4), tx,
+                config=GeoConfig(num_parties=2, workers_per_party=4,
+                                 compression="bsc,0.01", **fields[path]),
+                device=dev)
+    st = t.init_state(seed=0)
+    rng = np.random.RandomState(0)
+    x = torch.as_tensor(rng.randint(0, 256, (2, 4, 8, 16, 16, 3))
+                        .astype(np.uint8), device=dev)
+    y = torch.as_tensor(rng.randint(0, 10, (2, 4, 8)), device=dev)
+    ops.reset_launch_counts()
+    st, m = t.train_step(st, x, y)
+    assert torch.isfinite(m["loss"])
+    want = {name: _SHARDED_STEP_LAUNCHES[path].get(name, 0)
+            for name in ops.KERNELS}
+    assert ops.launch_counts() == want
+    for v in st.params.values():
+        assert torch.equal(v, v[:1, :1].expand_as(v))
+
+
 # ---- attention: rows 10-13 of the kernel table ------------------------------
 # Held at a tolerance, not bit for bit: the kernels sum each row's products
 # in another order than the plain versions' matmuls.  fp32: forward 1e-5,

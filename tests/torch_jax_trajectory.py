@@ -9,8 +9,10 @@ configuration: ResNet-20 on HiPS [2, 4], FSA with bucketed "bsc,0.01"
 [4, 2] with the owner-routed merge; mixed_dcasgd MixedSync with DCASGD
 (pull every 2 steps) and the fused Adam(0.01); hfa_dgt HFA (K1 4, K2
 2) over DGT (k 0.8, 3 channels) with Adam(0.01); pipelined_fsa the
-flagship with GEOMX_PIPELINE_DEPTH=1 — on the synthetic CIFAR-shaped
-set, from the same flax
+flagship with GEOMX_PIPELINE_DEPTH=1; zero_sgd the flagship with
+GEOMX_ZERO=1; zero_pipelined_adam ZeRO with the fused Adam(0.01) and
+the pipeline; multigps_bsc the flagship with GEOMX_MULTI_GPS=1 at
+bigarray_bound 1000 — on the synthetic CIFAR-shaped set, from the same flax
 initial weights and the same batches (the port starts from the converted
 JAX weights; its loader yields the JAX loader's bytes).  --path seq_ring
 runs examples/long_context.py's defaults instead: SeqClassifier with
@@ -94,6 +96,19 @@ PATHS = {
                       lambda: optax.sgd(0.1, momentum=0.9),
                       lambda: sgd(0.1, momentum=0.9), (2, 4),
                       dict(pipeline_depth=1)),
+    "zero_sgd": ("bsc,0.01,select=sampled", False,
+                 lambda: optax.sgd(0.1, momentum=0.9),
+                 lambda: sgd(0.1, momentum=0.9), (2, 4), dict(zero=True)),
+    "zero_pipelined_adam": ("bsc,0.01,select=sampled", True,
+                            lambda: optim_pallas.fused_optimizer(
+                                "adam", learning_rate=0.01),
+                            lambda: optim.fused_optimizer(
+                                "adam", learning_rate=0.01), (2, 4),
+                            dict(zero=True, pipeline_depth=1)),
+    "multigps_bsc": ("bsc,0.01,select=sampled", False,
+                     lambda: optax.sgd(0.1, momentum=0.9),
+                     lambda: sgd(0.1, momentum=0.9), (2, 4),
+                     dict(multi_gps=True, bigarray_bound=1000)),
 }
 
 

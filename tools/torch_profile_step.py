@@ -11,7 +11,10 @@ fused_sgd: the same with the fused optimizer apply, twobit_adam:
 [2, 4], "2bit,0.5" with the fused Adam(0.01), sparse_agg: [4, 2], the
 owner-routed "bsc,0.01,select=sampled,sparse_agg=1" with the fused
 SGD; mixed_dcasgd, hfa_dgt and pipelined_fsa: chip_smoke.py's MixedSync
-with DCASGD, HFA over DGT and pipelined FSA paths; seq_flash and
+with DCASGD, HFA over DGT and pipelined FSA paths; zero_sgd,
+zero_pipelined_adam and multigps_bsc: its sharded-update paths (ZeRO
+over the bucket, with the fused Adam and the pipeline; MultiGPS over
+the leaves of 1,000 elements or more); seq_flash and
 seq_ring: chip_smoke.py's attention paths, the
 SeqClassifier on the needle task, --batch sequences a replica, 16 by
 default) for three warm-up steps, times --steps steps
@@ -43,7 +46,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 SPANS = ("train/forward_backward", "attention/forward",
          "attention/backward", "train/sync_grads", "bucket/flatten",
-         "dc_allreduce/bucket0", "dc_pipeline/launch", "dc_pipeline/apply",
+         "dc_allreduce/bucket0", "dc_allreduce/bucket0_shard",
+         "dc_pipeline/launch", "dc_pipeline/apply",
          "bsc/threshold", "bsc/select_pack",
          "sparseagg/route", "sparseagg/merge", "sparseagg/reselect",
          "bsc/scatter_add", "twobit/quantize", "twobit/dequantize",
@@ -70,7 +74,9 @@ def main(argv=None) -> int:
     ap.add_argument("--path", default="flagship",
                     choices=("flagship", "fused_sgd", "twobit_adam",
                              "sparse_agg", "mixed_dcasgd", "hfa_dgt",
-                             "pipelined_fsa", "seq_flash", "seq_ring"))
+                             "pipelined_fsa", "zero_sgd",
+                             "zero_pipelined_adam", "multigps_bsc",
+                             "seq_flash", "seq_ring"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=None,
                     help="images (sequences) a replica a step: 128 (16)")
