@@ -48,9 +48,15 @@ Every phase's failure is fatal (non-zero exit, no result line):
               both tiers fire) and four more compressors
               (REFERENCE_ONLY: exact BSC, the fp16 and 2-bit lattices,
               MPQ; MixedSync with DCASGD under ZeRO with the fused
-              SGD-momentum over the shards; ZeRO over the dense dc tier),
-              losses to rtol 1e-4, parameters to atol 2e-3 (TF32
-              off); zero_dense's three steps within 1e-6 of the
+              SGD-momentum over the shards; ZeRO over the dense dc tier;
+              GeoCNN under "mpq,0.01", resnet20_s2d under
+              get_optimizer("nag", 0.1), the MLP under
+              get_optimizer("lamb", 1e-3)); the zoo paths' and the
+              zoo configurations' models at full width on their
+              datasets' shapes (MODEL_DATA; on the card through
+              PyTorch's direct convolutions, cuDNN off),
+              losses to rtol 1e-4, every replica's parameters to atol
+              2e-3 (TF32 off); zero_dense's three steps within 1e-6 of the
               replicated update's on the card; the SeqClassifier at L = 256 un-meshed, ring and
               Ulysses on [2, 2] x sp 2 (SEQ_REFERENCE), losses to rtol
               1e-4, parameters to atol 4e-3;
@@ -97,12 +103,34 @@ Every phase's failure is fatal (non-zero exit, no result line):
               Each checks a finite loss, identical replicas (HFA: the 16
               steps end on a global sync) and every kernel of its
               configuration launched, and that the loss falls from the
-              first epoch of 8 steps to the second (for path 2 and the
-              three sync paths as the JAX package's own trajectories
-              fall, PERF.md);
+              first epoch of 8 steps to the second (for path 2, the
+              three sync paths and the two zoo paths as the JAX
+              package's own trajectories fall, PERF.md);
               path 2 also that the 2-bit wire carried non-zero codes;
               path 3 prints its last step's merge counts (overflow pairs
               reinjected, merged, kept, the pull-dropped share);
+              cnn_bsc     the port's examples/cnn_bsc.py itself
+                          (cnn_common.run, -d mnist -bs 32 -ep 1) on
+                          [2, 4] from the GEOMX_* environment: GeoCNN,
+                          adam(0.01), "bsc,0.01", 16 steps, the test
+                          accuracy printed after each;
+              alexnet_fused_adam  get_model("alexnet") (bf16
+                          convolutions), fused_optimizer("adam", 0.01),
+                          "bsc,0.01" on [2, 4], batch 32 a replica of the
+                          CIFAR-shaped set, a device-cached loader and
+                          Trainer.fit(scan_epochs=True), 2 epochs of 8
+                          steps; then one epoch of the cached batches
+                          against the host loader's bytes, and the
+                          checkpoint round trip: saved after epoch 0,
+                          loaded into a fresh Trainer, epoch 1 run with
+                          the scanned runner, the loaded state and the
+                          resumed state bit-equal to the saved and the
+                          uninterrupted ones with
+                          torch.backends.cudnn.deterministic (the largest
+                          difference without it printed too).  Both
+                          print step ms, samples/s, their kernels a step,
+                          the peak memory and the computed dc wire bytes
+                          a step; AlexNet the bytes of its cached set;
               seq_flash   get_model("transformer") at L = 4096, HiPS
                           [2, 2], 16 sequences a replica, adam(1e-3), FSA,
                           the needle task, 8 steps: flash kernels 10-12,
@@ -164,28 +192,31 @@ REPLACES = {
                     "geomx_tpu/parallel/_fused_block.py:100"),
 }
 
-# path -> (optimizer, compression, fused apply, steps, its kernels, its
-# topology [P, W], its other GeoConfig fields).  The optimizer is (kind,
-# learning rate): "sgd" is sgd(lr, momentum=0.9), "adam" adam(lr); each
-# fused_optimizer(kind) when fused.  Every path runs FSA but for its
-# GeoConfig fields.
+# path -> (model, optimizer, compression, fused apply, steps, its kernels,
+# its topology [P, W], its other GeoConfig fields).  The model is a
+# get_model name; the optimizer is (kind, learning rate): "sgd" is
+# sgd(lr, momentum=0.9), "adam" adam(lr), each fused_optimizer(kind) when
+# fused, and any other kind get_optimizer(kind, lr).  Every path runs FSA
+# but for its GeoConfig fields.
 SLICE1 = ("fused_flatten", "fused_unflatten", "bsc_select_pack",
           "bsc_scatter_add")
 PATHS = {
-    "flagship": (("sgd", 0.1), "bsc,0.01", False, None, SLICE1, (2, 4), {}),
-    "fused_sgd": (("sgd", 0.1), "bsc,0.01", True, 16,
+    "flagship": ("resnet20", ("sgd", 0.1), "bsc,0.01", False, None, SLICE1,
+                 (2, 4), {}),
+    "fused_sgd": ("resnet20", ("sgd", 0.1), "bsc,0.01", True, 16,
                   SLICE1 + ("fused_sgd_momentum",), (2, 4), {}),
-    "twobit_adam": (("adam", 0.01), "2bit,0.5", True, 16,
+    "twobit_adam": ("resnet20", ("adam", 0.01), "2bit,0.5", True, 16,
                     ("fused_flatten", "fused_unflatten", "quantize_2bit",
                      "dequantize_2bit", "fused_adam"), (2, 4), {}),
     # four parties: the merge tree runs ceil(log2 4) = 2 rounds
-    "sparse_agg": (("sgd", 0.1), "bsc,0.01,select=sampled,sparse_agg=1",
-                   True, 16, SLICE1 + ("fused_sgd_momentum",
-                                       "merge_sorted_pairs"), (4, 2), {}),
+    "sparse_agg": ("resnet20", ("sgd", 0.1),
+                   "bsc,0.01,select=sampled,sparse_agg=1", True, 16,
+                   SLICE1 + ("fused_sgd_momentum", "merge_sorted_pairs"),
+                   (4, 2), {}),
     # examples/cnn.py -ms -dc (scripts' run_mixed_sync.sh with --dcasgd):
     # a pull every 2 steps, so the stale copy lags and the DCASGD term is
     # not zero
-    "mixed_dcasgd": (("adam", 0.01), "bsc,0.01", True, 16,
+    "mixed_dcasgd": ("resnet20", ("adam", 0.01), "bsc,0.01", True, 16,
                      SLICE1 + ("fused_adam",), (2, 4),
                      dict(sync_mode="mixed", dcasgd=True, dcasgd_lambda=0.04,
                           mixed_pull_interval=2)),
@@ -193,33 +224,47 @@ PATHS = {
     # cut to 4, 2 so that two global syncs fall inside 16 steps.  DGT
     # fuses the tree itself (no bucket copies) and its inner BSC runs on
     # the two global steps
-    "hfa_dgt": (("adam", 0.01), "bsc,0.01", False, 16,
+    "hfa_dgt": ("resnet20", ("adam", 0.01), "bsc,0.01", False, 16,
                 ("bsc_select_pack", "bsc_scatter_add"), (2, 4),
                 dict(sync_mode="hfa", hfa_k1=4, hfa_k2=2, enable_dgt=2,
                      dgt_k=0.8, udp_channel_num=3, dgt_block_size=4096,
                      dgt_contri_alpha=0.3)),
     # the flagship with the pipelined WAN sync; Trainer.drain_pipeline
     # after the run
-    "pipelined_fsa": (("sgd", 0.1), "bsc,0.01", False, 16, SLICE1, (2, 4),
-                      dict(pipeline_depth=1)),
+    "pipelined_fsa": ("resnet20", ("sgd", 0.1), "bsc,0.01", False, 16,
+                      SLICE1, (2, 4), dict(pipeline_depth=1)),
     # bench.py --compare-zero's ZeRO run (GEOMX_ZERO=1): each worker
     # updates one 68,224-element shard of the 272,896-element bucket
     # (pad_to 512) and the dc tier's BSC runs on the shards
-    "zero_sgd": (("sgd", 0.1), "bsc,0.01", False, 16, SLICE1, (2, 4),
-                 dict(zero=True)),
+    "zero_sgd": ("resnet20", ("sgd", 0.1), "bsc,0.01", False, 16, SLICE1,
+                 (2, 4), dict(zero=True)),
     # ZeRO with the fused Adam over the shards and the pipelined dc tier;
     # Trainer.drain_pipeline after the run (the JAX package's ZeRO drain
     # runs the fused apply too)
-    "zero_pipelined_adam": (("adam", 0.01), "bsc,0.01", True, 16,
-                            SLICE1 + ("fused_adam",), (2, 4),
+    "zero_pipelined_adam": ("resnet20", ("adam", 0.01), "bsc,0.01", True,
+                            16, SLICE1 + ("fused_adam",), (2, 4),
                             dict(zero=True, pipeline_depth=1)),
     # scripts/tpu/run_multi_gps.sh (GEOMX_MULTI_GPS=1,
     # GEOMX_BIGARRAY_BOUND=1000) with the bsc dc tier: 19 of ResNet-20's
     # 65 leaves update as worker shards; the bucket is unwrapped, so BSC
     # runs per leaf where a leaf (or shard) has 1,024 elements or more
-    "multigps_bsc": (("sgd", 0.1), "bsc,0.01", False, 16,
+    "multigps_bsc": ("resnet20", ("sgd", 0.1), "bsc,0.01", False, 16,
                      ("bsc_select_pack", "bsc_scatter_add"), (2, 4),
                      dict(multi_gps=True, bigarray_bound=1000)),
+    # examples/cnn_bsc.py as scripts/cpu/run_bisparse_compression.sh
+    # launches it (-d mnist, batch 32 a replica, adam(0.01), "bsc,0.01"
+    # on [2, 4]), through the port's entry point (cnn_bsc_phase):
+    # GeoCNN's one bucket of 449,098 elements; one epoch of the
+    # MNIST-shaped set is 16 steps
+    "cnn_bsc": ("cnn", ("adam", 0.01), "bsc,0.01", False, 16, SLICE1,
+                (2, 4), {}),
+    # get_model("alexnet") at its published width (6,976,842 parameters,
+    # bf16 convolutions, fp32 head): five 4 MiB buckets under the fused
+    # Adam, batch 32 a replica of the CIFAR-shaped set, a device-cached
+    # loader and fit(scan_epochs=True), as bench.py runs the flagship
+    # (alexnet_phase), then the checkpoint round trip
+    "alexnet_fused_adam": ("alexnet", ("adam", 0.01), "bsc,0.01", True, 16,
+                           SLICE1 + ("fused_adam",), (2, 4), {}),
 }
 # the sharded paths and the GeoConfig fields of their replicated twins,
 # whose per-slot state and wire bytes they are held against
@@ -229,26 +274,43 @@ SHARDED_TWIN = {"zero_sgd": dict(zero=False),
 # the reference phase's two steps: HFA's periods such that both tiers fire
 REFERENCE_FIELDS = {"hfa_dgt": dict(hfa_k1=1, hfa_k2=2)}
 # configurations the reference phase checks beside PATHS: the compressors
-# without a kernel of their own, on the card
+# without a kernel of their own, and the rest of the zoo and the factory,
+# on the card
 REFERENCE_ONLY = {
-    "bsc_exact": (("sgd", 0.1), "bsc,0.01,select=exact", False, None, (),
-                  (2, 4), {}),
-    "fp16_lattice": (("sgd", 0.1), "fp16,sparse_agg=1", False, None, (),
-                     (4, 2), {}),
-    "twobit_lattice": (("sgd", 0.1), "2bit,0.5,sparse_agg=1", False, None,
-                       (), (4, 2), {}),
+    "bsc_exact": ("resnet20", ("sgd", 0.1), "bsc,0.01,select=exact", False,
+                  None, (), (2, 4), {}),
+    "fp16_lattice": ("resnet20", ("sgd", 0.1), "fp16,sparse_agg=1", False,
+                     None, (), (4, 2), {}),
+    "twobit_lattice": ("resnet20", ("sgd", 0.1), "2bit,0.5,sparse_agg=1",
+                       False, None, (), (4, 2), {}),
     # the small ResNet's one bucket is below 200k elements: fp16 gather
-    "mpq": (("sgd", 0.1), "mpq,0.01", False, None, (), (2, 4), {}),
+    "mpq": ("resnet20", ("sgd", 0.1), "mpq,0.01", False, None, (), (2, 4),
+            {}),
     # MixedSync with DCASGD under ZeRO: the shard-wise DCASGD term and
     # the fused SGD-momentum (kernel 5) over the shards
-    "zero_mixed_dcasgd": (("sgd", 0.1), "bsc,0.01", True, None, (), (2, 4),
+    "zero_mixed_dcasgd": ("resnet20", ("sgd", 0.1), "bsc,0.01", True, None,
+                          (), (2, 4),
                           dict(zero=True, sync_mode="mixed", dcasgd=True,
                                dcasgd_lambda=0.04, mixed_pull_interval=2)),
     # ZeRO over the uncompressed dc tier: the replicated update's params
     # (zero_identity(); tests/test_zero.py:93-100)
-    "zero_dense": (("sgd", 0.1), "none", False, None, (), (2, 4),
-                   dict(zero=True)),
+    "zero_dense": ("resnet20", ("sgd", 0.1), "none", False, None, (),
+                   (2, 4), dict(zero=True)),
+    # examples/cnn_mpq.py: GeoCNN's one 449,098-element bucket is above
+    # MPQ's 200,000 bound, so it takes the BSC route (kernels 3-4)
+    "cnn_mpq": ("cnn", ("adam", 0.01), "mpq,0.01", False, None, (), (2, 4),
+                {}),
+    # the space-to-depth ResNet-20 under Nesterov momentum
+    "resnet20_s2d_nag": ("resnet20_s2d", ("nag", 0.1), "bsc,0.01", False,
+                         None, (), (2, 4), {}),
+    # the MLP under LAMB (per-slot trust ratios)
+    "mlp_lamb": ("mlp", ("lamb", 1e-3), "bsc,0.01", False, None, (),
+                 (2, 4), {}),
 }
+# the dataset each model trains on here: the MNIST shape for the demo
+# CNN and the MLP (the synthetic fallback without MNIST's files), the
+# CIFAR shape for the others
+MODEL_DATA = {"cnn": "mnist", "mlp": "mnist"}
 # the attention paths, examples/long_context.py's SeqClassifier (vocab 256,
 # dim 64, 4 heads, 2 layers, 10 classes) under adam(1e-3) and FSA with the
 # uncompressed (bucketed) dc tier, on the needle task: path -> (sp mode,
@@ -274,35 +336,51 @@ SEQ_REFERENCE = {"seq_flash": (None, (2, 2, 1), 256),
                  "seq_ring": ("ring", (2, 2, 2), 256),
                  "seq_ulysses": ("ulysses", (2, 2, 2), 256)}
 # the path whose launch counts the kernels line reports for each kernel
-_PATH_KERNELS = {**{p: cfg[4] for p, cfg in PATHS.items()},
+_PATH_KERNELS = {**{p: cfg[5] for p, cfg in PATHS.items()},
                  **{p: cfg[5] for p, cfg in SEQ_PATHS.items()}}
 FIRST_PATH = {name: next(p for p, kernels in _PATH_KERNELS.items()
                          if name in kernels)
               for name in REPLACES}
 
 
-def make_trainer(path: str, model, device=None, precision=None, **fields):
+def make_trainer(path: str, model=None, device=None, precision=None,
+                 **fields):
     """The Trainer of one configuration of PATHS or REFERENCE_ONLY, on
-    ``model``; ``fields`` override its GeoConfig fields."""
+    ``model`` (default: the configuration's zoo model); ``fields``
+    override its GeoConfig fields."""
     from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from geomx_tpu_torch.models import get_model
     from geomx_tpu_torch.ops.optim import fused_optimizer
-    from geomx_tpu_torch.optim import adam, sgd
+    from geomx_tpu_torch.optim import adam, get_optimizer, sgd
     from geomx_tpu_torch.train import Trainer
 
-    (kind, lr), spec, fused, _, _, (P, W), extra = \
+    name, (kind, lr), spec, fused, _, _, (P, W), extra = \
         PATHS[path] if path in PATHS else REFERENCE_ONLY[path]
     if fused:
         tx = fused_optimizer(kind, learning_rate=lr, momentum=0.9)
     elif kind == "adam":
         tx = adam(lr)
-    else:
+    elif kind == "sgd":
         tx = sgd(lr, momentum=0.9)
+    else:
+        tx = get_optimizer(kind, lr)
     cfg = dict(num_parties=P, workers_per_party=W, compression=spec,
                fused_optim=fused, **{**extra, **fields})
     if precision is not None:
         cfg["precision"] = precision
+    if model is None:
+        model = get_model(name, precision=precision)
     return Trainer(model, HiPSTopology(P, W), tx, config=GeoConfig(**cfg),
                    device=device)
+
+
+def path_data(path: str, n: int):
+    """The configuration's dataset (MODEL_DATA) with ``n`` training
+    images."""
+    from geomx_tpu_torch.data import load_dataset
+    name = (PATHS[path] if path in PATHS else REFERENCE_ONLY[path])[0]
+    return load_dataset(MODEL_DATA.get(name, "synthetic"),
+                        synthetic_train_n=n)
 
 
 def make_seq_trainer(sp_mode, shape, seq_len: int, device=None):
@@ -955,7 +1033,7 @@ def merge_inputs(torch, dev, gen, n):
     from geomx_tpu_torch.compression import BiSparseCompressor, sparseagg
     from geomx_tpu_torch.parallel.collectives import all_to_all
 
-    P, W = PATHS["sparse_agg"][5]
+    P, W = PATHS["sparse_agg"][6]
     comp = BiSparseCompressor(0.01)
     k = comp.k_for(n)
     g, u, v = (torch.randn(P, W, n, generator=gen, device=dev) * s
@@ -1390,28 +1468,49 @@ def seq_reference_phase(torch):
 
 
 def reference_phase(torch):
-    """Two fp32 steps of a small ResNet on the card vs on the CPU, for
-    each path's configuration (HFA at K1 1, K2 2: both tiers fire)."""
+    """Two fp32 steps on the card vs on the CPU, for each path's
+    configuration and REFERENCE_ONLY's (HFA at K1 1, K2 2: both tiers
+    fire): a small ResNet where the configuration names ResNet-20, the
+    named zoo model at full width otherwise (on its MODEL_DATA shape).
+    Losses to rtol 1e-4 and every replica's parameters to atol 2e-3.
+    The zoo models run their convolutions on the card without cuDNN
+    (``torch.backends.cudnn.enabled = False``: PyTorch's direct
+    convolution, im2col and one GEMM): cuDNN's fp32 weight gradients of
+    AlexNet's convolutions part from the CPU's by about 1% of their
+    largest magnitude and leave residue where the exact sum is 0
+    (tools/torch_conv_gap.py), which moves coordinates across BSC's
+    magnitude boundary and, under Adam or LAMB, such a coordinate by
+    about the learning rate.  The paths themselves run cuDNN."""
     from geomx_tpu_torch.data import load_dataset
     from geomx_tpu_torch.models import ResNet
 
     data = load_dataset("synthetic", synthetic_train_n=512)
-    x = data["train_x"][:, :16, :16]
+    small = data["train_x"][:, :16, :16]
     for path in list(PATHS) + list(REFERENCE_ONLY):
+        name = (PATHS[path] if path in PATHS else REFERENCE_ONLY[path])[0]
+        if name == "resnet20":
+            x, y = small, data["train_y"]
+        else:
+            zoo = path_data(path, 512)
+            x, y = zoo["train_x"], zoo["train_y"]
         runs = {}
         for device in ("cuda", "cpu"):
-            t = make_trainer(path, ResNet((1, 1, 1), (8, 16, 32),
-                                          dtype=torch.float32),
-                             device=device, precision="fp32",
+            model = ResNet((1, 1, 1), (8, 16, 32), dtype=torch.float32) \
+                if name == "resnet20" else None
+            t = make_trainer(path, model, device=device, precision="fp32",
                              **REFERENCE_FIELDS.get(path, {}))
-            st = t.init_state(seed=0)
+            st = t.init_state(seed=0, sample_input=x[:2])
             losses = []
-            for i, (xb, yb) in enumerate(t.make_loader(x, data["train_y"],
-                                                       8).epoch(0)):
-                if i == 2:
-                    break
-                st, m = t.train_step(st, xb, yb)
-                losses.append(float(m["loss"]))
+            torch.backends.cudnn.enabled = name == "resnet20"
+            try:
+                for i, (xb, yb) in enumerate(
+                        t.make_loader(x, y, 8).epoch(0)):
+                    if i == 2:
+                        break
+                    st, m = t.train_step(st, xb, yb)
+                    losses.append(float(m["loss"]))
+            finally:
+                torch.backends.cudnn.enabled = True
             runs[device] = (losses, {k: v.cpu()
                                      for k, v in st.params.items()})
         (gl, gp), (cl, cp) = runs["cuda"], runs["cpu"]
@@ -1422,8 +1521,10 @@ def reference_phase(torch):
         if worst > 2e-3:
             raise AssertionError(f"{path}: card and CPU params differ by "
                                  f"{worst}")
-        log(f"reference {path}: card losses {gl} CPU losses {cl} max param "
-            f"diff {worst:.3g}")
+        log(f"reference {path} ({name}"
+            + ("" if name == "resnet20" else ", cuDNN off")
+            + f"): card losses {gl} CPU losses {cl} max param diff "
+            f"{worst:.3g}")
 
 
 def zero_identity(torch) -> float:
@@ -1669,8 +1770,9 @@ def drain_check(torch, path: str, trainer, state, res: dict):
 
 
 def main_path_phase(torch, path: str, steps: int, device=None,
-                    batch: int = 128):
-    """One path of PATHS at full width through Trainer.fit."""
+                    batch: int = 128, **fields):
+    """One path of PATHS at full width through Trainer.fit; ``fields``
+    override its GeoConfig fields."""
     from geomx_tpu_torch import ops
     from geomx_tpu_torch.compression import TwoBitCompressor
     from geomx_tpu_torch.data import load_dataset
@@ -1678,7 +1780,8 @@ def main_path_phase(torch, path: str, steps: int, device=None,
 
     epochs = max(2, math.ceil(steps / 8))
     data = load_dataset("synthetic", synthetic_train_n=8 * batch * 8)
-    trainer = make_trainer(path, get_model("resnet20"), device=device)
+    trainer = make_trainer(path, get_model("resnet20"), device=device,
+                           **fields)
     state = trainer.init_state(seed=0)
     loader = trainer.make_loader(data["train_x"], data["train_y"], batch)
     on_card = trainer.device.type == "cuda"
@@ -1701,8 +1804,14 @@ def main_path_phase(torch, path: str, steps: int, device=None,
 
     losses = [r["loss"] for r in records if "loss" in r]
     times = [r["time"] for r in records if "loss" in r]
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{path}: non-finite loss: {losses}")
+    # every replica identical: FSA, MixedSync and the pipeline replicate
+    # the update; HFA's replicas drift between syncs, and the 16 steps
+    # end on a global sync (16 is a multiple of K1 * K2 = 8)
+    sync = trainer.sync
+    if getattr(sync, "k1", None) and len(losses) % (sync.k1 * sync.k2):
+        raise AssertionError(f"{path}: {len(losses)} steps do not end on "
+                             "an HFA global sync")
+    res = step_stats(torch, trainer, state, path, losses, launches)
     # the loss falls over the first two epochs (8 steps each).  Later the
     # sgd configurations -- sgd momentum on top of BSC's momentum
     # correction at lr 0.1 without warm-up -- turn unstable on the
@@ -1718,24 +1827,8 @@ def main_path_phase(torch, path: str, steps: int, device=None,
     first, second = losses[:8], losses[8:16]
     if len(second) < 8 or not statistics.mean(second) < statistics.mean(first):
         raise AssertionError(f"{path}: loss did not fall: {losses}")
-    # every replica identical: FSA, MixedSync and the pipeline replicate
-    # the update; HFA's replicas drift between syncs, and the 16 steps
-    # end on a global sync (16 is a multiple of K1 * K2 = 8)
-    sync = trainer.sync
-    if getattr(sync, "k1", None) and len(losses) % (sync.k1 * sync.k2):
-        raise AssertionError(f"{path}: {len(losses)} steps do not end on "
-                             "an HFA global sync")
-    for k_, v in state.params.items():
-        if not torch.equal(v, v[:1, :1].expand_as(v)):
-            raise AssertionError(f"{path}: replicas diverged at {k_}")
-    kernels = PATHS[path][4]
-    missing = [name for name in kernels if launches[name] < 1]
-    if on_card and missing:
-        raise AssertionError(f"{path}: kernels not launched: {missing} "
-                             f"({launches})")
-    res = dict(steps=len(losses), samples_per_step=8 * batch, losses=losses,
+    res.update(steps=len(losses), samples_per_step=8 * batch, losses=losses,
                loss_first=losses[0], loss_last=losses[-1],
-               launches=launches,
                launches_per_step={name: n / len(losses)
                                   for name, n in launches.items() if n})
     if path in SHARDED_TWIN:
@@ -1762,9 +1855,7 @@ def main_path_phase(torch, path: str, steps: int, device=None,
     res.update(
         samples_per_s=8 * batch * len(per_step) / (times[-1] - times[warm - 1]),
         step_ms_median=1e3 * statistics.median(per_step),
-        test_acc=trainer.evaluate(state, data["test_x"], data["test_y"]),
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
-        if on_card else None)
+        test_acc=trainer.evaluate(state, data["test_x"], data["test_y"]))
     log(f"path {path}: {len(losses)} steps, loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} (first-8 mean {statistics.mean(first):.4f}, "
         f"next-8 mean {statistics.mean(second):.4f}), "
@@ -1785,6 +1876,236 @@ def main_path_phase(torch, path: str, steps: int, device=None,
         + f", launches {launches}"
         + (f" ({res['launches_per_step']} a step)"
            if path in SHARDED_TWIN else ""))
+    return res
+
+
+def state_diff(torch, a, b) -> float:
+    """The largest absolute difference between two TrainStates of the
+    same structure (inf where the steps, paths or shapes differ)."""
+    import dataclasses
+    ta = tensors(torch, dataclasses.asdict(a))
+    tb = tensors(torch, dataclasses.asdict(b))
+    if a.step != b.step or [p for p, _ in ta] != [p for p, _ in tb]:
+        return math.inf
+    worst = 0.0
+    for (_, u), (_, v) in zip(ta, tb):
+        if u.shape != v.shape:
+            return math.inf
+        if u.numel():
+            worst = max(worst, (u.double() - v.double()).abs().max().item())
+    return worst
+
+
+def step_stats(torch, trainer, state, path: str, losses, launches) -> dict:
+    """The checks every path of PATHS shares: finite losses, identical
+    replicas and, on the card, every kernel of the configuration
+    launched in the run; returns the launches and the peak memory."""
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{path}: non-finite loss: {losses}")
+    for k_, v in state.params.items():
+        if not torch.equal(v, v[:1, :1].expand_as(v)):
+            raise AssertionError(f"{path}: replicas diverged at {k_}")
+    on_card = trainer.device.type == "cuda"
+    missing = [name for name in PATHS[path][5] if launches[name] < 1]
+    if on_card and missing:
+        raise AssertionError(f"{path}: kernels not launched: {missing} "
+                             f"({launches})")
+    return dict(launches=launches,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
+                if on_card else None)
+
+
+def cnn_bsc_phase(torch) -> dict:
+    """Path cnn_bsc: the port's examples/cnn_bsc.py entry point itself
+    (``cnn_common.run``), on [2, 4] from the GEOMX_* environment, as the
+    launch script sets it; 16 steps, the test accuracy printed after
+    each, as the example does.  Step time: the iteration (step and the
+    example's evaluation) less one evaluation, timed after the run."""
+    import os
+
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.examples import cnn_bsc
+
+    _, _, _, _, steps, _, (P, W), _ = PATHS["cnn_bsc"]
+    losses, stamps = [], []
+
+    def on_step(it, metrics):
+        losses.append(float(metrics["loss"]))
+        stamps.append(time.perf_counter())
+
+    env = {"GEOMX_NUM_PARTIES": str(P), "GEOMX_WORKERS_PER_PARTY": str(W)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        state, trainer = cnn_bsc.main(["-d", "mnist", "-bs", "32", "-ep",
+                                       "1"], on_step=on_step)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res = step_stats(torch, trainer, state, "cnn_bsc", losses, launches)
+    res["dc_wire_bytes_per_step"] = trainer.sync.dc_compressor.wire_bytes(
+        state.params)
+    # the JAX package's 16 fp32 steps fall too (tests/torch_jax_trajectory.py
+    # --path cnn_bsc --batch 32 --steps 16, steps 1-8 -> 9-16: 2.2994 ->
+    # 2.1959)
+    if len(losses) < steps:
+        raise AssertionError(f"cnn_bsc: {len(losses)} steps, want {steps}")
+    first, second = losses[:steps // 2], losses[steps // 2:steps]
+    if not statistics.mean(second) < statistics.mean(first):
+        raise AssertionError(f"cnn_bsc: loss did not fall: {losses}")
+    from geomx_tpu_torch.data import load_dataset
+    data = load_dataset("mnist", root=trainer.config.data_dir)
+    evals = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        test_acc = trainer.evaluate(state, data["test_x"], data["test_y"])
+        evals.append(time.perf_counter() - t0)
+    eval_s = statistics.median(evals)
+    warm = 2
+    iters = [b - a for a, b in zip(stamps[warm - 1:], stamps[warm:])]
+    step_s = statistics.median(iters) - eval_s
+    res.update(steps=len(losses), samples_per_step=P * W * 32,
+               losses=losses, loss_first=losses[0], loss_last=losses[-1],
+               launches_per_step={n: c / len(losses)
+                                  for n, c in launches.items() if c},
+               iteration_ms_median=1e3 * statistics.median(iters),
+               eval_ms=1e3 * eval_s, step_ms_median=1e3 * step_s,
+               samples_per_s=P * W * 32 / step_s, test_acc=test_acc,
+               synthetic=bool(data["synthetic"]),
+               params=sum(v[0, 0].numel() for v in state.params.values()))
+    log(f"path cnn_bsc: the entry point ran {len(losses)} steps on "
+        f"{P}x{W}, loss {losses[0]:.4f} -> {losses[-1]:.4f} (first-8 mean "
+        f"{statistics.mean(first):.4f}, next-8 mean "
+        f"{statistics.mean(second):.4f}), {res['params']} parameters, "
+        f"iteration {res['iteration_ms_median']:.2f} ms (median, with the "
+        f"example's evaluation of {len(data['test_x'])} images, "
+        f"{res['eval_ms']:.2f} ms alone), step {res['step_ms_median']:.2f} "
+        f"ms, {res['samples_per_s']:.1f} samples/s, test_acc "
+        f"{test_acc:.3f}, peak {res['peak_mem_gb']:.4f} GB, dc wire bytes a "
+        f"step {res['dc_wire_bytes_per_step']} (computed), launches "
+        f"{launches} ({res['launches_per_step']} a step)")
+    return res
+
+
+def checkpoint_round_trip(torch, path: str, x, y, batch: int,
+                          deterministic: bool) -> dict:
+    """Save after the first epoch, load into a fresh Trainer and run the
+    second epoch with the scanned runner: the loaded state against the
+    saved one, and the resumed state against the 16 uninterrupted steps
+    (params, fused Adam state and dc-tier state), as largest
+    differences.  ``deterministic`` sets
+    ``torch.backends.cudnn.deterministic`` on both sides."""
+    import os
+    import tempfile
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = deterministic, False
+    try:
+        a = make_trainer(path)
+        la = a.make_loader(x, y, batch, device_cache=True)
+        st8, _ = a.run_epoch(a.init_state(seed=0, sample_input=x[:2]), la, 0)
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = a.save_checkpoint(os.path.join(d, "epoch0"), st8)
+            size = os.path.getsize(ckpt)
+            b = make_trainer(path)
+            loaded = b.load_checkpoint(
+                ckpt, b.init_state(seed=1, sample_input=x[:2]))
+        st16, _ = a.run_epoch(st8, la, 1)
+        lb = b.make_loader(x, y, batch, device_cache=True)
+        resumed, _ = b.run_epoch(loaded, lb, 1)
+        torch.cuda.synchronize()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    return dict(loaded_max_diff=state_diff(torch, loaded, st8),
+                resumed_max_diff=state_diff(torch, resumed, st16),
+                checkpoint_bytes=size)
+
+
+def alexnet_phase(torch) -> dict:
+    """Path alexnet_fused_adam through ``Trainer.fit(scan_epochs=True)``
+    on a device-cached loader (two epochs of 8 steps; the records are
+    the epochs' mean losses), then the cached gather against the host
+    loader's bytes and the checkpoint round trip."""
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.data import GeoDataLoader
+
+    path, batch = "alexnet_fused_adam", 32
+    _, _, _, _, steps, _, (P, W), _ = PATHS[path]
+    data = path_data(path, P * W * batch * steps // 2)
+    x, y = data["train_x"], data["train_y"]
+    trainer = make_trainer(path)
+    state = trainer.init_state(seed=0, sample_input=x[:2])
+    loader = trainer.make_loader(x, y, batch, device_cache=True)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (loader._dev_x, loader._dev_y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, records = trainer.fit(state, loader, epochs=2, log_every=1,
+                                 log_fn=lambda s: None, scan_epochs=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    epoch_losses = [r["loss"] for r in records]
+    res = step_stats(torch, trainer, state, path, epoch_losses, launches)
+    res["dc_wire_bytes_per_step"] = trainer.sync.dc_compressor.wire_bytes(
+        state.params)
+    if state.step != steps or len(records) != 2:
+        raise AssertionError(f"{path}: {state.step} steps, {records}")
+    # the JAX package's 16 fp32 steps fall too (tests/torch_jax_trajectory.py
+    # --path alexnet_fused_adam --batch 32 --steps 16: 2.9025 -> 2.3641)
+    if not epoch_losses[1] < epoch_losses[0]:
+        raise AssertionError(f"{path}: loss did not fall: {epoch_losses}")
+    step_s = (records[1]["time"] - records[0]["time"]) \
+        / loader.steps_per_epoch
+    # the cached gather: one epoch's batches against the host loader's
+    host = GeoDataLoader(x, y, trainer.topology, batch, device="cpu")
+    for (xb, yb), (hx, hy) in zip(loader.epoch(0), host.host_batches(0)):
+        if not (torch.equal(xb.cpu(), torch.from_numpy(hx))
+                and torch.equal(yb.cpu(), torch.from_numpy(
+                    hy.astype("int64")))):
+            raise AssertionError(f"{path}: a device-cached batch differs "
+                                 "from the host loader's")
+    ckpt = checkpoint_round_trip(torch, path, x, y, batch, True)
+    if ckpt["loaded_max_diff"] != 0 or ckpt["resumed_max_diff"] != 0:
+        raise AssertionError(f"{path}: the checkpoint round trip is not "
+                             f"bit-equal: {ckpt}")
+    loose = checkpoint_round_trip(torch, path, x, y, batch, False)
+    res.update(steps=state.step, samples_per_step=P * W * batch,
+               epoch_losses=epoch_losses, loss_first=epoch_losses[0],
+               loss_last=epoch_losses[1],
+               launches_per_step={n: c / steps
+                                  for n, c in launches.items() if c},
+               step_ms_median=1e3 * step_s,
+               samples_per_s=P * W * batch / step_s,
+               test_acc=trainer.evaluate(state, data["test_x"],
+                                         data["test_y"]),
+               cached_dataset_bytes=cache_bytes,
+               params=sum(v[0, 0].numel() for v in state.params.values()),
+               checkpoint=ckpt, checkpoint_nondeterministic_cudnn=loose)
+    log(f"path {path}: 2 scanned epochs of {loader.steps_per_epoch} steps "
+        f"on {P}x{W}, {res['params']} parameters, epoch mean loss "
+        f"{epoch_losses[0]:.4f} -> {epoch_losses[1]:.4f}, step "
+        f"{res['step_ms_median']:.2f} ms (the second epoch's mean), "
+        f"{res['samples_per_s']:.1f} samples/s, test_acc "
+        f"{res['test_acc']:.3f}, peak {res['peak_mem_gb']:.4f} GB, cached "
+        f"dataset {cache_bytes} B on the card, dc wire bytes a step "
+        f"{res['dc_wire_bytes_per_step']} (computed), launches {launches} "
+        f"({res['launches_per_step']} a step); the cached batches of an "
+        "epoch are the host loader's bytes; checkpoint after epoch 0 "
+        f"({ckpt['checkpoint_bytes']} B): loaded and resumed states "
+        "bit-equal with cudnn.deterministic; without it the resumed state "
+        f"differs by up to {loose['resumed_max_diff']:.3g} (loaded "
+        f"{loose['loaded_max_diff']:.3g})")
     return res
 
 
@@ -1918,8 +2239,11 @@ def main(argv=None) -> int:
     reference_phase(torch)
     zero_diff = zero_identity(torch)
     seq_reference_phase(torch)
-    paths = {path: main_path_phase(torch, path, steps or args.steps)
-             for path, (_, _, _, steps, _, _, _) in PATHS.items()}
+    zoo_phases = {"cnn_bsc": cnn_bsc_phase,
+                  "alexnet_fused_adam": alexnet_phase}
+    paths = {path: zoo_phases[path](torch) if path in zoo_phases
+             else main_path_phase(torch, path, cfg[4] or args.steps)
+             for path, cfg in PATHS.items()}
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
     log("median step: " + ", ".join(
         f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())

@@ -8,14 +8,19 @@ JAX package does, so one launch environment configures both packages.
 The reference's knobs that change its training step but that the port
 does not run yet are read too, under the same names and casts, and
 refused: a config that sets one to anything but its default raises
-``NotImplementedError`` naming the ROADMAP.md Queue 1 item that ports it
-(``UNPORTED``), so a launch environment is never half obeyed.
+``NotImplementedError`` naming, by its title, the ROADMAP.md Queue 1 item
+that ports it (``UNPORTED``), so a launch environment is never half
+obeyed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+
+# the JAX package's default data directory (GeoConfig.data_dir and
+# load_dataset's root there), so that one data layout serves both
+DEFAULT_DATA_DIR = os.path.join(os.sep, "root", "data")
 
 
 def _env(names, default, cast):
@@ -105,6 +110,14 @@ class GeoConfig:
     bigarray_bound: int = 1_000_000
     multi_gps: bool = False
 
+    # ---- input-pipeline prefetch depth: batches the loader's producer
+    # thread assembles and copies ahead of the step (data/loader.py); 0
+    # assembles them in the caller's thread
+    prefetch: int = 2
+
+    # ---- data (load_dataset's root)
+    data_dir: str = DEFAULT_DATA_DIR
+
     # ---- read and refused unless at its default (UNPORTED): the
     # control plane
     control: bool = False
@@ -156,6 +169,8 @@ class GeoConfig:
                 ["GEOMX_BIGARRAY_BOUND", "MXNET_KVSTORE_BIGARRAY_BOUND"],
                 1_000_000, int),
             multi_gps=_env_bool(["GEOMX_MULTI_GPS"], False),
+            prefetch=_env(["GEOMX_PREFETCH"], 2, lambda s: int(float(s))),
+            data_dir=_env(["GEOMX_DATA_DIR"], DEFAULT_DATA_DIR, str),
             control=_env_bool(["GEOMX_CONTROL"], False),
         )
         cfg.update(overrides)

@@ -1,26 +1,80 @@
-"""Dataset loading (port of geomx_tpu/data/datasets.py, CIFAR-10 and the
-synthetic set): CIFAR-10 from local files when present, else the same
-deterministic class-conditional synthetic set as the JAX package, so both
-packages train on byte-identical data for the same seed.
+"""Dataset loading (port of geomx_tpu/data/datasets.py): MNIST,
+FashionMNIST and CIFAR-10 from local files when present, else the same
+deterministic class-conditional synthetic set as the JAX package (at the
+dataset's shape), so both packages train on byte-identical data for the
+same seed.  Nothing is downloaded.
 
-CIFAR-10 is picked up under ``root`` in the python pickle batches or the
-binary ``.bin`` format.  MNIST and FashionMNIST are not ported yet.
+- MNIST / FashionMNIST: idx-ubyte files, raw or ``.gz``, under
+  ``<root>/<name>`` or ``<root>/<name>/raw``;
+- CIFAR-10: the python pickle batches (``cifar-10-batches-py``) or the
+  binary ``.bin`` format, under ``<root>/cifar10`` or ``root``.
+
+``root`` defaults to the JAX package's data directory
+(``GeoConfig.data_dir``, ``GEOMX_DATA_DIR``).
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
+import struct
 from typing import Tuple
 
 import numpy as np
 
-DATASETS = ("cifar10", "synthetic")
+from geomx_tpu_torch.config import DEFAULT_DATA_DIR
+
+DATASETS = ("mnist", "fashion-mnist", "cifar10", "synthetic")
 
 _SHAPES = {
+    "mnist": (28, 28, 1),
+    "fashion-mnist": (28, 28, 1),
     "cifar10": (32, 32, 3),
     "synthetic": (32, 32, 3),
 }
+
+
+def _maybe_open(path: str):
+    if os.path.exists(path):
+        return open(path, "rb")
+    if os.path.exists(path + ".gz"):
+        return gzip.open(path + ".gz", "rb")
+    return None
+
+
+def _read_idx_images(path: str):
+    f = _maybe_open(path)
+    if f is None:
+        return None
+    with f:
+        magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+        if magic != 2051:
+            return None
+        data = np.frombuffer(f.read(n * rows * cols), dtype=np.uint8)
+        return data.reshape(n, rows, cols, 1)
+
+
+def _read_idx_labels(path: str):
+    f = _maybe_open(path)
+    if f is None:
+        return None
+    with f:
+        magic, n = struct.unpack(">II", f.read(8))
+        if magic != 2049:
+            return None
+        return np.frombuffer(f.read(n), dtype=np.uint8).astype(np.int32)
+
+
+def _load_mnist_like(root: str):
+    for d in (root, os.path.join(root, "raw")):
+        xs = _read_idx_images(os.path.join(d, "train-images-idx3-ubyte"))
+        ys = _read_idx_labels(os.path.join(d, "train-labels-idx1-ubyte"))
+        xt = _read_idx_images(os.path.join(d, "t10k-images-idx3-ubyte"))
+        yt = _read_idx_labels(os.path.join(d, "t10k-labels-idx1-ubyte"))
+        if all(v is not None for v in (xs, ys, xt, yt)):
+            return xs, ys, xt, yt
+    return None
 
 
 def _load_cifar10(root: str):
@@ -79,7 +133,7 @@ def _synthetic(shape: Tuple[int, int, int], num_classes: int = 10,
     return xs, ys, xt, yt
 
 
-def load_dataset(name: str = "cifar10", root: str = "data",
+def load_dataset(name: str = "cifar10", root: str = DEFAULT_DATA_DIR,
                  synthetic_fallback: bool = True,
                  synthetic_train_n: int = 4096):
     """Returns dict(train_x[u8 NHWC], train_y[i32], test_x, test_y, synthetic).
@@ -88,15 +142,13 @@ def load_dataset(name: str = "cifar10", root: str = "data",
     host->device transfer at 1 byte/pixel.
     """
     name = name.lower()
-    if name in ("mnist", "fashion-mnist"):
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP.md Queue 1, "
-            "item 3 'Data')")
     if name not in DATASETS:
         raise ValueError(f"Unknown dataset {name!r}; options: {DATASETS}")
     shape = _SHAPES[name]
     loaded = None
-    if name == "cifar10":
+    if name in ("mnist", "fashion-mnist"):
+        loaded = _load_mnist_like(os.path.join(root, name))
+    elif name == "cifar10":
         loaded = _load_cifar10(os.path.join(root, name)) or _load_cifar10(root)
     synthetic = loaded is None
     if synthetic:

@@ -1,0 +1,86 @@
+"""Vanilla / MixedSync / DCASGD geo-distributed CNN training (port of
+examples/cnn.py).
+
+Same model (Conv16k5-Pool-Conv32k5-Pool-Dense256-Dense128-Dense10), same
+defaults (Adam lr 0.01, batch 32, 5 epochs), same flags (--mixed-sync,
+--dcasgd, --split-by-class, --compression), same per-iteration
+"[Time t][Epoch e][Iteration i] Test Acc a" output.  The topology comes
+from the GEOMX_*/DMLC_* environment:
+
+  GEOMX_NUM_PARTIES=2 GEOMX_WORKERS_PER_PARTY=4 \\
+  python -m geomx_tpu_torch.examples.cnn -c -d synthetic -ep 2
+"""
+
+import argparse
+import time
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-lr", "--learning-rate", type=float, default=0.01)
+    parser.add_argument("-bs", "--batch-size", type=int, default=32)
+    parser.add_argument("-ep", "--epoch", type=int, default=5)
+    parser.add_argument("-ms", "--mixed-sync", action="store_true")
+    parser.add_argument("-dc", "--dcasgd", action="store_true")
+    parser.add_argument("-sc", "--split-by-class", action="store_true")
+    parser.add_argument("-c", "--cpu", action="store_true",
+                        help="run on the CPU (default: the GPU)")
+    parser.add_argument("-d", "--dataset", default="mnist",
+                        choices=["mnist", "fashion-mnist", "cifar10",
+                                 "synthetic"])
+    parser.add_argument("--model", default="cnn")
+    parser.add_argument("--compression", default=None,
+                        help='e.g. "bsc,0.01", "fp16", "2bit,0.5", '
+                             '"mpq,0.01,200000"')
+    args = parser.parse_args(argv)
+
+    from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.optim import get_optimizer
+    from geomx_tpu_torch.sync import get_sync_algorithm
+    from geomx_tpu_torch.train import Trainer
+
+    overrides = {}
+    if args.mixed_sync or args.dcasgd:
+        overrides["sync_mode"] = "dist_async"
+    if args.dcasgd:
+        overrides["dcasgd"] = True
+    if args.compression:
+        overrides["compression"] = args.compression
+    cfg = GeoConfig.from_env(**overrides)
+    topo = HiPSTopology(cfg.num_parties, cfg.workers_per_party)
+
+    data = load_dataset(args.dataset, root=cfg.data_dir)
+    if data["synthetic"] and args.dataset != "synthetic":
+        print(f"# no local {args.dataset} data under {cfg.data_dir}; "
+              "using the synthetic fallback")
+
+    optimizer = get_optimizer("adam", learning_rate=args.learning_rate)
+    trainer = Trainer(get_model(args.model), topo, optimizer,
+                      sync=get_sync_algorithm(cfg), config=cfg,
+                      device="cpu" if args.cpu else None)
+    state = trainer.init_state(seed=0, sample_input=data["train_x"][:2])
+    loader = trainer.make_loader(data["train_x"], data["train_y"],
+                                 args.batch_size,
+                                 split_by_class=args.split_by_class)
+
+    print(f"Start training on {topo.total_workers} workers "
+          f"({topo.num_parties} parties x {topo.workers_per_party}), "
+          f"sync={cfg.sync_mode}, compression={cfg.compression}.",
+          flush=True)
+    begin, it = time.time(), 0
+    for epoch in range(args.epoch):
+        for xb, yb in loader.epoch(epoch, prefetch=cfg.prefetch):
+            state, metrics = trainer.train_step(state, xb, yb)
+            float(metrics["loss"])
+            it += 1
+            test_acc = trainer.evaluate(state, data["test_x"],
+                                        data["test_y"])
+            print("[Time %.3f][Epoch %d][Iteration %d] Test Acc %.4f"
+                  % (time.time() - begin, epoch, it, test_acc), flush=True)
+    return state, trainer
+
+
+if __name__ == "__main__":
+    main()

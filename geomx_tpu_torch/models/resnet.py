@@ -1,8 +1,10 @@
 """ResNet family for the flagship CIFAR-10 benchmark (port of
 geomx_tpu/models/resnet.py).
 
-CIFAR-style ResNet-20/32/56 (He et al. 2016, section 4.2) and the
-ResNet-18 widths, computed the way the flax model computes them, so that
+CIFAR-style ResNet-20/32/56 (He et al. 2016, section 4.2), the
+ResNet-18 widths and ResNet-20's space-to-depth variant
+(``get_model("resnet20_s2d")``: the 2x2 space-to-depth stem and
+transition shortcuts), computed the way the flax model computes them, so that
 converted flax weights give the same logits:
 
 - Parameters keep flax's names and layouts: conv kernels are HWIO,
@@ -149,9 +151,29 @@ class Dense(nn.Module):
         return x.float() @ self.kernel + self.bias
 
 
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NHWC space-to-depth, ``[B, H, W, C] -> [B, H/b, W/b, C*b*b]``: the
+    JAX package's reshape and transpose order exactly (channel ``(dy *
+    b + dx) * C + c``)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, h // block, w // block, c * block * block)
+
+
+def _space_to_depth_nchw(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """:func:`space_to_depth` of an NCHW view, as an NCHW view."""
+    return space_to_depth(x.permute(0, 2, 3, 1), block).permute(0, 3, 1, 2)
+
+
 class BasicBlock(nn.Module):
+    """flax ``BasicBlock``.  ``s2d_shortcut``: the transition shortcut of
+    ``mxu_shortcut`` (stride 2, even H and W) -- space-to-depth and an
+    unstrided 1x1 projection over ``4 * in_features`` channels."""
+
     def __init__(self, in_features: int, filters: int, strides: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 s2d_shortcut: bool = False):
         super().__init__()
         self.Conv_0 = Conv(in_features, filters, 3, strides, dtype)
         self.BatchNorm_0 = BatchNorm(filters, dtype)
@@ -160,7 +182,11 @@ class BasicBlock(nn.Module):
         # the projection shortcut exists where the residual's shape
         # changes (flax: ``residual.shape != y.shape``)
         self.project = in_features != filters or strides != 1
-        if self.project:
+        self.s2d_shortcut = self.project and s2d_shortcut
+        if self.s2d_shortcut:
+            self.Conv_2 = Conv(4 * in_features, filters, 1, 1, dtype)
+            self.BatchNorm_2 = BatchNorm(filters, dtype)
+        elif self.project:
             self.Conv_2 = Conv(in_features, filters, 1, strides, dtype)
             self.BatchNorm_2 = BatchNorm(filters, dtype)
 
@@ -170,39 +196,84 @@ class BasicBlock(nn.Module):
         y = torch.relu(self.BatchNorm_0(y, train))
         y = self.Conv_1(y)
         y = self.BatchNorm_1(y, train)
+        if self.s2d_shortcut:
+            residual = _space_to_depth_nchw(residual)
         if self.project:
             residual = self.BatchNorm_2(self.Conv_2(residual), train)
         return torch.relu(y + residual)
 
 
 class ResNet(nn.Module):
-    """flax ``ResNet(stage_sizes, stage_filters)`` (CIFAR 3x3 stem, no
-    space-to-depth variants).  ``forward`` takes NHWC float images."""
+    """flax ``ResNet(stage_sizes, stage_filters)``.  ``forward`` takes
+    NHWC float images.
+
+    ``stem_space_to_depth`` folds a 2x2 space-to-depth into the 3x3 stem
+    (every stage at half resolution); ``mxu_shortcuts`` takes the
+    space-to-depth transition shortcuts wherever a stride-2 block's input
+    has even H and W.  The stem's input channels, and with
+    ``mxu_shortcuts`` the shortcuts' form, depend on the input: the model
+    is built for ``(32, 32, in_channels)`` and :meth:`build` re-sizes it
+    for another sample shape, as flax's ``init`` sizes it from the
+    sample."""
 
     def __init__(self, stage_sizes: Sequence[int],
                  stage_filters: Sequence[int], num_classes: int = 10,
                  dtype: torch.dtype = torch.float32, in_channels: int = 3,
-                 stem_kernel: int = 3):
+                 stem_kernel: int = 3, stem_space_to_depth: bool = False,
+                 mxu_shortcuts: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.stage_filters = tuple(stage_filters)
         self.num_classes = num_classes
         self.dtype = dtype
-        self.Conv_0 = Conv(in_channels, stage_filters[0], stem_kernel, 1,
-                           dtype)
-        self.BatchNorm_0 = BatchNorm(stage_filters[0], dtype)
-        cin = stage_filters[0]
+        self.stem_kernel = stem_kernel
+        self.stem_space_to_depth = stem_space_to_depth
+        self.mxu_shortcuts = mxu_shortcuts
+        self.input_shape = None
+        self.build((32, 32, in_channels))
+
+    def _layout(self, input_shape):
+        """What the layers depend on: the stem's input channels and the
+        blocks that take the space-to-depth shortcut."""
+        h, w, c = input_shape
+        if self.stem_space_to_depth:
+            h, w, c = h // 2, w // 2, 4 * c
+        s2d = []
+        for stage, num_blocks in enumerate(self.stage_sizes):
+            for block in range(num_blocks):
+                strides = 2 if stage > 0 and block == 0 else 1
+                s2d.append(self.mxu_shortcuts and strides == 2
+                           and h % 2 == 0 and w % 2 == 0)
+                h, w = -(-h // strides), -(-w // strides)
+        return c, tuple(s2d)
+
+    def build(self, input_shape) -> None:
+        """Size the layers for one sample's ``(H, W, C)``; a no-op when
+        the layers already fit it."""
+        input_shape = tuple(int(d) for d in input_shape)
+        layout = self._layout(input_shape)
+        if self.input_shape is not None and \
+                layout == self._layout(self.input_shape):
+            self.input_shape = input_shape
+            return
+        cin, s2d = layout
+        filters0 = self.stage_filters[0]
+        self.Conv_0 = Conv(cin, filters0, self.stem_kernel, 1, self.dtype)
+        self.BatchNorm_0 = BatchNorm(filters0, self.dtype)
+        cin = filters0
         i = 0
         for stage, (num_blocks, filters) in enumerate(
-                zip(stage_sizes, stage_filters)):
+                zip(self.stage_sizes, self.stage_filters)):
             for block in range(num_blocks):
                 strides = 2 if stage > 0 and block == 0 else 1
                 setattr(self, f"BasicBlock_{i}",
-                        BasicBlock(cin, filters, strides, dtype))
+                        BasicBlock(cin, filters, strides, self.dtype,
+                                   s2d_shortcut=s2d[i]))
                 cin = filters
                 i += 1
         self.num_blocks = i
-        self.Dense_0 = Dense(cin, num_classes)
+        self.Dense_0 = Dense(cin, self.num_classes)
+        self.input_shape = input_shape
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None
@@ -222,7 +293,10 @@ class ResNet(nn.Module):
         return leaf_names(dict(self.named_parameters()))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = x.to(self.dtype).permute(0, 3, 1, 2)      # NHWC -> NCHW view
+        x = x.to(self.dtype)
+        if self.stem_space_to_depth:
+            x = space_to_depth(x, 2)
+        x = x.permute(0, 3, 1, 2)                      # NHWC -> NCHW view
         x = self.Conv_0(x)
         x = torch.relu(self.BatchNorm_0(x, train))
         for i in range(self.num_blocks):
@@ -232,8 +306,12 @@ class ResNet(nn.Module):
         return self.Dense_0(x).float()
 
 
-def ResNet20(num_classes: int = 10, dtype=torch.bfloat16) -> ResNet:
-    return ResNet((3, 3, 3), (16, 32, 64), num_classes, dtype)
+def ResNet20(num_classes: int = 10, dtype=torch.bfloat16,
+             space_to_depth: bool = False,
+             mxu_shortcuts: bool = False) -> ResNet:
+    return ResNet((3, 3, 3), (16, 32, 64), num_classes, dtype,
+                  stem_space_to_depth=space_to_depth,
+                  mxu_shortcuts=mxu_shortcuts)
 
 
 def ResNet32(num_classes: int = 10, dtype=torch.bfloat16) -> ResNet:

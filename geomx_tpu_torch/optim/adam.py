@@ -9,7 +9,10 @@
     u      = (mu' / bc1) / (sqrt(nu' / bc2) + eps),  bc = 1 - b ** count'
     p'     = p + (-lr) * u
 
-``eps`` stays outside the square root.  ``torch.optim.Adam`` orders the
+``eps`` stays outside the square root; ``eps_root`` (default 0) adds
+inside it, ``sqrt(nu' / bc2 + eps_root)``.  ``learning_rate`` may be a
+schedule of the update count (``optim/schedules.py``), evaluated at the
+count before the increment, as optax's ``scale_by_schedule`` does.  ``torch.optim.Adam`` orders the
 same update differently (it folds the bias corrections into the step
 size and ``eps``), so the port keeps optax's op order, each op rounded
 on its own.  The constants ``1 - b1``, ``1 - b2``, ``lr`` and ``eps``
@@ -25,6 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from geomx_tpu_torch.optim.schedules import step_size
 from geomx_tpu_torch.tree import tree_map
 
 
@@ -50,23 +54,37 @@ def adam_moments(g, mu, nu, b1: float, b2: float):
     return mu2, nu2
 
 
-def adam_direction(mu2, nu2, bc1, bc2, eps: float):
-    """``(mu'/bc1) / (sqrt(nu'/bc2) + eps)``.  ``bc1``/``bc2`` are 0-d
-    tensors on the moments' device: PyTorch divides a CUDA tensor by a
-    host scalar as a multiply by its reciprocal, which rounds
+def adam_direction(mu2, nu2, bc1, bc2, eps: float, eps_root: float = 0.0):
+    """``(mu'/bc1) / (sqrt(nu'/bc2 + eps_root) + eps)``.  ``bc1``/``bc2``
+    are 0-d tensors on the moments' device: PyTorch divides a CUDA
+    tensor by a host scalar as a multiply by its reciprocal, which rounds
     differently."""
-    return (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + eps)
+    nu_hat = nu2 / bc2
+    if eps_root:
+        nu_hat = nu_hat + eps_root
+    return (mu2 / bc1) / (torch.sqrt(nu_hat) + eps)
+
+
+def device_scalars(cache: dict, device, *values) -> list:
+    """0-d fp32 tensors of ``values`` on ``device``, made once a device
+    (``cache`` maps device -> tensors)."""
+    if device not in cache:
+        cache[device] = [torch.full((), v, dtype=torch.float32,
+                                    device=device) for v in values]
+    return cache[device]
 
 
 class Adam:
-    """``optax.adam(learning_rate, b1, b2, eps)`` as ``init``/``update``
-    over a flat dict of tensors or a bucket list.  State: ``{"count":
-    int, "mu": tree, "nu": tree}``."""
+    """``optax.adam(learning_rate, b1, b2, eps, eps_root)`` as
+    ``init``/``update`` over a flat dict of tensors or a bucket list.
+    State: ``{"count": int, "mu": tree, "nu": tree}``."""
 
-    def __init__(self, learning_rate: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
-        self.learning_rate = float(learning_rate)
+    def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, eps_root: float = 0.0):
+        self.learning_rate = learning_rate if callable(learning_rate) \
+            else float(learning_rate)
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.eps_root = float(eps_root)
 
     def init(self, params) -> dict:
         return {"count": 0, "mu": tree_map(torch.zeros_like, params),
@@ -82,19 +100,18 @@ class Adam:
         mu = tree_map(lambda m: m[0], moments)
         nu = tree_map(lambda m: m[1], moments)
         scalars = {}
+        lr = step_size(self.learning_rate, count - 1)
 
         def apply(p, mu2, nu2):
-            if p.device not in scalars:
-                scalars[p.device] = [torch.full((), bc, dtype=torch.float32,
-                                                device=p.device)
-                                     for bc in (bc1, bc2)]
-            u = adam_direction(mu2, nu2, *scalars[p.device], self.eps)
-            return p + u * -self.learning_rate
+            u = adam_direction(mu2, nu2,
+                               *device_scalars(scalars, p.device, bc1, bc2),
+                               self.eps, self.eps_root)
+            return p + u * -lr
 
         return tree_map(apply, params, mu, nu), \
             {"count": count, "mu": mu, "nu": nu}
 
 
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> Adam:
-    return Adam(learning_rate, b1, b2, eps)
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, eps_root: float = 0.0) -> Adam:
+    return Adam(learning_rate, b1, b2, eps, eps_root)

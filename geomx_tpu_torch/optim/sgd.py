@@ -6,6 +6,12 @@
     trace' = g + momentum * trace
     p'     = p + (-lr) * trace'
 
+With ``nesterov=True`` (``optax.sgd(lr, momentum, nesterov=True)``, the
+factory's ``"nag"``) the update is the look-ahead ``g + momentum *
+trace'``.  ``learning_rate`` may be a schedule of the update count
+(``optim/schedules.py``); the state then keeps the count (optax's
+``ScaleByScheduleState``).
+
 ``torch.optim.SGD`` orders the same update differently (it scales by
 ``lr`` inside ``p.add_(buf, alpha=-lr)``), so the port keeps optax's op
 order, each op rounded on its own.  Parameters and state are flat dicts
@@ -20,40 +26,52 @@ from typing import Optional, Tuple
 
 import torch
 
+from geomx_tpu_torch.optim.schedules import step_size
 from geomx_tpu_torch.tree import tree_map
 
 
 class SGD:
-    """``optax.sgd(learning_rate, momentum)`` as ``init``/``update``."""
+    """``optax.sgd(learning_rate, momentum, nesterov)`` as
+    ``init``/``update``."""
 
-    def __init__(self, learning_rate: float, momentum: Optional[float] = None,
+    def __init__(self, learning_rate, momentum: Optional[float] = None,
                  nesterov: bool = False):
-        if nesterov:
-            raise NotImplementedError(
-                "nesterov momentum is not ported yet (ROADMAP.md Queue 1, "
-                "item 4 'State, step, optimizer semantics')")
-        self.learning_rate = float(learning_rate)
+        self.learning_rate = learning_rate if callable(learning_rate) \
+            else float(learning_rate)
         self.momentum = None if momentum is None else float(momentum)
+        self.nesterov = bool(nesterov)
 
     def init(self, params: dict) -> dict:
-        if self.momentum is None:
-            return {}
-        return {"trace": tree_map(torch.zeros_like, params)}
+        state = {}
+        if self.momentum is not None:
+            state["trace"] = tree_map(torch.zeros_like, params)
+        if callable(self.learning_rate):
+            state["count"] = 0
+        return state
 
     def update(self, grads: dict, opt_state: dict,
                params: dict) -> Tuple[dict, dict]:
         """Returns ``(new_params, new_opt_state)``."""
+        new_state = {}
         if self.momentum is None:
             updates = grads
         else:
-            updates = tree_map(lambda g, t: g + t * self.momentum, grads,
-                               opt_state["trace"])
-            opt_state = {"trace": updates}
-        scale = -self.learning_rate
+            m = self.momentum
+            trace = tree_map(lambda g, t: g + t * m, grads,
+                             opt_state["trace"])
+            updates = tree_map(lambda g, t: g + t * m, grads, trace) \
+                if self.nesterov else trace
+            new_state["trace"] = trace
+        if callable(self.learning_rate):
+            count = opt_state["count"]
+            new_state["count"] = count + 1
+            scale = -step_size(self.learning_rate, count)
+        else:
+            scale = -self.learning_rate
         return tree_map(lambda p, u: p + u * scale, params, updates), \
-            opt_state
+            new_state
 
 
-def sgd(learning_rate: float, momentum: Optional[float] = None,
+def sgd(learning_rate, momentum: Optional[float] = None,
         nesterov: bool = False) -> SGD:
     return SGD(learning_rate, momentum, nesterov)

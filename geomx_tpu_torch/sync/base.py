@@ -14,9 +14,9 @@ re-padded for the shards.  Shard-shaped dc-tier state lives under the
 ``"dc_comp"`` key of the sync state.
 
 Not ported yet, and raising ``NotImplementedError``: degraded-mode
-membership (``bind_membership`` with a dead party, ROADMAP.md Queue 1
-item 6).  Nor are ``reset_comm_state`` (item 6), ``telemetry_scalars``
-and ``wire_accounting`` (item 7).
+membership (``bind_membership`` with a dead party, ROADMAP.md Queue 1,
+"Resilience and utils").  Nor are ``reset_comm_state`` (the same item),
+``telemetry_scalars`` and ``wire_accounting`` ("Telemetry").
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ class SyncAlgorithm(abc.ABC):
         if not all(mask):
             raise NotImplementedError(
                 "degraded-mode membership is not ported yet (ROADMAP.md "
-                "Queue 1, slice 3 'Resilience and utils')")
+                "Queue 1, 'Resilience and utils')")
         return self
 
     def bind_zero(self, plan) -> "SyncAlgorithm":

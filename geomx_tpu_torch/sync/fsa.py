@@ -11,7 +11,8 @@ default the dc compressor is wrapped in the bucketed engine
 pipelined form is ``sync/pipeline.py``.  Under a bound ZeRO plan
 (``train/zero.py``) ``sync_grad_shards`` runs the same hierarchy on
 ``1/W`` bucket shards.  The degraded-membership form (a dead party's
-weight) is not ported yet (ROADMAP.md Queue 1 item 6).
+weight) is not ported yet (ROADMAP.md Queue 1, "Resilience and
+utils").
 """
 
 from __future__ import annotations

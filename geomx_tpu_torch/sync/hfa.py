@@ -17,7 +17,7 @@ The gates are Python branches on the host step (the JAX package's
 global tier never fires and the state is ``{}``.
 
 Not ported yet: ``telemetry_scalars`` and ``wire_accounting``
-(ROADMAP.md Queue 1 item 7).
+(ROADMAP.md Queue 1, "Telemetry").
 """
 
 from __future__ import annotations

@@ -22,8 +22,8 @@ scatters the bucketed party mean over the workers and computes the
 DCASGD term shard-wise against each worker's slice of the true and stale
 weights; the stale copy stays full and replicated (the forward runs at
 it).  Not ported yet: the degraded-membership mean and
-``reset_comm_state`` (ROADMAP.md Queue 1 item 6), ``telemetry_scalars``
-(item 7).
+``reset_comm_state`` (ROADMAP.md Queue 1, "Resilience and utils"),
+``telemetry_scalars`` ("Telemetry").
 """
 
 from __future__ import annotations

@@ -35,9 +35,9 @@ a bound ZeRO plan the in-flight buffers hold ``1/W`` bucket shards
 (``init_shard_state``, ``allreduce_shards``, ``peek_shards``) and the
 drain returns the parked shard aggregates (``drain_grad_shards``);
 ``GEOMX_PIPELINE_DCASGD`` is rejected there.  Not ported yet:
-``reset_comm_state`` and membership (ROADMAP.md Queue 1 item 6),
-``telemetry_scalars``, ``wire_accounting`` and the in-flight byte
-counter (item 7).
+``reset_comm_state`` and membership (ROADMAP.md Queue 1, "Resilience
+and utils"), ``telemetry_scalars``, ``wire_accounting`` and the in-flight
+byte counter ("Telemetry").
 """
 
 from __future__ import annotations

@@ -405,14 +405,25 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
     return train_step
 
 
+def build_logits_fn(model: torch.nn.Module):
+    """``logits_fn(params, model_state, x) -> logits``: the evaluation
+    forward on one replica's weights."""
+
+    @torch.no_grad()
+    def logits_fn(params, model_state, x):
+        return functional_call(model, {**params, **model_state},
+                               (_norm_input(x),), {"train": False})
+
+    return logits_fn
+
+
 def build_eval_step(model: torch.nn.Module):
     """``eval_step(params, model_state, x, y) -> (correct, count)`` on
     one replica's weights."""
+    logits_fn = build_logits_fn(model)
 
-    @torch.no_grad()
     def eval_step(params, model_state, x, y):
-        logits = functional_call(model, {**params, **model_state},
-                                 (_norm_input(x),), {"train": False})
+        logits = logits_fn(params, model_state, x)
         return (logits.argmax(-1) == y).sum(), y.shape[0]
 
     return eval_step

@@ -21,10 +21,20 @@ algorithm here (the caller's is never changed) and allocates the
 optimizer state on the bucket shards; ``GeoConfig(multi_gps=True)``
 allocates it on the mixed tree (``MultiGPSPlan.mixed_example``).
 
+Models that size their layers from the input (the demo CNN, the MLP,
+AlexNet, the ResNets' stem) are built from ``init_state``'s
+``sample_input``, as the JAX ``init_state(rng, sample_input)`` sizes
+them.  ``fit`` assembles batches ``config.prefetch`` ahead on a producer
+thread (``GEOMX_PREFETCH``); ``fit(scan_epochs=True)`` runs each epoch
+from a device-cached loader (``make_loader(device_cache=True)``) with no
+host wait inside the epoch.  ``save_checkpoint``/``load_checkpoint``
+write and read the JAX package's envelope (``utils/checkpoint.py``),
+re-sharding ZeRO state onto another worker count (``train/zero.py``).
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without that request it raises.  Not ported yet: membership epochs,
-checkpoints (with the re-sharding of ZeRO state), scanned epochs,
-prefetch, telemetry, control, capsules and the flight recorder.
+the catch-up payload, telemetry, control, capsules and the flight
+recorder.
 """
 
 from __future__ import annotations
@@ -46,11 +56,13 @@ from geomx_tpu_torch.sync import get_sync_algorithm
 from geomx_tpu_torch.topology import HiPSTopology
 from geomx_tpu_torch.train.state import (TrainState, replicate_tree,
                                          unreplicate_tree)
-from geomx_tpu_torch.train.step import (build_eval_step, build_train_step,
-                                        fused_bucketer, make_loss_fn,
-                                        resolve_precision)
-from geomx_tpu_torch.train.zero import ZeroPlan
+from geomx_tpu_torch.train.step import (build_eval_step, build_logits_fn,
+                                        build_train_step, fused_bucketer,
+                                        make_loss_fn, resolve_precision)
+from geomx_tpu_torch.train.zero import (ZeroPlan, reshard_zero_state,
+                                        zero_checkpoint_meta)
 from geomx_tpu_torch.tree import leaf_names
+from geomx_tpu_torch.utils import checkpoint
 from geomx_tpu_torch.utils.metrics import Measure
 
 
@@ -114,18 +126,25 @@ class Trainer:
         # tier's bucket layout (build_train_step checked the stack)
         self._fused_optim = fused_optim_enabled(self.config)
         self.eval_step = build_eval_step(self._sd_model)
+        self._logits_fn = build_logits_fn(self._sd_model)
+        self._prefetch = max(0, int(getattr(self.config, "prefetch", 2)))
 
     def init_state(self, seed: int = 0,
                    generator: Optional[torch.Generator] = None,
                    params: Optional[dict] = None,
-                   model_state: Optional[dict] = None) -> TrainState:
+                   model_state: Optional[dict] = None,
+                   sample_input=None) -> TrainState:
         """The replicated initial state.
 
         Weights come either from ``params``/``model_state`` — flat dicts
         of one replica's arrays, e.g. converted JAX weights
         (``models.convert.from_flax``) — or from the model's initializers
         drawn with ``generator`` (default: a CPU generator seeded with
-        ``seed``)."""
+        ``seed``).  ``sample_input`` (one local batch, ``[b, H, W, C]``)
+        sizes the layers of a model that takes them from the input, as
+        the JAX ``init_state(rng, sample_input)`` does; such a model
+        needs it."""
+        self._build_models(sample_input)
         if params is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(int(seed))
@@ -181,6 +200,75 @@ class Trainer:
         return TrainState(step=0, params=params, opt_state=opt_state,
                           model_state=model_state, sync_state=sync_state)
 
+    def _build_models(self, sample_input) -> None:
+        """Size the models' layers from one sample batch (models with a
+        ``build``); without one, a model that needs it raises."""
+        models = {id(m): m for m in (self.model, self._sd_model)}.values()
+        if sample_input is None:
+            for m in models:
+                if not getattr(m, "built", True):
+                    raise ValueError(
+                        f"{type(m).__name__} sizes its layers from the "
+                        "input: pass init_state(sample_input=x[:2])")
+            return
+        shape = tuple(np.shape(sample_input)[1:])
+        for m in models:
+            if hasattr(m, "build"):
+                m.build(shape)
+
+    # ---- checkpointing ---------------------------------------------------
+
+    def checkpoint_meta(self) -> dict:
+        """The meta block a checkpoint of this trainer's state carries:
+        whether the state is ZeRO-sharded and the topology it was
+        sharded over, so :meth:`load_checkpoint` can re-shard onto a
+        different worker count and reject a GEOMX_ZERO mismatch."""
+        return zero_checkpoint_meta(self._zero_plan, self.topology)
+
+    def save_checkpoint(self, path: str, state: TrainState,
+                        step=None) -> str:
+        """Save ``state`` with this trainer's layout meta.  The tensors
+        keep their full ``[P, W, ...]`` replica axes, so a ZeRO run's
+        per-worker shards are all captured (restoring onto the same
+        topology is bit-exact, mid-pipeline buffers included)."""
+        return checkpoint.save_checkpoint(path, state, step=step,
+                                          meta=self.checkpoint_meta())
+
+    def load_checkpoint(self, path: str, template: TrainState) -> TrainState:
+        """Restore a checkpoint into this trainer.
+
+        ``template`` is a state with this trainer's structure and
+        placement (fresh ``init_state`` output).  Rules, as in the JAX
+        package:
+
+        - the checkpoint's ZeRO flag must match this trainer's
+          ``GEOMX_ZERO`` (else ``ValueError``);
+        - same topology: leaves are placed directly (bit-exact resume,
+          mid-pipeline buffers included);
+        - another worker count (e.g. saved on 2x4, restored onto 2x2):
+          shard-bearing leaves are gathered into full flat buckets and
+          re-split (``train/zero.py`` ``reshard_zero_state``)."""
+        host, meta = checkpoint.load_checkpoint(path, with_meta=True)
+        ck_zero = bool((meta or {}).get("zero", False))
+        if ck_zero != (self._zero_plan is not None):
+            have = "GEOMX_ZERO=1" if ck_zero else "GEOMX_ZERO=0 (replicated)"
+            want = "GEOMX_ZERO=1" if self._zero_plan is not None \
+                else "GEOMX_ZERO=0 (replicated)"
+            raise ValueError(
+                f"checkpoint at {path!r} was saved with {have} but this "
+                f"trainer runs {want}: the optimizer-state layouts are "
+                "incompatible (sharded flat buckets vs replicated "
+                "leaves).  Restore with a matching GEOMX_ZERO setting, "
+                "or re-save from a trainer in the target mode")
+        topo_meta = (int((meta or {}).get("num_parties",
+                                          self.topology.num_parties)),
+                     int((meta or {}).get("workers_per_party",
+                                          self.topology.workers_per_party)))
+        here = (self.topology.num_parties, self.topology.workers_per_party)
+        if not ck_zero or topo_meta == here:
+            return checkpoint.place_like(host, template)
+        return reshard_zero_state(host, template)
+
     def drain_pipeline(self, state: TrainState) -> TrainState:
         """Apply a pipelined sync's completed in-flight dc-tier aggregate
         without feeding a batch (``sync/pipeline.py``): after the last
@@ -229,10 +317,30 @@ class Trainer:
                           sync_state=sync_state)
 
     def make_loader(self, x, y, batch_size: int, split_by_class: bool = False,
-                    seed: int = 0, augment: bool = False) -> GeoDataLoader:
+                    seed: int = 0, augment: bool = False,
+                    device_cache: bool = False) -> GeoDataLoader:
+        """``device_cache=True`` keeps the dataset on this trainer's
+        device and gathers each batch there (``data/loader.py``), the
+        input of ``fit(scan_epochs=True)``."""
         return GeoDataLoader(x, y, self.topology, batch_size,
                              split_by_class=split_by_class, seed=seed,
-                             augment=augment, device=self.device)
+                             augment=augment, device=self.device,
+                             device_cache=device_cache)
+
+    def predict_logits(self, state: TrainState, x: np.ndarray,
+                       batch_size: int = 512) -> np.ndarray:
+        """Logits of replica (0, 0) over a host array, as an fp32 numpy
+        array (the one evaluation forward ``Module.predict``/``score``
+        use)."""
+        params = unreplicate_tree(state.params)
+        model_state = unreplicate_tree(state.model_state)
+        outs = []
+        for s in range(0, len(x), batch_size):
+            xb = torch.as_tensor(np.ascontiguousarray(x[s:s + batch_size]),
+                                 device=self.device)
+            logits = self._logits_fn(params, model_state, xb)
+            outs.append(logits.float().cpu().numpy())
+        return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
 
     def evaluate(self, state: TrainState, x: np.ndarray, y: np.ndarray,
                  batch_size: int = 512) -> float:
@@ -249,23 +357,63 @@ class Trainer:
             correct += c
         return int(correct) / max(len(x), 1)
 
+    def run_epoch(self, state: TrainState, loader: GeoDataLoader,
+                   epoch: int):
+        """One epoch from a device-cached loader: the epoch's indices
+        uploaded once, each step's batch gathered on the device, the
+        metrics kept on the device and stacked at the end, so the host
+        never waits inside the epoch.  Returns ``(state, {"loss":
+        [steps], "accuracy": [steps]})`` on the device."""
+        sel, gen = loader.epoch_indices(epoch)
+        sel = torch.as_tensor(sel, device=self.device)
+        losses, accs = [], []
+        for xb, yb in loader.cached_batches(sel, gen):
+            state, metrics = self.train_step(state, xb, yb)
+            losses.append(metrics["loss"])
+            accs.append(metrics["accuracy"])
+        return state, {"loss": torch.stack(losses),
+                       "accuracy": torch.stack(accs)}
+
     def fit(self, state: TrainState, loader: GeoDataLoader, epochs: int = 1,
             eval_data=None, eval_every: int = 0, log_every: int = 0,
             log_fn: Callable[[str], None] = print,
-            measure: Optional[Measure] = None):
+            measure: Optional[Measure] = None, scan_epochs: bool = False):
         """Run the training loop.
 
         - ``log_every=N``: record/log loss and train accuracy every N
           iterations (the only points where the host waits for the card);
         - ``eval_every=N``: test accuracy every N iterations; 0 = at each
-          epoch end.
+          epoch end;
+        - ``scan_epochs=True`` (requires a device-cached loader) runs each
+          epoch with no host wait inside it (:meth:`run_epoch`), as the
+          JAX package's scanned epoch: logging coarsens to one record an
+          epoch (the epoch's mean loss and accuracy), and evaluation runs
+          between epochs.  The state is the per-step loop's.
 
         Returns ``(state, list of record dicts)``."""
         measure = measure if measure is not None else Measure()
         measure.reset_clock()
+        if scan_epochs:
+            if not getattr(loader, "device_cache", False):
+                raise ValueError("scan_epochs requires device_cache=True "
+                                 "on the loader")
+            it = 0
+            for epoch in range(epochs):
+                state, ms = self.run_epoch(state, loader, epoch)
+                it += loader.steps_per_epoch
+                fields = {}
+                if log_every:
+                    fields.update(loss=float(ms["loss"].mean()),
+                                  train_acc=float(ms["accuracy"].mean()))
+                if eval_data is not None:
+                    fields["test_acc"] = self.evaluate(state, *eval_data)
+                if fields:
+                    rec = measure.add(epoch=epoch, iteration=it, **fields)
+                    log_fn(json.dumps(rec))
+            return state, measure.records
         it = 0
         for epoch in range(epochs):
-            for xb, yb in loader.epoch(epoch):
+            for xb, yb in loader.epoch(epoch, prefetch=self._prefetch):
                 state, metrics = self.train_step(state, xb, yb)
                 it += 1
                 fields = {}

@@ -31,10 +31,13 @@ In the port every replica lives in one tensor with the leading ``[P,
 W]`` axes, so a shard tensor is ``[P, W, n / W]`` and slot ``(p, w)``
 holds worker ``w``'s shard: the content differs across the worker axis
 by design.  The worker index is the slot's own, so the ops take no
-``widx``.  ``zero_checkpoint_meta`` and the ``_fit_*`` helpers are the
-host-side layout of a sharded checkpoint, on numpy arrays, for the
-checkpoints ROADMAP.md Queue 1 item 4 ports; ``wire_accounting`` waits
-for telemetry (item 7).
+``widx``.  ``zero_checkpoint_meta``, the ``_fit_*`` helpers and
+``reshard_zero_state`` are the host-side layout of a sharded
+checkpoint, on numpy arrays (``Trainer.save_checkpoint``/
+``load_checkpoint``); ``host_zero_state``/``place_zero_state``, whose
+only callers in the JAX package are the catch-up payload of a returning
+party, wait for ROADMAP.md Queue 1, "Resilience and utils", and
+``wire_accounting`` for "Telemetry".
 """
 
 from __future__ import annotations
@@ -242,3 +245,91 @@ def _fit_replicated_leaf(old: np.ndarray, t_shape) -> np.ndarray:
             f"target slot {tuple(t_shape)} — the checkpoint was saved "
             "from a different model/optimizer configuration")
     return np.broadcast_to(v[None, None], t_shape).copy()
+
+
+def _under_dc_comp(path) -> bool:
+    """Shard-bearing sync state is recognized by its dict key: the ZeRO
+    contract keeps shard-shaped dc-tier compressor state under the
+    ``"dc_comp"`` key of the sync state (FSA, MixedSync and the pipeline
+    all do), as in the JAX package."""
+    return "dc_comp" in path
+
+
+def _map_with_path(fn, tree, *rest, path=()):
+    """``fn(path, leaf, *rest_leaves)`` over the array leaves of ``tree``
+    (tensors or numpy arrays), the dict keys on the way in ``path``;
+    other leaves (host scalars) come from the last tree of ``rest`` if
+    any, else from ``tree``."""
+    if isinstance(tree, dict):
+        for r in rest:
+            if not isinstance(r, dict) or set(r) != set(tree):
+                raise ValueError("state trees have different keys")
+        return {k: _map_with_path(fn, tree[k], *(r[k] for r in rest),
+                                  path=path + (k,)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        for r in rest:
+            if not isinstance(r, (list, tuple)) or len(r) != len(tree):
+                raise ValueError("state trees have different lengths")
+        return type(tree)(_map_with_path(fn, *xs, path=path)
+                          for xs in zip(tree, *rest))
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(path, tree, *rest)
+    return rest[-1] if rest else tree
+
+
+def _state_fields(state) -> dict:
+    """A ``TrainState`` or the dict a checkpoint stores it as."""
+    if isinstance(state, dict):
+        return state
+    return {f: getattr(state, f) for f in
+            ("step", "params", "opt_state", "model_state", "sync_state")}
+
+
+def reshard_zero_state(host_state, template):
+    """Re-shard a host-side ZeRO state (numpy leaves with ``[P_old,
+    W_old, ...]`` replica axes, as a checkpoint stores it) onto
+    ``template``'s topology, devices and dtypes.
+
+    - ``params`` / ``model_state``: replicated — copy ``(0, 0)``;
+    - ``opt_state``: every array leaf is a flat bucket shard (or a
+      per-slot scalar) — the old worker shards gathered into the full
+      padded bucket and re-split for the new worker count;
+    - ``sync_state``: leaves under any ``"dc_comp"`` key (the residuals,
+      the pipelined in-flight buffers) are shard-shaped and re-split
+      like the optimizer's; everything else is replicated.
+
+    Host scalars (step counts, Adam's count) are the checkpoint's.
+    Shapes come pairwise from ``template`` (same config, new topology);
+    a structure mismatch raises ``ValueError``."""
+    from geomx_tpu_torch.train.state import TrainState
+    host = _state_fields(host_state)
+
+    def place(arr, like):
+        return torch.as_tensor(arr, device=like.device).to(like.dtype)
+
+    def conv_rep(path, t, o):
+        return place(_fit_replicated_leaf(o, tuple(t.shape)), t)
+
+    def conv_shard(path, t, o):
+        return place(_fit_shard_leaf(o, tuple(t.shape)), t)
+
+    def conv_sync(path, t, o):
+        return conv_shard(path, t, o) if _under_dc_comp(path) \
+            else conv_rep(path, t, o)
+
+    try:
+        return TrainState(
+            step=host["step"],
+            params=_map_with_path(conv_rep, template.params,
+                                  host["params"]),
+            opt_state=_map_with_path(conv_shard, template.opt_state,
+                                     host["opt_state"]),
+            model_state=_map_with_path(conv_rep, template.model_state,
+                                       host["model_state"]),
+            sync_state=_map_with_path(conv_sync, template.sync_state,
+                                      host["sync_state"]))
+    except ValueError as e:
+        raise ValueError(
+            "cannot re-shard checkpoint onto this trainer: the state "
+            "trees disagree beyond the worker count (different model, "
+            f"optimizer, or sync configuration?) — {e}") from e

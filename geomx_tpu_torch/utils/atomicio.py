@@ -1,0 +1,126 @@
+"""The one atomic-file-write owner (tmp file + ``os.replace``), a copy of
+geomx_tpu/utils/atomicio.py (that module imports no jax, but the JAX
+package's ``__init__`` does).  Every durable artifact of the port (the
+checkpoints, ``utils/checkpoint.py``) gets the same guarantees as in the
+JAX package:
+
+- **atomicity**: the payload is serialized to a temp file in the
+  destination directory and ``os.replace``d into place, so a crash (or
+  a concurrent reader) mid-dump can never observe a truncated,
+  unloadable file;
+- **durability** (opt-in ``fsync=True``): the file's data is fsynced
+  before the rename and the DIRECTORY is fsynced after it, so the
+  rename itself survives power loss before any dependent mutation
+  proceeds;
+- **permissions**: the final file keeps umask-honoring modes like a
+  plain ``open(path, "w")`` would (mkstemp creates 0600, which would
+  otherwise survive the replace and lock out e.g. a group-shared
+  artifact collector).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import tempfile
+import time
+
+# the process umask, probed ONCE at import (set+restore is not
+# thread-safe, and threads may dump concurrently; imports run before
+# those threads exist).  A process that later changes its umask keeps
+# the import-time mode for these dumps.
+_UMASK = os.umask(0)
+os.umask(_UMASK)
+
+
+def sweep_stale_tmp(directory: str, max_age_s: float = 60.0) -> int:
+    """Remove orphaned ``.atomic_*.tmp`` files older than
+    ``max_age_s`` from ``directory`` — the leftovers of a hard kill
+    between mkstemp and the rename.  mkstemp names are unique per
+    write, so crash/restart loops (exactly what the durable store
+    lives through) would otherwise accumulate them without bound; the
+    age floor keeps a concurrent writer's live temp file (held for
+    milliseconds) safe.  Returns the number removed; best-effort."""
+    try:
+        names = os.listdir(directory or ".")
+    except OSError:
+        return 0
+    removed = 0
+    now = time.time()
+    for name in names:
+        if not (name.startswith(".atomic_") and name.endswith(".tmp")):
+            continue
+        p = os.path.join(directory or ".", name)
+        try:
+            if now - os.stat(p).st_mtime >= max_age_s:
+                os.unlink(p)
+                removed += 1
+        except OSError:
+            pass
+    return removed
+
+
+def fsync_dir(path: str) -> None:
+    """fsync the directory containing ``path`` (best-effort: platforms
+    without directory fds are skipped) so a just-completed rename in it
+    is durable."""
+    try:
+        dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(dfd)
+    except OSError:
+        pass
+    finally:
+        os.close(dfd)
+
+
+@contextlib.contextmanager
+def atomic_replace(path: str, mode: str = "wb", fsync: bool = False):
+    """Yield a temp-file handle in ``path``'s directory; on clean exit
+    the temp file replaces ``path`` atomically (with data + directory
+    fsync when ``fsync=True``); on an exception the temp file is
+    removed and ``path`` is untouched."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d or ".", prefix=".atomic_",
+                               suffix=".tmp")
+    try:
+        os.fchmod(fd, 0o666 & ~_UMASK)
+        with os.fdopen(fd, mode) as f:
+            yield f
+            if fsync:
+                f.flush()
+                os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    if fsync:
+        fsync_dir(path)
+
+
+def atomic_write_bytes(path: str, data: bytes,
+                       fsync: bool = True) -> str:
+    """Write ``data`` to ``path`` atomically; ``fsync=True`` (the
+    durable-store default) also makes the write power-loss durable."""
+    with atomic_replace(path, "wb", fsync=fsync) as f:
+        f.write(data)
+    return path
+
+
+def atomic_json_dump(path: str, obj, fsync: bool = False,
+                     **json_kwargs) -> str:
+    """Write ``obj`` as JSON to ``path`` atomically.  Observability
+    artifacts default to ``fsync=False`` (atomicity without the
+    latency); anything a recovery path depends on should pass
+    ``fsync=True``."""
+    with atomic_replace(path, "w", fsync=fsync) as f:
+        json.dump(obj, f, **json_kwargs)
+    return path

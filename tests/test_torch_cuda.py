@@ -1307,3 +1307,92 @@ def test_seq_trainer_step_launches_attention_kernels(dev, mode):
     t.evaluate(st, np.stack([tok[0, 0], pos[0, 0]], -1).astype(np.int32),
                np.zeros(4, np.int64))
     assert ops.variant_launch_counts()["flash_attention_fwd_nolse"] == 2
+
+
+# ---- the data plane on the card: the prefetch stream handoff, the
+# device-cached gather and the scanned epoch (bit for bit)
+
+def _images(n=256, hw=8, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 256, (n, hw, hw, 3)).astype(np.uint8),
+            rng.randint(0, 10, n).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("augment", [False, True])
+def test_prefetch_handoff_gives_the_synchronous_batches(dev, augment):
+    """The producer thread's copies on the side stream reach the
+    consumer's stream before it reads them: the prefetched batches equal
+    the synchronous ones, while the consumer keeps the card busy."""
+    from geomx_tpu_torch import HiPSTopology
+    from geomx_tpu_torch.data import GeoDataLoader
+
+    x, y = _images()
+    loader = GeoDataLoader(x, y, HiPSTopology(2, 4), 8, augment=augment,
+                           device=dev)
+    sync = [(a.clone(), b.clone()) for a, b in loader.epoch(0, prefetch=0)]
+    busy = torch.randn(2048, 2048, device=dev)
+    got = []
+    for xb, yb in loader.epoch(0, prefetch=2):
+        busy = busy @ busy / 2048          # work queued ahead of the read
+        got.append(((xb.int() + 1).cpu(), yb.cpu()))
+    assert len(got) == len(sync) == loader.steps_per_epoch
+    for (gx, gy), (sx, sy) in zip(got, sync):
+        assert torch.equal(gx, sx.int().cpu() + 1)
+        assert torch.equal(gy, sy.cpu())
+
+
+@pytest.mark.cuda
+def test_device_cached_gather_equals_host_batches(dev):
+    from geomx_tpu_torch import HiPSTopology
+    from geomx_tpu_torch.data import GeoDataLoader
+
+    x, y = _images()
+    cached = GeoDataLoader(x, y, HiPSTopology(2, 4), 8, device=dev,
+                           device_cache=True)
+    host = GeoDataLoader(x, y, HiPSTopology(2, 4), 8, device="cpu")
+    for epoch in range(2):
+        pairs = list(zip(cached.epoch(epoch), host.host_batches(epoch)))
+        assert len(pairs) == cached.steps_per_epoch
+        for (xb, yb), (hx, hy) in pairs:
+            assert xb.device.type == "cuda"
+            assert torch.equal(xb.cpu(), torch.from_numpy(hx))
+            assert torch.equal(yb.cpu(), torch.from_numpy(
+                hy.astype(np.int64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("augment", [False, True])
+def test_scanned_epoch_equals_the_per_step_loop(dev, augment):
+    import dataclasses
+
+    from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from geomx_tpu_torch.optim import adam
+    from geomx_tpu_torch.train import Trainer
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        x, y = _images(hw=16)
+        states = []
+        for scan in (True, False):
+            t = Trainer(get_model("cnn"), HiPSTopology(2, 4), adam(0.01),
+                        config=GeoConfig(num_parties=2, workers_per_party=4,
+                                         compression="bsc,0.01"),
+                        device=dev)
+            st = t.init_state(seed=0, sample_input=x[:2])
+            loader = t.make_loader(x, y, 8, augment=augment,
+                                   device_cache=True)
+            st, recs = t.fit(st, loader, epochs=2, log_every=1,
+                             log_fn=lambda s: None, scan_epochs=scan)
+            states.append(st)
+            assert st.step == 2 * loader.steps_per_epoch
+        a, b = (dataclasses.asdict(s) for s in states)
+        for k in a["params"]:
+            assert torch.equal(a["params"][k], b["params"][k]), k
+        for k in a["opt_state"]["mu"]:
+            assert torch.equal(a["opt_state"]["mu"][k],
+                               b["opt_state"]["mu"][k]), k
+    finally:
+        torch.backends.cudnn.deterministic = False
+    with pytest.raises(ValueError, match="device_cache"):
+        t.fit(st, t.make_loader(x, y, 8), scan_epochs=True)

@@ -153,5 +153,6 @@ def test_get_model_resnet20_matches_flax_tree():
     assert sum(int(np.prod(s)) for s in got.values()) == 272_474
     # the second BatchNorm of each block starts at zero scale
     assert not model.BasicBlock_0.BatchNorm_1.scale.any()
-    with pytest.raises(NotImplementedError):
-        get_model("cnn")
+    # the rest of the zoo builds too (GeoCNN sizes itself from the input)
+    assert not get_model("cnn").built
+    assert get_model("resnet20_s2d").stem_space_to_depth

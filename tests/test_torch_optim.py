@@ -20,6 +20,12 @@ versions (geomx_tpu_torch vs geomx_tpu, on the CPU).
   vs JAX Trainer: losses to rtol 1e-4, as in test_torch_train.py.
 - Fused vs unfused in the port over 3 steps: parameter gap < 1e-5
   (tests/test_optim_pallas.py's bound).
+- Every name of the factory (``get_optimizer``), Adam's ``eps_root`` and
+  ``warmup_cosine_decay_schedule`` (with Nesterov SGD and Adam), five
+  steps against the JAX factory's optax optimizer on a small tree with
+  [2, 2] replica axes (optax runs each replica's slice): params to
+  rtol 2e-6 of each coordinate plus 1e-6 (``rsqrt``/``sqrt`` round
+  differently in XLA and PyTorch; LAMB's norms sum in another order).
 """
 
 import jax
@@ -212,8 +218,9 @@ def test_get_optimizer_names():
     assert isinstance(get_optimizer("adam", 0.01), type(adam(0.01)))
     assert get_optimizer("momentum", 0.1).momentum == 0.9
     assert get_optimizer("sgd", 0.1).momentum is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_optimizer("rmsprop")
+    # the rest of the factory builds optax's chains
+    assert len(get_optimizer("rmsprop").transforms) == 3
+    assert get_optimizer("nag", 0.1).nesterov
     with pytest.raises(ValueError):
         get_optimizer("nope")
 
@@ -318,3 +325,50 @@ def test_fused_error_paths():
     assert po.fused_spec_of(fo) == fo.spec
     assert po.fused_optim_enabled(GeoConfig(fused_optim=True))
     assert not po.fused_optim_enabled(GeoConfig())
+
+
+_FACTORY = ["adam", "adamw", "sgd", "momentum", "nag", "rmsprop", "adagrad",
+            "adadelta", "adamax", "nadam", "lamb", "dcasgd"]
+
+
+def _warmup_cosine(port):
+    from geomx_tpu_torch.optim import warmup_cosine_decay_schedule
+    args = (0.01, 0.1, 2, 5, 0.005)
+    return warmup_cosine_decay_schedule(*args) if port else \
+        optax.schedules.warmup_cosine_decay_schedule(*args)
+
+
+@pytest.mark.parametrize("name,kw,schedule", [
+    *[(n, {}, False) for n in _FACTORY],
+    ("adam", {"eps_root": 1e-8}, False),
+    ("nag", {}, True), ("adam", {}, True)])
+def test_factory_tracks_optax_five_steps(name, kw, schedule):
+    from geomx_tpu.optim import get_optimizer as jax_get_optimizer
+    rng = np.random.RandomState(0)
+    P, W = 2, 2
+    shapes = {"a": (3, 4), "b": (5,), "c": (2, 2, 3)}
+    params = {k: rng.normal(size=(P, W) + s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: rng.normal(size=(P, W) + s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(5)]
+    tx = get_optimizer(name, _warmup_cosine(True) if schedule else 0.01,
+                       **kw)
+    pp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    st = tx.init(pp)
+    for g in grads:
+        pp, st = tx.update({k: torch.from_numpy(v) for k, v in g.items()},
+                           st, pp)
+    for p in range(P):
+        for w in range(W):
+            jt = jax_get_optimizer(
+                name, _warmup_cosine(False) if schedule else 0.01, **kw)
+            jp = {k: jnp.asarray(v[p, w]) for k, v in params.items()}
+            js = jt.init(jp)
+            for g in grads:
+                u, js = jt.update({k: jnp.asarray(v[p, w])
+                                   for k, v in g.items()}, js, jp)
+                jp = optax.apply_updates(jp, u)
+            for k in shapes:
+                np.testing.assert_allclose(pp[k][p, w].numpy(),
+                                           np.asarray(jp[k]), rtol=2e-6,
+                                           atol=1e-6, err_msg=f"{k} {p} {w}")

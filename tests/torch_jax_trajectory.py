@@ -17,8 +17,14 @@ initial weights and the same batches (the port starts from the converted
 JAX weights; its loader yields the JAX loader's bytes).  --path seq_ring
 runs examples/long_context.py's defaults instead: SeqClassifier with
 ring attention on HiPS [2, 2] x sp 2, L = 256, adam(1e-3), FSA, the
-needle task, --batch sequences a replica (16 there).  Prints one line a
-step: step, JAX loss, port loss, relative difference.
+needle task, --batch sequences a replica (16 there).  --path cnn_bsc
+runs examples/cnn_bsc.py's configuration: GeoCNN on the MNIST-shaped
+synthetic set (28x28x1), adam(0.01), "bsc,0.01" (sampled selection) on
+[2, 4]; --path alexnet_fused_adam get_model("alexnet") on the
+CIFAR-shaped set with the fused Adam(0.01) and "bsc,0.01" on [2, 4]
+(the port's device-cached batches without augmentation are the host
+loader's bytes, so both packages read the host loader here).  Prints one
+line a step: step, JAX loss, port loss, relative difference.
 """
 
 import argparse
@@ -43,6 +49,7 @@ import torch  # noqa: E402
 from geomx_tpu import HiPSTopology as JaxTopology  # noqa: E402
 from geomx_tpu.config import GeoConfig as JaxConfig  # noqa: E402
 from geomx_tpu.data import load_dataset  # noqa: E402
+from geomx_tpu.models import get_model as jax_get_model  # noqa: E402
 from geomx_tpu.models.resnet import ResNet as FlaxResNet  # noqa: E402
 from geomx_tpu.ops import optim_pallas  # noqa: E402
 from geomx_tpu.models.seq_classifier import \
@@ -53,6 +60,7 @@ from geomx_tpu_torch import GeoConfig, HiPSTopology  # noqa: E402
 from geomx_tpu_torch.data import (make_needle_data,  # noqa: E402
                                    with_positions)
 from geomx_tpu_torch.models import ResNet, SeqClassifier  # noqa: E402
+from geomx_tpu_torch.models import get_model  # noqa: E402
 from geomx_tpu_torch.models.convert import from_flax  # noqa: E402
 from geomx_tpu_torch.ops import optim  # noqa: E402
 from geomx_tpu_torch.optim import adam, sgd  # noqa: E402
@@ -112,6 +120,53 @@ PATHS = {
 }
 
 
+# the zoo paths of chip_smoke.py: path -> (model, dataset, compression,
+# fused, JAX optimizer, port optimizer, [P, W])
+ZOO_PATHS = {
+    "cnn_bsc": ("cnn", "mnist", "bsc,0.01,select=sampled", False,
+                lambda: optax.adam(0.01), lambda: adam(0.01), (2, 4)),
+    "alexnet_fused_adam": ("alexnet", "synthetic", "bsc,0.01,select=sampled",
+                           True, lambda: optim_pallas.fused_optimizer(
+                               "adam", learning_rate=0.01),
+                           lambda: optim.fused_optimizer(
+                               "adam", learning_rate=0.01), (2, 4)),
+}
+
+
+def zoo_losses(path: str, batch: int, steps: int, bf16: bool):
+    """(JAX losses, port losses) of a zoo path, from the same initial
+    weights and batches."""
+    name, dataset, spec, fused, jax_tx, port_tx, (P, W) = ZOO_PATHS[path]
+    precision = "bf16" if bf16 else "fp32"
+    data = load_dataset(dataset, synthetic_train_n=P * W * batch * steps)
+    cfg = dict(num_parties=P, workers_per_party=W, compression=spec,
+               precision=precision, fused_optim=fused)
+    jt = JaxTrainer(jax_get_model(name, precision=precision),
+                    JaxTopology(P, W), jax_tx(), config=JaxConfig(**cfg),
+                    donate=False)
+    jst = jt.init_state(jax.random.PRNGKey(0), data["train_x"][:2])
+    p0 = jax.tree.map(lambda a: np.asarray(a)[0, 0], jst.params)
+    t0 = time.time()
+    jlosses = []
+    for xb, yb in jt.make_loader(data["train_x"], data["train_y"],
+                                 batch).epoch(0, prefetch=0):
+        jst, m = jt.train_step(jst, xb, yb)
+        jlosses.append(float(m["loss"]))
+    print(f"jax: {time.time() - t0:.1f} s", flush=True)
+    pt = Trainer(get_model(name, precision=precision), HiPSTopology(P, W),
+                 port_tx(), config=GeoConfig(**cfg), device="cpu")
+    pst = pt.init_state(params=from_flax(p0)[0],
+                        sample_input=data["train_x"][:2])
+    t0 = time.time()
+    plosses = []
+    for xb, yb in pt.make_loader(data["train_x"], data["train_y"],
+                                 batch).epoch(0, prefetch=0):
+        pst, m = pt.train_step(pst, xb, yb)
+        plosses.append(float(m["loss"]))
+    print(f"port: {time.time() - t0:.1f} s", flush=True)
+    return jlosses, plosses
+
+
 # examples/long_context.py's model at its default sequence length
 SEQ_MK = dict(vocab=256, max_len=256, dim=64, num_heads=4, num_layers=2,
               num_classes=10)
@@ -150,7 +205,8 @@ def seq_ring_losses(batch: int, steps: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=sorted(PATHS) + ["seq_ring"],
+    ap.add_argument("--path", choices=sorted(PATHS) + ["seq_ring"]
+                    + sorted(ZOO_PATHS),
                     default="flagship")
     ap.add_argument("--batch", type=int, default=32,
                     help="images a replica a step")
@@ -160,6 +216,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.path == "seq_ring":
         report(*seq_ring_losses(args.batch, args.steps))
+        return 0
+    if args.path in ZOO_PATHS:
+        report(*zoo_losses(args.path, args.batch, args.steps, args.bf16))
         return 0
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if args.bf16 \
         else (jnp.float32, torch.float32)

@@ -14,10 +14,12 @@ SGD; mixed_dcasgd, hfa_dgt and pipelined_fsa: chip_smoke.py's MixedSync
 with DCASGD, HFA over DGT and pipelined FSA paths; zero_sgd,
 zero_pipelined_adam and multigps_bsc: its sharded-update paths (ZeRO
 over the bucket, with the fused Adam and the pipeline; MultiGPS over
-the leaves of 1,000 elements or more); seq_flash and
-seq_ring: chip_smoke.py's attention paths, the
-SeqClassifier on the needle task, --batch sequences a replica, 16 by
-default) for three warm-up steps, times --steps steps
+the leaves of 1,000 elements or more); cnn_bsc: GeoCNN on the
+MNIST-shaped set, adam(0.01), "bsc,0.01", batch 32 a replica;
+alexnet_fused_adam: AlexNet with the fused Adam(0.01) and "bsc,0.01" on
+a device-cached loader, batch 32 a replica; seq_flash and seq_ring:
+chip_smoke.py's attention paths, the SeqClassifier on the needle task,
+--batch sequences a replica, 16 by default) for three warm-up steps, times --steps steps
 with the host clock (ending in a synchronize), then runs --steps more
 under torch.profiler (CPU and CUDA activities) and reports:
 
@@ -76,10 +78,12 @@ def main(argv=None) -> int:
                              "sparse_agg", "mixed_dcasgd", "hfa_dgt",
                              "pipelined_fsa", "zero_sgd",
                              "zero_pipelined_adam", "multigps_bsc",
+                             "cnn_bsc", "alexnet_fused_adam",
                              "seq_flash", "seq_ring"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=None,
-                    help="images (sequences) a replica a step: 128 (16)")
+                    help="images (sequences) a replica a step: 128, 32 "
+                    "for cnn_bsc and alexnet_fused_adam (16)")
     ap.add_argument("--kernel", action="append", default=[],
                     help="also report the device ms and calls a step of "
                     "the kernels whose name holds this string")
@@ -93,10 +97,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_step: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import SEQ_PATHS, make_seq_trainer, make_trainer
-    from geomx_tpu_torch.data import (load_dataset, make_needle_data,
-                                      with_positions)
-    from geomx_tpu_torch.models import get_model
+    from chip_smoke import (SEQ_PATHS, make_seq_trainer, make_trainer,
+                            path_data)
+    from geomx_tpu_torch.data import make_needle_data, with_positions
     from geomx_tpu_torch.ops import _build
 
     card = subprocess.run(
@@ -113,16 +116,20 @@ def main(argv=None) -> int:
         x, y = make_needle_data(
             replicas * args.batch * (3 + 2 * args.steps), seq_len)
         loader = trainer.make_loader(with_positions(x), y, args.batch)
+        sample = None
     else:
-        args.batch = args.batch or 128
-        trainer = make_trainer(args.path, get_model("resnet20"))
+        zoo = args.path in ("cnn_bsc", "alexnet_fused_adam")
+        args.batch = args.batch or (32 if zoo else 128)
+        trainer = make_trainer(args.path)
         replicas = 8
         need = replicas * args.batch * (3 + 2 * args.steps)
-        data = load_dataset("synthetic", synthetic_train_n=need)
-        loader = trainer.make_loader(data["train_x"], data["train_y"],
-                                     args.batch)
+        data = path_data(args.path, need)
+        loader = trainer.make_loader(
+            data["train_x"], data["train_y"], args.batch,
+            device_cache=args.path == "alexnet_fused_adam")
+        sample = data["train_x"][:2]
     batches = iter(loader.epoch(0))
-    state = trainer.init_state(seed=0)
+    state = trainer.init_state(seed=0, sample_input=sample)
 
     def run(n):
         nonlocal state
