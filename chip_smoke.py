@@ -142,6 +142,44 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           step; its loss falls as the JAX package's does;
                           512 sequences evaluated on the un-meshed twin.
               Median step times of the paths come from the same call.
+6. host plane -- the port's parameter-service plane, one process a role
+              (service/, transport/, runtime/native.py):
+              dist_ps_fsa  the port's launcher forks the port's
+                          examples/dist_ps.py on the card at the JAX
+                          script's defaults: 2 parties x 2 workers and a
+                          global server (7 processes), GEOMX_SYNC_MODE
+                          fsa, no compression, 3 epochs of batch 64,
+                          GEOMX_SAVE_PARAMS set; every process exits 0,
+                          every worker on cuda, the 4 saved models
+                          bit-equal and within 5e-5 of the job as one
+                          process on the CPU with the workers' gradients
+                          summed (dist_ps_golden), the native runtime
+                          built (the global server's SGD route); wall
+                          time, the workers' push-and-pull round (median),
+                          socket bytes a round on each tier (WireStats),
+                          the last test accuracies;
+              dist_ps_mixed_sched  the same with GEOMX_USE_SCHEDULER=1
+                          GEOMX_SYNC_MODE=mixed (8 processes): every
+                          process exits 0, every worker's last test
+                          accuracy at least the JAX example's in that job
+                          on the CPU (DIST_PS_JAX_MIXED_TEST_ACC) less
+                          0.05;
+              host_plane_resnet20  in process: a global GeoPSServer (sync,
+                          native SGD 0.05), two local servers ("bsc,0.01",
+                          relay compressor on the card) and 4 clients on
+                          ResNet-20's 65 parameter leaves at full width;
+                          8 rounds, each worker one forward/backward on
+                          the card on its own synthetic batch of 32; the
+                          pushes replayed through a CPU twin: pulls
+                          bit-equal across workers and to the twin,
+                          bsc_select_pack launched exactly (eligible
+                          leaves) x 2 parties x 8 rounds times, every
+                          eligible relay exactly k pairs; round time,
+                          relay compress time a key on the card and on the
+                          twin, relay bytes a round against dense, and
+                          kernel 3 against its plain version at each relay
+                          leaf size.  The dist_ps paths run no kernel of
+                          csrc/ (no compression).
 
 The two last lines are the ``kernels`` JSON object and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -2178,6 +2216,444 @@ def seq_path_phase(torch, path: str, device=None):
     return res
 
 
+# ---- the host parameter-service plane --------------------------------------
+
+# the JAX example's last test accuracy in the dist_ps_mixed_sched job
+# (GEOMX_USE_SCHEDULER=1 GEOMX_SYNC_MODE=mixed, 2 x 2, 3 epochs, batch
+# 64) on the CPU: the mean of 12 workers over three runs of
+# scripts/launch.py + examples/dist_ps.py (0.828-0.883 a worker; PERF.md)
+DIST_PS_JAX_MIXED_TEST_ACC = 0.861
+DIST_PS = {"dist_ps_fsa": dict(mode="fsa", scheduler=False, procs=7),
+           "dist_ps_mixed_sched": dict(mode="mixed", scheduler=True,
+                                       procs=8)}
+DIST_PS_SHAPE = dict(parties=2, workers=2, epochs=3, batch=64, lr=0.1)
+HOST_PLANE_ROUNDS = 8
+HOST_PLANE_BATCH = 32
+
+
+def dist_ps_golden(torch) -> dict:
+    """The dist_ps_fsa job as one process on the CPU: the example's data,
+    init and batch order, every worker's gradient summed into one SGD
+    step, as the two tiers sum them (the golden of the JAX package's
+    host-PS smoke, __graft_entry__.py _hostps_smoke)."""
+    import numpy as np
+    P, W = DIST_PS_SHAPE["parties"], DIST_PS_SHAPE["workers"]
+    batch, lr = DIST_PS_SHAPE["batch"], DIST_PS_SHAPE["lr"]
+    n, d, classes = 2048, 64, 10
+    rng = np.random.RandomState(0)
+    w_true = rng.normal(size=(d, classes)).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = np.argmax(x @ w_true + 0.1 * rng.normal(size=(n, classes)), axis=1)
+    part = n // (P * W)
+    prng = np.random.RandomState(0)
+    w = torch.from_numpy((prng.normal(size=(d, classes)) * 0.01)
+                         .astype(np.float32))
+    b = torch.zeros(classes)
+    for ep in range(DIST_PS_SHAPE["epochs"]):
+        perm = np.random.RandomState(ep).permutation(part)
+        for s in range(part // batch):
+            idx = perm[s * batch:(s + 1) * batch]
+            gw, gb = torch.zeros_like(w), torch.zeros_like(b)
+            for rank in range(P * W):
+                xb = torch.from_numpy(x[rank * part:(rank + 1) * part][idx])
+                yb = torch.from_numpy(y[rank * part:(rank + 1) * part][idx])
+                pw = w.clone().requires_grad_()
+                pb = b.clone().requires_grad_()
+                logits = xb @ pw + pb
+                ll = logits[torch.arange(batch), yb] \
+                    - torch.logsumexp(logits, dim=1)
+                (-ll.mean()).backward()
+                gw, gb = gw + pw.grad, gb + pb.grad
+            w, b = w - lr * gw, b - lr * gb
+    return {"w": w.numpy(), "b": b.numpy()}
+
+
+def dist_ps_phase(torch, path: str) -> dict:
+    """Paths dist_ps_fsa and dist_ps_mixed_sched: the port's launcher
+    forks the port's examples/dist_ps.py, one process a role, on the
+    card (no -c), at the JAX script's defaults (DIST_PS_SHAPE); the
+    processes' exit codes, the saved models, the processes' socket
+    counters and the workers' round times come back through the
+    launcher and GEOMX_SAVE_PARAMS.  No kernel of csrc/ runs here (no
+    compression): the workers' gradients are PyTorch ops on the card."""
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from geomx_tpu_torch.runtime import native_available
+    from geomx_tpu_torch.utils.net import free_port_blocks
+
+    cfg = DIST_PS[path]
+    P, W = DIST_PS_SHAPE["parties"], DIST_PS_SHAPE["workers"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    gport, lport, sport = free_port_blocks(1, P, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ)
+        env.update({
+            "GEOMX_SYNC_MODE": cfg["mode"],
+            "GEOMX_USE_SCHEDULER": "1" if cfg["scheduler"] else "0",
+            "GEOMX_EPOCHS": str(DIST_PS_SHAPE["epochs"]),
+            "GEOMX_BATCH": str(DIST_PS_SHAPE["batch"]),
+            "GEOMX_LR": str(DIST_PS_SHAPE["lr"]),
+            "GEOMX_PS_GLOBAL_PORT": str(gport), "GEOMX_PS_PORT": str(lport),
+            "GEOMX_SCHEDULER_PORT": str(sport), "GEOMX_SAVE_PARAMS": tmp})
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "geomx_tpu_torch.launch",
+             "--num-parties", str(P), "--workers-per-party", str(W), "--",
+             sys.executable, "-m", "geomx_tpu_torch.examples.dist_ps"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        tail = proc.stdout[-3000:] + proc.stderr[-3000:]
+        codes = re.findall(r"\[launch\] exit codes (\{.*\})", proc.stderr)
+        if proc.returncode != 0 or not codes:
+            raise AssertionError(f"{path}: launch rc {proc.returncode}\n"
+                                 f"{tail}")
+        codes = json.loads(codes[-1])
+        if len(codes) != cfg["procs"] or any(codes.values()):
+            raise AssertionError(f"{path}: exit codes {codes}\n{tail}")
+        devices = re.findall(r"\[worker p\d+w\d+\] device (\S+)",
+                             proc.stdout)
+        if len(devices) != P * W or \
+                any(not dv.startswith("cuda") for dv in devices):
+            raise AssertionError(f"{path}: worker devices {devices}")
+        accs = {}
+        for p_, w_, ep, acc in re.findall(
+                r"\[worker p(\d+)w(\d+)\] epoch (\d+) train_acc \S+ "
+                r"test_acc ([\d.]+)", proc.stdout):
+            accs.setdefault((int(p_), int(w_)), []).append(float(acc))
+        if len(accs) != P * W or any(
+                len(a) != DIST_PS_SHAPE["epochs"] for a in accs.values()):
+            raise AssertionError(f"{path}: accuracies {accs}\n{tail}")
+        models, stats = {}, {}
+        for p_ in range(P):
+            for w_ in range(W):
+                with np.load(os.path.join(tmp, f"worker_p{p_}w{w_}.npz")) \
+                        as z:
+                    models[(p_, w_)] = {k: z[k] for k in z.files}
+        for f in os.listdir(tmp):
+            if f.startswith("stats_"):
+                with open(os.path.join(tmp, f)) as fh:
+                    stats[f[6:-5]] = json.load(fh)
+    workers = [v for k, v in stats.items() if k.startswith("worker")]
+    rounds = len(workers[0]["round_ms"])
+    round_ms = [t for v in workers for t in v["round_ms"]]
+
+    def tier_bytes(docs):
+        return sum(v["wire"]["bytes_sent"] + v["wire"]["bytes_received"]
+                   for v in docs) / rounds
+
+    res = dict(wall_s=wall, processes=cfg["procs"], exit_codes=codes,
+               rounds=rounds, round_ms_median=statistics.median(round_ms),
+               local_tier_bytes_per_round=tier_bytes(workers),
+               global_tier_bytes_per_round=tier_bytes(
+                   [v for k, v in stats.items()
+                    if k.startswith("global_server")]),
+               last_test_acc={f"p{p_}w{w_}": a[-1]
+                              for (p_, w_), a in accs.items()},
+               native_sgd=native_available())
+    if cfg["mode"] == "fsa":
+        if not res["native_sgd"]:
+            raise AssertionError(f"{path}: the native runtime is not "
+                                 "available, so the global server's SGD "
+                                 "took the factory route")
+        ref = models[(0, 0)]
+        for key, m in models.items():
+            for k in ref:
+                if m[k].tobytes() != ref[k].tobytes():
+                    raise AssertionError(f"{path}: worker {key}'s {k} "
+                                         "differs from worker (0, 0)'s")
+        golden = dist_ps_golden(torch)
+        gap = max(float(np.abs(ref[k] - golden[k]).max()) for k in golden)
+        if not gap < 5e-5:
+            raise AssertionError(f"{path}: {gap} from the one-process "
+                                 "golden (gate 5e-5)")
+        res["golden_max_abs_diff"] = gap
+        gate = "4 models bit-equal, golden gap " f"{gap:.3g} (gate 5e-5)"
+    else:
+        floor = DIST_PS_JAX_MIXED_TEST_ACC - 0.05
+        low = min(res["last_test_acc"].values())
+        if low < floor:
+            raise AssertionError(f"{path}: last test accuracy {low} under "
+                                 f"{floor:.3f}: {res['last_test_acc']}")
+        gate = f"every last test accuracy >= {floor:.3f}"
+    log(f"path {path}: {cfg['procs']} processes exited 0 in {wall:.1f} s, "
+        f"{gate}, native SGD {res['native_sgd']}, round "
+        f"{res['round_ms_median']:.2f} ms (median of {len(round_ms)} "
+        f"push-and-pull rounds), socket bytes a round: local tier "
+        f"{res['local_tier_bytes_per_round']:.0f}, global tier "
+        f"{res['global_tier_bytes_per_round']:.0f}, last test_acc "
+        f"{res['last_test_acc']}")
+    return res
+
+
+def _host_plane(device, rounds, grads_of, record=None, spy=None):
+    """One host plane in this process: a global GeoPSServer (sync, two
+    parties, native SGD 0.05), two local servers (sync, two workers
+    each, "bsc,0.01", relay compressor on ``device``) and four clients.
+    ``grads_of(pw, r, params)`` gives worker ``pw``'s pushes of round
+    ``r``; returns every worker's pulls after each round and the
+    servers (stopped)."""
+    import threading
+
+    import numpy as np
+
+    from geomx_tpu_torch.service import GeoPSClient, GeoPSServer
+
+    gs = GeoPSServer(num_workers=2, mode="sync", device=device).start()
+    if spy is not None:
+        orig = gs._handle_push
+        gs._handle_push = lambda conn, msg: (spy(msg), orig(conn, msg))[1]
+    locals_ = [GeoPSServer(num_workers=2, mode="sync",
+                           global_addr=("127.0.0.1", gs.port),
+                           global_sender_id=1000 + p, rank=1 + p,
+                           compression="bsc,0.01", device=device).start()
+               for p in range(2)]
+    init = record["init"]
+    keys = list(init)
+    clients = {(p, w): GeoPSClient(("127.0.0.1", ls.port), sender_id=w)
+               for p, ls in enumerate(locals_) for w in range(2)}
+    for c in clients.values():
+        for k in keys:
+            c.init(k, init[k])
+    clients[(0, 0)].set_optimizer("sgd", learning_rate=0.05)
+    if gs._native_sgd is None:
+        raise AssertionError("host plane: the global server's SGD took "
+                             "the factory route, not the native one")
+    pulls, round_ms, errs = {}, {}, []
+
+    def run(pw, c):
+        try:
+            params = {k: np.array(c.pull(k, timeout=120.0)) for k in keys}
+            for r in range(rounds):
+                grads = grads_of(pw, r, params)
+                t0 = time.perf_counter()
+                rids = [c.push_async(k, grads[k], priority=-i)
+                        for i, k in enumerate(keys)]
+                for rid in rids:
+                    c.wait(rid, timeout=120.0)
+                params = {k: np.array(c.pull(k, timeout=120.0))
+                          for k in keys}
+                round_ms[(pw, r)] = 1e3 * (time.perf_counter() - t0)
+                pulls[(pw, r)] = params
+        except Exception as e:  # surfaced below: the phase fails
+            errs.append(f"worker {pw}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(pw, c))
+               for pw, c in clients.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"host plane failed: {errs}")
+    for c in clients.values():
+        c.stop_server()
+        c.close()
+    for ls in locals_:
+        ls.join(timeout=60)
+    gs.join(timeout=60)
+    return pulls, round_ms
+
+
+def host_plane_phase(torch) -> dict:
+    """Phase host_plane_resnet20: the host plane in process on
+    ResNet-20's parameter leaves at full width, kernel 3 on the relay
+    hop.  Four workers train ResNet-20 on the card (one forward/backward
+    a round on a synthetic CIFAR batch of 32 each) and push every leaf's
+    gradient as numpy; the local servers' relay compressor runs
+    bsc_select_pack on the card.  The pushed arrays replay through a
+    twin plane whose relay compressor runs on the CPU (the plain
+    versions): every round's pulls bit-equal across the workers and to
+    the twin's, select/pack launched exactly (eligible leaves) x 2
+    parties x 8 rounds times (the counts reset just before the card
+    plane and read just after), each eligible leaf's relay payload
+    exactly k (value, index) pairs.  The relay compress time a key is
+    timed after the plane, one leaf at a time, as the relay runs it:
+    the gradient to the device, the selection, the pairs back."""
+    import threading
+
+    import numpy as np
+
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.compression import BiSparseCompressor
+    from geomx_tpu_torch.compression.sparseagg import decode_pairs_payload
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.ops import bsc
+
+    rounds, batch = HOST_PLANE_ROUNDS, HOST_PLANE_BATCH
+    dev = torch.device("cuda")
+    base = get_model("resnet20")
+    init = {k: base.get_parameter(k).detach().float().numpy().copy()
+            for k in base.param_names()}
+    comp = BiSparseCompressor(0.01)
+    eligible = {k: comp.k_for(v.size) for k, v in init.items()
+                if v.size >= comp.min_sparse_size}
+    models = {}
+    for p in range(2):
+        for w in range(2):
+            m = get_model("resnet20").to(dev)
+            m.train()
+            models[(p, w)] = m
+    pushed, losses = {}, []
+    lock = threading.Lock()
+
+    def card_grads(pw, r, params):
+        m = models[pw]
+        gen = torch.Generator(device=dev).manual_seed(1000 * r + 10 * pw[0]
+                                                      + pw[1])
+        x = torch.randn((batch, 32, 32, 3), generator=gen, device=dev)
+        y = torch.randint(0, 10, (batch,), generator=gen, device=dev)
+        with torch.no_grad():
+            for k in params:
+                m.get_parameter(k).copy_(torch.from_numpy(params[k]))
+        m.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(m(x, train=True), y)
+        loss.backward()
+        grads = {k: m.get_parameter(k).grad.detach().float().cpu().numpy()
+                 for k in params}
+        with lock:
+            losses.append(float(loss.detach()))
+            pushed[(pw, r)] = grads
+        return grads
+
+    relays = []
+
+    def spy(msg):
+        if msg.meta.get("comp") == "bsc" or msg.sender >= 1000:
+            relays.append((msg.key, msg.meta.get("comp"),
+                           None if msg.array is None
+                           else np.array(msg.array)))
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    pulls, round_ms = _host_plane(dev, rounds, card_grads,
+                                  record={"init": init}, spy=spy)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = len(eligible) * 2 * rounds
+    if launches["bsc_select_pack"] != want:
+        raise AssertionError(
+            f"host plane: bsc_select_pack launched "
+            f"{launches['bsc_select_pack']} times, want {want} "
+            f"({len(eligible)} leaves x 2 parties x {rounds} rounds)")
+    if not all(math.isfinite(v) for v in losses) or \
+            len(losses) != 4 * rounds:
+        raise AssertionError(f"host plane: losses {losses}")
+    twin, _ = _host_plane("cpu", rounds, lambda pw, r, params: pushed[(pw, r)],
+                          record={"init": init})
+    for r in range(rounds):
+        ref = pulls[((0, 0), r)]
+        for pw in [(p, w) for p in range(2) for w in range(2)]:
+            for k in ref:
+                if pulls[(pw, r)][k].tobytes() != ref[k].tobytes():
+                    raise AssertionError(f"host plane: round {r}: worker "
+                                         f"{pw}'s {k} differs from (0, 0)'s")
+                if twin[(pw, r)][k].tobytes() != ref[k].tobytes():
+                    raise AssertionError(f"host plane: round {r}: worker "
+                                         f"{pw}'s {k} differs from the CPU "
+                                         "twin's")
+    relay_bytes = dense_bytes = 0
+    for key, kind, arr in relays:
+        dense_bytes += init[key].nbytes
+        relay_bytes += arr.nbytes
+        if key in eligible:
+            vals, idx = decode_pairs_payload(arr)
+            if kind != "bsc" or vals.size != eligible[key] or \
+                    not (idx < init[key].size).all():
+                raise AssertionError(f"host plane: relay of {key} is not "
+                                     f"{eligible[key]} pairs: {kind}, "
+                                     f"{arr.size}")
+        elif kind is not None or arr.size != init[key].size:
+            raise AssertionError(f"host plane: {key} did not relay dense")
+    if len(relays) != 2 * rounds * len(init):
+        raise AssertionError(f"host plane: {len(relays)} relays, want "
+                             f"{2 * rounds * len(init)}")
+    # kernel 3 at the relay's leaf sizes: one [1, n] row a call
+    sizes = sorted({init[k].size for k in eligible})
+    gen = torch.Generator(device=dev).manual_seed(3)
+    at_sizes = {}
+    for n in sizes:
+        k = comp.k_for(n)
+        g, u, v = (torch.randn((1, n), generator=gen, device=dev)
+                   for _ in range(3))
+        thr = bsc.sampled_boundary_guv(g, u, v, k)
+        before = bsc.select_pack.launches
+        sel = bsc.select_pack(g, u, v, thr, k)
+        err = max_err(torch, sel, bsc.select_pack_plain(g, u, v, thr, k))
+        bsc.select_pack.launches = before
+        at_sizes[n] = dict(
+            k=k, max_abs_err=err,
+            ms=device_ms(torch, lambda: bsc.select_pack(g, u, v, thr, k)),
+            plain_ms=device_ms(torch, lambda: bsc.select_pack_plain(
+                g, u, v, thr, k)),
+            bound_ms=bound_ms(5 * n * 4 + k * 8 + 4))
+    # the relay's compress of one key, as _relay_to_global_impl runs it
+    # (the gradient to the device, the selection, the pairs back to the
+    # host), on the card and on the CPU: median of 20 after one warm-up
+    def relay_ms(device, key):
+        c = BiSparseCompressor(0.01)
+        n = init[key].size
+        grad = pushed[((0, 0), 0)][key].reshape(-1)
+        u = torch.zeros(n, device=device)
+        v = torch.zeros(n, device=device)
+        times = []
+        for _ in range(21):
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals, idx, u, v = c.compress(
+                torch.from_numpy(np.array(grad)).to(device), u, v)
+            vals.cpu().numpy(), idx.cpu().numpy()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times[1:])
+
+    card_ms = {k: relay_ms(dev, k) for k in eligible}
+    cpu_ms = {k: relay_ms(torch.device("cpu"), k) for k in eligible}
+    ops.reset_launch_counts()
+
+    res = dict(
+        leaves=len(init), eligible_leaves=len(eligible), rounds=rounds,
+        params=int(sum(v.size for v in init.values())),
+        round_ms_median=statistics.median(round_ms.values()),
+        launches=launches,
+        select_pack_launches_per_round=launches["bsc_select_pack"] / rounds,
+        relay_compress_ms_by_key_card=card_ms,
+        relay_compress_ms_by_key_cpu=cpu_ms,
+        relay_compress_ms_per_key_card=statistics.median(card_ms.values()),
+        relay_compress_ms_per_key_cpu_twin=statistics.median(
+            cpu_ms.values()),
+        relay_compress_ms_per_round_card=2 * sum(card_ms.values()),
+        relay_compress_ms_per_round_cpu_twin=2 * sum(cpu_ms.values()),
+        relay_bytes_per_round=relay_bytes / rounds,
+        dense_relay_bytes_per_round=dense_bytes / rounds,
+        loss_first=losses[0], loss_last=losses[-1],
+        select_pack_at_leaf_sizes=at_sizes)
+    log(f"phase host_plane_resnet20: {len(init)} ResNet-20 leaves "
+        f"({res['params']} parameters, {len(eligible)} relayed as BSC "
+        f"pairs), 4 workers x {rounds} rounds on the card, pulls bit-equal "
+        f"across workers and to the CPU twin; bsc_select_pack "
+        f"{launches['bsc_select_pack']} launches "
+        f"({res['select_pack_launches_per_round']:.0f} a round); round "
+        f"{res['round_ms_median']:.2f} ms (median); relay compress "
+        f"{res['relay_compress_ms_per_key_card']:.3f} ms a key on the card "
+        f"vs {res['relay_compress_ms_per_key_cpu_twin']:.3f} ms on the CPU "
+        f"(medians over the {len(eligible)} leaves; "
+        f"{res['relay_compress_ms_per_round_card']:.2f} vs "
+        f"{res['relay_compress_ms_per_round_cpu_twin']:.2f} ms a round for "
+        f"two parties, one key at a time); "
+        f"relay bytes a round {res['relay_bytes_per_round']:.0f} vs dense "
+        f"{res['dense_relay_bytes_per_round']:.0f}; loss "
+        f"{res['loss_first']:.4f} -> {res['loss_last']:.4f}")
+    for n, r in at_sizes.items():
+        log(f"  bsc_select_pack at a relay leaf of {n} (k {r['k']}): "
+            f"{r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f} us, "
+            f"bound {r['bound_ms'] * 1e3:.3f} us), bit-equal")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -2245,6 +2721,8 @@ def main(argv=None) -> int:
              else main_path_phase(torch, path, cfg[4] or args.steps)
              for path, cfg in PATHS.items()}
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
+    host = {path: dist_ps_phase(torch, path) for path in DIST_PS}
+    host["host_plane_resnet20"] = host_plane_phase(torch)
     log("median step: " + ", ".join(
         f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())
         + " (this call)")
@@ -2267,7 +2745,7 @@ def main(argv=None) -> int:
                        "head_dim_phase": wide, "timer_floors": floors,
                        "shard_phase": shards,
                        "zero_dense_max_param_diff": zero_diff,
-                       "paths": paths,
+                       "paths": paths, "host_plane": host,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

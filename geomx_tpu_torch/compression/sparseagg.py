@@ -25,24 +25,30 @@ negotiates one scale with a ``pmax``, quantizes every party onto a
 shared int16 lattice with ``P``-fold headroom and sums the codes
 exactly; :func:`lattice_allreduce_signs` sums 2-bit sign codes as int8.
 
-Every tensor carries the leading ``[P, W]`` replica axes.  The host-plane
-half of the JAX module (``merge_pairs_host`` and the pair wire payload)
-belongs to the host plane and is not ported here.
+Every tensor carries the leading ``[P, W]`` replica axes.
+
+**The host half** (numpy, for ``service/server.py``'s round gate):
+:func:`merge_pairs_host` merges per-sender (value, index) pushes by
+sorted index through the native ``gx_merge_pairs`` (or its numpy
+replica), and :func:`encode_pairs_payload` /
+:func:`decode_pairs_payload` / :func:`densify_pairs_host` are the pair
+wire payload, byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from geomx_tpu_torch.ops.merge import merge_sorted_pairs
 from geomx_tpu_torch.ops.topk import top_k
 from geomx_tpu_torch.parallel.collectives import (all_gather, all_to_all,
-                                                   axis_dim, pmax, psum)
+                                                  axis_dim, pmax, psum)
 
 
 def sparse_agg_enabled() -> bool:
@@ -250,3 +256,125 @@ def lattice_allreduce_signs(signs: torch.Tensor, threshold: float,
             f"parties, got {axis_size}")
     total = psum(signs.to(torch.int8), axis_name)
     return total.to(torch.float32) * threshold
+
+
+# ---------------------------------------------------------------------------
+# host-plane sorted-index merge (the global tier's kernel)
+# ---------------------------------------------------------------------------
+
+def _native_merge(vals: np.ndarray, idx: np.ndarray):
+    """Route the concatenated pair set through the fast-path merge when
+    the native wire path is enabled: the nogil C++ ``gx_merge_pairs``
+    if ``libgeops.so`` is built, else a numpy replica of its SEQUENTIAL
+    left-to-right float32 fold (vectorized across segments by
+    accumulation round, so it costs O(max duplicates) passes — the
+    duplicate count is the party count, small).  The replica is pinned
+    bit-identical to the C++ by tests/test_wire_fastpath.py, so which
+    one ran is unobservable in the merged bits.  Returns ``None`` under
+    ``GEOMX_NATIVE_WIRE=0`` — that switch forces the UNTOUCHED legacy
+    ``np.add.reduceat`` fold (pairwise summation, different low bits
+    than the sequential tree) exactly as shipped before the fast path
+    existed."""
+    from geomx_tpu_torch.service.protocol import binary_wire_enabled
+    if not binary_wire_enabled():
+        return None
+    from geomx_tpu_torch.runtime import native
+    out = native.merge_pairs(vals, idx)
+    if out is not None:
+        return out
+    keep = idx >= 0
+    vals, idx = vals[keep], idx[keep]
+    if idx.size == 0:
+        return (np.zeros((0,), np.float32), np.zeros((0,), np.int64))
+    order = np.argsort(idx, kind="stable")
+    si, sv = idx[order], vals[order]
+    head = np.ones(si.size, bool)
+    head[1:] = si[1:] != si[:-1]
+    starts = np.flatnonzero(head)
+    lens = np.diff(np.append(starts, si.size))
+    merged = sv[starts].copy()
+    for r in range(1, int(lens.max())):
+        m = lens > r
+        merged[m] = merged[m] + sv[starts[m] + r]
+    return merged, si[starts]
+
+
+def merge_pairs_host(parts) -> Tuple[np.ndarray, np.ndarray]:
+    """Merge (value, index) contributions by index on the host — the
+    GeoPSServer round-gate kernel (service/server.py).
+
+    ``parts`` is an iterable of ``(vals, idx)`` numpy pairs in the
+    caller's CANONICAL order (sorted sender id): concatenation order +
+    stable index sort + a fixed per-segment fold define the summation
+    tree completely, so the merged bits are a function of the
+    contribution set alone — never of push arrival order.  Which fold:
+    the fast path (native wire enabled, default) folds each segment
+    SEQUENTIALLY left-to-right in float32 (C++ ``gx_merge_pairs`` or
+    its pinned-identical numpy replica); ``GEOMX_NATIVE_WIRE=0`` keeps
+    the original ``np.add.reduceat`` pairwise fold byte-for-byte.
+    Either way the tree is deterministic per switch setting.  Sentinel
+    pairs (index < 0) drop.  Cost: O(K log K) in the total pair count
+    K, independent of the dense length.  Returns compact ``(vals fp32,
+    idx int64)`` sorted by index, indices unique."""
+    vs, is_ = [], []
+    for v, i in parts:
+        vs.append(np.asarray(v, np.float32).reshape(-1))
+        is_.append(np.asarray(i).reshape(-1).astype(np.int64))
+    if not vs:
+        return (np.zeros((0,), np.float32), np.zeros((0,), np.int64))
+    vals = np.concatenate(vs)
+    idx = np.concatenate(is_)
+    merged = _native_merge(vals, idx)
+    if merged is not None:
+        return merged
+    keep = idx >= 0
+    vals, idx = vals[keep], idx[keep]
+    if idx.size == 0:
+        return (np.zeros((0,), np.float32), np.zeros((0,), np.int64))
+    order = np.argsort(idx, kind="stable")
+    si, sv = idx[order], vals[order]
+    head = np.ones(si.size, bool)
+    head[1:] = si[1:] != si[:-1]
+    starts = np.flatnonzero(head)
+    return np.add.reduceat(sv, starts).astype(np.float32), si[starts]
+
+
+# the concatenated-pair wire format (values then f32-cast indices) is
+# index-exact only below this bound — producers must fall back to a
+# dense payload past it, consumers refuse the sparse store/reply
+PAIR_WIRE_MAX_N = 1 << 24
+
+
+def encode_pairs_payload(vals: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """(vals, idx) -> the concatenated pair wire payload (values first,
+    then indices cast to f32 — exact below :data:`PAIR_WIRE_MAX_N`)."""
+    return np.concatenate([np.asarray(vals, np.float32).reshape(-1),
+                           np.asarray(idx, np.float32).reshape(-1)])
+
+
+def decode_pairs_payload(payload: np.ndarray):
+    """Inverse of :func:`encode_pairs_payload`: ``(vals fp32, idx
+    int64)`` — sentinels (< 0) preserved for the caller's mask."""
+    pairs = np.asarray(payload, np.float32).reshape(-1)
+    k = pairs.size // 2
+    return pairs[:k], pairs[k:].astype(np.int64)
+
+
+def densify_pairs_host(vals: np.ndarray, idx: np.ndarray, n: int,
+                       out: "np.ndarray | None" = None) -> np.ndarray:
+    """Scatter a (value, index) pair set into a dense fp32 vector — the
+    ONE densify a sparse-merged round ever pays, and only when a dense
+    consumer actually asks (lazy value materialization in
+    service/server.py; the client-side decompress of a sparse pull).
+    Sentinel pairs (index < 0) drop; duplicate indices SUM (merged sets
+    are unique by construction, but a raw push payload is not — add
+    semantics keep every densify path consistent with
+    :func:`merge_pairs_host` and the legacy per-push densify)."""
+    if out is None:
+        out = np.zeros((int(n),), np.float32)
+    idx = np.asarray(idx).reshape(-1).astype(np.int64)
+    vals = np.asarray(vals, np.float32).reshape(-1)
+    valid = idx >= 0
+    if valid.any():
+        np.add.at(out, idx[valid], vals[valid])
+    return out

@@ -175,3 +175,22 @@ class GeoConfig:
         )
         cfg.update(overrides)
         return cls(**cfg)
+
+
+def unported(what: str, item: str) -> NotImplementedError:
+    """The refusal of a host-plane knob or argument the port does not
+    run yet, naming the ROADMAP.md Queue 1 item that ports it by its
+    title (raise the returned error)."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1, {item!r})")
+
+
+def refuse_durable_dir(explicit=None) -> None:
+    """Raise :func:`unported` when a durable directory is asked for,
+    resolved as the JAX package resolves it: an explicit argument wins,
+    else ``GEOMX_DURABLE_DIR``; None or "" mean memory-only."""
+    ddir = explicit if explicit is not None \
+        else os.environ.get("GEOMX_DURABLE_DIR")
+    if ddir:
+        raise unported(f"a durable directory ({ddir!r}; durable_dir, "
+                       "GEOMX_DURABLE_DIR)", "Resilience and utils")

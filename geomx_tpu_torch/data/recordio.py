@@ -18,10 +18,11 @@ reference's indexed recordio) enables O(1) random access and sharded
 reads (``read_shard`` = each worker reads only its slice — the
 SplitSampler applied at the file level).
 
-The JAX package's ``recordio_writer``/``recordio_reader`` prefer its
-native C++ runtime (``runtime/native.py``, byte-identical files); the
-port's factories are Python-only until that runtime's binding is ported
-(ROADMAP.md Queue 1, "Service and transport").
+``recordio_writer``/``recordio_reader`` prefer the native C++ runtime
+(``runtime/native.py``, the port's binding of the shared
+``native/libgeops.so``; byte-identical files), as the JAX package's do;
+``GEOMX_NATIVE_RECORDIO=0`` or a missing toolchain selects the Python
+classes.
 """
 
 from __future__ import annotations
@@ -186,11 +187,25 @@ def unpack_labelled(payload: bytes) -> Tuple[float, np.ndarray]:
 
 # ---- factories ------------------------------------------------------------
 
-def recordio_writer(path: str, index: bool = True) -> RecordIOWriter:
-    """The writer (Python; the native one waits for its binding)."""
+def recordio_writer(path: str, index: bool = True):
+    """The native writer when the runtime is built, else the Python one
+    (``GEOMX_NATIVE_RECORDIO=0`` forces Python)."""
+    # graftlint: disable=GXL006 — host I/O kill-switch
+    if os.environ.get("GEOMX_NATIVE_RECORDIO", "1") != "0":
+        from geomx_tpu_torch.runtime.native import (NativeRecordIOWriter,
+                                                    native_available)
+        if native_available():
+            return NativeRecordIOWriter(path, index=index)
     return RecordIOWriter(path, index=index)
 
 
-def recordio_reader(path: str) -> RecordIOReader:
-    """The reader (Python; the native one waits for its binding)."""
+def recordio_reader(path: str):
+    """The native reader when the runtime is built, else the Python one
+    (``GEOMX_NATIVE_RECORDIO=0`` forces Python)."""
+    # graftlint: disable=GXL006 — host I/O kill-switch
+    if os.environ.get("GEOMX_NATIVE_RECORDIO", "1") != "0":
+        from geomx_tpu_torch.runtime.native import (NativeRecordIOReader,
+                                                    native_available)
+        if native_available():
+            return NativeRecordIOReader(path)
     return RecordIOReader(path)

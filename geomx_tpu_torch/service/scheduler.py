@@ -1,0 +1,586 @@
+"""GeoScheduler — the central registration/discovery service (port of
+geomx_tpu/service/scheduler.py).
+
+The reference's scheduler role (3rdparty/ps-lite/src/van.cc:41-163,
+postoffice.h:104-116): every node sends ADD_NODE at startup; the
+scheduler assigns node ids centrally (servers even, workers odd, starting
+at kOffset=100; global tier ids 8,10,... / 9,11,...), keeps the cluster
+roster, and on a node's re-registration marks it ``is_recovery`` and
+re-sends the cluster state (van.cc:165-212) so a restarted process can
+resume without a fresh barrier.
+
+Here the same capability as a small TCP service speaking the framework's
+COMMAND protocol:
+
+- ``register`` assigns an id per role (stable across re-registration:
+  the same (role, host, port) — or an explicit ``prev_id`` — gets its
+  old id back with ``is_recovery=True``), records the node's serving
+  address, and returns the current roster;
+- ``cluster`` returns the roster (role -> [(id, host, port, tag)];
+  ``tag`` carries e.g. the party id so workers can find THEIR server) —
+  how nodes discover each other instead of hard-wired env addressing;
+- ``barrier`` blocks until ``expect`` nodes enter (the per-tier Barrier);
+- heartbeats feed the shared dead-node detector.
+
+Telemetry: roster churn (registrations, evictions, epoch bumps) is
+recorded as registry gauges/counters and as profiler instants carrying
+the roster epoch.  The JAX scheduler also serves the registry as
+Prometheus text (``metrics_port``/``GEOMX_METRICS_PORT``, the
+``metrics`` command) with FleetScope beside it; in the port those raise
+until ROADMAP item "Telemetry".  Its durable roster
+(``durable_dir``/``GEOMX_DURABLE_DIR``, "Resilience and utils"), the
+shard-map commands of the range-sharded global tier ("Sharded global
+tier") and the serving surface of its health document ("Serving") are
+not ported either.
+
+`geomx_tpu_torch/launch.py` starts one per job when GEOMX_USE_SCHEDULER=1
+and `geomx_tpu_torch/examples/dist_ps.py` then discovers every address
+through it.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+from geomx_tpu_torch.config import _env_bool, refuse_durable_dir, unported
+from geomx_tpu_torch.service.protocol import (Msg, MsgType, connect_retry,
+                                              recv_frame, send_frame)
+from geomx_tpu_torch.utils.heartbeat import HeartbeatMonitor
+
+KOFFSET = 100  # reference base.h:36: intra-party ids start here
+
+
+class GeoScheduler:
+    """Role-based id assignment (servers even, workers odd — the
+    reference's scheme) + roster + barrier."""
+
+    def __init__(self, port: int = 0, bind_host: Optional[str] = None,
+                 heartbeat_timeout: float = 15.0,
+                 metrics_port: Optional[int] = None,
+                 durable_dir: Optional[str] = None,
+                 restart_grace_s: Optional[float] = None):
+        """``metrics_port`` and ``durable_dir`` keep the JAX signature
+        and raise ``NotImplementedError`` unless left at their defaults
+        (module docstring); ``restart_grace_s`` shapes a durable restart,
+        so it does nothing without a durable directory."""
+        refuse_durable_dir(durable_dir)
+        if metrics_port is not None \
+                or os.environ.get("GEOMX_METRICS_PORT") not in (None, ""):
+            raise unported("the scheduler's metrics endpoint "
+                           "(metrics_port, GEOMX_METRICS_PORT)", "Telemetry")
+        if _env_bool(["GEOMX_FLEETSCOPE"], False):
+            raise unported("GEOMX_FLEETSCOPE", "Telemetry")
+        self._lock = threading.Lock()
+        # (role, host, port, tag) -> assigned id; survives re-registration
+        # (tag disambiguates nodes with no serving port, e.g. workers
+        # registering with port 0 and tag "<party>.<rank>")
+        self._assigned: Dict[Tuple[str, str, int, str], int] = {}
+        self._roster: Dict[str, list] = {}   # role -> [(id, host, port)]
+        self._next = {"server": KOFFSET, "worker": KOFFSET + 1,
+                      "global_server": 8, "global_worker": 9,
+                      # serving plane (gateways/replicas/registries):
+                      # heartbeat-covered like every other role, id
+                      # range far above the training tiers
+                      "serve": 900}
+        self._barriers: Dict[str, list] = {}
+        # roster epoch (resilience/): bumps on every membership-visible
+        # roster mutation — registration (fresh or recovery) and
+        # eviction — so liveness consumers can order roster snapshots
+        # and detect changes without diffing them
+        self._epoch = 0
+        self.heartbeats = HeartbeatMonitor(timeout_s=heartbeat_timeout)
+        # generation token: rides every reply, the clients' restart
+        # detector (a fresh draw: the durable roster is not ported)
+        import random as _rnd
+        self.generation = _rnd.getrandbits(31) | 1
+
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if bind_host is None:
+            # graftlint: disable=GXL006 — host-plane knob
+            bind_host = os.environ.get("GEOMX_PS_BIND_HOST", "127.0.0.1")
+        # a restart onto the crashed predecessor's port races its
+        # teardown — wait it out like a supervisor would
+        from geomx_tpu_torch.service.server import GeoPSServer
+        GeoPSServer._bind_with_retry(self._srv, bind_host, port)
+        self._srv.listen(64)
+        self._srv.settimeout(0.2)
+        self.port = self._srv.getsockname()[1]
+        self._running = True
+        self._conns: set = set()
+        self._thread = threading.Thread(target=self._accept_loop,
+                                        daemon=True)
+
+        # ---- telemetry plane -------------------------------------------
+        from geomx_tpu_torch.telemetry import get_registry
+        reg = get_registry()
+        self._m_epoch = reg.gauge(
+            "geomx_scheduler_roster_epoch",
+            "Roster epoch: bumps on every membership-visible mutation")
+        self._m_nodes = reg.gauge(
+            "geomx_scheduler_nodes",
+            "Nodes currently in the roster, per role", ("role",))
+        self._m_regs = reg.counter(
+            "geomx_scheduler_registrations_total",
+            "Node registrations handled (incl. recoveries)", ("role",))
+        self._m_evicts = reg.counter(
+            "geomx_scheduler_evictions_total",
+            "Nodes evicted from the roster")
+        self._m_barriers = reg.counter(
+            "geomx_scheduler_barrier_releases_total",
+            "Barrier groups released")
+        self._m_hb = reg.counter(
+            "geomx_scheduler_heartbeats_total",
+            "Heartbeats received")
+        self._m_req_s = reg.histogram(
+            "geomx_scheduler_request_seconds",
+            "Scheduler request handling latency")
+
+
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._running = False
+        try:
+            self._srv.close()
+        except OSError:
+            pass
+
+    def crash(self):
+        """In-process emulation of a scheduler process death (chaos
+        ``kill@...node=scheduler``): sever the listener AND every live
+        connection abruptly so clients see exactly what a SIGKILL gives
+        them.  The roster is lost with it (the JAX package's durable
+        roster is not ported)."""
+        self._running = False
+        for sock in [self._srv] + list(self._conns):
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def join(self, timeout: Optional[float] = None):
+        self._thread.join(timeout)
+
+    # ---- service loop ------------------------------------------------------
+
+    def _accept_loop(self):
+        while self._running:
+            try:
+                conn, _ = self._srv.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            conn.settimeout(None)
+            self._conns.add(conn)
+            threading.Thread(target=self._serve, args=(conn,),
+                             daemon=True).start()
+
+    def _serve(self, conn: socket.socket):
+        try:
+            self._serve_loop(conn)
+        finally:
+            # close actively (see GeoPSServer._serve_conn): a frame-
+            # integrity drop must read as a dead socket on the peer
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+            self._conns.discard(conn)
+
+    def _serve_loop(self, conn: socket.socket):
+        while True:
+            try:
+                msg = recv_frame(conn)
+            except (OSError, pickle.UnpicklingError, ValueError):
+                return
+            if msg is None:
+                return
+            t0 = time.monotonic()
+            try:
+                if self._handle(conn, msg):
+                    return
+            except Exception as e:
+                self._reply(conn, msg, Msg(MsgType.ERROR,
+                                           meta={"error": repr(e)}))
+            finally:
+                # barrier waits park the CONNECTION, not this handler, so
+                # the latency histogram measures real handling time
+                self._m_req_s.observe(time.monotonic() - t0)
+
+    def _reply(self, conn, req: Msg, reply: Msg):
+        rid = req.meta.get("rid")
+        if rid is not None:
+            reply.meta["rid"] = rid
+        # restart detector: same token discipline as GeoPSServer
+        reply.meta.setdefault("gen", self.generation)
+        send_frame(conn, reply)
+
+    def _roster_gauges_locked(self) -> None:
+        """Refresh the per-role node gauges (caller holds self._lock)."""
+        for role, entries in self._roster.items():
+            self._m_nodes.labels(role=role).set(len(entries))
+
+    def _handle(self, conn, msg: Msg) -> bool:
+        if msg.type == MsgType.HEARTBEAT:
+            if msg.sender >= 0:
+                self.heartbeats.heartbeat(msg.sender)
+            self._m_hb.inc()
+            self._reply(conn, msg, Msg(MsgType.ACK))
+            return False
+        if msg.type == MsgType.STOP:
+            self._reply(conn, msg, Msg(MsgType.ACK))
+            self.stop()
+            return True
+        if msg.type != MsgType.COMMAND:
+            self._reply(conn, msg, Msg(MsgType.ERROR,
+                                       meta={"error": f"bad {msg.type}"}))
+            return False
+        cmd = msg.meta.get("cmd")
+        if cmd == "register":
+            role = msg.meta["role"]
+            host = msg.meta.get("host", "127.0.0.1")
+            port = int(msg.meta.get("port", 0))
+            tag = str(msg.meta.get("tag", ""))
+            prev = msg.meta.get("prev_id")
+            with self._lock:
+                key = (role, host, port, tag)
+                node_id = self._assigned.get(key)
+                if node_id is None and prev is not None:
+                    # explicit recovery claim (e.g. restarted on a new
+                    # ephemeral port): take the old identity back
+                    for k, v in list(self._assigned.items()):
+                        if v == int(prev) and k[0] == role:
+                            del self._assigned[k]
+                            self._roster[role] = [
+                                e for e in self._roster.get(role, [])
+                                if e[0] != v]
+                            node_id = int(prev)
+                            break
+                recovery = node_id is not None and any(
+                    e[0] == node_id for e in self._roster.get(role, [])) \
+                    or (node_id is not None and prev is not None)
+                if node_id is None:
+                    node_id = self._next[role]
+                    self._next[role] += 2   # keep parity per role
+                self._assigned[key] = node_id
+                entries = [e for e in self._roster.setdefault(role, [])
+                           if e[0] != node_id]
+                entries.append((node_id, host, port, tag))
+                self._roster[role] = sorted(entries)
+                self._epoch += 1
+                epoch = self._epoch
+                roster = {r: list(v) for r, v in self._roster.items()}
+                self._roster_gauges_locked()
+                # inside the lock: concurrent register/evict handlers
+                # must publish epochs in bump order, or the scraped
+                # gauge can regress behind the real epoch
+                self._m_epoch.set(epoch)
+            self._m_regs.labels(role=role).inc()
+            from geomx_tpu_torch.utils.profiler import get_profiler
+            get_profiler().instant(
+                "SchedulerRegister", "scheduler",
+                args={"node": node_id, "role": role, "epoch": epoch,
+                      "recovery": bool(recovery)})
+            self.heartbeats.heartbeat(node_id)
+            self._reply(conn, msg, Msg(MsgType.ACK, meta={
+                "node_id": node_id, "is_recovery": bool(recovery),
+                "cluster": roster, "epoch": epoch}))
+        elif cmd == "cluster":
+            with self._lock:
+                roster = {r: list(v) for r, v in self._roster.items()}
+                epoch = self._epoch
+            self._reply(conn, msg, Msg(MsgType.ACK,
+                                       meta={"cluster": roster,
+                                             "epoch": epoch}))
+        elif cmd == "evict":
+            # operator/controller-driven removal (resilience/): take the
+            # node out of the roster AND the id table so discovery and
+            # liveness stop counting it; a later return re-registers as
+            # a fresh node (re-admission, not recovery)
+            node = int(msg.meta["node"])
+            with self._lock:
+                evicted = False
+                for role, entries in list(self._roster.items()):
+                    kept = [e for e in entries if e[0] != node]
+                    if len(kept) != len(entries):
+                        self._roster[role] = kept
+                        evicted = True
+                for k, v in list(self._assigned.items()):
+                    if v == node:
+                        del self._assigned[k]
+                if evicted:
+                    self._epoch += 1
+                epoch = self._epoch
+                self._roster_gauges_locked()
+                if evicted:
+                    self._m_epoch.set(epoch)  # in-lock: bump order
+            if evicted:
+                self._m_evicts.inc()
+            from geomx_tpu_torch.utils.profiler import get_profiler
+            get_profiler().instant(
+                "SchedulerEvict", "scheduler",
+                args={"node": node, "epoch": epoch,
+                      "evicted": bool(evicted)})
+            self.heartbeats.unregister(node)
+            self._reply(conn, msg, Msg(MsgType.ACK, meta={
+                "evicted": evicted, "epoch": epoch}))
+        elif cmd == "barrier":
+            group = str(msg.meta.get("group", ""))
+            expect = int(msg.meta["expect"])
+            with self._lock:
+                waiters = self._barriers.setdefault(group, [])
+                waiters.append((conn, msg.meta.get("rid")))
+                if len(waiters) >= expect:
+                    for c, rid in waiters:
+                        rel = Msg(MsgType.BARRIER_RELEASE)
+                        if rid is not None:
+                            rel.meta["rid"] = rid
+                        try:
+                            send_frame(c, rel)
+                        except OSError:
+                            pass
+                    self._barriers[group] = []
+                    self._m_barriers.inc()
+        elif cmd == "metrics":
+            # the Prometheus exposition lives in telemetry/export.py
+            raise unported("the 'metrics' command", "Telemetry")
+        elif cmd == "num_dead_nodes":
+            dead = self.heartbeats.dead_nodes(msg.meta.get("timeout"))
+            # "grace": the JAX scheduler's post-restart window, which
+            # only its durable roster opens
+            self._reply(conn, msg, Msg(MsgType.ACK, meta={
+                "dead": dead, "grace": False}))
+        elif cmd in ("init_shard_map", "shard_map", "shard_failover",
+                     "rebalance_shards"):
+            raise unported(f"the {cmd!r} command", "Sharded global tier")
+        else:
+            self._reply(conn, msg, Msg(MsgType.ERROR,
+                                       meta={"error": f"bad cmd {cmd}"}))
+        return False
+
+
+class SchedulerClient:
+    """A node's line to the scheduler: register, discover, barrier."""
+
+    def __init__(self, addr: Tuple[str, int]):
+        self._addr = addr
+        self._sock = connect_retry(addr)
+        self._lock = threading.Lock()
+        self.node_id: Optional[int] = None
+        self.is_recovery = False
+        self.roster_epoch = 0   # last roster epoch seen (resilience/)
+        # restart detection (generation token in every scheduler reply)
+        self.scheduler_generation: Optional[int] = None
+        self.saw_scheduler_restart = False
+        self._hb_stop: Optional[threading.Event] = None
+        self._hb_sock: Optional[socket.socket] = None
+
+    def _rpc(self, msg: Msg, retry: bool = True) -> Msg:
+        """One synchronous exchange.  ``retry=True`` (everything except
+        barrier, which must not enter a group twice) re-dials a dead
+        scheduler once — register/cluster/evict/heartbeat are
+        idempotent, and a RESTARTED scheduler restored its roster from
+        the durable store, so the retried call lands on continuous
+        state (docs/resilience.md "Host-plane recovery")."""
+        for attempt in (0, 1):
+            try:
+                with self._lock:
+                    send_frame(self._sock, msg)
+                    reply = recv_frame(self._sock)
+                if reply is None:
+                    raise ConnectionError("scheduler closed")
+                break
+            except (OSError, ConnectionError, ValueError,
+                    pickle.UnpicklingError):
+                if not retry or attempt:
+                    raise
+                from geomx_tpu_torch.service.retry import count_retry
+                count_retry("scheduler_rpc")
+                with self._lock:
+                    try:
+                        self._sock.close()
+                    except OSError:
+                        pass
+                    self._sock = connect_retry(self._addr,
+                                               total_timeout_s=15.0)
+        gen = reply.meta.get("gen")
+        if gen is not None:
+            if self.scheduler_generation is not None \
+                    and gen != self.scheduler_generation:
+                self.saw_scheduler_restart = True
+            self.scheduler_generation = gen
+        if reply.type == MsgType.ERROR:
+            raise RuntimeError(reply.meta.get("error", "scheduler error"))
+        return reply
+
+    def register(self, role: str, host: str = "127.0.0.1", port: int = 0,
+                 tag: str = "", prev_id: Optional[int] = None) -> dict:
+        reply = self._rpc(Msg(MsgType.COMMAND, meta={
+            "cmd": "register", "role": role, "host": host, "port": port,
+            "tag": tag,
+            **({"prev_id": prev_id} if prev_id is not None else {})}))
+        self.node_id = int(reply.meta["node_id"])
+        self.is_recovery = bool(reply.meta["is_recovery"])
+        self.roster_epoch = int(reply.meta.get("epoch", 0))
+        return reply.meta
+
+    def cluster(self) -> dict:
+        reply = self._rpc(Msg(MsgType.COMMAND, meta={"cmd": "cluster"}))
+        self.roster_epoch = int(reply.meta.get("epoch", self.roster_epoch))
+        return dict(reply.meta["cluster"])
+
+    def evict(self, node_id: int) -> dict:
+        """Remove a node from the roster (resilience/): the scheduler
+        bumps the roster epoch and forgets the node's heartbeat identity.
+        Returns {"evicted": bool, "epoch": int}."""
+        reply = self._rpc(Msg(MsgType.COMMAND,
+                              meta={"cmd": "evict", "node": int(node_id)}))
+        self.roster_epoch = int(reply.meta.get("epoch", self.roster_epoch))
+        return {"evicted": bool(reply.meta.get("evicted")),
+                "epoch": self.roster_epoch}
+
+    def wait_for(self, role: str, count: int, timeout: float = 60.0,
+                 tag: Optional[str] = None) -> list:
+        """Poll the roster until `count` nodes of `role` (optionally with
+        the given tag) registered; returns them sorted by node id."""
+        import time
+        deadline = time.monotonic() + timeout
+        while True:
+            entries = [e for e in self.cluster().get(role, [])
+                       if tag is None or (len(e) > 3 and e[3] == tag)]
+            if len(entries) >= count:
+                return sorted(entries)
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"only {len(entries)}/{count} {role} nodes registered")
+            time.sleep(0.1)
+
+    def barrier(self, group: str, expect: int,
+                timeout: float = 120.0) -> None:
+        old = self._sock.gettimeout()
+        self._sock.settimeout(timeout)
+        try:
+            reply = self._rpc(Msg(MsgType.COMMAND, meta={
+                "cmd": "barrier", "group": group, "expect": expect}),
+                retry=False)  # re-entering a barrier would double-count
+            if reply.type != MsgType.BARRIER_RELEASE:
+                raise ConnectionError(f"barrier failed: {reply}")
+        finally:
+            self._sock.settimeout(old)
+
+    def heartbeat(self) -> None:
+        msg = Msg(MsgType.HEARTBEAT)
+        msg.sender = self.node_id if self.node_id is not None else -1
+        self._rpc(msg)
+
+    def start_heartbeat(self, interval_s: Optional[float] = None
+                        ) -> "SchedulerClient":
+        """Run the node->scheduler heartbeat loop on a daemon thread (the
+        reference Van::Heartbeat timer, van.cc:1147-1160) so the
+        scheduler's cluster-wide dead-node detection sees this node live.
+        Call after register(); close() stops it.  Interval defaults to
+        GEOMX_HEARTBEAT_INTERVAL (PS_HEARTBEAT_INTERVAL alias) seconds."""
+        if interval_s is None:
+            interval_s = float(
+                # graftlint: disable=GXL006 — host-plane knob
+                os.environ.get("GEOMX_HEARTBEAT_INTERVAL")
+                # graftlint: disable=GXL006 — host-plane knob
+                or os.environ.get("PS_HEARTBEAT_INTERVAL") or "3")
+        if self._hb_stop is not None:
+            return self
+        stop = self._hb_stop = threading.Event()
+        node_id = self.node_id if self.node_id is not None else -1
+
+        def run():
+            # DEDICATED connection: the main socket's lock is held for the
+            # whole of a blocking barrier() wait, which would starve the
+            # heartbeat and get a live waiting node declared dead
+            sock = None
+            failures = 0
+            while not stop.wait(interval_s):
+                try:
+                    if sock is None:
+                        sock = connect_retry(self._addr,
+                                             total_timeout_s=5.0)
+                        sock.settimeout(10.0)
+                        self._hb_sock = sock
+                    msg = Msg(MsgType.HEARTBEAT)
+                    msg.sender = node_id
+                    send_frame(sock, msg)
+                    if recv_frame(sock) is None:
+                        raise ConnectionError("scheduler closed")
+                    failures = 0
+                except (OSError, ConnectionError, ValueError,
+                        pickle.UnpicklingError):
+                    # transient: reconnect next tick; give up only after
+                    # sustained failure (scheduler genuinely gone)
+                    try:
+                        if sock is not None:
+                            sock.close()
+                    except OSError:
+                        pass
+                    sock = None
+                    failures += 1
+                    if failures > 10:
+                        return
+            try:
+                if sock is not None:
+                    sock.close()
+            except OSError:
+                pass
+        threading.Thread(target=run, daemon=True,
+                         name=f"sched-heartbeat-{node_id}").start()
+        return self
+
+    def dead_nodes(self, timeout: Optional[float] = None) -> list:
+        """The scheduler's cluster-wide dead list (reference
+        Postoffice::GetDeadNodes surfaced via the scheduler role)."""
+        return list(self._rpc(Msg(MsgType.COMMAND, meta={
+            "cmd": "num_dead_nodes", "timeout": timeout})).meta["dead"])
+
+    def metrics_text(self) -> str:
+        """The scheduler process's Prometheus exposition over the wire
+        protocol (the COMMAND twin of its GET /metrics endpoint).  A JAX
+        scheduler answers it; the port's refuses it until ROADMAP item
+        "Telemetry"."""
+        return str(self._rpc(Msg(MsgType.COMMAND,
+                                 meta={"cmd": "metrics"})).meta["text"])
+
+    def stop_scheduler(self) -> None:
+        try:
+            # no retry: re-dialing a scheduler that just honored the
+            # STOP would burn the whole connect window at teardown
+            self._rpc(Msg(MsgType.STOP), retry=False)
+        except (ConnectionError, OSError):
+            pass
+
+    def close(self) -> None:
+        if self._hb_stop is not None:
+            self._hb_stop.set()
+        if self._hb_sock is not None:
+            try:
+                self._hb_sock.close()
+            except OSError:
+                pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
