@@ -179,7 +179,39 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           twin, relay bytes a round against dense, and
                           kernel 3 against its plain version at each relay
                           leaf size.  The dist_ps paths run no kernel of
-                          csrc/ (no compression).
+                          csrc/ (no compression);
+              manyparty_sharded  the range-sharded global tier at the JAX
+                          acceptance's size (MANYPARTY): a scheduler, 4
+                          shards on the card (Adam 0.01 through the
+                          factory there) and 16 ShardedGlobalClients,
+                          one thread each, on ResNet-20's 65 leaves at
+                          full width; 6 rounds of seeded normal
+                          gradients, the 19 leaves of 1,024 or more
+                          pushed as BSC pairs from each party's own
+                          compressor on the card (kernel 3), the rest
+                          dense; rebalance_shards(min_gain=0) with round
+                          3 open.  Gates: progress 6 on every key, the
+                          map bumped and keys moved, the final pulls
+                          bit-equal across parties and to a one-shard
+                          twin whose parties compress on the CPU,
+                          bsc_select_pack exactly 19 x 16 x 6 launches;
+                          then bench.py's merge throughput at 1, 2 and 4
+                          shard processes (not gated);
+              kvstore_hips  the port's KVStore, create("hips", [2, 4])
+                          on the card over the 65 leaves: bsc 0.01 (8
+                          rounds) and 2bit 0.5 (4 rounds) bit-equal to a
+                          CPU twin store, kernels 3 and 4 exactly 19 x 2
+                          x 8 launches, 7 and 8 launched; a training loop
+                          of 8 replicas' ResNet-20 gradients through a
+                          bsc store with sgd(0.1, momentum=0.9); a lazy
+                          row-sparse Adam push (untouched rows
+                          bit-unchanged);
+7. examples -- long_context_ring, long_context_ulysses: the port's
+              examples/long_context.py main(mode) at its defaults (2 x 2
+              x sp 2, L 256, 6 epochs of 64 steps): the last test
+              accuracy above 0.5 and the mode's kernels launched (ring:
+              13, 1, 2 and 10 in the evaluation; Ulysses: 10, 11, 12, 1,
+              2).
 
 The two last lines are the ``kernels`` JSON object and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -2485,9 +2517,7 @@ def host_plane_phase(torch) -> dict:
 
     rounds, batch = HOST_PLANE_ROUNDS, HOST_PLANE_BATCH
     dev = torch.device("cuda")
-    base = get_model("resnet20")
-    init = {k: base.get_parameter(k).detach().float().numpy().copy()
-            for k in base.param_names()}
+    init = resnet20_leaves(torch)
     comp = BiSparseCompressor(0.01)
     eligible = {k: comp.k_for(v.size) for k, v in init.items()
                 if v.size >= comp.min_sparse_size}
@@ -2654,6 +2684,645 @@ def host_plane_phase(torch) -> dict:
     return res
 
 
+# ---- the sharded global tier, the KVStore, the long-context example --------
+
+# the JAX package's many-party acceptance (bench.py --compare-manyparty)
+# at its cluster size: 16 virtual parties x 4 shards, each party a
+# ShardedGlobalClient with session resume and P3 slices of 512 elements
+# as bench.py:4348-4353 builds them; here on ResNet-20's 65 leaves
+MANYPARTY = dict(parties=16, shards=4, rounds=6, rebalance_round=2,
+                 p3_slice_elems=512)
+# bench.py:4581's merge-throughput shape: 8 keys of 65,536, each shard
+# its own process, 48 pushes a key from 4 threads (best of 2)
+MANYPARTY_THROUGHPUT = dict(shard_counts=(1, 2, 4), nkeys=8, dim=65536,
+                            pushes_per_key=48, threads=4, repeats=2)
+KVSTORE = dict(topology=(2, 4), bsc_rounds=8, twobit_rounds=4,
+               train_rounds=8, batch=32, rs_shape=(256, 64), rs_rows=48)
+# kvstore_hips (d): the touched rows' lazy Adam on the card against the
+# CPU twin (its square root and division may round an ulp apart)
+KVSTORE_RS_RTOL, KVSTORE_RS_ATOL = 1e-5, 1e-7
+
+
+def resnet20_leaves(torch) -> dict:
+    """ResNet-20's parameter leaves at full width (their initial values,
+    numpy, in the JAX package's leaf order)."""
+    from geomx_tpu_torch.models import get_model
+    base = get_model("resnet20")
+    return {k: base.get_parameter(k).detach().float().numpy().copy()
+            for k in base.param_names()}
+
+
+def _manyparty_tier(torch, init: dict, num_shards: int, shard_device,
+                    compress_device, rebalance: bool) -> dict:
+    """One run of the many-party traffic against a sharded tier of
+    ``num_shards`` shards on ``shard_device`` (Adam through the factory
+    there): every party pushes each round's seeded normal gradient of
+    every leaf, the leaves of at least 1,024 elements as BSC pairs from
+    its own BiSparseCompressor on ``compress_device``, the rest dense;
+    then pulls every leaf.  With ``rebalance`` the scheduler rebalances
+    (min_gain 0) after the first half of the parties pushed round
+    ``rebalance_round``, while the round is open."""
+    import threading
+
+    import numpy as np
+
+    from geomx_tpu_torch.compression import BiSparseCompressor
+    from geomx_tpu_torch.compression.sparseagg import encode_pairs_payload
+    from geomx_tpu_torch.service import (GeoScheduler, SchedulerClient,
+                                         ShardedGlobalClient,
+                                         start_sharded_global_tier)
+    from geomx_tpu_torch.service.protocol import wire_stats
+
+    P, rounds = MANYPARTY["parties"], MANYPARTY["rounds"]
+    keys = list(init)
+    sched = GeoScheduler().start()
+    addr = ("127.0.0.1", sched.port)
+    servers = start_sharded_global_tier(addr, num_shards=num_shards,
+                                        num_workers=P, device=shard_device)
+    sc = SchedulerClient(addr)
+    workers = [ShardedGlobalClient(
+        addr, sender_id=p, reconnect=True,
+        p3_slice_elems=MANYPARTY["p3_slice_elems"], reconnect_timeout_s=8.0,
+        op_timeout_s=240.0) for p in range(P)]
+    try:
+        for k in keys:
+            for w in workers:   # idempotent replays of one INIT
+                w.init(k, init[k])
+        workers[0].set_optimizer("adam", learning_rate=0.01)
+        comps = [BiSparseCompressor(0.01) for _ in range(P)]
+        eligible = [k for k in keys
+                    if init[k].size >= comps[0].min_sparse_size]
+        uv = {(p, k): (torch.zeros((1, init[k].size),
+                                   device=compress_device),
+                       torch.zeros((1, init[k].size),
+                                   device=compress_device))
+              for p in range(P) for k in eligible}
+        compress_ms, round_ms, errs = [], [], []
+        rebalanced = threading.Event()
+        first_half = threading.Semaphore(0)
+        done = threading.Semaphore(0)
+        go = [threading.Event() for _ in range(rounds)]
+        payloads = {}
+        rebal = {}
+
+        def party(p):
+            w = workers[p]
+            try:
+                for r in range(rounds):
+                    go[r].wait()
+                    late = rebalance and r == MANYPARTY["rebalance_round"] \
+                        and p >= P // 2
+                    if late:
+                        rebalanced.wait()
+                    for k in keys:
+                        arr, meta = payloads[(p, k)]
+                        w.push(k, arr, meta=meta)
+                    if rebalance and r == MANYPARTY["rebalance_round"] \
+                            and not late:
+                        first_half.release()
+                    for k in keys:
+                        w.pull(k, timeout=240.0)
+                    done.release()
+            except Exception as e:  # surfaced below: the phase fails
+                errs.append(f"party {p}: {e!r}")
+                done.release()
+
+        threads = [threading.Thread(target=party, args=(p,), daemon=True)
+                   for p in range(P)]
+        for t in threads:
+            t.start()
+        wire0 = wire_stats.snapshot()
+        for r in range(rounds):
+            for p in range(P):
+                rng = np.random.default_rng(7919 * p + r)
+                for k in keys:
+                    g = rng.standard_normal(init[k].shape, dtype=np.float32)
+                    if k not in eligible:
+                        payloads[(p, k)] = (g, None)
+                        continue
+                    if compress_device.type == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    u, v = uv[(p, k)]
+                    vals, idx, u, v = comps[p].compress(
+                        torch.from_numpy(g.reshape(1, -1)).to(
+                            compress_device), u, v)
+                    pay = encode_pairs_payload(vals.cpu().numpy(),
+                                               idx.cpu().numpy())
+                    compress_ms.append(1e3 * (time.perf_counter() - t0))
+                    uv[(p, k)] = (u, v)
+                    payloads[(p, k)] = (pay, {"comp": "bsc",
+                                              "n": int(init[k].size),
+                                              "shape": list(init[k].shape)})
+            t0 = time.perf_counter()
+            go[r].set()
+            if rebalance and r == MANYPARTY["rebalance_round"]:
+                for _ in range(P // 2):
+                    if not first_half.acquire(timeout=600):
+                        raise AssertionError("manyparty: the first half of "
+                                             "the parties did not push")
+                t1 = time.perf_counter()
+                rebal = sc.rebalance_shards(min_gain=0)
+                rebal["wall_ms"] = 1e3 * (time.perf_counter() - t1)
+                rebalanced.set()
+            for _ in range(P):
+                if not done.acquire(timeout=600):
+                    raise AssertionError(f"manyparty: round {r} stalled")
+            if errs:
+                raise AssertionError(f"manyparty: {errs}")
+            round_ms.append(1e3 * (time.perf_counter() - t0))
+        wire1 = wire_stats.snapshot()
+        for t in threads:
+            t.join(timeout=60)
+        progress = [w.progress() for w in workers]
+        finals = [{k: np.array(w.pull(k, timeout=240.0)) for k in keys}
+                  for w in workers]
+        return dict(
+            finals=finals, progress=progress, round_ms=round_ms,
+            rebalance=rebal, compress_ms=compress_ms, eligible=eligible,
+            map_version=max(w.map_version for w in workers),
+            socket_bytes=wire1["bytes_sent"] - wire0["bytes_sent"])
+    finally:
+        for w in workers:
+            w.close()
+        for s in servers:
+            s.stop(forward=False)
+        sc.close()
+        sched.stop()
+
+
+_MANYPARTY_SHARD_CHILD = """
+import sys
+from geomx_tpu_torch.service.server import GeoPSServer
+from geomx_tpu_torch.service.shardmap import even_bounds
+total, idx = map(int, sys.argv[1:3])
+b = even_bounds(total)
+srv = GeoPSServer(num_workers=1, mode="async", accumulate=True, rank=idx,
+                  shard_index=idx, shard_range=(b[idx], b[idx + 1]),
+                  shard_map_version=1, device="cpu").start()
+print("PORT", srv.port, flush=True)
+srv.join()
+"""
+
+
+def manyparty_throughput() -> list:
+    """bench.py:4581's merge throughput of the port's shards: each shard
+    its own process (one interpreter would share one lock among them),
+    the parent sends pre-encoded async PUSH frames from 4 threads
+    through a window of 16 and counts the merged ACKs.  The shards run
+    no device work (accumulate, no optimizer): device "cpu".  Best of
+    two a shard count; not gated (the host's load moves it)."""
+    import bisect
+    import os
+    import socket
+    import threading
+
+    import numpy as np
+
+    from geomx_tpu_torch.service.protocol import (Msg, MsgType, recv_frame,
+                                                  send_frame)
+    from geomx_tpu_torch.service.shardmap import even_bounds, key_hash
+
+    cfg = MANYPARTY_THROUGHPUT
+    dim, ppk, nthreads = cfg["dim"], cfg["pushes_per_key"], cfg["threads"]
+    keys = [f"t{i}" for i in range(cfg["nkeys"])]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+
+    def run_once(S):
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MANYPARTY_SHARD_CHILD, str(S), str(i)],
+            stdout=subprocess.PIPE, env=env, cwd=root, text=True)
+            for i in range(S)]
+        try:
+            ports = []
+            for p in procs:
+                line = p.stdout.readline()
+                if not line.startswith("PORT"):
+                    raise AssertionError(f"shard child: {line!r}")
+                ports.append(int(line.split()[1]))
+            bounds = even_bounds(S)
+            owner = {k: bisect.bisect_right(bounds, key_hash(k)) - 1
+                     for k in keys}
+            for k in keys:   # one INIT per key at its owner
+                with socket.create_connection(("127.0.0.1",
+                                               ports[owner[k]])) as s:
+                    m = Msg(MsgType.INIT, key=k,
+                            array=np.zeros(dim, np.float32))
+                    m.meta["rid"] = 1
+                    send_frame(s, m)
+                    recv_frame(s)
+            errs = []
+
+            def blast(t):
+                try:
+                    conns, frames = {}, {}
+                    for k in keys[t::nthreads]:
+                        if owner[k] not in conns:
+                            conns[owner[k]] = socket.create_connection(
+                                ("127.0.0.1", ports[owner[k]]))
+                        msg = Msg(MsgType.PUSH, key=k,
+                                  array=np.full(dim, 1.0, np.float32))
+                        msg.sender = t
+                        msg.meta["rid"] = 7
+                        frames[k] = msg.encode()
+                    inflight = []
+                    for _ in range(ppk):
+                        for k in keys[t::nthreads]:
+                            c, f = conns[owner[k]], frames[k]
+                            c.sendall(len(f).to_bytes(4, "little") + f)
+                            inflight.append(c)
+                            if len(inflight) >= 16:
+                                recv_frame(inflight.pop(0))
+                    for c in inflight:
+                        recv_frame(c)
+                    for c in conns.values():
+                        c.close()
+                except Exception as e:  # surfaced below
+                    errs.append(repr(e))
+
+            ths = [threading.Thread(target=blast, args=(t,), daemon=True)
+                   for t in range(nthreads)]
+            t0 = time.monotonic()
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600.0)
+            wall = time.monotonic() - t0
+            if errs or any(t.is_alive() for t in ths):
+                raise AssertionError(f"throughput blast failed: {errs}")
+            return wall
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait(timeout=10)
+
+    out = []
+    for S in cfg["shard_counts"]:
+        walls = [run_once(S) for _ in range(cfg["repeats"])]
+        out.append(dict(shards=S, wall_s=walls,
+                        pushes_per_s=ppk * len(keys) / min(walls)))
+    return out
+
+
+def manyparty_phase(torch, device=None) -> dict:
+    """Phase manyparty_sharded: the port's sharded global tier at the JAX
+    acceptance's cluster size (MANYPARTY), ResNet-20's 65 leaves at full
+    width as the keys, Adam(0.01) on the shards through the factory on
+    the card, 6 rounds, a rebalance with round 3 open.  Gates: every
+    key's progress 6 at every party; the map bumped and keys moved;
+    every party's final pulls bit-equal to each other and to a twin run
+    of the same traffic against one shard whose parties compress on the
+    CPU (the plain versions; the sorted-sender merge promises the same
+    bits at any shard count); bsc_select_pack launched exactly (19
+    leaves) x 16 parties x 6 rounds times."""
+    import numpy as np
+
+    from geomx_tpu_torch import ops
+
+    dev = torch.device(device or "cuda")
+    cpu = torch.device("cpu")
+    P, rounds, S = (MANYPARTY["parties"], MANYPARTY["rounds"],
+                    MANYPARTY["shards"])
+    init = resnet20_leaves(torch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = _manyparty_tier(torch, init, S, dev, dev, rebalance=True)
+    wall = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    twin = _manyparty_tier(torch, init, 1, dev, cpu, rebalance=False)
+    eligible = card["eligible"]
+    want = len(eligible) * P * rounds
+    if dev.type == "cuda" and launches["bsc_select_pack"] != want:
+        raise AssertionError(
+            f"manyparty: bsc_select_pack launched "
+            f"{launches['bsc_select_pack']} times, want {want} "
+            f"({len(eligible)} leaves x {P} parties x {rounds} rounds)")
+    for p, prog in enumerate(card["progress"]):
+        if any(prog.get(k, 0) != rounds for k in init):
+            raise AssertionError(f"manyparty: party {p} progress {prog}")
+    reb = card["rebalance"]
+    if not reb.get("changed") or reb.get("moved_keys", 0) <= 0 \
+            or card["map_version"] < 2:
+        raise AssertionError(f"manyparty: the rebalance moved nothing "
+                             f"(map v{card['map_version']}, {reb})")
+    ref = card["finals"][0]
+    for p in range(P):
+        for k in init:
+            if card["finals"][p][k].tobytes() != ref[k].tobytes():
+                raise AssertionError(f"manyparty: party {p}'s {k} differs "
+                                     "from party 0's")
+            if twin["finals"][p][k].tobytes() != ref[k].tobytes():
+                raise AssertionError(f"manyparty: party {p}'s {k} differs "
+                                     "from the one-shard CPU-compress twin")
+    if not all(np.isfinite(v).all() for v in ref.values()):
+        raise AssertionError("manyparty: non-finite parameters")
+    res = dict(
+        parties=P, shards=S, rounds=rounds, keys=len(init),
+        bsc_keys=len(eligible), params=int(sum(v.size for v in
+                                               init.values())),
+        wall_s=wall, round_ms=card["round_ms"],
+        round_ms_median=statistics.median(card["round_ms"]),
+        twin_round_ms_median=statistics.median(twin["round_ms"]),
+        rebalance_wall_ms=reb["wall_ms"], moved_keys=reb["moved_keys"],
+        segments=reb["segments"], map_version=card["map_version"],
+        socket_bytes_per_round=card["socket_bytes"] / rounds,
+        socket_bytes_per_shard_round=card["socket_bytes"] / rounds / S,
+        compress_ms_per_key_card=statistics.median(card["compress_ms"]),
+        compress_ms_per_key_cpu=statistics.median(twin["compress_ms"]),
+        launches=launches)
+    log(f"phase manyparty_sharded: {P} parties x {S} shards, "
+        f"{len(init)} ResNet-20 leaves ({res['params']} parameters, "
+        f"{len(eligible)} pushed as BSC pairs), Adam(0.01) on the shards, "
+        f"{rounds} rounds; rebalance with round "
+        f"{MANYPARTY['rebalance_round'] + 1} open: {reb['moved_keys']} keys "
+        f"moved in {reb['segments']} segments, map v{card['map_version']}, "
+        f"{reb['wall_ms']:.1f} ms; progress {rounds} on every key; final "
+        f"pulls bit-equal across parties and to the one-shard CPU-compress "
+        f"twin; bsc_select_pack {launches['bsc_select_pack']} launches; "
+        f"round {res['round_ms_median']:.1f} ms (median; twin "
+        f"{res['twin_round_ms_median']:.1f}); socket bytes a round "
+        f"{res['socket_bytes_per_round']:.0f} "
+        f"({res['socket_bytes_per_shard_round']:.0f} a shard, mean); "
+        f"compress {res['compress_ms_per_key_card']:.3f} ms a key on the "
+        f"card vs {res['compress_ms_per_key_cpu']:.3f} ms on the CPU")
+    res["throughput"] = manyparty_throughput()
+    log("  merge throughput (8 keys of 65,536, a process a shard, not "
+        "gated): " + ", ".join(
+            f"{r['shards']} shards {r['pushes_per_s']:.1f} pushes/s"
+            for r in res["throughput"]))
+    return res
+
+
+def _kv_rounds(store, init: dict, pushes):
+    """Push then pull every key for each round's ``{key: [P, W, ...]}``;
+    every round's pulls as numpy, and the push-and-pull ms a round."""
+    pulls, ms = [], []
+    for push in pushes:
+        t0 = time.perf_counter()
+        for k in init:
+            store.push(k, push[k])
+        out = {k: store.pull(k) for k in init}
+        store.barrier()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        pulls.append({k: v.cpu().numpy() for k, v in out.items()})
+    return pulls, ms
+
+
+def kvstore_phase(torch, device=None) -> dict:
+    """Phase kvstore_hips: the port's KVStore, create("hips",
+    HiPSTopology(2, 4)) on the card over ResNet-20's 65 leaves.
+    (a) "bsc" 0.01 aggregation, 8 rounds of seeded [2, 4, ...] pushes:
+    every round's pulls bit-equal to a CPU twin store fed the same
+    pushes, bsc_select_pack and bsc_scatter_add each launched exactly
+    19 x 2 parties x 8 rounds times; (b) the same under "2bit" 0.5, 4
+    rounds: bit-equal, quantize_2bit and dequantize_2bit launched;
+    (c) an imperative loop, a fresh "bsc" store with
+    sgd(0.1, momentum=0.9): 8 rounds of 8 replicas' ResNet-20
+    forward/backward on the card at the pulled weights (synthetic CIFAR
+    batches of 32), the stacked gradients pushed: finite losses; (d) one
+    push_row_sparse with lazy adam(0.01) on a [256, 64] key: untouched
+    rows bit-unchanged, touched rows within KVSTORE_RS_RTOL/ATOL of the
+    CPU twin."""
+    import numpy as np
+
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.optim import adam, sgd
+    from geomx_tpu_torch.store import create
+    from geomx_tpu_torch.topology import HiPSTopology
+
+    dev = torch.device(device or "cuda")
+    on_card = dev.type == "cuda"
+    P, W = KVSTORE["topology"]
+    topo = HiPSTopology(P, W)
+    init = resnet20_leaves(torch)
+    res = {}
+
+    def hop(params, rounds, seed):
+        rng = np.random.default_rng(seed)
+        pushes = [{k: rng.standard_normal((P, W) + v.shape,
+                                          dtype=np.float32)
+                   for k, v in init.items()} for _ in range(rounds)]
+        out = {}
+        for name, d in (("card", dev), ("twin", torch.device("cpu"))):
+            kv = create("hips", topo, device=d)
+            for k, v in init.items():
+                kv.init(k, v)
+            kv.set_gradient_compression(params)
+            if d == dev and on_card:
+                torch.cuda.synchronize()
+            if d == dev:
+                ops.reset_launch_counts()
+            out[name] = _kv_rounds(kv, init, pushes)
+            if d == dev:
+                if on_card:
+                    torch.cuda.synchronize()
+                out["launches"] = ops.launch_counts()
+        for r, (a, b) in enumerate(zip(out["card"][0], out["twin"][0])):
+            for k in init:
+                if a[k].tobytes() != b[k].tobytes():
+                    raise AssertionError(
+                        f"kvstore {params['type']}: round {r}: {k} differs "
+                        "from the CPU twin store")
+        return out
+
+    comp_keys = [k for k, v in init.items() if v.size >= 1024]
+    rounds = KVSTORE["bsc_rounds"]
+    bsc = hop({"type": "bsc", "threshold": 0.01}, rounds, 11)
+    want = len(comp_keys) * P * rounds
+    for name in ("bsc_select_pack", "bsc_scatter_add"):
+        if on_card and bsc["launches"][name] != want:
+            raise AssertionError(f"kvstore bsc: {name} launched "
+                                 f"{bsc['launches'][name]} times, want "
+                                 f"{want}")
+    res["bsc"] = dict(rounds=rounds, launches=bsc["launches"],
+                      round_ms_median=statistics.median(bsc["card"][1]),
+                      twin_round_ms_median=statistics.median(bsc["twin"][1]))
+    rounds = KVSTORE["twobit_rounds"]
+    two = hop({"type": "2bit", "threshold": 0.5}, rounds, 12)
+    if on_card and not (two["launches"]["quantize_2bit"] > 0 and
+                        two["launches"]["dequantize_2bit"] > 0):
+        raise AssertionError(f"kvstore 2bit: launches {two['launches']}")
+    res["twobit"] = dict(rounds=rounds, launches=two["launches"],
+                         round_ms_median=statistics.median(two["card"][1]),
+                         twin_round_ms_median=statistics.median(
+                             two["twin"][1]))
+
+    # (c) the imperative training loop
+    kv = create("hips", topo, device=dev)
+    for k, v in init.items():
+        kv.init(k, v)
+    kv.set_gradient_compression({"type": "bsc", "threshold": 0.01})
+    kv.set_optimizer(sgd(0.1, momentum=0.9))
+    model = get_model("resnet20").to(dev)
+    model.train()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    losses, step_ms = [], []
+    for _ in range(KVSTORE["train_rounds"]):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for k in init:
+                model.get_parameter(k).copy_(kv.pull(k))
+        grads = {k: [] for k in init}
+        for _rep in range(P * W):
+            x = torch.randn((KVSTORE["batch"], 32, 32, 3), generator=gen,
+                            device=dev)
+            y = torch.randint(0, 10, (KVSTORE["batch"],), generator=gen,
+                              device=dev)
+            model.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(model(x, train=True), y)
+            loss.backward()
+            losses.append(float(loss.detach()))
+            for k in init:
+                grads[k].append(model.get_parameter(k).grad.detach().float())
+        for k in init:
+            kv.push(k, torch.stack(grads[k]).reshape(
+                (P, W) + tuple(init[k].shape)))
+        kv.barrier()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"kvstore training loop: losses {losses}")
+    res["train"] = dict(rounds=len(step_ms), loss_first=losses[0],
+                        loss_last=losses[-1],
+                        round_ms_median=statistics.median(step_ms))
+
+    # (d) one lazy row-sparse Adam push
+    shape, n_rows = KVSTORE["rs_shape"], KVSTORE["rs_rows"]
+    rng = np.random.default_rng(13)
+    base = rng.standard_normal(shape, dtype=np.float32)
+    rows = [rng.choice(shape[0], n_rows, replace=False) for _ in range(2)]
+    vals = [rng.standard_normal((n_rows, shape[1]), dtype=np.float32)
+            for _ in range(2)]
+    outs = {}
+    for name, d in (("card", dev), ("twin", torch.device("cpu"))):
+        kv = create("local", device=d)
+        kv.init("emb", base)
+        kv.set_optimizer(adam(0.01))
+        kv.push_row_sparse("emb", rows, vals)
+        outs[name] = kv.pull("emb").cpu().numpy()
+    touched = np.zeros(shape[0], bool)
+    touched[np.concatenate(rows)] = True
+    if outs["card"][~touched].tobytes() != base[~touched].tobytes():
+        raise AssertionError("kvstore row-sparse: an untouched row moved")
+    if not np.allclose(outs["card"][touched], outs["twin"][touched],
+                       rtol=KVSTORE_RS_RTOL, atol=KVSTORE_RS_ATOL):
+        raise AssertionError("kvstore row-sparse: touched rows differ from "
+                             "the CPU twin")
+    res["row_sparse"] = dict(
+        touched_rows=int(touched.sum()),
+        max_abs_err=float(np.abs(outs["card"] - outs["twin"]).max()),
+        moved=bool((outs["card"][touched] != base[touched]).any()))
+    log(f"phase kvstore_hips: [{P}, {W}] over {len(init)} ResNet-20 leaves; "
+        f"(a) bsc 0.01, {res['bsc']['rounds']} rounds bit-equal to the CPU "
+        f"twin, select/pack {bsc['launches']['bsc_select_pack']} and "
+        f"scatter-add {bsc['launches']['bsc_scatter_add']} launches, "
+        f"{res['bsc']['round_ms_median']:.1f} ms a round (twin "
+        f"{res['bsc']['twin_round_ms_median']:.1f}); (b) 2bit 0.5, "
+        f"{res['twobit']['rounds']} rounds bit-equal, quantize "
+        f"{two['launches']['quantize_2bit']} and dequantize "
+        f"{two['launches']['dequantize_2bit']} launches, "
+        f"{res['twobit']['round_ms_median']:.1f} ms a round (twin "
+        f"{res['twobit']['twin_round_ms_median']:.1f}); (c) the training "
+        f"loop: loss {res['train']['loss_first']:.4f} -> "
+        f"{res['train']['loss_last']:.4f}, "
+        f"{res['train']['round_ms_median']:.1f} ms a round; (d) row-sparse "
+        f"Adam on {res['row_sparse']['touched_rows']} rows: untouched rows "
+        f"bit-unchanged, max abs err {res['row_sparse']['max_abs_err']:.3g} "
+        f"against the twin")
+    return res
+
+
+# the kernels each long-context mode reaches: on the training step, and
+# in the epoch-end evaluation (the un-meshed twin's forward)
+LONG_CONTEXT_KERNELS = {
+    "ring": ("fused_block", "fused_flatten", "fused_unflatten",
+             "flash_attention_fwd"),
+    "ulysses": ("flash_attention_fwd", "flash_attention_dq",
+                "flash_attention_dkv", "fused_flatten", "fused_unflatten"),
+}
+# tests/test_long_context.py:110's bar for the example's last accuracy
+LONG_CONTEXT_MIN_ACC = 0.5
+
+
+# the variables examples/long_context.py reads (its defaults when unset)
+LONG_CONTEXT_ENV = ("GEOMX_SP_MODE", "GEOMX_NUM_PARTIES",
+                    "GEOMX_WORKERS_PER_PARTY", "GEOMX_SP_DEGREE",
+                    "GEOMX_SEQ_LEN", "GEOMX_EPOCHS")
+
+
+def long_context_phase(torch, mode: str, device=None, env=None) -> dict:
+    """Phases long_context_ring and long_context_ulysses: the port's
+    examples/long_context.py main(mode) at its defaults (2 x 2 replicas
+    x sp 2, L 256, 16 sequences a replica, 6 epochs of 64 steps: the
+    example's variables unset for the run, or set to ``env``), the
+    launch counts reset just before and read just after.  Gates: the
+    last test accuracy above LONG_CONTEXT_MIN_ACC, every kernel of
+    LONG_CONTEXT_KERNELS[mode] launched."""
+    import json as _json
+    import os
+
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.examples import long_context
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    env = dict(env or {})
+    saved = {k: os.environ.pop(k, None) for k in LONG_CONTEXT_ENV}
+    os.environ.update(env)
+    records = []
+
+    def collect(line):
+        print(f"[long-context] {line}", flush=True)
+        records.append(_json.loads(line))
+
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        acc = long_context.main(mode, device=device, log_fn=collect)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    missing = [k for k in LONG_CONTEXT_KERNELS[mode] if launches[k] < 1]
+    if on_card and missing:
+        raise AssertionError(f"long_context {mode}: {missing} not launched "
+                             f"({launches})")
+    if not acc > LONG_CONTEXT_MIN_ACC:
+        raise AssertionError(f"long_context {mode}: test_acc {acc}")
+    P = int(env.get("GEOMX_NUM_PARTIES", "2"))
+    W = int(env.get("GEOMX_WORKERS_PER_PARTY", "2"))
+    steps = records[-1]["iteration"]
+    per_epoch = records[0]["iteration"]
+    # the first epoch pays the first allocations: step time from the
+    # later epochs' records (each includes its epoch-end evaluation)
+    span = records[-1]["time"] - records[0]["time"]
+    step_ms = 1e3 * span / (steps - per_epoch)
+    res = dict(mode=mode, steps=steps, epochs=len(records),
+               sequences_per_step=16 * P * W, test_acc=acc,
+               test_accs=[r["test_acc"] for r in records], wall_s=wall,
+               step_ms=step_ms,
+               sequences_per_s=16 * P * W * 1e3 / step_ms,
+               launches=launches)
+    log(f"phase long_context_{mode}: examples/long_context.py main("
+        f"{mode!r}), {steps} steps of {16 * P * W} sequences, test_acc "
+        f"{acc:.3f} ({res['test_accs']}), step {step_ms:.2f} ms "
+        f"(epochs 2-{len(records)}, evaluations included), "
+        f"{res['sequences_per_s']:.1f} sequences/s, wall {wall:.1f} s, "
+        f"launches { {k: launches[k] for k in LONG_CONTEXT_KERNELS[mode]} }")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -2723,6 +3392,10 @@ def main(argv=None) -> int:
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
     host = {path: dist_ps_phase(torch, path) for path in DIST_PS}
     host["host_plane_resnet20"] = host_plane_phase(torch)
+    host["manyparty_sharded"] = manyparty_phase(torch)
+    host["kvstore_hips"] = kvstore_phase(torch)
+    examples = {f"long_context_{mode}": long_context_phase(torch, mode)
+                for mode in ("ring", "ulysses")}
     log("median step: " + ", ".join(
         f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())
         + " (this call)")
@@ -2746,6 +3419,7 @@ def main(argv=None) -> int:
                        "shard_phase": shards,
                        "zero_dense_max_param_diff": zero_diff,
                        "paths": paths, "host_plane": host,
+                       "examples": examples,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

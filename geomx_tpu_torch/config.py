@@ -5,9 +5,10 @@ path reads.  Every knob reads the same ``GEOMX_*`` variable first and
 falls back to the reference's original ``DMLC_*`` name, exactly as the
 JAX package does, so one launch environment configures both packages.
 
-The reference's knobs that change its training step but that the port
-does not run yet are read too, under the same names and casts, and
-refused: a config that sets one to anything but its default raises
+The reference's knobs that change its training step, or add outputs to
+its run, but that the port does not run yet are read too, under the same
+names and casts, and refused: a config that sets one to anything but its
+default raises
 ``NotImplementedError`` naming, by its title, the ROADMAP.md Queue 1 item
 that ports it (``UNPORTED``), so a launch environment is never half
 obeyed.
@@ -42,7 +43,21 @@ def _env_bool(names, default) -> bool:
 # field -> (its variables, the ROADMAP.md Queue 1 item that ports it);
 # each item removes its fields from here when it lands
 UNPORTED = {
+    "telemetry": ("GEOMX_TELEMETRY", "Telemetry"),
+    "telemetry_events": ("GEOMX_TELEMETRY_EVENTS", "Telemetry"),
+    "flight": ("GEOMX_FLIGHT", "Telemetry"),
+    "flight_steps": ("GEOMX_FLIGHT_STEPS", "Telemetry"),
+    "flight_dir": ("GEOMX_FLIGHT_DIR", "Telemetry"),
+    "capsule": ("GEOMX_CAPSULE", "Telemetry"),
+    "capsule_dir": ("GEOMX_CAPSULE_DIR", "Telemetry"),
+    "capsule_sample_s": ("GEOMX_CAPSULE_SAMPLE_S", "Telemetry"),
     "control": ("GEOMX_CONTROL", "Control"),
+}
+# what a refused knob does in the JAX package, by item
+UNPORTED_EFFECT = {
+    "Telemetry": "adds outputs to the run (step probes, an event log, "
+                 "flight-recorder dumps, a run capsule), not a changed step,",
+    "Control": "changes the training step",
 }
 
 
@@ -118,8 +133,17 @@ class GeoConfig:
     # ---- data (load_dataset's root)
     data_dir: str = DEFAULT_DATA_DIR
 
-    # ---- read and refused unless at its default (UNPORTED): the
-    # control plane
+    # ---- read and refused unless at its default (UNPORTED): telemetry
+    # (the step probes, the event log, the flight recorder, run capsules)
+    telemetry: bool = False
+    telemetry_events: str = ""
+    flight: bool = False
+    flight_steps: int = 0
+    flight_dir: str = ""
+    capsule: bool = False
+    capsule_dir: str = ""
+    capsule_sample_s: float = 0.0
+    # ... and the control plane
     control: bool = False
 
     def __post_init__(self):
@@ -128,7 +152,7 @@ class GeoConfig:
             if not value:
                 continue
             raise NotImplementedError(
-                f"{field}={value!r} ({names}) changes the training step and "
+                f"{field}={value!r} ({names}) {UNPORTED_EFFECT[item]} and "
                 f"is not ported yet (ROADMAP.md Queue 1, {item!r})")
 
     @classmethod
@@ -171,6 +195,15 @@ class GeoConfig:
             multi_gps=_env_bool(["GEOMX_MULTI_GPS"], False),
             prefetch=_env(["GEOMX_PREFETCH"], 2, lambda s: int(float(s))),
             data_dir=_env(["GEOMX_DATA_DIR"], DEFAULT_DATA_DIR, str),
+            telemetry=_env_bool(["GEOMX_TELEMETRY"], False),
+            telemetry_events=_env(["GEOMX_TELEMETRY_EVENTS"], "", str),
+            flight=_env_bool(["GEOMX_FLIGHT"], False),
+            flight_steps=_env(["GEOMX_FLIGHT_STEPS"], 0,
+                              lambda s: int(float(s))),
+            flight_dir=_env(["GEOMX_FLIGHT_DIR"], "", str),
+            capsule=_env_bool(["GEOMX_CAPSULE"], False),
+            capsule_dir=_env(["GEOMX_CAPSULE_DIR"], "", str),
+            capsule_sample_s=_env(["GEOMX_CAPSULE_SAMPLE_S"], 0.0, float),
             control=_env_bool(["GEOMX_CONTROL"], False),
         )
         cfg.update(overrides)

@@ -20,7 +20,12 @@ COMMAND protocol:
   ``tag`` carries e.g. the party id so workers can find THEIR server) —
   how nodes discover each other instead of hard-wired env addressing;
 - ``barrier`` blocks until ``expect`` nodes enter (the per-tier Barrier);
-- heartbeats feed the shared dead-node detector.
+- heartbeats feed the shared dead-node detector;
+- the key-range sharded global tier's versioned shard map lives here
+  (``init_shard_map``, ``shard_map``, ``shard_failover``,
+  ``rebalance_shards``): clients fetch it, a failover re-points a
+  shard's address, and a rebalance moves range bounds from the shards'
+  observed load and migrates the key state shard to shard.
 
 Telemetry: roster churn (registrations, evictions, epoch bumps) is
 recorded as registry gauges/counters and as profiler instants carrying
@@ -28,10 +33,9 @@ the roster epoch.  The JAX scheduler also serves the registry as
 Prometheus text (``metrics_port``/``GEOMX_METRICS_PORT``, the
 ``metrics`` command) with FleetScope beside it; in the port those raise
 until ROADMAP item "Telemetry".  Its durable roster
-(``durable_dir``/``GEOMX_DURABLE_DIR``, "Resilience and utils"), the
-shard-map commands of the range-sharded global tier ("Sharded global
-tier") and the serving surface of its health document ("Serving") are
-not ported either.
+(``durable_dir``/``GEOMX_DURABLE_DIR``, "Resilience and utils": the
+shard map is journaled there too) and the serving surface of its health
+document ("Serving") are not ported either.
 
 `geomx_tpu_torch/launch.py` starts one per job when GEOMX_USE_SCHEDULER=1
 and `geomx_tpu_torch/examples/dist_ps.py` then discovers every address
@@ -47,7 +51,8 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
-from geomx_tpu_torch.config import _env_bool, refuse_durable_dir, unported
+from geomx_tpu_torch.config import (_env, _env_bool, refuse_durable_dir,
+                                    unported)
 from geomx_tpu_torch.service.protocol import (Msg, MsgType, connect_retry,
                                               recv_frame, send_frame)
 from geomx_tpu_torch.utils.heartbeat import HeartbeatMonitor
@@ -94,11 +99,20 @@ class GeoScheduler:
         # and detect changes without diffing them
         self._epoch = 0
         self.heartbeats = HeartbeatMonitor(timeout_s=heartbeat_timeout)
+        # key-range sharded global tier: the scheduler OWNS the
+        # versioned shard map — clients fetch it here, failover
+        # re-points a shard's address, and rebalance_shards moves range
+        # boundaries from observed per-shard load (migrating the key
+        # state shard-to-shard).  One rebalance at a time; the roster
+        # lock is never held across the shard RPCs a rebalance performs.
+        self._shard_map = None
+        self._rebalance_lock = threading.Lock()
         # generation token: rides every reply, the clients' restart
         # detector (a fresh draw: the durable roster is not ported)
         import random as _rnd
         self.generation = _rnd.getrandbits(31) | 1
 
+        self._started_monotonic = time.monotonic()
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         if bind_host is None:
@@ -140,8 +154,15 @@ class GeoScheduler:
         self._m_req_s = reg.histogram(
             "geomx_scheduler_request_seconds",
             "Scheduler request handling latency")
-
-
+        self._m_shard_ver = reg.gauge(
+            "geomx_scheduler_shard_map_version",
+            "Version of the scheduler-owned global shard map")
+        self._m_rebalances = reg.counter(
+            "geomx_scheduler_shard_rebalances_total",
+            "Shard-map rebalances applied (boundary moves + migration)")
+        self._m_failovers = reg.counter(
+            "geomx_scheduler_shard_failovers_total",
+            "Shard failovers applied (address re-points)")
 
     def start(self):
         self._thread.start()
@@ -173,6 +194,179 @@ class GeoScheduler:
 
     def join(self, timeout: Optional[float] = None):
         self._thread.join(timeout)
+
+    def health_snapshot(self) -> dict:
+        """The JAX scheduler's ``GET /healthz`` body as far as the port
+        has its parts: roster epoch, per-role roster sizes, live/dead
+        counts from the heartbeat monitor, the shard map's version and
+        width, generation and uptime.  The HTTP endpoint, the build
+        identity ("Telemetry") and the serving surface ("Serving") are
+        not ported; ``restart_grace`` is always False (only a durable
+        roster opens it)."""
+        with self._lock:
+            epoch = self._epoch
+            roster = {role: len(nodes)
+                      for role, nodes in sorted(self._roster.items())}
+            by_id = {int(e[0]): (role, e)
+                     for role, nodes in self._roster.items() for e in nodes}
+            shard_map_version = None if self._shard_map is None \
+                else self._shard_map.version
+            num_shards = None if self._shard_map is None \
+                else self._shard_map.num_shards
+        alive = self.heartbeats.alive_nodes()
+        dead = self.heartbeats.dead_nodes()
+        dead_nodes = []
+        for nid in dead:
+            role, e = by_id.get(int(nid), (None, None))
+            dead_nodes.append({
+                "id": int(nid), "role": role,
+                "tag": (str(e[3]) if e is not None and len(e) > 3
+                        else None)})
+        return {
+            "status": "ok",
+            "roster_epoch": epoch,
+            "roster": roster,
+            "live_parties": len(alive),
+            "dead_parties": len(dead),
+            "dead_node_ids": dead,
+            "dead_nodes": dead_nodes,
+            "restart_grace": False,
+            "shard_map_version": shard_map_version,
+            "num_shards": num_shards,
+            "generation": self.generation,
+            "uptime_s": round(time.monotonic() - self._started_monotonic,
+                              3),
+        }
+
+    # ---- key-range sharded global tier (scheduler-owned placement) ---------
+    # The JAX scheduler journals every map install to its durable store
+    # (``_journal``); the port has none until ROADMAP item "Resilience
+    # and utils", so the installs below are memory-only.
+
+    @staticmethod
+    def _shard_cmd(addr, meta: dict, timeout: float = 60.0) -> dict:
+        """One synchronous COMMAND round-trip to a shard server (the
+        scheduler's admin line for range installs and key migration)."""
+        sock = connect_retry(tuple(addr), total_timeout_s=15.0)
+        try:
+            sock.settimeout(timeout)
+            msg = Msg(MsgType.COMMAND, meta=dict(meta))
+            msg.meta.setdefault("rid", 0)
+            send_frame(sock, msg)
+            rep = recv_frame(sock)
+            if rep is None:
+                raise ConnectionError(f"shard {addr} closed")
+            if rep.type == MsgType.ERROR:
+                raise RuntimeError(rep.meta.get("error", "shard error"))
+            return dict(rep.meta)
+        finally:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def rebalance_shards(self, min_gain=None) -> dict:
+        """Move range boundaries toward the observed load and migrate
+        the affected key state.  Three phases, each safe against a
+        client racing with a stale map:
+
+        1. every shard's range shrinks to the INTERSECTION of its old
+           and new range (version = new) — all moved segments are
+           quiesced tier-wide: requests for them redirect, so no merge
+           can land on a shard mid-migration;
+        2. each moved segment's key state is COPIED from the old owner
+           (``export_keys remove=False`` — including the open round's
+           per-sender contributions), imported into the new owner, and
+           only THEN dropped at the old owner (``drop_keys``) — a failed
+           import between copy and drop leaves the keys intact on the
+           quiesced loser, so a re-run of the rebalance (or the
+           no-change range re-assert below) converges with nothing
+           lost;
+        3. every shard installs its final range, then the scheduler
+           installs the bumped map.
+
+        A client redirected during the window retries after a map
+        re-fetch; its replayed pushes are idempotent under the migrated
+        per-sender round counts.  ``min_gain`` defaults to
+        ``GEOMX_SHARD_REBALANCE_MIN_GAIN`` (0.10).  Returns
+        ``{"changed", "map", "moved_keys", "segments"}``."""
+        from geomx_tpu_torch.service.shardmap import (moved_segments,
+                                                      rebalance_bounds)
+        if min_gain is None:
+            min_gain = _env(("GEOMX_SHARD_REBALANCE_MIN_GAIN",), 0.10,
+                            float)
+        with self._rebalance_lock:
+            with self._lock:
+                cur = self._shard_map
+            if cur is None:
+                raise RuntimeError("no shard map installed")
+            if cur.num_shards < 2:
+                return {"changed": False, "map": cur.to_meta(),
+                        "moved_keys": 0, "segments": 0}
+            key_loads: dict = {}
+            for i in range(cur.num_shards):
+                load = self._shard_cmd(
+                    cur.addr_of(i),
+                    {"cmd": "shard_load", "reset": True})["load"]
+                for k, c in dict(load.get("keys", {})).items():
+                    key_loads[k] = key_loads.get(k, 0.0) + float(c)
+            bounds = rebalance_bounds(cur, key_loads,
+                                      min_gain=float(min_gain))
+            if tuple(bounds) == tuple(cur.bounds):
+                # no boundary move — but RE-ASSERT the current map's
+                # ranges anyway: a rebalance that failed between its
+                # quiesce and its final installs left shards holding
+                # shrunk intersection ranges at a version the map never
+                # reached, and this is the re-run that heals them
+                for i in range(cur.num_shards):
+                    lo, hi = cur.range_of(i)
+                    self._shard_cmd(cur.addr_of(i), {
+                        "cmd": "set_shard_range", "lo": lo, "hi": hi,
+                        "version": cur.version})
+                return {"changed": False, "map": cur.to_meta(),
+                        "moved_keys": 0, "segments": 0}
+            new = cur.with_bounds(bounds)
+            segs = moved_segments(cur, new)
+            # phase 1: quiesce every moved segment
+            for i in range(new.num_shards):
+                olo, ohi = cur.range_of(i)
+                nlo, nhi = new.range_of(i)
+                ilo, ihi = max(olo, nlo), min(ohi, nhi)
+                if ilo >= ihi:
+                    ilo = ihi = nlo  # disjoint: own nothing until ph. 3
+                self._shard_cmd(new.addr_of(i), {
+                    "cmd": "set_shard_range", "lo": ilo, "hi": ihi,
+                    "version": new.version})
+            # phase 2: migrate each quiesced segment — copy, import,
+            # and only then drop
+            moved = 0
+            for lo, hi, old_owner, new_owner in segs:
+                recs = self._shard_cmd(cur.addr_of(old_owner), {
+                    "cmd": "export_keys", "lo": lo, "hi": hi,
+                    "remove": False})["records"]
+                if recs:
+                    self._shard_cmd(new.addr_of(new_owner), {
+                        "cmd": "import_keys", "records": dict(recs)})
+                    self._shard_cmd(cur.addr_of(old_owner), {
+                        "cmd": "drop_keys", "lo": lo, "hi": hi})
+                moved += len(recs)
+            # phase 3: final ranges, then the map
+            for i in range(new.num_shards):
+                nlo, nhi = new.range_of(i)
+                self._shard_cmd(new.addr_of(i), {
+                    "cmd": "set_shard_range", "lo": nlo, "hi": nhi,
+                    "version": new.version})
+            with self._lock:
+                self._shard_map = new
+                self._m_shard_ver.set(new.version)
+            self._m_rebalances.inc()
+            from geomx_tpu_torch.utils.profiler import get_profiler
+            get_profiler().instant(
+                "ShardRebalance", "scheduler",
+                args={"map_version": new.version, "moved_keys": moved,
+                      "segments": len(segs)})
+            return {"changed": True, "map": new.to_meta(),
+                    "moved_keys": moved, "segments": len(segs)}
 
     # ---- service loop ------------------------------------------------------
 
@@ -368,9 +562,50 @@ class GeoScheduler:
             # only its durable roster opens
             self._reply(conn, msg, Msg(MsgType.ACK, meta={
                 "dead": dead, "grace": False}))
-        elif cmd in ("init_shard_map", "shard_map", "shard_failover",
-                     "rebalance_shards"):
-            raise unported(f"the {cmd!r} command", "Sharded global tier")
+        elif cmd == "init_shard_map":
+            # install the version-1 even-bounds map over the given shard
+            # addresses.  Idempotent: a second init (a racing bring-up)
+            # returns the installed map unchanged.
+            from geomx_tpu_torch.service.shardmap import ShardMap
+            with self._lock:
+                if self._shard_map is None:
+                    self._shard_map = ShardMap.initial(
+                        (h, int(p)) for h, p in msg.meta["shards"])
+                    self._m_shard_ver.set(self._shard_map.version)
+                m = self._shard_map.to_meta()
+            self._reply(conn, msg, Msg(MsgType.ACK, meta={"map": m}))
+        elif cmd == "shard_map":
+            with self._lock:
+                m = None if self._shard_map is None \
+                    else self._shard_map.to_meta()
+            self._reply(conn, msg, Msg(MsgType.ACK, meta={"map": m}))
+        elif cmd == "shard_failover":
+            # a shard missed its restart window and a replacement server
+            # took its place on a NEW port — re-point the map entry and
+            # bump the version so clients redirect (the JAX package
+            # replays the dead shard's journal into the replacement;
+            # the port's replacement starts fresh until "Resilience and
+            # utils")
+            idx = int(msg.meta["index"])
+            host, port = msg.meta["host"], int(msg.meta["port"])
+            with self._lock:
+                if self._shard_map is None:
+                    raise RuntimeError("no shard map installed")
+                self._shard_map = self._shard_map.with_address(
+                    idx, host, port)
+                self._m_shard_ver.set(self._shard_map.version)
+                m = self._shard_map.to_meta()
+            self._m_failovers.inc()
+            from geomx_tpu_torch.utils.profiler import get_profiler
+            get_profiler().instant(
+                "ShardFailover", "scheduler",
+                args={"shard": idx, "port": port,
+                      "map_version": m["version"]})
+            self._reply(conn, msg, Msg(MsgType.ACK, meta={"map": m}))
+        elif cmd == "rebalance_shards":
+            result = self.rebalance_shards(
+                min_gain=msg.meta.get("min_gain"))
+            self._reply(conn, msg, Msg(MsgType.ACK, meta=result))
         else:
             self._reply(conn, msg, Msg(MsgType.ERROR,
                                        meta={"error": f"bad cmd {cmd}"}))
@@ -563,6 +798,51 @@ class SchedulerClient:
         "Telemetry"."""
         return str(self._rpc(Msg(MsgType.COMMAND,
                                  meta={"cmd": "metrics"})).meta["text"])
+
+    # ---- key-range sharded global tier ------------------------------------
+
+    def init_shard_map(self, addrs) -> dict:
+        """Install (idempotently) the version-1 even-bounds shard map
+        over ``addrs`` = [(host, port), ...]; returns the map meta."""
+        return dict(self._rpc(Msg(MsgType.COMMAND, meta={
+            "cmd": "init_shard_map",
+            "shards": [[h, int(p)] for h, p in addrs]})).meta["map"])
+
+    def shard_map(self) -> Optional[dict]:
+        """The current shard-map meta, or None before init."""
+        m = self._rpc(Msg(MsgType.COMMAND,
+                          meta={"cmd": "shard_map"})).meta.get("map")
+        return None if m is None else dict(m)
+
+    def wait_shard_map(self, timeout: float = 60.0,
+                       min_version: int = 0) -> dict:
+        """Poll until a map with ``version >= min_version`` is
+        installed — the client-side half of a map-bump redirect."""
+        deadline = time.monotonic() + timeout
+        while True:
+            m = self.shard_map()
+            if m is not None and int(m["version"]) >= int(min_version):
+                return m
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"no shard map at version >= {min_version} within "
+                    f"{timeout}s")
+            time.sleep(0.05)
+
+    def shard_failover(self, index: int, host: str, port: int) -> dict:
+        """Re-point shard ``index`` at a replacement server on a new
+        port; returns the bumped map meta."""
+        return dict(self._rpc(Msg(MsgType.COMMAND, meta={
+            "cmd": "shard_failover", "index": int(index),
+            "host": host, "port": int(port)})).meta["map"])
+
+    def rebalance_shards(self, min_gain: Optional[float] = None) -> dict:
+        """Ask the scheduler to rebalance ranges from observed load;
+        returns {"changed", "map", "moved_keys", "segments"}."""
+        meta = {"cmd": "rebalance_shards"}
+        if min_gain is not None:
+            meta["min_gain"] = float(min_gain)
+        return dict(self._rpc(Msg(MsgType.COMMAND, meta=meta)).meta)
 
     def stop_scheduler(self) -> None:
         try:

@@ -25,14 +25,19 @@ unless the caller passes ``"cpu"``): the relay compressor (BSC's
 select/pack, a CUDA kernel on the card; a key's u/v stay there between
 rounds) and a server-side optimizer other than the native SGD.
 
+Configured with ``shard_range`` it is one shard of the key-range
+sharded global tier (``sharded.py``): it owns a hash range of the keys,
+redirects the rest, and exports, imports and drops key state when the
+scheduler rebalances the ranges.
+
 Not ported yet, and refused when asked for: durability
 (``durable_dir``/``GEOMX_DURABLE_DIR``, ROADMAP item "Resilience and
-utils"), the range-sharded global tier (``shard_range`` and its
-redirect/migration commands, "Sharded global tier"), and the round
-ledger, the flight recorder and the HTTP exporter
-(``metrics_port``/``GEOMX_SERVER_METRICS_PORT`` and the ``metrics``
-command, "Telemetry").  The JAX package's round ledger records with no
-knob; in the port that recording is simply absent.
+utils"; the JAX package's ``_journal`` calls, a no-op without a durable
+store, are left out with it), and the round ledger, the flight recorder
+and the HTTP exporter (``metrics_port``/``GEOMX_SERVER_METRICS_PORT``
+and the ``metrics`` command, "Telemetry").  The JAX package's round
+ledger records with no knob; in the port that recording is simply
+absent.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from geomx_tpu_torch.service.protocol import (BATCH_DRAIN_MAX_BYTES,
                                               batch_drain_enabled, env_int,
                                               recv_frame, send_frame,
                                               should_drop, wire_stats)
+from geomx_tpu_torch.tree import state_map
 from geomx_tpu_torch.utils.heartbeat import HeartbeatMonitor
 
 
@@ -84,17 +90,6 @@ class _SparsePairs:
 
 def _contrib_dense(c) -> np.ndarray:
     return c.densify() if isinstance(c, _SparsePairs) else c
-
-
-def _state_map(fn, tree, *rest):
-    """``jax.tree.map`` over an optimizer state of the port: nested
-    dicts, lists and tuples with tensors or scalars at the leaves."""
-    if isinstance(tree, dict):
-        return {k: _state_map(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_state_map(fn, *xs) for xs in zip(tree, *rest))
-    return fn(tree, *rest)
 
 
 class _KeyState:
@@ -217,18 +212,23 @@ class GeoPSServer:
         ``reconnect`` arms the session-resume handshake on this
         server's OWN upstream clients (the WAN relay to the global tier).
 
+        ``shard_range=(lo, hi)`` makes this server ONE SHARD of a
+        key-range sharded global tier: it owns keys with
+        ``lo <= key_hash(key) < hi`` and answers any other key with a
+        ``wrong_shard`` redirect carrying ``shard_map_version`` — a
+        client holding a stale map re-fetches the scheduler's map
+        instead of merging into the wrong store.  The range/version can
+        be updated live (``set_shard_range``) and key state migrates
+        between shards via ``export_keys``/``import_keys`` (the
+        scheduler's rebalance drives both).
+
         ``device``: where the relay compressor and a non-native
         server-side optimizer run (``resolve_device``: the card unless
-        ``"cpu"``).  ``durable_dir``, ``shard_range``/``shard_index``/
-        ``shard_map_version`` and ``metrics_port`` keep the JAX
+        ``"cpu"``).  ``durable_dir`` and ``metrics_port`` keep the JAX
         signature and raise ``NotImplementedError`` unless left at
         their defaults (module docstring); ``durable_name`` names the
         durable store, so it does nothing without one."""
         refuse_durable_dir(durable_dir)
-        if shard_range is not None or shard_index is not None \
-                or shard_map_version:
-            raise unported("GeoPSServer(shard_range=...)",
-                           "Sharded global tier")
         if metrics_port is not None or \
                 env_int(("GEOMX_SERVER_METRICS_PORT",), 0) > 0:
             raise unported("the server's metrics endpoint (metrics_port, "
@@ -380,6 +380,27 @@ class GeoPSServer:
             "Rounds merged in the compressed (value, index) domain",
             ("rank",)).labels(_r)
 
+        # ---- key-range sharding: owned hash range + the map version
+        # redirects carry, plus the windowed load counters the
+        # scheduler's rebalance reads (per-key push counts since the last
+        # window reset — observation-driven placement)
+        self._shard_range = None if shard_range is None else \
+            (int(shard_range[0]), int(shard_range[1]))
+        self.shard_index = shard_index
+        self.shard_map_version = int(shard_map_version)
+        self._load_pushes = 0
+        self._load_pulls = 0
+        self._load_key_pushes: Dict[str, int] = {}
+        self._m_shard_ver = _reg.gauge(
+            "geomx_shard_map_version",
+            "Shard-map version this server last installed",
+            ("rank",)).labels(_r)
+        self._m_shard_keys = _reg.gauge(
+            "geomx_shard_keys",
+            "Keys currently owned by this server/shard",
+            ("rank",)).labels(_r)
+        self._m_shard_ver.set(self.shard_map_version)
+
         # MultiGPS: N global servers with reference placement (hash small
         # tensors whole, split big ones across all servers —
         # kvstore_dist.h:792-833, kvstore_dist_server.h:1786-1826)
@@ -455,6 +476,7 @@ class GeoPSServer:
         self._running = True
         self._accept_thread = threading.Thread(target=self._accept_loop,
                                                daemon=True)
+        self._start_unix = time.time()
 
     @staticmethod
     def _bind_with_retry(srv: socket.socket, host: str, port: int,
@@ -475,6 +497,30 @@ class GeoPSServer:
                     raise
                 time.sleep(0.05)
 
+    def health_snapshot(self) -> dict:
+        """The JAX server's ``GET /healthz`` body: role identity,
+        sync-gate width, shard range/map version, store size, generation
+        and uptime.  The HTTP endpoint and the build identity in it are
+        ROADMAP item "Telemetry"."""
+        with self._lock:
+            out = {
+                "status": "ok" if self._running else "stopping",
+                "role": "ps_server",
+                "rank": self.rank,
+                "mode": self.mode,
+                "num_workers": self.num_workers,
+                "num_keys": len(self._store),
+                "evicted": sorted(self._evicted),
+                "generation": self.generation,
+                "durable": False,
+                "uptime_s": round(time.time() - self._start_unix, 3),
+            }
+            if self._shard_range is not None:
+                out.update({"shard_index": self.shard_index,
+                            "shard_lo": self._shard_range[0],
+                            "shard_hi": self._shard_range[1],
+                            "map_version": self.shard_map_version})
+        return out
 
     # ---- lifecycle ---------------------------------------------------------
 
@@ -630,7 +676,213 @@ class GeoPSServer:
             # remote send can never hang the host process forever.
             self._stop_done.wait(timeout if timeout is not None else 60.0)
 
+    # ---- key-range sharding: migration + redirect helpers ------------------
 
+    def _opt_blob(self, key: str) -> Optional[bytes]:
+        """A key's optimizer state as a host-tree blob (the port's
+        ``utils/checkpoint.tree_to_bytes``: tensors moved to numpy), the
+        ``opt`` field of a migration record.  None without a factory
+        optimizer (the native SGD's state handle does not migrate, as
+        in the JAX package)."""
+        if self._tx is None or key not in self._opt_state:
+            return None
+        from geomx_tpu_torch.utils.checkpoint import tree_to_bytes
+        return tree_to_bytes(self._opt_state[key])
+
+    @staticmethod
+    def _enc_arr(a) -> Optional[dict]:
+        """numpy array -> wire-primitive dict (meta headers carry only
+        primitives; pickled ndarrays would be refused by the hardened
+        header unpickler)."""
+        if a is None:
+            return None
+        a = np.ascontiguousarray(a)
+        return {"d": a.dtype.str, "s": list(a.shape), "b": a.tobytes()}
+
+    @staticmethod
+    def _dec_arr(e) -> Optional[np.ndarray]:
+        if e is None:
+            return None
+        return np.frombuffer(e["b"], dtype=np.dtype(e["d"])).reshape(
+            e["s"]).copy()
+
+    @classmethod
+    def _enc_contrib(cls, g) -> Optional[dict]:
+        """Wire-primitive form of one in-flight contribution: dense
+        arrays as `_enc_arr`, sparse (value, index) pair sets as ONE
+        flat dict (marked ``sp``; the wire-meta depth cap forbids
+        nesting `_enc_arr` dicts) so a shard migration moves the open
+        round WITHOUT densifying it."""
+        if isinstance(g, _SparsePairs):
+            return {"sp": 1, "vb": g.vals.tobytes(),
+                    "ib": np.ascontiguousarray(g.idx).tobytes(),
+                    "n": g.n, "shape": list(g.shape)}
+        return cls._enc_arr(g)
+
+    @classmethod
+    def _dec_contrib(cls, e):
+        if isinstance(e, dict) and e.get("sp"):
+            return _SparsePairs(
+                np.frombuffer(e["vb"], np.float32),
+                np.frombuffer(e["ib"], np.int64), e["n"], e["shape"])
+        return cls._dec_arr(e)
+
+    def _wrong_shard_msg(self, error: str) -> Msg:
+        return Msg(MsgType.ERROR, meta={
+            "error": error, "wrong_shard": True,
+            "map_version": self.shard_map_version})
+
+    def _owns(self, key: str) -> bool:
+        from geomx_tpu_torch.service.shardmap import key_hash
+        lo, hi = self._shard_range
+        return lo <= key_hash(key) < hi
+
+    def _wrong_shard_reply_locked(self, key: str) -> Optional[Msg]:
+        """The locked re-check of the (unlocked, fast-path) range gate
+        in ``_handle``: a push that passed the fast path can reach the
+        merge AFTER a rebalance shrank the range and copied the key
+        out — merging then would strand an ACKed contribution on a key
+        the paired ``drop_keys`` is about to erase.  Returns the
+        redirect to send (caller holds self._lock), or None when the
+        key is owned."""
+        if self._shard_range is None or key is None or self._owns(key):
+            return None
+        lo, hi = self._shard_range
+        return self._wrong_shard_msg(
+            f"key {key!r} is outside this shard's range [{lo}, {hi}) at "
+            f"map version {self.shard_map_version}")
+
+    def _redirect_waiters_locked(self, st: "_KeyState", error: str) -> None:
+        """Answer every parked pull of ``st`` with a ``wrong_shard``
+        redirect (its round completes at the key's new owner)."""
+        waiters, st.waiting_pulls = st.waiting_pulls, []
+        for c, req, _need in waiters:
+            err = self._wrong_shard_msg(error)
+            rid = req.meta.get("rid")
+            if rid is not None:
+                err.meta["rid"] = rid
+            try:
+                self._send_msg(c, err)
+            except OSError:
+                pass
+
+    def _redirect_out_of_range_locked(self) -> None:
+        """After a range shrink: parked pulls for keys this shard no
+        longer owns must redirect (their round will complete at the new
+        owner), not stall forever.  Caller holds self._lock."""
+        if self._shard_range is None:
+            return
+        for key, st in self._store.items():
+            if self._owns(key) or not st.waiting_pulls:
+                continue
+            self._redirect_waiters_locked(
+                st, f"key {key!r} moved off this shard "
+                    f"(map version {self.shard_map_version})")
+
+    def _snapshot_key_locked(self, key: str) -> dict:
+        """One key's FULL state — the value, round counts, optimizer and
+        compressor state plus the open round's in-flight per-sender
+        contributions — as a wire-primitive record.  Read-only
+        (migration copies first, drops only after the import is
+        acknowledged).  Caller holds self._lock."""
+        st = self._store[key]
+        sp = st.sparse_value
+        if sp is not None:
+            # a sparse-pending round migrates IN PAIR FORM (the one
+            # _enc_contrib encoding): O(k) bytes over the migration
+            # wire instead of an O(n) densify
+            value = self._enc_contrib(_SparsePairs(
+                sp[0], sp[1], st.dense_size, st.dense_shape))
+        else:
+            value = self._enc_arr(st.value)
+        rec = {"value": value, "round": int(st.round),
+               "pushed": {int(s): int(n) for s, n in st.pushed.items()},
+               "milestone": self._enc_arr(st.milestone),
+               "opt": self._opt_blob(key), "comp": None,
+               "count": int(st.count),
+               "contribs": {int(s): self._enc_contrib(g)
+                            for s, g in st.contribs.items()},
+               "relay_error": st.relay_error}
+        comp = self._comp_state.get(key) \
+            if self._compressor is not None else None
+        if isinstance(comp, tuple) and comp and \
+                all(isinstance(a, torch.Tensor) for a in comp):
+            # the JAX record's layout: each buffer in the value's shape
+            rec["comp"] = [self._enc_arr(a.cpu().numpy().reshape(
+                st.dense_shape)) for a in comp]
+        return rec
+
+    def _drop_keys_locked(self, keys) -> None:
+        """Forget migrated keys: pop every trace of them — store,
+        optimizer/compressor state, in-flight P3 assemblies, armed DGT
+        deadlines, load-window counters — and redirect parked pulls
+        (their rounds complete at the importing shard).  Caller holds
+        self._lock."""
+        for key in keys:
+            st = self._store.pop(key, None)
+            if st is None:
+                continue
+            self._opt_state.pop(key, None)
+            if self._compressor is not None:
+                self._comp_state.pop(key, None)
+            self._load_key_pushes.pop(key, None)
+            for pk in [pk for pk in list(self._p3_partial)
+                       if pk[1] == key]:
+                self._p3_partial.pop(pk, None)
+            for pk in [pk for pk in list(self._dgt_pending)
+                       if pk[1] == key]:
+                self._dgt_untrack(pk)
+            self._redirect_waiters_locked(
+                st, f"key {key!r} migrated off this shard")
+        self._m_shard_keys.set(len(self._store))
+
+    def _import_key_locked(self, key: str, rec: dict) -> None:
+        """Install a migrated key record (the gainer side of a
+        rebalance): the open round's contributions arrive in memory —
+        exactly a round in flight.  Idempotent round-wise: migrated
+        ``pushed`` counts make a re-routed client's replayed push an
+        idempotent ACK.  Caller holds self._lock."""
+        enc = rec["value"]
+        sparse_pending = None
+        if isinstance(enc, dict) and enc.get("sp"):
+            # sparse-pending migration record: install the pair set
+            # lazily, exactly as the exporter held it
+            sp = self._dec_contrib(enc)
+            sparse_pending = (sp.vals, sp.idx)
+            value = np.zeros(enc["shape"], np.float32)
+        else:
+            value = self._dec_arr(enc)
+        st = self._store.get(key)
+        if st is None:
+            st = self._store[key] = _KeyState(value)
+        st.value = value
+        if sparse_pending is not None:
+            st.set_sparse_value(*sparse_pending)
+        st.round = int(rec.get("round", 0))
+        st.pushed = {int(s): int(n)
+                     for s, n in dict(rec.get("pushed", {})).items()}
+        st.milestone = self._dec_arr(rec.get("milestone"))
+        st.contribs = {int(s): self._dec_contrib(g)
+                       for s, g in dict(rec.get("contribs", {})).items()}
+        st.count = int(rec.get("count", 0))
+        st.relay_error = rec.get("relay_error")
+        blob = rec.get("opt")
+        if self._tx is not None:
+            if blob is not None:
+                from geomx_tpu_torch.utils.checkpoint import tree_from_bytes
+                self._opt_state[key] = tree_from_bytes(
+                    blob, target=self._opt_init(st.value))
+            elif key not in self._opt_state:
+                self._opt_state[key] = self._opt_init(st.value)
+        if self._compressor is not None:
+            comp = rec.get("comp")
+            self._comp_state[key] = tuple(
+                self._to_device(self._dec_arr(a)).reshape(-1)
+                for a in comp) if comp else self._comp_init(st.value)
+        if 0 < st.count and st.count >= self.num_workers:
+            # the migrated open round already satisfies this shard's
+            # gate (e.g. the last pusher re-routed before the move)
+            self._complete_merge_locked(key, st)
 
     # ---- networking --------------------------------------------------------
 
@@ -726,10 +978,24 @@ class GeoPSServer:
         t = msg.type
         if msg.sender >= 0:
             self.heartbeats.heartbeat(msg.sender)
+        if self._shard_range is not None and msg.key is not None and \
+                t in (MsgType.INIT, MsgType.PUSH, MsgType.PULL) and \
+                not self._owns(msg.key):
+            # stale shard map: REDIRECT, never a wrong-shard merge.  The
+            # version tells the client how fresh a map to fetch.
+            lo, hi = self._shard_range
+            self._reply(conn, msg, self._wrong_shard_msg(
+                f"key {msg.key!r} is outside this shard's range "
+                f"[{lo}, {hi}) at map version {self.shard_map_version}"))
+            return False
         if t == MsgType.HEARTBEAT:
             self._reply(conn, msg, Msg(MsgType.ACK))
         elif t == MsgType.INIT:
             with self._lock:
+                redirect = self._wrong_shard_reply_locked(msg.key)
+                if redirect is not None:
+                    self._reply(conn, msg, redirect)
+                    return False
                 if msg.key not in self._store:
                     self._store[msg.key] = _KeyState(msg.array)
                     if self.hfa_k2 is not None:
@@ -761,6 +1027,7 @@ class GeoPSServer:
                             raise RuntimeError(
                                 f"global INIT failed for {msg.key}: "
                                 f"{e!r}")
+                self._m_shard_keys.set(len(self._store))
             self._reply(conn, msg, Msg(MsgType.ACK, key=msg.key))
         elif t == MsgType.PUSH:
             self._handle_push(conn, msg)
@@ -917,6 +1184,11 @@ class GeoPSServer:
             hello = {"gen": self.generation, "rank": self.rank,
                      "mode": self.mode, "num_workers": self.num_workers,
                      "durable": False}
+            if self._shard_range is not None:
+                hello.update({"shard_index": self.shard_index,
+                              "shard_lo": self._shard_range[0],
+                              "shard_hi": self._shard_range[1],
+                              "map_version": self.shard_map_version})
             self._reply(conn, msg, Msg(MsgType.ACK, meta=hello))
             return
         elif cmd == "query_progress":
@@ -935,11 +1207,69 @@ class GeoPSServer:
                 meta={"dead": self.heartbeats.dead_nodes(
                     msg.meta.get("timeout"))}))
             return
-        elif cmd in ("shard_info", "set_shard_range", "shard_load",
-                     "export_keys", "drop_keys", "import_keys"):
-            # the range-sharded global tier's commands: the
-            # serve loop turns the refusal into an ERROR reply
-            raise unported(f"the {cmd!r} command", "Sharded global tier")
+        elif cmd == "shard_info":
+            with self._lock:
+                info = {"shard_index": self.shard_index,
+                        "map_version": self.shard_map_version,
+                        "num_keys": len(self._store)}
+                if self._shard_range is not None:
+                    info["lo"], info["hi"] = self._shard_range
+            self._reply(conn, msg, Msg(MsgType.ACK, meta=info))
+            return
+        elif cmd == "set_shard_range":
+            # scheduler-driven range install (rebalance step 1 shrinks
+            # the loser FIRST, quiescing the moved segment before its
+            # keys export — in-flight clients redirect and retry)
+            lo, hi = int(msg.meta["lo"]), int(msg.meta["hi"])
+            ver = int(msg.meta.get("version", 0))
+            with self._lock:
+                self._shard_range = (lo, hi)
+                self.shard_map_version = max(self.shard_map_version, ver)
+                self._m_shard_ver.set(self.shard_map_version)
+                self._redirect_out_of_range_locked()
+        elif cmd == "shard_load":
+            # windowed load observation: per-key push counts since the
+            # last reset — the scheduler's rebalance input
+            with self._lock:
+                load = {"pushes": self._load_pushes,
+                        "pulls": self._load_pulls,
+                        "keys": dict(self._load_key_pushes),
+                        "num_keys": len(self._store)}
+                if msg.meta.get("reset"):
+                    self._load_pushes = self._load_pulls = 0
+                    self._load_key_pushes = {}
+            self._reply(conn, msg, Msg(MsgType.ACK, meta={"load": load}))
+            return
+        elif cmd == "export_keys":
+            # COPY the range's key state out (``remove=True`` also
+            # drops it).  The scheduler's rebalance exports with
+            # remove=False and only issues the paired ``drop_keys``
+            # AFTER the gainer acknowledged the import — a failed import
+            # between the two leaves the keys intact on the (quiesced)
+            # loser, retryable, never lost.
+            lo, hi = int(msg.meta["lo"]), int(msg.meta["hi"])
+            from geomx_tpu_torch.service.shardmap import key_hash
+            with self._lock:
+                records = {key: self._snapshot_key_locked(key)
+                           for key in sorted(self._store)
+                           if lo <= key_hash(key) < hi}
+                if msg.meta.get("remove", True):
+                    self._drop_keys_locked(sorted(records))
+            self._reply(conn, msg, Msg(MsgType.ACK,
+                                       meta={"records": records}))
+            return
+        elif cmd == "drop_keys":
+            lo, hi = int(msg.meta["lo"]), int(msg.meta["hi"])
+            from geomx_tpu_torch.service.shardmap import key_hash
+            with self._lock:
+                self._drop_keys_locked(
+                    [key for key in sorted(self._store)
+                     if lo <= key_hash(key) < hi])
+        elif cmd == "import_keys":
+            with self._lock:
+                for key, rec in dict(msg.meta["records"]).items():
+                    self._import_key_locked(str(key), rec)
+                self._m_shard_keys.set(len(self._store))
         elif cmd == "evict_worker":
             # resilience/: un-stall the sync gate after a worker death
             # (the liveness controller or an operator decides WHEN; the
@@ -1305,14 +1635,14 @@ class GeoPSServer:
             out[ridx] = part
             return out
 
-        state_rows = _state_map(
+        state_rows = state_map(
             lambda leaf: leaf[ridx] if is_rowwise(leaf) else leaf,
             self._opt_state[key])
         new_rows, new_state_rows = self._tx.update(
             {"w": self._to_device(vals)}, state_rows, {"w": ref[ridx]})
         ref[ridx] = new_rows["w"]
         st.value = ref.cpu().numpy()
-        self._opt_state[key] = _state_map(put_rows, self._opt_state[key],
+        self._opt_state[key] = state_map(put_rows, self._opt_state[key],
                                           new_state_rows)
 
     def _decompress_incoming(self, msg: Msg) -> np.ndarray:
@@ -1389,6 +1719,17 @@ class GeoPSServer:
             self.push_log.append((msg.sender, key, msg.meta.get("chunk")))
             if len(self.push_log) > 65536:
                 del self.push_log[:32768]
+            # windowed load observation (scheduler rebalance input)
+            self._load_pushes += 1
+            self._load_key_pushes[key] = \
+                self._load_key_pushes.get(key, 0) + 1
+            redirect = self._wrong_shard_reply_locked(key)
+            if redirect is not None:
+                # locked re-check of the fast-path range gate: a
+                # rebalance shrank the range after this push passed it —
+                # redirect BEFORE any dedup/chunk state records it
+                self._reply(conn, msg, redirect)
+                return
             if sig is not None:
                 prior = self._seen_pushes.get(sig)
                 if prior is True:
@@ -1568,6 +1909,14 @@ class GeoPSServer:
         ``sig`` is the push's resend-dedup signature: an async-mode relay
         parks it until the relayed value installs, so retransmits of the
         in-flight push are neither re-merged nor falsely ACKed."""
+        redirect = self._wrong_shard_reply_locked(key)
+        if redirect is not None:
+            # the range moved between the unlocked fast-path check and
+            # this merge (rebalance quiesce): redirect, never merge
+            if sig is not None:
+                self._seen_pushes.pop(sig, None)
+            self._reply(conn, msg, redirect)
+            return
         st = self._store[key]
         if rs is not None and self.hfa_k2 is not None:
             self._reply(conn, msg, Msg(MsgType.ERROR, meta={
@@ -2028,6 +2377,11 @@ class GeoPSServer:
     def _handle_pull(self, conn, msg: Msg):
         self._m_pulls.inc()
         with self._lock:
+            self._load_pulls += 1
+            redirect = self._wrong_shard_reply_locked(msg.key)
+            if redirect is not None:
+                self._reply(conn, msg, redirect)
+                return
             st = self._store.get(msg.key)
             if st is None:
                 self._reply(conn, msg, Msg(MsgType.ERROR,

@@ -1,6 +1,5 @@
 """Key-range sharded global tier: the scheduler-owned shard map (port of
-geomx_tpu/service/shardmap.py; the tier itself is ROADMAP.md Queue 1
-item "Sharded global tier").
+geomx_tpu/service/shardmap.py).
 
 The reference scales its global tier with MultiGPS — N global servers,
 each owning a slice of the key space (PAPER.md §"MultiGPS").  The JAX

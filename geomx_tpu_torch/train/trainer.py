@@ -33,8 +33,9 @@ re-sharding ZeRO state onto another worker count (``train/zero.py``).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without that request it raises.  Not ported yet: membership epochs,
-the catch-up payload, telemetry, control, capsules and the flight
-recorder.
+the catch-up payload, control, and telemetry (the step probes, the event
+log, the flight recorder, run capsules), whose knobs ``GeoConfig``
+refuses.
 """
 
 from __future__ import annotations

@@ -28,6 +28,17 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return {k: fn(tree[k], *(r[k] for r in rest)) for k in leaf_names(tree)}
 
 
+def state_map(fn: Callable, tree, *rest):
+    """``jax.tree.map`` over an optimizer state of the port: nested
+    dicts, lists and tuples with tensors or scalars at the leaves."""
+    if isinstance(tree, dict):
+        return {k: state_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
 def from_nested(nested, prefix: str = "") -> Tree:
     """Flatten a nested dict (a flax ``params``/``batch_stats`` tree) to
     dotted paths."""

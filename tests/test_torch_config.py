@@ -7,9 +7,9 @@ DCASGD, ``GEOMX_PIPELINE_DEPTH``, the DGT wrap) and the sharded updates'
 ``MXNET_KVSTORE_BIGARRAY_BOUND``) under the JAX package's names and
 casts; ``get_sync_algorithm`` builds the same algorithm structure from
 them and the Trainer binds the same sharded-update plan, raising the
-JAX package's errors where it raises.  The knob the port does not run
-yet (``GEOMX_CONTROL``) is refused with ``NotImplementedError`` naming
-the ROADMAP.md Queue 1 item; a pipeline depth with one party only warns,
+JAX package's errors where it raises.  The knobs the port does not run
+yet (``GEOMX_CONTROL``, and the eight telemetry knobs) are refused with
+``NotImplementedError`` naming the ROADMAP.md Queue 1 item; a pipeline depth with one party only warns,
 as the reference's ``get_sync_algorithm`` does; the defaults, set or
 not, still build FSA.
 """
@@ -44,7 +44,20 @@ ENV = KNOBS + ("GEOMX_SYNC_MODE", "GEOMX_DCASGD", "GEOMX_DCASGD_LAMBDA",
                "GEOMX_DGT_BLOCK_SIZE", "DGT_BLOCK_SIZE", "DMLC_K",
                "DMLC_UDP_CHANNEL_NUM", "GEOMX_COMPRESSION",
                "GEOMX_WORKERS_PER_PARTY", "GEOMX_BIGARRAY_BOUND",
-               "MXNET_KVSTORE_BIGARRAY_BOUND")
+               "MXNET_KVSTORE_BIGARRAY_BOUND", "GEOMX_AUDIT")
+# the JAX trainer's telemetry knobs: variable, a value that turns the
+# knob on, the field, its default spelled in the environment
+TELEMETRY = [
+    ("GEOMX_TELEMETRY", "1", "telemetry", "0"),
+    ("GEOMX_TELEMETRY_EVENTS", "events.jsonl", "telemetry_events", ""),
+    ("GEOMX_FLIGHT", "1", "flight", "0.0"),
+    ("GEOMX_FLIGHT_STEPS", "64", "flight_steps", "0"),
+    ("GEOMX_FLIGHT_DIR", "flight", "flight_dir", ""),
+    ("GEOMX_CAPSULE", "1", "capsule", "0"),
+    ("GEOMX_CAPSULE_DIR", "capsules", "capsule_dir", ""),
+    ("GEOMX_CAPSULE_SAMPLE_S", "2.5", "capsule_sample_s", "0.0"),
+]
+ENV += tuple(var for var, *_ in TELEMETRY)
 # variable, a value that changes the JAX step, the port's field, the item
 REFUSED = [
     ("GEOMX_CONTROL", "1", "control", "Control"),
@@ -77,6 +90,43 @@ def test_knob_that_changes_the_step_raises(monkeypatch, var, value, field,
     cfg = GeoConfig.from_env(**{field: False if field in
                                 ("zero", "multi_gps", "control") else 0})
     assert isinstance(get_sync_algorithm(cfg), FSA)
+
+
+@pytest.mark.parametrize("var,value,field,default", TELEMETRY)
+def test_telemetry_knob_raises_naming_the_item(monkeypatch, var, value,
+                                               field, default):
+    monkeypatch.setenv(var, value)
+    ref = JaxConfig.from_env()
+    assert getattr(ref, field)     # the JAX trainer acts on it
+    with pytest.raises(NotImplementedError, match="'Telemetry'") as exc:
+        GeoConfig.from_env()
+    assert var in str(exc.value) and "not a changed step" in str(exc.value)
+    # the port reads it under the JAX cast: an override to the default
+    # passes, and the refused value is the reference's
+    with pytest.raises(NotImplementedError, match=repr(getattr(ref, field))):
+        GeoConfig(**{field: getattr(ref, field)})
+    zero = type(getattr(ref, field))()
+    assert getattr(GeoConfig.from_env(**{field: zero}), field) == zero
+
+
+@pytest.mark.parametrize("var,value,field,default", TELEMETRY)
+def test_telemetry_knob_at_default_passes(monkeypatch, var, value, field,
+                                          default):
+    monkeypatch.setenv(var, default)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cfg = GeoConfig.from_env()
+    assert getattr(cfg, field) == getattr(JaxConfig.from_env(), field)
+    assert not getattr(cfg, field)
+    assert isinstance(get_sync_algorithm(cfg), FSA)
+
+
+def test_audit_is_not_refused(monkeypatch):
+    """GEOMX_AUDIT acts only at membership or control swaps, which the
+    port refuses on their own: the knob alone passes."""
+    monkeypatch.setenv("GEOMX_AUDIT", "1")
+    assert JaxConfig.from_env().audit
+    assert isinstance(get_sync_algorithm(GeoConfig.from_env()), FSA)
 
 
 def test_pipeline_depth_with_one_party_only_warns(monkeypatch):

@@ -626,8 +626,8 @@ def test_port_scheduler_refuses_unported_commands(pkg):
 def test_unported_server_and_scheduler_knobs_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="Resilience and utils"):
         _port_server(durable_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="Sharded global tier"):
-        _port_server(shard_range=(0, 10))
+    # the sharded global tier is ported: a shard constructs
+    _port_server(shard_range=(0, 10), shard_index=0).stop()
     with pytest.raises(NotImplementedError, match="Telemetry"):
         _port_server(metrics_port=0)
     with pytest.raises(NotImplementedError, match="Telemetry"):
@@ -654,9 +654,9 @@ def test_unported_server_and_scheduler_knobs_raise(monkeypatch):
         c = tsvc.GeoPSClient(("127.0.0.1", server.port))
         with pytest.raises(RuntimeError, match="Telemetry"):
             c.metrics_text()
-        with pytest.raises(RuntimeError, match="Sharded global tier"):
-            c._request(tproto.Msg(tproto.MsgType.COMMAND,
-                                  meta={"cmd": "shard_info"}), timeout=T)
+        info = c._request(tproto.Msg(tproto.MsgType.COMMAND,
+                                     meta={"cmd": "shard_info"}), timeout=T)
+        assert info.meta["shard_index"] is None and "lo" not in info.meta
         c.close()
     finally:
         server.stop()
