@@ -14,8 +14,10 @@ Every phase's failure is fatal (non-zero exit, no result line):
               merge at path 3's [4, 2]: 8 rows of 4 x 1,371 routed pairs;
               the flash kernels at seq_flash's q, k, v [16, 4096, 4, 16];
               the ring hop at seq_ring's [32, 128, 4, 16]) and on the edge
-              cases of the CPU parity tests; the nine kernels of the
-              training plane must be bit-equal, the four attention kernels
+              cases of the CPU parity tests (and select/pack on [4, 2]
+              rows of which party 1's are all +-0 with zero residuals, a
+              dead party's bucket: exactly its k lowest indices a row);
+              the nine kernels of the training plane must be bit-equal, the four attention kernels
               within fp32 rtol/atol 1e-5 forward and 1e-4 backward and hop
               (another order of sums; looser for bf16 inputs).  Each
               kernel's median device time over 50 calls (20 for attention;
@@ -54,7 +56,9 @@ Every phase's failure is fatal (non-zero exit, no result line):
               get_optimizer("lamb", 1e-3)); the zoo paths' and the
               zoo configurations' models at full width on their
               datasets' shapes (MODEL_DATA; on the card through
-              PyTorch's direct convolutions, cuDNN off),
+              PyTorch's direct convolutions, cuDNN off); the resilience
+              paths' configurations on [4, 2] with party 1 dead for the
+              second step (RESILIENCE_REFERENCE_MASK),
               losses to rtol 1e-4, every replica's parameters to atol
               2e-3 (TF32 off); zero_dense's three steps within 1e-6 of the
               replicated update's on the card; the SeqClassifier at L = 256 un-meshed, ring and
@@ -141,6 +145,24 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           replica, 16 steps: the hop kernel, 16 launches a
                           step; its loss falls as the JAX package's does;
                           512 sequences evaluated on the un-meshed twin.
+              resilience_fsa  path 1f on [4, 2], 16 steps, under
+                          RESILIENCE_SCHEDULE (party 1 dead for steps
+                          3-5, party 3 for step 9) through a
+                          PartyLivenessController, a ChaosEngine and
+                          Trainer.apply_membership: the num_live_parties
+                          metric the schedule's at every step, every
+                          replica (the dead party's too) identical after
+                          each, kernels 1-5 as many launches in every
+                          step, the catch-up round trip at each
+                          re-admission bit-equal (its bytes printed), and
+                          one degraded fp32 step under the dense dc tier
+                          bit-equal (or within the fp32 rounding of the
+                          dead party's zero add) to a [3, 2] run of the
+                          three survivors;
+              resilience_zero  the same with GEOMX_ZERO=1 and the
+                          per-leaf sgd(0.1, momentum=0.9): the catch-up
+                          through host_zero_state/place_zero_state, every
+                          worker's shard back bit-equal.
               Median step times of the paths come from the same call.
 6. host plane -- the port's parameter-service plane, one process a role
               (service/, transport/, runtime/native.py):
@@ -160,10 +182,11 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           the last test accuracies;
               dist_ps_mixed_sched  the same with GEOMX_USE_SCHEDULER=1
                           GEOMX_SYNC_MODE=mixed (8 processes): every
-                          process exits 0, every worker's last test
-                          accuracy at least the JAX example's in that job
-                          on the CPU (DIST_PS_JAX_MIXED_TEST_ACC) less
-                          0.05;
+                          process exits 0, the lowest worker's last test
+                          accuracy at least the lowest that the JAX
+                          example's lowest worker reached in that job on
+                          the CPU over 32 runs
+                          (DIST_PS_JAX_MIXED_LOWEST_MIN);
               host_plane_resnet20  in process: a global GeoPSServer (sync,
                           native SGD 0.05), two local servers ("bsc,0.01",
                           relay compressor on the card) and 4 clients on
@@ -195,8 +218,15 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           bit-equal across parties and to a one-shard
                           twin whose parties compress on the CPU,
                           bsc_select_pack exactly 19 x 16 x 6 launches;
-                          then bench.py's merge throughput at 1, 2 and 4
-                          shard processes (not gated);
+                          the chaos run of bench.py --compare-manyparty
+                          (MANYPARTY_CHAOS: shard 1 killed before round 3
+                          through the chaos engine's lifecycle hook and
+                          restarted on its journal, every process durable
+                          under a temporary root), its final pulls
+                          bit-equal to the twin's, the outage and the
+                          replayed records printed; then bench.py's merge
+                          throughput at 1, 2 and 4 shard processes (not
+                          gated);
               kvstore_hips  the port's KVStore, create("hips", [2, 4])
                           on the card over the 65 leaves: bsc 0.01 (8
                           rounds) and 2bit 0.5 (4 rounds) bit-equal to a
@@ -206,6 +236,15 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           bsc store with sgd(0.1, momentum=0.9); a lazy
                           row-sparse Adam push (untouched rows
                           bit-unchanged);
+              durable_recovery  (no kernel) a durable GeoPSServer in its
+                          own process, SIGKILLed with round 2 of two
+                          workers' pushes of ResNet-20's 65 leaves open,
+                          restarted on the same directory: the workers'
+                          session resume closes the round, every pull the
+                          exact sum of the four pushes; a durable
+                          scheduler restarted inside its grace window:
+                          every node's old id, the epoch going on, no
+                          node read as dead;
 7. examples -- long_context_ring, long_context_ulysses: the port's
               examples/long_context.py main(mode) at its defaults (2 x 2
               x sp 2, L 256, 6 epochs of 64 steps): the last test
@@ -223,9 +262,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -335,7 +376,22 @@ PATHS = {
     # (alexnet_phase), then the checkpoint round trip
     "alexnet_fused_adam": ("alexnet", ("adam", 0.01), "bsc,0.01", True, 16,
                            SLICE1 + ("fused_adam",), (2, 4), {}),
+    # path 1f on [4, 2] under RESILIENCE_SCHEDULE (resilience_phase): the
+    # survivors' mean on the bucketed BSC path, a dead party's rows
+    # through every kernel, the catch-up at each re-admission
+    "resilience_fsa": ("resnet20", ("sgd", 0.1), "bsc,0.01", True, 16,
+                       SLICE1 + ("fused_sgd_momentum",), (4, 2), {}),
+    # the same schedule under GEOMX_ZERO=1 with the per-leaf momentum:
+    # the catch-up through host_zero_state/place_zero_state
+    "resilience_zero": ("resnet20", ("sgd", 0.1), "bsc,0.01", False, 16,
+                        SLICE1, (4, 2), dict(zero=True)),
 }
+# the resilience paths' chaos schedule (bench.py --compare-resilience's
+# default with a flap after it): party 1 dead for steps 3-5, party 3 for
+# step 9; and the reference phase's mask for their second step
+RESILIENCE_SCHEDULE = "seed=1234;blackout@3:party=1,steps=3;flap@9:party=3"
+RESILIENCE_PATHS = ("resilience_fsa", "resilience_zero")
+RESILIENCE_REFERENCE_MASK = (True, False, True, True)
 # the sharded paths and the GeoConfig fields of their replicated twins,
 # whose per-slot state and wire bytes they are held against
 SHARDED_TWIN = {"zero_sgd": dict(zero=False),
@@ -651,6 +707,7 @@ def kernel_phase(torch, dev, timer=None):
         library_ms=timer(lambda: torch.zeros(
             nrows * n + 1, device=dev).index_add_(0, flat_idx, flat_vals)))
     scatter_edge_cases(torch, dev, n)
+    dead_party_select(torch, dev, n, k)
 
     # -- edge cases of the CPU parity tests, two parties each ---------------
     def case(name, n_, ratio, make):
@@ -700,6 +757,37 @@ def kernel_phase(torch, dev, timer=None):
     out.update(twobit_kernels(torch, dev, timer, gen, rows_shape + (n,)))
     out.update(merge_kernels(torch, dev, timer, gen, n))
     return out
+
+
+def dead_party_select(torch, dev, n, k) -> None:
+    """Select/pack on [4, 2] rows of which party 1's are all zeros of
+    mixed signs with zero residuals (a dead party's bucket under the
+    reset policy): bit-equal to the plain version, and each of party 1's
+    rows emits exactly k pairs, the k lowest indices (lax.top_k's order
+    among equal magnitudes)."""
+    from geomx_tpu_torch.ops import bsc
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shape = (4, 2, n)
+    g = torch.randn(shape, generator=gen, device=dev)
+    u = torch.randn(shape, generator=gen, device=dev) * 0.1
+    v = torch.randn(shape, generator=gen, device=dev) * 0.2
+    neg = torch.rand((2, n), generator=gen, device=dev) < 0.5
+    g[1] = torch.where(neg, torch.tensor(-0.0, device=dev),
+                       torch.tensor(0.0, device=dev))
+    u[1] = 0.0
+    v[1] = 0.0
+    thr = bsc.sampled_boundary_guv(g, u, v, k)
+    sel = bsc.select_pack(g, u, v, thr, k)
+    max_err(torch, sel, bsc.select_pack_plain(g, u, v, thr, k))
+    idx = sel[1][1].long()
+    lowest = torch.arange(k, device=dev).expand(2, k)
+    if not torch.equal(idx.sort(-1).values, lowest):
+        raise AssertionError("select/pack: a dead party's row did not emit "
+                             "exactly its k lowest indices")
+    log(f"  edge case select/pack with party 1 dead ([4, 2] x {n}, its "
+        f"rows +-0, residuals 0): bit-equal; party 1's rows {k} pairs "
+        f"each, indices 0..{k - 1}; the live rows "
+        f"{(sel[1][[0, 2, 3]] >= 0).sum(-1).flatten().tolist()} pairs")
 
 
 def once_same_bits(torch, wrapper, call, first) -> None:
@@ -1577,6 +1665,11 @@ def reference_phase(torch):
                         t.make_loader(x, y, 8).epoch(0)):
                     if i == 2:
                         break
+                    if i == 1 and path in RESILIENCE_PATHS:
+                        # the degraded configuration: party 1 dead for
+                        # step 2 of 2
+                        st = t.apply_membership(
+                            st, RESILIENCE_REFERENCE_MASK)
                     st, m = t.train_step(st, xb, yb)
                     losses.append(float(m["loss"]))
             finally:
@@ -1593,6 +1686,8 @@ def reference_phase(torch):
                                  f"{worst}")
         log(f"reference {path} ({name}"
             + ("" if name == "resnet20" else ", cuDNN off")
+            + (f", step 2 under the mask {RESILIENCE_REFERENCE_MASK}"
+               if path in RESILIENCE_PATHS else "")
             + f"): card losses {gl} CPU losses {cl} max param diff "
             f"{worst:.3g}")
 
@@ -1985,6 +2080,221 @@ def step_stats(torch, trainer, state, path: str, losses, launches) -> dict:
                 if on_card else None)
 
 
+def expected_live(schedule, parties: int, steps: int) -> list:
+    """The live-party count of each step under ``schedule``, from a
+    controller of its own."""
+    from geomx_tpu_torch.resilience import (ChaosEngine,
+                                            PartyLivenessController)
+    ctrl = PartyLivenessController(parties)
+    engine = ChaosEngine(schedule, ctrl, drive_drop_hook=False)
+    out = []
+    for step in range(steps):
+        engine.tick(step)
+        out.append(ctrl.epoch.num_live)
+    return out
+
+
+def catchup_check(torch, trainer, state) -> dict:
+    """The re-admission round trip: ``catchup_payload`` -> ``admit_party``
+    gives back the state bit for bit (params, optimizer and model state
+    on every replica; the sync state's copy (0, 0), or under ZeRO its
+    party-0 shard of every worker, over every slot), and the admitted
+    state packs to the same bytes."""
+    t0 = time.perf_counter()
+    blob = trainer.catchup_payload(state)
+    back = trainer.admit_party(blob)
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    zero = trainer._zero_plan is not None
+    for field in ("params", "opt_state", "model_state", "sync_state"):
+        a_ts = tensors(torch, getattr(state, field))
+        b_ts = tensors(torch, getattr(back, field))
+        if [p for p, _ in a_ts] != [p for p, _ in b_ts]:
+            raise AssertionError(f"catch-up: {field} changed structure")
+        for (path, a), (_, b) in zip(a_ts, b_ts):
+            if field != "sync_state":
+                same = torch.equal(bits(torch, a), bits(torch, b))
+            elif zero and "dc_comp" in path:
+                same = torch.equal(bits(torch, a[0]), bits(torch, b[0])) \
+                    and torch.equal(b, b[:1].expand_as(b))
+            else:
+                same = torch.equal(bits(torch, a[0, 0]),
+                                   bits(torch, b[0, 0])) \
+                    and torch.equal(b, b[:1, :1].expand_as(b))
+            if not same:
+                raise AssertionError(f"catch-up: {field}{path} differs")
+    if trainer.catchup_payload(back) != blob:
+        raise AssertionError("catch-up: the admitted state packs to other "
+                             "bytes")
+    return dict(bytes=len(blob), ms=ms)
+
+
+def survivor_identity(torch, device=None, batch: int = 32) -> dict:
+    """One degraded [4, 2] step (party 1 dead) under the uncompressed dc
+    tier, fp32, ResNet-20 at full width with the fused SGD-momentum,
+    against a [3, 2] run of the three survivors from the same state and
+    batches: the parameters bit for bit, or within the fp32 rounding of
+    the dead party's zero add (4 ulp of each leaf's largest magnitude)
+    where the card's party sum associates it differently."""
+    from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.ops.optim import fused_optimizer
+    from geomx_tpu_torch.train import Trainer
+    from geomx_tpu_torch.train.state import unreplicate_tree
+
+    def trainer(P):
+        return Trainer(get_model("resnet20", precision="fp32"),
+                       HiPSTopology(P, 2),
+                       fused_optimizer("sgd", learning_rate=0.1,
+                                       momentum=0.9),
+                       config=GeoConfig(num_parties=P, workers_per_party=2,
+                                        compression="none",
+                                        fused_optim=True, precision="fp32"),
+                       device=device)
+
+    t4, t3 = trainer(4), trainer(3)
+    st4 = t4.init_state(seed=0)
+    st3 = t3.init_state(params=unreplicate_tree(st4.params),
+                        model_state=unreplicate_tree(st4.model_state))
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 256, (4, 2, batch, 32, 32, 3), generator=gen,
+                      dtype=torch.uint8).to(t4.device)
+    y = torch.randint(0, 10, (4, 2, batch), generator=gen).to(t4.device)
+    st4 = t4.apply_membership(st4, RESILIENCE_REFERENCE_MASK)
+    s4, m4 = t4.train_step(st4, x, y)
+    live = [0, 2, 3]
+    s3, m3 = t3.train_step(st3, x[live], y[live])
+    bit_equal, worst, worst_ulp = True, 0.0, 0.0
+    eps = torch.finfo(torch.float32).eps
+    for k_, a in s4.params.items():
+        if not torch.equal(a, a[:1, :1].expand_as(a)):
+            raise AssertionError(f"survivor identity: replicas of {k_} "
+                                 "differ")
+        a, b = a[0, 0], s3.params[k_][0, 0]
+        if torch.equal(bits(torch, a), bits(torch, b)):
+            continue
+        bit_equal = False
+        d = (a.double() - b.double()).abs().max().item()
+        scale = max(b.abs().max().item(), 1e-30)
+        worst, worst_ulp = max(worst, d), max(worst_ulp, d / (eps * scale))
+    if worst_ulp > 4:
+        raise AssertionError(f"survivor identity: {worst} from the [3, 2] "
+                             f"survivors' run ({worst_ulp:.1f} ulp)")
+    return dict(bit_equal=bit_equal, max_abs_diff=worst,
+                max_ulp=worst_ulp, loss_degraded=float(m4["loss"]),
+                loss_survivors=float(m3["loss"]))
+
+
+def resilience_phase(torch, path: str, device=None, batch: int = 128,
+                     ) -> dict:
+    """Paths resilience_fsa and resilience_zero: ResNet-20 at full width
+    on [4, 2], 128 images a replica, 16 steps, with RESILIENCE_SCHEDULE
+    driving a PartyLivenessController through a ChaosEngine and every
+    published epoch bound through Trainer.apply_membership (the reset
+    policy).  Gates: the step's num_live_parties metric is the
+    schedule's; every replica (the dead party's too) identical after each
+    step; each step launches kernels 1-5 as often as the first (a full
+    step); at each re-admission the catch-up round trip is bit-equal
+    (catchup_check); for resilience_fsa, survivor_identity."""
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.resilience import (ChaosEngine, ChaosSchedule,
+                                            PartyLivenessController)
+
+    _, _, _, _, steps, kernels, (P, W), _ = PATHS[path]
+    schedule = ChaosSchedule.from_spec(RESILIENCE_SCHEDULE)
+    want = expected_live(schedule, P, steps)
+    data = load_dataset("synthetic", synthetic_train_n=P * W * batch * 8)
+    trainer = make_trainer(path, get_model("resnet20"), device=device)
+    state = trainer.init_state(seed=0)
+    loader = trainer.make_loader(data["train_x"], data["train_y"], batch)
+    batches = [b for epoch in range(math.ceil(steps / 8))
+               for b in loader.epoch(epoch, prefetch=0)][:steps]
+    on_card = trainer.device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    ctrl = PartyLivenessController(P)
+    current = ctrl.epoch
+    live, losses, step_ms, per_step, catchups, epochs = \
+        [], [], [], [], [], []
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with ChaosEngine(schedule, ctrl) as engine:
+        for step, (xb, yb) in enumerate(batches):
+            fired = engine.tick(step)
+            ep = ctrl.epoch
+            if ep.version != current.version:
+                if ep.num_live > current.num_live:
+                    catchups.append(dict(step=step, **catchup_check(
+                        torch, trainer, state)))
+                state = trainer.apply_membership(state, ep)
+                epochs.append(dict(step=step, version=ep.version,
+                                   live_mask=list(ep.live_mask),
+                                   events=[e.kind for e in fired]))
+                current = ep
+            before = ops.launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, xb, yb)
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            after = ops.launch_counts()
+            per_step.append({name: after[name] - before[name]
+                             for name in kernels})
+            live.append(float(m["num_live_parties"]))
+            losses.append(float(m["loss"]))
+            for k_, v in state.params.items():
+                if not torch.equal(v, v[:1, :1].expand_as(v)):
+                    raise AssertionError(f"{path}: replicas differ at {k_} "
+                                         f"after step {step}")
+    launches = ops.launch_counts()
+    if live != [float(n) for n in want]:
+        raise AssertionError(f"{path}: num_live_parties {live}, the "
+                             f"schedule's {want}")
+    if any(d != per_step[0] for d in per_step):
+        raise AssertionError(f"{path}: launches a step differ: {per_step}")
+    if len(catchups) != 2:
+        raise AssertionError(f"{path}: {len(catchups)} re-admissions")
+    res = step_stats(torch, trainer, state, path, losses, launches)
+    full = [t for t, n in zip(step_ms[1:], want[1:]) if n == P]
+    degraded = [t for t, n in zip(step_ms[1:], want[1:]) if n < P]
+    res.update(steps=len(losses), samples_per_step=P * W * batch,
+               schedule=schedule.spec(), num_live=live, epochs=epochs,
+               losses=losses, step_ms=step_ms,
+               step_ms_median=statistics.median(step_ms[1:]),
+               step_ms_median_full=statistics.median(full),
+               step_ms_median_degraded=statistics.median(degraded),
+               launches_per_step=per_step[0], catchups=catchups)
+    if path == "resilience_fsa":
+        res["survivor_identity"] = survivor_identity(torch, device=device)
+    si = res.get("survivor_identity")
+    log(f"path {path}: {len(losses)} steps of [{P}, {W}] x {batch} under "
+        f"{schedule.spec()}: num_live_parties {[int(n) for n in live]} (the "
+        f"schedule's), loss {losses[0]:.4f} -> {losses[-1]:.4f}, replicas "
+        f"identical after every step, launches a step {per_step[0]} in "
+        f"every step (full and degraded), step "
+        f"{res['step_ms_median_full']:.2f} ms full / "
+        f"{res['step_ms_median_degraded']:.2f} ms degraded (median), "
+        f"catch-up " + ", ".join(
+            f"at step {c['step']} {c['bytes']} bytes in {c['ms']:.1f} ms"
+            for c in catchups) + " (bit-equal round trips)"
+        + ("" if si is None else
+           f"; survivor identity vs [3, 2]: "
+           + ("bit-equal" if si["bit_equal"] else
+              f"max {si['max_abs_diff']:.3g} ({si['max_ulp']:.2f} ulp)")
+           + f", losses {si['loss_degraded']:.6f} / "
+           f"{si['loss_survivors']:.6f}")
+        + f", peak {res['peak_mem_gb']} GB")
+    return res
+
+
 def cnn_bsc_phase(torch) -> dict:
     """Path cnn_bsc: the port's examples/cnn_bsc.py entry point itself
     (``cnn_common.run``), on [2, 4] from the GEOMX_* environment, as the
@@ -2250,11 +2560,16 @@ def seq_path_phase(torch, path: str, device=None):
 
 # ---- the host parameter-service plane --------------------------------------
 
-# the JAX example's last test accuracy in the dist_ps_mixed_sched job
+# the dist_ps_mixed_sched gate, like for like: the JAX example's job
 # (GEOMX_USE_SCHEDULER=1 GEOMX_SYNC_MODE=mixed, 2 x 2, 3 epochs, batch
-# 64) on the CPU: the mean of 12 workers over three runs of
-# scripts/launch.py + examples/dist_ps.py (0.828-0.883 a worker; PERF.md)
-DIST_PS_JAX_MIXED_TEST_ACC = 0.861
+# 64; scripts/launch.py + examples/dist_ps.py) on the CPU, its LOWEST
+# worker's last test accuracy over 32 runs on an otherwise idle host
+# (tools/torch_jax_mixed_repeat.py: min 0.734, median 0.847; PERF.md):
+# the port's lowest worker must reach the JAX job's worst lowest worker.
+# MixedSync's asynchronous tiers now and then leave one party's workers
+# behind in both packages, so the mean of all workers is no floor for
+# the lowest one
+DIST_PS_JAX_MIXED_LOWEST_MIN = 0.734
 DIST_PS = {"dist_ps_fsa": dict(mode="fsa", scheduler=False, procs=7),
            "dist_ps_mixed_sched": dict(mode="mixed", scheduler=True,
                                        procs=8)}
@@ -2405,12 +2720,15 @@ def dist_ps_phase(torch, path: str) -> dict:
         res["golden_max_abs_diff"] = gap
         gate = "4 models bit-equal, golden gap " f"{gap:.3g} (gate 5e-5)"
     else:
-        floor = DIST_PS_JAX_MIXED_TEST_ACC - 0.05
+        floor = DIST_PS_JAX_MIXED_LOWEST_MIN
         low = min(res["last_test_acc"].values())
         if low < floor:
-            raise AssertionError(f"{path}: last test accuracy {low} under "
-                                 f"{floor:.3f}: {res['last_test_acc']}")
-        gate = f"every last test accuracy >= {floor:.3f}"
+            raise AssertionError(f"{path}: lowest last test accuracy {low} "
+                                 f"under the JAX job's lowest worker's "
+                                 f"minimum {floor:.3f}: "
+                                 f"{res['last_test_acc']}")
+        gate = (f"the lowest last test accuracy {low:.3f} >= the JAX "
+                f"job's lowest worker's minimum {floor:.3f}")
     log(f"path {path}: {cfg['procs']} processes exited 0 in {wall:.1f} s, "
         f"{gate}, native SGD {res['native_sgd']}, round "
         f"{res['round_ms_median']:.2f} ms (median of {len(round_ms)} "
@@ -2692,6 +3010,15 @@ def host_plane_phase(torch) -> dict:
 # as bench.py:4348-4353 builds them; here on ResNet-20's 65 leaves
 MANYPARTY = dict(parties=16, shards=4, rounds=6, rebalance_round=2,
                  p3_slice_elems=512)
+# bench.py --compare-manyparty's chaos run on the same traffic: shard 1
+# killed before round 3's traffic (round index 2) and restarted on its
+# journal one tick later; the clock moves to the restart once no party
+# has finished the round for MANYPARTY_DWELL_S (bench.py's stall dwell)
+MANYPARTY_CHAOS = "seed=991;kill@2:node=shard1,restart_after=1"
+MANYPARTY_DWELL_S = 0.4
+# the chaos run's rounds: the restart's round and one after it (its
+# final pulls are held against the twin's pulls after as many rounds)
+MANYPARTY_CHAOS_ROUNDS = 4
 # bench.py:4581's merge-throughput shape: 8 keys of 65,536, each shard
 # its own process, 48 pushes a key from 4 threads (best of 2)
 MANYPARTY_THROUGHPUT = dict(shard_counts=(1, 2, 4), nkeys=8, dim=65536,
@@ -2713,7 +3040,8 @@ def resnet20_leaves(torch) -> dict:
 
 
 def _manyparty_tier(torch, init: dict, num_shards: int, shard_device,
-                    compress_device, rebalance: bool) -> dict:
+                    compress_device, rebalance: bool,
+                    durable_root=None, rounds=None) -> dict:
     """One run of the many-party traffic against a sharded tier of
     ``num_shards`` shards on ``shard_device`` (Adam through the factory
     there): every party pushes each round's seeded normal gradient of
@@ -2721,7 +3049,15 @@ def _manyparty_tier(torch, init: dict, num_shards: int, shard_device,
     its own BiSparseCompressor on ``compress_device``, the rest dense;
     then pulls every leaf.  With ``rebalance`` the scheduler rebalances
     (min_gain 0) after the first half of the parties pushed round
-    ``rebalance_round``, while the round is open."""
+    ``rebalance_round``, while the round is open.  With ``durable_root``
+    the scheduler and every shard journal under it, and MANYPARTY_CHAOS
+    drives the shards' lifecycle through the chaos engine's hook, as
+    bench.py --compare-manyparty does: ``kill`` crashes the shard before
+    the round's traffic, ``restart`` is a replacement on the same port
+    replaying the shard's journal; the clock moves to the restart once
+    no party has finished the round for MANYPARTY_DWELL_S.  ``rounds``
+    defaults to MANYPARTY's; party 0's pulls after each round come back
+    as ``round_pulls``."""
     import threading
 
     import numpy as np
@@ -2733,12 +3069,21 @@ def _manyparty_tier(torch, init: dict, num_shards: int, shard_device,
                                          start_sharded_global_tier)
     from geomx_tpu_torch.service.protocol import wire_stats
 
-    P, rounds = MANYPARTY["parties"], MANYPARTY["rounds"]
+    P = MANYPARTY["parties"]
+    rounds = rounds or MANYPARTY["rounds"]
     keys = list(init)
-    sched = GeoScheduler().start()
+    round_pulls = []
+    sdir = tdir = None
+    if durable_root is not None:
+        sdir = os.path.join(durable_root, "scheduler")
+        tdir = os.path.join(durable_root, "tier")
+    sched = GeoScheduler(durable_dir=sdir).start()
     addr = ("127.0.0.1", sched.port)
     servers = start_sharded_global_tier(addr, num_shards=num_shards,
-                                        num_workers=P, device=shard_device)
+                                        num_workers=P, device=shard_device,
+                                        durable_dir=tdir)
+    chaos = _ShardLifecycle(servers, P, shard_device, tdir) \
+        if durable_root is not None else None
     sc = SchedulerClient(addr)
     workers = [ShardedGlobalClient(
         addr, sender_id=p, reconnect=True,
@@ -2780,8 +3125,10 @@ def _manyparty_tier(torch, init: dict, num_shards: int, shard_device,
                     if rebalance and r == MANYPARTY["rebalance_round"] \
                             and not late:
                         first_half.release()
-                    for k in keys:
-                        w.pull(k, timeout=240.0)
+                    pulled = {k: np.array(w.pull(k, timeout=240.0))
+                              for k in keys}
+                    if p == 0:
+                        round_pulls.append(pulled)
                     done.release()
             except Exception as e:  # surfaced below: the phase fails
                 errs.append(f"party {p}: {e!r}")
@@ -2814,6 +3161,8 @@ def _manyparty_tier(torch, init: dict, num_shards: int, shard_device,
                     payloads[(p, k)] = (pay, {"comp": "bsc",
                                               "n": int(init[k].size),
                                               "shape": list(init[k].shape)})
+            if chaos is not None:
+                chaos.engine.tick(r)  # before the round's traffic
             t0 = time.perf_counter()
             go[r].set()
             if rebalance and r == MANYPARTY["rebalance_round"]:
@@ -2825,9 +3174,16 @@ def _manyparty_tier(torch, init: dict, num_shards: int, shard_device,
                 rebal = sc.rebalance_shards(min_gain=0)
                 rebal["wall_ms"] = 1e3 * (time.perf_counter() - t1)
                 rebalanced.set()
-            for _ in range(P):
-                if not done.acquire(timeout=600):
+            got, last = 0, time.perf_counter()
+            while got < P:
+                if done.acquire(timeout=0.05):
+                    got, last = got + 1, time.perf_counter()
+                elif time.perf_counter() - last > 600:
                     raise AssertionError(f"manyparty: round {r} stalled")
+                elif chaos is not None and chaos.killed and \
+                        time.perf_counter() - last > MANYPARTY_DWELL_S:
+                    # an outage: move the clock so the restart fires
+                    chaos.engine.tick(r + 1)
             if errs:
                 raise AssertionError(f"manyparty: {errs}")
             round_ms.append(1e3 * (time.perf_counter() - t0))
@@ -2841,14 +3197,77 @@ def _manyparty_tier(torch, init: dict, num_shards: int, shard_device,
             finals=finals, progress=progress, round_ms=round_ms,
             rebalance=rebal, compress_ms=compress_ms, eligible=eligible,
             map_version=max(w.map_version for w in workers),
-            socket_bytes=wire1["bytes_sent"] - wire0["bytes_sent"])
+            socket_bytes=wire1["bytes_sent"] - wire0["bytes_sent"],
+            round_pulls=round_pulls,
+            chaos=None if chaos is None else chaos.record())
     finally:
+        if chaos is not None:
+            chaos.close()
         for w in workers:
             w.close()
         for s in servers:
             s.stop(forward=False)
         sc.close()
         sched.stop()
+
+
+class _ShardLifecycle:
+    """The owner of a sharded tier's processes for the chaos engine's
+    ``kill@``/``restart@ ... node=shard<i>`` verbs (MANYPARTY_CHAOS):
+    kill = ``crash()``; restart = a replacement on the same port
+    replaying ``shard<i>``'s journal.  Records the outage and the
+    records each restart replays."""
+
+    def __init__(self, servers: list, parties: int, device, tier_dir):
+        from geomx_tpu_torch.resilience.chaos import (
+            ChaosEngine, ChaosSchedule, set_node_lifecycle_hook)
+        from geomx_tpu_torch.service.shardmap import even_bounds
+        self.servers, self.parties = servers, parties
+        self.device, self.tier_dir = device, tier_dir
+        self.bounds = even_bounds(len(servers))
+        self.killed, self.kill_t = set(), {}
+        self.outage_s, self.replayed, self.events = 0.0, {}, []
+        self.schedule = ChaosSchedule.from_spec(MANYPARTY_CHAOS)
+        set_node_lifecycle_hook(self.lifecycle)
+        self.engine = ChaosEngine(self.schedule, controller=None)
+
+    def lifecycle(self, action: str, node: str) -> None:
+        from geomx_tpu_torch.resilience.chaos import shard_node_index
+        from geomx_tpu_torch.resilience.durability import DurableStateStore
+        from geomx_tpu_torch.service import GeoPSServer
+        i = shard_node_index(node)
+        now = time.perf_counter()
+        self.events.append((action, node))
+        if action == "kill":
+            self.kill_t[node] = now
+            self.servers[i].crash()
+            self.killed.add(node)
+            return
+        # what the replacement replays: the snapshot and the journal
+        # records after it, read before it starts
+        store = DurableStateStore(self.tier_dir, f"shard{i}")
+        snap, records = store.load()
+        store.close()
+        self.replayed[node] = len(records) + (snap is not None)
+        self.servers[i] = GeoPSServer(
+            num_workers=self.parties, mode="sync", accumulate=True, rank=i,
+            shard_index=i, port=self.servers[i].port,
+            shard_range=(self.bounds[i], self.bounds[i + 1]),
+            shard_map_version=1, durable_dir=self.tier_dir,
+            durable_name=f"shard{i}", device=self.device).start()
+        self.killed.discard(node)
+        self.outage_s += now - self.kill_t.pop(node, now)
+
+    def record(self) -> dict:
+        return dict(schedule=self.schedule.spec(), events=self.events,
+                    outage_s=self.outage_s, replayed_records=self.replayed,
+                    generations={f"shard{i}": s.generation
+                                 for i, s in enumerate(self.servers)})
+
+    def close(self) -> None:
+        from geomx_tpu_torch.resilience.chaos import set_node_lifecycle_hook
+        self.engine.close()
+        set_node_lifecycle_hook(None)
 
 
 _MANYPARTY_SHARD_CHILD = """
@@ -2975,7 +3394,11 @@ def manyparty_phase(torch, device=None) -> dict:
     of the same traffic against one shard whose parties compress on the
     CPU (the plain versions; the sorted-sender merge promises the same
     bits at any shard count); bsc_select_pack launched exactly (19
-    leaves) x 16 parties x 6 rounds times."""
+    leaves) x 16 parties x 6 rounds times.  Then the chaos run
+    (MANYPARTY_CHAOS, no rebalance): every process journals under a
+    temporary root, shard 1 is killed before round 3 and restarted on its
+    journal; after MANYPARTY_CHAOS_ROUNDS rounds its final pulls must be
+    bit-equal to the same twin's pulls after as many rounds."""
     import numpy as np
 
     from geomx_tpu_torch import ops
@@ -2995,6 +3418,12 @@ def manyparty_phase(torch, device=None) -> dict:
         torch.cuda.synchronize()
     launches = ops.launch_counts()
     twin = _manyparty_tier(torch, init, 1, dev, cpu, rebalance=False)
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.perf_counter()
+        chaos_run = _manyparty_tier(torch, init, S, dev, dev,
+                                    rebalance=False, durable_root=root,
+                                    rounds=MANYPARTY_CHAOS_ROUNDS)
+        chaos_wall = time.perf_counter() - t1
     eligible = card["eligible"]
     want = len(eligible) * P * rounds
     if dev.type == "cuda" and launches["bsc_select_pack"] != want:
@@ -3019,6 +3448,19 @@ def manyparty_phase(torch, device=None) -> dict:
             if twin["finals"][p][k].tobytes() != ref[k].tobytes():
                 raise AssertionError(f"manyparty: party {p}'s {k} differs "
                                      "from the one-shard CPU-compress twin")
+            if chaos_run["finals"][p][k].tobytes() != twin["round_pulls"][
+                    MANYPARTY_CHAOS_ROUNDS - 1][k].tobytes():
+                raise AssertionError(f"manyparty chaos: party {p}'s {k} "
+                                     "differs from the no-kill twin's "
+                                     f"after {MANYPARTY_CHAOS_ROUNDS} "
+                                     "rounds")
+    ch = chaos_run["chaos"]
+    if ch["events"] != [("kill", "shard1"), ("restart", "shard1")] or \
+            ch["generations"]["shard1"] != 2 or \
+            any(prog.get(k, 0) != MANYPARTY_CHAOS_ROUNDS
+                for prog in chaos_run["progress"] for k in init):
+        raise AssertionError(f"manyparty chaos: {ch}, progress "
+                             f"{chaos_run['progress'][0]}")
     if not all(np.isfinite(v).all() for v in ref.values()):
         raise AssertionError("manyparty: non-finite parameters")
     res = dict(
@@ -3034,7 +3476,8 @@ def manyparty_phase(torch, device=None) -> dict:
         socket_bytes_per_shard_round=card["socket_bytes"] / rounds / S,
         compress_ms_per_key_card=statistics.median(card["compress_ms"]),
         compress_ms_per_key_cpu=statistics.median(twin["compress_ms"]),
-        launches=launches)
+        launches=launches,
+        chaos=dict(ch, wall_s=chaos_wall, round_ms=chaos_run["round_ms"]))
     log(f"phase manyparty_sharded: {P} parties x {S} shards, "
         f"{len(init)} ResNet-20 leaves ({res['params']} parameters, "
         f"{len(eligible)} pushed as BSC pairs), Adam(0.01) on the shards, "
@@ -3050,11 +3493,184 @@ def manyparty_phase(torch, device=None) -> dict:
         f"({res['socket_bytes_per_shard_round']:.0f} a shard, mean); "
         f"compress {res['compress_ms_per_key_card']:.3f} ms a key on the "
         f"card vs {res['compress_ms_per_key_cpu']:.3f} ms on the CPU")
+    log(f"  chaos run {ch['schedule']} (durable, no rebalance): outage "
+        f"{ch['outage_s'] * 1e3:.1f} ms, shard1 replayed "
+        f"{ch['replayed_records']['shard1']} records at generation "
+        f"{ch['generations']['shard1']}; rounds "
+        f"{[round(x, 1) for x in chaos_run['round_ms']]} ms; "
+        f"{chaos_wall:.1f} s; final pulls bit-equal to the no-kill twin's "
+        f"after {MANYPARTY_CHAOS_ROUNDS} rounds")
     res["throughput"] = manyparty_throughput()
     log("  merge throughput (8 keys of 65,536, a process a shard, not "
         "gated): " + ", ".join(
             f"{r['shards']} shards {r['pushes_per_s']:.1f} pushes/s"
             for r in res["throughput"]))
+    return res
+
+
+_DURABLE_SERVER_CHILD = """
+import sys
+from geomx_tpu_torch.service import GeoPSServer
+srv = GeoPSServer(num_workers=2, mode="sync", accumulate=True,
+                  port=int(sys.argv[1]), durable_dir=sys.argv[2],
+                  durable_name="g", device="cpu").start()
+print("READY", srv.generation, flush=True)
+srv.join()
+"""
+
+
+def _spawn_durable_server(port: int, durable_dir: str):
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _DURABLE_SERVER_CHILD, str(port),
+         durable_dir], cwd=root, stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=root))
+    line = proc.stdout.readline().split()
+    if not line or line[0] != "READY":
+        proc.kill()
+        raise AssertionError(f"durable server child failed: {line}")
+    return proc, int(line[1])
+
+
+def durable_recovery_phase(torch) -> dict:
+    """Phase durable_recovery (the host plane alone, no kernel): (a) a
+    durable GeoPSServer in its own process takes two workers' pushes of
+    ResNet-20's 65 leaves; round 2 is open (worker 0's pushes merged in
+    memory only) when the process is SIGKILLed; a new process on the same
+    directory and port replays the journal, worker 0's session resume
+    re-pushes its retained round, worker 1 pushes, and every pull is the
+    exact sum of the four pushes (no loss, no double merge), bit for bit;
+    (b) a durable GeoScheduler with 2 parties x 2 workers registered is
+    crashed and restarted inside its grace window: every node gets its
+    old id back, the roster epoch goes on counting, and the dead list
+    stays empty."""
+    import signal
+    import socket
+
+    import numpy as np
+
+    from geomx_tpu_torch.resilience.durability import DurableStateStore
+    from geomx_tpu_torch.service import (GeoPSClient, GeoScheduler,
+                                         SchedulerClient)
+
+    init = resnet20_leaves(torch)
+    rng = np.random.default_rng(4242)
+    pushes = [[{k: rng.standard_normal(v.shape, dtype=np.float32)
+                for k, v in init.items()} for _ in range(2)]
+              for _ in range(2)]  # [round][worker]
+    want = {k: (init[k] + (pushes[0][0][k] + pushes[0][1][k]))
+            + (pushes[1][0][k] + pushes[1][1][k]) for k in init}
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        proc, gen1 = _spawn_durable_server(port, root)
+        proc2 = None
+        cs = []
+        try:
+            cs = [GeoPSClient(("127.0.0.1", port), sender_id=i,
+                              reconnect=True) for i in range(2)]
+            for c in cs:
+                for k, v in init.items():
+                    c.init(k, v)
+            t0 = time.perf_counter()
+            for i, c in enumerate(cs):
+                for k in init:
+                    c.push(k, pushes[0][i][k])
+            for k in init:
+                cs[0].pull(k, timeout=60.0)
+            round_ms = 1e3 * (time.perf_counter() - t0)
+            for k in init:   # round 2 open: ACKed, merged in memory only
+                cs[0].push(k, pushes[1][0][k])
+            t_kill = time.perf_counter()
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=30)
+            store = DurableStateStore(root, "g")
+            snap, records = store.load()
+            store.close()
+            proc2, gen2 = _spawn_durable_server(port, root)
+            t_up = time.perf_counter()
+            for k in init:
+                cs[1].push(k, pushes[1][1][k])
+            got = [{k: np.asarray(c.pull(k, timeout=120.0)) for k in init}
+                   for c in cs]
+            t_done = time.perf_counter()
+            for g in got:
+                for k in init:
+                    if g[k].tobytes() != want[k].tobytes():
+                        raise AssertionError(
+                            f"durable_recovery: {k} after the restart "
+                            "is not the exact sum of the four pushes")
+            if (gen1, gen2) != (1, 2):
+                raise AssertionError(f"durable_recovery: generations "
+                                     f"{gen1}, {gen2}")
+            res.update(keys=len(init), params=int(sum(
+                v.size for v in init.values())), round_ms=round_ms,
+                restart_s=t_up - t_kill, resume_s=t_done - t_up,
+                outage_s=t_done - t_kill,
+                replayed_records=len(records) + (snap is not None),
+                generations=[gen1, gen2])
+            cs[0].stop_server()
+        finally:
+            for c in cs:
+                c.close()
+            for p in (proc, proc2):
+                if p is not None and p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+    with tempfile.TemporaryDirectory() as root:
+        sched = GeoScheduler(durable_dir=root, heartbeat_timeout=0.5).start()
+        port = sched.port
+        tags = [f"{p}.{w}" for p in range(2) for w in range(2)]
+        clients = [SchedulerClient(("127.0.0.1", port)) for _ in tags]
+        try:
+            for c, tag in zip(clients, tags):
+                c.register("worker", tag=tag)
+                c.heartbeat()
+            ids = [c.node_id for c in clients]
+            epoch0 = max(c.roster_epoch for c in clients)
+            sched.crash()
+            t0 = time.perf_counter()
+            sched = GeoScheduler(durable_dir=root, port=port,
+                                 heartbeat_timeout=0.5,
+                                 restart_grace_s=30.0).start()
+            again = [SchedulerClient(("127.0.0.1", port)) for _ in tags]
+            clients += again
+            metas = [c.register("worker", tag=tag)
+                     for c, tag in zip(again, tags)]
+            rejoin_ms = 1e3 * (time.perf_counter() - t0)
+            if [c.node_id for c in again] != ids or \
+                    not all(m["is_recovery"] for m in metas):
+                raise AssertionError(f"durable_recovery: ids {ids} -> "
+                                     f"{[c.node_id for c in again]}")
+            health = sched.health_snapshot()
+            if not (health["restart_grace"] and health["generation"] == 2
+                    and again[0].dead_nodes() == []
+                    and again[-1].roster_epoch > epoch0):
+                raise AssertionError(f"durable_recovery: scheduler after "
+                                     f"its restart {health}")
+            res["scheduler"] = dict(nodes=len(tags), ids=ids,
+                                    epoch_before=epoch0,
+                                    epoch_after=again[-1].roster_epoch,
+                                    rejoin_ms=rejoin_ms, generation=2)
+        finally:
+            for c in clients:
+                c.close()
+            sched.stop()
+    log(f"phase durable_recovery: a durable server process with "
+        f"{res['keys']} ResNet-20 leaves ({res['params']} parameters) x 2 "
+        f"workers, SIGKILLed with round 2 open; the new process replayed "
+        f"{res['replayed_records']} records (generation "
+        f"{res['generations'][0]} -> {res['generations'][1]}) and was up "
+        f"{res['restart_s']:.2f} s after the kill; session resume closed "
+        f"round 2 {res['resume_s']:.2f} s later, every pull the exact sum "
+        f"of the four pushes (round 1 took {res['round_ms']:.1f} ms); the "
+        f"scheduler restarted inside its grace window: {len(tags)} nodes "
+        f"got their ids {ids} back in {res['scheduler']['rejoin_ms']:.1f} "
+        f"ms, epoch {epoch0} -> {res['scheduler']['epoch_after']}, no "
+        f"node read as dead")
     return res
 
 
@@ -3385,7 +4001,9 @@ def main(argv=None) -> int:
     zero_diff = zero_identity(torch)
     seq_reference_phase(torch)
     zoo_phases = {"cnn_bsc": cnn_bsc_phase,
-                  "alexnet_fused_adam": alexnet_phase}
+                  "alexnet_fused_adam": alexnet_phase,
+                  **{p: lambda t, p=p: resilience_phase(t, p)
+                     for p in RESILIENCE_PATHS}}
     paths = {path: zoo_phases[path](torch) if path in zoo_phases
              else main_path_phase(torch, path, cfg[4] or args.steps)
              for path, cfg in PATHS.items()}
@@ -3394,6 +4012,7 @@ def main(argv=None) -> int:
     host["host_plane_resnet20"] = host_plane_phase(torch)
     host["manyparty_sharded"] = manyparty_phase(torch)
     host["kvstore_hips"] = kvstore_phase(torch)
+    host["durable_recovery"] = durable_recovery_phase(torch)
     examples = {f"long_context_{mode}": long_context_phase(torch, mode)
                 for mode in ("ring", "ulysses")}
     log("median step: " + ", ".join(

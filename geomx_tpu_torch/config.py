@@ -133,6 +133,29 @@ class GeoConfig:
     # ---- data (load_dataset's root)
     data_dir: str = DEFAULT_DATA_DIR
 
+    # ---- liveness: a node silent this long is dead (reference
+    # PS_HEARTBEAT_TIMEOUT, van.h:304-305); the PartyLivenessController's
+    # default timeout
+    heartbeat_timeout_s: float = 15.0
+
+    # ---- resilience (resilience/: membership epochs, degraded-mode
+    # sync, deterministic chaos).  The residual policy at a membership
+    # change: "reset" re-initializes the dc-tier compressor residuals and
+    # pipeline buffers, "carry" keeps them
+    resilience_residuals: str = "reset"
+    # the PartyLivenessController's floor: a transition leaving fewer
+    # live parties raises instead of publishing an unexecutable epoch
+    resilience_min_live: int = 1
+    # chaos schedule spec (resilience/chaos.py format); "" = no chaos
+    chaos_schedule: str = ""
+
+    # ---- the JAX package's collective audit at a membership swap
+    # (analysis/).  Read and kept: the port acts on it nowhere but
+    # Trainer.apply_membership, which refuses a swap while it is on
+    # (ROADMAP.md Queue 1, "Audits")
+    audit: bool = False
+    audit_severity: str = "error"
+
     # ---- read and refused unless at its default (UNPORTED): telemetry
     # (the step probes, the event log, the flight recorder, run capsules)
     telemetry: bool = False
@@ -195,6 +218,16 @@ class GeoConfig:
             multi_gps=_env_bool(["GEOMX_MULTI_GPS"], False),
             prefetch=_env(["GEOMX_PREFETCH"], 2, lambda s: int(float(s))),
             data_dir=_env(["GEOMX_DATA_DIR"], DEFAULT_DATA_DIR, str),
+            heartbeat_timeout_s=_env(
+                ["GEOMX_HEARTBEAT_TIMEOUT", "PS_HEARTBEAT_TIMEOUT"], 15.0,
+                float),
+            resilience_residuals=_env(
+                ["GEOMX_RESILIENCE_RESIDUALS"], "reset", str),
+            resilience_min_live=_env(
+                ["GEOMX_RESILIENCE_MIN_LIVE"], 1, int),
+            chaos_schedule=_env(["GEOMX_CHAOS_SCHEDULE"], "", str),
+            audit=_env_bool(["GEOMX_AUDIT"], False),
+            audit_severity=_env(["GEOMX_AUDIT_SEVERITY"], "error", str),
             telemetry=_env_bool(["GEOMX_TELEMETRY"], False),
             telemetry_events=_env(["GEOMX_TELEMETRY_EVENTS"], "", str),
             flight=_env_bool(["GEOMX_FLIGHT"], False),
@@ -211,19 +244,8 @@ class GeoConfig:
 
 
 def unported(what: str, item: str) -> NotImplementedError:
-    """The refusal of a host-plane knob or argument the port does not
-    run yet, naming the ROADMAP.md Queue 1 item that ports it by its
-    title (raise the returned error)."""
+    """The refusal of a knob, argument or call the port does not run
+    yet, naming the ROADMAP.md Queue 1 item that ports it by its title
+    (raise the returned error)."""
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1, {item!r})")
-
-
-def refuse_durable_dir(explicit=None) -> None:
-    """Raise :func:`unported` when a durable directory is asked for,
-    resolved as the JAX package resolves it: an explicit argument wins,
-    else ``GEOMX_DURABLE_DIR``; None or "" mean memory-only."""
-    ddir = explicit if explicit is not None \
-        else os.environ.get("GEOMX_DURABLE_DIR")
-    if ddir:
-        raise unported(f"a durable directory ({ddir!r}; durable_dir, "
-                       "GEOMX_DURABLE_DIR)", "Resilience and utils")

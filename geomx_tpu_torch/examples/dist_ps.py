@@ -372,9 +372,7 @@ def run_worker(device):
 
 def main(argv=None):
     args = parse_args(argv)
-    from geomx_tpu_torch.config import refuse_durable_dir
     from geomx_tpu_torch.device import resolve_device
-    refuse_durable_dir()
     device = resolve_device("cpu" if args.cpu else None)
     {"scheduler": run_scheduler,
      "global_server": run_global_server,

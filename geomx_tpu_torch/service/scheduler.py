@@ -27,15 +27,23 @@ COMMAND protocol:
   shard's address, and a rebalance moves range bounds from the shards'
   observed load and migrates the key state shard to shard.
 
+Durability (``durable_dir``/``GEOMX_DURABLE_DIR``): the roster, the id
+table, the epoch and every shard-map install persist through a
+``resilience.durability.DurableStateStore`` named ``scheduler``, so a
+restarted scheduler hands every re-registering node its old id and the
+epoch keeps counting.  For ``restart_grace_s`` (``GEOMX_RESTART_GRACE_S``,
+default the heartbeat timeout) after such a restart the dead list stays
+empty, so live nodes that have not re-dialed yet are not read as dead.
+
 Telemetry: roster churn (registrations, evictions, epoch bumps) is
 recorded as registry gauges/counters and as profiler instants carrying
-the roster epoch.  The JAX scheduler also serves the registry as
-Prometheus text (``metrics_port``/``GEOMX_METRICS_PORT``, the
-``metrics`` command) with FleetScope beside it; in the port those raise
-until ROADMAP item "Telemetry".  Its durable roster
-(``durable_dir``/``GEOMX_DURABLE_DIR``, "Resilience and utils": the
-shard map is journaled there too) and the serving surface of its health
-document ("Serving") are not ported either.
+the roster epoch; a restart bumps ``geomx_host_restarts_total``.  The
+JAX scheduler also serves the registry as Prometheus text
+(``metrics_port``/``GEOMX_METRICS_PORT``, the ``metrics`` command) with
+FleetScope beside it, and announces a restart to its event log; in the
+port those raise or are absent until ROADMAP item "Telemetry".  The
+serving surface of its health document ("Serving") is not ported
+either.
 
 `geomx_tpu_torch/launch.py` starts one per job when GEOMX_USE_SCHEDULER=1
 and `geomx_tpu_torch/examples/dist_ps.py` then discovers every address
@@ -51,8 +59,7 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
-from geomx_tpu_torch.config import (_env, _env_bool, refuse_durable_dir,
-                                    unported)
+from geomx_tpu_torch.config import _env, _env_bool, unported
 from geomx_tpu_torch.service.protocol import (Msg, MsgType, connect_retry,
                                               recv_frame, send_frame)
 from geomx_tpu_torch.utils.heartbeat import HeartbeatMonitor
@@ -69,11 +76,10 @@ class GeoScheduler:
                  metrics_port: Optional[int] = None,
                  durable_dir: Optional[str] = None,
                  restart_grace_s: Optional[float] = None):
-        """``metrics_port`` and ``durable_dir`` keep the JAX signature
-        and raise ``NotImplementedError`` unless left at their defaults
-        (module docstring); ``restart_grace_s`` shapes a durable restart,
-        so it does nothing without a durable directory."""
-        refuse_durable_dir(durable_dir)
+        """``metrics_port`` keeps the JAX signature and raises
+        ``NotImplementedError`` unless left at its default (module
+        docstring).  ``durable_dir`` (default ``GEOMX_DURABLE_DIR``) arms
+        the durable roster; ``restart_grace_s`` shapes its restart."""
         if metrics_port is not None \
                 or os.environ.get("GEOMX_METRICS_PORT") not in (None, ""):
             raise unported("the scheduler's metrics endpoint "
@@ -107,10 +113,38 @@ class GeoScheduler:
         # lock is never held across the shard RPCs a rebalance performs.
         self._shard_map = None
         self._rebalance_lock = threading.Lock()
-        # generation token: rides every reply, the clients' restart
-        # detector (a fresh draw: the durable roster is not ported)
+        # ---- durability: roster, id table and epoch persist through
+        # the shared DurableStateStore, so a restarted scheduler hands
+        # every re-registering node its OLD id (is_recovery) and the
+        # epoch keeps counting instead of resetting under the liveness
+        # plane.  The generation token rides every reply (the clients'
+        # restart detector): the store's counter, else a fresh draw
         import random as _rnd
         self.generation = _rnd.getrandbits(31) | 1
+        self._durable = None
+        self._grace_until = 0.0
+        from geomx_tpu_torch.resilience.durability import (
+            DurableStateStore, durable_dir_from_env)
+        ddir = durable_dir_from_env(durable_dir)
+        restored = False
+        if ddir:
+            self._durable = DurableStateStore(ddir, "scheduler")
+            self.generation = self._durable.bump_generation()
+            restored = self._restore_durable()
+            if restored and self.generation > 1:
+                # re-registration grace window: live nodes whose
+                # heartbeats predate the restart must not be mass-
+                # evicted while they re-dial — seed their heartbeat
+                # identities fresh AND hold the dead list shut until
+                # the window passes
+                if restart_grace_s is None:
+                    restart_grace_s = _env(("GEOMX_RESTART_GRACE_S",),
+                                           float(heartbeat_timeout), float)
+                self._grace_until = time.monotonic() + \
+                    max(0.0, float(restart_grace_s))
+                for entries in self._roster.values():
+                    for e in entries:
+                        self.heartbeats.heartbeat(int(e[0]))
 
         self._started_monotonic = time.monotonic()
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -163,6 +197,101 @@ class GeoScheduler:
         self._m_failovers = reg.counter(
             "geomx_scheduler_shard_failovers_total",
             "Shard failovers applied (address re-points)")
+        if self._shard_map is not None:
+            self._m_shard_ver.set(self._shard_map.version)
+        if restored and self.generation > 1:
+            self._announce_restart()
+
+    # ---- durability --------------------------------------------------------
+
+    def _announce_restart(self):
+        from geomx_tpu_torch.resilience.durability import \
+            record_host_restart
+        record_host_restart("scheduler", self.generation)
+        from geomx_tpu_torch.utils.profiler import get_profiler
+        get_profiler().instant(
+            "SchedulerRestart", "scheduler",
+            args={"generation": self.generation, "epoch": self._epoch})
+
+    def _durable_state_locked(self) -> dict:
+        return {"assigned": [[list(k), v]
+                             for k, v in self._assigned.items()],
+                "roster": {r: [list(e) for e in v]
+                           for r, v in self._roster.items()},
+                "next": dict(self._next),
+                "epoch": self._epoch,
+                "shard_map": None if self._shard_map is None
+                else self._shard_map.to_meta()}
+
+    def _journal(self, rec: dict) -> None:
+        """Append one roster mutation; caller holds self._lock.  The
+        roster is tiny, so compaction is cheap and frequent."""
+        if self._durable is None:
+            return
+        self._durable.append(rec)
+        if self._durable.records_appended % 64 == 0:
+            self._durable.compact(self._durable_state_locked())
+
+    def _restore_durable(self) -> bool:
+        snap, records = self._durable.load()
+        if snap is None and not records:
+            return False
+        state = snap or {"assigned": [], "roster": {}, "next": {},
+                         "epoch": 0}
+        self._assigned = {tuple(k): int(v)
+                          for k, v in state.get("assigned", [])}
+        self._roster = {r: [tuple(e) for e in v]
+                        for r, v in state.get("roster", {}).items()}
+        self._next.update({k: int(v)
+                           for k, v in state.get("next", {}).items()})
+        self._epoch = int(state.get("epoch", 0))
+        if state.get("shard_map") is not None:
+            from geomx_tpu_torch.service.shardmap import ShardMap
+            self._shard_map = ShardMap.from_meta(state["shard_map"])
+        for rec in records:
+            self._apply_durable_record(rec)
+        return True
+
+    def _apply_durable_record(self, rec: dict) -> None:
+        kind = rec.get("k")
+        if kind == "register":
+            key = tuple(rec["key"])
+            node_id = int(rec["id"])
+            # an id claimed under a NEW key releases its old binding
+            # (explicit prev_id recovery moved the identity)
+            for k0, v0 in list(self._assigned.items()):
+                if v0 == node_id and k0 != key:
+                    del self._assigned[k0]
+            self._assigned[key] = node_id
+            role = key[0]
+            entries = [e for e in self._roster.get(role, [])
+                       if e[0] != node_id]
+            entries.append(tuple(rec["entry"]))
+            self._roster[role] = sorted(entries)
+            self._next[role] = max(self._next.get(role, 0),
+                                   node_id + 2)
+            self._epoch = max(self._epoch, int(rec.get("epoch", 0)))
+        elif kind == "evict":
+            node = int(rec["node"])
+            for role, entries in list(self._roster.items()):
+                self._roster[role] = [e for e in entries
+                                      if e[0] != node]
+            for k0, v0 in list(self._assigned.items()):
+                if v0 == node:
+                    del self._assigned[k0]
+            self._epoch = max(self._epoch, int(rec.get("epoch", 0)))
+        elif kind == "shard_map":
+            from geomx_tpu_torch.service.shardmap import ShardMap
+            m = ShardMap.from_meta(rec["map"])
+            if self._shard_map is None or m.version >= \
+                    self._shard_map.version:
+                self._shard_map = m
+
+    def in_restart_grace(self) -> bool:
+        """True while the post-restart re-registration grace window is
+        open: the dead list stays shut so a restart cannot mass-evict
+        live parties that simply haven't re-heartbeated yet."""
+        return time.monotonic() < self._grace_until
 
     def start(self):
         self._thread.start()
@@ -174,13 +303,15 @@ class GeoScheduler:
             self._srv.close()
         except OSError:
             pass
+        if self._durable is not None:
+            self._durable.close()
 
     def crash(self):
         """In-process emulation of a scheduler process death (chaos
         ``kill@...node=scheduler``): sever the listener AND every live
         connection abruptly so clients see exactly what a SIGKILL gives
-        them.  The roster is lost with it (the JAX package's durable
-        roster is not ported)."""
+        them.  Only the durable store survives; a replacement built on
+        the same durable dir (and port) is the restart."""
         self._running = False
         for sock in [self._srv] + list(self._conns):
             try:
@@ -191,6 +322,8 @@ class GeoScheduler:
                 sock.close()
             except OSError:
                 pass
+        if self._durable is not None:
+            self._durable.close()
 
     def join(self, timeout: Optional[float] = None):
         self._thread.join(timeout)
@@ -198,11 +331,10 @@ class GeoScheduler:
     def health_snapshot(self) -> dict:
         """The JAX scheduler's ``GET /healthz`` body as far as the port
         has its parts: roster epoch, per-role roster sizes, live/dead
-        counts from the heartbeat monitor, the shard map's version and
-        width, generation and uptime.  The HTTP endpoint, the build
-        identity ("Telemetry") and the serving surface ("Serving") are
-        not ported; ``restart_grace`` is always False (only a durable
-        roster opens it)."""
+        counts from the heartbeat monitor (none inside the restart grace
+        window), the shard map's version and width, generation and
+        uptime.  The HTTP endpoint, the build identity ("Telemetry") and
+        the serving surface ("Serving") are not ported."""
         with self._lock:
             epoch = self._epoch
             roster = {role: len(nodes)
@@ -214,7 +346,8 @@ class GeoScheduler:
             num_shards = None if self._shard_map is None \
                 else self._shard_map.num_shards
         alive = self.heartbeats.alive_nodes()
-        dead = self.heartbeats.dead_nodes()
+        dead = [] if self.in_restart_grace() \
+            else self.heartbeats.dead_nodes()
         dead_nodes = []
         for nid in dead:
             role, e = by_id.get(int(nid), (None, None))
@@ -230,7 +363,7 @@ class GeoScheduler:
             "dead_parties": len(dead),
             "dead_node_ids": dead,
             "dead_nodes": dead_nodes,
-            "restart_grace": False,
+            "restart_grace": self.in_restart_grace(),
             "shard_map_version": shard_map_version,
             "num_shards": num_shards,
             "generation": self.generation,
@@ -239,9 +372,6 @@ class GeoScheduler:
         }
 
     # ---- key-range sharded global tier (scheduler-owned placement) ---------
-    # The JAX scheduler journals every map install to its durable store
-    # (``_journal``); the port has none until ROADMAP item "Resilience
-    # and utils", so the installs below are memory-only.
 
     @staticmethod
     def _shard_cmd(addr, meta: dict, timeout: float = 60.0) -> dict:
@@ -358,6 +488,7 @@ class GeoScheduler:
                     "version": new.version})
             with self._lock:
                 self._shard_map = new
+                self._journal({"k": "shard_map", "map": new.to_meta()})
                 self._m_shard_ver.set(new.version)
             self._m_rebalances.inc()
             from geomx_tpu_torch.utils.profiler import get_profiler
@@ -481,6 +612,10 @@ class GeoScheduler:
                 self._roster[role] = sorted(entries)
                 self._epoch += 1
                 epoch = self._epoch
+                self._journal({"k": "register", "key": list(key),
+                               "id": node_id,
+                               "entry": [node_id, host, port, tag],
+                               "epoch": epoch})
                 roster = {r: list(v) for r, v in self._roster.items()}
                 self._roster_gauges_locked()
                 # inside the lock: concurrent register/evict handlers
@@ -522,6 +657,8 @@ class GeoScheduler:
                         del self._assigned[k]
                 if evicted:
                     self._epoch += 1
+                    self._journal({"k": "evict", "node": node,
+                                   "epoch": self._epoch})
                 epoch = self._epoch
                 self._roster_gauges_locked()
                 if evicted:
@@ -557,11 +694,14 @@ class GeoScheduler:
             # the Prometheus exposition lives in telemetry/export.py
             raise unported("the 'metrics' command", "Telemetry")
         elif cmd == "num_dead_nodes":
-            dead = self.heartbeats.dead_nodes(msg.meta.get("timeout"))
-            # "grace": the JAX scheduler's post-restart window, which
-            # only its durable roster opens
+            # restart grace: a freshly restored scheduler answers an
+            # empty dead list until live nodes had time to re-dial —
+            # otherwise one scheduler restart would read as a mass
+            # party death to every liveness consumer
+            dead = [] if self.in_restart_grace() else \
+                self.heartbeats.dead_nodes(msg.meta.get("timeout"))
             self._reply(conn, msg, Msg(MsgType.ACK, meta={
-                "dead": dead, "grace": False}))
+                "dead": dead, "grace": self.in_restart_grace()}))
         elif cmd == "init_shard_map":
             # install the version-1 even-bounds map over the given shard
             # addresses.  Idempotent: a second init (a racing bring-up)
@@ -571,6 +711,8 @@ class GeoScheduler:
                 if self._shard_map is None:
                     self._shard_map = ShardMap.initial(
                         (h, int(p)) for h, p in msg.meta["shards"])
+                    self._journal({"k": "shard_map",
+                                   "map": self._shard_map.to_meta()})
                     self._m_shard_ver.set(self._shard_map.version)
                 m = self._shard_map.to_meta()
             self._reply(conn, msg, Msg(MsgType.ACK, meta={"map": m}))
@@ -580,12 +722,9 @@ class GeoScheduler:
                     else self._shard_map.to_meta()
             self._reply(conn, msg, Msg(MsgType.ACK, meta={"map": m}))
         elif cmd == "shard_failover":
-            # a shard missed its restart window and a replacement server
-            # took its place on a NEW port — re-point the map entry and
-            # bump the version so clients redirect (the JAX package
-            # replays the dead shard's journal into the replacement;
-            # the port's replacement starts fresh until "Resilience and
-            # utils")
+            # a shard missed its restart window: its journal replayed
+            # into a replacement server on a NEW port — re-point the
+            # map entry and bump the version so clients redirect
             idx = int(msg.meta["index"])
             host, port = msg.meta["host"], int(msg.meta["port"])
             with self._lock:
@@ -593,6 +732,8 @@ class GeoScheduler:
                     raise RuntimeError("no shard map installed")
                 self._shard_map = self._shard_map.with_address(
                     idx, host, port)
+                self._journal({"k": "shard_map",
+                               "map": self._shard_map.to_meta()})
                 self._m_shard_ver.set(self._shard_map.version)
                 m = self._shard_map.to_meta()
             self._m_failovers.inc()
@@ -830,8 +971,8 @@ class SchedulerClient:
             time.sleep(0.05)
 
     def shard_failover(self, index: int, host: str, port: int) -> dict:
-        """Re-point shard ``index`` at a replacement server on a new
-        port; returns the bumped map meta."""
+        """Re-point shard ``index`` at a replacement server (journal
+        replayed on a new port); returns the bumped map meta."""
         return dict(self._rpc(Msg(MsgType.COMMAND, meta={
             "cmd": "shard_failover", "index": int(index),
             "host": host, "port": int(port)})).meta["map"])

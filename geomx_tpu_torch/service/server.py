@@ -30,14 +30,22 @@ sharded global tier (``sharded.py``): it owns a hash range of the keys,
 redirects the rest, and exports, imports and drops key state when the
 scheduler rebalances the ranges.
 
-Not ported yet, and refused when asked for: durability
-(``durable_dir``/``GEOMX_DURABLE_DIR``, ROADMAP item "Resilience and
-utils"; the JAX package's ``_journal`` calls, a no-op without a durable
-store, are left out with it), and the round ledger, the flight recorder
-and the HTTP exporter (``metrics_port``/``GEOMX_SERVER_METRICS_PORT``
-and the ``metrics`` command, "Telemetry").  The JAX package's round
-ledger records with no knob; in the port that recording is simply
-absent.
+``durable_dir`` (``GEOMX_DURABLE_DIR``) arms the crash-recovery plane:
+the key store, the per-sender merged-round counts, the optimizer config
+and state and the eviction roster persist through an atomic-snapshot +
+append-journal ``resilience.durability.DurableStateStore``.  A restarted
+process replays to its last durable state, and every reply carries the
+store's generation token so clients detect the restart and resume.  The
+journal holds host bytes: a key's optimizer state goes through the
+port's tree format (numpy leaves) and is put back on the server's device
+at restore; the relay compressor's u/v likewise.
+
+Not ported yet, and refused when asked for: the round ledger, the
+flight recorder and the HTTP exporter (``metrics_port``/
+``GEOMX_SERVER_METRICS_PORT`` and the ``metrics`` command, ROADMAP item
+"Telemetry").  The JAX package's round ledger records with no knob, and
+it announces a restart to its event log; in the port those are simply
+absent (a restart still bumps ``geomx_host_restarts_total``).
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from geomx_tpu_torch.config import refuse_durable_dir, unported
+from geomx_tpu_torch.config import unported
 from geomx_tpu_torch.device import resolve_device
 from geomx_tpu_torch.service.protocol import (BATCH_DRAIN_MAX_BYTES,
                                               BATCH_DRAIN_MAX_FRAMES, Msg,
@@ -222,13 +230,14 @@ class GeoPSServer:
         between shards via ``export_keys``/``import_keys`` (the
         scheduler's rebalance drives both).
 
+        ``durable_dir`` (``GEOMX_DURABLE_DIR``) arms the crash-recovery
+        plane (module docstring) in a store named ``durable_name``
+        (default ``ps_server_r<rank>``).
+
         ``device``: where the relay compressor and a non-native
         server-side optimizer run (``resolve_device``: the card unless
-        ``"cpu"``).  ``durable_dir`` and ``metrics_port`` keep the JAX
-        signature and raise ``NotImplementedError`` unless left at
-        their defaults (module docstring); ``durable_name`` names the
-        durable store, so it does nothing without one."""
-        refuse_durable_dir(durable_dir)
+        ``"cpu"``).  ``metrics_port`` keeps the JAX signature and raises
+        ``NotImplementedError`` unless left at its default."""
         if metrics_port is not None or \
                 env_int(("GEOMX_SERVER_METRICS_PORT",), 0) > 0:
             raise unported("the server's metrics endpoint (metrics_port, "
@@ -452,12 +461,25 @@ class GeoPSServer:
             self._compressor = get_compressor(compression)
             self._comp_state: Dict[str, Any] = {}
 
-        # generation token: changes on every process start and rides
-        # every reply — the restart detector of the clients'
-        # session-resume handshake (a fresh random draw: the durable
-        # store's persisted counter is not ported)
+        # ---- durability -------------------------------------------------
+        # generation token: changes on every process start, rides every
+        # reply.  Without a durable dir it is a fresh random draw (so
+        # clients still DETECT a restart, they just cannot resume state);
+        # with one it is the store's persisted monotone counter.
         import random as _rnd
         self.generation = _rnd.getrandbits(31) | 1
+        self._durable = None
+        self._journal_since_compact = 0
+        from geomx_tpu_torch.resilience.durability import (
+            DurableStateStore, durable_dir_from_env)
+        ddir = durable_dir_from_env(durable_dir)
+        if ddir:
+            self._durable = DurableStateStore(
+                ddir, durable_name or f"ps_server_r{rank}")
+            self.generation = self._durable.bump_generation()
+            self._restore_durable()
+            if self.generation > 1:
+                self._announce_restart()
         self._upstream_reconnect = reconnect
 
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -512,7 +534,7 @@ class GeoPSServer:
                 "num_keys": len(self._store),
                 "evicted": sorted(self._evicted),
                 "generation": self.generation,
-                "durable": False,
+                "durable": self._durable is not None,
                 "uptime_s": round(time.time() - self._start_unix, 3),
             }
             if self._shard_range is not None:
@@ -644,9 +666,11 @@ class GeoPSServer:
     def crash(self):
         """In-process emulation of a process death (the chaos ``kill@``
         verb / SIGKILL): sever every socket abruptly — no STOP forward,
-        no drains, no graceful anything.  Everything in memory is lost,
-        exactly as for a real kill (the durable store that survives one
-        in the JAX package is not ported)."""
+        no drains, no graceful anything.  Whatever was only in memory
+        (the open round's partial merges) is lost; only the durable
+        store survives, exactly as for a real kill.  A replacement
+        server constructed on the same durable dir (and port) is the
+        restart."""
         self._running = False
         with self._lock:
             for q in self._relay_qs.values():
@@ -665,6 +689,8 @@ class GeoPSServer:
                 c.close()
             except OSError:
                 pass
+        if self._durable is not None:
+            self._durable.close()
         self._stop_done.set()
 
     def join(self, timeout: Optional[float] = None):
@@ -676,18 +702,191 @@ class GeoPSServer:
             # remote send can never hang the host process forever.
             self._stop_done.wait(timeout if timeout is not None else 60.0)
 
-    # ---- key-range sharding: migration + redirect helpers ------------------
+    # ---- durability (atomic snapshot + append journal) ---------------------
+
+    def _announce_restart(self):
+        """Restored from a durable dir with generation > 1: this is a
+        restart.  Publish it (restart counter, generation gauge, a
+        profiler instant)."""
+        from geomx_tpu_torch.resilience.durability import \
+            record_host_restart
+        record_host_restart(f"server_r{self.rank}", self.generation)
+        self.profiler.instant("ServerRestart", "kvstore",
+                              args={"rank": self.rank,
+                                    "generation": self.generation,
+                                    "keys": len(self._store)})
 
     def _opt_blob(self, key: str) -> Optional[bytes]:
         """A key's optimizer state as a host-tree blob (the port's
         ``utils/checkpoint.tree_to_bytes``: tensors moved to numpy), the
-        ``opt`` field of a migration record.  None without a factory
-        optimizer (the native SGD's state handle does not migrate, as
-        in the JAX package)."""
+        ``opt`` field of a journal or migration record.  None without a
+        factory optimizer (the native SGD's state handle is not
+        serializable, as in the JAX package)."""
         if self._tx is None or key not in self._opt_state:
             return None
         from geomx_tpu_torch.utils.checkpoint import tree_to_bytes
         return tree_to_bytes(self._opt_state[key])
+
+    def _comp_host(self, key: str, st: "_KeyState"):
+        """The relay compressor's state of a key as host arrays in the
+        value's shape (the JAX record's layout), or None."""
+        if self._compressor is None:
+            return None
+        comp = self._comp_state.get(key)
+        if not comp:
+            return comp
+        return tuple(a.detach().cpu().numpy().reshape(st.dense_shape)
+                     for a in comp)
+
+    def _key_record(self, key: str, st: _KeyState) -> dict:
+        sp = st.sparse_value
+        if sp is not None:
+            # journal the sparse-pending round AS PAIRS: the write-ahead
+            # record stays O(k), matching the merge's cost — replay
+            # densifies once (restore is rare, rounds are not)
+            value = {"__sparse__": True, "vals": sp[0], "idx": sp[1],
+                     "shape": list(st.dense_shape),
+                     "dtype": st.dense_dtype}
+        else:
+            value = st.value
+        return {"value": value, "round": st.round,
+                "pushed": dict(st.pushed), "milestone": st.milestone,
+                "opt": self._opt_blob(key),
+                "comp": self._comp_host(key, st)}
+
+    @staticmethod
+    def _decode_value_record(val) -> np.ndarray:
+        """Inverse of the `_key_record` value field: a sparse round
+        record densifies here (restore time only)."""
+        if isinstance(val, dict) and val.get("__sparse__"):
+            from geomx_tpu_torch.compression.sparseagg import \
+                densify_pairs_host
+            n = int(np.prod(val["shape"])) or 1
+            dense = densify_pairs_host(val["vals"], val["idx"], n)
+            return dense.reshape(val["shape"]).astype(
+                np.dtype(val.get("dtype", "<f4")), copy=False)
+        return np.asarray(val)
+
+    def _journal(self, rec: dict) -> None:
+        """Append one journal record; caller holds self._lock (or runs
+        pre-start).  Folds the journal into a fresh snapshot every
+        GEOMX_DURABLE_COMPACT records (256) OR once it outgrows
+        GEOMX_DURABLE_COMPACT_BYTES (64 MiB) — round records carry the
+        full key value + optimizer tree (replay needs no delta algebra),
+        so byte growth, not record count, bounds big-key deployments."""
+        if self._durable is None:
+            return
+        self._durable.append(rec)
+        self._journal_since_compact += 1
+        if self._journal_since_compact >= env_int(
+                ("GEOMX_DURABLE_COMPACT",), 256) or \
+                self._durable.journal_bytes() >= env_int(
+                    ("GEOMX_DURABLE_COMPACT_BYTES",), 64 * 1024 * 1024):
+            self._durable.compact(self._durable_state_locked())
+            self._journal_since_compact = 0
+
+    def _journal_round(self, key: str, st: _KeyState) -> None:
+        """One completed merge round -> one durable record.  Called
+        BEFORE the round's pull replies go out (write-ahead: a value a
+        client may already have seen is always recoverable)."""
+        if self._durable is None:
+            return
+        rec = {"k": "round", "key": key}
+        rec.update(self._key_record(key, st))
+        self._journal(rec)
+
+    def _durable_state_locked(self) -> dict:
+        return {"keys": {key: self._key_record(key, st)
+                         for key, st in self._store.items()},
+                "num_workers": self.num_workers,
+                "evicted": sorted(self._evicted),
+                "tx_config": self._tx_config,
+                "shard_range": None if self._shard_range is None
+                else list(self._shard_range),
+                "map_version": self.shard_map_version}
+
+    def _apply_durable_key(self, key: str, rec: dict) -> None:
+        value = self._decode_value_record(rec["value"])
+        st = self._store.get(key)
+        if st is None:
+            st = self._store[key] = _KeyState(value)
+        st.value = value.copy()
+        st.round = int(rec.get("round", 0))
+        st.pushed = {int(s): int(n)
+                     for s, n in dict(rec.get("pushed", {})).items()}
+        st.milestone = None if rec.get("milestone") is None \
+            else np.asarray(rec["milestone"]).copy()
+        st.contribs, st.count = {}, 0
+        st.rs_rows, st.rs_vals = [], []
+        blob = rec.get("opt")
+        if blob is not None and self._tx is not None:
+            # host bytes in the journal, back on the server's device
+            from geomx_tpu_torch.utils.checkpoint import tree_from_bytes
+            self._opt_state[key] = tree_from_bytes(
+                blob, target=self._opt_init(st.value))
+        elif self._tx is not None and key not in self._opt_state:
+            self._opt_state[key] = self._opt_init(st.value)
+        if self._compressor is not None:
+            comp = rec.get("comp")
+            self._comp_state[key] = tuple(
+                self._to_device(a).reshape(-1) for a in comp) \
+                if comp else self._comp_init(st.value)
+
+    def _restore_durable(self) -> None:
+        """Replay snapshot + journal into the in-memory store: the
+        restarted process resumes at its last DURABLE state (every
+        completed merge round).  The round that was in flight at the
+        crash is gone from memory by design — its pushers detect the
+        new generation and idempotently re-push it (session resume),
+        which re-opens the round."""
+        snap, records = self._durable.load()
+        state = snap or {"keys": {}, "num_workers": None,
+                         "evicted": [], "tx_config": None}
+        # fold journal records into the snapshot state first, so
+        # optimizer config lands before per-key opt blobs decode
+        for rec in records:
+            kind = rec.get("k")
+            if kind in ("init", "round"):
+                state["keys"][rec["key"]] = {
+                    f: rec.get(f) for f in ("value", "round", "pushed",
+                                            "milestone", "opt", "comp")}
+            elif kind == "evict":
+                state["evicted"] = sorted(set(state.get("evicted", []))
+                                          | {int(rec["sender"])})
+                state["num_workers"] = int(rec["num_workers"])
+            elif kind == "optimizer":
+                state["tx_config"] = (rec["name"], rec.get("kwargs", {}))
+            elif kind == "shard_range":
+                state["shard_range"] = [int(rec["lo"]), int(rec["hi"])]
+                state["map_version"] = int(rec.get("version", 0))
+            elif kind == "drop_keys":
+                # keys that migrated off this shard must not resurrect
+                for k0 in rec.get("keys", []):
+                    state["keys"].pop(k0, None)
+        if state.get("tx_config"):
+            name, kwargs = state["tx_config"]
+            self._set_optimizer_locked(name, dict(kwargs))
+            self._tx_config = (name, dict(kwargs))
+        for key, rec in state["keys"].items():
+            if rec.get("value") is None:
+                continue
+            self._apply_durable_key(key, rec)
+        self._evicted = set(int(s) for s in state.get("evicted", []))
+        if state.get("num_workers") is not None:
+            self.num_workers = int(state["num_workers"])
+            self._m_workers.set(self.num_workers)
+        sr = state.get("shard_range")
+        if sr is not None and int(state.get("map_version", 0)) >= \
+                self.shard_map_version:
+            # the journaled range is at least as fresh as the
+            # constructor's: a restarted shard resumes the range it
+            # last installed (a rebalance may have moved it)
+            self._shard_range = (int(sr[0]), int(sr[1]))
+            self.shard_map_version = int(state.get("map_version", 0))
+            self._m_shard_ver.set(self.shard_map_version)
+        self._m_shard_keys.set(len(self._store))
+
+    # ---- key-range sharding: migration + redirect helpers ------------------
 
     @staticmethod
     def _enc_arr(a) -> Optional[dict]:
@@ -815,13 +1014,16 @@ class GeoPSServer:
     def _drop_keys_locked(self, keys) -> None:
         """Forget migrated keys: pop every trace of them — store,
         optimizer/compressor state, in-flight P3 assemblies, armed DGT
-        deadlines, load-window counters — and redirect parked pulls
+        deadlines, load-window counters — journal the drop (a restarted
+        loser must not resurrect moved keys) and redirect parked pulls
         (their rounds complete at the importing shard).  Caller holds
         self._lock."""
+        dropped = []
         for key in keys:
             st = self._store.pop(key, None)
             if st is None:
                 continue
+            dropped.append(key)
             self._opt_state.pop(key, None)
             if self._compressor is not None:
                 self._comp_state.pop(key, None)
@@ -834,6 +1036,8 @@ class GeoPSServer:
                 self._dgt_untrack(pk)
             self._redirect_waiters_locked(
                 st, f"key {key!r} migrated off this shard")
+        if dropped:
+            self._journal({"k": "drop_keys", "keys": dropped})
         self._m_shard_keys.set(len(self._store))
 
     def _import_key_locked(self, key: str, rec: dict) -> None:
@@ -879,6 +1083,9 @@ class GeoPSServer:
             self._comp_state[key] = tuple(
                 self._to_device(self._dec_arr(a)).reshape(-1)
                 for a in comp) if comp else self._comp_init(st.value)
+        jrec = {"k": "round", "key": key}
+        jrec.update(self._key_record(key, st))
+        self._journal(jrec)
         if 0 < st.count and st.count >= self.num_workers:
             # the migrated open round already satisfies this shard's
             # gate (e.g. the last pusher re-routed before the move)
@@ -1027,6 +1234,11 @@ class GeoPSServer:
                             raise RuntimeError(
                                 f"global INIT failed for {msg.key}: "
                                 f"{e!r}")
+                    if self._durable is not None:
+                        st0 = self._store[msg.key]
+                        rec = {"k": "init", "key": msg.key}
+                        rec.update(self._key_record(msg.key, st0))
+                        self._journal(rec)
                 self._m_shard_keys.set(len(self._store))
             self._reply(conn, msg, Msg(MsgType.ACK, key=msg.key))
         elif t == MsgType.PUSH:
@@ -1090,6 +1302,9 @@ class GeoPSServer:
                     if self._tx_config != config:
                         self._set_optimizer_locked(*config)
                         self._tx_config = config
+                        self._journal({"k": "optimizer",
+                                       "name": config[0],
+                                       "kwargs": dict(config[1])})
         elif cmd == "set_gradient_compression":
             from geomx_tpu_torch.compression import get_compressor
             self._compressor = get_compressor(msg.meta["spec"])
@@ -1183,7 +1398,7 @@ class GeoPSServer:
             # deciding whether to replay (docs/resilience.md)
             hello = {"gen": self.generation, "rank": self.rank,
                      "mode": self.mode, "num_workers": self.num_workers,
-                     "durable": False}
+                     "durable": self._durable is not None}
             if self._shard_range is not None:
                 hello.update({"shard_index": self.shard_index,
                               "shard_lo": self._shard_range[0],
@@ -1225,6 +1440,8 @@ class GeoPSServer:
             with self._lock:
                 self._shard_range = (lo, hi)
                 self.shard_map_version = max(self.shard_map_version, ver)
+                self._journal({"k": "shard_range", "lo": lo, "hi": hi,
+                               "version": self.shard_map_version})
                 self._m_shard_ver.set(self.shard_map_version)
                 self._redirect_out_of_range_locked()
         elif cmd == "shard_load":
@@ -1336,9 +1553,14 @@ class GeoPSServer:
         else is the port's optimizer of that name (optax semantics) on the
         server's device.  GEOMX_NATIVE_SGD=0 opts out."""
         self._native_sgd = None
+        # durable servers take the factory path: the native kernel's
+        # state handle is not serializable, and a restart that silently
+        # re-zeroed momentum would not be the exact resume the durable
+        # store promises
         use_native = (name in ("sgd", "momentum")
                       # graftlint: disable=GXL006 — host-plane gate
-                      and os.environ.get("GEOMX_NATIVE_SGD", "1") != "0")
+                      and os.environ.get("GEOMX_NATIVE_SGD", "1") != "0"
+                      and self._durable is None)
         if use_native:
             try:
                 from geomx_tpu_torch.runtime.native import NativeSGD
@@ -1961,6 +2183,7 @@ class GeoPSServer:
                 st.pushed[msg.sender] = max(
                     st.pushed.get(msg.sender, 0), int(r0))
             st.round += 1
+            self._journal_round(key, st)  # async apply = one round
             st.led_rid = int(r0) if r0 is not None else st.round
             self._reply(conn, msg, Msg(MsgType.ACK, key=key))
             if self.ts_sched is not None:
@@ -2153,6 +2376,8 @@ class GeoPSServer:
                     "count")
             self._evicted.add(sender)
             self.num_workers -= 1
+            self._journal({"k": "evict", "sender": int(sender),
+                           "num_workers": self.num_workers})
             for key, st in list(self._store.items()):
                 pushed = st.pushed.pop(sender, 0)
                 if pushed > st.round and st.count > 0:
@@ -2175,6 +2400,10 @@ class GeoPSServer:
         it unblocks, feed the TS distributor.  Caller holds self._lock."""
         st.round += 1
         led_rid = st.led_rid if st.led_rid is not None else st.round
+        # write-ahead: the round is durable BEFORE any pull can observe
+        # its value — a crash after a client saw round r always replays
+        # to a state that includes round r
+        self._journal_round(key, st)
         self._m_rounds.inc()
         still = []
         for c, req, need in st.waiting_pulls:
@@ -2325,6 +2554,7 @@ class GeoPSServer:
                         st.pushed[req0.sender] = max(
                             st.pushed.get(req0.sender, 0), int(r0))
                     st.round += 1
+                    self._journal_round(key, st)
                     st.led_rid = int(r0) if r0 is not None else st.round
                     if self.ts_sched is not None:
                         self._ap_queue.put((key, st.value.copy(), st.round))

@@ -15,12 +15,10 @@ error:
 - **shard restart in place** — the per-shard client's built-in session
   resume (generation token -> ``query_progress`` -> retained-frame
   re-push, P3 chunk sets included) handles it below this layer;
-- **shard failover** — a replacement shard on a NEW port (map bump): the
-  dead client's window expires, the wrapper polls the map, rebuilds the
-  client, and replays the WRAPPER-retained in-flight round through the
-  same round dedup.  The JAX package replays the dead shard's journal
-  into the replacement first; the port has no durable store until
-  ROADMAP item "Resilience and utils", so its replacement starts empty.
+- **shard failover** — the shard's journal replayed into a replacement
+  on a NEW port (map bump): the dead client's window expires, the
+  wrapper polls the map, rebuilds the client, and replays the
+  WRAPPER-retained in-flight round through the same round dedup.
 
 Round ids are owned HERE (``meta["round"]`` on every push), not by the
 per-shard clients: a key's rounds belong to the key, and must survive
@@ -38,7 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from geomx_tpu_torch.config import _env, refuse_durable_dir
+from geomx_tpu_torch.config import _env
 from geomx_tpu_torch.service.client import GeoPSClient, WrongShardError
 from geomx_tpu_torch.service.protocol import env_int
 from geomx_tpu_torch.service.scheduler import SchedulerClient
@@ -61,12 +59,13 @@ def start_sharded_global_tier(scheduler_addr: Tuple[str, int],
                               device=None) -> list:
     """Spawn ``num_shards`` GeoPSServer shard instances with even
     key-range bounds and install the version-1 map at the scheduler.
-    ``device`` is each shard's (``resolve_device``: the card unless
-    ``"cpu"``), where a server-side optimizer other than the native SGD
-    runs.  ``durable_dir`` (or ``GEOMX_DURABLE_DIR``) raises until ROADMAP
-    item "Resilience and utils".  Returns the server list (index order =
-    range order)."""
-    refuse_durable_dir(durable_dir)
+    Each shard journals through its OWN DurableStateStore name
+    (``shard<i>`` under ``durable_dir``), so a shard kill/restart — or
+    a failover replay into a replacement on a new port — recovers only
+    its ranges while the rest of the tier keeps merging.  ``device`` is
+    each shard's (``resolve_device``: the card unless ``"cpu"``), where
+    a server-side optimizer other than the native SGD runs.  Returns the
+    server list (index order = range order)."""
     if num_shards is None:
         num_shards = default_num_shards()
     from geomx_tpu_torch.service.server import GeoPSServer
@@ -78,7 +77,8 @@ def start_sharded_global_tier(scheduler_addr: Tuple[str, int],
                     shard_range=(bounds[i], bounds[i + 1]),
                     shard_map_version=1,
                     heartbeat_timeout=heartbeat_timeout,
-                    device=device).start()
+                    durable_dir=durable_dir,
+                    durable_name=f"shard{i}", device=device).start()
         for i in range(num_shards)]
     sc = SchedulerClient(scheduler_addr)
     try:
@@ -173,7 +173,7 @@ class ShardedGlobalClient:
         window expired): either it restarted slowly in place, or it
         failed over to a new port.  Poll the map briefly for an address
         change, rebuild the client, and replay the wrapper-retained
-        in-flight rounds the replacement has not merged."""
+        in-flight rounds the replacement's journal does not cover."""
         old_addr = self._map.addr_of(idx)
         poll_until = min(deadline,
                          time.monotonic() + self._reconnect_timeout_s)
@@ -192,8 +192,8 @@ class ShardedGlobalClient:
             if self._map.shard_for(key) == idx and \
                     prog.get(key, 0) < rnd:
                 # the round died with the old incarnation: re-push it
-                # (idempotent under the per-sender round dedup if the
-                # replacement merged it after all)
+                # (idempotent under the per-sender round dedup if a
+                # durable copy survived after all)
                 c.push(key, grad, priority=prio,
                        meta={**meta, "round": rnd})
 
@@ -278,7 +278,7 @@ class ShardedGlobalClient:
              timeout: Optional[float] = 120.0) -> np.ndarray:
         out = self._routed(key, lambda c: c.pull(
             key, priority=priority, timeout=timeout))
-        # the pull reply proves the round merged at its owner: the
+        # the pull reply proves the round durable at its owner: the
         # wrapper-retained failover re-push copy can go
         self._release(key)
         return out

@@ -13,17 +13,27 @@ returns a bound copy whose dc-tier compressor is a private copy
 re-padded for the shards.  Shard-shaped dc-tier state lives under the
 ``"dc_comp"`` key of the sync state.
 
-Not ported yet, and raising ``NotImplementedError``: degraded-mode
-membership (``bind_membership`` with a dead party, ROADMAP.md Queue 1,
-"Resilience and utils").  Nor are ``reset_comm_state`` (the same item),
-``telemetry_scalars`` and ``wire_accounting`` ("Telemetry").
+Degraded-mode membership (``resilience/``): an algorithm that sets
+``supports_degraded`` accepts a live-party mask through
+``bind_membership``.  A dead party's dc-tier input is multiplied by its
+0/1 weight (``party_weight``, a ``[P, 1, ...]`` tensor operand, so the
+step has no branch per party) before the collective, and the mean
+renormalizes over the ``num_live`` survivors.  The dead party's replicas
+still run every op and kernel of the step: masking changes constants,
+never collectives.  ``reset_comm_state`` applies the membership-change
+residual policy.
+
+Not ported yet: ``telemetry_scalars`` and ``wire_accounting`` (ROADMAP.md
+Queue 1, "Telemetry").
 """
 
 from __future__ import annotations
 
 import abc
 import copy
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
+
+import torch
 
 
 def _private_dc_copy(dc_compressor):
@@ -63,21 +73,84 @@ class SyncAlgorithm(abc.ABC):
     zero_plan = None
     supports_zero: bool = False
 
+    # degraded-mode membership (resilience/): None = every party live.
+    # Set only through bind_membership; algorithms opt in with
+    # supports_degraded (the mask changes the dc-tier algebra, and an
+    # algorithm that ignored it would average in a dead party's stale
+    # shard)
+    live_parties: Optional[Tuple[bool, ...]] = None
+    supports_degraded: bool = False
+
     def bind_topology(self, topology) -> "SyncAlgorithm":
         self.num_parties = topology.num_parties
         self.workers_per_party = topology.workers_per_party
         return self
 
+    # ---- membership (degraded-mode WAN sync) -------------------------------
+
     def bind_membership(self, mask) -> "SyncAlgorithm":
-        """An all-live mask is accepted; a dead party is not ported."""
+        """Bind a live-party mask (a ``MembershipEpoch`` or any boolean
+        sequence).  Call after ``bind_topology``; an all-live mask clears
+        degraded mode.  A dead party's shard is excluded by
+        multiplication to exact zeros before the dc collective and the
+        mean renormalizes over the survivors (``Trainer.apply_membership``
+        rebuilds the step around the new mask)."""
         from geomx_tpu_torch.topology import normalize_live_mask
         mask = normalize_live_mask(getattr(mask, "live_mask", mask),
                                    self.num_parties)
-        if not all(mask):
-            raise NotImplementedError(
-                "degraded-mode membership is not ported yet (ROADMAP.md "
-                "Queue 1, 'Resilience and utils')")
+        self._party_weights = {}
+        if all(mask):
+            self.live_parties = None
+            return self
+        if not self.supports_degraded:
+            raise ValueError(
+                f"sync algorithm {self.name!r} does not support a "
+                "degraded membership mask: its aggregation algebra has "
+                "no renormalized-survivor form (FSA, MixedSync and "
+                "PipelinedSync do)")
+        self.live_parties = mask
         return self
+
+    @property
+    def num_live(self) -> int:
+        """Parties contributing to the dc tier under the bound mask."""
+        if self.live_parties is None:
+            return self.num_parties
+        return sum(self.live_parties)
+
+    def party_weight(self, like: torch.Tensor) -> Optional[torch.Tensor]:
+        """Each party's 0/1 contribution weight under the bound mask, as a
+        float32 ``[P, 1, 1, ...]`` tensor on ``like``'s device that
+        broadcasts against ``like`` (``[P, W, ...]``); None when every
+        party is live.  Built once a bind and device: the JAX package's
+        ``m[axis_index(dc)]``, as a tensor operand."""
+        if self.live_parties is None:
+            return None
+        w = self._party_weights.get(like.device)
+        if w is None:
+            w = self._party_weights[like.device] = torch.tensor(
+                self.live_parties, dtype=torch.float32,
+                device=like.device).view(-1, 1)
+        return w.view(w.shape + (1,) * (like.dim() - 2))
+
+    def mask_parties(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` times its party's weight: a dead party's entries become
+        exact zeros (signed, as the JAX product gives them); ``x`` itself
+        when every party is live."""
+        w = self.party_weight(x)
+        return x if w is None else x * w
+
+    def reset_comm_state(self, params: dict, state: Any,
+                         policy: str = "reset") -> Any:
+        """Apply the membership-change residual policy to the sync state:
+        ``"reset"`` re-initializes dc-tier communication state
+        (error-feedback residuals, pipeline double buffers), ``"carry"``
+        keeps it.  ``params`` are ``[P, W]``-replicated, as
+        ``init_state`` takes them.  Base: nothing to reset."""
+        if policy not in ("reset", "carry"):
+            raise ValueError(f"unknown residual policy {policy!r}: "
+                             "expected 'reset' or 'carry'")
+        return state
 
     def bind_zero(self, plan) -> "SyncAlgorithm":
         """A copy of this algorithm bound to a

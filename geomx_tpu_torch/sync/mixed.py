@@ -21,9 +21,9 @@ Under a bound ZeRO plan (``train/zero.py``) ``sync_grad_shards``
 scatters the bucketed party mean over the workers and computes the
 DCASGD term shard-wise against each worker's slice of the true and stale
 weights; the stale copy stays full and replicated (the forward runs at
-it).  Not ported yet: the degraded-membership mean and
-``reset_comm_state`` (ROADMAP.md Queue 1, "Resilience and utils"),
-``telemetry_scalars`` ("Telemetry").
+it).  Under a membership mask the dc-tier mean renormalizes over the
+survivors, as FSA's does.  Not ported yet: ``telemetry_scalars``
+(ROADMAP.md Queue 1, "Telemetry").
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import torch
 
 from geomx_tpu_torch.compression.base import Compressor, NoCompressor
 from geomx_tpu_torch.compression.bucketing import maybe_bucketed
-from geomx_tpu_torch.parallel.collectives import pmean
+from geomx_tpu_torch.parallel.collectives import pmean, psum
 from geomx_tpu_torch.sync.base import SyncAlgorithm
 from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
 from geomx_tpu_torch.tree import leaf_names, tree_map
@@ -49,6 +49,7 @@ def dcasgd_term(g: torch.Tensor, w: torch.Tensor, w_stale: torch.Tensor,
 
 class MixedSync(SyncAlgorithm):
     name = "mixed"
+    supports_degraded = True  # renormalized survivor mean (resilience/)
     grads_replicated_after_sync = True  # hierarchical psum output
     supports_zero = True  # bucket-shard form (train/zero.py)
 
@@ -92,11 +93,16 @@ class MixedSync(SyncAlgorithm):
             lam = self.dcasgd_lambda
             grads = tree_map(lambda g, w, ws: dcasgd_term(g, w, ws, lam),
                              grads, params, state["stale"])
+        # degraded mode: exclude dead parties' shards and renormalize the
+        # mean over the survivors, as FSA does
+        if self.live_parties is not None:
+            grads = tree_map(self.mask_parties, grads)
         np_ = self.num_parties
         grads, dstate = self.dc_compressor.allreduce(
             grads, state["dc_comp"], DC_AXIS, np_)
-        if np_ > 1:  # single-party configs skip the dead g/1 divide
-            grads = tree_map(lambda g: g / np_, grads)
+        nl = self.num_live
+        if nl > 1:  # single-survivor configs skip the dead g/1 divide
+            grads = tree_map(lambda g: g / nl, grads)
         return grads, dict(state, dc_comp=dstate)
 
     def sync_grad_shards(self, grads: dict, params: dict, state: Any,
@@ -117,11 +123,13 @@ class MixedSync(SyncAlgorithm):
             s_sh = plan.tree_shards(state["stale"], bk)
             shards = [dcasgd_term(g, w, ws, lam)
                       for g, w, ws in zip(shards, p_sh, s_sh)]
+        shards = [self.mask_parties(g) for g in shards]
         np_ = self.num_parties
         shards, dstate = self.dc_compressor.allreduce_shards(
             shards, state["dc_comp"], DC_AXIS, np_, bk)
-        if np_ > 1:
-            shards = [g / np_ for g in shards]
+        nl = self.num_live
+        if nl > 1:
+            shards = [g / nl for g in shards]
         return shards, dict(state, dc_comp=dstate)
 
     def sync_params(self, params: dict, state: Any,
@@ -140,5 +148,22 @@ class MixedSync(SyncAlgorithm):
             model_state = tree_map(lambda x: pmean(x, WORKER_AXIS),
                                    model_state)
         if self.num_parties > 1:
-            model_state = tree_map(lambda x: pmean(x, DC_AXIS), model_state)
+            if self.live_parties is None:
+                model_state = tree_map(lambda x: pmean(x, DC_AXIS),
+                                       model_state)
+            else:
+                nl = self.num_live
+                model_state = tree_map(
+                    lambda x: psum(self.mask_parties(x), DC_AXIS) / nl,
+                    model_state)
         return model_state, state
+
+    def reset_comm_state(self, params: dict, state: Any,
+                         policy: str = "reset") -> Any:
+        """FSA's policy: ``"reset"`` re-initializes the dc-tier
+        compressor state; the stale pull copy always carries (it tracks
+        the true weights, which survive a membership change)."""
+        state = super().reset_comm_state(params, state, policy)
+        if policy == "carry":
+            return state
+        return dict(state, dc_comp=self._dc_init(params))

@@ -34,10 +34,12 @@ and a stale milestone delta would corrupt the milestone algebra).  Under
 a bound ZeRO plan the in-flight buffers hold ``1/W`` bucket shards
 (``init_shard_state``, ``allreduce_shards``, ``peek_shards``) and the
 drain returns the parked shard aggregates (``drain_grad_shards``);
-``GEOMX_PIPELINE_DCASGD`` is rejected there.  Not ported yet:
-``reset_comm_state`` and membership (ROADMAP.md Queue 1, "Resilience
-and utils"), ``telemetry_scalars``, ``wire_accounting`` and the in-flight
-byte counter ("Telemetry").
+``GEOMX_PIPELINE_DCASGD`` is rejected there.  A membership mask binds
+through to the wrapped algorithm, which owns the survivor mean; the
+launched statistics and the drain renormalize over the survivors too,
+and ``reset_comm_state`` discards the in-flight aggregate under
+``"reset"``.  Not ported yet: ``telemetry_scalars``, ``wire_accounting``
+and the in-flight byte counter (ROADMAP.md Queue 1, "Telemetry").
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from torch.profiler import record_function
 
 from geomx_tpu_torch.compression.base import Compressor
 from geomx_tpu_torch.compression.bucketing import BucketedCompressor
-from geomx_tpu_torch.parallel.collectives import pmean
+from geomx_tpu_torch.parallel.collectives import pmean, psum
 from geomx_tpu_torch.sync.base import SyncAlgorithm
 from geomx_tpu_torch.sync.mixed import dcasgd_term
 from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
@@ -199,6 +201,7 @@ class PipelinedSync(SyncAlgorithm):
     ``GEOMX_PIPELINE_DEPTH=1`` (``get_sync_algorithm``) or wrap
     explicitly, ``PipelinedSync(FSA(...), dcasgd_lambda=0.04)``."""
 
+    supports_degraded = True  # delegates the masked mean to FSA/MixedSync
     # the applied gradient is the previous step's completed dc aggregate
     grads_replicated_after_sync = True
 
@@ -275,11 +278,33 @@ class PipelinedSync(SyncAlgorithm):
         runs the all_gather that rebuilds the params."""
         comp = self.inner.dc_compressor
         shards, dc_state = comp.peek_shards(state["inner"]["dc_comp"])
-        np_ = self.num_parties
-        if np_ > 1:
-            shards = [g / np_ for g in shards]
+        nl = self.num_live  # a degraded drain renormalizes over survivors
+        if nl > 1:
+            shards = [g / nl for g in shards]
         return shards, dict(state,
                             inner=dict(state["inner"], dc_comp=dc_state))
+
+    def bind_membership(self, mask) -> "PipelinedSync":
+        # the inner algorithm owns the masked mean; this wrapper needs the
+        # mask for its launched statistics and its drain divisor
+        super().bind_membership(mask)
+        self.inner.bind_membership(mask)
+        return self
+
+    def reset_comm_state(self, params: dict, state: Any,
+                         policy: str = "reset") -> Any:
+        """The pipeline's membership-change policy: ``"reset"`` discards
+        the in-flight aggregate (launched under the old membership) with
+        the inner compressor's residuals, costing one more warm-up
+        bubble; ``"carry"`` keeps both and accepts one step whose stale
+        aggregate mixes memberships (divided by the new survivor count).
+        The DCASGD previous-weights copy and the model-state buffer always
+        carry: both track replicated values that survive the change."""
+        s = SyncAlgorithm.reset_comm_state(self, params, state, policy)
+        if policy == "carry":
+            return s
+        inner_state = dict(s["inner"], dc_comp=self.inner._dc_init(params))
+        return dict(s, inner=inner_state)
 
     def init_state(self, params: dict, model_state: Any = None) -> Any:
         state = {"inner": self.inner.init_state(params)}
@@ -337,7 +362,14 @@ class PipelinedSync(SyncAlgorithm):
         if self.workers_per_party > 1:
             model_state = tree_map(lambda x: pmean(x, WORKER_AXIS),
                                    model_state)
-        launched = tree_map(lambda x: pmean(x, DC_AXIS), model_state)
+        if self.live_parties is None:
+            launched = tree_map(lambda x: pmean(x, DC_AXIS), model_state)
+        else:
+            # the launched statistics are the renormalized survivor mean
+            nl = self.num_live
+            launched = tree_map(
+                lambda x: psum(self.mask_parties(x), DC_AXIS) / nl,
+                model_state)
         return state["inflight_ms"], dict(state, inflight_ms=launched)
 
     def drain_grads(self, params: dict, state: Any) -> Tuple[dict, Any]:
@@ -347,9 +379,9 @@ class PipelinedSync(SyncAlgorithm):
         reduced values."""
         comp = self.inner.dc_compressor
         g, dc_state = comp.peek(params, state["inner"]["dc_comp"])
-        np_ = self.num_parties
-        if np_ > 1:
-            g = tree_map(lambda x: x / np_, g)
+        nl = self.num_live  # a degraded drain renormalizes over survivors
+        if nl > 1:
+            g = tree_map(lambda x: x / nl, g)
         new_state = dict(state, inner=dict(state["inner"], dc_comp=dc_state))
         if self.dcasgd_lambda > 0.0:
             lam = self.dcasgd_lambda

@@ -32,6 +32,12 @@ at least ``bigarray_bound`` elements take the same route one leaf at a
 time, and the dc tier runs per leaf on the mixed tree.  The composition
 checks raise or warn with the JAX package's types and messages.
 
+Under a degraded membership mask (``resilience/``, bound through
+``Trainer.apply_membership``) the loss and accuracy are the survivors'
+mean (a dead party's describe data that never reached the aggregate),
+and ``metrics["num_live_parties"]`` reports the live-party count the
+step ran with.
+
 Not ported yet: telemetry probes and control operands.
 """
 
@@ -151,6 +157,14 @@ def _mgps_plan(sync, topology, config):
     from geomx_tpu_torch.sync.dgt import DGTCompressor
     from geomx_tpu_torch.sync.fsa import FSA
     from geomx_tpu_torch.sync.pipeline import PipelinedSync
+    if sync.live_parties is not None:
+        # the big leaves live as worker-axis shards: a masked
+        # renormalized mean over them needs a per-shard re-layout the
+        # JAX package does not implement either
+        raise ValueError(
+            "GEOMX_MULTI_GPS does not compose with a degraded "
+            "membership mask (resilience/): disable multi_gps or "
+            "run with every party live")
     if isinstance(sync, PipelinedSync):
         # the sharded update needs this step's dc-tier result before the
         # optimizer runs: no next-step slot to double-buffer into
@@ -345,6 +359,23 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                                               state.params)
         return params, opt_state, sync_state
 
+    def global_mean(vals):
+        per_party = torch.stack(vals).view(P, W).mean(1)
+        if sync.live_parties is None:
+            return per_party.mean(0)
+        return sync.mask_parties(per_party.view(P, 1)).sum() / sync.num_live
+
+    live_counts = {}
+
+    def num_live_metric(device):
+        """The live-party count the step ran with, a 0-d fp32 tensor made
+        once a device and count."""
+        key = (device, sync.num_live)
+        if key not in live_counts:
+            live_counts[key] = torch.tensor(float(sync.num_live),
+                                            device=device)
+        return live_counts[key]
+
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         names = list(state.params)
         step = state.step
@@ -393,10 +424,10 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                 model_state, sync_state, step)
 
         # global mean over every replica: workers first, then parties
-        metrics = {
-            "loss": torch.stack(losses).view(P, W).mean(1).mean(0),
-            "accuracy": torch.stack(accs).view(P, W).mean(1).mean(0),
-        }
+        # (under a membership mask, the survivors' mean)
+        metrics = {"loss": global_mean(losses),
+                   "accuracy": global_mean(accs),
+                   "num_live_parties": num_live_metric(losses[0].device)}
         return TrainState(step=step + 1, params=params, opt_state=opt_state,
                           model_state=model_state,
                           sync_state=sync_state), metrics

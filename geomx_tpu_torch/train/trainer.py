@@ -31,11 +31,20 @@ host wait inside the epoch.  ``save_checkpoint``/``load_checkpoint``
 write and read the JAX package's envelope (``utils/checkpoint.py``),
 re-sharding ZeRO state onto another worker count (``train/zero.py``).
 
+Membership epochs (``resilience/``): ``apply_membership`` binds a
+live-party mask into the sync algorithm, swaps ``train_step`` to the
+mask's step (built on first use, cached after) and applies the residual
+policy; ``catchup_payload``/``admit_party`` carry the authoritative state
+to a returning party, in the checkpoint tree format (under ZeRO through
+``host_zero_state``/``place_zero_state``, which keep every worker's
+shard).  The collective audit the JAX package runs at that swap under
+``GEOMX_AUDIT`` is ROADMAP.md Queue 1 item "Audits": ``apply_membership``
+refuses a swap while the knob is on.
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
-and without that request it raises.  Not ported yet: membership epochs,
-the catch-up payload, control, and telemetry (the step probes, the event
-log, the flight recorder, run capsules), whose knobs ``GeoConfig``
-refuses.
+and without that request it raises.  Not ported yet: control and
+telemetry (the step probes, the event log, the flight recorder, run
+capsules), whose knobs ``GeoConfig`` refuses.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from geomx_tpu_torch.config import GeoConfig
+from geomx_tpu_torch.config import GeoConfig, unported
 from geomx_tpu_torch.data.loader import GeoDataLoader
 from geomx_tpu_torch.device import resolve_device
 from geomx_tpu_torch.ops.optim import fused_optim_enabled
@@ -60,9 +69,11 @@ from geomx_tpu_torch.train.state import (TrainState, replicate_tree,
 from geomx_tpu_torch.train.step import (build_eval_step, build_logits_fn,
                                         build_train_step, fused_bucketer,
                                         make_loss_fn, resolve_precision)
-from geomx_tpu_torch.train.zero import (ZeroPlan, reshard_zero_state,
+from geomx_tpu_torch.train.zero import (ZeroPlan, host_zero_state,
+                                        place_zero_state,
+                                        reshard_zero_state,
                                         zero_checkpoint_meta)
-from geomx_tpu_torch.tree import leaf_names
+from geomx_tpu_torch.tree import leaf_names, state_map
 from geomx_tpu_torch.utils import checkpoint
 from geomx_tpu_torch.utils.metrics import Measure
 
@@ -118,10 +129,16 @@ class Trainer:
                 "run the replicated update against shard-shaped sync "
                 "state.  Pass a fresh (unbound) sync algorithm, or "
                 "enable GEOMX_ZERO/GeoConfig(zero=True) to match")
+        self._sp_model = sp_model
         self.train_step = build_train_step(self.loss_fn, self.tx, self.sync,
                                            topology, self.config,
                                            sp_model=sp_model)
         self._mgps = self.train_step.mgps
+        # membership (resilience/): the bound mask (None = every party
+        # live), its epoch version, and the step built for each mask
+        self._membership = None
+        self._membership_version = 0
+        self._step_cache = {None: self.train_step}
         self._zero_plan = getattr(self.sync, "zero_plan", None)
         # fused apply: init_state puts the optimizer state on the dc
         # tier's bucket layout (build_train_step checked the stack)
@@ -216,6 +233,125 @@ class Trainer:
         for m in models:
             if hasattr(m, "build"):
                 m.build(shape)
+
+    # ---- membership epochs (resilience/) ---------------------------------
+
+    def _replicate_state(self, tree):
+        """Every array leaf of a host tree (numpy arrays, as one replica
+        holds them) as a ``[P, W, ...]`` tensor on this trainer's device;
+        other leaves as stored."""
+        lead = self.topology.replica_shape
+
+        def rep(x):
+            if not isinstance(x, (np.ndarray, torch.Tensor)):
+                return x
+            x = torch.as_tensor(x, device=self.device)
+            return x.expand(lead + tuple(x.shape)).contiguous()
+
+        return state_map(rep, tree)
+
+    @staticmethod
+    def _replica_00(tree):
+        """Copy ``(0, 0)`` of every tensor leaf of a state tree."""
+        return state_map(lambda x: x[0, 0] if isinstance(x, torch.Tensor)
+                         else x, tree)
+
+    def apply_membership(self, state: TrainState, epoch,
+                         policy: Optional[str] = None) -> TrainState:
+        """Bind a new membership epoch (a ``MembershipEpoch`` or a
+        live-party mask).
+
+        Rebinds the sync algorithm to the mask, swaps ``train_step`` to
+        the mask's step (built on first use, cached after) and applies the
+        residual policy to ``state.sync_state``: ``"reset"`` (default;
+        ``GEOMX_RESILIENCE_RESIDUALS``) discards dc-tier error-feedback
+        residuals and pipeline in-flight buffers accumulated under the old
+        membership, ``"carry"`` keeps them.  Returns the adjusted state; a
+        no-op when the mask is unchanged.
+
+        As in the JAX package the policy runs on copy ``(0, 0)`` of the
+        sync state, re-replicated over every slot (so under ``"carry"``
+        every party resumes with party 0's residuals), and under ZeRO
+        with ``"carry"`` the state is returned untouched: its dc-tier
+        state holds per-worker shard content.
+
+        Re-admission: call :meth:`catchup_payload` for the blob the
+        returning party installs (:meth:`admit_party`) before this rebind
+        widens the collective back over it."""
+        from geomx_tpu_torch.topology import normalize_live_mask
+        mask = normalize_live_mask(getattr(epoch, "live_mask", epoch),
+                                   self.topology.num_parties)
+        key = None if all(mask) else mask
+        if key == self._membership:
+            return state
+        if self._mgps is not None:
+            raise ValueError(
+                "GEOMX_MULTI_GPS does not compose with membership "
+                "changes (resilience/): the ZeRO-1 shards have no "
+                "renormalized-survivor form")
+        if policy is None:
+            policy = getattr(self.config, "resilience_residuals",
+                             None) or "reset"
+        if policy not in ("reset", "carry"):
+            # validated before any rebinding: a bad policy must not leave
+            # the trainer half switched to the new mask
+            raise ValueError(f"unknown residual policy {policy!r}: "
+                             "expected 'reset' or 'carry'")
+        if getattr(self.config, "audit", False):
+            raise unported("the collective audit of a membership swap "
+                           "(GEOMX_AUDIT)", "Audits")
+        self.sync.bind_membership(mask)
+        self._membership = key
+        self._membership_version = getattr(epoch, "version",
+                                           self._membership_version + 1)
+        step_fn = self._step_cache.get(key)
+        if step_fn is None:
+            step_fn = build_train_step(self.loss_fn, self.tx, self.sync,
+                                       self.topology, self.config,
+                                       sp_model=self._sp_model)
+            self._step_cache[key] = step_fn
+        self.train_step = step_fn
+        if self._zero_plan is not None and policy == "carry":
+            return state
+        sync_state = self._replicate_state(
+            self._replica_00(state.sync_state))
+        return TrainState(
+            step=state.step, params=state.params,
+            opt_state=state.opt_state, model_state=state.model_state,
+            sync_state=self.sync.reset_comm_state(state.params, sync_state,
+                                                  policy))
+
+    def catchup_payload(self, state: TrainState) -> bytes:
+        """The re-admission catch-up blob: one copy of the full state
+        (params, optimizer, model state and sync state) in the checkpoint
+        tree format, what the survivors hand a returning party before
+        ``apply_membership`` widens the collective back over it.  Copy
+        ``(0, 0)``, except under ZeRO, where the shard-bearing fields
+        keep party 0's whole worker axis (``host_zero_state``)."""
+        from geomx_tpu_torch.resilience.liveness import pack_catchup
+        if self._zero_plan is not None:
+            return pack_catchup(host_zero_state(state))
+        return pack_catchup(TrainState(
+            step=state.step, params=unreplicate_tree(state.params),
+            opt_state=self._replica_00(state.opt_state),
+            model_state=unreplicate_tree(state.model_state),
+            sync_state=self._replica_00(state.sync_state)))
+
+    def admit_party(self, payload: bytes) -> TrainState:
+        """Install a catch-up payload as this trainer's state (the
+        returning party's half of the protocol): the inverse of
+        :meth:`catchup_payload`, replicated over every slot on this
+        trainer's device (under ZeRO, each worker slot gets back its own
+        shard, ``place_zero_state``)."""
+        from geomx_tpu_torch.resilience.liveness import unpack_catchup
+        t = unpack_catchup(payload)
+        if self._zero_plan is not None:
+            return place_zero_state(t, self.topology, self.device)
+        return TrainState(
+            step=t["step"], params=self._replicate_state(t["params"]),
+            opt_state=self._replicate_state(t["opt_state"]),
+            model_state=self._replicate_state(t["model_state"]),
+            sync_state=self._replicate_state(t["sync_state"]))
 
     # ---- checkpointing ---------------------------------------------------
 

@@ -34,10 +34,10 @@ by design.  The worker index is the slot's own, so the ops take no
 ``widx``.  ``zero_checkpoint_meta``, the ``_fit_*`` helpers and
 ``reshard_zero_state`` are the host-side layout of a sharded
 checkpoint, on numpy arrays (``Trainer.save_checkpoint``/
-``load_checkpoint``); ``host_zero_state``/``place_zero_state``, whose
-only callers in the JAX package are the catch-up payload of a returning
-party, wait for ROADMAP.md Queue 1, "Resilience and utils", and
-``wire_accounting`` for "Telemetry".
+``load_checkpoint``); ``host_zero_state``/``place_zero_state`` that of
+a returning party's catch-up payload (``Trainer.catchup_payload``/
+``admit_party``).  ``wire_accounting`` waits for ROADMAP.md Queue 1,
+"Telemetry".
 """
 
 from __future__ import annotations
@@ -283,6 +283,75 @@ def _state_fields(state) -> dict:
         return state
     return {f: getattr(state, f) for f in
             ("step", "params", "opt_state", "model_state", "sync_state")}
+
+
+def host_zero_state(state):
+    """One host-side copy of a ZeRO ``TrainState`` for catch-up:
+    replicated fields collapse to copy ``(0, 0)`` as ``unreplicate_tree``
+    does, but the shard-bearing fields (the optimizer state and every
+    ``dc_comp`` subtree) keep party 0's whole worker axis — copying
+    ``(0, 0)`` there would drop workers 1..W-1's shards.  Numpy leaves;
+    host scalars as stored."""
+    from geomx_tpu_torch.train.state import TrainState
+    fields = _state_fields(state)
+
+    def host(x):
+        return x.detach().numpy(force=True).copy() \
+            if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def rep(path, x):
+        return host(x)[0, 0]
+
+    def shard(path, x):
+        return host(x)[0]
+
+    def sync(path, x):
+        return shard(path, x) if _under_dc_comp(path) else rep(path, x)
+
+    return TrainState(
+        step=fields["step"],
+        params=_map_with_path(rep, fields["params"]),
+        opt_state=_map_with_path(shard, fields["opt_state"]),
+        model_state=_map_with_path(rep, fields["model_state"]),
+        sync_state=_map_with_path(sync, fields["sync_state"]))
+
+
+def place_zero_state(host_state, topology, device):
+    """Inverse of :func:`host_zero_state` (a ``TrainState`` or the dict
+    a catch-up payload unpacks to): replicated fields broadcast over both
+    replica axes, shard-bearing fields (leading ``[W, ...]``) over the
+    parties only, so every worker slot gets back exactly its own shard.
+    Tensors on ``device``."""
+    from geomx_tpu_torch.train.state import TrainState
+    fields = _state_fields(host_state)
+    P, W = topology.num_parties, topology.workers_per_party
+
+    def put(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    def rep(path, x):
+        x = np.asarray(x)
+        return put(np.broadcast_to(x[None, None], (P, W) + x.shape))
+
+    def shard(path, x):
+        x = np.asarray(x)
+        if x.shape[0] != W:
+            raise ValueError(
+                f"sharded state leaf carries {x.shape[0]} worker shards "
+                f"but this topology has {W} workers per party — re-shard "
+                "the checkpoint (Trainer.load_checkpoint) instead of "
+                "installing it directly")
+        return put(np.broadcast_to(x[None], (P,) + x.shape))
+
+    def sync(path, x):
+        return shard(path, x) if _under_dc_comp(path) else rep(path, x)
+
+    return TrainState(
+        step=fields["step"],
+        params=_map_with_path(rep, fields["params"]),
+        opt_state=_map_with_path(shard, fields["opt_state"]),
+        model_state=_map_with_path(rep, fields["model_state"]),
+        sync_state=_map_with_path(sync, fields["sync_state"]))
 
 
 def reshard_zero_state(host_state, template):

@@ -303,17 +303,20 @@ def test_dgt_worker_compressor_raises_and_others_warn(topo2x4):
 
 def test_dead_party_is_refused_before_multigps_sees_it(topo2x4):
     """The JAX package refuses MultiGPS under a degraded membership mask
-    (geomx_tpu/train/step.py:156-166); the port refuses the dead party
-    itself, earlier, in ``bind_membership`` (ROADMAP.md Queue 1 item
-    6), so no MultiGPS step ever holds one."""
+    (geomx_tpu/train/step.py:156-166) when the step is built, before any
+    MultiGPS step runs; so does the port, with the same type and
+    message."""
     jfsa = JaxFSA().bind_topology(topo2x4).bind_membership((True, False))
-    with pytest.raises(ValueError, match="degraded membership"):
+    with pytest.raises(ValueError, match="degraded membership") as jexc:
         JaxTrainer(FlaxResNet(stage_sizes=STAGES, stage_filters=FILTERS),
                    topo2x4, optax.sgd(0.05), sync=jfsa,
                    config=JaxConfig(**MGPS))
     pfsa = FSA().bind_topology(HiPSTopology(2, 4))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        pfsa.bind_membership((True, False))
+    pfsa.bind_membership((True, False))
+    with pytest.raises(ValueError, match="degraded membership") as pexc:
+        Trainer(ResNet(STAGES, FILTERS), HiPSTopology(2, 4), sgd(0.05),
+                sync=pfsa, config=GeoConfig(**MGPS), device="cpu")
+    assert str(pexc.value) == str(jexc.value)
 
 
 def test_bucketed_dc_tier_is_unwrapped_as_jax_does():

@@ -129,5 +129,7 @@ def test_fsa_buckets_the_dc_tier_by_default(monkeypatch):
     assert isinstance(hfa.dc_compressor, BucketedCompressor)
     with pytest.raises(ValueError, match="Unknown sync mode"):
         get_sync_algorithm(GeoConfig(sync_mode="esync"))
-    with pytest.raises(NotImplementedError):
-        sync.bind_membership((True, False))
+    # a dead party binds (the survivor mean); HFA refuses one
+    assert sync.bind_membership((True, False)).num_live == 1
+    with pytest.raises(ValueError, match="does not support"):
+        hfa.bind_topology(HiPSTopology(2, 4)).bind_membership((True, False))

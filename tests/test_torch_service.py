@@ -623,20 +623,22 @@ def test_port_scheduler_refuses_unported_commands(pkg):
         sched.stop()
 
 
-def test_unported_server_and_scheduler_knobs_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Resilience and utils"):
-        _port_server(durable_dir="/nonexistent")
+def test_unported_server_and_scheduler_knobs_raise(monkeypatch, tmp_path):
+    # durability is ported: a durable server and scheduler construct
+    durable = _port_server(durable_dir=str(tmp_path))
+    assert durable.health_snapshot()["durable"] is True
+    durable.stop()
+    tsvc.GeoScheduler(durable_dir=str(tmp_path)).stop()
     # the sharded global tier is ported: a shard constructs
     _port_server(shard_range=(0, 10), shard_index=0).stop()
     with pytest.raises(NotImplementedError, match="Telemetry"):
         _port_server(metrics_port=0)
     with pytest.raises(NotImplementedError, match="Telemetry"):
         tsvc.GeoScheduler(metrics_port=0)
-    monkeypatch.setenv("GEOMX_DURABLE_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="Resilience and utils"):
-        _port_server()
-    with pytest.raises(NotImplementedError, match="Resilience and utils"):
-        tsvc.GeoScheduler()
+    monkeypatch.setenv("GEOMX_DURABLE_DIR", str(tmp_path / "env"))
+    durable = _port_server()
+    assert durable._durable is not None
+    durable.stop()
     monkeypatch.delenv("GEOMX_DURABLE_DIR")
     monkeypatch.setenv("GEOMX_SERVER_METRICS_PORT", "7")
     with pytest.raises(NotImplementedError, match="Telemetry"):

@@ -9,7 +9,8 @@ checkout, e.g. a ``git archive`` of another commit) in turns — A, B, B,
 A, ... — on the card, and records every run's wall time, round time and
 each worker's last test accuracy.  It records; it does not gate: the
 accuracy floor of ``chip_smoke.py`` is reported beside each run, not
-enforced (``DIST_PS_JAX_MIXED_TEST_ACC`` is lowered to -1 in the loaded
+enforced (``DIST_PS_JAX_MIXED_LOWEST_MIN``, or in an older checkout
+``DIST_PS_JAX_MIXED_TEST_ACC``, is lowered to -1 in the loaded
 copies), so a run under the floor is counted instead of ending the
 series.  Prints the card's name and power limit first.
 """
@@ -44,8 +45,13 @@ def run(root: str, path: str) -> dict:
         f"sys.path.insert(0, {os.path.abspath(os.path.dirname(__file__))!r})\n"
         "from torch_dist_ps_repeat import load\n"
         f"m = load({root!r})\n"
-        "floor = m.DIST_PS_JAX_MIXED_TEST_ACC - 0.05\n"
-        "m.DIST_PS_JAX_MIXED_TEST_ACC = -1.0\n"
+        # the floor under either name: a checkout from before the
+        # lowest-worker gate holds the JAX job's mean less 0.05
+        "new = hasattr(m, 'DIST_PS_JAX_MIXED_LOWEST_MIN')\n"
+        "floor = m.DIST_PS_JAX_MIXED_LOWEST_MIN if new else "
+        "m.DIST_PS_JAX_MIXED_TEST_ACC - 0.05\n"
+        "setattr(m, 'DIST_PS_JAX_MIXED_LOWEST_MIN' if new else "
+        "'DIST_PS_JAX_MIXED_TEST_ACC', -1.0)\n"
         f"r = m.dist_ps_phase(torch, {path!r})\n"
         "print('RESULT ' + json.dumps({'floor': floor, **{k: r[k] for k in "
         "('wall_s', 'round_ms_median', 'last_test_acc') if k in r}}))\n")
