@@ -164,6 +164,24 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           through host_zero_state/place_zero_state, every
                           worker's shard back bit-equal.
               Median step times of the paths come from the same call.
+   telemetry_fsa -- path 1f again (16 steps) through Trainer.fit with
+              GEOMX_TELEMETRY, the event log, the flight recorder (16
+              steps) and the run capsule (sampled every 0.5 s) on, cuDNN
+              deterministic: a telemetry-off step makes the launch calls,
+              in order, of a build whose probe collector raises, and
+              kernels 1-5 3, 2, 1, 1, 1 times; the losses and final
+              parameters bit-equal with telemetry on and off, kernels
+              1-5 at 3, 2, 1, 1, 1 in every on step; step 1's
+              grad_norm_global within rtol 1e-5 of an fp64 recompute of
+              the applied gradient, no non-finite probe, the emitted
+              share recomputed from kernel 3's output, dc_wire_bytes
+              21,808; one event record a step; the capsule's step records
+              the published probes, its link journal replayed
+              bit-identically; a poisoned twin (NaN in party 1's input at
+              step 5, 8 steps) whose flight bundle names party 1 at step
+              5; the probes' extra launch calls a step, step ms on and off and
+              one step's roofline (FLOPs from PyTorch's counter, MFU
+              against the H100 row) printed, not gated;
 6. host plane -- the port's parameter-service plane, one process a role
               (service/, transport/, runtime/native.py):
               dist_ps_fsa  the port's launcher forks the port's
@@ -236,6 +254,20 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           bsc store with sgd(0.1, momentum=0.9); a lazy
                           row-sparse Adam push (untouched rows
                           bit-unchanged);
+              ledger_host_plane  host_plane_resnet20's plane again (65
+                          leaves, 2 parties, kernel 3 on the relay hop;
+                          seeded normal gradients) with the round ledger
+                          reset before it: every (key, round) record
+                          complete; the ledger's frame bytes plus the
+                          frames it gives to no round (commands,
+                          heartbeats, ACKs, the first pulls) equal to
+                          WireStats' socket bytes within
+                          LEDGER_WIRE_SLACK a direction; every round's
+                          honesty ratio within the frame bound
+                          (active_frame_overhead_bound); the registry's
+                          Prometheus text parses back, and the metrics
+                          command to the global server answers the same
+                          families;
               durable_recovery  (no kernel) a durable GeoPSServer in its
                           own process, SIGKILLed with round 2 of two
                           workers' pushes of ResNet-20's 65 leaves open,
@@ -2576,6 +2608,10 @@ DIST_PS = {"dist_ps_fsa": dict(mode="fsa", scheduler=False, procs=7),
 DIST_PS_SHAPE = dict(parties=2, workers=2, epochs=3, batch=64, lr=0.1)
 HOST_PLANE_ROUNDS = 8
 HOST_PLANE_BATCH = 32
+# ledger_host_plane: the ledger's bytes plus the frames in no round may
+# part from WireStats' socket bytes by at most this many bytes a
+# direction over the phase
+LEDGER_WIRE_SLACK = 64
 
 
 def dist_ps_golden(torch) -> dict:
@@ -2739,13 +2775,15 @@ def dist_ps_phase(torch, path: str) -> dict:
     return res
 
 
-def _host_plane(device, rounds, grads_of, record=None, spy=None):
+def _host_plane(device, rounds, grads_of, record=None, spy=None,
+                on_done=None):
     """One host plane in this process: a global GeoPSServer (sync, two
     parties, native SGD 0.05), two local servers (sync, two workers
     each, "bsc,0.01", relay compressor on ``device``) and four clients.
     ``grads_of(pw, r, params)`` gives worker ``pw``'s pushes of round
-    ``r``; returns every worker's pulls after each round and the
-    servers (stopped)."""
+    ``r``; ``on_done(global_server, clients)`` runs after the rounds,
+    before the servers stop; returns every worker's pulls after each
+    round and the workers' round times."""
     import threading
 
     import numpy as np
@@ -2799,6 +2837,8 @@ def _host_plane(device, rounds, grads_of, record=None, spy=None):
         t.join(timeout=600)
     if errs or any(t.is_alive() for t in threads):
         raise AssertionError(f"host plane failed: {errs}")
+    if on_done is not None:
+        on_done(gs, clients)
     for c in clients.values():
         c.stop_server()
         c.close()
@@ -2999,6 +3039,518 @@ def host_plane_phase(torch) -> dict:
         log(f"  bsc_select_pack at a relay leaf of {n} (k {r['k']}): "
             f"{r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f} us, "
             f"bound {r['bound_ms'] * 1e3:.3f} us), bit-equal")
+    return res
+
+
+# ---- telemetry: the step probes, flight recorder, capsule; the ledger ----
+
+# Phase T: path 1f with the telemetry plane on; the poisoned twin's NaN
+# lands in party 1's first input image at this step (1-based), and it
+# runs TELEMETRY_POISON_STEPS steps
+TELEMETRY_STEPS = 16
+TELEMETRY_POISON_STEP = 5
+TELEMETRY_POISON_STEPS = 8
+
+
+# the CUDA runtime and driver calls that put work on the card's stream
+_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
+                 "cudaMemset", "cuMemset")
+
+
+def _cuda_launches(torch, fn) -> tuple:
+    """What ``fn()`` puts on the card, from one profiler window:
+    ``(launches, kernels)``.  ``launches`` is the host's launch calls
+    (kernels, copies, fills) in the order they were made, each as
+    "<ATen op>/<runtime call>"; the gates compare these.  ``kernels`` is
+    the device's activity records by name, only printed: the profiler
+    drops a varying number of the records at the end of a window (0 to
+    70 of a ResNet-20 step's 12,700 on an H100), while the host's calls
+    come out the same every time.  Both are empty off the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    on_card = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    if on_card:
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+    events = prof.events()
+    calls = sorted((e for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith(_LAUNCH_CALLS)),
+                   key=lambda e: e.time_range.start)
+    launches = [f"{e.cpu_parent.name if e.cpu_parent else ''}/{e.name}"
+                for e in calls]
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    return launches, kernels
+
+
+class _Batches:
+    """A loader over fixed ``(x, y)`` batches (the fit loop's
+    ``epoch`` surface)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def epoch(self, epoch, prefetch=0):
+        return iter(self.batches)
+
+
+def telemetry_phase(torch, device=None, batch: int = 128,
+                    steps: int = TELEMETRY_STEPS,
+                    out_dir: str = os.path.join("chiprun_out", "telemetry"),
+                    poison_steps: int = TELEMETRY_POISON_STEPS) -> dict:
+    """Phase telemetry_fsa: path 1f (ResNet-20 at full width on [2, 4],
+    128 a replica, "bsc,0.01", the fused SGD) through ``Trainer.fit``
+    with GEOMX_TELEMETRY, the event log, the flight recorder (16 steps)
+    and the capsule (sampled every 0.5 s) on.  Gates: a telemetry-off
+    step makes the same launch calls (kernels, copies, fills), in the
+    same order and from the same ATen ops, as a build whose probe
+    collector raises, and kernels 1-5 3, 2, 1, 1, 1 times a step;
+    the on-run's losses and final parameters bit-equal to the off-run's
+    (cuDNN deterministic in both) with kernels 1-5 at 3, 2, 1, 1, 1 in
+    every step; step 1's grad_norm_global within rtol 1e-5 of an fp64
+    recompute over the applied gradient copied off the card; no
+    non-finite probe; bsc_emitted_fraction equal to the emitted share
+    recomputed from kernel 3's output of step 1; dc_wire_bytes the
+    compressor's; one event-log record a log boundary; the capsule's step
+    records equal to the published probes and its link journal replaying
+    bit-identically; a poisoned twin (NaN in party 1's input at step 5)
+    whose nonfinite rule fires at step 5 with a bundle naming party 1.
+    Prints the probes' extra launch calls a step, the median step ms with
+    telemetry on and off and the roofline record of one step."""
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.telemetry import (Capsule, EventLog,
+                                           get_link_observatory,
+                                           parse_prometheus_text,
+                                           render_prometheus, reset_registry)
+    from geomx_tpu_torch.telemetry import probes as tprobes
+    from geomx_tpu_torch.telemetry.export import set_default_event_log
+    from geomx_tpu_torch.telemetry.flight import uninstall_incident_recorder
+    from geomx_tpu_torch.telemetry.roofline import trainer_roofline
+    from geomx_tpu_torch.train import step as step_mod
+
+    t_phase = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    events = os.path.join(out_dir, "events.jsonl")
+    for f in (events, events + ".1"):
+        if os.path.exists(f):
+            os.remove(f)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    reset_registry()
+    try:
+        data = load_dataset("synthetic", synthetic_train_n=8 * batch * steps)
+
+        def build(**fields):
+            t = make_trainer("fused_sgd", get_model("resnet20"),
+                             device=device, **fields)
+            t.init_state(seed=0)
+            return t
+
+        off = build()
+        dev = off.device
+        on_card = dev.type == "cuda"
+        loader = off.make_loader(data["train_x"], data["train_y"], batch)
+        batches = [(x.clone(), y.clone()) for x, y in loader.epoch(0)]
+        batches = batches[:steps]
+
+        # 1. the disabled path: a telemetry-off step against a build whose
+        # probe collector cannot run, kernel for kernel
+        def one_step(t):
+            st = t.init_state(seed=0)
+            return lambda: t.train_step(st, *batches[0])
+
+        one_step(off)()                       # warm-up (cuDNN, allocator)
+        ops.reset_launch_counts()
+        calls_off, names_off = _cuda_launches(torch, one_step(off))
+        counts_off = ops.launch_counts()
+
+        def poison(*a, **k):
+            raise AssertionError("probe collector ran on the disabled path")
+
+        saved = (tprobes.collect_step_probes, tprobes.inline_collection)
+        tprobes.collect_step_probes = tprobes.inline_collection = poison
+        try:
+            base = build()
+            one_step(base)()
+            calls_base, _ = _cuda_launches(torch, one_step(base))
+        finally:
+            tprobes.collect_step_probes, tprobes.inline_collection = saved
+        if calls_off != calls_base:
+            at = next((i for i, (a, b) in enumerate(zip(calls_off,
+                                                         calls_base))
+                       if a != b), min(len(calls_off), len(calls_base)))
+            raise AssertionError(
+                f"telemetry_fsa: the telemetry-off step made "
+                f"{len(calls_off)} launch calls, the probe-free build "
+                f"{len(calls_base)}; first difference at call {at}: "
+                f"{calls_off[at:at + 3]} vs {calls_base[at:at + 3]}")
+        want = {"fused_flatten": 3, "fused_unflatten": 2,
+                "bsc_select_pack": 1, "bsc_scatter_add": 1,
+                "fused_sgd_momentum": 1}
+        if on_card and any(counts_off[k] != n for k, n in want.items()):
+            raise AssertionError(f"telemetry_fsa: off step launches "
+                                 f"{counts_off}, want {want}")
+
+        # 2. the runs: off, then on with the step-1 applied gradient and
+        # kernel 3's output captured
+        def fit(t):
+            st = t.init_state(seed=0)
+            per_step = []
+            ops.reset_launch_counts()
+            prev = dict(ops.launch_counts())
+
+            def log_fn(_s):
+                now = ops.launch_counts()
+                per_step.append({k: now[k] - prev[k] for k in want})
+                prev.update(now)
+
+            st, recs = t.fit(st, _Batches(batches), epochs=1, log_every=1,
+                             log_fn=log_fn)
+            losses = [r["loss"] for r in recs if "loss" in r]
+            times = [r["time"] for r in recs if "loss" in r]
+            return st, losses, times, per_step
+
+        st_off, loss_off, times_off, _ = fit(off)
+        on = build(telemetry=True, telemetry_events=events, flight=True,
+                   flight_steps=steps,
+                   flight_dir=os.path.join(out_dir, "flight"), capsule=True,
+                   capsule_dir=os.path.join(out_dir, "capsule"),
+                   capsule_sample_s=0.5)
+        captured = {}
+        fused_apply = step_mod.fused_apply
+        bsc_comp = on.sync.dc_compressor.inner
+
+        def capture_apply(spec, pb, gb, opt_state):
+            if "grad" not in captured:
+                captured["grad"] = [g[0, 0].detach().double().cpu()
+                                    for g in gb]
+            return fused_apply(spec, pb, gb, opt_state)
+
+        def capture_compress(g, u, v, compress=bsc_comp.compress):
+            out = compress(g, u, v)
+            if "idx" not in captured:
+                captured["idx"] = (out[1].detach().cpu(),
+                                   bsc_comp.k_for(g.shape[-1]))
+            return out
+
+        step_mod.fused_apply, bsc_comp.compress = (capture_apply,
+                                                   capture_compress)
+        try:
+            st_on, loss_on, times_on, per_step = fit(on)
+        finally:
+            step_mod.fused_apply = fused_apply
+            del bsc_comp.compress
+        on.close_capsule()
+        set_default_event_log(None)
+        uninstall_incident_recorder(on._flight)
+        if [float(x) for x in loss_on] != [float(x) for x in loss_off]:
+            raise AssertionError(f"telemetry_fsa: losses with telemetry "
+                                 f"{loss_on} differ from {loss_off}")
+        for k_, v in st_on.params.items():
+            if not torch.equal(v, st_off.params[k_]):
+                raise AssertionError(f"telemetry_fsa: parameter {k_} "
+                                     "differs with telemetry on")
+        if on_card and any(ps != want for ps in per_step):
+            raise AssertionError(f"telemetry_fsa: on-run launches a step "
+                                 f"{per_step}, want {want} every step")
+
+        # 3. the probes
+        recs = [e for e in EventLog(events).read()
+                if e["kind"] == "step_probes"]
+        if [e["iteration"] for e in recs] != list(range(1, steps + 1)):
+            raise AssertionError(f"telemetry_fsa: event log iterations "
+                                 f"{[e['iteration'] for e in recs]}")
+        p1 = recs[0]
+        g64 = torch.cat([g.reshape(-1) for g in captured["grad"]])
+        norm64 = float(torch.linalg.vector_norm(g64))
+        rel = abs(p1["grad_norm_global"] - norm64) / norm64
+        if not rel <= 1e-5:
+            raise AssertionError(f"telemetry_fsa: grad_norm_global "
+                                 f"{p1['grad_norm_global']} vs fp64 "
+                                 f"{norm64} (rel {rel:.3g})")
+        for e in recs:
+            if e["grad_nonfinite_count"] != 0 or \
+                    any(e["party_grad_nonfinite"]) or \
+                    e["grad_all_finite"] != 1.0:
+                raise AssertionError(f"telemetry_fsa: non-finite probe at "
+                                     f"{e['iteration']}: {e}")
+        idx, k = captured["idx"]
+        emitted = ((idx >= 0).sum(-1).double() / k).mean(1).mean(0).item()
+        if abs(p1["bsc_emitted_fraction"] - emitted) > 2.0 ** -23:
+            raise AssertionError(f"telemetry_fsa: bsc_emitted_fraction "
+                                 f"{p1['bsc_emitted_fraction']} vs "
+                                 f"{emitted} recomputed from kernel 3")
+        wire = float(on.sync.dc_compressor.wire_bytes(st_on.params))
+        if p1["dc_wire_bytes"] != wire or wire != 21808:
+            raise AssertionError(f"telemetry_fsa: dc_wire_bytes "
+                                 f"{p1['dc_wire_bytes']}, compressor "
+                                 f"{wire}")
+        parse_prometheus_text(render_prometheus())
+
+        # 4. the capsule: step records as published, the link journal
+        # (one observation a party a step: the dc payload over the step's
+        # wall time) replaying bit-identically
+        cap = Capsule.load(os.path.join(out_dir, "capsule",
+                                        "run_capsule.json"))
+        if [s["step"] for s in cap.steps] != list(range(1, steps + 1)):
+            raise AssertionError("telemetry_fsa: capsule steps "
+                                 f"{[s['step'] for s in cap.steps]}")
+        for s, e in zip(cap.steps, recs):
+            for name, val in s["probes"].items():
+                if e.get(name) != val:
+                    raise AssertionError(
+                        f"telemetry_fsa: capsule step {s['step']} {name} "
+                        f"{val} vs published {e.get(name)}")
+        obs = get_link_observatory()
+        from geomx_tpu_torch.telemetry.capsule import RunCapsule
+        rc = RunCapsule(os.path.join(out_dir, "capsule", "links.json"))
+        rc.attach_observatory(obs)
+        t_prev = times_on[0]
+        for i, t in enumerate(times_on[1:], start=1):
+            for p in range(2):
+                obs.observe(f"party{p}", nbytes=wire, seconds=t - t_prev,
+                            t=1000.0 + i)
+            t_prev = t
+        live = json.dumps(obs.snapshot(now=1000.0 + steps), sort_keys=True)
+        rc.detach_observatory()
+        replay = Capsule.load(rc.write(now=1000.0 + steps))
+        if json.dumps(replay.link_snapshot(now=1000.0 + steps),
+                      sort_keys=True) != live:
+            raise AssertionError("telemetry_fsa: the capsule's link "
+                                 "journal did not replay bit-identically")
+        cap_bytes = os.path.getsize(os.path.join(out_dir, "capsule",
+                                                 "run_capsule.json"))
+
+        # 5. the poisoned twin: NaN in party 1's input at step 5
+        pois = build(telemetry=True, flight=True, flight_steps=poison_steps,
+                     flight_dir=os.path.join(out_dir, "flight_poison"))
+        pb = []
+        for s, (x, y) in enumerate(batches[:poison_steps]):
+            x = x.to(torch.float32)
+            if s + 1 == TELEMETRY_POISON_STEP:
+                x[1, 0, 0, 0, 0, 0] = float("nan")
+            pb.append((x, y))
+        st_p = pois.init_state(seed=0)
+        pois.fit(st_p, _Batches(pb), epochs=1, log_every=1,
+                 log_fn=lambda s: None)
+        uninstall_incident_recorder(pois._flight)
+        fired = [d for d in pois._flight.dumps
+                 if os.path.basename(d).startswith(
+                     f"flight_step{TELEMETRY_POISON_STEP}_nonfinite")]
+        first = min((int(os.path.basename(d)[len("flight_step"):]
+                         .split("_")[0]) for d in pois._flight.dumps),
+                    default=None)
+        if not fired or first != TELEMETRY_POISON_STEP:
+            raise AssertionError(f"telemetry_fsa: flight dumps "
+                                 f"{pois._flight.dumps}")
+        with open(fired[0]) as f:
+            bundle = json.load(f)
+        if bundle["poisoned_parties"] != [1]:
+            raise AssertionError(f"telemetry_fsa: the bundle names "
+                                 f"{bundle['poisoned_parties']}")
+
+        # 6. the probes' extra kernels a step, the roofline of one step
+        one_step(on)()
+        calls_on, names_on = _cuda_launches(torch, one_step(on))
+        set_default_event_log(None)
+        warm = 2
+        med = {}
+        for name, ts in (("on", times_on), ("off", times_off)):
+            d = [b - a for a, b in zip(ts[warm - 1:], ts[warm:])]
+            med[name] = 1e3 * statistics.median(d)
+        st = off.init_state(seed=0)
+        roof = trainer_roofline(off, st, *batches[0],
+                                step_time_s=med["off"] / 1e3)
+        # the probes' launches: the on-step's launch calls less the
+        # off-step's, by ATen op and call (the probes interleave with the
+        # step's own)
+        import collections
+        extra = dict(collections.Counter(calls_on)
+                     - collections.Counter(calls_off))
+        res = dict(
+            steps=steps, losses=[float(x) for x in loss_on],
+            step_ms_median_on=med["on"], step_ms_median_off=med["off"],
+            launch_calls_per_step_off=len(calls_off),
+            launch_calls_per_step_on=len(calls_on),
+            probe_launch_calls_per_step=len(calls_on) - len(calls_off),
+            device_records_per_step_off=len(names_off),
+            device_records_per_step_on=len(names_on),
+            probe_launch_calls_by_op=extra,
+            launches_per_step_on=per_step[-1] if per_step else None,
+            grad_norm_global_step1=p1["grad_norm_global"],
+            grad_norm_fp64=norm64, grad_norm_rel_err=rel,
+            bsc_emitted_fraction=p1["bsc_emitted_fraction"],
+            dc_nonzero_fraction=p1["dc_nonzero_fraction"],
+            ef_residual_norm=p1["ef_residual_norm"],
+            dc_wire_bytes=p1["dc_wire_bytes"], capsule_bytes=cap_bytes,
+            capsule_samples=len(cap.registry_samples),
+            event_records=len(recs), flight_bundle=fired[0],
+            roofline=roof, wall_s=time.perf_counter() - t_phase)
+        log(f"phase telemetry_fsa: {steps} steps, losses and parameters "
+            f"bit-equal with telemetry on and off; launch calls a step "
+            f"{len(calls_off)} off (= the probe-free build, call for "
+            f"call), {len(calls_on)} on (+"
+            f"{res['probe_launch_calls_per_step']} for the probes; device "
+            f"records {len(names_off)} off, {len(names_on)} on); kernels "
+            f"1-5 {per_step[-1] if per_step else '-'}"
+            f" every step; step {med['on']:.2f} ms on vs {med['off']:.2f} "
+            f"ms off (medians); step 1 grad_norm_global "
+            f"{p1['grad_norm_global']:.7g} vs fp64 {norm64:.7g} (rel "
+            f"{rel:.2g}), bsc_emitted_fraction "
+            f"{p1['bsc_emitted_fraction']}, dc_nonzero_fraction "
+            f"{p1['dc_nonzero_fraction']:.6g}, dc_wire_bytes "
+            f"{p1['dc_wire_bytes']:.0f}; {len(recs)} event records; "
+            f"capsule {cap_bytes} B ({len(cap.registry_samples)} registry "
+            f"samples) replayed; the poisoned twin's bundle "
+            f"{os.path.basename(fired[0])} names party 1; roofline: "
+            f"{roof['flops_per_step']:.4g} FLOPs a step, MFU "
+            f"{roof['mfu']:.4g} of {roof['peak_flops_per_s']:.4g} FLOP/s "
+            f"({roof['device_kind']}), {roof['bound']}; phase "
+            f"{res['wall_s']:.1f} s")
+        log(f"  the probes' launch calls a step, by ATen op: {extra}")
+        return res
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        set_default_event_log(None)
+
+
+def ledger_phase(torch, device=None, rounds: int = HOST_PLANE_ROUNDS) -> dict:
+    """Phase ledger_host_plane: host_plane_resnet20's in-process plane
+    (65 leaves, 2 parties, the relay's kernel 3 on ``device``) with the
+    round ledger reset before it, seeded normal gradients.  Gates: every
+    (key, round) record complete; the ledger's frame bytes plus the
+    frames it gives to no round (commands, heartbeats, ACKs, pulls)
+    equal to WireStats' socket bytes in both directions within
+    LEDGER_WIRE_SLACK bytes; every clean round reconciles (its push bytes
+    within active_frame_overhead_bound a frame of the declared bytes,
+    under the binary codec within 2% once frames carry 4 KiB); the
+    registry's Prometheus text parses back, and a metrics command to the
+    global server returns the same families."""
+    import numpy as np
+
+    from geomx_tpu_torch.service import protocol
+    from geomx_tpu_torch.telemetry import (parse_prometheus_text,
+                                           render_prometheus)
+    from geomx_tpu_torch.telemetry.ledger import (active_frame_overhead_bound,
+                                                  reset_round_ledger)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    init = resnet20_leaves(torch)
+    rng = np.random.RandomState(17)
+    grads = {(pw, r): {k: (rng.standard_normal(v.shape) * 1e-2)
+                       .astype(np.float32) for k, v in init.items()}
+             for pw in [(p, w) for p in range(2) for w in range(2)]
+             for r in range(rounds)}
+    unassigned = {"tx": [0, 0], "rx": [0, 0]}
+    orig = protocol._ledger_account
+
+    def account(direction, msg, nbytes):
+        meta = msg.meta
+        if msg.key is None or not meta or \
+                int(msg.type) not in protocol._LEDGER_TYPES or \
+                meta.get("round") is None:
+            unassigned[direction][0] += 1
+            unassigned[direction][1] += int(nbytes)
+        return orig(direction, msg, nbytes)
+
+    led = reset_round_ledger(capacity=4 * len(init) * rounds)
+    families = {}
+
+    def metrics(gs, clients):
+        c = clients[(0, 0)]
+        text = c.metrics_text()
+        families["command"] = set(parse_prometheus_text(text))
+        families["local"] = set(parse_prometheus_text(render_prometheus()))
+
+    before = protocol.wire_stats.snapshot()
+    protocol._ledger_account = account
+    try:
+        _host_plane(dev, rounds, lambda pw, r, params: grads[(pw, r)],
+                    record={"init": init}, on_done=metrics)
+    finally:
+        protocol._ledger_account = orig
+    after = protocol.wire_stats.snapshot()
+    socket_tx = after["bytes_sent"] - before["bytes_sent"]
+    socket_rx = after["bytes_received"] - before["bytes_received"]
+    recs = led.records()
+    want = {(k, r) for k in init for r in range(1, rounds + 1)}
+    got = {(r["key"], r["round"]): r for r in recs}
+    missing = sorted(want - set(got))
+    if missing:
+        raise AssertionError(f"ledger_host_plane: {len(missing)} rounds "
+                             f"without a record, e.g. {missing[:3]}")
+    open_ = [rk for rk in want if got[rk]["status"] != "complete"]
+    if open_:
+        raise AssertionError(f"ledger_host_plane: {len(open_)} rounds not "
+                             f"complete, e.g. {open_[:3]}")
+    led_tx = sum(v for r in recs for k, v in r["wire"].items()
+                 if k.endswith("_tx_bytes"))
+    led_rx = sum(v for r in recs for k, v in r["wire"].items()
+                 if k.endswith("_rx_bytes"))
+    diff_tx = socket_tx - (led_tx + unassigned["tx"][1])
+    diff_rx = socket_rx - (led_rx + unassigned["rx"][1])
+    if abs(diff_tx) > LEDGER_WIRE_SLACK or abs(diff_rx) > LEDGER_WIRE_SLACK:
+        raise AssertionError(
+            f"ledger_host_plane: socket bytes {socket_tx} sent / "
+            f"{socket_rx} received vs ledger {led_tx} / {led_rx} plus "
+            f"unassigned {unassigned['tx'][1]} / {unassigned['rx'][1]}")
+    bound = active_frame_overhead_bound()
+    bad, ratios = [], []
+    for rec in led._done.values():
+        if rec.fault_hops():
+            continue
+        ratio = rec.honesty_ratio()
+        if ratio is not None:
+            ratios.append(ratio)
+        if not rec.reconciles():
+            bad.append((rec.key, rec.round, ratio))
+    if bad:
+        raise AssertionError(f"ledger_host_plane: {len(bad)} rounds do not "
+                             f"reconcile, e.g. {bad[:3]}")
+    if families["command"] != families["local"]:
+        raise AssertionError(
+            "ledger_host_plane: the metrics command's families differ: "
+            f"{sorted(families['command'] ^ families['local'])}")
+    hops: dict = {}
+    for r in recs:
+        for h in r["hops"]:
+            hops[h["hop"]] = hops.get(h["hop"], 0) + 1
+    res = dict(
+        rounds=rounds, keys=len(init), records=len(recs),
+        ledger_tx_bytes_per_round=led_tx / rounds,
+        ledger_rx_bytes_per_round=led_rx / rounds,
+        socket_tx_bytes_per_round=socket_tx / rounds,
+        socket_rx_bytes_per_round=socket_rx / rounds,
+        unassigned_tx_frames=unassigned["tx"][0],
+        unassigned_tx_bytes=unassigned["tx"][1],
+        unassigned_rx_frames=unassigned["rx"][0],
+        unassigned_rx_bytes=unassigned["rx"][1],
+        diff_tx_bytes=diff_tx, diff_rx_bytes=diff_rx,
+        honesty_ratio_min=min(ratios), honesty_ratio_max=max(ratios),
+        frame_overhead_bound=bound, hops=hops,
+        metric_families=len(families["local"]),
+        wall_s=time.perf_counter() - t_phase)
+    log(f"phase ledger_host_plane: {len(init)} keys x {rounds} rounds, "
+        f"{len(recs)} records all complete; bytes a round: ledger "
+        f"{res['ledger_tx_bytes_per_round']:.1f} sent / "
+        f"{res['ledger_rx_bytes_per_round']:.1f} received, socket "
+        f"(WireStats) {res['socket_tx_bytes_per_round']:.1f} / "
+        f"{res['socket_rx_bytes_per_round']:.1f}; frames in no round "
+        f"{unassigned['tx'][0]} sent ({unassigned['tx'][1]} B) / "
+        f"{unassigned['rx'][0]} received ({unassigned['rx'][1]} B); "
+        f"socket - (ledger + no-round) = {diff_tx} / {diff_rx} B; honesty "
+        f"ratio {res['honesty_ratio_min']:.5f}-"
+        f"{res['honesty_ratio_max']:.5f} (frame bound {bound} B); hops "
+        f"{hops}; metrics command: {len(families['local'])} families, the "
+        f"registry's; phase {res['wall_s']:.1f} s")
     return res
 
 
@@ -4008,8 +4560,10 @@ def main(argv=None) -> int:
              else main_path_phase(torch, path, cfg[4] or args.steps)
              for path, cfg in PATHS.items()}
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
+    telemetry = telemetry_phase(torch)
     host = {path: dist_ps_phase(torch, path) for path in DIST_PS}
     host["host_plane_resnet20"] = host_plane_phase(torch)
+    host["ledger_host_plane"] = ledger_phase(torch)
     host["manyparty_sharded"] = manyparty_phase(torch)
     host["kvstore_hips"] = kvstore_phase(torch)
     host["durable_recovery"] = durable_recovery_phase(torch)
@@ -4037,7 +4591,8 @@ def main(argv=None) -> int:
                        "head_dim_phase": wide, "timer_floors": floors,
                        "shard_phase": shards,
                        "zero_dense_max_param_diff": zero_diff,
-                       "paths": paths, "host_plane": host,
+                       "paths": paths, "telemetry_fsa": telemetry,
+                       "host_plane": host,
                        "examples": examples,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s")

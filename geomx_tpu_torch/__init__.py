@@ -22,4 +22,9 @@ from geomx_tpu_torch.config import GeoConfig
 from geomx_tpu_torch.device import resolve_device
 from geomx_tpu_torch.topology import HiPSTopology
 
-__all__ = ["GeoConfig", "HiPSTopology", "resolve_device"]
+# the distribution's version (pyproject.toml), which the JAX package
+# reports as geomx_tpu.__version__; the health documents and the
+# scheduler's build-info gauge carry it
+__version__ = "0.1.0"
+
+__all__ = ["GeoConfig", "HiPSTopology", "resolve_device", "__version__"]

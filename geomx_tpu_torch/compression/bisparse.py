@@ -29,6 +29,11 @@ the owners' index ranges are disjoint and each owner's merged indices
 unique, so no coordinate receives two values and the sum is exact in
 any fold order.  The control plane's effective-k operand has no hook in
 the port.
+
+Telemetry (``telemetry/probes.py``): ``compress`` records
+``bsc_emitted_fraction``, the share of the ``k`` wire slots a replica
+fills with real pairs, into an open probe collection; with none open
+(telemetry off) it runs no op for it.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from geomx_tpu_torch.ops import bsc as bsc_ops
 from geomx_tpu_torch.ops.sampled_topk import probe_positions
 from geomx_tpu_torch.ops.topk import top_k
 from geomx_tpu_torch.parallel.collectives import all_gather, psum
+from geomx_tpu_torch.telemetry.probes import record_inline
 
 MOMENTUM = bsc_ops.MOMENTUM  # hardcoded in the reference (gc.cc:200)
 
@@ -128,7 +134,12 @@ class BiSparseCompressor(Compressor):
                 thr = bsc_ops.sampled_boundary_guv(
                     g_flat, u, v, k, positions=self._probe(n, g_flat.device))
             with record_function("bsc/select_pack"):
-                return bsc_ops.select_pack(g_flat, u, v, thr, k)
+                vals, idx, u, v = bsc_ops.select_pack(g_flat, u, v, thr, k)
+            # in-situ achieved payload: the sampled boundary emits <= k
+            # real pairs, the rest ride as sentinels
+            record_inline("bsc_emitted_fraction",
+                          lambda: (idx >= 0).sum(-1) / k)
+            return vals, idx, u, v
         with record_function("bsc/topk"):
             u = u * MOMENTUM + g_flat
             v = v + u
@@ -138,7 +149,11 @@ class BiSparseCompressor(Compressor):
             # error feedback: sent coordinates reset (gc.cc:250-252)
             v = v.scatter(-1, sel, 0.0)
             u = u.scatter(-1, sel, 0.0)
-            return vals, idx, u, v
+        # exact/approx top-k always fills all k slots
+        record_inline("bsc_emitted_fraction",
+                      lambda: torch.ones(idx.shape[:-1], dtype=torch.float32,
+                                         device=idx.device))
+        return vals, idx, u, v
 
     def decompress(self, vals: torch.Tensor, idx: torch.Tensor, n: int,
                    run: Optional[int] = None) -> torch.Tensor:

@@ -270,6 +270,21 @@ class BucketedCompressor(Compressor):
         bk = self._bucketer([leaf])
         return self.inner.wire_bytes_leaf(_bucket_leaf(bk.bucket_sizes[0]))
 
+    def layout_summary(self) -> Optional[dict]:
+        """Static summary of the largest cached bucket layout (the
+        gradient tree's), for the telemetry plane's ``geomx_bucket_*``
+        gauges: bucket count and the lane-padding waste the wire
+        carries.  None before the first step resolved a layout."""
+        if not self._bucketers:
+            return None
+        bk = max(self._bucketers.values(),
+                 key=lambda b: sum(b.bucket_fill) if b.bucket_fill else 0)
+        fill = float(sum(bk.bucket_fill))
+        padded = float(sum(bk.bucket_sizes))
+        return {"num_buckets": bk.num_buckets,
+                "bucket_elems": fill, "padded_elems": padded,
+                "pad_fraction": (padded - fill) / padded if padded else 0.0}
+
     def allreduce_leaf(self, g: torch.Tensor, state: Any, axis_name: str,
                        axis_size: int):
         bk = self._bucketer([g])

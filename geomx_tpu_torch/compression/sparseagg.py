@@ -49,6 +49,7 @@ from geomx_tpu_torch.ops.merge import merge_sorted_pairs
 from geomx_tpu_torch.ops.topk import top_k
 from geomx_tpu_torch.parallel.collectives import (all_gather, all_to_all,
                                                   axis_dim, pmax, psum)
+from geomx_tpu_torch.telemetry.probes import record_inline
 
 
 def sparse_agg_enabled() -> bool:
@@ -178,6 +179,13 @@ def sparse_allreduce(vals: torch.Tensor, idx: torch.Tensor, n: int,
         tvals = torch.where(keep, mvals.gather(-1, top_pos),
                             torch.zeros((), device=mvals.device))
         tidx = torch.where(keep, midx.gather(-1, top_pos), -1).to(torch.int32)
+    # merged mass past the pull budget is DROPPED (the reference's
+    # pull-side multiplier truncation); surface the fraction so tuning
+    # can see it (telemetry/probes.py: no op unless a collection is open)
+    record_inline(
+        "sparse_agg_pull_dropped_fraction",
+        lambda: 1.0 - (tidx >= 0).sum(-1)
+        / (midx >= 0).sum(-1).clamp_min(1))
     if record is not None:
         record.update(overflow_idx=of_idx, n=int(n), merged_idx=midx,
                       kept_idx=tidx)

@@ -43,20 +43,10 @@ def _env_bool(names, default) -> bool:
 # field -> (its variables, the ROADMAP.md Queue 1 item that ports it);
 # each item removes its fields from here when it lands
 UNPORTED = {
-    "telemetry": ("GEOMX_TELEMETRY", "Telemetry"),
-    "telemetry_events": ("GEOMX_TELEMETRY_EVENTS", "Telemetry"),
-    "flight": ("GEOMX_FLIGHT", "Telemetry"),
-    "flight_steps": ("GEOMX_FLIGHT_STEPS", "Telemetry"),
-    "flight_dir": ("GEOMX_FLIGHT_DIR", "Telemetry"),
-    "capsule": ("GEOMX_CAPSULE", "Telemetry"),
-    "capsule_dir": ("GEOMX_CAPSULE_DIR", "Telemetry"),
-    "capsule_sample_s": ("GEOMX_CAPSULE_SAMPLE_S", "Telemetry"),
     "control": ("GEOMX_CONTROL", "Control"),
 }
 # what a refused knob does in the JAX package, by item
 UNPORTED_EFFECT = {
-    "Telemetry": "adds outputs to the run (step probes, an event log, "
-                 "flight-recorder dumps, a run capsule), not a changed step,",
     "Control": "changes the training step",
 }
 
@@ -156,8 +146,9 @@ class GeoConfig:
     audit: bool = False
     audit_severity: str = "error"
 
-    # ---- read and refused unless at its default (UNPORTED): telemetry
-    # (the step probes, the event log, the flight recorder, run capsules)
+    # ---- telemetry (telemetry/): the step probes (train/step.py), the
+    # JSONL event log, the flight recorder and the run capsule, which the
+    # Trainer arms (train/trainer.py)
     telemetry: bool = False
     telemetry_events: str = ""
     flight: bool = False
@@ -166,7 +157,8 @@ class GeoConfig:
     capsule: bool = False
     capsule_dir: str = ""
     capsule_sample_s: float = 0.0
-    # ... and the control plane
+    # ---- read and refused unless at its default (UNPORTED): the
+    # control plane
     control: bool = False
 
     def __post_init__(self):

@@ -300,23 +300,21 @@ def durable_dir_from_env(explicit: Optional[str] = None) -> Optional[str]:
     return os.environ.get("GEOMX_DURABLE_DIR") or None
 
 
-def record_host_restart(node: str, generation: int) -> None:
+def record_host_restart(node: str, generation: int,
+                        kind: Optional[str] = None, **detail) -> None:
     """A host-plane process restored from its durable store with a
-    generation above 1 is a restart: bump
-    ``geomx_host_restarts_total{node}`` and set
-    ``geomx_host_generation{node}`` in the metric registry.  (The JAX
-    package's ``announce_host_restart`` also fans the incident out to its
-    event log and flight recorders, ROADMAP.md Queue 1 item
-    "Telemetry".)  Best-effort: reporting a failure never compounds
-    it."""
+    generation above 1 is a restart: announce it through
+    ``telemetry.flight.announce_host_restart`` — bump
+    ``geomx_host_restarts_total{node}``, set
+    ``geomx_host_generation{node}`` and fan the incident (``kind``:
+    ``scheduler_restart`` for the scheduler, else ``server_restart``)
+    out to the event log and every installed flight recorder.
+    Best-effort: reporting a failure never compounds it."""
+    if kind is None:
+        kind = "scheduler_restart" if node == "scheduler" \
+            else "server_restart"
     try:
-        from geomx_tpu_torch.telemetry import get_registry
-        reg = get_registry()
-        reg.counter("geomx_host_restarts_total",
-                    "Host-plane process restarts recovered from the "
-                    "durable store", ("node",)).labels(node=node).inc()
-        reg.gauge("geomx_host_generation",
-                  "Current durable generation per host-plane node",
-                  ("node",)).labels(node=node).set(generation)
+        from geomx_tpu_torch.telemetry.flight import announce_host_restart
+        announce_host_restart(node, generation, kind, **detail)
     except Exception:
         pass

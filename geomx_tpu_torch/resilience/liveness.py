@@ -9,10 +9,10 @@ weight.  The Trainer binds an epoch with ``apply_membership``, and the
 sync algorithms renormalize the dc-tier mean over the survivors.
 
 Every published transition sets the ``geomx_membership_version``,
-``geomx_live_parties`` and ``geomx_party_live`` gauges and bumps
-``geomx_membership_transitions_total`` in the port's metric registry.
-The JAX package also writes a ``membership_epoch`` record to its event
-log; the event log is ROADMAP.md Queue 1 item "Telemetry".
+``geomx_live_parties`` and ``geomx_party_live`` gauges, bumps
+``geomx_membership_transitions_total`` in the port's metric registry and
+writes a ``membership_epoch`` record to the event log
+(``telemetry/export.py``).
 
 Re-admission catch-up: a returning party receives the authoritative
 state (params, optimizer, model and sync state) before it rejoins the
@@ -219,8 +219,9 @@ class PartyLivenessController:
     def _record_epoch(self, epoch: MembershipEpoch) -> None:
         """Membership telemetry: the epoch version and live-party gauges
         answer "is the mesh degraded right now, and since which
-        transition" without scraping logs."""
-        from geomx_tpu_torch.telemetry import get_registry
+        transition" without scraping logs, and the event log keeps the
+        transition history with masks."""
+        from geomx_tpu_torch.telemetry import get_registry, log_event
         reg = get_registry()
         reg.gauge("geomx_membership_version",
                   "Version of the current membership epoch"
@@ -234,6 +235,9 @@ class PartyLivenessController:
             per_party.labels(party=str(p)).set(1.0 if ok else 0.0)
         reg.counter("geomx_membership_transitions_total",
                     "Published membership epoch changes").inc()
+        log_event("membership_epoch", version=epoch.version,
+                  live_mask=list(epoch.live_mask),
+                  num_live=epoch.num_live)
 
 
 # ---- re-admission catch-up ------------------------------------------------

@@ -1,8 +1,10 @@
 """GeoPSClient — worker-side connection to a PS tier (port of
 geomx_tpu/service/client.py).  Arrays cross as numpy: a caller holding a
 tensor hands ``.detach().cpu().numpy()`` over at this boundary, and
-frames never carry a torch tensor.  The JAX client's round-ledger hops
-(push, replay, completion) are absent until ROADMAP item "Telemetry".
+frames never carry a torch tensor.  The fleet round ledger
+(``telemetry/ledger.py``) gets a ``push`` hop for every PUSH frame, a
+``replay`` hop for a session-resume re-push and the client-side
+completion of every round a pull reply proves merged.
 
 The process analogue of the reference's KVWorker
 (3rdparty/ps-lite/include/ps/kv_app.h:80-462):
@@ -47,6 +49,25 @@ from geomx_tpu_torch.service.protocol import (BATCH_DRAIN_MAX_BYTES,
                                               recv_frame, send_frame,
                                               wire_stats)
 from geomx_tpu_torch.service.retry import SeededBackoff, count_retry
+
+
+def _ledger_push_hop(msg: "Msg", nbytes: int) -> None:
+    """Fleet round ledger (telemetry/ledger.py): one ``push`` hop per
+    PUSH frame submitted — each P3 chunk is its own hop, so the round's
+    causal chain shows the chunk set the wire really carried.  Best-
+    effort like every ledger write."""
+    rid = msg.meta.get("round")
+    if msg.type is not MsgType.PUSH or rid is None or msg.key is None:
+        return
+    try:
+        from geomx_tpu_torch.telemetry.ledger import PUSH, record_hop
+        detail = None
+        if msg.meta.get("chunk") is not None:
+            detail = {"chunk": int(msg.meta["chunk"])}
+        record_hop(msg.key, int(rid), PUSH, party=msg.sender,
+                   nbytes=nbytes, detail=detail)
+    except Exception:
+        pass
 
 
 class _RelayConnectError(OSError):
@@ -449,6 +470,19 @@ class GeoPSClient:
                     pushed = msg.meta.get("pushed")
                     if self._reconnect:
                         self._release_push(msg.key, proved_round=pushed)
+                    if pushed:
+                        # ...and it is the WORKER process's completion
+                        # proof for its ledger records: a client-side
+                        # process never sees the server's merge, so
+                        # rounds it opened would otherwise age open
+                        # until the orphan bound
+                        try:
+                            from geomx_tpu_torch.telemetry.ledger import \
+                                get_round_ledger
+                            get_round_ledger().complete_through(
+                                msg.key, int(pushed))
+                        except Exception:
+                            pass
                 p.reply = msg
                 p.event.set()
 
@@ -593,6 +627,23 @@ class GeoPSClient:
                     # replay it depends on (happens-before).
                     for frame in frames:
                         self._direct_send(sock, frame)
+                    try:
+                        # ledger: the restart is attributed to the exact
+                        # round it interrupted (frames replay verbatim
+                        # pre-encoded, so the encode-side accounting
+                        # already counted them once; the receiver's
+                        # decode counts the re-delivery)
+                        from geomx_tpu_torch.telemetry.ledger import (
+                            REPLAY, record_hop)
+                        record_hop(key, rnd, REPLAY,
+                                   party=self.sender_id,
+                                   shard=hello.meta.get("shard_index"),
+                                   nbytes=sum(len(f) + 4 for f in frames),
+                                   detail={"reason": "server_restart",
+                                           "generation": gen,
+                                           "frames": len(frames)})
+                    except Exception:
+                        pass
             for key, srv_rnd in prog.items():
                 if srv_rnd > self._key_rounds.get(key, 0):
                     # server persisted rounds whose ACKs we never saw:
@@ -692,6 +743,7 @@ class GeoPSClient:
             frame = msg.encode()
             if _verbose_level() >= 2:  # data-path sends log at ENQUEUE
                 _log_msg("ENQ ", msg, len(frame))
+            _ledger_push_hop(msg, len(frame) + 4)
             self._sendq.push(maybe_corrupt_frame(msg, frame), priority)
             return rid
         p = _Pending()
@@ -714,6 +766,7 @@ class GeoPSClient:
             p.frame, p.priority = frame, priority
         if frame_out is not None:
             frame_out.append(frame)
+        _ledger_push_hop(msg, len(frame) + 4)
         if self._reconnect and msg.type == MsgType.PUSH \
                 and msg.meta.get("round") is not None \
                 and msg.meta.get("chunk") is None:
@@ -862,9 +915,9 @@ class GeoPSClient:
                     meta={"chunk": ch.index, "num_chunks": ch.num_chunks,
                           "start": ch.start, "n_total": int(g.size),
                           "shape": list(g.shape), "round": rnd,
-                          # declared payload bytes for THIS chunk (a
-                          # JAX server's round ledger reconciles the sum
-                          # against measured frame bytes)
+                          # declared payload bytes for THIS chunk: the
+                          # ledger reconciles the sum against measured
+                          # frame bytes (P3 framing is overhead)
                           "wire_declared":
                               (ch.stop - ch.start) * g.dtype.itemsize,
                           **extra},
@@ -881,7 +934,7 @@ class GeoPSClient:
         m.setdefault("round", rnd)
         # the sender-declared wire cost: what the payload claims to be
         # (for a pre-compressed pair push this IS the compressor's
-        # declared bytes) — a JAX server's round ledger reconciles the
+        # declared bytes) — the ledger's honesty ratio reconciles the
         # measured frame bytes against it (docs/telemetry.md)
         m.setdefault("wire_declared", int(g.nbytes))
         return self._submit(Msg(MsgType.PUSH, key=key, meta=m, array=g),
@@ -1460,9 +1513,7 @@ class GeoPSClient:
     def metrics_text(self) -> str:
         """The SERVER process's live Prometheus exposition
         (telemetry/export.py) — ``COMMAND {cmd: "metrics"}``, the
-        wire-protocol twin of the scheduler's GET /metrics.  A JAX
-        server answers it; the port's refuses it until ROADMAP item
-        "Telemetry"."""
+        wire-protocol twin of the scheduler's GET /metrics."""
         reply = self._request(Msg(MsgType.COMMAND,
                                   meta={"cmd": "metrics"}))
         return str(reply.meta["text"])

@@ -79,7 +79,9 @@ DEFAULT_MAX_FRAME_BYTES = 1 << 30  # 1 GiB
 # + array desc (2 + dtype <= 6 + 8 per dim, <= 4 dims) + hot-path meta
 # TLV (known-key coded, <= 72 B for the push/reply/relay metas).  The
 # compact P3-chunk form (header flags bit1) is tighter still: ~24 B of
-# header for a chunked push.
+# header for a chunked push.  The ledger's reconciliation gate uses
+# this instead of the legacy pickled codec's 512 B allowance
+# (telemetry/ledger.py).
 BIN_FRAME_OVERHEAD_BOUND = 192
 
 
@@ -191,10 +193,11 @@ def _wire_native():
 
 
 def _count_frame_error(reason: str) -> None:
-    """Bump ``geomx_wire_crc_errors_total{reason}`` (the registry is
-    resolved per call so test-time registry resets never orphan it).
-    The JAX package also notifies its flight recorder here; the port has
-    none until ROADMAP item "Telemetry"."""
+    """Bump ``geomx_wire_crc_errors_total{reason}`` and surface the
+    incident to the flight recorder and the event log (telemetry
+    imported lazily — this only runs on the error path, and the registry
+    is resolved per call so test-time registry resets never orphan
+    it)."""
     try:
         from geomx_tpu_torch.telemetry import get_registry
         get_registry().counter(
@@ -202,6 +205,8 @@ def _count_frame_error(reason: str) -> None:
             "Wire frames rejected by the integrity layer "
             "(CRC mismatch, unknown version, length bound)",
             ("reason",)).labels(reason=reason).inc()
+        from geomx_tpu_torch.telemetry.flight import notify_host_incident
+        notify_host_incident("wire_crc_error", reason=reason)
     except Exception:
         pass  # the integrity REJECTION must stand even if telemetry
         # is mid-teardown; the counter is observability, not the gate
@@ -218,6 +223,32 @@ def wire_crc_errors() -> float:
 
 _ALLOWED_HEADER_TYPES = (str, int, float, bool, bytes, type(None), list,
                          tuple, dict)
+
+# frame kinds the fleet round ledger accounts (telemetry/ledger.py):
+# only round-tagged data traffic — control frames carry no round id
+_LEDGER_TYPES = frozenset((2, 4, 14))  # PUSH, PULL_REPLY, RELAY
+
+
+def _ledger_account(direction: str, msg: "Msg", nbytes: int) -> None:
+    """Byte-true wire accounting at the one encode/decode choke point:
+    every producer ships ``Msg.encode`` output verbatim (send_frame AND
+    the pre-encoded priority-queue paths) and every consumer parses via
+    ``Msg.decode``, so counting here measures the frame that crosses the
+    socket — P3 framing, pair codec, CRC prelude, header and the 4-byte
+    length prefix included.  Best-effort: accounting must never break
+    the wire."""
+    meta = msg.meta
+    if msg.key is None or not meta or int(msg.type) not in _LEDGER_TYPES:
+        return
+    rid = meta.get("round")
+    if rid is None:
+        return
+    try:
+        from geomx_tpu_torch.telemetry.ledger import account_frame
+        account_frame(direction, msg.type.name, msg.key, int(rid),
+                      int(nbytes), declared=meta.get("wire_declared"))
+    except Exception:
+        pass
 
 class MsgType(enum.IntEnum):
     INIT = 1
@@ -621,6 +652,9 @@ class Msg:
         body = _LEN.pack(len(hb)) + hb + payload
         frame = (bytes((FRAME_VERSION,)) + _LEN.pack(zlib.crc32(body))
                  + body)
+        # fleet round ledger (telemetry/ledger.py): +4 for the outer
+        # length prefix send_frame / the send loops add on the socket
+        _ledger_account("tx", self, len(frame) + 4)
         return frame
 
     def _encode_binary(self) -> bytes:
@@ -671,7 +705,9 @@ class Msg:
             frame[0] = FRAME_VERSION_BIN
             _LEN.pack_into(frame, 1,
                            zlib.crc32(memoryview(frame)[_PRELUDE:]))
-        return bytes(frame)
+        out = bytes(frame)
+        _ledger_account("tx", self, len(out) + 4)
+        return out
 
     @classmethod
     def decode(cls, frame: bytes) -> "Msg":
@@ -723,6 +759,11 @@ class Msg:
                 arr = arr.reshape(header["shape"])
             msg = cls(type=MsgType(header["t"]), key=header["k"],
                       sender=header["s"], meta=header["m"], array=arr)
+        # receive-side wire accounting: unlike encode (once per frame
+        # construction), decode runs once per ARRIVAL, so retransmitted
+        # frames count here — the retry overhead the honesty audit
+        # exists to surface
+        _ledger_account("rx", msg, len(frame) + 4)
         return msg
 
     @classmethod
@@ -885,6 +926,17 @@ def maybe_corrupt_frame(msg: "Msg", frame: bytes) -> bytes:
     buf = bytearray(frame)
     i = _corrupt_rng.randrange(1, len(buf))
     buf[i] ^= 1 << _corrupt_rng.randrange(8)
+    if msg.key is not None and msg.meta.get("round") is not None:
+        # fleet round ledger: name the exact (key, round) hop this
+        # injected fault landed on — the receiver can only count an
+        # anonymous CRC rejection, the sender knows the victim
+        try:
+            from geomx_tpu_torch.telemetry.ledger import CORRUPT, record_hop
+            record_hop(msg.key, int(msg.meta["round"]), CORRUPT,
+                       party=msg.sender,
+                       detail={"offset": i, "nbytes": len(buf)})
+        except Exception:
+            pass
     return bytes(buf)
 
 

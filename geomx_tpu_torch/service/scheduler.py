@@ -37,13 +37,15 @@ empty, so live nodes that have not re-dialed yet are not read as dead.
 
 Telemetry: roster churn (registrations, evictions, epoch bumps) is
 recorded as registry gauges/counters and as profiler instants carrying
-the roster epoch; a restart bumps ``geomx_host_restarts_total``.  The
-JAX scheduler also serves the registry as Prometheus text
-(``metrics_port``/``GEOMX_METRICS_PORT``, the ``metrics`` command) with
-FleetScope beside it, and announces a restart to its event log; in the
-port those raise or are absent until ROADMAP item "Telemetry".  The
-serving surface of its health document ("Serving") is not ported
-either.
+the roster epoch; a restart is announced to the registry, the event log
+and the flight recorders.  ``metrics_port=0`` (or ``GEOMX_METRICS_PORT``)
+starts an HTTP endpoint answering ``GET /metrics`` (Prometheus text),
+``/healthz`` and ``/ledger``, and the ``metrics`` command returns the
+same exposition over the wire protocol; ``geomx_build_info`` carries
+the build identity.  ``GET /control`` answers 501: the decision log is
+the control plane's (ROADMAP.md Queue 1, "Control").  FleetScope
+(``GEOMX_FLEETSCOPE``) is refused ("Telemetry"), and the serving surface
+of the health document ("Serving") is not ported.
 
 `geomx_tpu_torch/launch.py` starts one per job when GEOMX_USE_SCHEDULER=1
 and `geomx_tpu_torch/examples/dist_ps.py` then discovers every address
@@ -76,14 +78,10 @@ class GeoScheduler:
                  metrics_port: Optional[int] = None,
                  durable_dir: Optional[str] = None,
                  restart_grace_s: Optional[float] = None):
-        """``metrics_port`` keeps the JAX signature and raises
-        ``NotImplementedError`` unless left at its default (module
-        docstring).  ``durable_dir`` (default ``GEOMX_DURABLE_DIR``) arms
-        the durable roster; ``restart_grace_s`` shapes its restart."""
-        if metrics_port is not None \
-                or os.environ.get("GEOMX_METRICS_PORT") not in (None, ""):
-            raise unported("the scheduler's metrics endpoint "
-                           "(metrics_port, GEOMX_METRICS_PORT)", "Telemetry")
+        """``metrics_port``: the HTTP endpoint's port (explicit wins,
+        else ``GEOMX_METRICS_PORT``, 0 = ephemeral; unset = none).
+        ``durable_dir`` (default ``GEOMX_DURABLE_DIR``) arms the durable
+        roster; ``restart_grace_s`` shapes its restart."""
         if _env_bool(["GEOMX_FLEETSCOPE"], False):
             raise unported("GEOMX_FLEETSCOPE", "Telemetry")
         self._lock = threading.Lock()
@@ -199,6 +197,32 @@ class GeoScheduler:
             "Shard failovers applied (address re-points)")
         if self._shard_map is not None:
             self._m_shard_ver.set(self._shard_map.version)
+        # build-info gauge (the Prometheus idiom for version labels:
+        # constant 1, identity in the labels)
+        import torch
+
+        from geomx_tpu_torch import __version__
+        self.build_info = {"version": __version__,
+                           "torch_version": torch.__version__}
+        reg.gauge("geomx_build_info",
+                  "Constant 1; the build identity lives in the labels",
+                  ("version", "torch_version")).labels(
+            **self.build_info).set(1.0)
+        # Prometheus scrape endpoint: explicit metrics_port wins, else
+        # GEOMX_METRICS_PORT (0 = ephemeral), else no HTTP surface
+        self._metrics_srv = None
+        self.metrics_port: Optional[int] = None
+        if metrics_port is None:
+            # graftlint: disable=GXL006 — host-plane knob
+            raw = os.environ.get("GEOMX_METRICS_PORT")
+            if raw not in (None, ""):
+                try:
+                    metrics_port = int(raw)
+                except ValueError:
+                    raise ValueError(
+                        f"Bad value for env var GEOMX_METRICS_PORT: {raw!r}")
+        if metrics_port is not None:
+            self._start_metrics_http(bind_host, int(metrics_port))
         if restored and self.generation > 1:
             self._announce_restart()
 
@@ -207,7 +231,10 @@ class GeoScheduler:
     def _announce_restart(self):
         from geomx_tpu_torch.resilience.durability import \
             record_host_restart
-        record_host_restart("scheduler", self.generation)
+        record_host_restart(
+            "scheduler", self.generation, "scheduler_restart",
+            epoch=self._epoch,
+            nodes=sum(len(v) for v in self._roster.values()))
         from geomx_tpu_torch.utils.profiler import get_profiler
         get_profiler().instant(
             "SchedulerRestart", "scheduler",
@@ -293,6 +320,44 @@ class GeoScheduler:
         live parties that simply haven't re-heartbeated yet."""
         return time.monotonic() < self._grace_until
 
+    def _start_metrics_http(self, bind_host: Optional[str],
+                            port: int) -> None:
+        """Serve ``GET /metrics`` (Prometheus text exposition of the
+        process-global registry), ``GET /healthz`` (:meth:`health_snapshot`
+        as JSON), ``GET /ledger`` (the fleet round ledger) and ``GET
+        /control`` from a daemon HTTP thread — the shared exporter the
+        server's ``GEOMX_SERVER_METRICS_PORT`` surface runs too.  The
+        port has no control plane, so ``/control`` answers 501 naming
+        ROADMAP.md Queue 1 item "Control"."""
+        import json as _json
+
+        from geomx_tpu_torch.telemetry.export import start_http_exporter
+
+        def _control():
+            return (_json.dumps({
+                "error": "the control plane's decision log is not ported "
+                         "yet (ROADMAP.md Queue 1, 'Control')"}).encode(
+                "utf-8"), "application/json", 501)
+
+        if bind_host is None:
+            # graftlint: disable=GXL006 — host-plane knob
+            bind_host = os.environ.get("GEOMX_PS_BIND_HOST", "127.0.0.1")
+        self._metrics_srv = start_http_exporter(
+            bind_host, port, health_fn=self.health_snapshot,
+            routes={"/control": _control},
+            thread_name="sched-metrics-http")
+        self.metrics_port = self._metrics_srv.server_address[1]
+
+    def _close_metrics_http(self) -> None:
+        if self._metrics_srv is None:
+            return
+        try:
+            self._metrics_srv.shutdown()
+            self._metrics_srv.server_close()
+        except OSError:
+            pass
+        self._metrics_srv = None
+
     def start(self):
         self._thread.start()
         return self
@@ -305,6 +370,7 @@ class GeoScheduler:
             pass
         if self._durable is not None:
             self._durable.close()
+        self._close_metrics_http()
 
     def crash(self):
         """In-process emulation of a scheduler process death (chaos
@@ -324,17 +390,17 @@ class GeoScheduler:
                 pass
         if self._durable is not None:
             self._durable.close()
+        self._close_metrics_http()
 
     def join(self, timeout: Optional[float] = None):
         self._thread.join(timeout)
 
     def health_snapshot(self) -> dict:
-        """The JAX scheduler's ``GET /healthz`` body as far as the port
-        has its parts: roster epoch, per-role roster sizes, live/dead
-        counts from the heartbeat monitor (none inside the restart grace
-        window), the shard map's version and width, generation and
-        uptime.  The HTTP endpoint, the build identity ("Telemetry") and
-        the serving surface ("Serving") are not ported."""
+        """The ``GET /healthz`` body: roster epoch, per-role roster
+        sizes, live/dead counts from the heartbeat monitor (none inside
+        the restart grace window), the shard map's version and width,
+        generation, uptime and the build identity.  The serving surface
+        of the JAX document ("Serving") is not ported."""
         with self._lock:
             epoch = self._epoch
             roster = {role: len(nodes)
@@ -369,6 +435,7 @@ class GeoScheduler:
             "generation": self.generation,
             "uptime_s": round(time.monotonic() - self._started_monotonic,
                               3),
+            "build": dict(self.build_info),
         }
 
     # ---- key-range sharded global tier (scheduler-owned placement) ---------
@@ -691,8 +758,11 @@ class GeoScheduler:
                     self._barriers[group] = []
                     self._m_barriers.inc()
         elif cmd == "metrics":
-            # the Prometheus exposition lives in telemetry/export.py
-            raise unported("the 'metrics' command", "Telemetry")
+            # the wire-protocol twin of GET /metrics: the same Prometheus
+            # exposition, for clients already speaking COMMAND frames
+            from geomx_tpu_torch.telemetry import render_prometheus
+            self._reply(conn, msg, Msg(MsgType.ACK, meta={
+                "text": render_prometheus()}))
         elif cmd == "num_dead_nodes":
             # restart grace: a freshly restored scheduler answers an
             # empty dead list until live nodes had time to re-dial —
@@ -934,9 +1004,7 @@ class SchedulerClient:
 
     def metrics_text(self) -> str:
         """The scheduler process's Prometheus exposition over the wire
-        protocol (the COMMAND twin of its GET /metrics endpoint).  A JAX
-        scheduler answers it; the port's refuses it until ROADMAP item
-        "Telemetry"."""
+        protocol (the COMMAND twin of its GET /metrics endpoint)."""
         return str(self._rpc(Msg(MsgType.COMMAND,
                                  meta={"cmd": "metrics"})).meta["text"])
 

@@ -40,12 +40,12 @@ journal holds host bytes: a key's optimizer state goes through the
 port's tree format (numpy leaves) and is put back on the server's device
 at restore; the relay compressor's u/v likewise.
 
-Not ported yet, and refused when asked for: the round ledger, the
-flight recorder and the HTTP exporter (``metrics_port``/
-``GEOMX_SERVER_METRICS_PORT`` and the ``metrics`` command, ROADMAP item
-"Telemetry").  The JAX package's round ledger records with no knob, and
-it announces a restart to its event log; in the port those are simply
-absent (a restart still bumps ``geomx_host_restarts_total``).
+Telemetry (``telemetry/``): the fleet round ledger records every
+round's merge, journal, relay and reply hops and its phases; a restart
+is announced to the registry, the event log and the flight recorders;
+``metrics_port``/``GEOMX_SERVER_METRICS_PORT`` serves ``GET /metrics``,
+``/healthz`` and ``/ledger``, and the ``metrics`` command answers the
+same Prometheus text over the wire.
 """
 
 from __future__ import annotations
@@ -62,7 +62,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from geomx_tpu_torch.config import unported
 from geomx_tpu_torch.device import resolve_device
 from geomx_tpu_torch.service.protocol import (BATCH_DRAIN_MAX_BYTES,
                                               BATCH_DRAIN_MAX_FRAMES, Msg,
@@ -134,11 +133,21 @@ class _KeyState:
         # (densified at most once, at the round gate)
         self.rs_rows: list = []
         self.rs_vals: list = []
-        # the client round ids contributing to the open round, and the
-        # last completed round's id in the CLIENT's numbering: pull
-        # replies carry it as meta["round"], as the JAX package's do
+        # fleet round ledger (telemetry/ledger.py): when the open round
+        # started filling (monotonic — the gate-wait phase's zero), the
+        # client round ids contributing to it (the ledger keys rounds
+        # by the CLIENT's numbering, which survives re-routing), and
+        # the ledger id of the last completed round (pull replies carry
+        # it as meta["round"])
+        self.open_t: Optional[float] = None
         self.open_rids: set = set()
         self.led_rid: Optional[int] = None
+        # ALL client rounds the last gate close covered: after a crash
+        # replay, a lost round's re-pushes legitimately coalesce with
+        # the next round's fresh pushes into ONE merge (each gradient
+        # still sums exactly once under the per-sender round dedup) —
+        # the ledger attributes that merge to every round it closed
+        self.led_rids: list = []
 
     @property
     def value(self) -> np.ndarray:
@@ -236,12 +245,10 @@ class GeoPSServer:
 
         ``device``: where the relay compressor and a non-native
         server-side optimizer run (``resolve_device``: the card unless
-        ``"cpu"``).  ``metrics_port`` keeps the JAX signature and raises
-        ``NotImplementedError`` unless left at its default."""
-        if metrics_port is not None or \
-                env_int(("GEOMX_SERVER_METRICS_PORT",), 0) > 0:
-            raise unported("the server's metrics endpoint (metrics_port, "
-                           "GEOMX_SERVER_METRICS_PORT)", "Telemetry")
+        ``"cpu"``).  ``metrics_port`` (default
+        ``GEOMX_SERVER_METRICS_PORT``; unset or 0 disables, an explicit 0
+        binds an ephemeral port) serves ``GET /metrics``, ``/healthz``
+        and ``/ledger`` (``telemetry/export.py``)."""
         self.device = resolve_device(device)
         self.num_workers = num_workers
         self.mode = mode
@@ -498,6 +505,21 @@ class GeoPSServer:
         self._running = True
         self._accept_thread = threading.Thread(target=self._accept_loop,
                                                daemon=True)
+        # HTTP observability surface (the scheduler's routes, so fleet
+        # scrapers need not speak the wire's metrics command):
+        # GET /metrics + /healthz + /ledger
+        self._metrics_srv = None
+        self.metrics_port: Optional[int] = None
+        if metrics_port is None:
+            mp = env_int(("GEOMX_SERVER_METRICS_PORT",), 0)
+            metrics_port = mp if mp > 0 else None
+        if metrics_port is not None:
+            from geomx_tpu_torch.telemetry.export import start_http_exporter
+            self._metrics_srv = start_http_exporter(
+                bind_host, int(metrics_port),
+                health_fn=self.health_snapshot,
+                thread_name=f"ps-metrics-http-r{rank}")
+            self.metrics_port = self._metrics_srv.server_address[1]
         self._start_unix = time.time()
 
     @staticmethod
@@ -520,10 +542,10 @@ class GeoPSServer:
                 time.sleep(0.05)
 
     def health_snapshot(self) -> dict:
-        """The JAX server's ``GET /healthz`` body: role identity,
-        sync-gate width, shard range/map version, store size, generation
-        and uptime.  The HTTP endpoint and the build identity in it are
-        ROADMAP item "Telemetry"."""
+        """The ``GET /healthz`` body (the scheduler's shape): role
+        identity, sync-gate width, shard range/map version, store size,
+        durable generation, uptime and build identity."""
+        from geomx_tpu_torch import __version__ as _ver
         with self._lock:
             out = {
                 "status": "ok" if self._running else "stopping",
@@ -536,6 +558,7 @@ class GeoPSServer:
                 "generation": self.generation,
                 "durable": self._durable is not None,
                 "uptime_s": round(time.time() - self._start_unix, 3),
+                "version": _ver,
             }
             if self._shard_range is not None:
                 out.update({"shard_index": self.shard_index,
@@ -543,6 +566,16 @@ class GeoPSServer:
                             "shard_hi": self._shard_range[1],
                             "map_version": self.shard_map_version})
         return out
+
+    def _close_metrics_http(self) -> None:
+        if self._metrics_srv is None:
+            return
+        try:
+            self._metrics_srv.shutdown()
+            self._metrics_srv.server_close()
+        except OSError:
+            pass
+        self._metrics_srv = None
 
     # ---- lifecycle ---------------------------------------------------------
 
@@ -612,6 +645,7 @@ class GeoPSServer:
 
     def _stop_impl(self, forward: bool):
         self._running = False
+        self._close_metrics_http()
         with self._lock:
             for q in self._relay_qs.values():
                 q.put(None)
@@ -672,6 +706,7 @@ class GeoPSServer:
         server constructed on the same durable dir (and port) is the
         restart."""
         self._running = False
+        self._close_metrics_http()
         with self._lock:
             for q in self._relay_qs.values():
                 q.put(None)
@@ -706,11 +741,14 @@ class GeoPSServer:
 
     def _announce_restart(self):
         """Restored from a durable dir with generation > 1: this is a
-        restart.  Publish it (restart counter, generation gauge, a
-        profiler instant)."""
+        restart.  Publish it (restart counter, generation gauge, the
+        host-plane incident for the flight recorders and the event log,
+        a profiler instant)."""
         from geomx_tpu_torch.resilience.durability import \
             record_host_restart
-        record_host_restart(f"server_r{self.rank}", self.generation)
+        record_host_restart(f"server_r{self.rank}", self.generation,
+                            "server_restart", rank=self.rank,
+                            keys=len(self._store))
         self.profiler.instant("ServerRestart", "kvstore",
                               args={"rank": self.rank,
                                     "generation": self.generation,
@@ -1181,6 +1219,41 @@ class GeoPSServer:
         self._send_msg(conn, reply)
 
 
+    # ---- fleet round ledger (telemetry/ledger.py) --------------------------
+
+    def _ledger_hop(self, key: str, rid, hop: str, **kw) -> None:
+        """One causal hop of round ``rid`` on this server/shard.  Best
+        effort by design — observability must never fail the data path
+        it observes."""
+        if rid is None:
+            return
+        try:
+            from geomx_tpu_torch.telemetry.ledger import record_hop
+            kw.setdefault("shard", self.shard_index
+                          if self.shard_index is not None else self.rank)
+            record_hop(key, int(rid), hop, **kw)
+        except Exception:
+            pass
+
+    def _ledger_phase(self, key: str, rid, phase: str,
+                      seconds: float) -> None:
+        if rid is None:
+            return
+        try:
+            from geomx_tpu_torch.telemetry.ledger import add_phase
+            add_phase(key, int(rid), phase, seconds)
+        except Exception:
+            pass
+
+    def _ledger_complete(self, key: str, rid) -> None:
+        if rid is None:
+            return
+        try:
+            from geomx_tpu_torch.telemetry.ledger import complete_round
+            complete_round(key, int(rid))
+        except Exception:
+            pass
+
     def _handle(self, conn, msg: Msg) -> bool:
         t = msg.type
         if msg.sender >= 0:
@@ -1496,8 +1569,12 @@ class GeoPSServer:
                                        meta={"num_workers": n}))
             return
         elif cmd == "metrics":
-            # the Prometheus exposition lives in telemetry/export.py
-            raise unported("the 'metrics' command", "Telemetry")
+            # live Prometheus exposition of the process-global registry
+            # (the wire-protocol twin of the scheduler's GET /metrics)
+            from geomx_tpu_torch.telemetry import render_prometheus
+            self._reply(conn, msg, Msg(MsgType.ACK,
+                                       meta={"text": render_prometheus()}))
+            return
         elif cmd == "wire_stats":
             # this server process's Van-style byte/message counters
             # (reference van.h:182-183 send_bytes_/recv_bytes_)
@@ -2185,6 +2262,9 @@ class GeoPSServer:
             st.round += 1
             self._journal_round(key, st)  # async apply = one round
             st.led_rid = int(r0) if r0 is not None else st.round
+            self._ledger_hop(key, st.led_rid, "merge",
+                             party=msg.sender, detail={"mode": "async"})
+            self._ledger_complete(key, st.led_rid)
             self._reply(conn, msg, Msg(MsgType.ACK, key=key))
             if self.ts_sched is not None:
                 # async intra-TS: disseminate after every apply, like the
@@ -2213,6 +2293,10 @@ class GeoPSServer:
                 "error": "dense and row-sparse pushes mixed in one sync "
                          f"round for {key!r}"}))
             return
+        if st.count == 0 and not st.rs_rows:
+            # first contribution of a fresh round: the gate-wait phase
+            # (ledger) measures from here to the gate close
+            st.open_t = time.monotonic()
         if r is not None:
             st.open_rids.add(int(r))
         if rs is not None:
@@ -2259,6 +2343,10 @@ class GeoPSServer:
         sorted-index segment fold (compression/sparseagg.py
         merge_pairs_host) and the result STAYS sparse: O(k log k) host
         work, no densify until a dense consumer actually reads."""
+        t_gate = time.monotonic()
+        gate_wait = 0.0 if st.open_t is None else \
+            max(0.0, t_gate - st.open_t)
+        n_contribs = len(st.contribs)
         merged = None
         if st.contribs:
             parts = [st.contribs[s] for s in sorted(st.contribs)]
@@ -2276,12 +2364,28 @@ class GeoPSServer:
                     merged = merged + g
         st.contribs, st.count = {}, 0
         rnd = st.round + 1  # the round this merge completes
-        # the round id pull replies carry: the CLIENT round numbering
-        # the pushes declared, else the server's own completion count
-        st.led_rid = max(st.open_rids) if st.open_rids else rnd
+        # ledger round ids: the CLIENT round numbering the pushes
+        # declared (it survives re-routing/migration; the server's own
+        # completion count is the fallback when pushes carried none).
+        # More than one id means a coalesced merge (see _KeyState).
+        led_rids = sorted(st.open_rids) if st.open_rids else [rnd]
         st.open_rids = set()
+        st.open_t = None
+        st.led_rid = led_rids[-1]
+        st.led_rids = led_rids
         self.profiler.instant(f"ServerMerge:{key}", "kvstore",
                               args={"key": key, "round_id": rnd})
+        merge_dur = time.monotonic() - t_gate
+        for lr in led_rids:
+            self._ledger_hop(key, lr, "merge",
+                             dur_s=merge_dur,
+                             detail={"contribs": n_contribs,
+                                     "server_round": rnd,
+                                     "gate_wait_s": round(gate_wait, 6),
+                                     **({"coalesced": len(led_rids)}
+                                        if len(led_rids) > 1 else {})})
+            self._ledger_phase(key, lr, "gate_wait", gate_wait)
+            self._ledger_phase(key, lr, "merge", merge_dur)
         if st.rs_rows:
             rows_u, vals_u = self._rs_unique(st.rs_rows, st.rs_vals)
             st.rs_rows, st.rs_vals = [], []
@@ -2400,11 +2504,19 @@ class GeoPSServer:
         it unblocks, feed the TS distributor.  Caller holds self._lock."""
         st.round += 1
         led_rid = st.led_rid if st.led_rid is not None else st.round
+        led_rids = st.led_rids or [led_rid]
         # write-ahead: the round is durable BEFORE any pull can observe
         # its value — a crash after a client saw round r always replays
         # to a state that includes round r
+        t_j = time.monotonic()
         self._journal_round(key, st)
+        if self._durable is not None:
+            jd = time.monotonic() - t_j
+            for lr in led_rids:
+                self._ledger_hop(key, lr, "journal", dur_s=jd)
+                self._ledger_phase(key, lr, "journal", jd)
         self._m_rounds.inc()
+        t_rep = time.monotonic()
         still = []
         for c, req, need in st.waiting_pulls:
             if st.round >= need:
@@ -2418,6 +2530,9 @@ class GeoPSServer:
                     f"ServerPull:{key}", "kvstore",
                     args={"key": key, "round_id": st.round,
                           "sender": req.sender})
+                for lr in led_rids:
+                    self._ledger_hop(key, lr, "reply",
+                                     party=req.sender)
                 try:
                     self._reply_pull_value(
                         c, req, key, val,
@@ -2429,6 +2544,10 @@ class GeoPSServer:
             else:
                 still.append((c, req, need))
         st.waiting_pulls = still
+        for lr in led_rids:
+            self._ledger_phase(key, lr, "reply",
+                               time.monotonic() - t_rep)
+            self._ledger_complete(key, lr)
         if self.ts_sched is not None:
             # hand an immutable snapshot to the distributor thread:
             # blocking sends must not run under self._lock (a stalled
@@ -2450,7 +2569,9 @@ class GeoPSServer:
             q = self._relay_qs[shard] = queue.Queue()
             threading.Thread(target=self._relay_loop, args=(q,),
                              daemon=True).start()
-        q.put((key, job))
+        # the enqueue timestamp is the ledger's queue phase zero: time
+        # a round spends parked behind its key-affine shard's FIFO
+        q.put((key, job, time.monotonic()))
 
     def _relay_loop(self, q: "queue.Queue"):
         """WAN-relay worker: the blocking push-through to the global tier
@@ -2466,7 +2587,9 @@ class GeoPSServer:
             # sync-mode rounds (their ACKs went out at merge time and the
             # round completes via _finish_round_locked).  ``round_`` is
             # the WAN round id the relay belongs to (telemetry/tracing).
-            key, (payload, is_milestone, is_rs, reply_to, round_) = item
+            key, (payload, is_milestone, is_rs, reply_to, round_), \
+                enq_t = item
+            queue_s = max(0.0, time.monotonic() - enq_t)
             t_relay = time.perf_counter()
             try:
                 if is_rs:
@@ -2476,7 +2599,8 @@ class GeoPSServer:
                 else:
                     fresh = self._relay_to_global(key, payload,
                                                   round_=round_)
-                self._m_relay_s.observe(time.perf_counter() - t_relay)
+                relay_s = time.perf_counter() - t_relay
+                self._m_relay_s.observe(relay_s)
             except Exception as e:
                 self._m_relay_fail.inc()
                 # loss observation for the LinkObservatory's trace replay
@@ -2515,6 +2639,17 @@ class GeoPSServer:
                         continue
                     st.relay_error = f"global relay failed: {e!r}"
                     waiters, st.waiting_pulls = st.waiting_pulls, []
+                    try:
+                        # EVERY round still open on the key can never
+                        # complete (the latched relay_error fails all
+                        # its future pulls): close them all as
+                        # orphaned instead of leaking open records
+                        from geomx_tpu_torch.telemetry.ledger import \
+                            get_round_ledger
+                        get_round_ledger().orphan(
+                            key=key, reason="relay_failed")
+                    except Exception:
+                        pass
                 for c, req, _need in waiters:
                     err = Msg(MsgType.ERROR,
                               meta={"error": st.relay_error})
@@ -2526,6 +2661,11 @@ class GeoPSServer:
                     except OSError:
                         pass
                 continue
+            try:
+                nb = int(rs_vals.nbytes + rs_rows.nbytes) if is_rs \
+                    else int(np.asarray(payload).nbytes)
+            except Exception:
+                nb = None
             with self._lock:
                 st = self._store[key]
                 if is_rs:
@@ -2537,6 +2677,12 @@ class GeoPSServer:
                 if is_milestone:
                     st.milestone = fresh.copy()
                 if reply_to is None:
+                    self._ledger_hop(key, st.led_rid, "relay",
+                                     dur_s=relay_s, nbytes=nb,
+                                     detail={"queue_s":
+                                             round(queue_s, 6)})
+                    self._ledger_phase(key, st.led_rid, "queue",
+                                       queue_s)
                     self._finish_round_locked(key, st)
                 else:
                     # async mode: arrival-ordered round bump + TSEngine
@@ -2556,6 +2702,15 @@ class GeoPSServer:
                     st.round += 1
                     self._journal_round(key, st)
                     st.led_rid = int(r0) if r0 is not None else st.round
+                    self._ledger_hop(key, st.led_rid, "relay",
+                                     dur_s=relay_s, nbytes=nb,
+                                     detail={"queue_s":
+                                             round(queue_s, 6)})
+                    self._ledger_phase(key, st.led_rid, "queue", queue_s)
+                    self._ledger_hop(key, st.led_rid, "merge",
+                                     party=req0.sender,
+                                     detail={"mode": "async_relay"})
+                    self._ledger_complete(key, st.led_rid)
                     if self.ts_sched is not None:
                         self._ap_queue.put((key, st.value.copy(), st.round))
             if reply_to is not None:
@@ -2652,6 +2807,13 @@ class GeoPSServer:
                 args={"key": msg.key, "round_id": st.round,
                       "sender": msg.sender})
             led = st.led_rid if st.led_rid is not None else st.round
+            if led:
+                # pulls legitimately arrive after the round completed:
+                # the reply hop appends to the completed ledger record
+                # (every round a coalesced merge closed gets it)
+                for lr in (st.led_rids or [led]):
+                    self._ledger_hop(msg.key, lr, "reply",
+                                     party=msg.sender)
             self._reply_pull_value(conn, msg, msg.key, val,
                                    pushed=st.pushed.get(msg.sender, 0),
                                    sparse=sparse, round_=led or None)
@@ -2694,9 +2856,9 @@ class GeoPSServer:
         decompresses ONCE.  Sparse replies are pair-sized and bypass
         P3 chunking.
 
-        ``round_`` is the client round this reply answers: it rides
-        the reply meta (a JAX peer's round ledger attributes the
-        reply's wire bytes by it)."""
+        ``round_`` is the ledger round this reply answers: it rides
+        the reply meta so the encode/decode choke point attributes the
+        reply's wire bytes to the right (key, round) record."""
         if sparse is not None:
             from geomx_tpu_torch.compression.sparseagg import encode_pairs_payload
             mvals, midx, n, shape = sparse

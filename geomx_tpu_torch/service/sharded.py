@@ -24,8 +24,9 @@ Round ids are owned HERE (``meta["round"]`` on every push), not by the
 per-shard clients: a key's rounds belong to the key, and must survive
 re-routing to a different shard client mid-stream.
 
-The JAX wrapper also records ``REDIRECT`` and ``FAILOVER_REPLAY`` hops in
-the fleet round ledger; that ledger is ROADMAP item "Telemetry".
+The wrapper records ``REDIRECT`` and ``FAILOVER_REPLAY`` hops in the
+fleet round ledger (``telemetry/ledger.py``), naming the shard and the
+map version, so a round's record shows its re-routes.
 """
 
 from __future__ import annotations
@@ -196,6 +197,19 @@ class ShardedGlobalClient:
                 # durable copy survived after all)
                 c.push(key, grad, priority=prio,
                        meta={**meta, "round": rnd})
+                try:
+                    # ledger: the failover is attributed to the exact
+                    # round it interrupted, on the named shard
+                    from geomx_tpu_torch.telemetry.ledger import (
+                        FAILOVER_REPLAY, record_hop)
+                    record_hop(key, rnd, FAILOVER_REPLAY,
+                               party=self.sender_id, shard=idx,
+                               nbytes=int(grad.nbytes),
+                               detail={"map_version": self._map.version,
+                                       "addr_changed":
+                                       self._map.addr_of(idx) != old_addr})
+                except Exception:
+                    pass
 
     def _routed(self, key: str, op):
         """Run ``op(client)`` against the key's current range owner,
@@ -208,9 +222,23 @@ class ShardedGlobalClient:
             try:
                 return op(c)
             except WrongShardError as e:
-                # exactly one retry count per redirect
+                # redirect observability: exactly one retry count per
+                # redirect, and a ledger hop naming the refusing shard and
+                # the map version it held — the round's record shows the
+                # re-route instead of a mystery latency bump
                 from geomx_tpu_torch.service.retry import count_retry
                 count_retry("redirect")
+                try:
+                    from geomx_tpu_torch.telemetry.ledger import (
+                        REDIRECT, record_hop)
+                    rnd = self._rounds.get(key)
+                    if rnd:
+                        record_hop(key, rnd, REDIRECT,
+                                   party=self.sender_id, shard=idx,
+                                   detail={"map_version":
+                                           int(e.map_version)})
+                except Exception:
+                    pass
                 want = max(int(e.map_version), self._map.version + 1)
                 try:
                     self.refresh_map(min_version=want, timeout=max(

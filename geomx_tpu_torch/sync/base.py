@@ -23,14 +23,18 @@ still run every op and kernel of the step: masking changes constants,
 never collectives.  ``reset_comm_state`` applies the membership-change
 residual policy.
 
-Not ported yet: ``telemetry_scalars`` and ``wire_accounting`` (ROADMAP.md
-Queue 1, "Telemetry").
+Telemetry (``telemetry/probes.py``): ``telemetry_scalars`` returns an
+algorithm's health values from its sync state, one ``[P, W]`` tensor a
+value (party-local, as each JAX device holds them; the probe layer folds
+them to the live-party mean), and ``wire_accounting`` the static bytes a
+step puts on each tier's wire.
 """
 
 from __future__ import annotations
 
 import abc
 import copy
+import math
 from typing import Any, List, Optional, Tuple
 
 import torch
@@ -62,7 +66,8 @@ class SyncAlgorithm(abc.ABC):
     # True when sync_grads returns a gradient replicated across the
     # [P, W] axes (hierarchical aggregation: FSA, MixedSync,
     # PipelinedSync); HFA's identity sync_grads keeps per-replica
-    # gradients.  The telemetry probes that read it are not ported.
+    # gradients.  Only replicated gradients feed the replicated-value
+    # probes (telemetry/probes.py).
     grads_replicated_after_sync: bool = False
 
     # ZeRO-sharded weight update (train/zero.py, GEOMX_ZERO): algorithms
@@ -199,3 +204,42 @@ class SyncAlgorithm(abc.ABC):
     def sync_model_state(self, model_state: dict, state: Any,
                          step: int) -> Tuple[dict, Any]:
         return model_state, state
+
+    # ---- telemetry (telemetry/probes.py) -----------------------------------
+
+    def telemetry_scalars(self, state: Any) -> dict:
+        """Health values from this algorithm's sync state, one ``[P, W]``
+        tensor a value (party-local; the probe layer folds them to the
+        live-party mean).  Called only when telemetry is on, so
+        implementations are free to add reductions — the disabled step
+        never runs them.  Base: nothing to report."""
+        return {}
+
+    def wire_accounting(self, params: dict) -> dict:
+        """Static per-step wire-volume accounting (plain Python floats,
+        resolved when the step is built) over ``[P, W]``-replicated
+        ``params``: what each tier puts on the wire a step and a party,
+        and the compression ratio against the dense payload.  Algorithms
+        with a dc-tier compressor get the generic accounting."""
+        out = {}
+        dc = getattr(self, "dc_compressor", None)
+        if dc is not None:
+            dense = float(sum(math.prod(p.shape[2:]) * p.element_size()
+                              for p in params.values()))
+            if self.zero_plan is not None:
+                # ZeRO (train/zero.py): a replica's dc payload is the
+                # compressed 1/W bucket shard; the worker tier's
+                # scatter/gather bytes ride along
+                out.update(self.zero_plan.wire_accounting(params))
+                wire = out.get("dc_wire_bytes", 0.0)
+                # the per-party dense baseline shrinks with the shard too
+                dense = dense / self.zero_plan.W
+            else:
+                wire = float(dc.wire_bytes(params))
+            out["dc_wire_bytes"] = wire
+            out["dc_dense_bytes"] = dense
+            out["dc_compression_ratio"] = dense / wire if wire else 1.0
+        wc = getattr(self, "worker_compressor", None)
+        if wc is not None and self.zero_plan is None:
+            out["worker_wire_bytes"] = float(wc.wire_bytes(params))
+        return out

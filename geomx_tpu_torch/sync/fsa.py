@@ -133,3 +133,11 @@ class FSA(SyncAlgorithm):
         if policy == "carry":
             return state
         return dict(state, dc_comp=self._dc_init(params))
+
+    def telemetry_scalars(self, state: Any) -> dict:
+        """EF-residual magnitude of the dc-tier compressor state (the
+        momentum/velocity buffers a sparse compressor holds back), a
+        ``[P, W]`` tensor (telemetry/probes.py; enabled path only)."""
+        from geomx_tpu_torch.telemetry.probes import replica_norms
+        return {"ef_residual_norm": replica_norms(
+            state["dc_comp"], self.num_parties, self.workers_per_party)}

@@ -16,8 +16,8 @@ The gates are Python branches on the host step (the JAX package's
 ``lax.cond``), so a skipped step launches nothing.  With one party the
 global tier never fires and the state is ``{}``.
 
-Not ported yet: ``telemetry_scalars`` and ``wire_accounting``
-(ROADMAP.md Queue 1, "Telemetry").
+Telemetry: HFA reports no sync-state values, and its wire accounting is
+the base class's (its dc-tier compressor's bytes a global sync).
 """
 
 from __future__ import annotations

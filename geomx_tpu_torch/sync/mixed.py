@@ -22,8 +22,8 @@ scatters the bucketed party mean over the workers and computes the
 DCASGD term shard-wise against each worker's slice of the true and stale
 weights; the stale copy stays full and replicated (the forward runs at
 it).  Under a membership mask the dc-tier mean renormalizes over the
-survivors, as FSA's does.  Not ported yet: ``telemetry_scalars``
-(ROADMAP.md Queue 1, "Telemetry").
+survivors, as FSA's does.  ``telemetry_scalars`` reports the EF
+residual and the stale copy's norm (telemetry/probes.py).
 """
 
 from __future__ import annotations
@@ -167,3 +167,13 @@ class MixedSync(SyncAlgorithm):
         if policy == "carry":
             return state
         return dict(state, dc_comp=self._dc_init(params))
+
+    def telemetry_scalars(self, state: Any) -> dict:
+        """EF residual magnitude plus the stale copy's norm: the distance
+        DCASGD compensates grows with the gap between the true weights'
+        refresh and the copy the party trains at (telemetry/probes.py;
+        enabled path only).  ``[P, W]`` tensors."""
+        from geomx_tpu_torch.telemetry.probes import replica_norms
+        P, W = self.num_parties, self.workers_per_party
+        return {"ef_residual_norm": replica_norms(state["dc_comp"], P, W),
+                "stale_copy_norm": replica_norms(state["stale"], P, W)}

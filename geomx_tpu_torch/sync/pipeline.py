@@ -38,8 +38,10 @@ drain returns the parked shard aggregates (``drain_grad_shards``);
 through to the wrapped algorithm, which owns the survivor mean; the
 launched statistics and the drain renormalize over the survivors too,
 and ``reset_comm_state`` discards the in-flight aggregate under
-``"reset"``.  Not ported yet: ``telemetry_scalars``, ``wire_accounting``
-and the in-flight byte counter (ROADMAP.md Queue 1, "Telemetry").
+``"reset"``.  ``telemetry_scalars`` reports the wrapped algorithm's EF
+residual and the in-flight aggregate's norm, ``wire_accounting`` the
+wrapped algorithm's bytes plus the staleness and the bytes in flight
+(telemetry/probes.py).
 """
 
 from __future__ import annotations
@@ -388,6 +390,36 @@ class PipelinedSync(SyncAlgorithm):
             g = tree_map(lambda gg, w, wp: dcasgd_term(gg, w, wp, lam),
                          g, params, state["prev_params"])
         return g, new_state
+
+    # -- telemetry (telemetry/probes.py; enabled path only) ------------------
+    def telemetry_scalars(self, state: Any) -> dict:
+        """The wrapped algorithm's EF residual (the pipelined
+        compressor's inner state, not the double buffer) plus the
+        in-flight aggregate's norm — a persistently zero in-flight norm
+        after the warm-up means the pipeline applies empty aggregates.
+        ``[P, W]`` tensors."""
+        from geomx_tpu_torch.telemetry.probes import replica_norms
+        P, W = self.num_parties, self.workers_per_party
+        inner_state = state["inner"]
+        dc = inner_state.get("dc_comp") if isinstance(inner_state, dict) \
+            else None
+        out = {}
+        if isinstance(dc, dict) and "inflight" in dc:
+            out["pipeline_inflight_norm"] = replica_norms(dc["inflight"],
+                                                          P, W)
+            out["ef_residual_norm"] = replica_norms(dc.get("inner"), P, W)
+        else:
+            out["ef_residual_norm"] = replica_norms(dc, P, W)
+        return out
+
+    def wire_accounting(self, params: dict) -> dict:
+        """The wrapped algorithm's accounting (the same bytes a step, one
+        step shifted) plus the pipeline's static shape: the staleness and
+        the bytes parked in flight between launch and apply."""
+        out = self.inner.wire_accounting(params)
+        out["pipeline_staleness"] = 1.0
+        out["pipeline_inflight_bytes"] = out.get("dc_wire_bytes", 0.0)
+        return out
 
     def drain_model_state(self, model_state: dict,
                           state: Any) -> Tuple[dict, Any]:

@@ -38,11 +38,19 @@ mean (a dead party's describe data that never reached the aggregate),
 and ``metrics["num_live_parties"]`` reports the live-party count the
 step ran with.
 
-Not ported yet: telemetry probes and control operands.
+With telemetry on (``GEOMX_TELEMETRY``, decided when the step is
+built) the step adds ``metrics["telemetry"]``, the step-health probes of
+``telemetry/probes.py``: computed from the raw ``[P, W]`` gradients, the
+applied gradient (on the fused path the flat buckets the fused apply
+already built) and the sync state, and left on the device.  With it off
+the step runs exactly the ops it runs without the probe call site.
+
+Not ported yet: control operands.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import warnings
@@ -56,6 +64,7 @@ from torch.profiler import record_function
 from geomx_tpu_torch.compression.bucketing import BucketedCompressor
 from geomx_tpu_torch.ops.optim import (fused_apply, fused_optim_enabled,
                                        fused_spec_of)
+from geomx_tpu_torch.telemetry import probes as _probes
 from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
 from geomx_tpu_torch.train.state import TrainState
 from geomx_tpu_torch.tree import leaf_names, tree_map
@@ -270,6 +279,10 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
             # the shard-local update runs the same kernels over the
             # 1/W bucket shards
             zplan.fused_spec = fopt_spec
+    # the telemetry gate, static for this step as the JAX gate is at
+    # trace time; the probes' static wire accounting is computed once
+    telem = _probes.telemetry_enabled(config)
+    wire_cache = {}
 
     def zero_sync_update(grads, params, opt_state, sync_state, step):
         """ZeRO: the shard-form sync, the shard-local optimizer and the
@@ -339,10 +352,14 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
 
     def replicated_update(grads, state, step):
         """The replicated branch: sync_grads, then one optimizer step on
-        every replica (the fused kernels over the buckets when on)."""
+        every replica (the fused kernels over the buckets when on).
+        Also returns, with telemetry on and a replicated sync output,
+        one replica's applied gradient and its unpadded element count
+        for the probes (else None)."""
         with record_function("train/sync_grads"):
             grads, sync_state = sync.sync_grads(grads, state.params,
                                                 state.sync_state, step)
+        applied = None
         with record_function("train/optimizer"):
             if fopt_spec is not None:
                 # fused apply: params and grads flatten onto the dc tier's
@@ -350,14 +367,20 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                 # Trainer.init_state), one kernel a bucket
                 order = leaf_names(state.params)
                 bk = fopt_bucketer([state.params[k] for k in order])
-                new_pb, opt_state = fused_apply(
-                    fopt_spec, bk.flatten([state.params[k] for k in order]),
-                    bk.flatten([grads[k] for k in order]), state.opt_state)
+                pb = bk.flatten([state.params[k] for k in order])
+                gb = bk.flatten([grads[k] for k in order])
+                new_pb, opt_state = fused_apply(fopt_spec, pb, gb,
+                                                state.opt_state)
                 params = dict(zip(order, bk.unflatten(new_pb)))
+                if telem and sync.grads_replicated_after_sync:
+                    # the buckets already hold the applied gradient
+                    applied = ([b[0, 0] for b in gb], sum(bk.bucket_fill))
             else:
                 params, opt_state = tx.update(grads, state.opt_state,
                                               state.params)
-        return params, opt_state, sync_state
+        if telem and applied is None and sync.grads_replicated_after_sync:
+            applied = ([grads[k][0, 0] for k in leaf_names(grads)], None)
+        return params, opt_state, sync_state, applied
 
     def global_mean(vals):
         per_party = torch.stack(vals).view(P, W).mean(1)
@@ -406,28 +429,47 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                            .view(state.model_state[k].shape)
                            for k in state.model_state}
 
-        if mgps is not None:
-            params, opt_state, sync_state = mgps_sync_update(
-                grads, state.params, state.opt_state, state.sync_state)
-        elif zplan is not None:
-            params, opt_state, sync_state = zero_sync_update(
-                grads, state.params, state.opt_state, state.sync_state,
-                step)
-        else:
-            params, opt_state, sync_state = replicated_update(
-                grads, state, step)
-        with record_function("train/sync_model_state"):
-            if mgps is None:
-                params, sync_state = sync.sync_params(params, sync_state,
-                                                      step)
-            model_state, sync_state = sync.sync_model_state(
-                model_state, sync_state, step)
+        # kept for the probes: the gradients before any cross-party
+        # aggregation (an alias, no op)
+        raw_grads = grads
+        applied = None
+        probe_ctx = _probes.inline_collection() if telem \
+            else contextlib.nullcontext(None)
+        with probe_ctx as inline_sink:
+            if mgps is not None:
+                params, opt_state, sync_state = mgps_sync_update(
+                    grads, state.params, state.opt_state, state.sync_state)
+            elif zplan is not None:
+                # ZeRO: the synced gradient exists only as shards, so the
+                # replicated-value probes are skipped, as in the JAX step
+                params, opt_state, sync_state = zero_sync_update(
+                    grads, state.params, state.opt_state, state.sync_state,
+                    step)
+            else:
+                params, opt_state, sync_state, applied = replicated_update(
+                    grads, state, step)
+            with record_function("train/sync_model_state"):
+                if mgps is None:
+                    params, sync_state = sync.sync_params(params,
+                                                          sync_state, step)
+                model_state, sync_state = sync.sync_model_state(
+                    model_state, sync_state, step)
 
         # global mean over every replica: workers first, then parties
         # (under a membership mask, the survivors' mean)
         metrics = {"loss": global_mean(losses),
                    "accuracy": global_mean(accs),
                    "num_live_parties": num_live_metric(losses[0].device)}
+        if telem:
+            if "wire" not in wire_cache:
+                wire_cache["wire"] = _probes.static_wire_accounting(
+                    sync, params)
+            with record_function("train/probes"):
+                metrics["telemetry"] = _probes.collect_step_probes(
+                    raw_grads, None if applied is None else applied[0],
+                    sync, sync_state, inline_sink, params,
+                    synced_numel=None if applied is None else applied[1],
+                    wire=wire_cache["wire"])
         return TrainState(step=step + 1, params=params, opt_state=opt_state,
                           model_state=model_state,
                           sync_state=sync_state), metrics

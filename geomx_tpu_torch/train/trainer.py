@@ -41,10 +41,18 @@ shard).  The collective audit the JAX package runs at that swap under
 ``GEOMX_AUDIT`` is ROADMAP.md Queue 1 item "Audits": ``apply_membership``
 refuses a swap while the knob is on.
 
+Telemetry (``telemetry/``): with ``GEOMX_TELEMETRY`` the step carries
+its probes (``train/step.py``) and ``fit`` publishes them at the log
+boundaries it already waits on — registry gauges, the event log
+(``GEOMX_TELEMETRY_EVENTS``), the flight recorder (``GEOMX_FLIGHT*``)
+and the run capsule (``GEOMX_CAPSULE*``) — and brackets every step with
+the profiler's ``train/step``/``train/compute`` spans, from which the
+fit-end phase attribution is published.  ``publish_memory_metrics`` reads
+the state's shapes and ``torch.cuda.max_memory_allocated``.
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
-and without that request it raises.  Not ported yet: control and
-telemetry (the step probes, the event log, the flight recorder, run
-capsules), whose knobs ``GeoConfig`` refuses.
+and without that request it raises.  Not ported yet: control, whose knob
+``GeoConfig`` refuses.
 """
 
 from __future__ import annotations
@@ -146,6 +154,59 @@ class Trainer:
         self.eval_step = build_eval_step(self._sd_model)
         self._logits_fn = build_logits_fn(self._sd_model)
         self._prefetch = max(0, int(getattr(self.config, "prefetch", 2)))
+        self._init_telemetry()
+
+    def _init_telemetry(self) -> None:
+        """Arm the telemetry plane the config asks for, as the JAX
+        Trainer's constructor does: the probe publisher, the flight ring
+        and its incident feed, the run capsule (observatory tap and
+        registry sampler, stopped by finalizers that hold the capsule,
+        never the trainer) and the event log as the process default."""
+        import weakref
+
+        from geomx_tpu_torch.telemetry.capsule import capsule_from_config
+        from geomx_tpu_torch.telemetry.flight import (
+            flight_recorder_from_config, install_incident_recorder)
+        from geomx_tpu_torch.telemetry.probes import telemetry_enabled
+        self._telemetry = telemetry_enabled(self.config)
+        self._telem_last_it = 0
+        self._memory_gauge_published = False
+        self._flight = flight_recorder_from_config(self.config)
+        if self._flight is not None:
+            # host-plane incidents (restarts, wire-CRC rejections) land in
+            # the recorder's incident ring, next to the step records
+            install_incident_recorder(self._flight)
+        self._attr_window_us = None  # trace mark of the last flight window
+        if self._flight is not None and not self._telemetry:
+            warnings.warn(
+                "GEOMX_FLIGHT is on but telemetry is off: the flight "
+                "recorder rides the in-graph step probes — enable "
+                "GEOMX_TELEMETRY/GeoConfig(telemetry=True) or the ring "
+                "records nothing", RuntimeWarning, stacklevel=3)
+        self._capsule = capsule_from_config(self.config)
+        if self._capsule is not None:
+            from geomx_tpu_torch.telemetry.links import get_link_observatory
+            self._capsule.attach_observatory(get_link_observatory())
+            self._capsule.sampler.start()
+            weakref.finalize(self, self._capsule.sampler.stop)
+            weakref.finalize(self, self._capsule.detach_observatory)
+            if not self._telemetry:
+                warnings.warn(
+                    "GEOMX_CAPSULE is on but telemetry is off: the "
+                    "capsule's step records ride the published probes "
+                    "— enable GEOMX_TELEMETRY/GeoConfig(telemetry="
+                    "True) or the archive captures no sensor stream",
+                    RuntimeWarning, stacklevel=3)
+        self._event_log = None
+        events_path = getattr(self.config, "telemetry_events", "")
+        if events_path:
+            from geomx_tpu_torch.telemetry.export import (
+                EventLog, set_default_event_log)
+            self._event_log = EventLog(events_path)
+            # the process default too, so subsystems that only know the
+            # global log_event() (membership transitions, relay failures)
+            # land in the same file as the step probes
+            set_default_event_log(self._event_log)
 
     def init_state(self, seed: int = 0,
                    generator: Optional[torch.Generator] = None,
@@ -504,12 +565,18 @@ class Trainer:
         sel, gen = loader.epoch_indices(epoch)
         sel = torch.as_tensor(sel, device=self.device)
         losses, accs = [], []
+        telem = None
         for xb, yb in loader.cached_batches(sel, gen):
             state, metrics = self.train_step(state, xb, yb)
             losses.append(metrics["loss"])
             accs.append(metrics["accuracy"])
-        return state, {"loss": torch.stack(losses),
-                       "accuracy": torch.stack(accs)}
+            telem = metrics.get("telemetry", telem)
+        out = {"loss": torch.stack(losses), "accuracy": torch.stack(accs)}
+        if telem is not None:
+            # the epoch's last step's probes (what the JAX scanned epoch
+            # publishes), still on the device
+            out["telemetry"] = telem
+        return state, out
 
     def fit(self, state: TrainState, loader: GeoDataLoader, epochs: int = 1,
             eval_data=None, eval_every: int = 0, log_every: int = 0,
@@ -527,9 +594,20 @@ class Trainer:
           epoch (the epoch's mean loss and accuracy), and evaluation runs
           between epochs.  The state is the per-step loop's.
 
+        With telemetry on, the step probes are published at the log
+        boundaries (with ``log_every=0``, once an epoch), and the fit-end
+        phase attribution when the profiler runs.
+
         Returns ``(state, list of record dicts)``."""
+        from geomx_tpu_torch.utils.profiler import get_profiler
         measure = measure if measure is not None else Measure()
         measure.reset_clock()
+        # iteration numbering restarts per fit, so the telemetry delta
+        # base does too; the attribution windows start at this fit
+        self._telem_last_it = 0
+        prof = get_profiler()
+        fit_since_us = prof.now_us() if prof.running else None
+        self._attr_window_us = fit_since_us
         if scan_epochs:
             if not getattr(loader, "device_cache", False):
                 raise ValueError("scan_epochs requires device_cache=True "
@@ -542,29 +620,241 @@ class Trainer:
                 if log_every:
                     fields.update(loss=float(ms["loss"].mean()),
                                   train_acc=float(ms["accuracy"].mean()))
+                if self._telemetry and "telemetry" in ms:
+                    self._publish_telemetry(ms["telemetry"], it)
                 if eval_data is not None:
                     fields["test_acc"] = self.evaluate(state, *eval_data)
                 if fields:
                     rec = measure.add(epoch=epoch, iteration=it, **fields)
                     log_fn(json.dumps(rec))
+            self._capsule_checkpoint(prof)
             return state, measure.records
         it = 0
+        metrics = None
         for epoch in range(epochs):
             for xb, yb in loader.epoch(epoch, prefetch=self._prefetch):
-                state, metrics = self.train_step(state, xb, yb)
-                it += 1
-                fields = {}
-                if log_every and it % log_every == 0:
-                    fields.update(loss=float(metrics["loss"]),
-                                  train_acc=float(metrics["accuracy"]))
+                # step-time attribution (telemetry/attribution.py): every
+                # step is a train/step + train/compute span pair while
+                # the profiler runs (scope() is a no-op when it does
+                # not); the log boundary's wait stays inside the compute
+                # span, as in the JAX fit loop
+                with prof.scope("train/step", "step", args={"step": it}):
+                    with prof.scope("train/compute", "compute"):
+                        state, metrics = self.train_step(state, xb, yb)
+                        it += 1
+                        fields = {}
+                        if log_every and it % log_every == 0:
+                            fields.update(
+                                loss=float(metrics["loss"]),
+                                train_acc=float(metrics["accuracy"]))
+                if self._telemetry:
+                    if not self._memory_gauge_published:
+                        # once a trainer, after the first step: the state
+                        # bytes a replica and the card's peak
+                        self.publish_memory_metrics(state)
+                    if fields and "telemetry" in metrics:
+                        self._publish_telemetry(metrics["telemetry"], it)
                 if eval_data is not None and eval_every \
                         and it % eval_every == 0:
                     fields["test_acc"] = self.evaluate(state, *eval_data)
                 if fields:
                     rec = measure.add(epoch=epoch, iteration=it, **fields)
                     log_fn(json.dumps(rec))
+            if self._telemetry and not log_every and it \
+                    and "telemetry" in metrics:
+                # no log boundary synced this epoch: publish its last
+                # step so the registry and the event log still track a
+                # log_every=0 run (one read an epoch)
+                self._publish_telemetry(metrics["telemetry"], it)
             if eval_data is not None and not eval_every:
                 rec = measure.add(epoch=epoch, iteration=it,
                                   test_acc=self.evaluate(state, *eval_data))
                 log_fn(json.dumps(rec))
+        if self._telemetry and prof.running:
+            # the fit's phase-fraction summary from the step spans above
+            # (geomx_phase_fraction gauges)
+            from geomx_tpu_torch.telemetry.attribution import (
+                attribute_trace, publish_attribution)
+            att = attribute_trace(prof.to_doc(), since_us=fit_since_us)
+            if att["num_steps"]:
+                publish_attribution(att["summary"])
+        self._capsule_checkpoint(prof)
         return state, measure.records
+
+    # ---- telemetry (telemetry/) ------------------------------------------
+
+    def _publish_telemetry(self, telem: dict, iteration: int) -> None:
+        """Publish one step's probe dict to the metric registry, the
+        event log, the capsule and the flight recorder.  The tensors come
+        to the host in one copy (``host_probes``).  Scalars become
+        ``geomx_step_probe{probe=...}`` gauges, per-party vectors
+        ``geomx_step_probe_party{probe=...,party=...}``; the static wire
+        accounting also feeds the byte and step counters, scaled by the
+        steps since the last publish."""
+        from geomx_tpu_torch.telemetry import get_registry, log_event
+        from geomx_tpu_torch.telemetry.probes import host_probes
+        reg = get_registry()
+        fam = reg.gauge("geomx_step_probe",
+                        "Latest published in-graph step probe", ("probe",))
+        fam_p = reg.gauge("geomx_step_probe_party",
+                          "Latest per-party in-graph step probe",
+                          ("probe", "party"))
+        flat = host_probes(telem)
+        for name, val in flat.items():
+            if isinstance(val, list):
+                for p, v in enumerate(val):
+                    fam_p.labels(probe=name, party=str(p)).set(v)
+            else:
+                fam.labels(probe=name).set(val)
+        steps = iteration - self._telem_last_it
+        if steps > 0:
+            reg.counter("geomx_train_steps_total",
+                        "Training steps published").inc(steps)
+            if "dc_wire_bytes" in flat:
+                reg.counter(
+                    "geomx_dc_wire_bytes_total",
+                    "dc-tier bytes put on the wire per party"
+                ).inc(flat["dc_wire_bytes"] * steps)
+            self._telem_last_it = iteration
+        dc = getattr(self.sync, "dc_compressor", None)
+        if dc is None:  # PipelinedSync wraps the algorithm that has it
+            dc = getattr(getattr(self.sync, "inner", None),
+                         "dc_compressor", None)
+        while dc is not None and not hasattr(dc, "layout_summary") \
+                and hasattr(dc, "inner"):
+            dc = dc.inner  # unwrap Pipelined/DGT wrappers to the bucketer
+        layout = getattr(dc, "layout_summary", None)
+        layout = layout() if callable(layout) else None
+        if layout:
+            reg.gauge("geomx_bucket_count",
+                      "dc-tier fused buckets per step").set(
+                layout["num_buckets"])
+            reg.gauge("geomx_bucket_pad_fraction",
+                      "Lane-padding waste in the bucket layout").set(
+                layout["pad_fraction"])
+            if self._zero_plan is not None:
+                w = self._zero_plan.W
+                reg.gauge("geomx_zero_workers",
+                          "Worker-axis width the weight update is "
+                          "sharded over").set(w)
+                reg.gauge("geomx_zero_shard_elems",
+                          "Flat bucket elements owned per chip under "
+                          "the ZeRO-sharded update").set(
+                    layout["padded_elems"] / w)
+        if self._zero_plan is not None:
+            reg.gauge("geomx_zero_enabled",
+                      "1 when the ZeRO-sharded weight update is "
+                      "active").set(1.0)
+        if self._event_log is not None:
+            self._event_log.emit("step_probes", iteration=iteration,
+                                 **flat)
+        else:
+            log_event("step_probes", iteration=iteration, **flat)
+        if self._capsule is not None:
+            # the sensor surface as a control tick reads it (the registry
+            # gauge families): what makes the capsule's replayed
+            # observation stream bit-identical to the live one
+            self._capsule.record_step(iteration)
+        if self._flight is not None:
+            fired = self._flight.record(
+                iteration, flat,
+                membership_version=self._membership_version,
+                phases=self._attribution_phases())
+            if fired:
+                ev = dict(iteration=iteration, fired=fired,
+                          bundle=(self._flight.dumps[-1]
+                                  if self._flight.dumps else None))
+                if self._event_log is not None:
+                    self._event_log.emit("flight_anomaly", **ev)
+                else:
+                    log_event("flight_anomaly", **ev)
+
+    def _attribution_phases(self) -> Optional[dict]:
+        """Phase-fraction summary of the ``train/step`` spans the host
+        profiler recorded since the previous publish (None when the
+        profiler is off or no step span landed in the window): the
+        ``phases`` the flight recorder's exposed_comms_jump rule
+        watches.  Advances the window mark."""
+        from geomx_tpu_torch.utils.profiler import get_profiler
+        prof = get_profiler()
+        if not prof.running:
+            return None
+        from geomx_tpu_torch.telemetry.attribution import attribute_trace
+        att = attribute_trace(prof.to_doc(), since_us=self._attr_window_us)
+        self._attr_window_us = prof.now_us()
+        if not att["num_steps"]:
+            return None
+        return att["summary"]
+
+    def step_memory_stats(self, state: TrainState) -> dict:
+        """Step memory accounting: the bytes of optimizer, sync and
+        parameter state one replica slot holds (from the state's tensor
+        shapes; every slot holds the same shapes), and on the card the
+        allocator's peak (``torch.cuda.max_memory_allocated``).  The JAX
+        package reads XLA's ``compiled.memory_analysis()``; an eager
+        PyTorch step has no compiled program."""
+        slots = max(1, self.topology.num_parties
+                    * self.topology.workers_per_party)
+
+        def per_slot_bytes(tree):
+            total = 0
+
+            def add(x):
+                nonlocal total
+                if isinstance(x, torch.Tensor):
+                    total += x.numel() * x.element_size()
+                return x
+            state_map(add, tree)
+            return total / slots
+
+        out = {
+            "opt_state_bytes_per_chip": per_slot_bytes(state.opt_state),
+            "sync_state_bytes_per_chip": per_slot_bytes(state.sync_state),
+            "params_bytes_per_chip": per_slot_bytes(state.params),
+        }
+        dev = torch.device(self.device)
+        if dev.type == "cuda":
+            out["peak_allocated_bytes"] = float(
+                torch.cuda.max_memory_allocated(dev))
+        return out
+
+    def publish_memory_metrics(self, state: TrainState) -> None:
+        """Publish the per-slot step-memory gauges (once a trainer):
+        ``geomx_step_memory_bytes{component}`` for the optimizer, sync
+        and parameter state, and ``peak_allocated`` on the card."""
+        if self._memory_gauge_published:
+            return
+        self._memory_gauge_published = True
+        from geomx_tpu_torch.telemetry import get_registry
+        stats = self.step_memory_stats(state)
+        fam = get_registry().gauge(
+            "geomx_step_memory_bytes",
+            "Per-chip training-step memory by component", ("component",))
+        for comp in ("opt_state_bytes_per_chip",
+                     "sync_state_bytes_per_chip",
+                     "params_bytes_per_chip"):
+            fam.labels(component=comp.replace("_bytes_per_chip", "")) \
+                .set(float(stats[comp]))
+        if "peak_allocated_bytes" in stats:
+            fam.labels(component="peak_allocated").set(
+                stats["peak_allocated_bytes"])
+
+    def _capsule_checkpoint(self, prof) -> None:
+        """Refresh the run capsule at a fit boundary: attach the latest
+        profiler trace (replacing this rank's previous one) and rewrite
+        the archive atomically."""
+        if self._capsule is None:
+            return
+        if prof.running:
+            rank = getattr(prof, "rank", None)
+            self._capsule.add_trace(
+                prof.to_doc(), label=f"rank{rank if rank is not None else 0}")
+        self._capsule.write()
+
+    def close_capsule(self) -> None:
+        """Finish capsule recording: stop the sampler, detach the
+        observatory tap and write the final archive.  (A garbage-collected
+        trainer stops its sampler and tap through finalizers, but does
+        not write.)"""
+        if self._capsule is not None:
+            self._capsule.close()

@@ -36,8 +36,9 @@ by design.  The worker index is the slot's own, so the ops take no
 checkpoint, on numpy arrays (``Trainer.save_checkpoint``/
 ``load_checkpoint``); ``host_zero_state``/``place_zero_state`` that of
 a returning party's catch-up payload (``Trainer.catchup_payload``/
-``admit_party``).  ``wire_accounting`` waits for ROADMAP.md Queue 1,
-"Telemetry".
+``admit_party``).  ``wire_accounting`` gives the ZeRO step's static
+bytes to the telemetry probes, and the Trainer publishes the
+``geomx_zero_*`` gauges from the plan (``Trainer._publish_telemetry``).
 """
 
 from __future__ import annotations
@@ -174,6 +175,26 @@ class ZeroPlan:
                                               p_shards)
         full = [self.gather_bucket(sh, axis_name) for sh in new_shards]
         return dict(zip(names, bk.unflatten(full))), opt_state
+
+    def wire_accounting(self, params: dict) -> dict:
+        """Static wire bytes a replica of the ZeRO step (floats, resolved
+        when the step is built): the psum_scatter sends ``(W-1)/W`` of
+        each bucket, the params all_gather sends this replica's shard to
+        W-1 peers, and the dc tier carries the inner compressor's
+        payload for one shard."""
+        bucketed = self.bucketed
+        leaves = [params[k] for k in leaf_names(params)]
+        if not leaves or bucketed is None:
+            return {}
+        bk = bucketed.zero_bucketer(leaves)
+        padded = float(sum(bk.bucket_sizes))
+        frac = (self.W - 1) / self.W
+        return {
+            "zero_scatter_bytes": 4.0 * padded * frac,
+            "zero_gather_bytes": 4.0 * padded * frac,
+            "dc_wire_bytes": float(
+                bucketed.shard_wire_bytes(params, self.W)),
+        }
 
     # ---- layout -------------------------------------------------------------
 

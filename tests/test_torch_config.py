@@ -7,13 +7,15 @@ DCASGD, ``GEOMX_PIPELINE_DEPTH``, the DGT wrap) and the sharded updates'
 ``MXNET_KVSTORE_BIGARRAY_BOUND``) under the JAX package's names and
 casts; ``get_sync_algorithm`` builds the same algorithm structure from
 them and the Trainer binds the same sharded-update plan, raising the
-JAX package's errors where it raises.  The knobs the port does not run
-yet (``GEOMX_CONTROL``, and the eight telemetry knobs) are refused with
+JAX package's errors where it raises.  The eight telemetry knobs parse
+to the JAX package's values and arm the same recorders.  The knob the
+port does not run yet (``GEOMX_CONTROL``) is refused with
 ``NotImplementedError`` naming the ROADMAP.md Queue 1 item; a pipeline depth with one party only warns,
 as the reference's ``get_sync_algorithm`` does; the defaults, set or
 not, still build FSA.
 """
 
+import os
 import warnings
 
 import optax
@@ -92,21 +94,49 @@ def test_knob_that_changes_the_step_raises(monkeypatch, var, value, field,
     assert isinstance(get_sync_algorithm(cfg), FSA)
 
 
+def _recorder(pkg, field, cfg):
+    """What the knob ``field`` arms in package ``pkg`` ("jax" or "port"),
+    as a comparable value: the probe gate, the trainer's event log, the
+    flight recorder's ring and dump directory, the capsule's archive
+    path and sampler cadence."""
+    import importlib
+    root = "geomx_tpu" if pkg == "jax" else "geomx_tpu_torch"
+    tel = importlib.import_module(root + ".telemetry")
+    if field == "telemetry":
+        return tel.probes.telemetry_enabled(cfg)
+    if field == "telemetry_events":
+        log = tel.export.EventLog(cfg.telemetry_events)
+        return os.path.abspath(log.path)
+    if field.startswith("flight"):
+        rec = tel.flight.flight_recorder_from_config(cfg)
+        return rec is not None and (rec.capacity, rec.dump_dir)
+    cap = tel.capsule.capsule_from_config(cfg)
+    if cap is not None:
+        cap.sampler.stop()
+    return cap is not None and (cap.path, cap.sampler.interval_s)
+
+
 @pytest.mark.parametrize("var,value,field,default", TELEMETRY)
-def test_telemetry_knob_raises_naming_the_item(monkeypatch, var, value,
-                                               field, default):
+def test_telemetry_knob_raises_naming_the_item(monkeypatch, tmp_path, var,
+                                               value, field, default):
+    """The knob this test once saw refused is ported: it parses to the
+    JAX package's value under the JAX cast and arms the same recorder
+    (with the switch a parameter knob needs)."""
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setenv(var, value)
+    switch = {"flight_steps": "GEOMX_FLIGHT", "flight_dir": "GEOMX_FLIGHT",
+              "capsule_dir": "GEOMX_CAPSULE",
+              "capsule_sample_s": "GEOMX_CAPSULE"}.get(field)
+    if switch:
+        monkeypatch.setenv(switch, "1")
     ref = JaxConfig.from_env()
+    cfg = GeoConfig.from_env()
     assert getattr(ref, field)     # the JAX trainer acts on it
-    with pytest.raises(NotImplementedError, match="'Telemetry'") as exc:
-        GeoConfig.from_env()
-    assert var in str(exc.value) and "not a changed step" in str(exc.value)
-    # the port reads it under the JAX cast: an override to the default
-    # passes, and the refused value is the reference's
-    with pytest.raises(NotImplementedError, match=repr(getattr(ref, field))):
-        GeoConfig(**{field: getattr(ref, field)})
-    zero = type(getattr(ref, field))()
-    assert getattr(GeoConfig.from_env(**{field: zero}), field) == zero
+    assert getattr(cfg, field) == getattr(ref, field)
+    assert type(getattr(cfg, field)) is type(getattr(ref, field))
+    armed = _recorder("port", field, cfg)
+    assert armed and armed == _recorder("jax", field, ref)
+    assert isinstance(get_sync_algorithm(cfg), FSA)
 
 
 @pytest.mark.parametrize("var,value,field,default", TELEMETRY)

@@ -80,12 +80,11 @@ def test_port_job_other_sync_modes(tmp_path, mode, extra):
 
 
 def test_unported_knob_is_refused_with_its_item(tmp_path):
-    """A server role under the server metrics endpoint's knob refuses it
-    naming its item ("Telemetry"); durability is ported, so
-    GEOMX_DURABLE_DIR is no longer refused."""
-    env = dict(os.environ, GEOMX_ROLE="global_server",
-               GEOMX_SERVER_METRICS_PORT="7",
-               GEOMX_DURABLE_DIR=str(tmp_path))
+    """A scheduler role under GEOMX_FLEETSCOPE refuses it naming its item
+    ("Telemetry"); the metrics endpoints and durability are ported, so
+    GEOMX_METRICS_PORT and GEOMX_DURABLE_DIR are no longer refused."""
+    env = dict(os.environ, GEOMX_ROLE="scheduler", GEOMX_FLEETSCOPE="1",
+               GEOMX_METRICS_PORT="0", GEOMX_DURABLE_DIR=str(tmp_path))
     proc = subprocess.run(PORT_EXAMPLE, cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode != 0

@@ -34,6 +34,25 @@ def _push(c, key, grad, **kw):
     c.wait(c.push_async(key, grad, **kw), timeout=T)
 
 
+def _http(port, route):
+    """(status, body) of a GET on a loopback exporter; JSON bodies
+    parsed."""
+    import json
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=10) as r:
+            status, raw, ctype = r.status, r.read(), r.headers[
+                "Content-Type"]
+    except urllib.error.HTTPError as e:
+        status, raw, ctype = e.code, e.read(), e.headers["Content-Type"]
+    body = raw.decode("utf-8")
+    if ctype and "json" in ctype:
+        body = json.loads(body)
+    return status, body
+
+
 def _port_server(*args, **kw):
     kw.setdefault("device", "cpu")
     return tsvc.GeoPSServer(*args, **kw)
@@ -610,17 +629,39 @@ def test_scheduler_heartbeat_eviction(pair, monkeypatch):
         sched.stop()
 
 
+def _families(text):
+    """{family: type} of a Prometheus exposition (the build-info gauge
+    left out: its identity labels name each package's own stack)."""
+    from geomx_tpu_torch.telemetry import parse_prometheus_text
+    return {k: v["type"] for k, v in parse_prometheus_text(text).items()
+            if k != "geomx_build_info"}
+
+
 @pytest.mark.parametrize("pkg", ["port", "jax"])
 def test_port_scheduler_refuses_unported_commands(pkg):
+    """The ``metrics`` command the port's scheduler once refused:
+    through either package's client it answers the Prometheus text of
+    the port's registry, with the families and types a JAX scheduler
+    answers for its own fresh registry."""
+    from geomx_tpu.telemetry import reset_registry as jax_reset
+    from geomx_tpu_torch.telemetry import reset_registry
     SC = tsvc.SchedulerClient if pkg == "port" else jsvc.SchedulerClient
+    reset_registry()
+    jax_reset()
     sched = tsvc.GeoScheduler(port=0).start()
+    jsched = jsvc.GeoScheduler(port=0).start()
     try:
         c = SC(("127.0.0.1", sched.port))
-        with pytest.raises(RuntimeError, match="Telemetry"):
-            c.metrics_text()
+        jc = SC(("127.0.0.1", jsched.port))
+        text, jtext = c.metrics_text(), jc.metrics_text()
+        assert "geomx_scheduler_roster_epoch" in text
+        assert 'geomx_build_info{version="0.1.0"' in text
+        assert _families(text) == _families(jtext)
         c.close()
+        jc.close()
     finally:
         sched.stop()
+        jsched.stop()
 
 
 def test_unported_server_and_scheduler_knobs_raise(monkeypatch, tmp_path):
@@ -631,18 +672,28 @@ def test_unported_server_and_scheduler_knobs_raise(monkeypatch, tmp_path):
     tsvc.GeoScheduler(durable_dir=str(tmp_path)).stop()
     # the sharded global tier is ported: a shard constructs
     _port_server(shard_range=(0, 10), shard_index=0).stop()
-    with pytest.raises(NotImplementedError, match="Telemetry"):
-        _port_server(metrics_port=0)
-    with pytest.raises(NotImplementedError, match="Telemetry"):
-        tsvc.GeoScheduler(metrics_port=0)
+    # the exporters are ported: both endpoints answer over loopback
+    srv = _port_server(metrics_port=0)
+    assert _http(srv.metrics_port, "/metrics")[0] == 200
+    assert _http(srv.metrics_port, "/healthz")[1]["role"] == "ps_server"
+    assert "summary" in _http(srv.metrics_port, "/ledger")[1]
+    srv.stop()
+    sched = tsvc.GeoScheduler(metrics_port=0)
+    assert "geomx_scheduler" in _http(sched.metrics_port, "/metrics")[1]
+    status, body = _http(sched.metrics_port, "/control")
+    assert status == 501 and "Control" in body["error"]
+    sched.stop()
     monkeypatch.setenv("GEOMX_DURABLE_DIR", str(tmp_path / "env"))
     durable = _port_server()
     assert durable._durable is not None
     durable.stop()
     monkeypatch.delenv("GEOMX_DURABLE_DIR")
-    monkeypatch.setenv("GEOMX_SERVER_METRICS_PORT", "7")
-    with pytest.raises(NotImplementedError, match="Telemetry"):
-        _port_server()
+    from geomx_tpu_torch.utils.net import free_port_blocks
+    port, = free_port_blocks(1)
+    monkeypatch.setenv("GEOMX_SERVER_METRICS_PORT", str(port))
+    srv = _port_server()
+    assert srv.metrics_port == port and _http(port, "/metrics")[0] == 200
+    srv.stop()
     monkeypatch.setenv("GEOMX_FLEETSCOPE", "1")
     with pytest.raises(NotImplementedError, match="Telemetry"):
         tsvc.GeoScheduler()
@@ -653,9 +704,9 @@ def test_unported_server_and_scheduler_knobs_raise(monkeypatch, tmp_path):
     monkeypatch.setenv("GEOMX_SERVER_METRICS_PORT", "0")
     server = _port_server(durable_name="ignored").start()
     try:
+        assert server.metrics_port is None
         c = tsvc.GeoPSClient(("127.0.0.1", server.port))
-        with pytest.raises(RuntimeError, match="Telemetry"):
-            c.metrics_text()
+        assert "# TYPE" in c.metrics_text()
         info = c._request(tproto.Msg(tproto.MsgType.COMMAND,
                                      meta={"cmd": "shard_info"}), timeout=T)
         assert info.meta["shard_index"] is None and "lo" not in info.meta
