@@ -182,6 +182,25 @@ Every phase's failure is fatal (non-zero exit, no result line):
               5; the probes' extra launch calls a step, step ms on and off and
               one step's roofline (FLOPs from PyTorch's counter, MFU
               against the H100 row) printed, not gated;
+   control_fsa -- path 1 (16 steps) with GEOMX_CONTROL=1 and telemetry
+              under CONTROL_SCRIPT's decisions through a ControlActuator
+              (ratio 0.005 and 0.00125 of the 0.01 capacity, depth 1, the
+              drain back to 0, ratio 0.01): a control-off step makes the
+              launch calls of a build whose control hook raises; the step
+              after each ratio actuation the launch calls of the step
+              before it, the step cache unchanged; the emitted share falls
+              with the scale, kernel 3's pairs at the eff_k boundary equal
+              the plain selection's on the CPU; the EF carried across 0->1
+              (copy (0, 0)), the drain one apply of the parked aggregate;
+              two fp32 steps at scale 0.5 card against CPU; step ms on and
+              off printed;
+   control_replay -- bench.py --compare-control in the port
+              (CONTROL_REPLAY: the MLP on 3 parties, 60 steps, a modelled
+              WAN under a throttle-and-delay schedule): the controller
+              first to the loss target of four static configurations, its
+              decision log byte-identical over two runs and reproduced by
+              its capsule's replay, the launch calls unchanged by each
+              ratio actuation; the decisions beside CONTROL_r01.json's;
 6. host plane -- the port's parameter-service plane, one process a role
               (service/, transport/, runtime/native.py):
               dist_ps_fsa  the port's launcher forks the port's
@@ -205,6 +224,14 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           example's lowest worker reached in that job on
                           the CPU over 32 runs
                           (DIST_PS_JAX_MIXED_LOWEST_MIN);
+              fleetscope_sched  the same job with GEOMX_FLEETSCOPE=1 (a
+                          0.5 s poll) and the scheduler's metrics port:
+                          its GET /fleet names the roster and the
+                          scheduler, the version rising, GET /control 200
+                          with no decisions, tools/gxtop.py renders the
+                          document; a seeded burn series gives the same
+                          breaches twice; its wall time beside
+                          dist_ps_mixed_sched's;
               host_plane_resnet20  in process: a global GeoPSServer (sync,
                           native SGD 0.05), two local servers ("bsc,0.01",
                           relay compressor on the card) and 4 clients on
@@ -2651,17 +2678,23 @@ def dist_ps_golden(torch) -> dict:
     return {"w": w.numpy(), "b": b.numpy()}
 
 
-def dist_ps_phase(torch, path: str) -> dict:
+def dist_ps_phase(torch, path: str, label: str = None,
+                  extra_env: dict = None, watch=None) -> dict:
     """Paths dist_ps_fsa and dist_ps_mixed_sched: the port's launcher
     forks the port's examples/dist_ps.py, one process a role, on the
     card (no -c), at the JAX script's defaults (DIST_PS_SHAPE); the
     processes' exit codes, the saved models, the processes' socket
     counters and the workers' round times come back through the
     launcher and GEOMX_SAVE_PARAMS.  No kernel of csrc/ runs here (no
-    compression): the workers' gradients are PyTorch ops on the card."""
+    compression): the workers' gradients are PyTorch ops on the card.
+    ``label`` names the run in messages (default ``path``);
+    ``extra_env`` adds variables to the job's environment; ``watch``
+    is ``(fn, stop_event)``: ``fn`` runs on a thread while the job runs
+    and the event is set when it has ended."""
     import os
     import re
     import tempfile
+    import threading
 
     import numpy as np
 
@@ -2669,6 +2702,7 @@ def dist_ps_phase(torch, path: str) -> dict:
     from geomx_tpu_torch.utils.net import free_port_blocks
 
     cfg = DIST_PS[path]
+    path = label or path
     P, W = DIST_PS_SHAPE["parties"], DIST_PS_SHAPE["workers"]
     root = os.path.dirname(os.path.abspath(__file__))
     gport, lport, sport = free_port_blocks(1, P, 1)
@@ -2682,15 +2716,30 @@ def dist_ps_phase(torch, path: str) -> dict:
             "GEOMX_LR": str(DIST_PS_SHAPE["lr"]),
             "GEOMX_PS_GLOBAL_PORT": str(gport), "GEOMX_PS_PORT": str(lport),
             "GEOMX_SCHEDULER_PORT": str(sport), "GEOMX_SAVE_PARAMS": tmp})
+        env.update(extra_env or {})
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "geomx_tpu_torch.launch",
              "--num-parties", str(P), "--workers-per-party", str(W), "--",
              sys.executable, "-m", "geomx_tpu_torch.examples.dist_ps"],
-            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        watcher = None
+        if watch is not None:
+            watcher = threading.Thread(target=watch[0], daemon=True)
+            watcher.start()
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+            if watcher is not None:
+                watch[1].set()
+                watcher.join(timeout=10)
         wall = time.perf_counter() - t0
-        tail = proc.stdout[-3000:] + proc.stderr[-3000:]
-        codes = re.findall(r"\[launch\] exit codes (\{.*\})", proc.stderr)
+        tail = out[-3000:] + err[-3000:]
+        codes = re.findall(r"\[launch\] exit codes (\{.*\})", err)
         if proc.returncode != 0 or not codes:
             raise AssertionError(f"{path}: launch rc {proc.returncode}\n"
                                  f"{tail}")
@@ -2698,14 +2747,14 @@ def dist_ps_phase(torch, path: str) -> dict:
         if len(codes) != cfg["procs"] or any(codes.values()):
             raise AssertionError(f"{path}: exit codes {codes}\n{tail}")
         devices = re.findall(r"\[worker p\d+w\d+\] device (\S+)",
-                             proc.stdout)
+                             out)
         if len(devices) != P * W or \
                 any(not dv.startswith("cuda") for dv in devices):
             raise AssertionError(f"{path}: worker devices {devices}")
         accs = {}
         for p_, w_, ep, acc in re.findall(
                 r"\[worker p(\d+)w(\d+)\] epoch (\d+) train_acc \S+ "
-                r"test_acc ([\d.]+)", proc.stdout):
+                r"test_acc ([\d.]+)", out):
             accs.setdefault((int(p_), int(w_)), []).append(float(acc))
         if len(accs) != P * W or any(
                 len(a) != DIST_PS_SHAPE["epochs"] for a in accs.values()):
@@ -4491,6 +4540,859 @@ def long_context_phase(torch, mode: str, device=None, env=None) -> dict:
     return res
 
 
+# ---- the control plane and FleetScope (control/, telemetry/fleetscope.py)
+
+# control_fsa: path 1 with the control plane on, the decisions applied
+# after this many steps; path 1's "bsc,0.01" is the capacity, so the ratios
+# are the scales 0.5, 0.125 and 1
+CONTROL_STEPS = 16
+CONTROL_SCRIPT = ((4, "ratio", 0.005), (8, "ratio", 0.00125),
+                  (10, "depth", 1), (13, "depth", 0), (14, "ratio", 0.01))
+# the emitted share's distance from the scale reported (not gated: the
+# sampled boundary's Weyl probe under-samples ResNet-20's largest
+# coordinates, so the route emits more than eff_k pairs, PERF.md)
+CONTROL_EMITTED_TOL = 0.05
+# bench.py --compare-control at its defaults (bench.py:2827-3093): the MLP
+# on 3 parties x 1 worker, 48 a step, 60 steps of sgd(0.012), "bsc" at
+# 0.25 and 0.25 / 8, 1 MiB buckets, party 1's uplink throttled 8x with
+# 300 ms more latency for steps 2-39, the modelled WAN's compute 0.05 s a
+# step and base latency 0.01 s
+CONTROL_REPLAY = dict(
+    parties=3, batch=48, steps=60, lr=0.012, ratio_hi=0.25,
+    bucket_bytes=1 << 20, compute_s=0.05, base_delay_s=0.01,
+    schedule="seed=77;throttle@2:party=1,factor=0.125,steps=38;"
+             "delay@2:party=1,ms=300,steps=38")
+# fleetscope_sched: the aggregator's poll interval, and the burn series'
+# seed (bench.py --compare-fleetscope's)
+FLEETSCOPE_INTERVAL_S = 0.5
+FLEETSCOPE_BURN_SEED = 1234
+
+
+class WanModel:
+    """Deterministic WAN time model of the control replay (a copy of
+    bench.py's ``_WanModel`` over the port's link-shaping hook).
+
+    Link quality is a pure function of the active chaos shaping
+    overrides (``service.protocol.get_link_shaping``), so the seeded
+    schedule fully determines the bandwidth/delay timeline.  Routing:
+    ``routes == ()`` is direct fan-in; a relay order's head is the merge
+    sink — the other parties cross the fast intra-overlay link to it,
+    and it forwards one merged payload up its own uplink.  The bytes a
+    party sends are the run's own telemetry (the capacity times the
+    measured emitted share)."""
+
+    def __init__(self, num_parties: int, base_bps: float, p2p_bps: float,
+                 base_delay_s: float, compute_s: float):
+        self.P = int(num_parties)
+        self.base_bps = float(base_bps)
+        self.p2p_bps = float(p2p_bps)
+        self.base_delay_s = float(base_delay_s)
+        self.compute_s = float(compute_s)
+
+    def _bw(self, party: int) -> float:
+        from geomx_tpu_torch.service.protocol import get_link_shaping
+        return self.base_bps * get_link_shaping(party).get("factor", 1.0)
+
+    def _delay(self, party: int) -> float:
+        from geomx_tpu_torch.service.protocol import get_link_shaping
+        return self.base_delay_s + \
+            get_link_shaping(party).get("delay_ms", 0.0) / 1e3
+
+    def uplink_seconds(self, party: int, nbytes: float) -> float:
+        return self._delay(party) + nbytes / self._bw(party)
+
+    def round_seconds(self, nbytes: float, routes: tuple) -> float:
+        """One synchronous WAN round: the gate waits for the slowest
+        path to the global tier."""
+        if not routes:
+            return max(self.uplink_seconds(p, nbytes)
+                       for p in range(self.P))
+        sink = int(routes[0])
+        hop = max((nbytes / self.p2p_bps
+                   for p in range(self.P) if p != sink), default=0.0)
+        return hop + self.uplink_seconds(sink, nbytes)
+
+    def step_seconds(self, nbytes: float, depth: int, routes: tuple) -> dict:
+        wan = self.round_seconds(nbytes, routes)
+        hidden = min(wan, self.compute_s) if depth else 0.0
+        exposed = wan - hidden
+        return {"total": self.compute_s + exposed, "wan": wan,
+                "exposed": exposed, "hidden": hidden}
+
+    def feed_observatory(self, obs, nbytes: float, t: float) -> None:
+        """Every party's direct uplink gets a payload-sized observation
+        a step."""
+        for p in range(self.P):
+            obs.observe(f"party{p}", "global", nbytes=nbytes,
+                        seconds=self.uplink_seconds(p, nbytes), t=t)
+
+    def publish_phases(self, rec: dict) -> None:
+        from geomx_tpu_torch.telemetry.attribution import publish_attribution
+        total = rec["total"] or 1.0
+        publish_attribution({
+            "compute": (self.compute_s - rec["hidden"]) / total,
+            "hidden_comms": rec["hidden"] / total,
+            "exposed_comms": rec["exposed"] / total,
+            "host_stall": 0.0})
+
+
+def control_make_data(n: int = 1536, seed: int = 0):
+    """The control replay's learnable synthetic classification set
+    (class-prototype images plus noise, bench.py's generator): numpy
+    uint8 ``[n, 32, 32, 3]`` and int labels."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, size=n).astype(np.int32)
+    protos = rng.rand(10, 32, 32, 3) * 70
+    x = protos[y] + rng.rand(n, 32, 32, 3) * 185
+    return np.clip(x, 0, 255).astype(np.uint8), y
+
+
+def fleetscope_burn_series(seed: int, windows: str = "20:4,60:2"):
+    """One deterministic burn-monitor run over a seeded latency-inflation
+    window (virtual time: t is the tick index; bench.py's
+    ``_fleetscope_burn_series`` over the port's monitor): the breach
+    list as canonical JSON, and its length."""
+    import numpy as np
+
+    from geomx_tpu_torch.telemetry.fleetscope import BurnRateMonitor
+
+    rng = np.random.default_rng(seed)
+    mon = BurnRateMonitor(windows=windows, slo_target=0.99)
+    breaches = []
+    for i in range(140):
+        t = float(i)
+        good, bad = 50.0, 0.0
+        if 60 <= i < 95:
+            infl = 1.0 + float(rng.random())
+            bad = round(25.0 * infl, 6)
+            good = round(max(0.0, 50.0 - bad), 6)
+        mon.record(t, good, bad)
+        b = mon.evaluate(t)
+        if b is not None:
+            breaches.append(b)
+    return json.dumps(breaches, sort_keys=True), len(breaches)
+
+
+def _run_step(torch, trainer, state, batch, profile: bool):
+    """One ``trainer.train_step``; with ``profile`` inside a profiler
+    window, also returning its launch calls (``_cuda_launches``)."""
+    if not profile:
+        return trainer.train_step(state, *batch), None
+    out = {}
+    calls, _ = _cuda_launches(
+        torch, lambda: out.update(r=trainer.train_step(state, *batch)))
+    return out["r"], calls
+
+
+def _first_difference(a: list, b: list) -> str:
+    at = next((i for i, (u, v) in enumerate(zip(a, b)) if u != v),
+              min(len(a), len(b)))
+    return (f"{len(a)} vs {len(b)} launch calls, first difference at "
+            f"{at}: {a[at:at + 3]} vs {b[at:at + 3]}")
+
+
+def control_reference(torch) -> dict:
+    """Gate (e) of control_fsa: two fp32 steps at scale 0.5 (ratio 0.005
+    under "bsc,0.01") on the card and on the CPU, the small ResNet of
+    the reference phase: losses to rtol 1e-4, every replica's
+    parameters to atol 2e-3."""
+    from geomx_tpu_torch.control import Decision
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import ResNet
+
+    data = load_dataset("synthetic", synthetic_train_n=512)
+    x, y = data["train_x"][:, :16, :16], data["train_y"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t = make_trainer("flagship", ResNet((1, 1, 1), (8, 16, 32),
+                                            dtype=torch.float32),
+                         device=device, precision="fp32", control=True)
+        st = t.init_state(seed=0, sample_input=x[:2])
+        st = t.apply_control(st, Decision(step=0, kind="ratio", value=0.005,
+                                          prev=0.01, reason="scripted"))
+        losses = []
+        for i, (xb, yb) in enumerate(t.make_loader(x, y, 8).epoch(0)):
+            if i == 2:
+                break
+            st, m = t.train_step(st, xb, yb)
+            losses.append(float(m["loss"]))
+        runs[device] = (losses, {k: v.cpu() for k, v in st.params.items()})
+    (gl, gp), (cl, cp) = runs["cuda"], runs["cpu"]
+    for a, b in zip(gl, cl):
+        if not math.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"control_fsa: card losses {gl} vs CPU "
+                                 f"{cl} at scale 0.5")
+    worst = max((gp[k] - cp[k]).abs().max().item() for k in cp)
+    if worst > 2e-3:
+        raise AssertionError(f"control_fsa: card and CPU params differ by "
+                             f"{worst} at scale 0.5")
+    return dict(card_losses=gl, cpu_losses=cl, max_param_diff=worst)
+
+
+def control_fsa_phase(torch, device=None, batch: int = 128,
+                      steps: int = CONTROL_STEPS) -> dict:
+    """Phase control_fsa: path 1 (ResNet-20 at full width on [2, 4], 128
+    a replica, sgd(0.1, momentum=0.9) per leaf, "bsc,0.01", kernels 1-4)
+    with GEOMX_CONTROL=1 and telemetry on, 16 steps under CONTROL_SCRIPT
+    through a ControlActuator.  Gates: (a) a control-off step makes the
+    launch calls of a build whose control_operands raises; (b) the step
+    after each ratio actuation makes the launch calls of the step before
+    it (no device-to-host copy added) and _control_cache is unchanged;
+    (c) bsc_emitted_fraction's mean over the steps at a scale falls with
+    the scale, and at the second step after each ratio actuation kernel
+    3's pairs equal the plain selection's on the CPU from the same inputs
+    at the same eff_k boundary, the probe equal to the share recomputed
+    from them (the mean's distance from the scale is printed); (d) the 0->1
+    switch carries the dc-tier EF buffers bit for bit (copy (0, 0) into
+    every slot, as the JAX package's swap), and the 1->0 switch's drain
+    moves the params by exactly one apply of the parked aggregate; (e)
+    control_reference on the card; (f) finite losses, identical
+    replicas, kernels 1-4 launched in every step.  Prints the median
+    step ms with control on and off and the launch calls a step."""
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.control import (ControlActuator, Decision,
+                                         reset_decision_log)
+    from geomx_tpu_torch.control import actuators as ctl_mod
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.telemetry import reset_registry
+    from geomx_tpu_torch.telemetry.probes import host_probes
+    from geomx_tpu_torch.tree import leaf_names
+
+    t_phase = time.perf_counter()
+    reset_registry()
+    data = load_dataset("synthetic", synthetic_train_n=8 * batch * steps)
+
+    def build(**fields):
+        return make_trainer("flagship", get_model("resnet20"),
+                            device=device, **fields)
+
+    off = build()
+    on_card = off.device.type == "cuda"
+    loader = off.make_loader(data["train_x"], data["train_y"], batch)
+    batches = [(x.clone(), y.clone()) for x, y in loader.epoch(0)][:steps]
+
+    # (a) the disabled path against a build whose control hook raises
+    def one_step(t):
+        st = t.init_state(seed=0)
+        return lambda: t.train_step(st, *batches[0])
+
+    one_step(off)()                       # warm-up (cuDNN, allocator)
+    calls_off, _ = _cuda_launches(torch, one_step(off))
+
+    def poison(*a, **k):
+        raise AssertionError("control hook ran on the disabled path")
+
+    saved = ctl_mod.control_operands
+    ctl_mod.control_operands = poison
+    try:
+        base = build()
+        one_step(base)()
+        calls_base, _ = _cuda_launches(torch, one_step(base))
+    finally:
+        ctl_mod.control_operands = saved
+    if calls_off != calls_base:
+        raise AssertionError("control_fsa: the control-off step and the "
+                             "hook-free build differ: "
+                             + _first_difference(calls_off, calls_base))
+
+    # the off run's step times
+    st = off.init_state(seed=0)
+    ms_off = []
+    for xb, yb in batches:
+        t0 = time.perf_counter()
+        st, m = off.train_step(st, xb, yb)
+        float(m["loss"])
+        ms_off.append(1e3 * (time.perf_counter() - t0))
+
+    # the controlled run
+    prior = os.environ.get("GEOMX_CONTROL")
+    os.environ["GEOMX_CONTROL"] = "1"
+    try:
+        on = build(telemetry=True)
+        st = on.init_state(seed=0)
+    finally:
+        if prior is None:
+            del os.environ["GEOMX_CONTROL"]
+        else:
+            os.environ["GEOMX_CONTROL"] = prior
+    dlog = reset_decision_log()
+    act = ControlActuator(trainer=on, log=dlog)
+    script = {s: (kind, value) for s, kind, value in CONTROL_SCRIPT}
+    ratio_at = {s for s, kind, _ in CONTROL_SCRIPT if kind == "ratio"}
+    profiled = ratio_at | {s - 1 for s in ratio_at}
+    # kernel 3's inputs and output at the second step after each ratio
+    # actuation (not a profiled one: the copies would add launch calls)
+    captured, capture_at = {}, {s + 1 for s in ratio_at}
+    bsc = on._dc_ratio_compressor()
+
+    def capture(g, u, v, compress=bsc.compress):
+        out = compress(g, u, v)
+        if len(rows) in capture_at:
+            captured[len(rows)] = ([t.detach().cpu() for t in (g, u, v)],
+                                   out[0].detach().cpu(),
+                                   out[1].detach().cpu())
+        return out
+
+    bsc.compress = capture
+    current = {"ratio": 0.01, "depth": 0}
+    P = on.topology.num_parties
+    rows, pins, prev_calls, pending, depth_checks = [], [], None, None, {}
+    for i in range(steps):
+        if i in script:
+            kind, value = script[i]
+            dec = Decision(step=i, kind=kind, value=value,
+                           prev=current[kind], reason="scripted")
+            if kind == "ratio":
+                pending = dict(before=prev_calls, fn=on.train_step,
+                               cache=dict(on._control_cache))
+            if kind == "depth" and value == 1:
+                ef_before = [(p, t.clone()) for p, t in
+                             tensors(torch, st.sync_state["dc_comp"])]
+            if kind == "depth" and value == 0:
+                names = leaf_names(st.params)
+                bk = on.sync.inner.dc_compressor.inner._bucketer(
+                    [st.params[k] for k in names])
+                inflight = st.sync_state["inner"]["dc_comp"]["inflight"]
+                g = {k: v / P for k, v in zip(names, bk.unflatten(inflight))}
+                want, _ = on.tx.update(g, st.opt_state, st.params)
+                parked = max(float(b.abs().max()) for b in inflight)
+            st = act.apply(st, dec)
+            current[kind] = value
+            if kind == "depth" and value == 1:
+                after = tensors(torch,
+                                st.sync_state["inner"]["dc_comp"]["inner"])
+                if [p for p, _ in after] != [p for p, _ in ef_before]:
+                    raise AssertionError("control_fsa: the dc-tier EF "
+                                         "layout changed across 0->1")
+                spread = 0.0
+                for (p, a), (_, b) in zip(after, ef_before):
+                    if not torch.equal(a, b[:1, :1].expand_as(b)):
+                        raise AssertionError(f"control_fsa: EF {p} not "
+                                             "carried bit for bit")
+                    spread = max(spread, float((b - b[:1, :1]).abs().max()))
+                depth_checks["ef_buffers"] = len(after)
+                depth_checks["ef_party_spread_before"] = spread
+            if kind == "depth" and value == 0:
+                for k in names:
+                    if not torch.equal(st.params[k], want[k]):
+                        raise AssertionError(
+                            f"control_fsa: the 1->0 drain is not one "
+                            f"apply of the parked aggregate at {k}")
+                depth_checks["drained_parked_max_abs"] = parked
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        (st, m), calls = _run_step(torch, on, st, batches[i], i in profiled)
+        probes = host_probes(m["telemetry"])
+        loss = float(m["loss"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        if on_card and any(launches[k] < 1 for k in SLICE1):
+            raise AssertionError(f"control_fsa: step {i} launches "
+                                 f"{launches}")
+        if pending is not None:
+            if on.train_step is not pending["fn"] or \
+                    dict(on._control_cache) != pending["cache"]:
+                raise AssertionError(f"control_fsa: the ratio actuation "
+                                     f"before step {i} changed the step")
+            if calls != pending["before"]:
+                raise AssertionError(
+                    f"control_fsa: the ratio actuation before step {i} "
+                    "changed the launch calls: "
+                    + _first_difference(pending["before"], calls))
+            pins.append(dict(step=i, launch_calls=len(calls)))
+            pending = None
+        prev_calls = calls
+        rows.append(dict(step=i, loss=loss, ms=ms, depth=on.control_depth(),
+                         scale=probes["control_ratio_scale"],
+                         emitted=probes["bsc_emitted_fraction"],
+                         launches={k: launches[k] for k in SLICE1},
+                         profiled=i in profiled))
+    del bsc.compress
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"control_fsa: losses {[r['loss'] for r in rows]}")
+    # kernel 3 under the eff_k boundary against the plain selection on
+    # the CPU from the same inputs, and the probe against its output
+    exact = {}
+    for i, ((g, u, v), vals, idx) in sorted(captured.items()):
+        k = bsc.k_for(g.shape[-1])
+        scale = torch.tensor(rows[i]["scale"], dtype=torch.float32)
+        eff_k = torch.round(scale * k).clamp(1.0, float(k)).to(torch.int32)
+        thr = ops.bsc.sampled_boundary_guv(g, u, v, eff_k)
+        pv, pidx, _, _ = ops.bsc.select_pack_plain(g, u, v, thr, k)
+        if not (torch.equal(pidx, idx) and torch.equal(pv, vals)):
+            raise AssertionError(f"control_fsa: step {i}'s selection at "
+                                 f"eff_k {int(eff_k)} differs from the "
+                                 "plain version's on the CPU")
+        share = ((idx >= 0).sum(-1).double() / k).mean().item()
+        if abs(share - rows[i]["emitted"]) > 2.0 ** -23:
+            raise AssertionError(f"control_fsa: step {i}'s probe "
+                                 f"{rows[i]['emitted']} vs {share} from "
+                                 "kernel 3's output")
+        # the selection's over-reach, before the k slots cap it: the
+        # coordinates at or above the Weyl probe's boundary per eff_k,
+        # beside the same quantile of uniform random probes of the same
+        # size (a diagnostic, not gated)
+        absv = (v + (u * ops.bsc.MOMENTUM + g)).abs()
+        above = (absv >= thr.unsqueeze(-1)).sum(-1).double()
+        n = absv.shape[-1]
+        pos = ops.sampled_topk.boundary_position(8192, eff_k, n)
+        gen = torch.Generator().manual_seed(0)
+        rand = []
+        for _ in range(8):
+            probe = absv[..., torch.randperm(n, generator=gen)[:8192]]
+            rthr = probe.sort(-1).values.index_select(-1, pos.reshape(1))
+            rand.append((absv >= rthr).sum(-1).double())
+        exact[i] = dict(scale=rows[i]["scale"], eff_k=int(eff_k), k=k,
+                        emitted=share,
+                        over_reach=(above / int(eff_k)).mean().item(),
+                        over_reach_random_probe=(
+                            torch.stack(rand).mean(0) / int(eff_k))
+                        .mean().item())
+    for k_, v in st.params.items():
+        if not torch.equal(v, v[:1, :1].expand_as(v)):
+            raise AssertionError(f"control_fsa: replicas diverged at {k_}")
+    by_scale = {}
+    for r in rows:
+        by_scale.setdefault(r["scale"], []).append(r["emitted"])
+    means = {s: statistics.mean(v) for s, v in by_scale.items()}
+    scales = sorted(means, reverse=True)
+    if scales != [1.0, 0.5, 0.125] or \
+            not means[1.0] > means[0.5] > means[0.125]:
+        raise AssertionError(f"control_fsa: emitted share by scale {means}")
+    off_scale = {s: means[s] - s for s in scales
+                 if abs(means[s] - s) > CONTROL_EMITTED_TOL}
+    if len(dlog.snapshot()) != len(CONTROL_SCRIPT):
+        raise AssertionError(f"control_fsa: decision log {dlog.snapshot()}")
+    ref = control_reference(torch) if on_card else None
+    timed = [r["ms"] for r in rows[1:] if not r["profiled"]]
+    res = dict(
+        steps=steps, losses=[r["loss"] for r in rows], rows=rows,
+        emitted_by_scale=means, emitted_off_scale=off_scale,
+        kernel3_vs_plain=exact, pins=pins, depth=depth_checks,
+        launch_calls_per_step_off=len(calls_off),
+        launch_calls_per_step_on=pins[0]["launch_calls"] if pins else None,
+        step_ms_median_on=statistics.median(timed),
+        step_ms_median_off=statistics.median(ms_off[1:]),
+        decisions=dlog.snapshot(), reference=ref,
+        wall_s=time.perf_counter() - t_phase)
+    log(f"phase control_fsa: {steps} steps under {len(CONTROL_SCRIPT)} "
+        f"scripted decisions; a control-off step makes the hook-free "
+        f"build's {len(calls_off)} launch calls; the step after each of "
+        f"{len(pins)} ratio actuations made the step before's launch "
+        f"calls ({[p['launch_calls'] for p in pins]}), the step cache "
+        f"unchanged; emitted share by scale "
+        + ", ".join(f"{s:g}: {means[s]:.4f}" for s in scales)
+        + f" (per step {[round(r['emitted'], 4) for r in rows]}; more "
+        f"than {CONTROL_EMITTED_TOL} from the scale at "
+        f"{sorted(off_scale, reverse=True)}); kernel 3 at steps "
+        f"{sorted(exact)} (eff_k {[e['eff_k'] for _, e in sorted(exact.items())]}"
+        f") equal to the plain selection on the CPU, coordinates at or "
+        f"above the boundary per eff_k "
+        f"{[round(e['over_reach'], 3) for _, e in sorted(exact.items())]} "
+        f"(uniform random probes: "
+        f"{[round(e['over_reach_random_probe'], 3) for _, e in sorted(exact.items())]}"
+        f"); 0->1 "
+        f"carried {depth_checks['ef_buffers']} EF buffers bit for bit "
+        f"(copy (0, 0); parties differed by up to "
+        f"{depth_checks['ef_party_spread_before']:.3g} before), the 1->0 "
+        f"drain one apply of the parked aggregate (max "
+        f"{depth_checks['drained_parked_max_abs']:.3g}); "
+        + (f"card vs CPU at scale 0.5: losses {ref['card_losses']} vs "
+           f"{ref['cpu_losses']}, params within {ref['max_param_diff']:.3g}; "
+           if ref else "")
+        + f"step {res['step_ms_median_on']:.2f} ms with control on vs "
+        f"{res['step_ms_median_off']:.2f} ms off (medians; per step on "
+        f"{[round(r['ms'], 1) for r in rows]}, off "
+        f"{[round(t, 1) for t in ms_off]}); launch calls "
+        f"a step {res['launch_calls_per_step_off']} off, "
+        f"{res['launch_calls_per_step_on']} on (telemetry too); phase "
+        f"{res['wall_s']:.1f} s")
+    return res
+
+
+def control_wan(torch, device=None):
+    """The control replay's WAN constants (bench.py's calibration over
+    the port's own wire accounting): the hi ratio's bytes a party,
+    moved by a healthy uplink in a tenth of a compute step; the overlay
+    link 8x that.  Returns ``(wan_kw, hi_bytes)``."""
+    from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.optim import sgd
+    from geomx_tpu_torch.train import Trainer
+
+    c = CONTROL_REPLAY
+    probe = Trainer(get_model("mlp", num_classes=10),
+                    HiPSTopology(c["parties"], 1), sgd(c["lr"]),
+                    config=GeoConfig(num_parties=c["parties"],
+                                     workers_per_party=1,
+                                     compression=f"bsc,{c['ratio_hi']}",
+                                     bucket_bytes=c["bucket_bytes"]),
+                    device=device)
+    st = probe.init_state(seed=0, sample_input=control_make_data()[0][:2])
+    hi_bytes = float(probe.sync.dc_compressor.wire_bytes(st.params))
+    bps = hi_bytes / (0.1 * c["compute_s"])
+    return dict(base_bps=bps, p2p_bps=8.0 * bps,
+                base_delay_s=c["base_delay_s"],
+                compute_s=c["compute_s"]), hi_bytes
+
+
+def _control_run(torch, ratio: float, depth: int, wan_kw: dict,
+                 controller: bool, ratio_bounds=None, device=None,
+                 capsule_path: str = None, pin: bool = False,
+                 steps: int = None) -> dict:
+    """One seeded replay of the control acceptance (bench.py's
+    ``_control_run`` in the port): a real training run on ``device``
+    whose WAN wall clock is modelled a step from the chaos-shaped link
+    timeline (``steps``, default CONTROL_REPLAY's).  Returns the
+    timeline, the decision log, the launch-call pins of the ratio
+    actuations (``pin``: every step profiled) and the capsule's path."""
+    import numpy as np
+
+    from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from geomx_tpu_torch.control import (ControlActuator, ControlSensors,
+                                         reset_decision_log)
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.optim import sgd
+    from geomx_tpu_torch.resilience import ChaosEngine, ChaosSchedule
+    from geomx_tpu_torch.telemetry import (reset_link_observatory,
+                                           reset_registry)
+    from geomx_tpu_torch.telemetry.capsule import RunCapsule
+    from geomx_tpu_torch.telemetry.probes import host_probes
+    from geomx_tpu_torch.train import Trainer
+
+    c = CONTROL_REPLAY
+    P, batch = c["parties"], c["batch"]
+    steps = c["steps"] if steps is None else int(steps)
+    reset_registry()
+    observatory = reset_link_observatory()
+    dlog = reset_decision_log()
+    cfg = GeoConfig(num_parties=P, workers_per_party=1,
+                    compression=f"bsc,{ratio}",
+                    bucket_bytes=c["bucket_bytes"], pipeline_depth=depth,
+                    telemetry=True, control=controller)
+    trainer = Trainer(get_model("mlp", num_classes=10), HiPSTopology(P, 1),
+                      sgd(c["lr"]), config=cfg, device=device)
+    x, y = control_make_data()
+    state = trainer.init_state(seed=0, sample_input=x[:2])
+    dev = trainer.device
+    xt = torch.as_tensor(x, device=dev)
+    yt = torch.as_tensor(y.astype(np.int64), device=dev)
+    local_b = batch // P
+    model = WanModel(P, **wan_kw)
+    routes: tuple = ()
+    pilot = actuator = None
+    if controller:
+        sensors = ControlSensors(observatory=observatory, min_confidence=0.5,
+                                 compute_s_fn=lambda s: model.compute_s)
+        pilot = control_pilot(sensors, ratio, ratio_bounds)
+
+        def relay_apply(order):
+            nonlocal routes
+            routes = tuple(int(p[5:]) for p in order)  # "party<i>" -> i
+
+        actuator = ControlActuator(trainer=trainer, relay_apply=relay_apply,
+                                   log=dlog)
+    capsule = None
+    if capsule_path:
+        capsule = RunCapsule(capsule_path, config=cfg)
+        capsule.attach_observatory(observatory)
+    clock, timeline, pins, pending = 0.0, [], [], None
+    with ChaosEngine(ChaosSchedule.from_spec(c["schedule"])) as engine:
+        for it in range(steps):
+            engine.tick(it)
+            sel = torch.as_tensor((np.arange(batch) + it * batch) % len(x),
+                                  device=dev)
+            xb = xt[sel].reshape(P, 1, local_b, 32, 32, 3)
+            yb = yt[sel].reshape(P, 1, local_b)
+            (state, metrics), calls = _run_step(torch, trainer, state,
+                                                (xb, yb), pin)
+            if pending is not None:
+                step_fn, before, cache = pending
+                if step_fn is trainer.train_step:
+                    pins.append(dict(step=it, same_calls=calls == before,
+                                     calls=len(calls or ()),
+                                     same_cache=cache == dict(
+                                         trainer._control_cache)))
+                pending = None
+            flat = host_probes(metrics["telemetry"])
+            trainer._publish_telemetry(metrics["telemetry"], it + 1)
+            emitted = float(flat.get("bsc_emitted_fraction", 1.0))
+            nbytes = float(flat["dc_wire_bytes"]) * emitted
+            rec = model.step_seconds(nbytes, trainer.control_depth(), routes)
+            clock += rec["total"]
+            model.feed_observatory(observatory, nbytes, clock)
+            model.publish_phases(rec)
+            timeline.append({
+                "step": it, "loss": float(metrics["loss"]),
+                "t": round(clock, 6), "wan_s": round(rec["wan"], 6),
+                "exposed_s": round(rec["exposed"], 6), "bytes": nbytes,
+                "emitted": emitted, "depth": trainer.control_depth(),
+                "routes": list(routes)})
+            if capsule is not None:
+                capsule.record_step(it, t=clock)
+            if pilot is not None:
+                for dec in pilot.tick(it, now=clock):
+                    if dec.kind == "ratio":
+                        pending = (trainer.train_step, calls,
+                                   dict(trainer._control_cache))
+                    state = actuator.apply(state, dec)
+    out = {"timeline": timeline,
+           "decisions": dlog.snapshot() if controller else [],
+           "pins": pins}
+    if capsule is not None:
+        capsule.detach_observatory()
+        out["capsule"] = capsule.write(now=clock)
+    return out
+
+
+def control_pilot(sensors, ratio: float, ratio_bounds):
+    """The acceptance's policy stack (bench.py's): the ratio policy on
+    cooldown 3 with a 0.2 deadband, a Schmitt depth band above the
+    healthy WAN share (enter 0.45, exit 0.40, confirm 2), the relay on
+    a 2x margin."""
+    from geomx_tpu_torch.control import (DepthPolicy, GraftPilot,
+                                         RatioPolicy, RelayPolicy)
+    return GraftPilot(
+        sensors,
+        ratio=RatioPolicy(ratio, bounds=ratio_bounds, cooldown=3,
+                          deadband=0.2),
+        depth=DepthPolicy(enter=0.45, exit=0.40, confirm=2, cooldown=3),
+        relay=RelayPolicy(min_gain=2.0, cooldown=3, min_confidence=0.5))
+
+
+def _smoothed_losses(timeline, window: int = 3):
+    losses = [rec["loss"] for rec in timeline]
+    return [statistics.mean(losses[max(0, i - window + 1):i + 1])
+            for i in range(len(losses))]
+
+
+def _time_to_target(timeline, target: float):
+    for rec, sm in zip(timeline, _smoothed_losses(timeline)):
+        if sm <= target:
+            return rec["t"]
+    return None
+
+
+def control_replay_phase(torch, device=None,
+                         out_dir: str = os.path.join("chiprun_out",
+                                                     "control")) -> dict:
+    """Phase control_replay: bench.py --compare-control at its defaults
+    (CONTROL_REPLAY) in the port: four static runs (ratio 0.25 and
+    0.03125 x depth 0 and 1) and two controller runs of the MLP on the
+    card, the WAN modelled with its bandwidth calibrated from the port's
+    own wire accounting (the hi ratio's bytes a party moved in a tenth
+    of a compute step; the overlay link 8x that).  Gates: the controller
+    reaches the loss target (the tightest smoothed loss every run
+    reached, +2%) before every static run; the two controller runs'
+    decision logs byte-identical (json.dumps, sort_keys); the step after
+    each ratio actuation makes the launch calls of the step before it
+    with the step cache unchanged (the first controller run profiles
+    every step); the controller run's capsule, replayed through
+    Capsule.replay_decisions, reproduces its log.  Prints the port's
+    decisions beside CONTROL_r01.json's (the JAX package's recorded run;
+    not a gate)."""
+    from geomx_tpu_torch.telemetry.capsule import Capsule
+
+    t_phase = time.perf_counter()
+    c = CONTROL_REPLAY
+    os.makedirs(out_dir, exist_ok=True)
+    ratio_hi = c["ratio_hi"]
+    ratio_lo = ratio_hi / 8.0
+    wan_kw, hi_bytes = control_wan(torch, device)
+    grid = {"hi_d0": (ratio_hi, 0), "hi_d1": (ratio_hi, 1),
+            "lo_d0": (ratio_lo, 0), "lo_d1": (ratio_lo, 1)}
+    static = {name: _control_run(torch, r, d, wan_kw, controller=False,
+                                 device=device)
+              for name, (r, d) in grid.items()}
+    bounds = (ratio_lo, ratio_hi)
+    cap_path = os.path.join(out_dir, "capsule_controller.json")
+    ctrl = _control_run(torch, ratio_hi, 0, wan_kw, controller=True,
+                        ratio_bounds=bounds, device=device,
+                        capsule_path=cap_path, pin=True)
+    ctrl2 = _control_run(torch, ratio_hi, 0, wan_kw, controller=True,
+                         ratio_bounds=bounds, device=device)
+    dec_a = json.dumps(ctrl["decisions"], sort_keys=True)
+    dec_b = json.dumps(ctrl2["decisions"], sort_keys=True)
+    floors = [min(_smoothed_losses(run["timeline"]))
+              for run in list(static.values()) + [ctrl]]
+    target = round(max(floors) * 1.02, 6)
+    static_times = {name: _time_to_target(run["timeline"], target)
+                    for name, run in static.items()}
+    ctrl_time = _time_to_target(ctrl["timeline"], target)
+    replayed = Capsule.load(ctrl["capsule"]).replay_decisions(
+        lambda sensors: control_pilot(sensors, ratio_hi, bounds),
+        min_confidence=0.5, compute_s_fn=lambda s: c["compute_s"])
+    with open(os.path.join(out_dir, "control_decisions.json"), "w") as f:
+        json.dump({"decisions": ctrl["decisions"],
+                   "timeline": ctrl["timeline"],
+                   "static": {n: r["timeline"] for n, r in static.items()}},
+                  f, indent=1)
+    res = dict(
+        hi_wire_bytes=hi_bytes, wan=wan_kw, loss_target=target,
+        static={n: dict(ratio=grid[n][0], depth=grid[n][1],
+                        time_to_target_s=static_times[n],
+                        final_loss=_smoothed_losses(r["timeline"])[-1],
+                        total_time_s=r["timeline"][-1]["t"])
+                for n, r in static.items()},
+        controller=dict(time_to_target_s=ctrl_time,
+                        final_loss=_smoothed_losses(ctrl["timeline"])[-1],
+                        total_time_s=ctrl["timeline"][-1]["t"],
+                        decisions=ctrl["decisions"]),
+        decision_log_deterministic=dec_a == dec_b,
+        replay_reproduces_log=json.dumps(replayed, sort_keys=True) == dec_a,
+        ratio_pins=ctrl["pins"], wall_s=time.perf_counter() - t_phase)
+    try:
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "CONTROL_r01.json")) as f:
+            jax_decs = json.load(f)["controller"]["decisions"]
+    except (OSError, KeyError, ValueError):
+        jax_decs = None
+    log(f"phase control_replay: static time to loss {target:.4f}: "
+        + ", ".join(f"{n} {t if t is None else round(t, 4)} s"
+                    for n, t in static_times.items())
+        + f"; controller {ctrl_time if ctrl_time is None else round(ctrl_time, 4)} s, "
+        f"{len(ctrl['decisions'])} decisions; logs byte-identical "
+        f"{res['decision_log_deterministic']}; capsule replay reproduces "
+        f"the log {res['replay_reproduces_log']}; ratio actuations "
+        f"{[(p['step'], p['calls']) for p in ctrl['pins']]} (step, launch "
+        f"calls of the step after); hi-ratio wire {hi_bytes:.0f} B a party; "
+        f"phase {res['wall_s']:.1f} s")
+    width = max((len(f"{d['step']} {d['kind']} {d['value']}")
+                 for d in ctrl["decisions"]), default=0)
+    for i in range(max(len(ctrl["decisions"]), len(jax_decs or []))):
+        a = ctrl["decisions"][i] if i < len(ctrl["decisions"]) else None
+        b = (jax_decs or [])[i] if i < len(jax_decs or []) else None
+        fmt = (lambda d: "-" if d is None else
+               f"{d['step']} {d['kind']} {d['value']}")
+        log(f"  decision {i}: port {fmt(a):<{width}}  JAX (CONTROL_r01) "
+            f"{fmt(b)}")
+    if ctrl_time is None or any(t is not None and not ctrl_time < t
+                                for t in static_times.values()):
+        raise AssertionError(f"control_replay: the controller's time to "
+                             f"target {ctrl_time} does not beat every "
+                             f"static run's {static_times}")
+    if dec_a != dec_b:
+        raise AssertionError(f"control_replay: the two controller runs' "
+                             f"logs differ:\n{dec_a}\n{dec_b}")
+    if not ctrl["pins"] or not all(p["same_calls"] and p["same_cache"]
+                                   for p in ctrl["pins"]):
+        raise AssertionError(f"control_replay: ratio pins {ctrl['pins']}")
+    if not res["replay_reproduces_log"]:
+        raise AssertionError(f"control_replay: the capsule replay "
+                             f"{replayed} differs from the live log "
+                             f"{ctrl['decisions']}")
+    return res
+
+
+def fleetscope_sched_phase(torch, out_dir: str = os.path.join(
+        "chiprun_out", "fleetscope")) -> dict:
+    """Phase fleetscope_sched: dist_ps_mixed_sched's job (8 processes)
+    with GEOMX_FLEETSCOPE=1, a FLEETSCOPE_INTERVAL_S poll and the
+    scheduler's metrics port set; this process fetches the scheduler's
+    GET /fleet, /healthz and /control while the job runs.  Gates: the
+    job's own (every process exits 0, the accuracy floor); a fleet
+    document that names every roster node the scheduler's /healthz
+    counts, by role, and the scheduler itself, with fleet_version rising
+    across polls; GET /control 200 with no decisions; tools/gxtop.py
+    --json and its text view render the fetched document; the seeded
+    burn series (fleetscope_burn_series) gives byte-identical breach
+    lists twice."""
+    import collections
+    import threading
+    import urllib.request
+
+    from geomx_tpu_torch.utils.net import free_port_blocks
+
+    os.makedirs(out_dir, exist_ok=True)
+    mport, = free_port_blocks(1)
+    base = f"http://127.0.0.1:{mport}"
+    docs, healths, controls = [], [], []
+    stop = threading.Event()
+
+    def fetch(route):
+        with urllib.request.urlopen(base + route, timeout=2) as r:
+            return r.status, json.loads(r.read())
+
+    def watch():
+        while not stop.is_set():
+            try:
+                _, doc = fetch("/fleet")
+                _, health = fetch("/healthz")
+                if doc.get("fleet_version"):
+                    docs.append(doc)
+                    healths.append(health)
+                if not controls:
+                    controls.append(fetch("/control"))
+            except (OSError, ValueError):
+                pass
+            stop.wait(0.25)
+
+    res = dist_ps_phase(
+        torch, "dist_ps_mixed_sched", label="fleetscope_sched",
+        extra_env={"GEOMX_FLEETSCOPE": "1",
+                   "GEOMX_FLEETSCOPE_INTERVAL_S": str(FLEETSCOPE_INTERVAL_S),
+                   "GEOMX_METRICS_PORT": str(mport)},
+        watch=(watch, stop))
+    versions = [d["fleet_version"] for d in docs]
+    if len(docs) < 2 or not all(b >= a for a, b in zip(versions,
+                                                       versions[1:])) \
+            or not versions[-1] > versions[0]:
+        raise AssertionError(f"fleetscope_sched: fleet versions {versions}")
+    full = None
+    for doc, health in zip(docs, healths):
+        kinds = collections.Counter(e["kind"] for e in doc["nodes"].values())
+        roster = health.get("roster") or {}
+        if "scheduler" in doc["nodes"] and \
+                sum(roster.values()) == DIST_PS["dist_ps_mixed_sched"][
+                    "procs"] - 1 and \
+                all(kinds.get(role, 0) == n for role, n in roster.items()):
+            full = (doc, dict(roster))
+    if full is None:
+        raise AssertionError(f"fleetscope_sched: no fleet document names "
+                             f"the whole roster: {docs[-1]['nodes']}, "
+                             f"{healths[-1].get('roster')}")
+    doc, roster = full
+    if doc["nodes"]["scheduler"]["health"] != "ok":
+        raise AssertionError(f"fleetscope_sched: the scheduler's own entry "
+                             f"{doc['nodes']['scheduler']}")
+    if not controls or controls[0][0] != 200 or \
+            controls[0][1].get("decisions") != []:
+        raise AssertionError(f"fleetscope_sched: GET /control {controls}")
+    path = os.path.join(out_dir, "fleet.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    gx = [sys.executable, os.path.join(root, "tools", "gxtop.py"),
+          f"--file={path}"]
+    as_json = subprocess.run(gx + ["--json"], capture_output=True, text=True,
+                             timeout=60)
+    text = subprocess.run(gx, capture_output=True, text=True, timeout=60)
+    if as_json.returncode or json.loads(as_json.stdout) != doc or \
+            text.returncode or "scheduler" not in text.stdout:
+        raise AssertionError(f"fleetscope_sched: gxtop rc "
+                             f"{as_json.returncode}/{text.returncode}: "
+                             f"{as_json.stderr[-500:]}{text.stderr[-500:]}")
+    b1, n1 = fleetscope_burn_series(FLEETSCOPE_BURN_SEED)
+    b2, n2 = fleetscope_burn_series(FLEETSCOPE_BURN_SEED)
+    if b1 != b2 or not n1:
+        raise AssertionError(f"fleetscope_sched: burn breaches {n1} / {n2}")
+    res.update(fleet_polls=len(docs), fleet_versions=[versions[0],
+                                                      versions[-1]],
+               fleet_nodes=sorted(doc["nodes"]), roster=roster,
+               scheduler_entry=doc["nodes"]["scheduler"],
+               rollups=doc["rollups"], burn_breaches=n1,
+               gxtop_lines=len(text.stdout.splitlines()))
+    log(f"phase fleetscope_sched: {len(docs)} fleet documents fetched "
+        f"(fleet_version {versions[0]} -> {versions[-1]}), one naming "
+        f"{len(doc['nodes'])} nodes: the scheduler and the roster {roster}; "
+        f"GET /control 200 with no decisions; gxtop rendered it "
+        f"({res['gxtop_lines']} lines); the seeded burn series gave "
+        f"{n1} breach(es) twice, byte-identical")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -4561,7 +5463,13 @@ def main(argv=None) -> int:
              for path, cfg in PATHS.items()}
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
     telemetry = telemetry_phase(torch)
+    control = {"control_fsa": control_fsa_phase(torch),
+               "control_replay": control_replay_phase(torch)}
     host = {path: dist_ps_phase(torch, path) for path in DIST_PS}
+    host["fleetscope_sched"] = fleetscope_sched_phase(torch)
+    log(f"fleetscope_sched wall {host['fleetscope_sched']['wall_s']:.1f} s "
+        f"vs dist_ps_mixed_sched "
+        f"{host['dist_ps_mixed_sched']['wall_s']:.1f} s (this call)")
     host["host_plane_resnet20"] = host_plane_phase(torch)
     host["ledger_host_plane"] = ledger_phase(torch)
     host["manyparty_sharded"] = manyparty_phase(torch)
@@ -4592,6 +5500,7 @@ def main(argv=None) -> int:
                        "shard_phase": shards,
                        "zero_dense_max_param_diff": zero_diff,
                        "paths": paths, "telemetry_fsa": telemetry,
+                       "control": control,
                        "host_plane": host,
                        "examples": examples,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)

@@ -27,8 +27,18 @@ gather of the owners' selections); its final decompress is
 ``bsc_scatter_add`` over the gathered selections with ``run = kr``:
 the owners' index ranges are disjoint and each owner's merged indices
 unique, so no coordinate receives two values and the sum is exact in
-any fold order.  The control plane's effective-k operand has no hook in
-the port.
+any fold order.
+
+Ratio retuning (``control/``): with a control context open, ``compress``
+reads the ``bsc_ratio_scale`` operand and selects ``eff_k = clip(round(k
+* scale), 1, k)`` pairs, computed on the device as an int32 tensor; the
+wire keeps its ``k`` slots (the configured ratio is the capacity), the
+slots past the selection ride as sentinels, and their mass stays in the
+error-feedback buffers.  The sampled route raises its boundary to the
+``eff_k`` quantile (the select/pack kernel, its static ``k`` and its
+sentinels unchanged); exact/approx turn the slots at or past ``eff_k``
+into ``(0.0, -1)`` before error feedback.  With no context open no op is
+added.
 
 Telemetry (``telemetry/probes.py``): ``compress`` records
 ``bsc_emitted_fraction``, the share of the ``k`` wire slots a replica
@@ -48,6 +58,7 @@ from torch.profiler import record_function
 
 from geomx_tpu_torch.compression import sparseagg
 from geomx_tpu_torch.compression.base import REPLICA_DIMS, Compressor
+from geomx_tpu_torch.control.actuators import current_ratio_scale
 from geomx_tpu_torch.ops import bsc as bsc_ops
 from geomx_tpu_torch.ops.sampled_topk import probe_positions
 from geomx_tpu_torch.ops.topk import top_k
@@ -126,13 +137,21 @@ class BiSparseCompressor(Compressor):
     def compress(self, g_flat: torch.Tensor, u: torch.Tensor,
                  v: torch.Tensor):
         """Momentum-corrected top-k with error feedback on ``[*B, n]``
-        rows: ``(vals [*B, k], idx [*B, k] int32, new_u, new_v)``."""
+        rows: ``(vals [*B, k], idx [*B, k] int32, new_u, new_v)``.  Under
+        an open control context the selection count is the device-side
+        ``eff_k`` (module docstring)."""
         n = g_flat.shape[-1]
         k = self.k_for(n)
+        scale = current_ratio_scale()
+        eff_k = None
+        if scale is not None:
+            eff_k = torch.round(scale * k).clamp(1.0, float(k)) \
+                .to(torch.int32)
         if self.select == "sampled":
             with record_function("bsc/threshold"):
                 thr = bsc_ops.sampled_boundary_guv(
-                    g_flat, u, v, k, positions=self._probe(n, g_flat.device))
+                    g_flat, u, v, k if eff_k is None else eff_k,
+                    positions=self._probe(n, g_flat.device))
             with record_function("bsc/select_pack"):
                 vals, idx, u, v = bsc_ops.select_pack(g_flat, u, v, thr, k)
             # in-situ achieved payload: the sampled boundary emits <= k
@@ -146,6 +165,22 @@ class BiSparseCompressor(Compressor):
             _, idx = top_k(v.abs(), k)
             sel = idx.long()
             vals = v.gather(-1, sel)
+            if eff_k is not None:
+                # ranked selection under eff_k: slots past it become
+                # sentinels before error feedback, so the mass they would
+                # have carried stays in u/v (their coordinates are
+                # written back unchanged: top-k indices are unique)
+                keep = torch.arange(k, device=idx.device) < eff_k
+                zero = torch.zeros((), dtype=v.dtype, device=v.device)
+                v = v.scatter(-1, sel, torch.where(keep, zero, vals))
+                u = u.scatter(-1, sel, torch.where(
+                    keep, zero, u.gather(-1, sel)))
+                vals = torch.where(keep, vals, zero)
+                idx = torch.where(keep, idx, torch.full(
+                    (), -1, dtype=idx.dtype, device=idx.device))
+                record_inline("bsc_emitted_fraction",
+                              lambda: (idx >= 0).sum(-1) / k)
+                return vals, idx, u, v
             # error feedback: sent coordinates reset (gc.cc:250-252)
             v = v.scatter(-1, sel, 0.0)
             u = u.scatter(-1, sel, 0.0)

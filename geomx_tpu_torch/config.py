@@ -5,13 +5,14 @@ path reads.  Every knob reads the same ``GEOMX_*`` variable first and
 falls back to the reference's original ``DMLC_*`` name, exactly as the
 JAX package does, so one launch environment configures both packages.
 
-The reference's knobs that change its training step, or add outputs to
-its run, but that the port does not run yet are read too, under the same
-names and casts, and refused: a config that sets one to anything but its
-default raises
-``NotImplementedError`` naming, by its title, the ROADMAP.md Queue 1 item
-that ports it (``UNPORTED``), so a launch environment is never half
-obeyed.
+The refusal mechanism: a reference knob that changes its training step,
+or adds outputs to its run, but that the port does not run yet is read
+too, under the same name and cast, and listed in ``UNPORTED``; a config
+that sets one to anything but its default raises ``NotImplementedError``
+naming, by its title, the ROADMAP.md Queue 1 item that ports it, so a
+launch environment is never half obeyed.  Every such knob is ported
+now, so the table is empty; arguments and calls the port does not run
+yet are refused through :func:`unported`.
 """
 
 from __future__ import annotations
@@ -42,13 +43,9 @@ def _env_bool(names, default) -> bool:
 
 # field -> (its variables, the ROADMAP.md Queue 1 item that ports it);
 # each item removes its fields from here when it lands
-UNPORTED = {
-    "control": ("GEOMX_CONTROL", "Control"),
-}
+UNPORTED: dict = {}
 # what a refused knob does in the JAX package, by item
-UNPORTED_EFFECT = {
-    "Control": "changes the training step",
-}
+UNPORTED_EFFECT: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,9 +154,29 @@ class GeoConfig:
     capsule: bool = False
     capsule_dir: str = ""
     capsule_sample_s: float = 0.0
-    # ---- read and refused unless at its default (UNPORTED): the
-    # control plane
+    # ---- the control plane (control/: the Graft Pilot).  When on, the
+    # Trainer threads a control-operand subtree through sync_state (the
+    # bsc ratio scale, a 0-d fp32 tensor on the device, so retuning it
+    # launches nothing new) and Trainer.apply_control is the actuation
+    # boundary for ratio and pipeline-depth decisions
     control: bool = False
+    # steps between controller evaluations (GraftPilot.tick no-ops on
+    # non-multiples)
+    control_interval: int = 1
+    # absolute bsc-ratio operating range "lo,hi" for the ratio policy;
+    # "" derives [configured_ratio/8, configured_ratio] (the configured
+    # ratio is the wire capacity: the scale only tunes downward)
+    control_ratio_bounds: str = ""
+    # minimum steps between two actuations of the same knob
+    control_cooldown: int = 5
+
+    # ---- FleetScope (telemetry/fleetscope.py): arms the
+    # scheduler-colocated fleet aggregator (GET /fleet and the
+    # geomx_fleet_* rollups), polling every fleetscope_interval_s; the
+    # SLO burn-rate spec as "window_s:threshold" pairs.  Host plane only
+    fleetscope: bool = False
+    fleetscope_interval_s: float = 2.0
+    fleetscope_burn_windows: str = "60:14,300:6"
 
     def __post_init__(self):
         for field, (names, item) in UNPORTED.items():
@@ -230,6 +247,15 @@ class GeoConfig:
             capsule_dir=_env(["GEOMX_CAPSULE_DIR"], "", str),
             capsule_sample_s=_env(["GEOMX_CAPSULE_SAMPLE_S"], 0.0, float),
             control=_env_bool(["GEOMX_CONTROL"], False),
+            control_interval=_env(["GEOMX_CONTROL_INTERVAL"], 1, int),
+            control_ratio_bounds=_env(
+                ["GEOMX_CONTROL_RATIO_BOUNDS"], "", str),
+            control_cooldown=_env(["GEOMX_CONTROL_COOLDOWN"], 5, int),
+            fleetscope=_env_bool(["GEOMX_FLEETSCOPE"], False),
+            fleetscope_interval_s=_env(
+                ["GEOMX_FLEETSCOPE_INTERVAL_S"], 2.0, float),
+            fleetscope_burn_windows=_env(
+                ["GEOMX_FLEETSCOPE_BURN_WINDOWS"], "60:14,300:6", str),
         )
         cfg.update(overrides)
         return cls(**cfg)

@@ -38,27 +38,32 @@ import torch
 from geomx_tpu_torch.ops.bucket import on_cuda
 from geomx_tpu_torch.ops.sampled_topk import (boundary_position,
                                               probe_positions,
-                                              sampled_threshold_select)
+                                              sampled_threshold_select,
+                                              take_position)
 
 MOMENTUM = 0.9  # gc.cc:200 — must match compression/bisparse.py
 
 
 def sampled_boundary_guv(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                         k: int, sample: int = 8192,
+                         k, sample: int = 8192,
                          positions: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """The sampled magnitude boundary of ``|v + (0.9u + g)|`` computed
     from the ~``sample`` probe positions only (the dense corrected
     tensor lives only inside ``select_pack``).  ``[*B, n]`` -> ``[*B]``.
-    ``positions`` may pass :func:`probe_positions` already on the
-    device."""
+    ``k``: an int, or the control plane's effective ``k`` as a 0-d
+    integer tensor on the device (the boundary position then stays on
+    the device, ``sampled_topk.boundary_position``; the kernel's ``k``
+    slots do not change).  ``positions`` may pass
+    :func:`probe_positions` already on the device."""
     n = g.shape[-1]
     if positions is None:
         positions = probe_positions(n, sample, g.device)
     samp = (v[..., positions] + (u[..., positions] * MOMENTUM
                                  + g[..., positions])).abs()
     ssorted = samp.sort(dim=-1).values
-    return ssorted[..., boundary_position(ssorted.shape[-1], k, n)]
+    return take_position(ssorted,
+                          boundary_position(ssorted.shape[-1], k, n))
 
 
 def _check_rows(*ts: torch.Tensor) -> None:

@@ -42,10 +42,11 @@ and the flight recorders.  ``metrics_port=0`` (or ``GEOMX_METRICS_PORT``)
 starts an HTTP endpoint answering ``GET /metrics`` (Prometheus text),
 ``/healthz`` and ``/ledger``, and the ``metrics`` command returns the
 same exposition over the wire protocol; ``geomx_build_info`` carries
-the build identity.  ``GET /control`` answers 501: the decision log is
-the control plane's (ROADMAP.md Queue 1, "Control").  FleetScope
-(``GEOMX_FLEETSCOPE``) is refused ("Telemetry"), and the serving surface
-of the health document ("Serving") is not ported.
+the build identity.  ``GET /control`` answers the control plane's
+decision log (``control/actuators.py``).  With ``GEOMX_FLEETSCOPE=1``
+the fleet aggregator (``telemetry/fleetscope.py``) runs beside the
+endpoint and ``GET /fleet`` serves its document.  The serving surface of
+the health document (ROADMAP.md Queue 1, "Serving") is not ported.
 
 `geomx_tpu_torch/launch.py` starts one per job when GEOMX_USE_SCHEDULER=1
 and `geomx_tpu_torch/examples/dist_ps.py` then discovers every address
@@ -61,7 +62,7 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
-from geomx_tpu_torch.config import _env, _env_bool, unported
+from geomx_tpu_torch.config import _env
 from geomx_tpu_torch.service.protocol import (Msg, MsgType, connect_retry,
                                               recv_frame, send_frame)
 from geomx_tpu_torch.utils.heartbeat import HeartbeatMonitor
@@ -82,8 +83,6 @@ class GeoScheduler:
         else ``GEOMX_METRICS_PORT``, 0 = ephemeral; unset = none).
         ``durable_dir`` (default ``GEOMX_DURABLE_DIR``) arms the durable
         roster; ``restart_grace_s`` shapes its restart."""
-        if _env_bool(["GEOMX_FLEETSCOPE"], False):
-            raise unported("GEOMX_FLEETSCOPE", "Telemetry")
         self._lock = threading.Lock()
         # (role, host, port, tag) -> assigned id; survives re-registration
         # (tag disambiguates nodes with no serving port, e.g. workers
@@ -212,6 +211,7 @@ class GeoScheduler:
         # GEOMX_METRICS_PORT (0 = ephemeral), else no HTTP surface
         self._metrics_srv = None
         self.metrics_port: Optional[int] = None
+        self.fleetscope = None   # set by _start_metrics_http when armed
         if metrics_port is None:
             # graftlint: disable=GXL006 — host-plane knob
             raw = os.environ.get("GEOMX_METRICS_PORT")
@@ -325,30 +325,47 @@ class GeoScheduler:
         """Serve ``GET /metrics`` (Prometheus text exposition of the
         process-global registry), ``GET /healthz`` (:meth:`health_snapshot`
         as JSON), ``GET /ledger`` (the fleet round ledger) and ``GET
-        /control`` from a daemon HTTP thread — the shared exporter the
-        server's ``GEOMX_SERVER_METRICS_PORT`` surface runs too.  The
-        port has no control plane, so ``/control`` answers 501 naming
-        ROADMAP.md Queue 1 item "Control"."""
+        /control`` (the control plane's decision log) from a daemon HTTP
+        thread — the shared exporter the server's
+        ``GEOMX_SERVER_METRICS_PORT`` surface runs too.  With
+        ``GEOMX_FLEETSCOPE=1`` the fleet aggregator is colocated here
+        (the one process that knows every node): ``GET /fleet`` serves
+        its versioned document and its poller starts with the
+        endpoint."""
         import json as _json
 
         from geomx_tpu_torch.telemetry.export import start_http_exporter
 
         def _control():
+            # the bounded process-global log of applied actuations: what
+            # the controller changed, when, and why
+            from geomx_tpu_torch.control.actuators import get_decision_log
+            log = get_decision_log()
             return (_json.dumps({
-                "error": "the control plane's decision log is not ported "
-                         "yet (ROADMAP.md Queue 1, 'Control')"}).encode(
-                "utf-8"), "application/json", 501)
+                "decisions": log.snapshot(),
+                "total": log.total,
+                "capacity": log.capacity}).encode("utf-8"),
+                "application/json")
 
+        routes = {"/control": _control}
+        from geomx_tpu_torch.telemetry.fleetscope import \
+            fleetscope_from_config
+        self.fleetscope = fleetscope_from_config(self)
+        if self.fleetscope is not None:
+            routes["/fleet"] = self.fleetscope.document_route
         if bind_host is None:
             # graftlint: disable=GXL006 — host-plane knob
             bind_host = os.environ.get("GEOMX_PS_BIND_HOST", "127.0.0.1")
         self._metrics_srv = start_http_exporter(
             bind_host, port, health_fn=self.health_snapshot,
-            routes={"/control": _control},
-            thread_name="sched-metrics-http")
+            routes=routes, thread_name="sched-metrics-http")
         self.metrics_port = self._metrics_srv.server_address[1]
+        if self.fleetscope is not None:
+            self.fleetscope.start()
 
     def _close_metrics_http(self) -> None:
+        if self.fleetscope is not None:
+            self.fleetscope.stop()
         if self._metrics_srv is None:
             return
         try:

@@ -21,8 +21,9 @@ PyTorch's FLOP counter), :mod:`links` (per-link EWMA estimates),
 Whole-run capture: :mod:`capsule` (``GEOMX_CAPSULE``) and
 :mod:`costmodel` (a step-time cost model fitted from a capsule).
 
-Not ported: FleetScope (``GEOMX_FLEETSCOPE``, ROADMAP.md Queue 1,
-"Telemetry").
+Fleet-wide: :mod:`fleetscope` (``GEOMX_FLEETSCOPE``) — the
+scheduler-colocated aggregator behind ``GET /fleet``, the SLO burn-rate
+monitor and the gradient-to-inference propagation tracker.
 """
 
 
@@ -41,6 +42,15 @@ from geomx_tpu_torch.telemetry.export import (EventLog, get_event_log,
                                               log_event,
                                               parse_prometheus_text,
                                               render_prometheus)
+from geomx_tpu_torch.telemetry.fleetscope import (BurnRateMonitor,
+                                                  FleetScope,
+                                                  PropagationTracker,
+                                                  fleetscope_from_config,
+                                                  get_propagation_tracker,
+                                                  note_propagation,
+                                                  parse_burn_windows,
+                                                  reset_propagation_tracker,
+                                                  roster_targets)
 from geomx_tpu_torch.telemetry.flight import (FlightRecorder, flight_enabled,
                                               flight_recorder_from_config,
                                               install_incident_recorder,
@@ -77,4 +87,8 @@ __all__ = [
     "RunCapsule", "Capsule", "RegistrySampler", "sample_registry",
     "capsule_enabled", "capsule_from_config",
     "StepTimeCostModel", "fit_affine_link", "candidate_wire_bytes",
+    "FleetScope", "BurnRateMonitor", "PropagationTracker",
+    "fleetscope_from_config", "get_propagation_tracker",
+    "reset_propagation_tracker", "note_propagation", "parse_burn_windows",
+    "roster_targets",
 ]

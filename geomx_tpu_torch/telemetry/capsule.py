@@ -17,7 +17,7 @@ run's sensor surfaces offline, **bit-identically**:
   Gauge / Histogram (:class:`RegistrySampler` — the sampling loop the
   registry itself never had), plus per-step records of the
   ``geomx_step_probe`` / ``geomx_phase_fraction`` gauge families at
-  each publish boundary (what :class:`~geomx_tpu.control.sensors.
+  each publish boundary (what :class:`~geomx_tpu_torch.control.sensors.
   ControlSensors` actually reads);
 - a **link journal**: every :meth:`LinkObservatory.observe` call with
   its RESOLVED timestamp (the :meth:`~geomx_tpu_torch.telemetry.links.
@@ -28,9 +28,9 @@ run's sensor surfaces offline, **bit-identically**:
   and the Pilot decision log, all in one archive.
 
 Offline, :meth:`Capsule.sensors` rebuilds the
-:class:`~geomx_tpu.control.sensors.ControlSensors` observation stream
-(per-step registry views + a journal-fed replay observatory), so a
-:class:`~geomx_tpu.control.policy.GraftPilot` re-ticked over the
+:class:`~geomx_tpu_torch.control.sensors.ControlSensors` observation
+stream (per-step registry views + a journal-fed replay observatory), so
+a :class:`~geomx_tpu_torch.control.policy.GraftPilot` re-ticked over the
 capsule reproduces the live decision sequence exactly — the
 deterministic-replay substrate an offline planner search and the
 fitted step-time cost model
@@ -41,12 +41,12 @@ location ``GEOMX_CAPSULE_DIR``, sampler cadence
 ``GEOMX_CAPSULE_SAMPLE_S`` (docs/telemetry.md "Run capsules").
 Everything here is host-plane Python.
 
-The port has no control plane yet (ROADMAP.md Queue 1, "Control"): the
-archive's decision-log section is ``[]``, as the JAX package writes it
-when its control plane is absent, and :meth:`Capsule.sensors` /
-:meth:`Capsule.replay_decisions` raise ``NotImplementedError`` naming
-that item.  The manifest's env section resolves the ``GEOMX_*`` surface,
-the reference aliases and PyTorch's and CUDA's backend variables.
+The archive's decision-log section is the control plane's
+``DecisionLog`` snapshot (``control/actuators.py``), and
+:meth:`Capsule.replay_decisions` re-ticks a Pilot over the recorded
+sensor stream to reproduce it.  The manifest's env section resolves the
+``GEOMX_*`` surface, the reference aliases and PyTorch's and CUDA's
+backend variables.
 """
 
 from __future__ import annotations
@@ -465,9 +465,12 @@ class RunCapsule:
             except Exception:
                 doc["events"] = []
         if include_decisions:
-            # no control plane in the port yet ("Control"): the JAX
-            # package's section when its decision log is absent
-            doc["decisions"] = []
+            try:
+                from geomx_tpu_torch.control.actuators import \
+                    get_decision_log
+                doc["decisions"] = get_decision_log().snapshot()
+            except Exception:
+                doc["decisions"] = []
         doc["summary"] = self._summary(steps, journal, now=now)
         from geomx_tpu_torch.utils.atomicio import atomic_json_dump
         path = atomic_json_dump(self.path, doc,
@@ -646,12 +649,14 @@ class Capsule:
         return _StepRegistryView(best)
 
     def sensors(self, min_confidence: float = 0.5, compute_s_fn=None):
-        """A :class:`~geomx_tpu.control.sensors.ControlSensors` whose
-        ``observe(step, now)`` reads the capsule instead of the live
-        planes — the offline observation stream.  Needs the control
-        plane, which the port does not have yet."""
-        from geomx_tpu_torch.config import unported
-        raise unported("Capsule.sensors (the control sensors)", "Control")
+        """A :class:`~geomx_tpu_torch.control.sensors.ControlSensors`
+        whose ``observe(step, now)`` reads the capsule instead of the
+        live planes — the offline observation stream."""
+        from geomx_tpu_torch.control.sensors import ControlSensors
+        return ControlSensors(observatory=self.observatory(),
+                              min_confidence=min_confidence,
+                              compute_s_fn=compute_s_fn,
+                              registry_fn=self.registry_at)
 
     def replay_decisions(self, pilot_factory,
                          min_confidence: float = 0.5,

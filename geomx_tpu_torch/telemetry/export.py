@@ -256,12 +256,12 @@ def start_http_exporter(bind_host: str, port: int, health_fn=None,
     ledger's records + summary plus the serving plane's per-request
     ledger when one exists, telemetry/ledger.py; ``?summary=1`` drops
     the record arrays, ``?n=K`` bounds them — the FleetScope poll
-    shapes).  ``routes`` maps
-    extra GET paths to zero-arg callables returning ``(body_bytes,
-    content_type)`` or ``(body_bytes, content_type, status)`` (the
-    scheduler adds ``/control``, a 501 in the port); ``post_routes``
-    maps POST paths to one-arg callables ``body_bytes -> (status,
-    body_bytes, content_type)`` (the serving gateway adds ``/infer``).
+    shapes).  ``routes`` maps extra GET paths to zero-arg callables
+    returning ``(body_bytes, content_type)`` or ``(body_bytes,
+    content_type, status)`` (the scheduler adds ``/control`` and, with
+    FleetScope, ``/fleet``); ``post_routes`` maps POST paths to one-arg
+    callables ``body_bytes -> (status, body_bytes, content_type)`` (the
+    serving gateway adds ``/infer``).
     Returns the ``ThreadingHTTPServer`` (``.server_address[1]`` is the
     bound port; callers own ``shutdown()``/``server_close()``)."""
     import json as _json

@@ -45,7 +45,13 @@ applied gradient (on the fused path the flat buckets the fused apply
 already built) and the sync state, and left on the device.  With it off
 the step runs exactly the ops it runs without the probe call site.
 
-Not ported yet: control operands.
+With control on (``GEOMX_CONTROL``, ``control/``, decided when the step
+is built) the state's ``sync_state["control"]`` operands are detached
+before the sync hooks, opened as a context the dc-tier compressors read
+(``control_operands``) and rejoined after; under telemetry the probes
+carry ``control_ratio_scale``, a copy of the scale the step ran with.
+With it off the step runs exactly the ops of a build whose control hook
+raises.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from geomx_tpu_torch.compression.bucketing import BucketedCompressor
+from geomx_tpu_torch.control import actuators as _control
 from geomx_tpu_torch.ops.optim import (fused_apply, fused_optim_enabled,
                                        fused_spec_of)
 from geomx_tpu_torch.telemetry import probes as _probes
@@ -249,6 +256,10 @@ def sp_chunks(x: torch.Tensor, sp: int) -> torch.Tensor:
         .contiguous()
 
 
+# (device, live-party count) -> the num_live_parties metric's tensor
+_LIVE_COUNTS: dict = {}
+
+
 def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                      sp_model: bool = False):
     """Build ``train_step(state, x, y) -> (state, metrics)``.
@@ -283,6 +294,8 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
     # trace time; the probes' static wire accounting is computed once
     telem = _probes.telemetry_enabled(config)
     wire_cache = {}
+    # the control gate, static for this step as the telemetry gate is
+    ctl_on = _control.control_enabled(config)
 
     def zero_sync_update(grads, params, opt_state, sync_state, step):
         """ZeRO: the shard-form sync, the shard-local optimizer and the
@@ -350,7 +363,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
         return params, opt_state, {"dc_comp": dstate,
                                    "worker_comp": new_ws}
 
-    def replicated_update(grads, state, step):
+    def replicated_update(grads, state, sync_state, step):
         """The replicated branch: sync_grads, then one optimizer step on
         every replica (the fused kernels over the buckets when on).
         Also returns, with telemetry on and a replicated sync output,
@@ -358,7 +371,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
         for the probes (else None)."""
         with record_function("train/sync_grads"):
             grads, sync_state = sync.sync_grads(grads, state.params,
-                                                state.sync_state, step)
+                                                sync_state, step)
         applied = None
         with record_function("train/optimizer"):
             if fopt_spec is not None:
@@ -388,25 +401,39 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
             return per_party.mean(0)
         return sync.mask_parties(per_party.view(P, 1)).sum() / sync.num_live
 
-    live_counts = {}
-
     def num_live_metric(device):
         """The live-party count the step ran with, a 0-d fp32 tensor made
-        once a device and count."""
+        once a device and count in the process (a step built later, at a
+        membership or depth swap, finds it made: its first call makes no
+        host-to-device copy)."""
         key = (device, sync.num_live)
-        if key not in live_counts:
-            live_counts[key] = torch.tensor(float(sync.num_live),
-                                            device=device)
-        return live_counts[key]
+        if key not in _LIVE_COUNTS:
+            _LIVE_COUNTS[key] = torch.tensor(float(sync.num_live),
+                                             device=device)
+        return _LIVE_COUNTS[key]
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         names = list(state.params)
         step = state.step
+        sync_state = state.sync_state
+        ctl = None
+        if ctl_on:
+            # detach the control operands before the sync hooks (whose
+            # state threading rebuilds dicts and would drop foreign keys);
+            # they rejoin the output sync_state after them
+            sync_state = dict(sync_state)
+            ctl = sync_state.pop(_control.CONTROL_KEY, None)
+            if ctl is None:
+                raise ValueError(
+                    "GEOMX_CONTROL is on but sync_state carries no "
+                    "control operands: initialize the state with a "
+                    "control-enabled Trainer (init_state adds the "
+                    f"{_control.CONTROL_KEY!r} subtree)")
         per_grads, per_stats, losses, accs = [], [], [], []
         with record_function("train/forward_backward"):
             # the weights each replica computes its gradients at, taken
             # on the whole [P, W] tree (MixedSync: the stale copy)
-            fwd = sync.forward_params(state.params, state.sync_state)
+            fwd = sync.forward_params(state.params, sync_state)
             for p in range(P):
                 for w in range(W):
                     leaves = {k: fwd[k][p, w].detach().requires_grad_()
@@ -435,25 +462,31 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
         applied = None
         probe_ctx = _probes.inline_collection() if telem \
             else contextlib.nullcontext(None)
-        with probe_ctx as inline_sink:
+        ctl_ctx = _control.control_operands(ctl) if ctl is not None \
+            else contextlib.nullcontext(None)
+        with probe_ctx as inline_sink, ctl_ctx:
             if mgps is not None:
                 params, opt_state, sync_state = mgps_sync_update(
-                    grads, state.params, state.opt_state, state.sync_state)
+                    grads, state.params, state.opt_state, sync_state)
             elif zplan is not None:
                 # ZeRO: the synced gradient exists only as shards, so the
                 # replicated-value probes are skipped, as in the JAX step
                 params, opt_state, sync_state = zero_sync_update(
-                    grads, state.params, state.opt_state, state.sync_state,
+                    grads, state.params, state.opt_state, sync_state,
                     step)
             else:
                 params, opt_state, sync_state, applied = replicated_update(
-                    grads, state, step)
+                    grads, state, sync_state, step)
             with record_function("train/sync_model_state"):
                 if mgps is None:
                     params, sync_state = sync.sync_params(params,
                                                           sync_state, step)
                 model_state, sync_state = sync.sync_model_state(
                     model_state, sync_state, step)
+        if ctl is not None:
+            # the operands pass through unchanged (actuation writes them
+            # in place between steps)
+            sync_state = dict(sync_state, **{_control.CONTROL_KEY: ctl})
 
         # global mean over every replica: workers first, then parties
         # (under a membership mask, the survivors' mean)
@@ -470,6 +503,11 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                     sync, sync_state, inline_sink, params,
                     synced_numel=None if applied is None else applied[1],
                     wire=wire_cache["wire"])
+                if ctl is not None:
+                    # the scale this step ran with (a copy: an actuation
+                    # rewrites the operand in place before a later read)
+                    metrics["telemetry"]["control_ratio_scale"] = \
+                        ctl["bsc_ratio_scale"].clone()
         return TrainState(step=step + 1, params=params, opt_state=opt_state,
                           model_state=model_state,
                           sync_state=sync_state), metrics

@@ -50,13 +50,25 @@ the profiler's ``train/step``/``train/compute`` spans, from which the
 fit-end phase attribution is published.  ``publish_memory_metrics`` reads
 the state's shapes and ``torch.cuda.max_memory_allocated``.
 
+Control (``control/``): with ``GEOMX_CONTROL`` the state's sync state
+carries the control operands (``init_state``) and ``apply_control`` is
+the actuation boundary: a ratio decision writes the scale operand in
+place (the next step makes the same launch calls), a depth decision
+wraps or unwraps ``PipelinedSync`` with the dc-tier error feedback
+carried across and the new step cached per (depth, membership) in
+``_control_cache``.  As in the JAX package, the swap carries copy
+``(0, 0)`` of the sync state into every slot, as ``apply_membership``'s
+``"carry"`` does.  A depth switch under ``GEOMX_AUDIT`` is refused
+("Audits").
+
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
-and without that request it raises.  Not ported yet: control, whose knob
-``GeoConfig`` refuses.
+and without that request it raises.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import warnings
@@ -67,6 +79,8 @@ import torch
 from torch.profiler import record_function
 
 from geomx_tpu_torch.config import GeoConfig, unported
+from geomx_tpu_torch.control.actuators import (CONTROL_KEY, control_enabled,
+                                               init_control_operands)
 from geomx_tpu_torch.data.loader import GeoDataLoader
 from geomx_tpu_torch.device import resolve_device
 from geomx_tpu_torch.ops.optim import fused_optim_enabled
@@ -154,6 +168,14 @@ class Trainer:
         self.eval_step = build_eval_step(self._sd_model)
         self._logits_fn = build_logits_fn(self._sd_model)
         self._prefetch = max(0, int(getattr(self.config, "prefetch", 2)))
+        # the control plane: init_state adds the operands, apply_control
+        # is the actuation boundary; (depth, membership) -> step
+        self._control = control_enabled(self.config)
+        if self._control and not getattr(self.config, "control", False):
+            # GEOMX_CONTROL armed it: pinned in the config, so the steps a
+            # depth switch builds later carry the operands too
+            self.config = dataclasses.replace(self.config, control=True)
+        self._control_cache: dict = {}
         self._init_telemetry()
 
     def _init_telemetry(self) -> None:
@@ -276,6 +298,16 @@ class Trainer:
         if sync_state is None:
             sync_state = self.sync.init_state(params,
                                               model_state=model_state)
+        if self._control:
+            # the operands join sync_state: retuning them is an in-place
+            # write of one 0-d tensor (control/actuators.py)
+            if not isinstance(sync_state, dict):
+                raise ValueError(
+                    "GEOMX_CONTROL needs a dict-shaped sync state to "
+                    f"carry its operands; {self.sync.name!r} returns "
+                    f"{type(sync_state).__name__}")
+            sync_state = dict(sync_state)
+            sync_state[CONTROL_KEY] = init_control_operands(self.device)
         return TrainState(step=0, params=params, opt_state=opt_state,
                           model_state=model_state, sync_state=sync_state)
 
@@ -309,13 +341,20 @@ class Trainer:
             x = torch.as_tensor(x, device=self.device)
             return x.expand(lead + tuple(x.shape)).contiguous()
 
-        return state_map(rep, tree)
+        tree, ctl = _split_control(tree)
+        if ctl is not None:
+            ctl = state_map(lambda x: torch.as_tensor(
+                x, dtype=torch.float32, device=self.device).clone(), ctl)
+        return _join_control(state_map(rep, tree), ctl)
 
     @staticmethod
     def _replica_00(tree):
-        """Copy ``(0, 0)`` of every tensor leaf of a state tree."""
-        return state_map(lambda x: x[0, 0] if isinstance(x, torch.Tensor)
-                         else x, tree)
+        """Copy ``(0, 0)`` of every tensor leaf of a state tree (a sync
+        state's 0-d control operands as they are)."""
+        tree, ctl = _split_control(tree)
+        return _join_control(
+            state_map(lambda x: x[0, 0] if isinstance(x, torch.Tensor)
+                      else x, tree), ctl)
 
     def apply_membership(self, state: TrainState, epoch,
                          policy: Optional[str] = None) -> TrainState:
@@ -374,13 +413,13 @@ class Trainer:
         self.train_step = step_fn
         if self._zero_plan is not None and policy == "carry":
             return state
-        sync_state = self._replicate_state(
-            self._replica_00(state.sync_state))
+        sync_state, ctl = _split_control(state.sync_state)
+        sync_state = self._replicate_state(self._replica_00(sync_state))
         return TrainState(
             step=state.step, params=state.params,
             opt_state=state.opt_state, model_state=state.model_state,
-            sync_state=self.sync.reset_comm_state(state.params, sync_state,
-                                                  policy))
+            sync_state=_join_control(self.sync.reset_comm_state(
+                state.params, sync_state, policy), ctl))
 
     def catchup_payload(self, state: TrainState) -> bytes:
         """The re-admission catch-up blob: one copy of the full state
@@ -413,6 +452,153 @@ class Trainer:
             opt_state=self._replicate_state(t["opt_state"]),
             model_state=self._replicate_state(t["model_state"]),
             sync_state=self._replicate_state(t["sync_state"]))
+
+    # ---- the control plane's actuation boundary (control/) ----------------
+
+    def _dc_ratio_compressor(self):
+        """The ratio-bearing dc-tier compressor (BiSparse, possibly under
+        MPQ), unwrapped through the pipelined and bucketed layers; None
+        when the dc tier carries no top-k ratio."""
+        dc = getattr(self.sync, "dc_compressor", None)
+        if dc is None:
+            dc = getattr(getattr(self.sync, "inner", None),
+                         "dc_compressor", None)
+        while dc is not None and not hasattr(dc, "ratio") \
+                and hasattr(dc, "inner"):
+            dc = dc.inner
+        if dc is not None and not hasattr(dc, "ratio"):
+            # MPQ routes large tensors to its BiSparse half
+            dc = getattr(dc, "large", None)
+        return dc if dc is not None and hasattr(dc, "ratio") else None
+
+    def control_depth(self) -> int:
+        """The pipeline depth the installed step runs (0 or 1)."""
+        from geomx_tpu_torch.sync.pipeline import PipelinedSync
+        return 1 if isinstance(self.sync, PipelinedSync) else 0
+
+    def apply_control(self, state: TrainState, decision) -> TrainState:
+        """Apply one Graft Pilot decision.
+
+        - ``kind == "ratio"``: write the new ``bsc_ratio_scale`` into the
+          state's operand in place; the next step makes the same launch
+          calls (no new step is built, no host round trip).
+        - ``kind == "depth"``: wrap or unwrap ``PipelinedSync`` — a
+          rebuild boundary modeled on :meth:`apply_membership` (a step
+          cached per (depth, membership); the dc-tier error-feedback
+          residuals carried across the swap; switching to 0 drains the
+          in-flight aggregate first so no gradient is lost).
+
+        Relay decisions are host-plane only and never reach this method
+        (``ControlActuator`` routes them to the transport)."""
+        if not self._control:
+            raise ValueError(
+                "apply_control needs GEOMX_CONTROL/GeoConfig(control="
+                "True): the step carries no control operands")
+        kind = getattr(decision, "kind", None)
+        if kind == "ratio":
+            return self._apply_ratio(state, decision)
+        if kind == "depth":
+            return self._apply_depth(state, decision)
+        raise ValueError(f"unknown control decision kind {kind!r}; "
+                         "apply_control handles ratio | depth")
+
+    def _apply_ratio(self, state: TrainState, decision) -> TrainState:
+        comp = self._dc_ratio_compressor()
+        if comp is None:
+            raise ValueError(
+                "ratio decision with no ratio-bearing dc compressor: "
+                "configure bsc/mpq compression (the control scale tunes "
+                "the top-k ratio)")
+        target = float(decision.value)
+        # the configured ratio is the wire capacity: the scale only
+        # selects below it (the shapes never change)
+        scale = min(max(target / float(comp.ratio), 1e-6), 1.0)
+        # in place, on the current stream: the step reads the same tensor
+        state.sync_state[CONTROL_KEY]["bsc_ratio_scale"].fill_(scale)
+        return state
+
+    def _apply_depth(self, state: TrainState, decision) -> TrainState:
+        from geomx_tpu_torch.sync.pipeline import PipelinedSync
+        target = int(decision.value)
+        if target not in (0, 1):
+            raise ValueError(f"depth decision value must be 0 or 1 "
+                             f"(got {decision.value!r})")
+        current = self.control_depth()
+        if target == current:
+            return state
+        if self._zero_plan is not None or self._mgps is not None:
+            raise ValueError(
+                "depth switching does not compose with GEOMX_ZERO/"
+                "GEOMX_MULTI_GPS: their sharded updates re-layout the "
+                "sync state this transition carries; pin the depth "
+                "statically instead")
+        if self.topology.num_parties <= 1:
+            warnings.warn("depth decision ignored: num_parties=1 has "
+                          "no dc-tier collective to pipeline",
+                          RuntimeWarning, stacklevel=2)
+            return state
+        if getattr(self.config, "audit", False):
+            raise unported("the collective audit of a depth switch "
+                           "(GEOMX_AUDIT)", "Audits")
+        if target == 0:
+            # land the in-flight aggregate before the swap: the parked
+            # gradient applies exactly once, nothing is lost
+            state = self.drain_pipeline(state)
+        old_ss, ctl = _split_control(self._replica_00(state.sync_state))
+        cache_key = (target, self._membership)
+        step_fn = self._control_cache.get(cache_key)
+        if step_fn is not None:
+            new_sync = step_fn.sync
+        elif target == 1:
+            new_sync = PipelinedSync(
+                self.sync, depth=1,
+                dcasgd_lambda=self.config.pipeline_dcasgd)
+        else:
+            new_sync = copy.copy(self.sync.inner)
+            # unwrap the PipelinedCompressor installed at wrap time; the
+            # BucketedCompressor underneath (and its layout) is shared
+            new_sync.dc_compressor = self.sync.inner.dc_compressor.inner
+        new_sync.bind_topology(self.topology)
+        if self._membership is not None:
+            new_sync.bind_membership(self._membership)
+        # state transition with EF carry: the dc-tier residuals live at
+        # the same bucket coordinates on both sides of the swap
+        fresh = self._replica_00(new_sync.init_state(
+            state.params, model_state=state.model_state))
+        if target == 1:
+            inner_fresh = dict(fresh["inner"])
+            for key, val in old_ss.items():
+                if key == "dc_comp":
+                    inner_fresh["dc_comp"] = dict(inner_fresh["dc_comp"],
+                                                  inner=val)
+                elif key in inner_fresh:
+                    inner_fresh[key] = val
+            fresh = dict(fresh, inner=inner_fresh)
+        else:
+            fresh = dict(fresh)
+            for key, val in old_ss["inner"].items():
+                if key == "dc_comp":
+                    fresh["dc_comp"] = val["inner"]
+                elif key in fresh:
+                    fresh[key] = val
+        sync_state = _join_control(self._replicate_state(fresh), ctl)
+        if step_fn is None:
+            step_fn = build_train_step(self.loss_fn, self.tx, new_sync,
+                                       self.topology, self.config,
+                                       sp_model=self._sp_model)
+            step_fn.sync = new_sync
+            self._control_cache[cache_key] = step_fn
+        # install: the new sync owns the dc compressor stack from here;
+        # membership steps built against the old one drop
+        self.sync = new_sync
+        self.train_step = step_fn
+        self.config = dataclasses.replace(self.config,
+                                          pipeline_depth=target)
+        self._step_cache = {self._membership: step_fn}
+        return TrainState(step=state.step, params=state.params,
+                          opt_state=state.opt_state,
+                          model_state=state.model_state,
+                          sync_state=sync_state)
 
     # ---- checkpointing ---------------------------------------------------
 
@@ -858,3 +1044,20 @@ class Trainer:
         not write.)"""
         if self._capsule is not None:
             self._capsule.close()
+
+
+def _split_control(sync_state):
+    """``(sync_state without its control operands, the operands or
+    None)``: the operands are 0-d tensors outside the ``[P, W]`` replica
+    layout every other state leaf has."""
+    if isinstance(sync_state, dict) and CONTROL_KEY in sync_state:
+        rest = dict(sync_state)
+        return rest, rest.pop(CONTROL_KEY)
+    return sync_state, None
+
+
+def _join_control(sync_state, ctl):
+    """The inverse of :func:`_split_control`."""
+    if ctl is None:
+        return sync_state
+    return dict(sync_state, **{CONTROL_KEY: ctl})

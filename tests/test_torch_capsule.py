@@ -9,8 +9,9 @@ same capsule document predicts the same step times (rel 1e-9) in both.
 ``candidate_wire_bytes`` agrees exactly with the JAX package's for
 ``bsc,0.01``, ``2bit,0.5`` and ``fp16`` (the port's compressors over
 ``meta`` tensors, the JAX package's over ``ShapeDtypeStruct``s).  The
-port has no control plane yet: the decision-log section is ``[]`` and
-the sensor replay refuses, naming "Control".
+decision-log section is the control plane's log (empty here), and the
+capsule's control sensors read the recorded steps
+(``tests/test_torch_control.py`` replays a controller over one).
 """
 
 import json
@@ -152,8 +153,9 @@ def test_capsule_manifest_and_sections(tmp_path, registries, monkeypatch):
     assert loaded.steps[0]["probes"]["grad_norm_global"] == 1.5
     assert loaded.registry_samples[0]["t"] == 0.5
     assert loaded.doc["decisions"] == []
-    with pytest.raises(NotImplementedError, match="'Control'"):
-        loaded.sensors()
+    # the control sensors over the capsule read the recorded step
+    obs = loaded.sensors().observe(0, now=0.5)
+    assert obs.grad_norm == 1.5 and obs.links == {}
 
 
 def test_capsule_unknown_version_rejected(tmp_path):

@@ -8,9 +8,10 @@ DCASGD, ``GEOMX_PIPELINE_DEPTH``, the DGT wrap) and the sharded updates'
 casts; ``get_sync_algorithm`` builds the same algorithm structure from
 them and the Trainer binds the same sharded-update plan, raising the
 JAX package's errors where it raises.  The eight telemetry knobs parse
-to the JAX package's values and arm the same recorders.  The knob the
-port does not run yet (``GEOMX_CONTROL``) is refused with
-``NotImplementedError`` naming the ROADMAP.md Queue 1 item; a pipeline depth with one party only warns,
+to the JAX package's values and arm the same recorders; ``GEOMX_CONTROL``
+arms the control plane in both packages and the ``GEOMX_CONTROL_*`` and
+``GEOMX_FLEETSCOPE*`` knobs parse to the JAX package's values (no knob
+is refused any more); a pipeline depth with one party only warns,
 as the reference's ``get_sync_algorithm`` does; the defaults, set or
 not, still build FSA.
 """
@@ -60,11 +61,25 @@ TELEMETRY = [
     ("GEOMX_CAPSULE_SAMPLE_S", "2.5", "capsule_sample_s", "0.0"),
 ]
 ENV += tuple(var for var, *_ in TELEMETRY)
-# variable, a value that changes the JAX step, the port's field, the item
+# variable, a value that changes the JAX step, the port's field, the
+# ROADMAP.md Queue 1 item that ported it
 REFUSED = [
     ("GEOMX_CONTROL", "1", "control", "Control"),
     ("GEOMX_CONTROL", "1.0", "control", "Control"),
 ]
+# the control plane's and FleetScope's knobs: variable, a value, the
+# field, a value its cast rejects (None: a string knob)
+CONTROL_KNOBS = [
+    ("GEOMX_CONTROL_INTERVAL", "4", "control_interval", "2.5"),
+    ("GEOMX_CONTROL_RATIO_BOUNDS", "0.001,0.01", "control_ratio_bounds",
+     None),
+    ("GEOMX_CONTROL_COOLDOWN", "3", "control_cooldown", "x"),
+    ("GEOMX_FLEETSCOPE", "1", "fleetscope", "yes"),
+    ("GEOMX_FLEETSCOPE_INTERVAL_S", "0.5", "fleetscope_interval_s", "fast"),
+    ("GEOMX_FLEETSCOPE_BURN_WINDOWS", "30:2", "fleetscope_burn_windows",
+     None),
+]
+ENV += tuple(var for var, *_ in CONTROL_KNOBS)
 DEFAULTS = [(var, value) for var in KNOBS[:-1] for value in ("0", "")] + [
     ("GEOMX_PIPELINE_DEPTH", "0.0"), ("GEOMX_ZERO", "0.0"),
     ("GEOMX_MULTI_GPS", "0.0"), ("GEOMX_CONTROL", "0.0")]
@@ -79,19 +94,49 @@ def clean_env(monkeypatch):
 @pytest.mark.parametrize("var,value,field,item", REFUSED)
 def test_knob_that_changes_the_step_raises(monkeypatch, var, value, field,
                                            item):
+    """The knob that changes the JAX step is ported (ROADMAP.md Queue 1,
+    ``item``): the port reads the same value and arms the same plane —
+    the Trainer's control operands and ``apply_control`` — with the
+    defaults still building FSA."""
+    from geomx_tpu_torch.config import UNPORTED
+    from geomx_tpu_torch.control import control_enabled as port_enabled
     monkeypatch.setenv("GEOMX_NUM_PARTIES", "2")
     monkeypatch.setenv(var, value)
     ref = JaxConfig.from_env()
     # the reference reads the same value and runs another step for it
-    jax_on = control_enabled(None) if field == "control" \
-        else getattr(ref, field)
-    assert jax_on
-    with pytest.raises(NotImplementedError, match=f"'{item}'"):
-        GeoConfig.from_env()
-    # an override to the default is applied before the check
-    cfg = GeoConfig.from_env(**{field: False if field in
-                                ("zero", "multi_gps", "control") else 0})
+    assert control_enabled(None) and ref.control
+    cfg = GeoConfig.from_env()
+    assert getattr(cfg, field) == getattr(ref, field) is True
+    assert port_enabled(cfg) and port_enabled(None)
+    assert field not in UNPORTED
     assert isinstance(get_sync_algorithm(cfg), FSA)
+    tr = Trainer(ResNet(STAGES, FILTERS), HiPSTopology(2, 1), sgd(0.1),
+                 config=GeoConfig.from_env(compression="bsc,0.01"),
+                 device="cpu")
+    state = tr.init_state(seed=0)
+    assert tr._control and "control" in state.sync_state
+    # an override to the default turns it off again, as in the reference
+    monkeypatch.delenv(var)
+    cfg = GeoConfig.from_env(**{field: False})
+    assert not port_enabled(cfg) and not control_enabled(None)
+
+
+@pytest.mark.parametrize("var,value,field,bad", CONTROL_KNOBS)
+def test_control_and_fleetscope_knobs_parse_like_jax(monkeypatch, var,
+                                                     value, field, bad):
+    default = getattr(GeoConfig(), field)
+    assert default == getattr(JaxConfig(), field)
+    assert getattr(GeoConfig.from_env(), field) == default
+    monkeypatch.setenv(var, value)
+    got, want = getattr(GeoConfig.from_env(), field), \
+        getattr(JaxConfig.from_env(), field)
+    assert got == want and type(got) is type(want) and got != default
+    if bad is not None:
+        monkeypatch.setenv(var, bad)
+        with pytest.raises(ValueError, match=var):
+            JaxConfig.from_env()
+        with pytest.raises(ValueError, match=var):
+            GeoConfig.from_env()
 
 
 def _recorder(pkg, field, cfg):

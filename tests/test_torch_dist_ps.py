@@ -80,13 +80,44 @@ def test_port_job_other_sync_modes(tmp_path, mode, extra):
 
 
 def test_unported_knob_is_refused_with_its_item(tmp_path):
-    """A scheduler role under GEOMX_FLEETSCOPE refuses it naming its item
-    ("Telemetry"); the metrics endpoints and durability are ported, so
-    GEOMX_METRICS_PORT and GEOMX_DURABLE_DIR are no longer refused."""
+    """A scheduler role under GEOMX_FLEETSCOPE=1 (with the metrics
+    endpoint and durability, ported too) runs the fleet aggregator: its
+    GET /fleet names the scheduler, its version rising, and GET /control
+    answers the empty decision log."""
+    import json
+    import time
+    import urllib.request
+    mport, sport = free_port_blocks(1, 1)
     env = dict(os.environ, GEOMX_ROLE="scheduler", GEOMX_FLEETSCOPE="1",
-               GEOMX_METRICS_PORT="0", GEOMX_DURABLE_DIR=str(tmp_path))
-    proc = subprocess.run(PORT_EXAMPLE, cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=60)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
-    assert "Telemetry" in proc.stderr
+               GEOMX_FLEETSCOPE_INTERVAL_S="0.1",
+               GEOMX_METRICS_PORT=str(mport),
+               GEOMX_SCHEDULER_PORT=str(sport),
+               GEOMX_DURABLE_DIR=str(tmp_path))
+    proc = subprocess.Popen(PORT_EXAMPLE, cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    base = f"http://127.0.0.1:{mport}"
+    versions, doc = [], {}
+    try:
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(base + "/fleet", timeout=5) as r:
+                    doc = json.loads(r.read())
+            except OSError:
+                time.sleep(0.2)
+                continue
+            versions.append(doc["fleet_version"])
+            if versions[-1] > max(versions[0], 1) and doc["nodes"].get(
+                    "scheduler", {}).get("health") == "ok":
+                break
+            time.sleep(0.1)
+        with urllib.request.urlopen(base + "/control", timeout=5) as r:
+            assert r.status == 200
+            assert json.loads(r.read())["decisions"] == []
+    finally:
+        proc.kill()
+        out, err = proc.communicate()
+    assert versions and versions[-1] > versions[0], (versions, err[-2000:])
+    assert doc["nodes"]["scheduler"]["health"] == "ok", doc
+    assert "NotImplementedError" not in err

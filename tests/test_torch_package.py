@@ -31,6 +31,7 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "torch_profile_step.py")
+    yield os.path.join(ROOT, "tools", "torch_control_cost.py")
 
 
 def _imported_roots(path):

@@ -681,7 +681,7 @@ def test_unported_server_and_scheduler_knobs_raise(monkeypatch, tmp_path):
     sched = tsvc.GeoScheduler(metrics_port=0)
     assert "geomx_scheduler" in _http(sched.metrics_port, "/metrics")[1]
     status, body = _http(sched.metrics_port, "/control")
-    assert status == 501 and "Control" in body["error"]
+    assert status == 200 and set(body) == {"decisions", "total", "capacity"}
     sched.stop()
     monkeypatch.setenv("GEOMX_DURABLE_DIR", str(tmp_path / "env"))
     durable = _port_server()
@@ -694,9 +694,16 @@ def test_unported_server_and_scheduler_knobs_raise(monkeypatch, tmp_path):
     srv = _port_server()
     assert srv.metrics_port == port and _http(port, "/metrics")[0] == 200
     srv.stop()
+    # FleetScope is ported: it runs beside a metrics endpoint, and a
+    # scheduler without one has none
     monkeypatch.setenv("GEOMX_FLEETSCOPE", "1")
-    with pytest.raises(NotImplementedError, match="Telemetry"):
-        tsvc.GeoScheduler()
+    sched = tsvc.GeoScheduler()
+    assert sched.fleetscope is None
+    sched.stop()
+    sched = tsvc.GeoScheduler(metrics_port=0)
+    assert sched.fleetscope is not None
+    assert _http(sched.metrics_port, "/fleet")[0] == 200
+    sched.stop()
     monkeypatch.setenv("GEOMX_FLEETSCOPE", "0")
     tsvc.GeoScheduler().stop()
     monkeypatch.setenv("GEOMX_DURABLE_DIR", "")
