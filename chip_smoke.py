@@ -309,7 +309,45 @@ Every phase's failure is fatal (non-zero exit, no result line):
               x sp 2, L 256, 6 epochs of 64 steps): the last test
               accuracy above 0.5 and the mode's kernels launched (ring:
               13, 1, 2 and 10 in the evaluation; Ulysses: 10, 11, 12, 1,
-              2).
+              2);
+8. serving -- the port's serving plane (serve/), the gateway's forward
+              on the card as one captured CUDA graph a bucket:
+              serve_mlp  bench.py --compare-serve at its defaults
+                          (SERVE_MLP): the zoo MLP (6 leaves, 940,584
+                          dense bytes) published to a durable
+                          RegistryServer, a replica at party 1, the
+                          gateway at max_batch 8 and queue_ms 2 behind
+                          HTTP and the native lane; 120 requests of 2
+                          rows from 4 clients on each lane, 5
+                          train-while-serving rounds of 1% pair deltas,
+                          the registry crashed mid-refresh, its failover
+                          and the replay of the whole round.  Every gate
+                          of _compare_serve's ok, each printed (bit_exact,
+                          delta_only, staleness_bounded, zero_lost,
+                          chaos_p99_bounded, no_double_apply,
+                          jit_cache_bounded, batch_bounded,
+                          restart_detected, slo_shed_decision — a
+                          SloPolicy on the gateway's serving_stats, its
+                          shed handed to set_shed_fraction —,
+                          prewarm_no_recompile, native_wire_honest, QPS
+                          above 0), and the served logits against the
+                          plain forward of the checkpoint on the CPU;
+              serve_seq_flash  the SeqClassifier at seq_flash's
+                          configuration (SERVE_SEQ: L 4096, dim 64, 4
+                          heads, 2 layers, fp32), seeded weights through
+                          the registry, every bucket (1, 2, 4, 8)
+                          captured in warmup: each bucket's replay
+                          bit-equal to an eager forward through the same
+                          kernels on the same weights and within fp32
+                          1e-5 of the plain forward (dense attention)
+                          and 1e-4 of the CPU; local and native-lane
+                          load while two delta rounds land, every
+                          batch's logits those of the round it stamps;
+                          kernel 10's no-lse variant in every replay
+                          (2 kernel nodes a graph times its replays; a
+                          profiler window of 4 replays printed beside);
+                          no capture after warmup; p50/p99, QPS, the
+                          replay's device ms a bucket, peak memory.
 
 The two last lines are the ``kernels`` JSON object and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -5393,6 +5431,708 @@ def fleetscope_sched_phase(torch, out_dir: str = os.path.join(
     return res
 
 
+# ---- the serving plane ------------------------------------------------------
+
+# serve_mlp: bench.py --compare-serve at its defaults, on the port
+SERVE_MLP = dict(rounds=5, requests=120, clients=4, rows=2, max_batch=8,
+                 queue_ms=2.0, delta_frac=0.01, seed=0)
+# serve_seq_flash: the SeqClassifier at seq_flash's configuration (vocab
+# 256, max_len 4096, dim 64, 4 heads, 2 layers, fp32), one request a row
+# of 4,096 token ids; two delta rounds land while requests are served
+SERVE_SEQ = dict(L=4096, max_batch=8, queue_ms=2.0, rounds=2,
+                 delta_frac=0.01, delta_std=0.1, requests=64, clients=4,
+                 seed=0)
+
+
+def _load_stats(worker, clients, stats, deadline_s):
+    """Run ``clients`` load threads, then fold their latencies into
+    p50/p99 and the sustained QPS (bench.py's _run_load_threads)."""
+    import threading
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+               for w in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(deadline_s * 4)
+    stats["elapsed_s"] = time.monotonic() - t0
+    lat = sorted(stats.pop("latencies_s"))
+
+    def pct(q):
+        return lat[min(len(lat) - 1, int(math.ceil(q * len(lat))) - 1)] \
+            if lat else None
+
+    stats["p50_s"], stats["p99_s"] = pct(0.50), pct(0.99)
+    stats["qps"] = stats["ok"] / stats["elapsed_s"] \
+        if stats["elapsed_s"] > 0 else 0.0
+    return stats
+
+
+def serve_http_load(port, xs, n_requests, clients, rows_per_req,
+                    stop_evt=None, deadline_s=30.0):
+    """``n_requests`` POST /infer calls from ``clients`` threads (or until
+    ``stop_evt``); every request ends ok (2xx), shed (503) or error."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    lock = threading.Lock()
+    stats = {"issued": 0, "ok": 0, "shed": 0, "error": 0,
+             "latencies_s": [], "batch_sizes": []}
+    url = f"http://127.0.0.1:{port}/infer"
+
+    def worker(wid):
+        rng = np.random.default_rng(1000 + wid)
+        while True:
+            with lock:
+                if n_requests is not None and stats["issued"] >= n_requests:
+                    return
+                if stop_evt is not None and stop_evt.is_set():
+                    return
+                stats["issued"] += 1
+            rows = [xs[rng.integers(0, len(xs))].tolist()
+                    for _ in range(rows_per_req)]
+            req = urllib.request.Request(
+                url, data=json.dumps({"inputs": rows}).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.monotonic()
+            try:
+                with urllib.request.urlopen(req, timeout=deadline_s) as r:
+                    doc = json.loads(r.read())
+                with lock:
+                    stats["ok"] += 1
+                    stats["latencies_s"].append(time.monotonic() - t0)
+                    stats["batch_sizes"].extend(doc.get("batch_sizes", []))
+            except urllib.error.HTTPError as e:
+                e.read()
+                with lock:
+                    stats["shed" if e.code == 503 else "error"] += 1
+                    stats["latencies_s"].append(time.monotonic() - t0)
+            except Exception:
+                with lock:
+                    stats["error"] += 1
+
+    return _load_stats(worker, clients, stats, deadline_s)
+
+
+def serve_native_load(port, xs, n_requests, clients, rows_per_req,
+                      stop_evt=None, deadline_s=30.0, keep=None):
+    """The native lane's twin of serve_http_load: one persistent INFER
+    connection a client thread.  ``keep`` (a list) collects (row indices,
+    reply) pairs."""
+    import threading
+
+    import numpy as np
+
+    from geomx_tpu_torch.serve.infer_wire import NativeInferenceClient
+    lock = threading.Lock()
+    stats = {"issued": 0, "ok": 0, "shed": 0, "error": 0,
+             "latencies_s": [], "batch_sizes": []}
+
+    def worker(wid):
+        rng = np.random.default_rng(2000 + wid)
+        cli = NativeInferenceClient(("127.0.0.1", port),
+                                    timeout_s=deadline_s)
+        try:
+            while True:
+                with lock:
+                    if n_requests is not None \
+                            and stats["issued"] >= n_requests:
+                        return
+                    if stop_evt is not None and stop_evt.is_set():
+                        return
+                    stats["issued"] += 1
+                rows = [int(rng.integers(0, len(xs)))
+                        for _ in range(rows_per_req)]
+                t0 = time.monotonic()
+                try:
+                    rep = cli.infer(np.stack([xs[i] for i in rows]))
+                    dt = time.monotonic() - t0
+                    with lock:
+                        if "outputs" in rep:
+                            stats["ok"] += 1
+                            stats["latencies_s"].append(dt)
+                            stats["batch_sizes"].extend(
+                                rep.get("batch_sizes", []))
+                            if keep is not None:
+                                keep.append((rows, rep))
+                        elif rep.get("error") == "shed":
+                            stats["shed"] += 1
+                            stats["latencies_s"].append(dt)
+                        else:
+                            stats["error"] += 1
+                except Exception:
+                    with lock:
+                        stats["error"] += 1
+        finally:
+            cli.close()
+
+    return _load_stats(worker, clients, stats, deadline_s)
+
+
+def _seeded_model(torch, model, seed: int):
+    """``model``'s flax initializers drawn from a seeded generator."""
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model
+
+
+def _random_pairs(rng, dense: dict, frac: float, std: float) -> dict:
+    """One round of pair deltas, ``frac`` of each layer, folded into the
+    dense checkpoint with np.add.at (the registry's add semantics)."""
+    import numpy as np
+    layers = {}
+    for k, v in dense.items():
+        kk = max(1, int(v.size * frac))
+        idx = rng.choice(v.size, size=kk, replace=False).astype(np.int64)
+        vals = (rng.normal(size=kk) * std).astype(np.float32)
+        layers[k] = (vals, idx)
+        np.add.at(v.reshape(-1), idx, vals)
+    return layers
+
+
+def _gate(res: dict, name: str, ok) -> None:
+    res.setdefault("gates", {})[name] = bool(ok)
+    log(f"  gate {name}: {'ok' if ok else 'FAILED'}")
+
+
+def _fill(sizes, max_batch):
+    return sum(sizes) / (len(sizes) * max_batch) if sizes else None
+
+
+def serve_mlp_phase(torch, device=None, **over) -> dict:
+    """bench.py --compare-serve on the port: the zoo MLP (6 leaves,
+    940,584 dense bytes) published to a durable RegistryServer, a replica
+    at party 1, the gateway (max_batch 8, queue_ms 2, one captured graph
+    a bucket on the card) behind HTTP and the native lane; 120 requests
+    of 2 rows from 4 clients on each lane, 5 train-while-serving rounds
+    of 1% pair deltas under load, then the registry crashed mid-refresh,
+    its failover and the replay of the whole round.  Every gate of
+    _compare_serve's ok must hold."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from geomx_tpu_torch.config import GeoConfig
+    from geomx_tpu_torch.control.policy import SloPolicy
+    from geomx_tpu_torch.control.sensors import ControlObservation
+    from geomx_tpu_torch.device import resolve_device
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.serve.gateway import (InferenceGateway,
+                                               flatten_params,
+                                               unflatten_params)
+    from geomx_tpu_torch.serve.infer_wire import serve_native
+    from geomx_tpu_torch.tree import from_nested
+    from geomx_tpu_torch.serve.registry import (RegistryClient,
+                                                RegistryServer)
+    from geomx_tpu_torch.serve.replica import ServingReplica
+    from geomx_tpu_torch.telemetry.ledger import (get_request_ledger,
+                                                  get_round_ledger,
+                                                  reset_request_ledger,
+                                                  reset_round_ledger)
+    p = dict(SERVE_MLP, **over)
+    dev = resolve_device(device)
+    cfg = GeoConfig.from_env()
+    rng = np.random.default_rng(p["seed"])
+    t_start = time.perf_counter()
+    reset_round_ledger()
+    reset_request_ledger()
+    feat = 28 * 28
+    model = get_model("mlp", num_classes=10)
+    model.build((feat,))
+    _seeded_model(torch, model, p["seed"])
+    named, treedef = flatten_params(model)
+    dense_ckpt = {k: v.copy() for k, v in named.items()}
+    dense_bytes = int(sum(v.nbytes for v in named.values()))
+    res = {"model": {"name": "mlp", "layers": len(named),
+                     "dense_bytes": dense_bytes}, "device": str(dev)}
+    if len(named) != 6 or dense_bytes != 940_584:
+        raise AssertionError(f"serve_mlp: the MLP is {res['model']}")
+    durable_dir = tempfile.mkdtemp(prefix="geomx_serve_registry_")
+    srv = RegistryServer(durable_dir=durable_dir).start()
+    trainer = RegistryClient(srv.addr, sender=0, timeout_s=20.0)
+    trainer.publish("v1", named)
+    replica_cli = RegistryClient(srv.addr, sender=1, timeout_s=20.0)
+    replica = ServingReplica("v1", party=1)
+    replica.sync(replica_cli)
+    gw = InferenceGateway(replica, treedef=treedef, model_name="mlp",
+                          num_classes=10, max_batch=p["max_batch"],
+                          queue_ms=p["queue_ms"], warmup_shapes=[(feat,)],
+                          warmup=True, device=dev)
+    gw.start()
+    res["warmup_compiles"] = gw.warmup_compiles
+    httpd = gw.serve_http(port=cfg.serve_port)
+    port = httpd.server_address[1]
+    nsrv = serve_native(gw, port=0)
+    if nsrv is None:
+        raise AssertionError("serve_mlp: GEOMX_SERVE_NATIVE_WIRE is off")
+    xs = rng.normal(size=(16, feat)).astype(np.float32)
+    failover = trainer2 = replica_cli2 = None
+    try:
+        # ---- A: sustained QPS on both lanes ---------------------------
+        serve_http_load(port, xs, 8, 2, p["rows"])       # warm the door
+        reset_request_ledger()
+        http = serve_http_load(port, xs, p["requests"], p["clients"],
+                               p["rows"])
+        native = serve_native_load(nsrv.port, xs, p["requests"],
+                                   p["clients"], p["rows"])
+        for lane, st in (("http", http), ("native", native)):
+            res[lane] = dict(st, fill=_fill(st["batch_sizes"],
+                                            p["max_batch"]))
+            res[lane].pop("batch_sizes")
+            log(f"serve_mlp {lane}: {st['qps']:.1f} requests/s, p50 "
+                f"{1e3 * (st['p50_s'] or 0):.3f} ms, p99 "
+                f"{1e3 * (st['p99_s'] or 0):.3f} ms, batch fill "
+                f"{res[lane]['fill']}, {st['ok']} ok of {st['issued']}")
+        res["serve_qps"] = native["qps"]
+        res["batch_max_seen"] = int(max(native["batch_sizes"]
+                                        + http["batch_sizes"] + [0]))
+        lane = get_request_ledger().summary().get("wire", {}).get(
+            "native", {})
+        res["native_honesty_ratio"] = lane.get("honesty_ratio_rx")
+        res["jit_cache_size"] = gw.jit_cache_size()
+        # ---- B: train-while-serving, delta-only refresh ----------------
+        stop = threading.Event()
+        bg, bgn = {}, {}
+        threads = [threading.Thread(target=lambda: bg.update(
+            serve_http_load(port, xs, None, 2, p["rows"], stop_evt=stop)),
+            daemon=True), threading.Thread(target=lambda: bgn.update(
+                serve_native_load(nsrv.port, xs, None, 2, p["rows"],
+                                  stop_evt=stop)), daemon=True)]
+        for t in threads:
+            t.start()
+        max_stale = 0.0
+        for r in range(1, p["rounds"] + 1):
+            layers = _random_pairs(rng, dense_ckpt, p["delta_frac"], 0.01)
+            ack = trainer.push_delta("v1", r, layers)
+            if ack["applied_layers"] != len(layers):
+                raise AssertionError(f"serve_mlp: round {r} push "
+                                     f"under-applied: {ack}")
+            replica.sync(replica_cli)
+            max_stale = max(max_stale, replica.staleness_s())
+        stop.set()
+        for t in threads:
+            t.join(30.0)
+        res["train_while_serving"] = {"http": bg, "native": bgn,
+                                      "max_staleness_s": max_stale}
+        served = replica.params()
+        res["bit_exact"] = all(np.array_equal(served[k], dense_ckpt[k])
+                               for k in dense_ckpt)
+        base_rx = delta_rx = 0
+        honest = True
+        for rec in get_round_ledger().records():
+            if not str(rec.get("key", "")).startswith("v1/"):
+                continue
+            got = int(rec.get("wire", {}).get("push_rx_bytes", 0))
+            if int(rec.get("round", -1)) == 0:
+                base_rx += got
+            else:
+                delta_rx += got
+                declared = int(rec.get("declared_rx_bytes", 0) or 0)
+                honest = honest and 0 < declared <= got
+        per_round = delta_rx / max(1, p["rounds"])
+        res["ledger_bytes"] = {"base_push_rx": base_rx,
+                               "delta_push_rx": delta_rx,
+                               "delta_per_round": per_round,
+                               "declared_honest": honest}
+        # ---- C: the registry killed mid-refresh, failover, replay ------
+        reset_request_ledger()
+        stop2 = threading.Event()
+        ch, chn = {}, {}
+        threads = [threading.Thread(target=lambda: ch.update(
+            serve_http_load(port, xs, None, 2, p["rows"], stop_evt=stop2)),
+            daemon=True), threading.Thread(target=lambda: chn.update(
+                serve_native_load(nsrv.port, xs, None, 2, p["rows"],
+                                  stop_evt=stop2)), daemon=True)]
+        for t in threads:
+            t.start()
+        chaos_round = p["rounds"] + 1
+        layers = _random_pairs(rng, dense_ckpt, p["delta_frac"], 0.01)
+        names = list(layers)
+        half = {k: layers[k] for k in names[:max(1, len(names) // 2)]}
+        trainer.push_delta("v1", chaos_round, half)
+        srv.crash()
+        gen_old = srv.generation
+        failover = RegistryServer(durable_dir=durable_dir).start()
+        res["failover_generation"] = {"old": gen_old,
+                                      "new": failover.generation}
+        trainer2 = RegistryClient(failover.addr, sender=0, timeout_s=20.0)
+        ack = trainer2.push_delta("v1", chaos_round, layers)
+        res["chaos_replay"] = {"layers": len(layers),
+                               "pre_crash": len(half),
+                               "replay_applied": int(ack["applied_layers"])}
+        replica_cli2 = RegistryClient(failover.addr, sender=1,
+                                      timeout_s=20.0)
+        post = replica.sync(replica_cli2)
+        served = replica.params()
+        chaos_exact = all(np.array_equal(served[k], dense_ckpt[k])
+                          for k in dense_ckpt)
+        stop2.set()
+        for t in threads:
+            t.join(30.0)
+        res["chaos_load"] = {"http": ch, "native": chn}
+        lanes = [ch, chn]
+        chaos_p99 = max(s.get("p99_s") or 0.0 for s in lanes)
+        res["chaos_p99_s"] = chaos_p99
+        res["replica"] = replica.snapshot()
+        # the served answers are the plain forward of the checkpoint
+        from geomx_tpu_torch.serve.infer_wire import NativeInferenceClient
+        cli = NativeInferenceClient(("127.0.0.1", nsrv.port),
+                                    timeout_s=30.0)
+        try:
+            got = cli.infer(xs[:4])["outputs"]
+        finally:
+            cli.close()
+        ref_model = get_model("mlp", num_classes=10)
+        ref_model.build((feat,))
+        ref_model.load_state_dict({
+            k: torch.from_numpy(v) for k, v in from_nested(
+                unflatten_params(treedef, dense_ckpt)["params"]).items()})
+        with torch.no_grad():
+            want = ref_model(torch.from_numpy(xs[:4])).numpy()
+        res["cpu_max_abs_err"] = float(np.abs(got - want).max())
+        # ---- the SLO policy on this gateway's stats: a target under the
+        # chaos load's measured p99 makes it shed, the decision reaches
+        # set_shed_fraction and the gateway refuses that share
+        obs = ControlObservation(step=1, links={}, exposed_comms=0.0,
+                                 hidden_comms=0.0, compute_s=0.0,
+                                 ef_residual_norm=0.0, grad_norm=0.0,
+                                 dc_dense_bytes=0)
+        p99 = gw.serving_stats()["p99_s"] or 0.0
+        pol = SloPolicy(gw.serving_stats, target_p99_s=max(1e-9, p99 / 2),
+                        shed_step=0.5, confirm=1, cooldown=1)
+        d = pol.decide(obs)
+        slo = d is not None and d.value[0] == "shed" and d.value[1] > 0
+        if slo:
+            gw.set_shed_fraction(d.value[1])
+            reqs = [gw.submit(xs[0]) for _ in range(4)]
+            gw.wait_requests(reqs)
+            res["slo_shed"] = {"fraction": d.value[1], "shed": sum(
+                r.error == "shed" for r in reqs)}
+            slo = res["slo_shed"]["shed"] == 2
+            gw.set_shed_fraction(0.0)
+    finally:
+        for closer in (lambda: nsrv.stop(), httpd.shutdown,
+                       httpd.server_close, gw.stop, trainer.close,
+                       replica_cli.close,
+                       lambda: trainer2 and trainer2.close(),
+                       lambda: replica_cli2 and replica_cli2.close(),
+                       lambda: failover and failover.stop(),
+                       srv.stop):
+            closer()
+        shutil.rmtree(durable_dir, ignore_errors=True)
+
+    def zero_lost(st):
+        return (st.get("issued", 0) > 0 and st.get("error", 0) == 0
+                and st["issued"] == st["ok"] + st["shed"] + st["error"])
+
+    log(f"serve_mlp: replica o1_applies {res['replica']['o1_applies']}, "
+        f"dense_copies {res['replica']['dense_copies']}; delta "
+        f"{per_round:.0f} B a round against {dense_bytes} dense; chaos "
+        f"p99 {1e3 * chaos_p99:.3f} ms; native honesty "
+        f"{res['native_honesty_ratio']}; served vs the plain forward on "
+        f"the CPU max abs err {res['cpu_max_abs_err']:.3g}; graphs "
+        f"{gw.graph_captures}")
+    _gate(res, "bit_exact", res["bit_exact"])
+    _gate(res, "delta_only", base_rx > 0 and delta_rx > 0 and honest
+          and per_round < 0.5 * dense_bytes)
+    _gate(res, "staleness_bounded", max_stale <= cfg.serve_staleness_s)
+    _gate(res, "zero_lost", all(zero_lost(s) for s in lanes))
+    _gate(res, "chaos_p99_bounded", 0.0 < chaos_p99 < 2.0)
+    _gate(res, "no_double_apply", ack["applied_layers"]
+          == len(layers) - len(half) and chaos_exact)
+    _gate(res, "jit_cache_bounded", res["jit_cache_size"]
+          <= len(gw.buckets))
+    _gate(res, "batch_bounded", res["batch_max_seen"] <= p["max_batch"])
+    _gate(res, "restart_detected", bool(post.get("restart_detected")))
+    _gate(res, "slo_shed_decision", slo)
+    _gate(res, "prewarm_no_recompile", res["warmup_compiles"] > 0
+          and gw.jit_cache_size() == res["warmup_compiles"]
+          and (dev.type != "cuda"
+               or gw.graph_captures == res["warmup_compiles"]))
+    hr = res["native_honesty_ratio"]
+    _gate(res, "native_wire_honest", hr is not None and hr <= 1.02
+          and res["http"]["qps"] > 0)
+    _gate(res, "qps_above_zero", res["serve_qps"] > 0)
+    _gate(res, "matches_cpu_forward", res["cpu_max_abs_err"] <= 1e-4)
+    res["wall_s"] = time.perf_counter() - t_start
+    log(f"serve_mlp wall {res['wall_s']:.1f} s")
+    failed = [k for k, v in res["gates"].items() if not v]
+    if failed:
+        raise AssertionError(f"serve_mlp: gates failed: {failed}")
+    return res
+
+
+def serve_seq_flash_phase(torch, device=None, **over) -> dict:
+    """The SeqClassifier at seq_flash's configuration behind the gateway:
+    seeded weights published to the registry, every bucket (1, 2, 4, 8)
+    captured in warmup; each bucket's replay bit-equal to an eager
+    forward through the same kernels on the same weights, and within
+    fp32 1e-5 / 1e-4 of the plain forward and of the CPU; native-lane
+    load while two delta rounds land, every batch's logits those of the
+    round it stamps (no mix); kernel 10's no-lse variant in every replay
+    (the graphs' kernel nodes times their replays; a profiler window
+    over replays cross-checks on the card); no capture after warmup."""
+    import copy
+    import threading
+
+    import numpy as np
+
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.device import resolve_device
+    from geomx_tpu_torch.models import SeqClassifier
+    from geomx_tpu_torch.serve.gateway import (InferenceGateway,
+                                               flatten_params)
+    from geomx_tpu_torch.serve.infer_wire import NativeInferenceServer
+    from geomx_tpu_torch.serve.registry import (RegistryClient,
+                                                RegistryServer)
+    from geomx_tpu_torch.serve.replica import ServingReplica
+    from geomx_tpu_torch.telemetry.ledger import reset_request_ledger
+    p = dict(SERVE_SEQ, **over)
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    L = p["L"]
+    rng = np.random.default_rng(p["seed"])
+    t_start = time.perf_counter()
+    reset_request_ledger()
+    mk = dict(max_len=L) if L != 4096 else {}
+    model = _seeded_model(torch, SeqClassifier(**mk), p["seed"])
+    named, treedef = flatten_params(model)
+    srv = RegistryServer().start()
+    trainer = RegistryClient(srv.addr, sender=0, timeout_s=30.0)
+    rcli = RegistryClient(srv.addr, sender=1, timeout_s=30.0)
+    trainer.publish("v1", named)
+    replica = ServingReplica("v1", party=1)
+    replica.sync(rcli)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gw = InferenceGateway(replica, treedef=treedef, model=model,
+                          max_batch=p["max_batch"], queue_ms=p["queue_ms"],
+                          warmup_shapes=[(L,)], warmup=True, device=dev)
+    nsrv = None
+    res = {"device": str(dev), "seq_len": L, "buckets": None}
+    try:
+        t0 = time.perf_counter()
+        gw.start()
+        res["warmup_s"] = time.perf_counter() - t0
+        res["buckets"] = list(gw.buckets)
+        res["warmup_compiles"] = gw.warmup_compiles
+        xs = rng.integers(0, 256, size=(32, L)).astype(np.float32)
+        # ---- every bucket: replay == eager, bit for bit; near plain/CPU
+        w0 = replica.params()
+        per_bucket = {}
+        cpu = copy.deepcopy(model).cpu()
+        for b in gw.buckets:
+            xb = xs[:b]
+            fn = gw._forward_fn(b, (L,))
+            rep = fn(w0, xb).result().copy()
+            eager = gw.eager_forward(w0, xb)
+            bit_equal = rep.shape == eager.shape and \
+                rep.view(np.int32).tobytes() == eager.view(np.int32).tobytes()
+            os.environ["GEOMX_FLASH_ATTN"] = "0"
+            try:
+                plain = gw.eager_forward(w0, xb)
+            finally:
+                os.environ.pop("GEOMX_FLASH_ATTN", None)
+            plain_err = float(np.abs(rep - plain).max())
+            plain_ok = bool(np.allclose(rep, plain, rtol=1e-5, atol=1e-5))
+            rec = {"bit_equal_eager": bool(bit_equal),
+                   "plain_max_abs_err": plain_err,
+                   "plain_within_1e-5": plain_ok}
+            if on_card:
+                def replay(fn=fn):
+                    fn.graph.replay()
+                with torch.cuda.stream(gw._stream):
+                    rec["replay_ms"] = device_ms(torch, replay, reps=20)
+            per_bucket[b] = rec
+        # the CPU on two rows (the plain flash version there)
+        with torch.inference_mode():
+            want = cpu(torch.from_numpy(xs[:2]).to(torch.int32)).numpy()
+        got = gw._forward_fn(2, (L,))(w0, xs[:2]).result().copy()
+        res["cpu_max_abs_err"] = float(np.abs(got - want).max())
+        cpu_ok = bool(np.allclose(got, want, rtol=1e-4, atol=1e-4))
+        res["per_bucket"] = {str(b): r for b, r in per_bucket.items()}
+        # ---- serve while two delta rounds land ------------------------
+        snaps = {0: {k: v.copy() for k, v in replica.params().items()}}
+        dense = {k: v.copy() for k, v in named.items()}
+        kept = []
+        lock = threading.Lock()
+        stop = threading.Event()
+
+        def local_load(wid):
+            r = np.random.default_rng(3000 + wid)
+            while not stop.is_set():
+                i = int(r.integers(0, len(xs)))
+                req = gw.submit(xs[i])
+                if not req.event.wait(60) or req.error is not None:
+                    raise AssertionError(f"serve_seq_flash: request "
+                                         f"{req.error}")
+                with lock:
+                    kept.append((i, req.model_round, req.layer_rounds,
+                                 req.result.copy()))
+
+        nsrv = NativeInferenceServer(gw, port=0).start()
+        loaders = [threading.Thread(target=local_load, args=(w,),
+                                    daemon=True) for w in range(2)]
+        for t in loaders:
+            t.start()
+        native = {}
+        nthread = threading.Thread(target=lambda: native.update(
+            serve_native_load(nsrv.port, xs, p["requests"], p["clients"],
+                              1)), daemon=True)
+        nthread.start()
+        for r in range(1, p["rounds"] + 1):
+            with lock:
+                seen = len(kept)
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                with lock:
+                    if len(kept) >= seen + 4:
+                        break
+                time.sleep(0.005)
+            layers = _random_pairs(rng, dense, p["delta_frac"],
+                                   p["delta_std"])
+            trainer.push_delta("v1", r, layers)
+            replica.sync(rcli)
+            snaps[r] = {k: v.copy() for k, v in replica.params().items()}
+        with lock:
+            seen = len(kept)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            with lock:
+                if len(kept) >= seen + 4:
+                    break
+            time.sleep(0.005)
+        nthread.join(120)
+        stop.set()
+        for t in loaders:
+            t.join(60)
+        res["native"] = dict(native, fill=_fill(native.get(
+            "batch_sizes", []), p["max_batch"]))
+        res["native"].pop("batch_sizes", None)
+        # ---- every batch's logits are those of the weight set it
+        # stamps: each layer at the round the replica held it at when the
+        # batch read the params (a refresh lands a layer at a time, so a
+        # batch read mid-sync holds some layers at the new round); a
+        # batch stamped with a whole round differs from every other
+        # round's logits
+        order = list(named)
+        refs = {}
+        for _i, _rnd, lr, _o in kept:
+            key = tuple(lr[k] for k in order)
+            if key not in refs:
+                refs[key] = gw.eager_forward(
+                    {k: snaps[r][k] for k, r in zip(order, key)}, xs)
+        whole = {r: tuple([r] * len(order)) for r in snaps}
+        for key in whole.values():
+            if key not in refs:
+                refs[key] = gw.eager_forward(
+                    {k: snaps[key[0]][k] for k in order}, xs)
+        rounds_seen = sorted({rnd for _i, rnd, _lr, _o in kept})
+        worst, mixed, partial = 0.0, 0, 0
+        first = {}
+        for i, rnd, lr, out in kept:
+            key = tuple(lr[k] for k in order)
+            worst = max(worst, float(np.abs(out - refs[key][i]).max()))
+            ok = np.allclose(out, refs[key][i], rtol=1e-5, atol=1e-5)
+            if key == whole.get(rnd):
+                first.setdefault(rnd, ok)
+                ok = ok and all(
+                    not np.allclose(out, refs[w][i], rtol=1e-5, atol=1e-5)
+                    for r2, w in whole.items() if r2 != rnd)
+            else:
+                partial += 1
+            mixed += not ok
+        res["served"] = {"requests": len(kept), "rounds_seen": rounds_seen,
+                         "batches_read_mid_refresh": partial,
+                         "max_abs_err_to_stamped_set": worst,
+                         "first_whole_round_batches_ok": first,
+                         "not_the_stamped_set": mixed}
+        res["graph_captures"] = gw.graph_captures
+        res["launches"] = ops.launch_counts()
+        res["variant_launches"] = ops.variant_launch_counts()
+        res["graph_launches"] = gw.graph_launches()
+        replays = sum(fn.replays for fn in gw._jit_cache.values()) \
+            if on_card else 0
+        nodes = {k: fn.kernel_nodes.get("flash_attention_fwd_nolse", 0)
+                 for k, fn in gw._jit_cache.items()} if on_card else {}
+        res["replays"] = replays
+        res["nolse_nodes_per_graph"] = {str(k): v for k, v in nodes.items()}
+        if on_card:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            fn = gw._forward_fn(gw.buckets[-1], (L,))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    with torch.cuda.stream(gw._stream):
+                        fn.graph.replay()
+                torch.cuda.synchronize()
+            res["profiler_flash_fwd_in_4_replays"] = sum(
+                1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                and "flash_fwd" in e.name)
+            res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        if nsrv is not None:
+            nsrv.stop()
+        gw.stop()
+        trainer.close()
+        rcli.close()
+        srv.stop()
+    nat = res.get("native", {})
+    log(f"serve_seq_flash: L {L}, buckets {res['buckets']}, warmup "
+        f"{res['warmup_s']:.2f} s ({res['warmup_compiles']} graphs), "
+        f"native lane {nat.get('qps', 0):.1f} requests/s, p50 "
+        f"{1e3 * (nat.get('p50_s') or 0):.3f} ms, p99 "
+        f"{1e3 * (nat.get('p99_s') or 0):.3f} ms, fill {nat.get('fill')}; "
+        + ", ".join(f"bucket {b}: replay "
+                    + (f"{r['replay_ms']:.3f} ms" if "replay_ms" in r
+                       else "-")
+                    + f", plain err {r['plain_max_abs_err']:.3g}"
+                    for b, r in res["per_bucket"].items())
+        + f"; CPU err {res['cpu_max_abs_err']:.3g}; served "
+        f"{res['served']['requests']} over rounds "
+        f"{res['served']['rounds_seen']} "
+        f"({res['served']['batches_read_mid_refresh']} read mid-refresh), "
+        f"worst err to the stamped weight set "
+        f"{res['served']['max_abs_err_to_stamped_set']:.3g}; replays "
+        f"{res['replays']}, graph launches {res['graph_launches']}, "
+        f"profiler flash_fwd records in 4 replays "
+        f"{res.get('profiler_flash_fwd_in_4_replays')}; peak "
+        f"{res.get('peak_mem_gb')} GB")
+    nb = len(res["buckets"])
+    _gate(res, "captured_every_bucket", res["warmup_compiles"] == nb
+          and (not on_card or res["graph_captures"] == nb))
+    _gate(res, "replay_bit_equal_eager", all(
+        r["bit_equal_eager"] for r in res["per_bucket"].values()))
+    _gate(res, "replay_within_1e-5_of_plain", all(
+        r["plain_within_1e-5"] for r in res["per_bucket"].values()))
+    _gate(res, "within_1e-4_of_cpu", cpu_ok)
+    _gate(res, "no_mixed_weights", res["served"]["not_the_stamped_set"]
+          == 0 and res["served"]["rounds_seen"] == list(
+              range(p["rounds"] + 1))
+          and all(res["served"]["first_whole_round_batches_ok"].values()))
+    _gate(res, "no_capture_after_warmup", gw.jit_cache_size() == nb
+          and (not on_card or res["graph_captures"] == nb))
+    if on_card:
+        _gate(res, "nolse_in_every_replay", res["replays"] > 0
+              and all(v == model.num_layers for v in nodes.values())
+              and res["graph_launches"].get("flash_attention_fwd_nolse")
+              == model.num_layers * res["replays"])
+    _gate(res, "native_lane_served", nat.get("ok", 0) == p["requests"]
+          and nat.get("error", 1) == 0)
+    res["wall_s"] = time.perf_counter() - t_start
+    log(f"serve_seq_flash wall {res['wall_s']:.1f} s")
+    failed = [k for k, v in res["gates"].items() if not v]
+    if failed:
+        raise AssertionError(f"serve_seq_flash: gates failed: {failed}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -5477,6 +6217,8 @@ def main(argv=None) -> int:
     host["durable_recovery"] = durable_recovery_phase(torch)
     examples = {f"long_context_{mode}": long_context_phase(torch, mode)
                 for mode in ("ring", "ulysses")}
+    serving = {"serve_mlp": serve_mlp_phase(torch),
+               "serve_seq_flash": serve_seq_flash_phase(torch)}
     log("median step: " + ", ".join(
         f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())
         + " (this call)")
@@ -5502,7 +6244,7 @@ def main(argv=None) -> int:
                        "paths": paths, "telemetry_fsa": telemetry,
                        "control": control,
                        "host_plane": host,
-                       "examples": examples,
+                       "examples": examples, "serving": serving,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -170,6 +170,23 @@ class GeoConfig:
     # minimum steps between two actuations of the same knob
     control_cooldown: int = 5
 
+    # ---- the serving plane (serve/: the model registry, the serving
+    # replica and the batched inference gateway).  The gateway binds
+    # POST /infer on serve_port (0 = ephemeral), coalesces requests for
+    # serve_queue_ms into a batch of at most serve_max_batch (padded to
+    # power-of-two buckets: one captured graph a bucket on the card);
+    # serve_staleness_s is the replica-freshness bound, serve_timeout_s
+    # the per-request client deadline; serve_warmup builds every
+    # (bucket, input shape) forward at gateway start, serve_native_wire
+    # gates the binary /infer lane.  Host plane only
+    serve_port: int = 0
+    serve_max_batch: int = 8
+    serve_queue_ms: float = 2.0
+    serve_staleness_s: float = 10.0
+    serve_timeout_s: float = 30.0
+    serve_warmup: bool = True
+    serve_native_wire: bool = True
+
     # ---- FleetScope (telemetry/fleetscope.py): arms the
     # scheduler-colocated fleet aggregator (GET /fleet and the
     # geomx_fleet_* rollups), polling every fleetscope_interval_s; the
@@ -251,6 +268,18 @@ class GeoConfig:
             control_ratio_bounds=_env(
                 ["GEOMX_CONTROL_RATIO_BOUNDS"], "", str),
             control_cooldown=_env(["GEOMX_CONTROL_COOLDOWN"], 5, int),
+            serve_port=_env(["GEOMX_SERVE_PORT"], 0,
+                            lambda s: int(float(s))),
+            serve_max_batch=_env(["GEOMX_SERVE_MAX_BATCH"], 8,
+                                 lambda s: int(float(s))),
+            serve_queue_ms=_env(["GEOMX_SERVE_QUEUE_MS"], 2.0, float),
+            serve_staleness_s=_env(["GEOMX_SERVE_STALENESS_S"], 10.0,
+                                   float),
+            serve_timeout_s=_env(["GEOMX_SERVE_TIMEOUT_S"], 30.0,
+                                 float),
+            serve_warmup=_env_bool(["GEOMX_SERVE_WARMUP"], True),
+            serve_native_wire=_env_bool(["GEOMX_SERVE_NATIVE_WIRE"],
+                                        True),
             fleetscope=_env_bool(["GEOMX_FLEETSCOPE"], False),
             fleetscope_interval_s=_env(
                 ["GEOMX_FLEETSCOPE_INTERVAL_S"], 2.0, float),

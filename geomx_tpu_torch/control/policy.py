@@ -17,8 +17,9 @@ guarded feedback policies over the telemetry plane's sensors
   the ``LinkObservatory`` snapshot, with a minimum-gain margin to form
   and a lower release threshold;
 - :class:`SloPolicy` — serving-plane routing and shedding from a
-  ``stats_fn`` plus the link snapshot (its wiring to a gateway is
-  ROADMAP.md Queue 1 item "Serving").
+  ``stats_fn`` (a gateway's ``serving_stats``) plus the link snapshot;
+  the caller hands a ``("shed", fraction)`` decision to the gateway's
+  ``set_shed_fraction``.
 
 Everything here is a pure function of the observation stream plus
 bounded internal counters: the same seeded scenario produces the same
@@ -347,7 +348,8 @@ class RelayPolicy:
 
 class SloPolicy:
     """Serving-SLO routing + shedding: the fourth policy family
-    (ROADMAP.md Queue 1, "Serving", wires it to a gateway).
+    (``SloPolicy(gateway.serving_stats)``; a shed decision reaches
+    ``gateway.set_shed_fraction``).
 
     The observation is the gateway's serving stats (``stats_fn`` — a
     zero-arg callable returning ``{"p99_s", "queue_depth", ...}`` or

@@ -45,8 +45,11 @@ same exposition over the wire protocol; ``geomx_build_info`` carries
 the build identity.  ``GET /control`` answers the control plane's
 decision log (``control/actuators.py``).  With ``GEOMX_FLEETSCOPE=1``
 the fleet aggregator (``telemetry/fleetscope.py``) runs beside the
-endpoint and ``GET /fleet`` serves its document.  The serving surface of
-the health document (ROADMAP.md Queue 1, "Serving") is not ported.
+endpoint and ``GET /fleet`` serves its document.  The health document
+carries the serving surface (``serve/``: published versions, replica
+freshness, queue depth) under ``"serving"`` when a gateway or replica
+runs in this process, and a gateway joins the roster as a ``serve``
+node (``InferenceGateway.register_with_scheduler``).
 
 `geomx_tpu_torch/launch.py` starts one per job when GEOMX_USE_SCHEDULER=1
 and `geomx_tpu_torch/examples/dist_ps.py` then discovers every address
@@ -416,8 +419,8 @@ class GeoScheduler:
         """The ``GET /healthz`` body: roster epoch, per-role roster
         sizes, live/dead counts from the heartbeat monitor (none inside
         the restart grace window), the shard map's version and width,
-        generation, uptime and the build identity.  The serving surface
-        of the JAX document ("Serving") is not ported."""
+        generation, uptime, the build identity and, when a gateway or
+        replica registered in this process, the serving surface."""
         with self._lock:
             epoch = self._epoch
             roster = {role: len(nodes)
@@ -438,7 +441,7 @@ class GeoScheduler:
                 "id": int(nid), "role": role,
                 "tag": (str(e[3]) if e is not None and len(e) > 3
                         else None)})
-        return {
+        out = {
             "status": "ok",
             "roster_epoch": epoch,
             "roster": roster,
@@ -454,6 +457,18 @@ class GeoScheduler:
                               3),
             "build": dict(self.build_info),
         }
+        # serving surface (serve/): published model versions, replica
+        # freshness, infer queue depth — present only when a gateway/
+        # replica registered in this process.  Lazy and best-effort: a
+        # broken snapshot provider must never 500 the liveness probe
+        try:
+            from geomx_tpu_torch.serve import serving_surface
+            serving = serving_surface()
+            if serving is not None:
+                out["serving"] = serving
+        except Exception:
+            pass
+        return out
 
     # ---- key-range sharded global tier (scheduler-owned placement) ---------
 

@@ -39,9 +39,11 @@ staleness max, node health counts) publish as the
 ``geomx_fleet_rollup{field}`` gauge family, the surface
 :class:`~geomx_tpu_torch.control.sensors.ControlSensors` folds into
 every observation.  The serve-node rollups fold whatever families and
-health sections a node serves; the port's serving plane (gateways,
-replicas, the request ledger) is ROADMAP.md Queue 1 item "Serving", so
-on a training fleet those rollups stay at zero.
+health sections a node serves: a gateway (``serve/gateway.py``)
+registers as a ``serve`` node whose HTTP port serves its
+``geomx_serve_*`` families, its ``/healthz`` serving block and its
+request ledger; on a training fleet without one those rollups stay at
+zero.
 
 ``tools/gxtop.py`` renders the fleet document (snapshot / ``--watch`` /
 ``--json``).

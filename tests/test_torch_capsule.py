@@ -18,11 +18,15 @@ import json
 
 import pytest
 
+import geomx_tpu.control.actuators as jact
 import geomx_tpu.telemetry as jtel
+import geomx_tpu.telemetry.ledger as jledger
 import geomx_tpu.telemetry.capsule as jcap
 import geomx_tpu.telemetry.costmodel as jcost
 import geomx_tpu.telemetry.links as jlinks
+import geomx_tpu_torch.control.actuators as tact
 import geomx_tpu_torch.telemetry as ttel
+import geomx_tpu_torch.telemetry.ledger as tledger
 import geomx_tpu_torch.telemetry.capsule as tcap
 import geomx_tpu_torch.telemetry.costmodel as tcost
 import geomx_tpu_torch.telemetry.links as tlinks
@@ -31,13 +35,28 @@ PKGS = {"jax": (jtel, jcap, jcost, jlinks),
         "port": (ttel, tcap, tcost, tlinks)}
 
 
-@pytest.fixture()
-def registries():
-    """Fresh process registries in both packages (restored after)."""
+def _reset_process_state():
+    """Both packages' process-global state a capsule reads: the metric
+    registry, the round ledger (the summary's wire honesty ratio), the
+    request ledger and the control plane's decision log."""
     regs = {"jax": jtel.reset_registry(), "port": ttel.reset_registry()}
-    yield regs
-    jtel.reset_registry()
-    ttel.reset_registry()
+    for led in (jledger, tledger):
+        led.reset_round_ledger()
+        led.reset_request_ledger()
+    jact.reset_decision_log()
+    tact.reset_decision_log()
+    return regs
+
+
+@pytest.fixture()
+def registries(monkeypatch):
+    """Fresh process state in both packages (restored after): an earlier
+    test in the same process may leave round-ledger records or decisions
+    behind, and the manifest's chaos schedule falls back to the
+    environment."""
+    monkeypatch.delenv("GEOMX_CHAOS_SCHEDULE", raising=False)
+    yield _reset_process_state()
+    _reset_process_state()
 
 
 def _feed_obs(obs, fail_step=6):
@@ -55,7 +74,7 @@ def _record_run(pkg, path, registry):
     samples at explicit instants."""
     tel, cap_mod, _cost, links = PKGS[pkg]
     obs = links.LinkObservatory(alpha=0.4, stale_after_s=5.0)
-    cap = cap_mod.RunCapsule(str(path))
+    cap = cap_mod.RunCapsule(str(path), registry=registry)
     cap.attach_observatory(obs)
     fam = registry.gauge("geomx_step_probe", labels=("probe",))
     pfam = registry.gauge("geomx_phase_fraction", labels=("phase",))

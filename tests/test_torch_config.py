@@ -80,6 +80,16 @@ CONTROL_KNOBS = [
      None),
 ]
 ENV += tuple(var for var, *_ in CONTROL_KNOBS)
+SERVE_KNOBS = [
+    ("GEOMX_SERVE_PORT", "9090", "serve_port", "x"),
+    ("GEOMX_SERVE_MAX_BATCH", "32.0", "serve_max_batch", "many"),
+    ("GEOMX_SERVE_QUEUE_MS", "7.5", "serve_queue_ms", "soon"),
+    ("GEOMX_SERVE_STALENESS_S", "30", "serve_staleness_s", "x"),
+    ("GEOMX_SERVE_TIMEOUT_S", "12.5", "serve_timeout_s", "x"),
+    ("GEOMX_SERVE_WARMUP", "0", "serve_warmup", "yes"),
+    ("GEOMX_SERVE_NATIVE_WIRE", "0", "serve_native_wire", "no way"),
+]
+ENV += tuple(var for var, *_ in SERVE_KNOBS)
 DEFAULTS = [(var, value) for var in KNOBS[:-1] for value in ("0", "")] + [
     ("GEOMX_PIPELINE_DEPTH", "0.0"), ("GEOMX_ZERO", "0.0"),
     ("GEOMX_MULTI_GPS", "0.0"), ("GEOMX_CONTROL", "0.0")]
@@ -366,3 +376,27 @@ def check_trainers(ref, cfg):
         assert pt._zero_plan is None
         assert pt._mgps.bound == jt._mgps.bound == cfg.bigarray_bound
         assert pt._mgps.W == jt._mgps.W == 4
+
+
+@pytest.mark.parametrize("var,value,field,bad", SERVE_KNOBS)
+def test_serve_knob_read_alone_like_jax(monkeypatch, var, value, field,
+                                        bad):
+    """Each GEOMX_SERVE_* knob alone: the JAX default when unset, the
+    JAX package's value and type when set, every other serve field left
+    at its default, and a bad value refused naming the knob."""
+    fields = [f for _v, _x, f, _b in SERVE_KNOBS]
+    default = getattr(GeoConfig(), field)
+    assert default == getattr(JaxConfig(), field)
+    assert getattr(GeoConfig.from_env(), field) == default
+    monkeypatch.setenv(var, value)
+    cfg, ref = GeoConfig.from_env(), JaxConfig.from_env()
+    got, want = getattr(cfg, field), getattr(ref, field)
+    assert got == want and type(got) is type(want) and got != default
+    for other in fields:
+        if other != field:
+            assert getattr(cfg, other) == getattr(GeoConfig(), other)
+    monkeypatch.setenv(var, bad)
+    with pytest.raises(ValueError, match=var):
+        JaxConfig.from_env()
+    with pytest.raises(ValueError, match=var):
+        GeoConfig.from_env()

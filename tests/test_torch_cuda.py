@@ -1396,3 +1396,68 @@ def test_scanned_epoch_equals_the_per_step_loop(dev, augment):
         torch.backends.cudnn.deterministic = False
     with pytest.raises(ValueError, match="device_cache"):
         t.fit(st, t.make_loader(x, y, 8), scan_epochs=True)
+
+
+# ---- the serving gateway's captured graphs ----------------------------------
+
+def _seq_gateway(dev, L=256, max_batch=4):
+    from geomx_tpu_torch.models import SeqClassifier
+    from geomx_tpu_torch.serve.gateway import InferenceGateway, flatten_params
+    from geomx_tpu_torch.serve.replica import ServingReplica
+    model = SeqClassifier(max_len=L)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    named, treedef = flatten_params(model)
+    rep = ServingReplica("v1")
+    for i, (k, v) in enumerate(named.items()):
+        rep.install_base(k, v, order=i)
+    gw = InferenceGateway(rep, treedef=treedef, model=model,
+                          max_batch=max_batch, warmup_shapes=[(L,)],
+                          warmup=True, device=dev)
+    gw.warmup()
+    return gw, rep, named
+
+
+@pytest.mark.cuda
+def test_gateway_graph_replay_bit_equal_eager_with_kernel_10(dev):
+    """Every bucket's captured graph replays the eager forward's bits,
+    and holds the no-lse flash forward once a layer."""
+    from geomx_tpu_torch import ops
+    gw, rep, _ = _seq_gateway(dev)
+    assert gw.graph_captures == gw.jit_cache_size() == len(gw.buckets)
+    xs = np.random.default_rng(0).integers(0, 256, (4, 256)).astype(
+        np.float32)
+    for b in gw.buckets:
+        fn = gw._forward_fn(b, (256,))
+        assert fn.kernel_nodes["flash_attention_fwd_nolse"] == 2
+        got = fn(rep.params(), xs[:b]).result().copy()
+        want = gw.eager_forward(rep.params(), xs[:b])
+        assert got.tobytes() == want.tobytes(), b
+    before = ops.variant_launch_counts()["flash_attention_fwd_nolse"]
+    fn(rep.params(), xs).result()
+    # a replay runs no Python: the wrapper's counter does not move, the
+    # graph's launch count does
+    assert ops.variant_launch_counts()["flash_attention_fwd_nolse"] == before
+    assert gw.graph_launches()["flash_attention_fwd_nolse"] == \
+        2 * sum(f.replays for f in gw._jit_cache.values())
+    assert gw.graph_captures == len(gw.buckets)
+
+
+@pytest.mark.cuda
+def test_gateway_output_and_weights_across_back_to_back_replays(dev):
+    """Batch t's output survives batch t+1's replay of the same graph,
+    and a new weight set queued between them reaches t+1 only."""
+    gw, rep, named = _seq_gateway(dev)
+    xs = np.random.default_rng(1).integers(0, 256, (8, 256)).astype(
+        np.float32)
+    w0 = rep.params()
+    k = next(n for n in named if "head" in n and "kernel" in n)
+    idx = np.arange(0, 640, 7, dtype=np.int64)
+    assert rep.apply_delta(k, 1, np.full(idx.size, 0.5, np.float32), idx)
+    w1 = rep.params()
+    fn = gw._forward_fn(4, (256,))
+    t0 = fn(w0, xs[:4])
+    t1 = fn(w1, xs[4:])
+    out0, out1 = t0.result().copy(), t1.result().copy()
+    assert out0.tobytes() == gw.eager_forward(w0, xs[:4]).tobytes()
+    assert out1.tobytes() == gw.eager_forward(w1, xs[4:]).tobytes()
+    assert not np.array_equal(gw.eager_forward(w0, xs[4:]), out1)

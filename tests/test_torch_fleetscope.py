@@ -11,8 +11,8 @@ the propagation tracker, ``roster_targets``, ``parse_burn_windows`` and
 ``fleetscope_from_config`` give the JAX package's values; the rollups
 reach the port's ``ControlSensors``; the port's scheduler serves
 ``GET /fleet`` from its exporter.  The serving-plane cases of
-``tests/test_fleetscope.py`` (request ledger, replicas, gateways) wait
-for ROADMAP.md Queue 1 item "Serving".
+``tests/test_fleetscope.py`` (request ledger, replicas, gateways) are in
+``tests/test_torch_serve_gateway.py``.
 """
 
 import json
