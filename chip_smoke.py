@@ -194,6 +194,22 @@ Every phase's failure is fatal (non-zero exit, no result line):
               (copy (0, 0)), the drain one apply of the parked aggregate;
               two fp32 steps at scale 0.5 card against CPU; step ms on and
               off printed;
+   audit_fsa -- path 1f's resilience configuration (resilience_fsa:
+              ResNet-20 on [4, 2], "bsc,0.01", the fused SGD-momentum)
+              with GEOMX_AUDIT=1 (analysis/): fit arms the auditor (the
+              step recorded once on CPU zeros), a swap to
+              RESILIENCE_REFERENCE_MASK and back audits clean, a
+              reference cut by one entry raises AuditError with the active
+              step left in place; the same configuration with the
+              per-leaf sgd(0.1, momentum=0.9) (a depth-1 drain does not
+              compose with the fused apply) re-arms clean at a depth
+              switch 0->1->0; an audited step makes the launch calls, in
+              order, of an unaudited twin's; hlo.materialization_counts
+              of the fused BSC compress below the plain version's on the
+              same CUDA tensors, the dense cumsum/scatter gone and kernel
+              3 launched (the fused-versus-plain verdict); the host ms of
+              arming and of each swap's recording, the signature's
+              length and the two counts printed;
    control_replay -- bench.py --compare-control in the port
               (CONTROL_REPLAY: the MLP on 3 parties, 60 steps, a modelled
               WAN under a throttle-and-delay schedule): the controller
@@ -567,18 +583,20 @@ FIRST_PATH = {name: next(p for p, kernels in _PATH_KERNELS.items()
 
 
 def make_trainer(path: str, model=None, device=None, precision=None,
-                 **fields):
+                 fused=None, **fields):
     """The Trainer of one configuration of PATHS or REFERENCE_ONLY, on
-    ``model`` (default: the configuration's zoo model); ``fields``
-    override its GeoConfig fields."""
+    ``model`` (default: the configuration's zoo model); ``fused``
+    overrides whether it runs the fused optimizer, ``fields`` its
+    GeoConfig fields."""
     from geomx_tpu_torch import GeoConfig, HiPSTopology
     from geomx_tpu_torch.models import get_model
     from geomx_tpu_torch.ops.optim import fused_optimizer
     from geomx_tpu_torch.optim import adam, get_optimizer, sgd
     from geomx_tpu_torch.train import Trainer
 
-    name, (kind, lr), spec, fused, _, _, (P, W), extra = \
+    name, (kind, lr), spec, path_fused, _, _, (P, W), extra = \
         PATHS[path] if path in PATHS else REFERENCE_ONLY[path]
+    fused = path_fused if fused is None else fused
     if fused:
         tx = fused_optimizer(kind, learning_rate=lr, momentum=0.9)
     elif kind == "adam":
@@ -3508,6 +3526,209 @@ def telemetry_phase(torch, device=None, batch: int = 128,
         set_default_event_log(None)
 
 
+def _audit_env_trainer(path: str, **kw):
+    """make_trainer under GEOMX_AUDIT=1 (the variable restored after)."""
+    prev = os.environ.get("GEOMX_AUDIT")
+    os.environ["GEOMX_AUDIT"] = "1"
+    try:
+        return make_trainer(path, **kw)
+    finally:
+        if prev is None:
+            os.environ.pop("GEOMX_AUDIT", None)
+        else:
+            os.environ["GEOMX_AUDIT"] = prev
+
+
+def audit_fsa_phase(torch, device=None, batch: int = 128,
+                    depth_batch: int = 32) -> dict:
+    """Phase audit_fsa: resilience_fsa's configuration (ResNet-20 at full
+    width on [4, 2], 128 images a replica, "bsc,0.01", the fused
+    SGD-momentum) with GEOMX_AUDIT=1.  Gates: (a) fit's first batch arms
+    the auditor (one recording on CPU zeros); (b) a swap to
+    RESILIENCE_REFERENCE_MASK and back audits clean, a step under the
+    mask reports 3 live parties; (c) against a reference signature cut by
+    one entry the swap raises AuditError (GX-COLLECTIVE-002) with the
+    active step and binding left in place; (d) the per-leaf SGD twin
+    (a depth-1 drain does not compose with the fused apply, as in the
+    JAX package), at ``depth_batch`` images a replica (a recording is a
+    CPU step, its host time grows with the batch; the collectives do
+    not), re-arms clean at a depth switch 0->1->0, one reference after
+    each; (e) an audited step makes the launch calls, in order, of
+    an unaudited twin's step; (f) on the card, hlo.materialization_counts
+    of the fused BSC compress is below the plain version's on the same
+    CUDA tensors, the dense cumsum/scatter gone with kernel 3 launched
+    (hlo.compare_paths / assert_dense_intermediates_removed); finite
+    losses.  Prints the host ms of arming and each recording, the
+    signature's length and the two counts."""
+    from geomx_tpu_torch import ops
+    from geomx_tpu_torch.analysis import AuditError, hlo, record_program
+    from geomx_tpu_torch.control import Decision
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.ops import bsc as bsc_ops
+    from geomx_tpu_torch.ops.sampled_topk import probe_positions
+    from geomx_tpu_torch.tree import leaf_names
+
+    t_phase = time.perf_counter()
+    # the recorder's one-off cost in a process (torch's lazy imports on a
+    # first dispatch mode), apart from the arming it would land in
+    t0 = time.perf_counter()
+    record_program(lambda x: x + 1.0, torch.zeros(1))
+    first_use_ms = 1e3 * (time.perf_counter() - t0)
+    _, _, _, _, _, _, (P, W), _ = PATHS["resilience_fsa"]
+    mask = RESILIENCE_REFERENCE_MASK
+    data = load_dataset("synthetic", synthetic_train_n=P * W * batch * 2)
+    trainer = _audit_env_trainer("resilience_fsa", model=get_model(
+        "resnet20"), device=device)
+    on_card = trainer.device.type == "cuda"
+    loader = trainer.make_loader(data["train_x"], data["train_y"], batch)
+    batches = list(loader.epoch(0, prefetch=0))[:2]
+    res = {"device": str(trainer.device), "batch": batch,
+           "recorder_first_use_ms": first_use_ms}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    state = trainer.init_state(seed=0)
+    sync()
+    ops.reset_launch_counts()
+    state, _ = trainer.fit(state, _Batches(batches[:1]), epochs=1,
+                           log_fn=lambda s: None)
+    sync()
+    res["launches"] = ops.launch_counts()
+    res["arm_ms"] = trainer.audit_record_ms[0]
+    ref_sig, ref_findings = trainer._audit_sigs[None]
+    res["signature_len"] = len(ref_sig)
+    res["signature_collectives"] = sorted({e[0] for e in ref_sig})
+    _gate(res, "armed", trainer._audit_args is not None
+          and len(trainer.audit_record_ms) == 1 and ref_findings == [])
+    losses = []
+    # (b) the swap to the mask and back
+    state = trainer.apply_membership(state, mask)
+    state, m = trainer.train_step(state, *batches[1])
+    losses.append(float(m["loss"]))
+    live_under_mask = float(m["num_live_parties"])
+    state = trainer.apply_membership(state, (True,) * P)
+    state, m = trainer.train_step(state, *batches[0])
+    losses.append(float(m["loss"]))
+    res["swap_ms"] = trainer.audit_record_ms[1:]
+    _gate(res, "swap_audits_clean", set(trainer._audit_sigs) == {None, mask}
+          and trainer._audit_sigs[mask][0] == ref_sig
+          and live_under_mask == float(sum(mask))
+          and len(trainer.audit_record_ms) == 2)
+    # (c) an injected divergence: the reference one entry short
+    active = trainer.train_step
+    trainer._audit_sigs[None] = (ref_sig[:-1], ref_findings)
+    raised = None
+    try:
+        trainer.apply_membership(state, mask)
+    except AuditError as e:
+        raised = sorted({f.rule_id for f in e.findings})
+    finally:
+        trainer._audit_sigs[None] = (ref_sig, ref_findings)
+    res["divergence_findings"] = raised
+    _gate(res, "divergence_raises_before_swap",
+          raised == ["GX-COLLECTIVE-002"] and trainer.train_step is active
+          and trainer.sync.live_parties is None
+          and trainer._membership is None)
+    # (e) the audited step's launch calls against an unaudited twin's
+    twin = make_trainer("resilience_fsa", get_model("resnet20"),
+                        device=device)
+    tstate = twin.init_state(seed=0)
+    tstate, _ = twin.train_step(tstate, *batches[0])  # lazily built consts
+    calls_on, _ = _cuda_launches(torch, lambda: trainer.train_step(
+        state, *batches[1]))
+    calls_off, _ = _cuda_launches(torch, lambda: twin.train_step(
+        tstate, *batches[1]))
+    res["launch_calls_per_step_on"] = len(calls_on)
+    res["launch_calls_per_step_off"] = len(calls_off)
+    _gate(res, "same_launch_calls_audit_on_off", calls_on == calls_off)
+    if calls_on != calls_off:
+        log(f"audit_fsa: launch calls differ at "
+            f"{_first_difference(calls_on, calls_off)}")
+    del twin, tstate
+    # (d) the depth switch on the per-leaf SGD twin
+    depth_tr = _audit_env_trainer("resilience_fsa", model=get_model(
+        "resnet20"), device=device, fused=False, control=True)
+    dloader = depth_tr.make_loader(data["train_x"], data["train_y"],
+                                   depth_batch)
+    dbatches = list(dloader.epoch(0, prefetch=0))[:2]
+    dstate = depth_tr.init_state(seed=0)
+    dstate, _ = depth_tr.fit(dstate, _Batches(dbatches[:1]), epochs=1,
+                             log_fn=lambda s: None)
+    sig_len = {0: len(depth_tr._audit_sigs[None][0])}
+    ok = True
+    for depth in (1, 0):
+        dstate = depth_tr.apply_control(dstate, Decision(
+            step=0, kind="depth", value=depth, prev=1 - depth, reason="audit"))
+        dstate, m = depth_tr.train_step(dstate, *dbatches[1])
+        losses.append(float(m["loss"]))
+        ok = ok and list(depth_tr._audit_sigs) == [None] \
+            and depth_tr._audit_sigs[None][1] == [] \
+            and depth_tr.control_depth() == depth
+        sig_len[depth if depth else "0_again"] = len(
+            depth_tr._audit_sigs[None][0])
+    res["depth_signature_len"] = sig_len
+    res["depth_record_ms"] = depth_tr.audit_record_ms
+    _gate(res, "depth_switch_rearms_clean", ok
+          and len(depth_tr.audit_record_ms) == 3
+          and sig_len["0_again"] == sig_len[0])
+    del depth_tr, dstate
+    # (f) the fused-versus-plain verdict on the card
+    if on_card:
+        bucketed, _ = dc_tier(trainer.sync)
+        comp = bucketed.inner
+        n = bucketed.zero_bucketer([state.params[k] for k in leaf_names(
+            state.params)]).bucket_sizes[0]
+        gen = torch.Generator(device=trainer.device).manual_seed(21)
+        g = torch.randn((P, W, n), device=trainer.device, generator=gen)
+        u = torch.randn((P, W, n), device=trainer.device, generator=gen)
+        v = torch.randn((P, W, n), device=trainer.device, generator=gen)
+        k = comp.k_for(n)
+        pos = probe_positions(n, device=trainer.device)
+
+        def plain(g, u, v):
+            thr = bsc_ops.sampled_boundary_guv(g, u, v, k, positions=pos)
+            return bsc_ops.select_pack_plain(g, u, v, thr, k)
+
+        verdict = hlo.compare_paths(plain, comp.compress, g, u, v,
+                                    dense_ops=("cumsum", "scatter"))
+        res["materialization"] = verdict
+        ok = True
+        try:
+            hlo.assert_dense_intermediates_removed(verdict)
+        except AssertionError as e:
+            log(f"audit_fsa: {e}")
+            ok = False
+        _gate(res, "fused_compress_materializes_less", ok
+              and verdict["fused"]["total"] < verdict["unfused"]["total"]
+              and verdict["unfused"]["kernel_launches"] == 0)
+    _gate(res, "finite_losses", all(math.isfinite(x) for x in losses))
+    res["losses"] = losses
+    res["wall_s"] = time.perf_counter() - t_phase
+    mat = res.get("materialization")
+    log(f"audit_fsa: [{P}, {W}] x {batch}, the recorder's first use "
+        f"{first_use_ms:.1f} ms, arming {res['arm_ms']:.1f} ms "
+        f"host, swap recordings {[round(x, 1) for x in res['swap_ms']]} "
+        f"ms, depth re-arms "
+        f"{[round(x, 1) for x in res['depth_record_ms']]} ms (arm, 0->1, "
+        f"1->0); signature {res['signature_len']} entries "
+        f"({', '.join(res['signature_collectives'])}), depth "
+        f"{res['depth_signature_len']}; divergence "
+        f"{res['divergence_findings']}; launch calls a step "
+        f"{res['launch_calls_per_step_on']} audited / "
+        f"{res['launch_calls_per_step_off']} unaudited; "
+        + ("materializing ops of the BSC compress: plain "
+           f"{mat['unfused']} vs fused {mat['fused']}" if mat else
+           "no card: the fused-versus-plain verdict not taken")
+        + f"; wall {res['wall_s']:.1f} s")
+    failed = [k_ for k_, v_ in res["gates"].items() if not v_]
+    if failed:
+        raise AssertionError(f"audit_fsa: gates failed: {failed}")
+    return res
+
+
 def ledger_phase(torch, device=None, rounds: int = HOST_PLANE_ROUNDS) -> dict:
     """Phase ledger_host_plane: host_plane_resnet20's in-process plane
     (65 leaves, 2 parties, the relay's kernel 3 on ``device``) with the
@@ -6203,6 +6424,7 @@ def main(argv=None) -> int:
              for path, cfg in PATHS.items()}
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
     telemetry = telemetry_phase(torch)
+    audit = audit_fsa_phase(torch)
     control = {"control_fsa": control_fsa_phase(torch),
                "control_replay": control_replay_phase(torch)}
     host = {path: dist_ps_phase(torch, path) for path in DIST_PS}
@@ -6242,6 +6464,7 @@ def main(argv=None) -> int:
                        "shard_phase": shards,
                        "zero_dense_max_param_diff": zero_diff,
                        "paths": paths, "telemetry_fsa": telemetry,
+                       "audit_fsa": audit,
                        "control": control,
                        "host_plane": host,
                        "examples": examples, "serving": serving,

@@ -1,7 +1,8 @@
 """Environment-variable configuration surface (port of geomx_tpu/config.py).
 
-An adapted copy of ``GeoConfig`` holding only the fields the ported main
-path reads.  Every knob reads the same ``GEOMX_*`` variable first and
+An adapted copy of ``GeoConfig`` with every field of the JAX package's,
+under the same names and defaults (the host-plane-only knobs included,
+which configure nothing in the step, as there).  Every knob reads the same ``GEOMX_*`` variable first and
 falls back to the reference's original ``DMLC_*`` name, exactly as the
 JAX package does, so one launch environment configures both packages.
 
@@ -73,7 +74,11 @@ class GeoConfig:
     # ---- gradient compression spec: "none" | "bsc,<ratio>[,key=val]" |
     # "2bit,<threshold>"
     compression: str = "none"
+    bsc_threshold: float = 0.01       # -bcr default (reference examples/cnn_bsc.py)
     twobit_threshold: float = 0.5
+    # MPQ size split (reference MXNET_KVSTORE_SIZE_LOWER_BOUND,
+    # src/kvstore/kvstore_dist_server.h:183; the demo uses 200000)
+    size_lower_bound: int = 200_000
 
     # ---- bucketed dc-tier communication (compression/bucketing.py);
     # 0 restores the per-leaf path
@@ -101,6 +106,19 @@ class GeoConfig:
     adaptive_k: bool = False          # ADAPTIVE_K_FLAG (read, not acted on)
     udp_channel_num: int = 1          # DMLC_UDP_CHANNEL_NUM
 
+    # ---- P3 (reference ENABLE_P3, src/kvstore/kvstore_dist.h:835-872)
+    # and TSEngine (reference van.cc:447-454).  These, bsc_threshold,
+    # size_lower_bound and heartbeat_interval_s configure nothing in the
+    # step, as in the JAX package: they are read and kept so that one
+    # launch environment parses alike in both packages, and the host plane
+    # reads its own variables (service/client.py, service/scheduler.py,
+    # examples/dist_ps.py)
+    enable_p3: bool = False
+    p3_slice_elems: int = 500_000     # bigarray_bound // 2 in the reference
+    enable_inter_ts: bool = False
+    enable_intra_ts: bool = False
+    max_greed_rate: float = 0.9       # MAX_GREED_RATE_TS
+
     # ---- the ZeRO-sharded weight update over the dc tier's fused
     # buckets (train/zero.py); needs bucketing and sync_mode fsa or mixed
     # (pipelined composes)
@@ -120,9 +138,11 @@ class GeoConfig:
     # ---- data (load_dataset's root)
     data_dir: str = DEFAULT_DATA_DIR
 
-    # ---- liveness: a node silent this long is dead (reference
-    # PS_HEARTBEAT_TIMEOUT, van.h:304-305); the PartyLivenessController's
+    # ---- liveness (reference van.cc:1147-1160): the heartbeat period (0
+    # disables) and the silence after which a node is dead (reference
+    # PS_HEARTBEAT_TIMEOUT, van.h:304-305), the PartyLivenessController's
     # default timeout
+    heartbeat_interval_s: float = 0.0
     heartbeat_timeout_s: float = 15.0
 
     # ---- resilience (resilience/: membership epochs, degraded-mode
@@ -136,10 +156,10 @@ class GeoConfig:
     # chaos schedule spec (resilience/chaos.py format); "" = no chaos
     chaos_schedule: str = ""
 
-    # ---- the JAX package's collective audit at a membership swap
-    # (analysis/).  Read and kept: the port acts on it nowhere but
-    # Trainer.apply_membership, which refuses a swap while it is on
-    # (ROADMAP.md Queue 1, "Audits")
+    # ---- the collective audit (analysis/): the Trainer records the step
+    # program's collective signature on the first fit batch and diffs
+    # every membership swap's program against it, re-arming at a depth
+    # switch; findings at audit_severity or above raise AuditError
     audit: bool = False
     audit_severity: str = "error"
 
@@ -218,7 +238,11 @@ class GeoConfig:
             dcasgd=_env_bool(["GEOMX_DCASGD"], False),
             dcasgd_lambda=_env(["GEOMX_DCASGD_LAMBDA"], 0.04, float),
             compression=_env(["GEOMX_COMPRESSION"], "none", str),
+            bsc_threshold=_env(["GEOMX_BSC_THRESHOLD"], 0.01, float),
             twobit_threshold=_env(["GEOMX_2BIT_THRESHOLD"], 0.5, float),
+            size_lower_bound=_env(
+                ["GEOMX_SIZE_LOWER_BOUND", "MXNET_KVSTORE_SIZE_LOWER_BOUND"],
+                200_000, int),
             bucket_bytes=_env(["GEOMX_BUCKET_BYTES"], 4 * 1024 * 1024,
                               lambda s: int(float(s))),
             precision=_env(["GEOMX_PRECISION"], "fp32", str),
@@ -237,6 +261,14 @@ class GeoConfig:
                                  False),
             udp_channel_num=_env(["GEOMX_UDP_CHANNEL_NUM",
                                   "DMLC_UDP_CHANNEL_NUM"], 1, int),
+            enable_p3=_env_bool(["GEOMX_ENABLE_P3", "ENABLE_P3"], False),
+            p3_slice_elems=_env(["GEOMX_P3_SLICE_ELEMS"], 500_000, int),
+            enable_inter_ts=_env_bool(["GEOMX_ENABLE_INTER_TS",
+                                       "ENABLE_INTER_TS"], False),
+            enable_intra_ts=_env_bool(["GEOMX_ENABLE_INTRA_TS",
+                                       "ENABLE_INTRA_TS"], False),
+            max_greed_rate=_env(["GEOMX_MAX_GREED_RATE",
+                                 "MAX_GREED_RATE_TS"], 0.9, float),
             zero=_env_bool(["GEOMX_ZERO"], False),
             bigarray_bound=_env(
                 ["GEOMX_BIGARRAY_BOUND", "MXNET_KVSTORE_BIGARRAY_BOUND"],
@@ -244,6 +276,9 @@ class GeoConfig:
             multi_gps=_env_bool(["GEOMX_MULTI_GPS"], False),
             prefetch=_env(["GEOMX_PREFETCH"], 2, lambda s: int(float(s))),
             data_dir=_env(["GEOMX_DATA_DIR"], DEFAULT_DATA_DIR, str),
+            heartbeat_interval_s=_env(
+                ["GEOMX_HEARTBEAT_INTERVAL", "PS_HEARTBEAT_INTERVAL"], 0.0,
+                float),
             heartbeat_timeout_s=_env(
                 ["GEOMX_HEARTBEAT_TIMEOUT", "PS_HEARTBEAT_TIMEOUT"], 15.0,
                 float),

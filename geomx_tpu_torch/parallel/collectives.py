@@ -20,9 +20,19 @@ from __future__ import annotations
 
 import torch
 
-from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
+from geomx_tpu_torch.topology import DC_AXIS, SP_AXIS, WORKER_AXIS
 
 _DIM = {DC_AXIS: 0, WORKER_AXIS: 1}
+
+_recorder = None
+
+
+def set_recorder(fn):
+    """Install ``fn`` in the recorder slot (None clears it); returns the
+    callable it replaces."""
+    global _recorder
+    prev, _recorder = _recorder, fn
+    return prev
 
 
 def axis_dim(axis_name: str) -> int:
@@ -36,6 +46,8 @@ def axis_dim(axis_name: str) -> int:
 def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     """Sum over one replica axis, as every replica on it receives it."""
     d = axis_dim(axis_name)
+    if _recorder is not None:
+        _recorder("psum", axis_name, x, 2, ())
     return x.sum(dim=d, keepdim=True).expand_as(x)
 
 
@@ -89,6 +101,8 @@ def psum_scatter(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     if x.dim() != 3 or x.shape[-1] % A:
         raise ValueError(f"psum_scatter takes [P, W, {A} * s] rows, got "
                          f"{tuple(x.shape)}")
+    if _recorder is not None:
+        _recorder("reduce_scatter", axis_name, x, 2, ())
     s = x.shape[-1] // A
     if d == 1:
         # out[p, w] = sum_q x[p, q, w*s:(w+1)*s]
@@ -107,6 +121,8 @@ def all_gather(x: torch.Tensor, axis_name: str,
     instead, ``[P, W, A * s0, *s[1:]]`` (``tiled=True``): the inverse of
     :func:`psum_scatter`'s layout.  A view where it can be one."""
     P, W = x.shape[:2]
+    if _recorder is not None:
+        _recorder("all_gather", axis_name, x, 2, ())
     if axis_dim(axis_name) == 0:
         # out[p, w, q] = x[q, w]
         out = x.transpose(0, 1).unsqueeze(0).expand(P, W, P, *x.shape[2:])
@@ -124,6 +140,8 @@ def all_gather_dc(x: torch.Tensor) -> torch.Tensor:
 def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     """Maximum over one replica axis, as every replica on it receives it."""
     d = axis_dim(axis_name)
+    if _recorder is not None:
+        _recorder("pmax", axis_name, x, 2, ())
     return x.amax(dim=d, keepdim=True).expand_as(x)
 
 
@@ -133,7 +151,10 @@ def all_to_all(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     the result holds, at ``q``, the block that replica ``q`` of the axis
     addressed to it (``lax.all_to_all`` with ``split_axis=0,
     concat_axis=0``).  A view."""
-    if axis_dim(axis_name) == 0:
+    d = axis_dim(axis_name)
+    if _recorder is not None:
+        _recorder("all_to_all", axis_name, x, 2, ())
+    if d == 0:
         # out[p, w, q] = x[q, w, p]
         return x.transpose(0, 2)
     # out[p, w, q] = x[p, q, w]
@@ -160,11 +181,17 @@ def global_worker_rank(P: int, W: int, device=None) -> torch.Tensor:
 def ppermute_sp(x: torch.Tensor) -> torch.Tensor:
     """The ring step ``lax.ppermute(x, "sp", [(i, (i + 1) % n)])``: shard
     ``i`` receives shard ``i - 1``'s block."""
+    if _recorder is not None:
+        n = x.shape[0]
+        _recorder("ppermute", SP_AXIS, x, 1,
+                  (("perm", tuple((i, (i + 1) % n) for i in range(n))),))
     return torch.roll(x, 1, dims=0)
 
 
 def pmean_sp(x: torch.Tensor) -> torch.Tensor:
     """Mean over the sp shards, as every shard receives it."""
+    if _recorder is not None:
+        _recorder("psum", SP_AXIS, x, 1, ())
     return x.mean(dim=0, keepdim=True).expand_as(x)
 
 
@@ -176,6 +203,8 @@ def all_to_all_sp(x: torch.Tensor, split_dim: int,
     concatenation, along ``concat_dim`` and in shard order, of chunk
     ``j`` (of ``S`` along ``split_dim``) of every shard.  A copy."""
     S = x.shape[0]
+    if _recorder is not None:
+        _recorder("all_to_all", SP_AXIS, x, 1, ())
     nd = x.dim() - 1
     split, concat = split_dim % nd + 1, concat_dim % nd + 1
     if x.shape[split] % S:

@@ -71,6 +71,8 @@ from geomx_tpu_torch.compression.bucketing import BucketedCompressor
 from geomx_tpu_torch.control import actuators as _control
 from geomx_tpu_torch.ops.optim import (fused_apply, fused_optim_enabled,
                                        fused_spec_of)
+from geomx_tpu_torch.parallel.collectives import (pmean_dc, pmean_worker,
+                                                  psum_dc)
 from geomx_tpu_torch.telemetry import probes as _probes
 from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
 from geomx_tpu_torch.train.state import TrainState
@@ -395,11 +397,21 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
             applied = ([grads[k][0, 0] for k in leaf_names(grads)], None)
         return params, opt_state, sync_state, applied
 
-    def global_mean(vals):
-        per_party = torch.stack(vals).view(P, W).mean(1)
+    def global_means(per_replica: dict) -> dict:
+        """Each ``[P, W]`` metric's mean over workers, then parties (under
+        a membership mask, the survivors' mean), through the collectives
+        the JAX step runs on its metric dict: the worker pmean of every
+        metric, then the dc one, in sorted key order (the order
+        ``jax.tree.leaves`` walks a dict in)."""
+        names = sorted(per_replica)
+        out = {k: pmean_worker(torch.stack(per_replica[k]).view(P, W))
+               for k in names}
         if sync.live_parties is None:
-            return per_party.mean(0)
-        return sync.mask_parties(per_party.view(P, 1)).sum() / sync.num_live
+            out = {k: pmean_dc(out[k]) for k in names}
+        else:
+            out = {k: psum_dc(sync.mask_parties(out[k])) / sync.num_live
+                   for k in names}
+        return {k: out[k][0, 0] for k in names}
 
     def num_live_metric(device):
         """The live-party count the step ran with, a 0-d fp32 tensor made
@@ -490,9 +502,8 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
 
         # global mean over every replica: workers first, then parties
         # (under a membership mask, the survivors' mean)
-        metrics = {"loss": global_mean(losses),
-                   "accuracy": global_mean(accs),
-                   "num_live_parties": num_live_metric(losses[0].device)}
+        metrics = global_means({"loss": losses, "accuracy": accs})
+        metrics["num_live_parties"] = num_live_metric(losses[0].device)
         if telem:
             if "wire" not in wire_cache:
                 wire_cache["wire"] = _probes.static_wire_accounting(

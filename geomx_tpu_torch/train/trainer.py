@@ -37,9 +37,21 @@ mask's step (built on first use, cached after) and applies the residual
 policy; ``catchup_payload``/``admit_party`` carry the authoritative state
 to a returning party, in the checkpoint tree format (under ZeRO through
 ``host_zero_state``/``place_zero_state``, which keep every worker's
-shard).  The collective audit the JAX package runs at that swap under
-``GEOMX_AUDIT`` is ROADMAP.md Queue 1 item "Audits": ``apply_membership``
-refuses a swap while the knob is on.
+shard).
+
+The collective audit (``analysis/``, ``GEOMX_AUDIT``): ``fit`` arms the
+auditor on its first batch, recording the installed step's collective
+signature; ``apply_membership`` records the new mask's step and diffs
+its signature against that reference (``GX-COLLECTIVE-002``) before the
+swap, and a depth switch re-arms on the new step.  A program is recorded
+by running it once on CPU zeros at the state's and the batch's shapes
+and dtypes (the CPU RNG forked around it): the live state is never
+read or written, nothing launches on the card, and every kernel wrapper
+runs its plain version, which makes the same collective calls.  The cost
+is one plain CPU step on the host at arming and at each swap
+(``audit_record_ms``).  Findings at ``GEOMX_AUDIT_SEVERITY`` or above
+raise ``AuditError`` with the active step left in place; below it they
+warn.
 
 Telemetry (``telemetry/``): with ``GEOMX_TELEMETRY`` the step carries
 its probes (``train/step.py``) and ``fit`` publishes them at the log
@@ -58,8 +70,8 @@ wraps or unwraps ``PipelinedSync`` with the dc-tier error feedback
 carried across and the new step cached per (depth, membership) in
 ``_control_cache``.  As in the JAX package, the swap carries copy
 ``(0, 0)`` of the sync state into every slot, as ``apply_membership``'s
-``"carry"`` does.  A depth switch under ``GEOMX_AUDIT`` is refused
-("Audits").
+``"carry"`` does.  Under ``GEOMX_AUDIT`` a depth switch re-arms the
+auditor on the new step.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without that request it raises.
@@ -78,7 +90,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from geomx_tpu_torch.config import GeoConfig, unported
+from geomx_tpu_torch.config import GeoConfig
 from geomx_tpu_torch.control.actuators import (CONTROL_KEY, control_enabled,
                                                init_control_operands)
 from geomx_tpu_torch.data.loader import GeoDataLoader
@@ -176,6 +188,16 @@ class Trainer:
             # depth switch builds later carry the operands too
             self.config = dataclasses.replace(self.config, control=True)
         self._control_cache: dict = {}
+        # the collective audit (analysis/): armed by fit's first batch;
+        # every membership swap's step is diffed against the reference
+        from geomx_tpu_torch.analysis import (audit_enabled,
+                                              audit_severity_gate)
+        self._audit = audit_enabled(self.config)
+        self._audit_gate = audit_severity_gate(self.config) \
+            if self._audit else "error"
+        self._audit_args = None     # (state, x, y) shapes and dtypes
+        self._audit_sigs: dict = {}  # membership key -> (signature, findings)
+        self.audit_record_ms: list = []  # host ms of each recording
         self._init_telemetry()
 
     def _init_telemetry(self) -> None:
@@ -397,9 +419,7 @@ class Trainer:
             # the trainer half switched to the new mask
             raise ValueError(f"unknown residual policy {policy!r}: "
                              "expected 'reset' or 'carry'")
-        if getattr(self.config, "audit", False):
-            raise unported("the collective audit of a membership swap "
-                           "(GEOMX_AUDIT)", "Audits")
+        prev = (self._membership, self._membership_version)
         self.sync.bind_membership(mask)
         self._membership = key
         self._membership_version = getattr(epoch, "version",
@@ -410,6 +430,19 @@ class Trainer:
                                        self.topology, self.config,
                                        sp_model=self._sp_model)
             self._step_cache[key] = step_fn
+        # the audit at the swap (GEOMX_AUDIT): the new mask's step must
+        # make the same ordered collective calls as the reference — a
+        # mask changes operands, never collectives.  On AuditError the
+        # sync is bound back to the previous mask (the steps share it),
+        # so the active step runs on unchanged
+        try:
+            self._audit_membership_program(key, step_fn)
+        except Exception:
+            self.sync.bind_membership(
+                [True] * self.topology.num_parties if prev[0] is None
+                else prev[0])
+            self._membership, self._membership_version = prev
+            raise
         self.train_step = step_fn
         if self._zero_plan is not None and policy == "carry":
             return state
@@ -420,6 +453,63 @@ class Trainer:
             opt_state=state.opt_state, model_state=state.model_state,
             sync_state=_join_control(self.sync.reset_comm_state(
                 state.params, sync_state, policy), ctl))
+
+    # ---- the collective audit (analysis/) ---------------------------------
+
+    def _step_signature(self, step_fn):
+        """Collective signature and single-program consistency findings of
+        a step, recorded on CPU zeros at the armed shapes (module
+        docstring); the host ms it took joins ``audit_record_ms``."""
+        import time
+
+        from geomx_tpu_torch.analysis import (AuditContext,
+                                              CollectiveConsistencyPass,
+                                              record_program)
+        t0 = time.perf_counter()
+        spec, xb, yb = self._audit_args
+        st = _map_state(_cpu_zeros, spec)
+        xb, yb = _cpu_zeros(xb), _cpu_zeros(yb)
+        with torch.random.fork_rng(devices=[]):
+            rec = record_program(step_fn, st, xb, yb)
+        ctx = AuditContext()
+        findings = CollectiveConsistencyPass().run(rec, ctx)
+        self.audit_record_ms.append(1e3 * (time.perf_counter() - t0))
+        return ctx.extras["collective_signature"], findings
+
+    def _audit_capture(self, state: TrainState, xb, yb) -> None:
+        """Arm the auditor: keep the step arguments' shapes and dtypes
+        and record the active step's collective signature (once a
+        Trainer; the first fit batch with GEOMX_AUDIT on)."""
+        if not self._audit or self._audit_args is not None:
+            return
+        self._audit_args = (_map_state(_spec, state), _spec(xb), _spec(yb))
+        self._audit_sigs[self._membership] = self._step_signature(
+            self.train_step)
+
+    def _audit_membership_program(self, key, step_fn) -> None:
+        """Audit the membership step about to be installed: its
+        collective signature is diffed against the armed reference
+        (divergence is GX-COLLECTIVE-002, always error severity) and the
+        step's own consistency findings join in.  Findings at or above
+        GEOMX_AUDIT_SEVERITY raise AuditError; below it they warn."""
+        if not self._audit or self._audit_args is None:
+            return
+        cached = self._audit_sigs.get(key)
+        if cached is None:
+            cached = self._step_signature(step_fn)
+            self._audit_sigs[key] = cached
+        sig, prog_findings = cached
+        ref_key, (ref, _) = next(iter(self._audit_sigs.items()))
+        if key == ref_key:
+            return
+        from geomx_tpu_torch.analysis import (diff_collective_signatures,
+                                              enforce)
+        findings = enforce(list(prog_findings) + diff_collective_signatures(
+            {f"membership={ref_key}": ref, f"membership={key}": sig},
+            rule_id="GX-COLLECTIVE-002"), self._audit_gate)
+        if findings:  # below the gate: surface without stopping the run
+            warnings.warn("\n".join(f.format() for f in findings),
+                          RuntimeWarning, stacklevel=3)
 
     def catchup_payload(self, state: TrainState) -> bytes:
         """The re-admission catch-up blob: one copy of the full state
@@ -537,9 +627,6 @@ class Trainer:
                           "no dc-tier collective to pipeline",
                           RuntimeWarning, stacklevel=2)
             return state
-        if getattr(self.config, "audit", False):
-            raise unported("the collective audit of a depth switch "
-                           "(GEOMX_AUDIT)", "Audits")
         if target == 0:
             # land the in-flight aggregate before the swap: the parked
             # gradient applies exactly once, nothing is lost
@@ -588,6 +675,23 @@ class Trainer:
                                        sp_model=self._sp_model)
             step_fn.sync = new_sync
             self._control_cache[cache_key] = step_fn
+        new_state = TrainState(step=state.step, params=state.params,
+                               opt_state=state.opt_state,
+                               model_state=state.model_state,
+                               sync_state=sync_state)
+        # the audit across the swap: a depth change legitimately changes
+        # the collective sequence, so the reference is re-armed on the new
+        # step (its own findings gate before it is installed)
+        if self._audit and self._audit_args is not None:
+            _, xb_s, yb_s = self._audit_args
+            self._audit_args = (_map_state(_spec, new_state), xb_s, yb_s)
+            sig, findings = self._step_signature(step_fn)
+            from geomx_tpu_torch.analysis import enforce
+            leftover = enforce(list(findings), self._audit_gate)
+            if leftover:
+                warnings.warn("\n".join(f.format() for f in leftover),
+                              RuntimeWarning, stacklevel=2)
+            self._audit_sigs = {self._membership: (sig, findings)}
         # install: the new sync owns the dc compressor stack from here;
         # membership steps built against the old one drop
         self.sync = new_sync
@@ -595,10 +699,7 @@ class Trainer:
         self.config = dataclasses.replace(self.config,
                                           pipeline_depth=target)
         self._step_cache = {self._membership: step_fn}
-        return TrainState(step=state.step, params=state.params,
-                          opt_state=state.opt_state,
-                          model_state=state.model_state,
-                          sync_state=sync_state)
+        return new_state
 
     # ---- checkpointing ---------------------------------------------------
 
@@ -753,6 +854,7 @@ class Trainer:
         losses, accs = [], []
         telem = None
         for xb, yb in loader.cached_batches(sel, gen):
+            self._audit_capture(state, xb, yb)
             state, metrics = self.train_step(state, xb, yb)
             losses.append(metrics["loss"])
             accs.append(metrics["accuracy"])
@@ -819,6 +921,9 @@ class Trainer:
         metrics = None
         for epoch in range(epochs):
             for xb, yb in loader.epoch(epoch, prefetch=self._prefetch):
+                # arm the auditor on the first batch (a no-op unless
+                # GEOMX_AUDIT is on)
+                self._audit_capture(state, xb, yb)
                 # step-time attribution (telemetry/attribution.py): every
                 # step is a train/step + train/compute span pair while
                 # the profiler runs (scope() is a no-op when it does
@@ -1061,3 +1166,29 @@ def _join_control(sync_state, ctl):
     if ctl is None:
         return sync_state
     return dict(sync_state, **{CONTROL_KEY: ctl})
+
+
+@dataclasses.dataclass(frozen=True)
+class _Spec:
+    """A tensor's shape and dtype (the audit's ShapeDtypeStruct)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _spec(x):
+    if isinstance(x, torch.Tensor):
+        return _Spec(tuple(x.shape), x.dtype)
+    return x
+
+
+def _cpu_zeros(x):
+    if isinstance(x, _Spec):
+        return torch.zeros(x.shape, dtype=x.dtype)
+    return x
+
+
+def _map_state(fn, state: TrainState) -> TrainState:
+    """``state_map(fn, ...)`` over every field of a TrainState."""
+    return TrainState(**{f.name: state_map(fn, getattr(state, f.name))
+                         for f in dataclasses.fields(state)})

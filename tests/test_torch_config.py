@@ -90,6 +90,25 @@ SERVE_KNOBS = [
     ("GEOMX_SERVE_NATIVE_WIRE", "0", "serve_native_wire", "no way"),
 ]
 ENV += tuple(var for var, *_ in SERVE_KNOBS)
+# the fields that configure nothing in the step (the host plane reads its
+# own variables): variable, a value, the field — every alias of each
+HOST_ONLY_KNOBS = [
+    ("GEOMX_BSC_THRESHOLD", "0.05", "bsc_threshold"),
+    ("GEOMX_SIZE_LOWER_BOUND", "1000", "size_lower_bound"),
+    ("MXNET_KVSTORE_SIZE_LOWER_BOUND", "1000", "size_lower_bound"),
+    ("GEOMX_ENABLE_P3", "1", "enable_p3"),
+    ("ENABLE_P3", "1.0", "enable_p3"),
+    ("GEOMX_P3_SLICE_ELEMS", "4096", "p3_slice_elems"),
+    ("GEOMX_ENABLE_INTER_TS", "1", "enable_inter_ts"),
+    ("ENABLE_INTER_TS", "1", "enable_inter_ts"),
+    ("GEOMX_ENABLE_INTRA_TS", "1", "enable_intra_ts"),
+    ("ENABLE_INTRA_TS", "1", "enable_intra_ts"),
+    ("GEOMX_MAX_GREED_RATE", "0.5", "max_greed_rate"),
+    ("MAX_GREED_RATE_TS", "0.75", "max_greed_rate"),
+    ("GEOMX_HEARTBEAT_INTERVAL", "2.5", "heartbeat_interval_s"),
+    ("PS_HEARTBEAT_INTERVAL", "3", "heartbeat_interval_s"),
+]
+ENV += tuple(var for var, *_ in HOST_ONLY_KNOBS)
 DEFAULTS = [(var, value) for var in KNOBS[:-1] for value in ("0", "")] + [
     ("GEOMX_PIPELINE_DEPTH", "0.0"), ("GEOMX_ZERO", "0.0"),
     ("GEOMX_MULTI_GPS", "0.0"), ("GEOMX_CONTROL", "0.0")]
@@ -207,8 +226,9 @@ def test_telemetry_knob_at_default_passes(monkeypatch, var, value, field,
 
 
 def test_audit_is_not_refused(monkeypatch):
-    """GEOMX_AUDIT acts only at membership or control swaps, which the
-    port refuses on their own: the knob alone passes."""
+    """GEOMX_AUDIT arms the collective audit the Trainer runs at
+    membership and depth swaps (tests/test_torch_analysis.py): the knob
+    alone builds the same FSA."""
     monkeypatch.setenv("GEOMX_AUDIT", "1")
     assert JaxConfig.from_env().audit
     assert isinstance(get_sync_algorithm(GeoConfig.from_env()), FSA)
@@ -400,3 +420,30 @@ def test_serve_knob_read_alone_like_jax(monkeypatch, var, value, field,
         JaxConfig.from_env()
     with pytest.raises(ValueError, match=var):
         GeoConfig.from_env()
+
+
+def test_config_fields_and_defaults_match_jax():
+    """Both GeoConfigs carry the same fields with the same defaults."""
+    import dataclasses
+
+    def fields(cls):
+        return {f.name: f.default for f in dataclasses.fields(cls)}
+
+    assert fields(GeoConfig) == fields(JaxConfig)
+    assert vars(GeoConfig.from_env()) == vars(JaxConfig.from_env())
+
+
+@pytest.mark.parametrize("var,value,field", HOST_ONLY_KNOBS,
+                         ids=[v for v, *_ in HOST_ONLY_KNOBS])
+def test_host_only_knob_alias_parses_like_jax(monkeypatch, var, value,
+                                              field):
+    """Each alias of the fields that configure nothing in the step: the
+    JAX package's value and type, away from the default, with every
+    other field as unset and the default algorithm still built."""
+    monkeypatch.setenv(var, value)
+    cfg, ref = GeoConfig.from_env(), JaxConfig.from_env()
+    got, want = getattr(cfg, field), getattr(ref, field)
+    assert got == want and type(got) is type(want)
+    assert got != getattr(GeoConfig(), field)
+    assert vars(cfg) == vars(ref)
+    assert isinstance(get_sync_algorithm(cfg), FSA)

@@ -47,7 +47,6 @@ import numpy as np
 import optax
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import bench
 import chip_smoke
@@ -63,6 +62,7 @@ from geomx_tpu.sync import get_sync_algorithm as jax_sync
 from geomx_tpu.topology import HiPSTopology as JaxTopology
 from geomx_tpu.train import Trainer as JaxTrainer
 from geomx_tpu_torch import GeoConfig, HiPSTopology
+from geomx_tpu_torch.analysis import record_program
 from geomx_tpu_torch.compression import BiSparseCompressor
 from geomx_tpu_torch.models import MLP
 from geomx_tpu_torch.models.convert import from_flax
@@ -593,27 +593,15 @@ def _leaves(tree):
     return []
 
 
-class _OpLog(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops.append(str(func))
-        return func(*args, **(kwargs or {}))
-
-
 def _port_ops(control, x, y):
     pt = Trainer(MLP(num_classes=10, hidden=(32,)), HiPSTopology(2, 1),
                  sgd(0.05), config=GeoConfig(
                      num_parties=2, workers_per_party=1, compression=SPEC,
                      precision="fp32", control=control), device="cpu")
     st = pt.init_state(seed=0, sample_input=x[:2])
-    log = _OpLog()
-    with log:
-        pt.train_step(st, torch.from_numpy(x).reshape(2, 1, 4, 8, 8, 3),
-                      torch.from_numpy(y).reshape(2, 1, 4))
-    return log.ops
+    return record_program(pt.train_step, st,
+                          torch.from_numpy(x).reshape(2, 1, 4, 8, 8, 3),
+                          torch.from_numpy(y).reshape(2, 1, 4)).ops()
 
 
 def test_disabled_control_dispatches_the_same_ops(monkeypatch):
@@ -646,8 +634,9 @@ REJECTIONS = {
     "depth_under_zero": (dict(zero=True), "depth", 1, ValueError,
                          "GEOMX_ZERO"),
     "depth_bad_value": (dict(), "depth", 2, ValueError, "0 or 1"),
-    "depth_under_audit": (dict(audit=True), "depth", 1, NotImplementedError,
-                          "'Audits'"),
+    # the audit at a depth switch does not change its rejections
+    "depth_under_audit": (dict(audit=True, zero=True), "depth", 1,
+                          ValueError, "GEOMX_ZERO"),
 }
 
 
@@ -665,19 +654,18 @@ def test_apply_control_rejections(case):
     with pytest.raises(exc, match=match):
         pt.apply_control(st, Decision(step=0, kind=kind, value=value,
                                       prev=None, reason="r"))
-    if case != "depth_under_audit":
-        # the JAX Trainer raises the same type and message
-        from geomx_tpu.control import Decision as JaxDecision
-        jcfg = JaxConfig(**cfg)
-        jt = JaxTrainer(FlaxMLP(num_classes=10, hidden=(32,)),
-                        JaxTopology(num_parties=2, workers_per_party=1),
-                        optax.sgd(0.05), sync=jax_sync(jcfg), config=jcfg,
-                        donate=False)
-        jst = jt.init_state(jax.random.PRNGKey(0),
-                            np.zeros((2, 8, 8, 3), np.uint8))
-        with pytest.raises(exc, match=match):
-            jt.apply_control(jst, JaxDecision(step=0, kind=kind, value=value,
-                                              prev=None, reason="r"))
+    # the JAX Trainer raises the same type and message
+    from geomx_tpu.control import Decision as JaxDecision
+    jcfg = JaxConfig(**cfg)
+    jt = JaxTrainer(FlaxMLP(num_classes=10, hidden=(32,)),
+                    JaxTopology(num_parties=2, workers_per_party=1),
+                    optax.sgd(0.05), sync=jax_sync(jcfg), config=jcfg,
+                    donate=False)
+    jst = jt.init_state(jax.random.PRNGKey(0),
+                        np.zeros((2, 8, 8, 3), np.uint8))
+    with pytest.raises(exc, match=match):
+        jt.apply_control(jst, JaxDecision(step=0, kind=kind, value=value,
+                                          prev=None, reason="r"))
 
 
 def test_depth_with_one_party_warns_like_jax():

@@ -827,6 +827,11 @@ def test_multigps_refuses_membership():
 
 
 def test_audit_at_a_membership_swap_is_refused(monkeypatch):
+    """GEOMX_AUDIT=1: a swap whose step diverges from the armed
+    reference's collective program is refused with AuditError before
+    anything is swapped (tests/test_torch_analysis.py covers the clean
+    swaps)."""
+    from geomx_tpu_torch.analysis import AuditError
     monkeypatch.setenv("GEOMX_AUDIT", "1")
     cfg = GeoConfig.from_env(num_parties=2, workers_per_party=1,
                              precision="fp32")
@@ -834,7 +839,13 @@ def test_audit_at_a_membership_swap_is_refused(monkeypatch):
     t = Trainer(ResNet(STAGES, FILTERS, dtype=torch.float32),
                 HiPSTopology(2, 1), sgd(0.05), config=cfg, device="cpu")
     st = t.init_state(seed=0)
-    with pytest.raises(NotImplementedError, match="'Audits'"):
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((rng.rand(2, 1, 2, 16, 16, 3) * 255)
+                         .astype(np.uint8))
+    t._audit_capture(st, x, torch.zeros((2, 1, 2), dtype=torch.int64))
+    ref_sig, ref_findings = t._audit_sigs[None]
+    t._audit_sigs[None] = (ref_sig[1:], ref_findings)
+    with pytest.raises(AuditError, match="GX-COLLECTIVE-002"):
         t.apply_membership(st, (True, False))
     assert t.sync.live_parties is None
     assert t.apply_membership(st, (True, True)) is st  # no swap

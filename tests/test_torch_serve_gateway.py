@@ -891,21 +891,11 @@ def test_serve_knobs_keep_the_step_ops_identical(monkeypatch):
     """The port's form of the byte-identical-jaxpr pin: every
     GEOMX_SERVE_* knob set leaves a Trainer step's ATen op sequence
     unchanged."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from geomx_tpu_torch import GeoConfig, HiPSTopology
+    from geomx_tpu_torch.analysis import record_program
     from geomx_tpu_torch.models import MLP
     from geomx_tpu_torch.optim import sgd
     from geomx_tpu_torch.train import Trainer
-
-    class OpLog(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops.append(str(func))
-            return func(*args, **(kwargs or {}))
 
     rng = np.random.RandomState(0)
     x = (rng.rand(8, 8, 8, 3) * 255).astype(np.uint8)
@@ -918,11 +908,9 @@ def test_serve_knobs_keep_the_step_ops_identical(monkeypatch):
         tr = Trainer(MLP(num_classes=10, hidden=(32,)), HiPSTopology(2, 1),
                      sgd(0.1), config=cfg, device="cpu")
         st = tr.init_state(seed=0, sample_input=x[:2])
-        log = OpLog()
-        with log:
-            tr.train_step(st, torch.from_numpy(x).reshape(2, 1, 4, 8, 8, 3),
-                          torch.from_numpy(y).reshape(2, 1, 4))
-        return log.ops, cfg
+        return record_program(
+            tr.train_step, st, torch.from_numpy(x).reshape(2, 1, 4, 8, 8, 3),
+            torch.from_numpy(y).reshape(2, 1, 4)).ops(), cfg
 
     for var in SERVE_ENV:
         monkeypatch.delenv(var, raising=False)

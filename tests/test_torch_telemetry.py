@@ -30,7 +30,6 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 from test_torch_train import FILTERS, STAGES
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import geomx_tpu.telemetry as jtel
 import geomx_tpu.telemetry.attribution as jattr
@@ -56,6 +55,7 @@ from geomx_tpu.sync import FSA as JaxFSA
 from geomx_tpu.topology import HiPSTopology as JaxTopology
 from geomx_tpu.train import Trainer as JaxTrainer
 from geomx_tpu_torch import GeoConfig, HiPSTopology
+from geomx_tpu_torch.analysis import record_program
 from geomx_tpu_torch.models import ResNet
 from geomx_tpu_torch.models.convert import from_flax
 from geomx_tpu_torch.ops import optim as port_optim
@@ -457,21 +457,10 @@ def test_step_probes_match_jax_trainer():
         assert 0.0 < pp["bsc_emitted_fraction"] <= 1.0
 
 
-class _OpLog(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops.append(str(func))
-        return func(*args, **(kwargs or {}))
-
-
 def _op_sequence(trainer, state, x, y):
-    log = _OpLog()
-    with log:
-        trainer.train_step(state, x, y)
-    return log.ops
+    """The step's ATen ops with their record_function scopes, in order
+    (``analysis/record.py``)."""
+    return record_program(trainer.train_step, state, x, y).ops()
 
 
 @pytest.mark.parametrize("fused", [True, False])
