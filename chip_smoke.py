@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (geomx_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--steps 32] [--verbose-build]
+    python3 chip_smoke.py [--out results.json] [--steps 16] [--verbose-build]
 
 Every phase's failure is fatal (non-zero exit, no result line):
 
@@ -70,7 +70,7 @@ Every phase's failure is fatal (non-zero exit, no result line):
               path with the launch counts reset just before its run and
               read just after:
               1  (flagship)    [2, 4], sgd(0.1, momentum=0.9), "bsc,0.01",
-                               32 steps;
+                               16 steps (--steps);
               1f (fused_sgd)   the same with fused_optimizer("sgd") and
                                GeoConfig(fused_optim=True), 16 steps;
               2  (twobit_adam) [2, 4], fused_optimizer("adam",
@@ -164,6 +164,20 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           through host_zero_state/place_zero_state, every
                           worker's shard back bit-equal.
               Median step times of the paths come from the same call.
+   mesh    -- mesh_fsa, mesh_fused_sgd, mesh_zero: paths 1, 1f and
+              zero_sgd on a [2, 4] ReplicaMesh (topology.build_mesh), one
+              program a slot (parallel/collectives.run_on_mesh), the slots
+              round-robin over the cards (all on cuda:0 with one card,
+              which the phase prints), ResNet-20 bf16, 128 a replica, 8
+              steps, cuDNN deterministic, beside a stacked twin on the
+              first card (mesh_phase): after every step the gathered
+              state and the loss bit-equal to the twin's; the loss finite
+              and falling; every slot launching each kernel of the path as
+              many times a step as the twin's step does; a slot fed a
+              malformed batch failing the step with its own error inside
+              the rendezvous timeout.  Meshed and stacked step ms, peak
+              memory by device and the optimizer-state bytes by device
+              printed, not gated;
    telemetry_fsa -- path 1f again (16 steps) through Trainer.fit with
               GEOMX_TELEMETRY, the event log, the flight recorder (16
               steps) and the run capsule (sampled every 0.5 s) on, cuDNN
@@ -373,6 +387,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -583,11 +598,12 @@ FIRST_PATH = {name: next(p for p, kernels in _PATH_KERNELS.items()
 
 
 def make_trainer(path: str, model=None, device=None, precision=None,
-                 fused=None, **fields):
+                 fused=None, mesh=None, **fields):
     """The Trainer of one configuration of PATHS or REFERENCE_ONLY, on
     ``model`` (default: the configuration's zoo model); ``fused``
     overrides whether it runs the fused optimizer, ``fields`` its
-    GeoConfig fields."""
+    GeoConfig fields; ``mesh``: on that device mesh instead of
+    ``device``."""
     from geomx_tpu_torch import GeoConfig, HiPSTopology
     from geomx_tpu_torch.models import get_model
     from geomx_tpu_torch.ops.optim import fused_optimizer
@@ -612,7 +628,7 @@ def make_trainer(path: str, model=None, device=None, precision=None,
     if model is None:
         model = get_model(name, precision=precision)
     return Trainer(model, HiPSTopology(P, W), tx, config=GeoConfig(**cfg),
-                   device=device)
+                   device=device, mesh=mesh)
 
 
 def path_data(path: str, n: int):
@@ -6354,10 +6370,179 @@ def serve_seq_flash_phase(torch, device=None, **over) -> dict:
     return res
 
 
+# the device-mesh phases: each a path of PATHS on a [2, 4] ReplicaMesh,
+# one program a slot, against a stacked twin on the first card
+MESH_PATHS = {"mesh_fsa": "flagship", "mesh_fused_sgd": "fused_sgd",
+              "mesh_zero": "zero_sgd"}
+MESH_STEPS = 8
+# a slot's wait at a collective before the step fails (the first step
+# pays cuDNN's set-up on every card)
+MESH_TIMEOUT_S = 120.0
+
+
+def mesh_devices(torch, slots: int) -> list:
+    """One device a slot: round-robin over the cards when there are two
+    or more, every slot on cuda:0 on one card."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(slots)]
+
+
+def _sync_all(torch, devices) -> None:
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def mesh_phase(torch, name: str, device=None, batch: int = 128,
+               steps: int = MESH_STEPS) -> dict:
+    """One path of MESH_PATHS on a device mesh, ResNet-20 at full width
+    on [2, 4], ``batch`` a replica, cuDNN deterministic: after every
+    step the meshed state, gathered, is bit-equal to a stacked twin's on
+    the first device from the same seed and batches, and so is the loss;
+    the loss is finite and falls (the last half's mean below the first
+    half's); each slot launches every kernel of the path as many times a
+    step as the twin does in its step; then a slot fed a malformed batch
+    fails the step with its own error inside the rendezvous timeout.
+    Recorded: meshed and stacked step ms, peak memory by device, and
+    the optimizer-state bytes by device.  ``device="cpu"`` runs the
+    slots on repeated CPU slots (the plain kernels; no launch gate)."""
+    from geomx_tpu_torch import HiPSTopology, ops
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+
+    path = MESH_PATHS[name]
+    P, W = PATHS[path][6]
+    if device is None:
+        devices = mesh_devices(torch, P * W)
+    else:
+        devices = [torch.device(device)] * (P * W)
+    mesh = HiPSTopology(P, W).build_mesh(devices, timeout_s=MESH_TIMEOUT_S)
+    first = mesh.first_device
+    on_card = first.type == "cuda"
+    cards = mesh.distinct_devices()
+    log(f"{name}: slots on {[str(d) for d in devices]} "
+        + (f"({len(cards)} cards)" if len(cards) > 1 else
+           f"(one device, every slot on {first}: not a cross-device run)"))
+    data = load_dataset("synthetic", synthetic_train_n=8 * batch * steps)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        twin = make_trainer(path, get_model("resnet20"), device=first)
+        meshed = make_trainer(path, get_model("resnet20"), mesh=mesh)
+        tstate, mstate = twin.init_state(seed=0), meshed.init_state(seed=0)
+        loader = twin.make_loader(data["train_x"], data["train_y"], batch)
+        batches = list(loader.epoch(0))[:steps]
+        if len(batches) < steps:
+            raise AssertionError(f"{name}: {len(batches)} batches for "
+                                 f"{steps} steps")
+        losses, twin_losses, mesh_ms, twin_ms = [], [], [], []
+        per_step, slot_steps = [], []
+        if on_card:
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
+        for i, (xb, yb) in enumerate(batches):
+            _sync_all(torch, cards)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            tstate, tm = twin.train_step(tstate, xb, yb)
+            _sync_all(torch, cards)
+            twin_ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append(ops.launch_counts())
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            mstate, mm = meshed.train_step(mstate, xb, yb)
+            _sync_all(torch, cards)
+            mesh_ms.append(1e3 * (time.perf_counter() - t0))
+            slot_steps.append(ops.slot_launch_counts())
+            losses.append(float(mm["loss"]))
+            twin_losses.append(float(tm["loss"]))
+            gathered = meshed.mesh.gather(mstate)
+            diff = [k for (k, a), (_, b) in zip(
+                tensors(torch, dataclasses.asdict(gathered)),
+                tensors(torch, dataclasses.asdict(tstate)))
+                if a.shape != b.shape or not torch.equal(bits(torch, a),
+                                                         bits(torch, b))]
+            if gathered.step != tstate.step or diff or \
+                    losses[-1] != twin_losses[-1]:
+                raise AssertionError(
+                    f"{name}: step {i + 1}: the meshed state differs from "
+                    f"the stacked twin's at {diff[:5]} ({len(diff)} "
+                    f"tensors), losses {losses[-1]} / {twin_losses[-1]}")
+        peak = {str(d): torch.cuda.max_memory_allocated(d)
+                for d in cards} if on_card else None
+    finally:
+        cudnn.deterministic = saved
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    half = steps // 2
+    if not statistics.mean(losses[half:]) < statistics.mean(losses[:half]):
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    kernels = PATHS[path][5]
+    if on_card:
+        for i, (twin_n, slots) in enumerate(zip(per_step, slot_steps)):
+            if len(slots) != P * W:
+                raise AssertionError(f"{name}: step {i + 1}: {len(slots)} "
+                                     f"slots launched kernels of {P * W}")
+            for slot, counts in slots.items():
+                bad = {k: (counts[k], twin_n[k]) for k in kernels
+                       if counts[k] != twin_n[k] or counts[k] < 1}
+                if bad:
+                    raise AssertionError(
+                        f"{name}: step {i + 1}: slot {slot} launched "
+                        f"{bad} (slot, twin) of kernels {kernels}")
+    launches = {k: per_step[-1][k] for k in kernels}
+    # the optimizer state each device holds, and the twin's a replica
+    opt_by_device = {}
+    for p, w, d in mesh.slots():
+        opt_by_device[str(d)] = opt_by_device.get(str(d), 0) + state_bytes(
+            torch, mstate.slot(p, w).opt_state)
+    twin_opt_per_replica = state_bytes(torch, tstate.opt_state) / (P * W)
+    slot_opt = state_bytes(torch, mstate.slots[0].opt_state)
+    # a slot made to raise: slot (1, 2) gets a batch with 2 channels
+    x_bad = mesh.place(batches[0][0])
+    x_bad.slots[W + 2] = x_bad.slots[W + 2][..., :2].contiguous()
+    t0 = time.perf_counter()
+    try:
+        meshed.train_step(mstate, x_bad, batches[0][1])
+    except RuntimeError as e:
+        fail_s = time.perf_counter() - t0
+        if "waited" in str(e) or fail_s >= MESH_TIMEOUT_S:
+            raise AssertionError(f"{name}: the failing slot's step hung "
+                                 f"({fail_s:.1f} s): {e}") from e
+        fail_msg = str(e).splitlines()[0]
+    else:
+        raise AssertionError(f"{name}: a slot fed a malformed batch did "
+                             "not fail the step")
+    warm = 1  # the first step pays cuDNN's set-up
+    res = dict(
+        path=path, slots=[str(d) for d in devices], cards=len(cards),
+        steps=steps, losses=losses, loss_first=losses[0],
+        loss_last=losses[-1], step_ms_median=statistics.median(
+            mesh_ms[warm:]),
+        stacked_step_ms_median=statistics.median(twin_ms[warm:]),
+        step_ms=mesh_ms, stacked_step_ms=twin_ms,
+        launches_per_step_per_slot=launches, peak_mem_bytes=peak,
+        opt_state_bytes_by_device=opt_by_device,
+        opt_state_bytes_per_slot=slot_opt,
+        stacked_opt_state_bytes_per_replica=twin_opt_per_replica,
+        fail_s=fail_s, fail_error=fail_msg)
+    log(f"{name} ({path} on the mesh): {steps} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, the state bit-equal to the "
+        f"stacked twin's after every step; step {res['step_ms_median']:.2f}"
+        f" ms meshed vs {res['stacked_step_ms_median']:.2f} ms stacked "
+        f"(medians of steps 2-{steps}); launches a step in every slot "
+        f"{launches} (= the twin's); peak memory {peak}; optimizer state "
+        f"by device {opt_by_device} ({slot_opt} B a slot, the stacked "
+        f"twin's {twin_opt_per_replica:.0f} B a replica); a slot fed a "
+        f"malformed batch failed the step in {fail_s:.3f} s: {fail_msg}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
-    ap.add_argument("--steps", type=int, default=32,
+    ap.add_argument("--steps", type=int, default=16,
                     help="path 1 training steps (rounded up to epochs of "
                     "8; at least 16)")
     ap.add_argument("--verbose-build", action="store_true",
@@ -6423,6 +6608,7 @@ def main(argv=None) -> int:
              else main_path_phase(torch, path, cfg[4] or args.steps)
              for path, cfg in PATHS.items()}
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
+    meshes = {name: mesh_phase(torch, name) for name in MESH_PATHS}
     telemetry = telemetry_phase(torch)
     audit = audit_fsa_phase(torch)
     control = {"control_fsa": control_fsa_phase(torch),
@@ -6443,6 +6629,9 @@ def main(argv=None) -> int:
                "serve_seq_flash": serve_seq_flash_phase(torch)}
     log("median step: " + ", ".join(
         f"{p} {r['step_ms_median']:.2f} ms" for p, r in paths.items())
+        + ", on the mesh: " + ", ".join(
+            f"{n} {r['step_ms_median']:.2f} ms (stacked twin "
+            f"{r['stacked_step_ms_median']:.2f})" for n, r in meshes.items())
         + " (this call)")
 
     kernels = []
@@ -6463,7 +6652,8 @@ def main(argv=None) -> int:
                        "head_dim_phase": wide, "timer_floors": floors,
                        "shard_phase": shards,
                        "zero_dense_max_param_diff": zero_diff,
-                       "paths": paths, "telemetry_fsa": telemetry,
+                       "paths": paths, "mesh": meshes,
+                       "telemetry_fsa": telemetry,
                        "audit_fsa": audit,
                        "control": control,
                        "host_plane": host,

@@ -4,15 +4,17 @@ Each wrapper launches a hand-written CUDA kernel for Hopper
 (``geomx_tpu_torch/csrc``) on CUDA tensors and runs its plain PyTorch
 version on CPU tensors; none falls back from one to the other.  Each
 wrapper counts its kernel launches in a ``launches`` attribute, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels; inside a mesh
+slot the wrappers of the meshed paths (kernels 1-6) also count into the
+slot's own tally (:func:`slot_launch_counts`).
 
 ``KERNELS`` maps each ported TPU kernel's name to its wrapper;
 ``VARIANTS`` maps a kernel variant to the counter of its launches, which
 its kernel's count includes (the forward without the logsumexp).
 """
 
-from geomx_tpu_torch.ops import (bsc, bucket, flash_attention, merge, optim,
-                                 ring_hop, twobit)
+from geomx_tpu_torch.ops import (_launches, bsc, bucket, flash_attention,
+                                 merge, optim, ring_hop, twobit)
 
 KERNELS = {
     "fused_flatten": bucket.flatten,
@@ -38,6 +40,7 @@ VARIANTS = {
 def reset_launch_counts() -> None:
     for fn in (*KERNELS.values(), *VARIANTS.values()):
         fn.launches = 0
+    _launches.reset_slots()
 
 
 def launch_counts() -> dict:
@@ -46,3 +49,11 @@ def launch_counts() -> dict:
 
 def variant_launch_counts() -> dict:
     return {name: fn.launches for name, fn in VARIANTS.items()}
+
+
+def slot_launch_counts() -> dict:
+    """``{(p, w): {name: launches}}``: each mesh slot's launches since
+    the last :func:`reset_launch_counts`, every kernel named."""
+    names = {fn: name for name, fn in KERNELS.items()}
+    return {slot: {name: tally.get(fn, 0) for fn, name in names.items()}
+            for slot, tally in sorted(_launches.by_slot().items())}

@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from geomx_tpu_torch.ops._launches import count
 from geomx_tpu_torch.ops.bucket import on_cuda
 from geomx_tpu_torch.ops.sampled_topk import (boundary_position,
                                               probe_positions,
@@ -118,7 +119,7 @@ def select_pack(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                         v.reshape(rows, n), thr, k, scratch, tie_vals,
                         tie_idx, new_u.view(rows, n), new_v.view(rows, n),
                         vals.view(rows, k), idx.view(rows, k))
-    select_pack.launches += 1
+    count(select_pack)
     return vals, idx, new_u, new_v
 
 
@@ -177,7 +178,7 @@ def scatter_add(vals: torch.Tensor, idx: torch.Tensor, n: int,
     out = torch.empty(batch + (int(n),), dtype=torch.float32,
                       device=vals.device)
     kernels().bsc_scatter_add(v2, i2, run, out.view(rows, int(n)))
-    scatter_add.launches += 1
+    count(scatter_add)
     return out
 
 

@@ -23,6 +23,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from geomx_tpu_torch.ops._launches import count
+
 Layout = Sequence[Tuple[int, int, int]]  # leaf -> (bucket, offset, size)
 
 
@@ -96,8 +98,9 @@ def flatten(leaves: Sequence[torch.Tensor], layout: Layout,
     batch = tuple(rows[0].shape[:-1])
     out = [torch.empty(batch + (int(n),), dtype=torch.float32,
                        device=rows[0].device) for n in bucket_sizes]
-    flatten.launches += kernels().bucket_flatten(
-        rows, out, [b for b, _, _ in layout], [off for _, off, _ in layout])
+    count(flatten, kernels().bucket_flatten(
+        rows, out, [b for b, _, _ in layout],
+        [off for _, off, _ in layout]))
     return out
 
 
@@ -126,9 +129,9 @@ def unflatten(buckets: Sequence[torch.Tensor], layout: Layout,
                        device=buckets[0].device) for _, _, size in layout]
     # an uncompressed all-reduce hands back broadcast views (stride 0 over
     # the reduced replica dim): the kernel reads contiguous buckets
-    unflatten.launches += kernels().bucket_unflatten(
+    count(unflatten, kernels().bucket_unflatten(
         [b.contiguous() for b in buckets], out, [b for b, _, _ in layout],
-        [off for _, off, _ in layout])
+        [off for _, off, _ in layout]))
     return out
 
 

@@ -37,6 +37,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from geomx_tpu_torch.config import _env_bool
+from geomx_tpu_torch.ops._launches import count
 from geomx_tpu_torch.ops.bucket import on_cuda
 from geomx_tpu_torch.optim.adam import (Adam, adam_direction, adam_moments,
                                         bias_corrections)
@@ -170,7 +171,7 @@ def fused_sgd_momentum(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
     kernels().fused_sgd_momentum(p.contiguous(), g.contiguous(),
                                  m.contiguous(), float(lr), float(momentum),
                                  p2, m2, cast)
-    fused_sgd_momentum.launches += 1
+    count(fused_sgd_momentum)
     return (p2, m2) + ((cast,) if cast is not None else ())
 
 
@@ -192,7 +193,7 @@ def fused_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     kernels().fused_adam(p.contiguous(), g.contiguous(), m.contiguous(),
                          v.contiguous(), float(bc1), float(bc2), float(lr),
                          float(b1), float(b2), float(eps), p2, m2, v2, cast)
-    fused_adam.launches += 1
+    count(fused_adam)
     return (p2, m2, v2) + ((cast,) if cast is not None else ())
 
 

@@ -6,6 +6,12 @@ replica owns its own copy, and the sync algorithms are reductions over
 those axes that re-align the copies.  Under FSA all copies stay
 identical; ``unreplicate_tree`` takes copy (0, 0) for eval and
 checkpoints, as the reference reads weights from rank 0.
+
+On a device mesh (``topology.ReplicaMesh``) a state is placed, one copy
+a slot with ``[1, 1, ...]`` tensors on the slot's device:
+``mesh.place`` splits any tree, a ``TrainState`` included, and
+``mesh.gather`` stacks it back, the counterparts of ``replicate_tree``
+onto a mesh and of ``jax.device_get``.
 """
 
 from __future__ import annotations

@@ -45,6 +45,14 @@ applied gradient (on the fused path the flat buckets the fused apply
 already built) and the sync state, and left on the device.  With it off
 the step runs exactly the ops it runs without the probe call site.
 
+On a device mesh (``build_train_step(..., mesh=)``, ``topology.
+ReplicaMesh``) the same program runs once a replica slot at local leading
+dims ``[1, 1]`` (``parallel/collectives.run_on_mesh``), as the JAX
+``_device_step`` sees ``[1, 1]`` blocks under ``P(dc, worker)``; its
+collectives meet the other slots' and give the stacked path's bits.  The
+mesh runs FSA with an uncompressed or BSC dc tier, per-leaf or fused
+optimizers and ZeRO; the other paths refuse (:func:`mesh_refusal`).
+
 With control on (``GEOMX_CONTROL``, ``control/``, decided when the step
 is built) the state's ``sync_state["control"]`` operands are detached
 before the sync hooks, opened as a context the dc-tier compressors read
@@ -59,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import threading
 import warnings
 from typing import Callable
 
@@ -72,9 +81,9 @@ from geomx_tpu_torch.control import actuators as _control
 from geomx_tpu_torch.ops.optim import (fused_apply, fused_optim_enabled,
                                        fused_spec_of)
 from geomx_tpu_torch.parallel.collectives import (pmean_dc, pmean_worker,
-                                                  psum_dc)
+                                                  psum_dc, run_on_mesh)
 from geomx_tpu_torch.telemetry import probes as _probes
-from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
+from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS, PlacedTree
 from geomx_tpu_torch.train.state import TrainState
 from geomx_tpu_torch.tree import leaf_names, tree_map
 
@@ -261,20 +270,88 @@ def sp_chunks(x: torch.Tensor, sp: int) -> torch.Tensor:
 # (device, live-party count) -> the num_live_parties metric's tensor
 _LIVE_COUNTS: dict = {}
 
+# the ROADMAP.md Queue 1 item that ports what the device mesh refuses
+MESH_OTHER_PATHS = "Device mesh: the other paths"
+
+
+def mesh_refusal(sync, config=None, sp_model: bool = False) -> None:
+    """Raise the ``unported`` refusal of a step the device mesh does not
+    run yet: anything but FSA with an uncompressed or (all-gathered) BSC
+    dc tier and no worker compressor; sp, MultiGPS, a membership mask,
+    telemetry, control and the audit."""
+    from geomx_tpu_torch.analysis import audit_enabled
+    from geomx_tpu_torch.compression.base import NoCompressor
+    from geomx_tpu_torch.compression.bisparse import BiSparseCompressor
+    from geomx_tpu_torch.config import unported
+    from geomx_tpu_torch.sync.fsa import FSA
+
+    def refuse(what: str):
+        raise unported(f"{what} on a device mesh", MESH_OTHER_PATHS)
+
+    if sp_model:
+        refuse("sequence parallelism")
+    if type(sync) is not FSA:
+        refuse(f"the {getattr(sync, 'name', type(sync).__name__)!r} sync "
+               "(MixedSync, HFA, the pipeline)")
+    dc = sync.dc_compressor
+    inner = dc.inner if isinstance(dc, BucketedCompressor) else dc
+    if not (type(inner) is NoCompressor or (
+            type(inner) is BiSparseCompressor and not inner.sparse_agg)):
+        refuse(f"the {getattr(inner, 'name', type(inner).__name__)!r} dc "
+               "tier (DGT, 2-bit, sparse_agg, FP16, MPQ)")
+    if type(sync.worker_compressor) is not NoCompressor:
+        refuse("a worker-tier compressor")
+    if sync.live_parties is not None:
+        refuse("a membership mask")
+    if config is not None and getattr(config, "multi_gps", False):
+        refuse("GEOMX_MULTI_GPS")
+    if _probes.telemetry_enabled(config):
+        refuse("telemetry")
+    if _control.control_enabled(config):
+        refuse("control")
+    if audit_enabled(config):
+        refuse("the collective audit")
+
+
+def _locked(loss_fn: Callable) -> Callable:
+    """``loss_fn`` called under a lock: the slots of a mesh share the
+    model, and ``functional_call`` swaps the module's tensors while the
+    forward runs (the backward, outside the call, needs no lock)."""
+    lock = threading.Lock()
+
+    def locked(*args):
+        with lock:
+            return loss_fn(*args)
+    return locked
+
 
 def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
-                     sp_model: bool = False):
+                     sp_model: bool = False, mesh=None):
     """Build ``train_step(state, x, y) -> (state, metrics)``.
 
     - state leaves carry ``[P, W]`` replica axes;
     - ``x``, ``y`` are ``[P, W, local_batch, ...]``;
     - metrics are global means (0-d tensors on the device);
     - ``sp_model``: the model takes its sequence as sp chunks
-      (:func:`sp_chunks`, ``topology.sp_degree`` of them).
+      (:func:`sp_chunks`, ``topology.sp_degree`` of them);
+    - ``mesh``: a ``topology.ReplicaMesh`` of the topology's shape.  The
+      step then takes a placed state (``mesh.place``; a stacked one is
+      placed first) and placed or stacked batches, runs the program
+      once a slot at leading dims ``[1, 1]``, and returns the placed
+      state and slot ``(0, 0)``'s metrics (every slot holds the same
+      global means).
     """
     sync.bind_topology(topology)
     P, W = topology.replica_shape
     sp = getattr(topology, "sp_degree", 1) if sp_model else None
+    if mesh is not None:
+        if tuple(mesh.shape) != (P, W):
+            raise ValueError(f"mesh {list(mesh.shape)} does not match the "
+                             f"topology's [P, W] = {[P, W]}")
+        mesh_refusal(sync, config, sp_model)
+        # the slot program's own replica dims, as _device_step sees them
+        P, W = 1, 1
+        loss_fn = _locked(loss_fn)
     mgps = _mgps_plan(sync, topology, config)
     sync, zplan = _bind_zero_plan(sync, topology, config)
     fopt_spec = _fused_spec(tx, config)
@@ -523,6 +600,15 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                           model_state=model_state,
                           sync_state=sync_state), metrics
 
+    if mesh is not None:
+        def mesh_step(state, x, y):
+            state, x, y = mesh.place(state), mesh.place(x), mesh.place(y)
+            outs = run_on_mesh(train_step, mesh,
+                               list(zip(state.slots, x.slots, y.slots)))
+            return PlacedTree(mesh, [s for s, _ in outs]), outs[0][1]
+
+        mesh_step.mgps = None
+        return mesh_step
     train_step.mgps = mgps  # Trainer.init_state shapes the state by it
     return train_step
 

@@ -75,6 +75,15 @@ auditor on the new step.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU
 and without that request it raises.
+
+A device mesh (``Trainer(..., mesh=topology.build_mesh())``, the JAX
+Trainer's ``mesh``) gives every replica slot a device of its own: the
+state is placed per slot (``mesh.place``), the step runs one program a
+slot (``train/step.py``), ``fit`` scatters each batch to the slots,
+evaluation runs on slot ``(0, 0)``'s device, and checkpoints gather and
+place, so a meshed run writes the stacked run's tensors.  The mesh runs
+FSA (per-leaf or fused optimizers, ZeRO); membership, control,
+telemetry, the audit and the device-cached epoch refuse under it.
 """
 
 from __future__ import annotations
@@ -97,12 +106,13 @@ from geomx_tpu_torch.data.loader import GeoDataLoader
 from geomx_tpu_torch.device import resolve_device
 from geomx_tpu_torch.ops.optim import fused_optim_enabled
 from geomx_tpu_torch.sync import get_sync_algorithm
-from geomx_tpu_torch.topology import HiPSTopology
+from geomx_tpu_torch.topology import HiPSTopology, PlacedTree
 from geomx_tpu_torch.train.state import (TrainState, replicate_tree,
                                          unreplicate_tree)
-from geomx_tpu_torch.train.step import (build_eval_step, build_logits_fn,
-                                        build_train_step, fused_bucketer,
-                                        make_loss_fn, resolve_precision)
+from geomx_tpu_torch.train.step import (MESH_OTHER_PATHS, build_eval_step,
+                                        build_logits_fn, build_train_step,
+                                        fused_bucketer, make_loss_fn,
+                                        resolve_precision)
 from geomx_tpu_torch.train.zero import (ZeroPlan, host_zero_state,
                                         place_zero_state,
                                         reshard_zero_state,
@@ -115,11 +125,21 @@ from geomx_tpu_torch.utils.metrics import Measure
 class Trainer:
     def __init__(self, model: torch.nn.Module, topology: HiPSTopology,
                  optimizer, sync=None, config: Optional[GeoConfig] = None,
-                 device=None, single_device_model=None):
+                 device=None, single_device_model=None, mesh=None):
         """``single_device_model``: a twin of ``model`` with the same
         parameters and no sp axis, for evaluation; required to evaluate
-        an sp-aware model."""
-        self.device = resolve_device(device)
+        an sp-aware model.  ``mesh``: a ``topology.ReplicaMesh`` of the
+        topology's ``[P, W]`` (module docstring), in place of
+        ``device``."""
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("Trainer takes a device or a mesh, not "
+                                 "both")
+            for dev in mesh.distinct_devices():
+                resolve_device(dev)
+        self.mesh = mesh
+        self.device = mesh.first_device if mesh is not None \
+            else resolve_device(device)
         self.model = model
         self._sd_model = single_device_model or model
         self.topology = topology
@@ -164,9 +184,11 @@ class Trainer:
                 "state.  Pass a fresh (unbound) sync algorithm, or "
                 "enable GEOMX_ZERO/GeoConfig(zero=True) to match")
         self._sp_model = sp_model
+        if mesh is not None:
+            self._refuse_telemetry_on_mesh()
         self.train_step = build_train_step(self.loss_fn, self.tx, self.sync,
                                            topology, self.config,
-                                           sp_model=sp_model)
+                                           sp_model=sp_model, mesh=mesh)
         self._mgps = self.train_step.mgps
         # membership (resilience/): the bound mask (None = every party
         # live), its epoch version, and the step built for each mask
@@ -199,6 +221,25 @@ class Trainer:
         self._audit_sigs: dict = {}  # membership key -> (signature, findings)
         self.audit_record_ms: list = []  # host ms of each recording
         self._init_telemetry()
+
+    def _refuse_telemetry_on_mesh(self) -> None:
+        """The telemetry plane's refusal under a mesh, before anything is
+        armed (the step refuses the rest, ``train/step.py``
+        ``mesh_refusal``)."""
+        from geomx_tpu_torch.telemetry.capsule import capsule_enabled
+        from geomx_tpu_torch.telemetry.flight import flight_enabled
+        if flight_enabled(self.config) or capsule_enabled(self.config) \
+                or getattr(self.config, "telemetry_events", ""):
+            self._refuse_on_mesh("telemetry")
+
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            from geomx_tpu_torch.config import unported
+            raise unported(f"{what} on a device mesh", MESH_OTHER_PATHS)
+
+    def _slot00(self, state):
+        """Slot ``(0, 0)``'s copy of a placed state, else ``state``."""
+        return state.slots[0] if isinstance(state, PlacedTree) else state
 
     def _init_telemetry(self) -> None:
         """Arm the telemetry plane the config asks for, as the JAX
@@ -330,8 +371,9 @@ class Trainer:
                     f"{type(sync_state).__name__}")
             sync_state = dict(sync_state)
             sync_state[CONTROL_KEY] = init_control_operands(self.device)
-        return TrainState(step=0, params=params, opt_state=opt_state,
-                          model_state=model_state, sync_state=sync_state)
+        state = TrainState(step=0, params=params, opt_state=opt_state,
+                           model_state=model_state, sync_state=sync_state)
+        return state if self.mesh is None else self.mesh.place(state)
 
     def _build_models(self, sample_input) -> None:
         """Size the models' layers from one sample batch (models with a
@@ -400,6 +442,7 @@ class Trainer:
         Re-admission: call :meth:`catchup_payload` for the blob the
         returning party installs (:meth:`admit_party`) before this rebind
         widens the collective back over it."""
+        self._refuse_on_mesh("a membership change")
         from geomx_tpu_torch.topology import normalize_live_mask
         mask = normalize_live_mask(getattr(epoch, "live_mask", epoch),
                                    self.topology.num_parties)
@@ -518,6 +561,7 @@ class Trainer:
         ``apply_membership`` widens the collective back over it.  Copy
         ``(0, 0)``, except under ZeRO, where the shard-bearing fields
         keep party 0's whole worker axis (``host_zero_state``)."""
+        self._refuse_on_mesh("a catch-up")
         from geomx_tpu_torch.resilience.liveness import pack_catchup
         if self._zero_plan is not None:
             return pack_catchup(host_zero_state(state))
@@ -533,6 +577,7 @@ class Trainer:
         :meth:`catchup_payload`, replicated over every slot on this
         trainer's device (under ZeRO, each worker slot gets back its own
         shard, ``place_zero_state``)."""
+        self._refuse_on_mesh("a catch-up")
         from geomx_tpu_torch.resilience.liveness import unpack_catchup
         t = unpack_catchup(payload)
         if self._zero_plan is not None:
@@ -580,6 +625,7 @@ class Trainer:
 
         Relay decisions are host-plane only and never reach this method
         (``ControlActuator`` routes them to the transport)."""
+        self._refuse_on_mesh("control")
         if not self._control:
             raise ValueError(
                 "apply_control needs GEOMX_CONTROL/GeoConfig(control="
@@ -715,7 +761,11 @@ class Trainer:
         """Save ``state`` with this trainer's layout meta.  The tensors
         keep their full ``[P, W, ...]`` replica axes, so a ZeRO run's
         per-worker shards are all captured (restoring onto the same
-        topology is bit-exact, mid-pipeline buffers included)."""
+        topology is bit-exact, mid-pipeline buffers included).  A placed
+        state is gathered first: a meshed run writes the stacked run's
+        tensors."""
+        if isinstance(state, PlacedTree):
+            state = self.mesh.gather(state)
         return checkpoint.save_checkpoint(path, state, step=step,
                                           meta=self.checkpoint_meta())
 
@@ -732,7 +782,12 @@ class Trainer:
           mid-pipeline buffers included);
         - another worker count (e.g. saved on 2x4, restored onto 2x2):
           shard-bearing leaves are gathered into full flat buckets and
-          re-split (``train/zero.py`` ``reshard_zero_state``)."""
+          re-split (``train/zero.py`` ``reshard_zero_state``).
+
+        Under a mesh ``template`` is placed, and so is the result."""
+        if isinstance(template, PlacedTree):
+            return self.mesh.place(self.load_checkpoint(
+                path, self.mesh.gather(template)))
         host, meta = checkpoint.load_checkpoint(path, with_meta=True)
         ck_zero = bool((meta or {}).get("zero", False))
         if ck_zero != (self._zero_plan is not None):
@@ -806,7 +861,9 @@ class Trainer:
                     device_cache: bool = False) -> GeoDataLoader:
         """``device_cache=True`` keeps the dataset on this trainer's
         device and gathers each batch there (``data/loader.py``), the
-        input of ``fit(scan_epochs=True)``."""
+        input of ``fit(scan_epochs=True)``; not under a mesh."""
+        if device_cache:
+            self._refuse_on_mesh("the device-cached loader")
         return GeoDataLoader(x, y, self.topology, batch_size,
                              split_by_class=split_by_class, seed=seed,
                              augment=augment, device=self.device,
@@ -817,6 +874,7 @@ class Trainer:
         """Logits of replica (0, 0) over a host array, as an fp32 numpy
         array (the one evaluation forward ``Module.predict``/``score``
         use)."""
+        state = self._slot00(state)
         params = unreplicate_tree(state.params)
         model_state = unreplicate_tree(state.model_state)
         outs = []
@@ -830,6 +888,7 @@ class Trainer:
     def evaluate(self, state: TrainState, x: np.ndarray, y: np.ndarray,
                  batch_size: int = 512) -> float:
         """Test accuracy of replica (0, 0) over ``(x, y)``."""
+        state = self._slot00(state)
         params = unreplicate_tree(state.params)
         model_state = unreplicate_tree(state.model_state)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -849,6 +908,7 @@ class Trainer:
         metrics kept on the device and stacked at the end, so the host
         never waits inside the epoch.  Returns ``(state, {"loss":
         [steps], "accuracy": [steps]})`` on the device."""
+        self._refuse_on_mesh("the device-cached epoch")
         sel, gen = loader.epoch_indices(epoch)
         sel = torch.as_tensor(sel, device=self.device)
         losses, accs = [], []
@@ -897,6 +957,7 @@ class Trainer:
         fit_since_us = prof.now_us() if prof.running else None
         self._attr_window_us = fit_since_us
         if scan_epochs:
+            self._refuse_on_mesh("the device-cached epoch")
             if not getattr(loader, "device_cache", False):
                 raise ValueError("scan_epochs requires device_cache=True "
                                  "on the loader")
@@ -1083,9 +1144,12 @@ class Trainer:
         shapes; every slot holds the same shapes), and on the card the
         allocator's peak (``torch.cuda.max_memory_allocated``).  The JAX
         package reads XLA's ``compiled.memory_analysis()``; an eager
-        PyTorch step has no compiled program."""
+        PyTorch step has no compiled program.  Under a mesh: slot ``(0,
+        0)``'s bytes, and the peak of its device."""
         slots = max(1, self.topology.num_parties
                     * self.topology.workers_per_party)
+        if isinstance(state, PlacedTree):
+            state, slots = state.slots[0], 1
 
         def per_slot_bytes(tree):
             total = 0

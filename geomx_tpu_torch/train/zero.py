@@ -31,7 +31,9 @@ In the port every replica lives in one tensor with the leading ``[P,
 W]`` axes, so a shard tensor is ``[P, W, n / W]`` and slot ``(p, w)``
 holds worker ``w``'s shard: the content differs across the worker axis
 by design.  The worker index is the slot's own, so the ops take no
-``widx``.  ``zero_checkpoint_meta``, the ``_fit_*`` helpers and
+``widx``.  On a device mesh a slot holds its ``[1, 1, n / W]`` shard
+alone, a ``1/W`` of the optimizer state on its device.
+``zero_checkpoint_meta``, the ``_fit_*`` helpers and
 ``reshard_zero_state`` are the host-side layout of a sharded
 checkpoint, on numpy arrays (``Trainer.save_checkpoint``/
 ``load_checkpoint``); ``host_zero_state``/``place_zero_state`` that of
@@ -50,7 +52,8 @@ import torch
 
 from geomx_tpu_torch.compression.bucketing import (_LANE_PAD,
                                                    BucketedCompressor)
-from geomx_tpu_torch.parallel.collectives import all_gather, psum_scatter
+from geomx_tpu_torch.parallel.collectives import (all_gather, current_slot,
+                                                  psum_scatter)
 from geomx_tpu_torch.topology import WORKER_AXIS
 from geomx_tpu_torch.tree import leaf_names
 
@@ -58,9 +61,14 @@ from geomx_tpu_torch.tree import leaf_names
 def slice_worker_shards(flat: torch.Tensor, W: int) -> torch.Tensor:
     """Each slot's own shard of a replicated ``[P, W, W * s]`` flat
     tensor: slot ``(p, w)`` gets ``flat[p, w, w * s:(w + 1) * s]``.  A
-    new contiguous ``[P, W, s]`` tensor."""
-    P = flat.shape[0]
+    new contiguous ``[P, W, s]`` tensor.  Inside a mesh slot ``flat`` is
+    the slot's ``[1, 1, W * s]`` block and the shard is its worker
+    index's (the JAX package's ``axis_index``)."""
     s = flat.shape[-1] // W
+    slot = current_slot()
+    if slot is not None:
+        return flat[..., slot.w * s:(slot.w + 1) * s].clone()
+    P = flat.shape[0]
     ar = torch.arange(W, device=flat.device)
     return flat.reshape(P, W, W, s)[:, ar, ar]
 
