@@ -164,20 +164,28 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           through host_zero_state/place_zero_state, every
                           worker's shard back bit-equal.
               Median step times of the paths come from the same call.
-   mesh    -- mesh_fsa, mesh_fused_sgd, mesh_zero: paths 1, 1f and
-              zero_sgd on a [2, 4] ReplicaMesh (topology.build_mesh), one
-              program a slot (parallel/collectives.run_on_mesh), the slots
+   mesh    -- MESH_PATHS: mesh_fsa, mesh_fused_sgd, mesh_zero (paths 1,
+              1f, zero_sgd) and mesh_twobit_adam,
+              mesh_sparse_agg ([4, 2]), mesh_mixed_dcasgd, mesh_hfa_dgt
+              (8 steps: HFA's first dc milestone), mesh_pipelined_fsa
+              and mesh_zero_pipelined_adam (then drained),
+              mesh_multigps_bsc and mesh_fp16_mpq (the flagship with fp16,
+              then mpq), 4 steps each, on a ReplicaMesh
+              (topology.build_mesh) of the path's [P, W], one program a
+              slot (parallel/collectives.run_on_mesh), the slots
               round-robin over the cards (all on cuda:0 with one card,
-              which the phase prints), ResNet-20 bf16, 128 a replica, 8
-              steps, cuDNN deterministic, beside a stacked twin on the
-              first card (mesh_phase): after every step the gathered
-              state and the loss bit-equal to the twin's; the loss finite
-              and falling; every slot launching each kernel of the path as
-              many times a step as the twin's step does; a slot fed a
+              which the phase prints), ResNet-20 bf16, 128 a replica,
+              cuDNN deterministic, beside a stacked twin on the first
+              card (mesh_phase): after every step and the drain the
+              gathered state, the loss and the accuracy bit-equal to the
+              twin's; the loss finite (and falling over the steps of the
+              first three); every slot launching each kernel as many
+              times a step (and a drain) as the twin's step does, and
+              each kernel of the run at least once; a slot fed a
               malformed batch failing the step with its own error inside
               the rendezvous timeout.  Meshed and stacked step ms, peak
-              memory by device and the optimizer-state bytes by device
-              printed, not gated;
+              memory and the optimizer-state bytes by device, per-slot
+              launches and each phase's wall printed, not gated;
    telemetry_fsa -- path 1f again (16 steps) through Trainer.fit with
               GEOMX_TELEMETRY, the event log, the flight recorder (16
               steps) and the run capsule (sampled every 0.5 s) on, cuDNN
@@ -621,8 +629,8 @@ def make_trainer(path: str, model=None, device=None, precision=None,
         tx = sgd(lr, momentum=0.9)
     else:
         tx = get_optimizer(kind, lr)
-    cfg = dict(num_parties=P, workers_per_party=W, compression=spec,
-               fused_optim=fused, **{**extra, **fields})
+    cfg = {**dict(num_parties=P, workers_per_party=W, compression=spec,
+                  fused_optim=fused), **extra, **fields}
     if precision is not None:
         cfg["precision"] = precision
     if model is None:
@@ -6370,11 +6378,37 @@ def serve_seq_flash_phase(torch, device=None, **over) -> dict:
     return res
 
 
-# the device-mesh phases: each a path of PATHS on a [2, 4] ReplicaMesh,
-# one program a slot, against a stacked twin on the first card
-MESH_PATHS = {"mesh_fsa": "flagship", "mesh_fused_sgd": "fused_sgd",
-              "mesh_zero": "zero_sgd"}
-MESH_STEPS = 8
+# the device-mesh phases: phase -> (a path of PATHS, steps, its runs).  A
+# run is (GeoConfig fields over the path's, the kernels it must launch in
+# every slot; None: the path's); each run is a meshed trainer at the
+# path's [P, W] beside a stacked twin on the first card.  The steps are
+# the fewest that reach the path's events (a MixedSync pull at step 2,
+# HFA's first dc milestone at step 8, the pipeline's warm-up and drain),
+# never fewer than 4 (the first three are held to 4 for the script's
+# time limit)
+MESH_PATHS = {
+    "mesh_fsa": ("flagship", 4, (({}, None),)),
+    "mesh_fused_sgd": ("fused_sgd", 4, (({}, None),)),
+    "mesh_zero": ("zero_sgd", 4, (({}, None),)),
+    "mesh_twobit_adam": ("twobit_adam", 4, (({}, None),)),
+    "mesh_sparse_agg": ("sparse_agg", 4, (({}, None),)),
+    "mesh_mixed_dcasgd": ("mixed_dcasgd", 4, (({}, None),)),
+    "mesh_hfa_dgt": ("hfa_dgt", 8, (({}, None),)),
+    "mesh_pipelined_fsa": ("pipelined_fsa", 4, (({}, None),)),
+    "mesh_zero_pipelined_adam": ("zero_pipelined_adam", 4, (({}, None),)),
+    "mesh_multigps_bsc": ("multigps_bsc", 4, (({}, None),)),
+    # the flagship with the FP16 gather, then MPQ (ResNet-20's one
+    # 272,512-element bucket is above MPQ's 200,000 bound: the BSC route)
+    "mesh_fp16_mpq": ("flagship", 4, (
+        (dict(compression="fp16"), ("fused_flatten", "fused_unflatten")),
+        (dict(compression="mpq,0.01"), SLICE1))),
+}
+# the phases whose loss must fall over their steps (the mean of the last
+# half below the first half's); the others are held to their twin
+MESH_LOSS_FALLS = ("mesh_fsa", "mesh_fused_sgd", "mesh_zero")
+# every mesh run trains on the first batches of one synthetic set of 8
+# steps' images, made once a batch size
+_MESH_DATA: dict = {}
 # a slot's wait at a collective before the step fails (the first step
 # pays cuDNN's set-up on every card)
 MESH_TIMEOUT_S = 120.0
@@ -6393,115 +6427,133 @@ def _sync_all(torch, devices) -> None:
             torch.cuda.synchronize(d)
 
 
-def mesh_phase(torch, name: str, device=None, batch: int = 128,
-               steps: int = MESH_STEPS) -> dict:
-    """One path of MESH_PATHS on a device mesh, ResNet-20 at full width
-    on [2, 4], ``batch`` a replica, cuDNN deterministic: after every
-    step the meshed state, gathered, is bit-equal to a stacked twin's on
-    the first device from the same seed and batches, and so is the loss;
-    the loss is finite and falls (the last half's mean below the first
-    half's); each slot launches every kernel of the path as many times a
-    step as the twin does in its step; then a slot fed a malformed batch
-    fails the step with its own error inside the rendezvous timeout.
-    Recorded: meshed and stacked step ms, peak memory by device, and
-    the optimizer-state bytes by device.  ``device="cpu"`` runs the
-    slots on repeated CPU slots (the plain kernels; no launch gate)."""
+def _state_diff(torch, a, b) -> list:
+    """The tensor paths where two TrainStates' bits differ."""
+    diff = [k for (k, u), (_, v) in zip(tensors(torch, dataclasses.asdict(a)),
+                                        tensors(torch, dataclasses.asdict(b)))
+            if u.shape != v.shape or not torch.equal(bits(torch, u),
+                                                     bits(torch, v))]
+    return diff + (["step"] if a.step != b.step else [])
+
+
+def _slot_gate(name: str, what: str, twin_n: dict, slots: dict,
+               nslots: int) -> None:
+    """Every slot launched every kernel as many times as the twin did."""
+    from geomx_tpu_torch.ops import KERNELS
+    for slot in slots:
+        bad = {k: (slots[slot].get(k, 0), twin_n[k]) for k in KERNELS
+               if slots[slot].get(k, 0) != twin_n[k]}
+        if bad:
+            raise AssertionError(f"{name}: {what}: slot {slot} launched "
+                                 f"{bad} (slot, twin)")
+    if any(twin_n.values()) and len(slots) != nslots:
+        raise AssertionError(f"{name}: {what}: {len(slots)} slots launched "
+                             f"kernels of {nslots}")
+
+
+def mesh_run(torch, name: str, path: str, steps: int, fields: dict,
+             kernels, devices, batch: int) -> dict:
+    """One run of a mesh phase (mesh_phase)."""
     from geomx_tpu_torch import HiPSTopology, ops
     from geomx_tpu_torch.data import load_dataset
     from geomx_tpu_torch.models import get_model
 
-    path = MESH_PATHS[name]
     P, W = PATHS[path][6]
-    if device is None:
-        devices = mesh_devices(torch, P * W)
-    else:
-        devices = [torch.device(device)] * (P * W)
+    kernels = PATHS[path][5] if kernels is None else kernels
     mesh = HiPSTopology(P, W).build_mesh(devices, timeout_s=MESH_TIMEOUT_S)
     first = mesh.first_device
     on_card = first.type == "cuda"
     cards = mesh.distinct_devices()
-    log(f"{name}: slots on {[str(d) for d in devices]} "
-        + (f"({len(cards)} cards)" if len(cards) > 1 else
-           f"(one device, every slot on {first}: not a cross-device run)"))
-    data = load_dataset("synthetic", synthetic_train_n=8 * batch * steps)
-    cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic
-    cudnn.deterministic = True
-    try:
-        twin = make_trainer(path, get_model("resnet20"), device=first)
-        meshed = make_trainer(path, get_model("resnet20"), mesh=mesh)
-        tstate, mstate = twin.init_state(seed=0), meshed.init_state(seed=0)
-        loader = twin.make_loader(data["train_x"], data["train_y"], batch)
-        batches = list(loader.epoch(0))[:steps]
-        if len(batches) < steps:
-            raise AssertionError(f"{name}: {len(batches)} batches for "
-                                 f"{steps} steps")
-        losses, twin_losses, mesh_ms, twin_ms = [], [], [], []
-        per_step, slot_steps = [], []
+    if batch not in _MESH_DATA:
+        _MESH_DATA[batch] = load_dataset("synthetic",
+                                         synthetic_train_n=8 * batch * 8)
+    data = _MESH_DATA[batch]
+    t_run = time.perf_counter()
+    twin = make_trainer(path, get_model("resnet20"), device=first, **fields)
+    meshed = make_trainer(path, get_model("resnet20"), mesh=mesh, **fields)
+    tstate, mstate = twin.init_state(seed=0), meshed.init_state(seed=0)
+    loader = twin.make_loader(data["train_x"], data["train_y"], batch)
+    batches = list(loader.epoch(0))[:steps]
+    if len(batches) < steps:
+        raise AssertionError(f"{name}: {len(batches)} batches for "
+                             f"{steps} steps")
+    losses, twin_losses, mesh_ms, twin_ms = [], [], [], []
+    totals = {}  # (p, w) -> {kernel: launches over the run}
+    slot00 = []  # slot (0, 0)'s launches a step
+    if on_card:
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+
+    def timed(fn, times):
+        _sync_all(torch, cards)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync_all(torch, cards)
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def compare(what: str):
+        diff = _state_diff(torch, meshed.mesh.gather(mstate), tstate)
+        if diff:
+            raise AssertionError(
+                f"{name}: {what}: the meshed state differs from the "
+                f"stacked twin's at {diff[:5]} ({len(diff)} tensors)")
+
+    def launches(what: str, twin_n: dict):
+        slots = ops.slot_launch_counts()
         if on_card:
-            for d in cards:
-                torch.cuda.reset_peak_memory_stats(d)
-        for i, (xb, yb) in enumerate(batches):
-            _sync_all(torch, cards)
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            tstate, tm = twin.train_step(tstate, xb, yb)
-            _sync_all(torch, cards)
-            twin_ms.append(1e3 * (time.perf_counter() - t0))
-            per_step.append(ops.launch_counts())
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            mstate, mm = meshed.train_step(mstate, xb, yb)
-            _sync_all(torch, cards)
-            mesh_ms.append(1e3 * (time.perf_counter() - t0))
-            slot_steps.append(ops.slot_launch_counts())
-            losses.append(float(mm["loss"]))
-            twin_losses.append(float(tm["loss"]))
-            gathered = meshed.mesh.gather(mstate)
-            diff = [k for (k, a), (_, b) in zip(
-                tensors(torch, dataclasses.asdict(gathered)),
-                tensors(torch, dataclasses.asdict(tstate)))
-                if a.shape != b.shape or not torch.equal(bits(torch, a),
-                                                         bits(torch, b))]
-            if gathered.step != tstate.step or diff or \
-                    losses[-1] != twin_losses[-1]:
-                raise AssertionError(
-                    f"{name}: step {i + 1}: the meshed state differs from "
-                    f"the stacked twin's at {diff[:5]} ({len(diff)} "
-                    f"tensors), losses {losses[-1]} / {twin_losses[-1]}")
-        peak = {str(d): torch.cuda.max_memory_allocated(d)
-                for d in cards} if on_card else None
-    finally:
-        cudnn.deterministic = saved
+            _slot_gate(name, what, twin_n, slots, P * W)
+        for slot, counts in slots.items():
+            tot = totals.setdefault(slot, {})
+            for k, n in counts.items():
+                tot[k] = tot.get(k, 0) + n
+        slot00.append({k: n for k, n in slots.get((0, 0), {}).items() if n})
+
+    for i, (xb, yb) in enumerate(batches):
+        tstate, tm = timed(lambda: twin.train_step(tstate, xb, yb), twin_ms)
+        twin_n = ops.launch_counts()
+        mstate, mm = timed(lambda: meshed.train_step(mstate, xb, yb),
+                           mesh_ms)
+        launches(f"step {i + 1}", twin_n)
+        losses.append(float(mm["loss"]))
+        twin_losses.append(float(tm["loss"]))
+        if losses[-1] != twin_losses[-1] or \
+                float(mm["accuracy"]) != float(tm["accuracy"]):
+            raise AssertionError(f"{name}: step {i + 1}: loss {losses[-1]} "
+                                 f"/ {twin_losses[-1]}, accuracy "
+                                 f"{float(mm['accuracy'])} / "
+                                 f"{float(tm['accuracy'])} (meshed / twin)")
+        compare(f"step {i + 1}")
+    drained = hasattr(twin.sync, "drain_grads")
+    drain_ms = []
+    if drained:
+        tstate = timed(lambda: twin.drain_pipeline(tstate), drain_ms)
+        twin_n = ops.launch_counts()
+        mstate = timed(lambda: meshed.drain_pipeline(mstate), drain_ms)
+        launches("the drain", twin_n)
+        compare("the drain")
+    peak = {str(d): torch.cuda.max_memory_allocated(d)
+            for d in cards} if on_card else None
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
-    half = steps // 2
-    if not statistics.mean(losses[half:]) < statistics.mean(losses[:half]):
-        raise AssertionError(f"{name}: loss did not fall: {losses}")
-    kernels = PATHS[path][5]
     if on_card:
-        for i, (twin_n, slots) in enumerate(zip(per_step, slot_steps)):
-            if len(slots) != P * W:
-                raise AssertionError(f"{name}: step {i + 1}: {len(slots)} "
-                                     f"slots launched kernels of {P * W}")
-            for slot, counts in slots.items():
-                bad = {k: (counts[k], twin_n[k]) for k in kernels
-                       if counts[k] != twin_n[k] or counts[k] < 1}
-                if bad:
-                    raise AssertionError(
-                        f"{name}: step {i + 1}: slot {slot} launched "
-                        f"{bad} (slot, twin) of kernels {kernels}")
-    launches = {k: per_step[-1][k] for k in kernels}
+        if len(totals) != P * W:
+            raise AssertionError(f"{name}: {len(totals)} slots launched "
+                                 f"kernels of {P * W}")
+        for slot, tot in totals.items():
+            missing = [k for k in kernels if tot.get(k, 0) < 1]
+            if missing:
+                raise AssertionError(f"{name}: slot {slot} never launched "
+                                     f"{missing} of {kernels}")
     # the optimizer state each device holds, and the twin's a replica
     opt_by_device = {}
     for p, w, d in mesh.slots():
         opt_by_device[str(d)] = opt_by_device.get(str(d), 0) + state_bytes(
             torch, mstate.slot(p, w).opt_state)
-    twin_opt_per_replica = state_bytes(torch, tstate.opt_state) / (P * W)
-    slot_opt = state_bytes(torch, mstate.slots[0].opt_state)
-    # a slot made to raise: slot (1, 2) gets a batch with 2 channels
+    # a slot made to raise: slot (1, 1) gets a batch with 2 channels
     x_bad = mesh.place(batches[0][0])
-    x_bad.slots[W + 2] = x_bad.slots[W + 2][..., :2].contiguous()
+    x_bad.slots[W + 1] = x_bad.slots[W + 1][..., :2].contiguous()
     t0 = time.perf_counter()
     try:
         meshed.train_step(mstate, x_bad, batches[0][1])
@@ -6515,27 +6567,89 @@ def mesh_phase(torch, name: str, device=None, batch: int = 128,
         raise AssertionError(f"{name}: a slot fed a malformed batch did "
                              "not fail the step")
     warm = 1  # the first step pays cuDNN's set-up
-    res = dict(
-        path=path, slots=[str(d) for d in devices], cards=len(cards),
-        steps=steps, losses=losses, loss_first=losses[0],
-        loss_last=losses[-1], step_ms_median=statistics.median(
-            mesh_ms[warm:]),
+    return dict(
+        path=path, fields=fields, shape=[P, W], steps=steps, losses=losses,
+        step_ms_median=statistics.median(mesh_ms[warm:]),
         stacked_step_ms_median=statistics.median(twin_ms[warm:]),
         step_ms=mesh_ms, stacked_step_ms=twin_ms,
-        launches_per_step_per_slot=launches, peak_mem_bytes=peak,
-        opt_state_bytes_by_device=opt_by_device,
-        opt_state_bytes_per_slot=slot_opt,
-        stacked_opt_state_bytes_per_replica=twin_opt_per_replica,
-        fail_s=fail_s, fail_error=fail_msg)
-    log(f"{name} ({path} on the mesh): {steps} steps, loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, the state bit-equal to the "
-        f"stacked twin's after every step; step {res['step_ms_median']:.2f}"
-        f" ms meshed vs {res['stacked_step_ms_median']:.2f} ms stacked "
-        f"(medians of steps 2-{steps}); launches a step in every slot "
-        f"{launches} (= the twin's); peak memory {peak}; optimizer state "
-        f"by device {opt_by_device} ({slot_opt} B a slot, the stacked "
-        f"twin's {twin_opt_per_replica:.0f} B a replica); a slot fed a "
-        f"malformed batch failed the step in {fail_s:.3f} s: {fail_msg}")
+        drain_ms=drain_ms if drained else None,
+        slot00_launches_per_step=slot00,
+        launches_per_slot={f"{p},{w}": tot for (p, w), tot in
+                           sorted(totals.items())},
+        peak_mem_bytes=peak, opt_state_bytes_by_device=opt_by_device,
+        opt_state_bytes_per_slot=state_bytes(torch,
+                                             mstate.slots[0].opt_state),
+        stacked_opt_state_bytes_per_replica=state_bytes(
+            torch, tstate.opt_state) / (P * W),
+        fail_s=fail_s, fail_error=fail_msg,
+        wall_s=time.perf_counter() - t_run)
+
+
+def mesh_phase(torch, name: str, device=None, batch: int = 128) -> dict:
+    """One phase of MESH_PATHS on a device mesh, ResNet-20 at full width,
+    ``batch`` a replica, cuDNN deterministic, each run beside a stacked
+    twin on the first device from the same seed and batches: after every
+    step, and after the drain where the sync has one, the meshed state
+    (gathered), the loss and the accuracy are bit-equal to the twin's;
+    the loss is finite (and falls, MESH_LOSS_FALLS); each slot launches
+    every kernel as many times a step (and a drain) as the twin does in
+    its step, and each kernel of the run at least once over it; then a
+    slot fed a malformed batch fails the step with its own error.
+    Recorded: meshed and stacked step ms, peak memory by device, per-slot
+    launches, the optimizer-state bytes by device and the phase's wall.
+    ``device="cpu"`` runs the slots on repeated CPU slots (the plain
+    kernels; no launch gate)."""
+    path, steps, runs = MESH_PATHS[name]
+    P, W = PATHS[path][6]
+    if device is None:
+        devices = mesh_devices(torch, P * W)
+    else:
+        devices = [torch.device(device)] * (P * W)
+    cards = list(dict.fromkeys(devices))
+    log(f"{name}: slots on {[str(d) for d in devices]} "
+        + (f"({len(cards)} cards)" if len(cards) > 1 else
+           f"(one device, every slot on {devices[0]}: not a cross-device "
+           "run)"))
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        results = [mesh_run(torch, name, path, steps, fields, kernels,
+                            devices, batch) for fields, kernels in runs]
+    finally:
+        cudnn.deterministic = saved
+    for r in results:
+        losses = r["losses"]
+        half = steps // 2
+        if name in MESH_LOSS_FALLS and not (
+                statistics.mean(losses[half:]) <
+                statistics.mean(losses[:half])):
+            raise AssertionError(f"{name}: loss did not fall: {losses}")
+        log(f"{name} ({path}{' ' + str(r['fields']) if r['fields'] else ''}"
+            f" on the [{P}, {W}] mesh): {steps} steps, loss {losses[0]:.4f}"
+            f" -> {losses[-1]:.4f}, the state bit-equal to the stacked "
+            f"twin's after every step"
+            + (" and the drain" if r["drain_ms"] else "")
+            + f"; step {r['step_ms_median']:.2f} ms meshed vs "
+            f"{r['stacked_step_ms_median']:.2f} ms stacked (medians of "
+            f"steps 2-{steps}); slot (0, 0)'s launches a step "
+            f"{r['slot00_launches_per_step']} (every slot's = the twin's); "
+            f"peak memory {r['peak_mem_bytes']}; optimizer state by device "
+            f"{r['opt_state_bytes_by_device']} "
+            f"({r['opt_state_bytes_per_slot']} B a slot, the stacked "
+            f"twin's {r['stacked_opt_state_bytes_per_replica']:.0f} B a "
+            f"replica); a slot fed a malformed batch failed the step in "
+            f"{r['fail_s']:.3f} s: {r['fail_error']}; run wall "
+            f"{r['wall_s']:.1f} s")
+    res = dict(results[0]) if len(results) == 1 else dict(
+        path=path, runs=results,
+        step_ms_median=max(r["step_ms_median"] for r in results),
+        stacked_step_ms_median=max(r["stacked_step_ms_median"]
+                                   for r in results))
+    res.update(slots=[str(d) for d in devices], cards=len(cards),
+               wall_s=time.perf_counter() - t0)
+    log(f"{name}: phase wall {res['wall_s']:.1f} s")
     return res
 
 

@@ -62,7 +62,8 @@ from geomx_tpu_torch.control.actuators import current_ratio_scale
 from geomx_tpu_torch.ops import bsc as bsc_ops
 from geomx_tpu_torch.ops.sampled_topk import probe_positions
 from geomx_tpu_torch.ops.topk import top_k
-from geomx_tpu_torch.parallel.collectives import all_gather, psum
+from geomx_tpu_torch.parallel.collectives import (all_gather, psum,
+                                                  records_here)
 from geomx_tpu_torch.telemetry.probes import record_inline
 
 MOMENTUM = bsc_ops.MOMENTUM  # hardcoded in the reference (gc.cc:200)
@@ -107,7 +108,9 @@ class BiSparseCompressor(Compressor):
         self._wire_axis_size = self.sparse_agg_parties or 2
         self._probes: dict = {}  # (n, device) -> probe positions tensor
         # the last owner-routed all-reduce's index tensors, kept for
-        # inspection (sparseagg.wire_stats; chip_smoke.py reads them)
+        # inspection (sparseagg.wire_stats; chip_smoke.py reads them);
+        # on a device mesh slot (0, 0)'s record alone
+        # (collectives.records_here)
         self.last_wire: Optional[dict] = None
 
     def k_for(self, n: int) -> int:
@@ -222,10 +225,12 @@ class BiSparseCompressor(Compressor):
             # overflow goes back into the velocity v
             if self.sparse_agg_parties is None:
                 self._wire_axis_size = int(axis_size)
-            self.last_wire = {}
+            record = {}
             out, v = sparseagg.sparse_allreduce(
                 vals, idx, n, axis_name, axis_size, self.decompress,
-                ef_buffer=v, record=self.last_wire)
+                ef_buffer=v, record=record)
+            if records_here():
+                self.last_wire = record
         else:
             # the wire transfer: 2k values per party over the dc tier;
             # every replica folds the parties' runs in party order

@@ -48,7 +48,7 @@ from torch.profiler import record_function
 from geomx_tpu_torch.ops.merge import merge_sorted_pairs
 from geomx_tpu_torch.ops.topk import top_k
 from geomx_tpu_torch.parallel.collectives import (all_gather, all_to_all,
-                                                  axis_dim, pmax, psum)
+                                                  axis_replicas, pmax, psum)
 from geomx_tpu_torch.telemetry.probes import record_inline
 
 
@@ -151,12 +151,15 @@ def sparse_allreduce(vals: torch.Tensor, idx: torch.Tensor, n: int,
     absorbs the routing overflow before the collectives; returns
     ``(dense_out [P, W, n], new_ef_buffer)`` (None when no buffer was
     handed in).  ``record``, if given, receives the step's overflow,
-    merged and kept index tensors for :func:`wire_stats`."""
+    merged and kept index tensors for :func:`wire_stats`.  Inside a mesh
+    slot the operands are the slot's ``[1, 1, k]`` block and
+    ``axis_size`` is checked against the slot's axis size."""
     k = int(vals.shape[-1])
     P = int(axis_size)
-    if vals.shape[axis_dim(axis_name)] != P:
-        raise ValueError(f"axis {axis_name!r} has {vals.shape[axis_dim(axis_name)]}"
-                         f" replicas, not axis_size={P}")
+    have = axis_replicas(vals, axis_name)
+    if have != P:
+        raise ValueError(f"axis {axis_name!r} has {have} replicas, not "
+                         f"axis_size={P}")
     slots = push_slots(k, P)
     kr = min(P * slots, pull_budget(k, P))
     lead = tuple(vals.shape[:2])

@@ -20,6 +20,11 @@ sums on the int8 sign lattice instead (``_allreduce_lattice``, the JAX
 op order, plain PyTorch ops): codes in {-1, 0, +1} with the same error
 feedback, an exact integer sum over the tier, one scale by the
 threshold.  Its wire is n int8 bytes a party.
+
+``last_wire`` is a record for inspection only: the all-reduce reads its
+wire from a local.  On a device mesh (``parallel/collectives.
+run_on_mesh``) one compressor serves every slot, so only slot ``(0, 0)``
+writes the record there, its own ``[1, 1, ...]`` block.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from torch.profiler import record_function
 from geomx_tpu_torch.compression import sparseagg
 from geomx_tpu_torch.compression.base import REPLICA_DIMS, Compressor
 from geomx_tpu_torch.ops import twobit as twobit_ops
-from geomx_tpu_torch.parallel.collectives import all_gather
+from geomx_tpu_torch.parallel.collectives import all_gather, records_here
 
 
 class TwoBitCompressor(Compressor):
@@ -48,7 +53,8 @@ class TwoBitCompressor(Compressor):
             sparse_agg = sparseagg.sparse_agg_enabled()
         self.sparse_agg = bool(sparse_agg)
         # the last all-reduce's wire (packed words, or the lattice's int8
-        # codes), kept for inspection (chip_smoke.py reads its density)
+        # codes), kept for inspection (chip_smoke.py reads its density);
+        # slot (0, 0)'s under a mesh (module docstring)
         self.last_wire: Optional[torch.Tensor] = None
 
     def init_leaf_state(self, leaf: torch.Tensor) -> Any:
@@ -69,14 +75,16 @@ class TwoBitCompressor(Compressor):
                 residual.reshape(lead + (n,)), self.threshold)
         with record_function("twobit/dequantize"):
             if axis_size == 1:
-                self.last_wire = packed
+                wire = packed
                 out = twobit_ops.dequantize_2bit(packed, n, self.threshold)
             else:
                 # the wire transfer: every replica receives the parties'
                 # words [P, W, A, words] and sums their values in order
-                self.last_wire = all_gather(packed, axis_name).contiguous()
-                out = twobit_ops.dequantize_2bit(self.last_wire, n,
-                                                 self.threshold, summed=True)
+                wire = all_gather(packed, axis_name).contiguous()
+                out = twobit_ops.dequantize_2bit(wire, n, self.threshold,
+                                                 summed=True)
+        if records_here():
+            self.last_wire = wire
         return out.reshape(shape).to(dtype), new_res.reshape(shape)
 
     def _allreduce_lattice(self, g: torch.Tensor, residual: torch.Tensor,
@@ -92,7 +100,8 @@ class TwoBitCompressor(Compressor):
                                 torch.where(r <= -self.threshold, -one,
                                             zero))
             new_res = r - codes.to(torch.float32) * self.threshold
-            self.last_wire = codes
+            if records_here():
+                self.last_wire = codes
             out = sparseagg.lattice_allreduce_signs(codes, self.threshold,
                                                     axis_name, axis_size)
         return out.to(g.dtype), new_res

@@ -5,7 +5,7 @@ Each wrapper launches a hand-written CUDA kernel for Hopper
 version on CPU tensors; none falls back from one to the other.  Each
 wrapper counts its kernel launches in a ``launches`` attribute, so a
 run can show that its main path went through the kernels; inside a mesh
-slot the wrappers of the meshed paths (kernels 1-6) also count into the
+slot the wrappers of the meshed paths (kernels 1-9) also count into the
 slot's own tally (:func:`slot_launch_counts`).
 
 ``KERNELS`` maps each ported TPU kernel's name to its wrapper;

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from geomx_tpu_torch.ops._launches import count
 from geomx_tpu_torch.ops.bucket import on_cuda
 
 # post-sort sentinel key: real indices are < 2**31 - 1 (int32 buckets)
@@ -122,7 +123,7 @@ def merge_tree(svals: torch.Tensor, skey: torch.Tensor, rounds: int):
     kernels().merge_sorted_pairs(svals.reshape(-1, m).contiguous(),
                                  skey.reshape(-1, m).contiguous(), rounds,
                                  out_v.view(-1, m), out_i.view(-1, m))
-    merge_sorted_pairs.launches += 1
+    count(merge_sorted_pairs)
     return out_v, out_i
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from geomx_tpu_torch.ops._launches import count
 from geomx_tpu_torch.ops.bucket import on_cuda
 
 LANES = 128
@@ -112,7 +113,7 @@ def quantize_2bit(g: torch.Tensor, r: torch.Tensor, threshold: float):
     kernels().quantize_2bit(g.view(rows, n), r.view(rows, n),
                             _thr32(threshold), packed.view(rows, -1),
                             new_r.view(rows, n))
-    quantize_2bit.launches += 1
+    count(quantize_2bit)
     return packed, new_r
 
 
@@ -140,7 +141,7 @@ def dequantize_2bit(packed: torch.Tensor, n: int, threshold: float,
                       device=packed.device)
     kernels().dequantize_2bit(packed.view(rows, parts, words), int(n),
                               _thr32(threshold), out.view(rows, int(n)))
-    dequantize_2bit.launches += 1
+    count(dequantize_2bit)
     return out
 
 

@@ -57,6 +57,17 @@ def axis_dim(axis_name: str) -> int:
                          f"one of {sorted(_DIM)}") from None
 
 
+def axis_replicas(x: torch.Tensor, axis_name: str) -> int:
+    """The size of a replica axis as ``x``'s program sees it: the slot's
+    ``P`` or ``W`` inside a mesh slot (where ``x`` is a ``[1, 1, ...]``
+    block), else ``x``'s dim for the axis."""
+    d = axis_dim(axis_name)
+    slot = current_slot()
+    if slot is None:
+        return int(x.shape[d])
+    return (slot.P, slot.W)[d]
+
+
 # ---- the device mesh: one program a slot ---------------------------------
 
 _slot_ctx = threading.local()
@@ -119,6 +130,15 @@ class MeshSlot:
 def current_slot() -> Optional[MeshSlot]:
     """The mesh slot this thread runs, None outside :func:`run_on_mesh`."""
     return getattr(_slot_ctx, "slot", None)
+
+
+def records_here() -> bool:
+    """Whether this thread writes a shared object's inspection record
+    (a compressor's ``last_wire``): always outside a mesh slot, only
+    slot ``(0, 0)`` inside one, so the slots never overwrite each
+    other's record and nothing reads a record back within a step."""
+    slot = current_slot()
+    return slot is None or slot.index == 0
 
 
 def run_on_mesh(fn: Callable, mesh, per_slot_args: Sequence) -> list:

@@ -50,8 +50,11 @@ ReplicaMesh``) the same program runs once a replica slot at local leading
 dims ``[1, 1]`` (``parallel/collectives.run_on_mesh``), as the JAX
 ``_device_step`` sees ``[1, 1]`` blocks under ``P(dc, worker)``; its
 collectives meet the other slots' and give the stacked path's bits.  The
-mesh runs FSA with an uncompressed or BSC dc tier, per-leaf or fused
-optimizers and ZeRO; the other paths refuse (:func:`mesh_refusal`).
+mesh runs every sync algorithm (FSA, MixedSync with DCASGD, HFA, the
+pipeline), every dc-tier compressor (BSC gathered or owner-routed, DGT,
+2-bit, FP16, MPQ), a worker-tier compressor, per-leaf or fused
+optimizers, ZeRO and MultiGPS; sp, a membership mask, telemetry,
+control and the audit refuse (:func:`mesh_refusal`).
 
 With control on (``GEOMX_CONTROL``, ``control/``, decided when the step
 is built) the state's ``sync_state["control"]`` operands are detached
@@ -269,6 +272,7 @@ def sp_chunks(x: torch.Tensor, sp: int) -> torch.Tensor:
 
 # (device, live-party count) -> the num_live_parties metric's tensor
 _LIVE_COUNTS: dict = {}
+_LIVE_COUNTS_LOCK = threading.Lock()
 
 # the ROADMAP.md Queue 1 item that ports what the device mesh refuses
 MESH_OTHER_PATHS = "Device mesh: the other paths"
@@ -276,35 +280,17 @@ MESH_OTHER_PATHS = "Device mesh: the other paths"
 
 def mesh_refusal(sync, config=None, sp_model: bool = False) -> None:
     """Raise the ``unported`` refusal of a step the device mesh does not
-    run yet: anything but FSA with an uncompressed or (all-gathered) BSC
-    dc tier and no worker compressor; sp, MultiGPS, a membership mask,
-    telemetry, control and the audit."""
+    run yet: sp, a membership mask, telemetry, control and the audit."""
     from geomx_tpu_torch.analysis import audit_enabled
-    from geomx_tpu_torch.compression.base import NoCompressor
-    from geomx_tpu_torch.compression.bisparse import BiSparseCompressor
     from geomx_tpu_torch.config import unported
-    from geomx_tpu_torch.sync.fsa import FSA
 
     def refuse(what: str):
         raise unported(f"{what} on a device mesh", MESH_OTHER_PATHS)
 
     if sp_model:
         refuse("sequence parallelism")
-    if type(sync) is not FSA:
-        refuse(f"the {getattr(sync, 'name', type(sync).__name__)!r} sync "
-               "(MixedSync, HFA, the pipeline)")
-    dc = sync.dc_compressor
-    inner = dc.inner if isinstance(dc, BucketedCompressor) else dc
-    if not (type(inner) is NoCompressor or (
-            type(inner) is BiSparseCompressor and not inner.sparse_agg)):
-        refuse(f"the {getattr(inner, 'name', type(inner).__name__)!r} dc "
-               "tier (DGT, 2-bit, sparse_agg, FP16, MPQ)")
-    if type(sync.worker_compressor) is not NoCompressor:
-        refuse("a worker-tier compressor")
     if sync.live_parties is not None:
         refuse("a membership mask")
-    if config is not None and getattr(config, "multi_gps", False):
-        refuse("GEOMX_MULTI_GPS")
     if _probes.telemetry_enabled(config):
         refuse("telemetry")
     if _control.control_enabled(config):
@@ -342,7 +328,9 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
       global means).
     """
     sync.bind_topology(topology)
-    P, W = topology.replica_shape
+    # the axis sizes the collectives reduce over, and (P, W) the leading
+    # dims of the program's own tensors: the same stacked, [1, 1] a slot
+    nP, nW = P, W = topology.replica_shape
     sp = getattr(topology, "sp_degree", 1) if sp_model else None
     if mesh is not None:
         if tuple(mesh.shape) != (P, W):
@@ -403,8 +391,8 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                     new_ws[k] = ws_all[k]
                 else:
                     g, new_ws[k] = sync.worker_compressor.allreduce_leaf(
-                        grads[k], ws_all[k], WORKER_AXIS, W)
-                    mixed_g[k] = g / W if W > 1 else g
+                        grads[k], ws_all[k], WORKER_AXIS, nW)
+                    mixed_g[k] = g / nW if nW > 1 else g
             dc = sync.dc_compressor
             if getattr(dc, "fuses_tree", False):
                 # a tree-fusing dc compressor (DGT) runs one schedule a
@@ -416,20 +404,20 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                 if big_names:
                     out, big_s = dc.allreduce(
                         {k: mixed_g[k] for k in big_names}, big_s, DC_AXIS,
-                        P)
+                        nP)
                     mixed_g.update(out)
                 if small_names:
                     out, small_s = dc.allreduce(
                         {k: mixed_g[k] for k in small_names}, small_s,
-                        DC_AXIS, P)
+                        DC_AXIS, nP)
                     mixed_g.update(out)
                 dstate = {"sharded": big_s, "replicated": small_s}
             else:
                 mixed_g, dstate = dc.allreduce(mixed_g,
                                                sync_state["dc_comp"],
-                                               DC_AXIS, P)
-            if P > 1:
-                mixed_g = tree_map(lambda x: x / P, mixed_g)
+                                               DC_AXIS, nP)
+            if nP > 1:
+                mixed_g = tree_map(lambda x: x / nP, mixed_g)
         with record_function("train/optimizer"):
             mixed_p = {k: mgps.shard_param_leaf(params[k])
                        if mgps.is_big(n) else params[k]
@@ -496,10 +484,11 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
         membership or depth swap, finds it made: its first call makes no
         host-to-device copy)."""
         key = (device, sync.num_live)
-        if key not in _LIVE_COUNTS:
-            _LIVE_COUNTS[key] = torch.tensor(float(sync.num_live),
-                                             device=device)
-        return _LIVE_COUNTS[key]
+        with _LIVE_COUNTS_LOCK:  # a mesh's slots ask from their threads
+            if key not in _LIVE_COUNTS:
+                _LIVE_COUNTS[key] = torch.tensor(float(sync.num_live),
+                                                 device=device)
+            return _LIVE_COUNTS[key]
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         names = list(state.params)
@@ -607,7 +596,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                                list(zip(state.slots, x.slots, y.slots)))
             return PlacedTree(mesh, [s for s, _ in outs]), outs[0][1]
 
-        mesh_step.mgps = None
+        mesh_step.mgps = mgps  # as train_step.mgps: a slot's shards
         return mesh_step
     train_step.mgps = mgps  # Trainer.init_state shapes the state by it
     return train_step

@@ -82,8 +82,11 @@ state is placed per slot (``mesh.place``), the step runs one program a
 slot (``train/step.py``), ``fit`` scatters each batch to the slots,
 evaluation runs on slot ``(0, 0)``'s device, and checkpoints gather and
 place, so a meshed run writes the stacked run's tensors.  The mesh runs
-FSA (per-leaf or fused optimizers, ZeRO); membership, control,
-telemetry, the audit and the device-cached epoch refuse under it.
+every sync algorithm and dc-tier compressor, per-leaf or fused
+optimizers, ZeRO and MultiGPS (``init_state`` shapes a slot's state by
+the step's plan), and ``drain_pipeline`` drains once a slot;
+membership, catch-up, control, telemetry, the audit and the
+device-cached epoch refuse under it.
 """
 
 from __future__ import annotations
@@ -105,6 +108,7 @@ from geomx_tpu_torch.control.actuators import (CONTROL_KEY, control_enabled,
 from geomx_tpu_torch.data.loader import GeoDataLoader
 from geomx_tpu_torch.device import resolve_device
 from geomx_tpu_torch.ops.optim import fused_optim_enabled
+from geomx_tpu_torch.parallel.collectives import run_on_mesh
 from geomx_tpu_torch.sync import get_sync_algorithm
 from geomx_tpu_torch.topology import HiPSTopology, PlacedTree
 from geomx_tpu_torch.train.state import (TrainState, replicate_tree,
@@ -820,10 +824,31 @@ class Trainer:
         again); the model-state buffer keeps the applied value.  Under
         ZeRO the parked shard aggregates go through
         ``ZeroPlan.apply_shard_update``, the fused kernels included, as
-        in the JAX package."""
+        in the JAX package.  A placed state drains once a slot
+        (``run_on_mesh``: ZeRO's all-gather meets the other slots'), and
+        the result is placed."""
         sync = self.sync
         if not hasattr(sync, "drain_grads"):
             return state
+        if self._zero_plan is None and self._fused_optim:
+            # the JAX package's drain (geomx_tpu/train/trainer.py:789)
+            # hands the leaf-tree aggregate to tx.update against the
+            # optimizer state on the bucket layout, and raises
+            # ValueError for the mismatched trees; so does the port
+            raise ValueError(
+                "Trainer.drain_pipeline does not compose with "
+                "GEOMX_FUSED_OPTIM: the drained aggregate is a leaf tree "
+                "and the fused optimizer state lives on the dc tier's "
+                "flat buckets (the JAX package's drain raises too)")
+        if isinstance(state, PlacedTree):
+            outs = run_on_mesh(self._drain, self.mesh,
+                               [(s,) for s in self.mesh.place(state).slots])
+            return PlacedTree(self.mesh, outs)
+        return self._drain(state)
+
+    def _drain(self, state: TrainState) -> TrainState:
+        """:meth:`drain_pipeline`'s body on one (stacked or slot) state."""
+        sync = self.sync
         zplan = self._zero_plan
         if zplan is not None:
             with record_function("train/drain"):
@@ -836,16 +861,6 @@ class Trainer:
             return TrainState(step=state.step, params=params,
                               opt_state=opt_state, model_state=model_state,
                               sync_state=sync_state)
-        if self._fused_optim:
-            # the JAX package's drain (geomx_tpu/train/trainer.py:789)
-            # hands the leaf-tree aggregate to tx.update against the
-            # optimizer state on the bucket layout, and raises
-            # ValueError for the mismatched trees; so does the port
-            raise ValueError(
-                "Trainer.drain_pipeline does not compose with "
-                "GEOMX_FUSED_OPTIM: the drained aggregate is a leaf tree "
-                "and the fused optimizer state lives on the dc tier's "
-                "flat buckets (the JAX package's drain raises too)")
         with record_function("train/drain"):
             g, sync_state = sync.drain_grads(state.params, state.sync_state)
             params, opt_state = self.tx.update(g, state.opt_state,

@@ -475,24 +475,23 @@ def test_meshed_fit_checkpoint_reads_back_into_a_stacked_trainer(tmp_path):
 
 
 @pytest.mark.parametrize("case", [
-    "mixed", "hfa", "pipeline", "dgt", "multi_gps", "twobit", "sparse_agg",
     "telemetry", "control", "audit", "flight", "membership", "catchup",
-    "device_cache", "scan_epochs"])
+    "device_cache", "scan_epochs", "sp"])
 def test_refusals_under_a_mesh(case, monkeypatch):
     """What the mesh does not run yet refuses through ``unported`` with
-    the Queue 1 item's title; the stacked trainer is untouched."""
+    the Queue 1 item's title; the stacked trainer is untouched.  (The
+    sync algorithms and dc tiers run on the mesh:
+    ``tests/test_torch_mesh_paths.py``.)"""
     for var in ("GEOMX_TELEMETRY", "GEOMX_CONTROL", "GEOMX_AUDIT",
                 "GEOMX_FLIGHT", "GEOMX_CAPSULE"):
         monkeypatch.delenv(var, raising=False)
-    fields = {"mixed": dict(sync_mode="mixed"),
-              "hfa": dict(sync_mode="hfa"),
-              "pipeline": dict(pipeline_depth=1),
-              "dgt": dict(enable_dgt=2),
-              "multi_gps": dict(multi_gps=True, bigarray_bound=100),
-              "twobit": dict(compression="2bit,0.5"),
-              "sparse_agg": dict(
-                  compression="bsc,0.01,select=sampled,sparse_agg=1"),
-              "telemetry": dict(telemetry=True),
+    if case == "sp":
+        topo = HiPSTopology(2, 2, sp_degree=2)
+        assert topo.replica_shape == (2, 2)  # stacked, the sp axis runs
+        with pytest.raises(NotImplementedError, match=ITEM):
+            topo.build_mesh(["cpu"] * 8)
+        return
+    fields = {"telemetry": dict(telemetry=True),
               "control": dict(control=True),
               "audit": dict(audit=True),
               "flight": dict(flight=True)}.get(case, {})
