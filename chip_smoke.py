@@ -167,10 +167,11 @@ Every phase's failure is fatal (non-zero exit, no result line):
    mesh    -- MESH_PATHS: mesh_fsa, mesh_fused_sgd, mesh_zero (paths 1,
               1f, zero_sgd) and mesh_twobit_adam,
               mesh_sparse_agg ([4, 2]), mesh_mixed_dcasgd, mesh_hfa_dgt
-              (8 steps: HFA's first dc milestone), mesh_pipelined_fsa
-              and mesh_zero_pipelined_adam (then drained),
-              mesh_multigps_bsc and mesh_fp16_mpq (the flagship with fp16,
-              then mpq), 4 steps each, on a ReplicaMesh
+              (K1 1, K2 2: HFA's first dc milestone at step 2),
+              mesh_pipelined_fsa and mesh_zero_pipelined_adam (then
+              drained), mesh_multigps_bsc and mesh_fp16_mpq (the flagship
+              with fp16, then mpq), 2 steps each (the first three 4), on a
+              ReplicaMesh
               (topology.build_mesh) of the path's [P, W], one program a
               slot (parallel/collectives.run_on_mesh), the slots
               round-robin over the cards (all on cuda:0 with one card,
@@ -185,7 +186,24 @@ Every phase's failure is fatal (non-zero exit, no result line):
               malformed batch failing the step with its own error inside
               the rendezvous timeout.  Meshed and stacked step ms, peak
               memory and the optimizer-state bytes by device, per-slot
-              launches and each phase's wall printed, not gated;
+              launches and each phase's wall printed, not gated; then
+              the other paths on a mesh (mesh_other_phases, each slot's
+              collective wait bounded at 60 s, beside a stacked twin):
+              mesh_resilience_fsa ([4, 2], resilience_fsa's
+              configuration, a blackout and a flap in 6 steps, the
+              catch-up payload the twin's bytes, the admitted state
+              placed; kernels 1-5 in every slot), mesh_control_telemetry_fsa
+              (path 1 at 16 a replica, CONTROL_SCRIPT compressed into 6
+              steps with telemetry, flight recorder, capsule, event log
+              and the audit on, an audited membership swap: the probe
+              dicts, flight records and audit signatures the twin's),
+              mesh_scan_epoch (path 1f, a device-cached loader, one
+              scanned epoch of 4 steps), mesh_seq_ring and
+              mesh_seq_ulysses (seq_ring's SeqClassifier at full width
+              on [2, 2] x sp 2, 8 slots, 4 steps: within 2e-4 / 2e-3 of
+              the twin, kernel 13 or kernels 10-12 in every slot, a
+              replica's share of the twin's launches); bits, launches a
+              slot and walls as above;
    telemetry_fsa -- path 1f again (16 steps) through Trainer.fit with
               GEOMX_TELEMETRY, the event log, the flight recorder (16
               steps) and the run capsule (sampled every 0.5 s) on, cuDNN
@@ -343,8 +361,9 @@ Every phase's failure is fatal (non-zero exit, no result line):
                           every node's old id, the epoch going on, no
                           node read as dead;
 7. examples -- long_context_ring, long_context_ulysses: the port's
-              examples/long_context.py main(mode) at its defaults (2 x 2
-              x sp 2, L 256, 6 epochs of 64 steps): the last test
+              examples/long_context.py main(mode) at its defaults but
+              for 3 of its 6 epochs (2 x 2 x sp 2, L 256, epochs of 64
+              steps; LONG_CONTEXT_RUN_ENV): the last test
               accuracy above 0.5 and the mode's kernels launched (ring:
               13, 1, 2 and 10 in the evaluation; Ulysses: 10, 11, 12, 1,
               2);
@@ -648,10 +667,11 @@ def path_data(path: str, n: int):
                         synthetic_train_n=n)
 
 
-def make_seq_trainer(sp_mode, shape, seq_len: int, device=None):
+def make_seq_trainer(sp_mode, shape, seq_len: int, device=None, mesh=None):
     """The Trainer of an attention configuration: SeqClassifier at
     examples/long_context.py's widths (``get_model("transformer")`` when
-    un-meshed), adam(1e-3), FSA, HiPS ``shape = (P, W, sp)``."""
+    un-meshed), adam(1e-3), FSA, HiPS ``shape = (P, W, sp)``; ``mesh``:
+    on that device mesh instead of ``device``."""
     from geomx_tpu_torch import HiPSTopology
     from geomx_tpu_torch.models import SeqClassifier, get_model
     from geomx_tpu_torch.optim import adam
@@ -665,7 +685,8 @@ def make_seq_trainer(sp_mode, shape, seq_len: int, device=None):
         model = SeqClassifier(max_len=seq_len, sp_mode=sp_mode)
         twin = SeqClassifier(max_len=seq_len)
     return Trainer(model, HiPSTopology(P, W, sp_degree=S), adam(1e-3),
-                   sync=FSA(), device=device, single_device_model=twin)
+                   sync=FSA(), device=device, single_device_model=twin,
+                   mesh=mesh)
 
 
 def log(msg: str) -> None:
@@ -4747,6 +4768,10 @@ LONG_CONTEXT_KERNELS = {
 }
 # tests/test_long_context.py:110's bar for the example's last accuracy
 LONG_CONTEXT_MIN_ACC = 0.5
+# the example's epochs here: its defaults but for 3 epochs of its 6 (the
+# test accuracy is 1.0 from the third on, 0.09, 0.58, 1.0 in both modes on
+# the H100), cut for the script's time limit
+LONG_CONTEXT_RUN_ENV = {"GEOMX_EPOCHS": "3"}
 
 
 # the variables examples/long_context.py reads (its defaults when unset)
@@ -6381,25 +6406,28 @@ def serve_seq_flash_phase(torch, device=None, **over) -> dict:
 # the device-mesh phases: phase -> (a path of PATHS, steps, its runs).  A
 # run is (GeoConfig fields over the path's, the kernels it must launch in
 # every slot; None: the path's); each run is a meshed trainer at the
-# path's [P, W] beside a stacked twin on the first card.  The steps are
-# the fewest that reach the path's events (a MixedSync pull at step 2,
-# HFA's first dc milestone at step 8, the pipeline's warm-up and drain),
-# never fewer than 4 (the first three are held to 4 for the script's
-# time limit)
+# path's [P, W] beside a stacked twin on the first card.  Two steps reach
+# every PR 24 path's events (a MixedSync pull at step 2, the pipeline's
+# warm-up and first apply, then its drain; HFA at K1 1, K2 2, as the
+# reference phase runs it, reaches its first dc milestone at step 2):
+# those phases were cut from 4 (HFA from 8) to pay for the other paths'
+# mesh phases (mesh_other_phases) inside the script's time limit.  The
+# first three keep 4 steps for their loss-falls gate (the flagship's
+# second loss is above its first)
 MESH_PATHS = {
     "mesh_fsa": ("flagship", 4, (({}, None),)),
     "mesh_fused_sgd": ("fused_sgd", 4, (({}, None),)),
     "mesh_zero": ("zero_sgd", 4, (({}, None),)),
-    "mesh_twobit_adam": ("twobit_adam", 4, (({}, None),)),
-    "mesh_sparse_agg": ("sparse_agg", 4, (({}, None),)),
-    "mesh_mixed_dcasgd": ("mixed_dcasgd", 4, (({}, None),)),
-    "mesh_hfa_dgt": ("hfa_dgt", 8, (({}, None),)),
-    "mesh_pipelined_fsa": ("pipelined_fsa", 4, (({}, None),)),
-    "mesh_zero_pipelined_adam": ("zero_pipelined_adam", 4, (({}, None),)),
-    "mesh_multigps_bsc": ("multigps_bsc", 4, (({}, None),)),
+    "mesh_twobit_adam": ("twobit_adam", 2, (({}, None),)),
+    "mesh_sparse_agg": ("sparse_agg", 2, (({}, None),)),
+    "mesh_mixed_dcasgd": ("mixed_dcasgd", 2, (({}, None),)),
+    "mesh_hfa_dgt": ("hfa_dgt", 2, ((REFERENCE_FIELDS["hfa_dgt"], None),)),
+    "mesh_pipelined_fsa": ("pipelined_fsa", 2, (({}, None),)),
+    "mesh_zero_pipelined_adam": ("zero_pipelined_adam", 2, (({}, None),)),
+    "mesh_multigps_bsc": ("multigps_bsc", 2, (({}, None),)),
     # the flagship with the FP16 gather, then MPQ (ResNet-20's one
     # 272,512-element bucket is above MPQ's 200,000 bound: the BSC route)
-    "mesh_fp16_mpq": ("flagship", 4, (
+    "mesh_fp16_mpq": ("flagship", 2, (
         (dict(compression="fp16"), ("fused_flatten", "fused_unflatten")),
         (dict(compression="mpq,0.01"), SLICE1))),
 }
@@ -6653,6 +6681,518 @@ def mesh_phase(torch, name: str, device=None, batch: int = 128) -> dict:
     return res
 
 
+# ---- the device mesh: membership and catch-up, control, telemetry and the
+# audit, the device-cached epoch, sp ------------------------------------------
+
+# a slot's wait at a collective in these phases: a hang fails the phase
+MESH_OTHER_TIMEOUT_S = 60.0
+# mesh_resilience_fsa: resilience_fsa on [4, 2] for 6 steps, party 1 dead
+# for steps 1-2 (a blackout), party 3 for step 4 (a flap)
+MESH_RESILIENCE = dict(steps=6, schedule="seed=1234;blackout@1:party=1,"
+                                         "steps=2;flap@4:party=3")
+# mesh_control_telemetry_fsa: CONTROL_SCRIPT compressed into 6 steps of
+# path 1 (scales 0.5 and 0.125 of the 0.01 capacity, depth 1, the drain
+# back to 0, the capacity again), and an audited membership swap at step
+# 5; 16 a replica, so that the audit's eight CPU recordings stay short
+# (3.1-4.6 s each at 32 a replica on the H100 machine's host)
+MESH_CONTROL = dict(steps=6, batch=16, swap=(5, (True, False)),
+                    script=((1, "ratio", 0.005), (2, "ratio", 0.00125),
+                            (3, "depth", 1), (4, "depth", 0),
+                            (5, "ratio", 0.01)))
+# mesh_scan_epoch: path 1f, a device-cached loader and one scanned epoch
+MESH_SCAN_STEPS = 4
+# the sp phases: seq_ring's SeqClassifier at its full width on [2, 2] x
+# sp 2 (8 slots), 16 sequences of L 256 a replica, 4 steps; the attention
+# kernels a slot launches (a replica's share of the stacked twin's)
+MESH_SEQ = {"mesh_seq_ring": ("ring", ("fused_block",)),
+            "mesh_seq_ulysses": ("ulysses", _FLASH)}
+MESH_SEQ_SHAPE, MESH_SEQ_L, MESH_SEQ_BATCH, MESH_SEQ_STEPS = \
+    (2, 2, 2), 256, 16, 4
+# the sp phases against their twin: the shards' gradients sum in another
+# order (tests/test_torch_mesh_sp.py)
+MESH_SEQ_TOL = dict(loss=2e-4, params=2e-3)
+
+
+class _MeshTwin:
+    """A meshed trainer driven beside its stacked twin on the first card:
+    after every step and actuation the gathered state and the metrics
+    are the twin's bits (``tol``: within ``tol["loss"]`` and
+    ``tol["params"]``), and each slot launches every kernel as often as
+    the twin's step does (the kernels in ``per_replica``: a replica's
+    share of the twin's launches, the twin's one launch covering every
+    replica's sp shards)."""
+
+    def __init__(self, torch, name, twin, meshed, tstate, mstate,
+                 kernels=(), per_replica=(), tol=None):
+        self.torch, self.name = torch, name
+        self.twin, self.meshed = twin, meshed
+        self.tstate, self.mstate = tstate, mstate
+        self.kernels, self.per_replica, self.tol = kernels, per_replica, tol
+        mesh = meshed.mesh
+        self.replicas = mesh.shape[0] * mesh.shape[1]
+        self.cards = mesh.distinct_devices()
+        self.on_card = mesh.first_device.type == "cuda"
+        self.mesh_ms, self.twin_ms, self.losses, self.twin_losses = \
+            [], [], [], []
+        self.totals, self.slot00, self.diffs = {}, [], []
+
+    def timed(self, fn, times):
+        from geomx_tpu_torch import ops
+        _sync_all(self.torch, self.cards)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync_all(self.torch, self.cards)
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def compare(self, what: str) -> None:
+        torch = self.torch
+        got = self.meshed.mesh.gather(self.mstate)
+        if self.tol is None:
+            diff = _state_diff(torch, got, self.tstate)
+            if diff:
+                raise AssertionError(
+                    f"{self.name}: {what}: the meshed state differs from "
+                    f"the stacked twin's at {diff[:5]} ({len(diff)})")
+            return
+        worst = max((got.params[k].double() - v.double()).abs().max().item()
+                    for k, v in self.tstate.params.items())
+        self.diffs.append(worst)
+        if not worst <= self.tol["params"]:
+            raise AssertionError(f"{self.name}: {what}: params {worst} from "
+                                 f"the twin's (tolerance "
+                                 f"{self.tol['params']})")
+
+    def launches(self, what: str, twin_n: dict) -> None:
+        from geomx_tpu_torch import ops
+        want = {k: n // self.replicas if k in self.per_replica else n
+                for k, n in twin_n.items()}
+        if any(twin_n[k] % self.replicas for k in self.per_replica):
+            raise AssertionError(f"{self.name}: {what}: the twin's "
+                                 f"launches {twin_n} split unevenly")
+        slots = ops.slot_launch_counts()
+        if self.on_card:
+            _slot_gate(self.name, what, want, slots, self.meshed.mesh.size)
+        for slot, counts in slots.items():
+            tot = self.totals.setdefault(slot, {})
+            for k, n in counts.items():
+                tot[k] = tot.get(k, 0) + n
+        self.slot00.append({k: n for k, n in
+                            slots.get(min(slots), {}).items() if n}
+                           if slots else {})
+
+    def run(self, what: str, twin_fn, mesh_fn):
+        """An actuation or a fit on both, then the comparison and the
+        launch gate; returns both results."""
+        from geomx_tpu_torch import ops
+        t_out = self.timed(twin_fn, self.twin_ms)
+        twin_n = ops.launch_counts()
+        m_out = self.timed(mesh_fn, self.mesh_ms)
+        self.launches(what, twin_n)
+        return t_out, m_out
+
+    def step(self, xb, yb, what: str):
+        """One step on both: the losses (and accuracies) held, the state
+        compared, the launches gated."""
+        (self.tstate, tm), (self.mstate, mm) = self.run(
+            what, lambda: self.twin.train_step(self.tstate, xb, yb),
+            lambda: self.meshed.train_step(self.mstate, xb, yb))
+        loss, twin_loss = float(mm["loss"]), float(tm["loss"])
+        self.losses.append(loss)
+        self.twin_losses.append(twin_loss)
+        acc, twin_acc = float(mm["accuracy"]), float(tm["accuracy"])
+        if self.tol is None:
+            ok = loss == twin_loss and acc == twin_acc
+        else:
+            samples = xb.shape[0] * xb.shape[1] * xb.shape[2]
+            ok = abs(loss - twin_loss) <= self.tol["loss"] * (
+                1 + abs(twin_loss)) and abs(acc - twin_acc) <= 1 / samples
+        if not ok or not math.isfinite(loss):
+            raise AssertionError(f"{self.name}: {what}: loss {loss} / "
+                                 f"{twin_loss}, accuracy {acc} / {twin_acc} "
+                                 "(meshed / twin)")
+        self.compare(what)
+        return tm, mm
+
+    def summary(self, warm: int = 1) -> dict:
+        """The run's numbers; the first step pays cuDNN's set-up."""
+        if self.on_card:
+            missing = {slot: [k for k in self.kernels if tot.get(k, 0) < 1]
+                       for slot, tot in self.totals.items()}
+            missing = {k: v for k, v in missing.items() if v}
+            if missing or len(self.totals) != self.meshed.mesh.size:
+                raise AssertionError(
+                    f"{self.name}: {len(self.totals)} slots launched "
+                    f"kernels of {self.meshed.mesh.size}; never launched: "
+                    f"{missing}")
+        m = self.mesh_ms[warm:] or self.mesh_ms
+        t = self.twin_ms[warm:] or self.twin_ms
+        return dict(losses=self.losses, twin_losses=self.twin_losses,
+                    step_ms=self.mesh_ms, stacked_step_ms=self.twin_ms,
+                    step_ms_median=statistics.median(m),
+                    stacked_step_ms_median=statistics.median(t),
+                    launches_per_slot={",".join(map(str, k)): v for k, v in
+                                       sorted(self.totals.items())},
+                    slot00_launches=self.slot00,
+                    max_param_diff=max(self.diffs) if self.diffs else 0.0)
+
+
+def _mesh_other(torch, slots: int, device):
+    """The slot devices of a phase (mesh_devices, or ``device`` for every
+    slot) and their log line."""
+    devices = mesh_devices(torch, slots) if device is None \
+        else [torch.device(device)] * slots
+    cards = list(dict.fromkeys(devices))
+    return devices, (f"({len(cards)} cards)" if len(cards) > 1 else
+                     f"(every slot on {devices[0]})")
+
+
+def mesh_resilience_phase(torch, device=None, batch: int = 128) -> dict:
+    """Phase mesh_resilience_fsa: resilience_fsa's configuration
+    (ResNet-20, "bsc,0.01", the fused SGD-momentum) on a [4, 2] mesh
+    beside its stacked twin for MESH_RESILIENCE's 6 steps: the schedule's
+    blackout and flap bound through apply_membership on both (a placed
+    state's policy run on slot (0, 0)'s copy), the catch-up at the
+    re-admission (the same payload bytes, the admitted state placed).
+    Gates: bits after every step and swap, num_live_parties the
+    schedule's, each slot's launches the twin's in full and degraded
+    steps, kernels 1-5 in every slot."""
+    from geomx_tpu_torch import HiPSTopology
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.resilience import (ChaosEngine, ChaosSchedule,
+                                            PartyLivenessController)
+
+    t0 = time.perf_counter()
+    path, steps = "resilience_fsa", MESH_RESILIENCE["steps"]
+    kernels, (P, W) = PATHS[path][5], PATHS[path][6]
+    devices, where = _mesh_other(torch, P * W, device)
+    mesh = HiPSTopology(P, W).build_mesh(devices,
+                                         timeout_s=MESH_OTHER_TIMEOUT_S)
+    schedule = ChaosSchedule.from_spec(MESH_RESILIENCE["schedule"])
+    want = expected_live(schedule, P, steps)
+    data = load_dataset("synthetic", synthetic_train_n=P * W * batch * 8)
+    twin = make_trainer(path, get_model("resnet20"), device=devices[0])
+    meshed = make_trainer(path, get_model("resnet20"), mesh=mesh)
+    loader = twin.make_loader(data["train_x"], data["train_y"], batch)
+    batches = list(loader.epoch(0, prefetch=0))[:steps]
+    h = _MeshTwin(torch, "mesh_resilience_fsa", twin, meshed,
+                  twin.init_state(seed=0), meshed.init_state(seed=0),
+                  kernels=kernels)
+    ctrl = PartyLivenessController(P)
+    engine = ChaosEngine(schedule, ctrl, drive_drop_hook=False)
+    current, live, swaps, catchups = ctrl.epoch, [], [], []
+    for i, (xb, yb) in enumerate(batches):
+        engine.tick(i)
+        ep = ctrl.epoch
+        if ep.version != current.version:
+            if ep.num_live > current.num_live:
+                blobs = (twin.catchup_payload(h.tstate),
+                         meshed.catchup_payload(h.mstate))
+                if blobs[0] != blobs[1]:
+                    raise AssertionError("mesh_resilience_fsa: the catch-up "
+                                         "payloads differ")
+                h.tstate, h.mstate = h.run(
+                    f"admit at step {i}", lambda: twin.admit_party(blobs[0]),
+                    lambda: meshed.admit_party(blobs[1]))
+                h.compare(f"admit at step {i}")
+                catchups.append(dict(step=i, bytes=len(blobs[0])))
+            h.tstate, h.mstate = h.run(
+                f"swap at step {i}",
+                lambda: twin.apply_membership(h.tstate, ep),
+                lambda: meshed.apply_membership(h.mstate, ep))
+            h.compare(f"swap at step {i}")
+            swaps.append(dict(step=i, live_mask=list(ep.live_mask)))
+            current = ep
+        _, mm = h.step(xb, yb, f"step {i + 1}")
+        live.append(int(float(mm["num_live_parties"])))
+    if live != list(want) or len(catchups) != 2:
+        raise AssertionError(f"mesh_resilience_fsa: live parties {live} "
+                             f"(the schedule's {want}), catch-ups "
+                             f"{catchups}")
+    res = h.summary(warm=0)
+    res.update(shape=[P, W], schedule=schedule.spec(), num_live=live,
+               swaps=swaps, catchups=catchups, steps=steps,
+               wall_s=time.perf_counter() - t0)
+    log(f"mesh_resilience_fsa: [{P}, {W}] x {batch} {where}, "
+        f"{schedule.spec()}: live parties {live}, swaps {swaps}, catch-ups "
+        f"{catchups} (the same payload bytes); the state, losses and "
+        f"accuracies bit-equal to the twin's after every step, swap and "
+        f"admission; loss {res['losses'][0]:.4f} -> "
+        f"{res['losses'][-1]:.4f}; meshed / stacked ms (steps and "
+        f"actuations) {[round(x, 2) for x in h.mesh_ms]} / "
+        f"{[round(x, 2) for x in h.twin_ms]}; slot (0, 0)'s launches "
+        f"{res['slot00_launches']}; wall {res['wall_s']:.1f} s")
+    return res
+
+
+def mesh_control_telemetry_phase(torch, device=None, out_dir=None,
+                                 batch: int = MESH_CONTROL["batch"]) -> dict:
+    """Phase mesh_control_telemetry_fsa: path 1 (ResNet-20, "bsc,0.01",
+    kernels 1-4) on a [2, 4] mesh beside its stacked twin, with control,
+    telemetry, the event log, the flight recorder, the run capsule and
+    the audit on, for MESH_CONTROL's 6 steps: the auditor armed on the
+    first batch, CONTROL_SCRIPT compressed (ratio in every slot's own
+    operand, the depth switches through the placed drain and carry), an
+    audited membership swap at step 5.  Gates: bits after every step and
+    actuation; each slot's launches the twin's (kernel 3 at every eff_k
+    boundary); the probe dicts bit-equal, the emitted share falling with
+    the scale; the meshed audit signatures (one record a collective)
+    equal to the twin's, entry for entry, at arming, at each depth switch
+    and at the swap; the flight records equal; one event-log record a
+    step in each; both capsules written."""
+    from geomx_tpu_torch import HiPSTopology
+    from geomx_tpu_torch.control.policy import Decision
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.telemetry.probes import host_probes
+
+    t0 = time.perf_counter()
+    out_dir = out_dir or tempfile.mkdtemp(prefix="mesh_ctl_")
+    cfg = MESH_CONTROL
+    steps = cfg["steps"]
+    kernels, (P, W) = PATHS["flagship"][5], PATHS["flagship"][6]
+    devices, where = _mesh_other(torch, P * W, device)
+    mesh = HiPSTopology(P, W).build_mesh(devices,
+                                         timeout_s=MESH_OTHER_TIMEOUT_S)
+    data = load_dataset("synthetic", synthetic_train_n=P * W * batch * 8)
+
+    def build(tag, **kw):
+        d = os.path.join(out_dir, tag)
+        return make_trainer(
+            "flagship", get_model("resnet20"), control=True, telemetry=True,
+            flight=True, flight_dir=os.path.join(d, "flight"), capsule=True,
+            capsule_dir=os.path.join(d, "capsule"), capsule_sample_s=0.5,
+            telemetry_events=os.path.join(d, "events.jsonl"), audit=True,
+            **kw)
+    twin, meshed = build("twin", device=devices[0]), build("mesh", mesh=mesh)
+    batches = list(twin.make_loader(data["train_x"], data["train_y"],
+                                    batch).epoch(0, prefetch=0))[:steps]
+    h = _MeshTwin(torch, "mesh_control_telemetry_fsa", twin, meshed,
+                  twin.init_state(seed=0), meshed.init_state(seed=0),
+                  kernels=kernels)
+
+    def audits(what):
+        t_sigs = {k: v[0] for k, v in twin._audit_sigs.items()}
+        m_sigs = {k: v[0] for k, v in meshed._audit_sigs.items()}
+        if t_sigs != m_sigs or not all(m_sigs.values()):
+            raise AssertionError(f"mesh_control_telemetry_fsa: {what}: the "
+                                 "meshed audit signatures differ from the "
+                                 "twin's")
+        return {str(k): len(v) for k, v in m_sigs.items()}
+
+    twin._audit_capture(h.tstate, *batches[0])
+    meshed._audit_capture(h.mstate, *batches[0])
+    audited = [dict(at="arming", lengths=audits("arming"))]
+    script = {i: (kind, value) for i, kind, value in cfg["script"]}
+    current = {"ratio": 0.01, "depth": 0}
+    emitted, scale = [], []
+    for i, (xb, yb) in enumerate(batches):
+        if i in script:
+            kind, value = script[i]
+            dec = Decision(step=i, kind=kind, value=value,
+                           prev=current[kind], reason="scripted")
+            current[kind] = value
+            h.tstate, h.mstate = h.run(
+                f"{kind} {value} at step {i}",
+                lambda: twin.apply_control(h.tstate, dec),
+                lambda: meshed.apply_control(h.mstate, dec))
+            h.compare(f"{kind} {value} at step {i}")
+            if kind == "depth":
+                audited.append(dict(at=f"depth {value}",
+                                    lengths=audits(f"depth {value}")))
+        if i == cfg["swap"][0]:
+            mask = cfg["swap"][1]
+            h.tstate, h.mstate = h.run(
+                f"swap at step {i}",
+                lambda: twin.apply_membership(h.tstate, mask),
+                lambda: meshed.apply_membership(h.mstate, mask))
+            h.compare(f"swap at step {i}")
+            audited.append(dict(at=f"swap {list(mask)}",
+                                lengths=audits("the swap")))
+        tm, mm = h.step(xb, yb, f"step {i + 1}")
+        tp, mp = host_probes(tm["telemetry"]), host_probes(mm["telemetry"])
+        if tp != mp:
+            bad = [k for k in tp if tp[k] != mp.get(k)]
+            raise AssertionError(f"mesh_control_telemetry_fsa: step "
+                                 f"{i + 1}: probes {bad} differ")
+        emitted.append(mp["bsc_emitted_fraction"])
+        scale.append(mp["control_ratio_scale"])
+        twin._publish_telemetry(tm["telemetry"], i + 1)
+        meshed._publish_telemetry(mm["telemetry"], i + 1)
+    if not emitted[2] < emitted[1] < emitted[0]:
+        raise AssertionError(f"mesh_control_telemetry_fsa: the emitted "
+                             f"share {emitted} at scales {scale}")
+    flights = (twin._flight.snapshot(), meshed._flight.snapshot())
+    if flights[0] != flights[1] or len(flights[1]) != steps:
+        raise AssertionError("mesh_control_telemetry_fsa: the flight "
+                             "records differ")
+    twin.close_capsule()
+    meshed.close_capsule()
+    records = {}
+    for tag in ("twin", "mesh"):
+        d = os.path.join(out_dir, tag)
+        with open(os.path.join(d, "events.jsonl")) as f:
+            records[tag] = sum('"step_probes"' in line for line in f)
+        if not os.path.exists(os.path.join(d, "capsule",
+                                           "run_capsule.json")):
+            raise AssertionError(f"mesh_control_telemetry_fsa: no {tag} "
+                                 "capsule")
+    if records["mesh"] != steps or records["twin"] != steps:
+        raise AssertionError(f"mesh_control_telemetry_fsa: event records "
+                             f"{records}")
+    res = h.summary(warm=0)
+    res.update(shape=[P, W], batch=batch, steps=steps, emitted=emitted,
+               scale=scale, audits=audited,
+               audit_record_ms=dict(twin=twin.audit_record_ms,
+                                    mesh=meshed.audit_record_ms),
+               event_records=records, wall_s=time.perf_counter() - t0)
+    log(f"mesh_control_telemetry_fsa: [{P}, {W}] x {batch} {where}, "
+        f"{steps} steps under {list(cfg['script'])} and a swap to "
+        f"{list(cfg['swap'][1])} at step {cfg['swap'][0]}: bits equal to "
+        f"the twin's after every step and actuation, the probe dicts "
+        f"bit-equal, emitted share {[round(x, 4) for x in emitted]} at "
+        f"scales {scale}; audit signatures equal {audited}, recording ms "
+        f"twin {[round(x) for x in twin.audit_record_ms]} / mesh "
+        f"{[round(x) for x in meshed.audit_record_ms]}; flight records "
+        f"equal, event records {records}; meshed / stacked ms "
+        f"{[round(x, 2) for x in h.mesh_ms]} / "
+        f"{[round(x, 2) for x in h.twin_ms]}; wall {res['wall_s']:.1f} s")
+    return res
+
+
+def mesh_scan_epoch_phase(torch, device=None, batch: int = 128) -> dict:
+    """Phase mesh_scan_epoch: path 1f (ResNet-20, "bsc,0.01", the fused
+    SGD-momentum) on a [2, 4] mesh, a device-cached loader (augmented:
+    the crop and flip drawn once on the first card, each card gathering
+    its slots' rows from its own copy of the set) and one scanned epoch
+    of MESH_SCAN_STEPS steps through fit(scan_epochs=True), beside the
+    stacked twin's scanned epoch.  Gates: the placed batches gather to
+    the twin's; the state bits and the epoch's loss and accuracy equal;
+    each slot's launches over the epoch the twin's; kernels 1-5 in every
+    slot."""
+    from geomx_tpu_torch import HiPSTopology
+    from geomx_tpu_torch.data import load_dataset
+    from geomx_tpu_torch.models import get_model
+    from geomx_tpu_torch.topology import PlacedTree
+
+    t0 = time.perf_counter()
+    path, steps = "fused_sgd", MESH_SCAN_STEPS
+    kernels, (P, W) = PATHS[path][5], PATHS[path][6]
+    devices, where = _mesh_other(torch, P * W, device)
+    mesh = HiPSTopology(P, W).build_mesh(devices,
+                                         timeout_s=MESH_OTHER_TIMEOUT_S)
+    data = load_dataset("synthetic", synthetic_train_n=P * W * batch * steps)
+    twin = make_trainer(path, get_model("resnet20"), device=devices[0])
+    meshed = make_trainer(path, get_model("resnet20"), mesh=mesh)
+
+    def loader(t):
+        return t.make_loader(data["train_x"], data["train_y"], batch,
+                             augment=True, device_cache=True)
+    tl, ml = loader(twin), loader(meshed)
+    for (tx, ty), (mx, my) in zip(tl.epoch(1), ml.epoch(1)):
+        if not (isinstance(mx, PlacedTree)
+                and torch.equal(mesh.gather(mx), tx)
+                and torch.equal(mesh.gather(my), ty)):
+            raise AssertionError("mesh_scan_epoch: a placed batch differs "
+                                 "from the twin's")
+    h = _MeshTwin(torch, "mesh_scan_epoch", twin, meshed,
+                  twin.init_state(seed=0), meshed.init_state(seed=0),
+                  kernels=kernels)
+    quiet = dict(epochs=1, log_every=1, scan_epochs=True,
+                 log_fn=lambda s: None)
+    (h.tstate, trec), (h.mstate, mrec) = h.run(
+        "the epoch", lambda: twin.fit(h.tstate, tl, **quiet),
+        lambda: meshed.fit(h.mstate, ml, **quiet))
+    h.compare("the epoch")
+    pick = [(r["loss"], r["train_acc"]) for r in trec]
+    if [(r["loss"], r["train_acc"]) for r in mrec] != pick:
+        raise AssertionError(f"mesh_scan_epoch: records {mrec} / {trec}")
+    res = h.summary(warm=0)
+    res.update(shape=[P, W], steps=steps, epoch_loss=pick[0][0],
+               epoch_ms=h.mesh_ms[0], stacked_epoch_ms=h.twin_ms[0],
+               wall_s=time.perf_counter() - t0)
+    res["step_ms_median"] = h.mesh_ms[0] / steps
+    res["stacked_step_ms_median"] = h.twin_ms[0] / steps
+    log(f"mesh_scan_epoch: [{P}, {W}] x {batch} {where}, one scanned "
+        f"epoch of {steps} steps from the device-cached loader: the state "
+        f"and the epoch's loss {pick[0][0]:.4f} bit-equal to the twin's; "
+        f"epoch {h.mesh_ms[0]:.1f} ms meshed / {h.twin_ms[0]:.1f} ms "
+        f"stacked; each slot's launches the twin's "
+        f"{res['launches_per_slot'].get('0,0')}; wall "
+        f"{res['wall_s']:.1f} s")
+    return res
+
+
+def mesh_seq_phase(torch, name: str, device=None) -> dict:
+    """Phases mesh_seq_ring and mesh_seq_ulysses: seq_ring's SeqClassifier
+    at its full width (vocab 256, dim 64, 4 heads, 2 layers, L 256) on a
+    [2, 2] x sp 2 mesh (8 slots, one 128-token chunk a slot) beside the
+    stacked sp twin, MESH_SEQ_STEPS steps of the needle task, 16
+    sequences a replica.  Gates: losses within 2e-4 and params within
+    2e-3 of the twin's after every step (MESH_SEQ_TOL), the sp slots of a
+    replica holding the same bits; each slot's attention launches a
+    replica's share of the twin's (kernel 13, or kernels 10-12, launched
+    in every slot), its other launches the twin's."""
+    from geomx_tpu_torch import HiPSTopology
+    from geomx_tpu_torch.data import make_needle_data, with_positions
+
+    t0 = time.perf_counter()
+    mode, attention = MESH_SEQ[name]
+    shape, L, batch, steps = MESH_SEQ_SHAPE, MESH_SEQ_L, MESH_SEQ_BATCH, \
+        MESH_SEQ_STEPS
+    P, W, S = shape
+    devices, where = _mesh_other(torch, P * W * S, device)
+    mesh = HiPSTopology(*shape).build_mesh(devices,
+                                           timeout_s=MESH_OTHER_TIMEOUT_S)
+    twin = make_seq_trainer(mode, shape, L, device=devices[0])
+    meshed = make_seq_trainer(mode, shape, L, mesh=mesh)
+    x, y = make_needle_data(P * W * batch * steps, L)
+    batches = list(twin.make_loader(with_positions(x), y,
+                                    batch).epoch(0, prefetch=0))[:steps]
+    h = _MeshTwin(torch, name, twin, meshed, twin.init_state(seed=0),
+                  meshed.init_state(seed=0), kernels=attention,
+                  per_replica=attention, tol=MESH_SEQ_TOL)
+    for i, (xb, yb) in enumerate(batches):
+        h.step(xb, yb, f"step {i + 1}")
+        for p, w, s, _ in mesh.slot_coords():
+            for k, v in h.mstate.slot(p, w, s).params.items():
+                if not torch.equal(v, h.mstate.slot(p, w).params[k]):
+                    raise AssertionError(f"{name}: step {i + 1}: sp slot "
+                                         f"({p}, {w}, {s}) differs at {k}")
+    res = h.summary()
+    res.update(shape=list(shape), seq_len=L, batch=batch, steps=steps,
+               wall_s=time.perf_counter() - t0)
+    log(f"{name}: [{P}, {W}] x sp {S} {where}, L {L}, {batch} a replica, "
+        f"{steps} steps: losses {[round(v, 5) for v in h.losses]} / twin "
+        f"{[round(v, 5) for v in h.twin_losses]}, params within "
+        f"{res['max_param_diff']:.3g} of the twin's; step "
+        f"{res['step_ms_median']:.2f} ms meshed vs "
+        f"{res['stacked_step_ms_median']:.2f} ms stacked (medians of steps "
+        f"2-{steps}); slot (0, 0, 0)'s launches a step "
+        f"{res['slot00_launches']}; wall {res['wall_s']:.1f} s")
+    return res
+
+
+def mesh_other_phases(torch, device=None) -> dict:
+    """The five phases of "Device mesh: the other paths", cuDNN
+    deterministic as mesh_phase's."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        out = {"mesh_resilience_fsa": mesh_resilience_phase(torch, device),
+               "mesh_control_telemetry_fsa":
+                   mesh_control_telemetry_phase(torch, device),
+               "mesh_scan_epoch": mesh_scan_epoch_phase(torch, device)}
+        out.update({name: mesh_seq_phase(torch, name, device)
+                    for name in MESH_SEQ})
+    finally:
+        cudnn.deterministic = saved
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -6723,6 +7263,7 @@ def main(argv=None) -> int:
              for path, cfg in PATHS.items()}
     paths.update({path: seq_path_phase(torch, path) for path in SEQ_PATHS})
     meshes = {name: mesh_phase(torch, name) for name in MESH_PATHS}
+    meshes.update(mesh_other_phases(torch))
     telemetry = telemetry_phase(torch)
     audit = audit_fsa_phase(torch)
     control = {"control_fsa": control_fsa_phase(torch),
@@ -6737,8 +7278,9 @@ def main(argv=None) -> int:
     host["manyparty_sharded"] = manyparty_phase(torch)
     host["kvstore_hips"] = kvstore_phase(torch)
     host["durable_recovery"] = durable_recovery_phase(torch)
-    examples = {f"long_context_{mode}": long_context_phase(torch, mode)
-                for mode in ("ring", "ulysses")}
+    examples = {f"long_context_{mode}": long_context_phase(
+        torch, mode, env=LONG_CONTEXT_RUN_ENV)
+        for mode in ("ring", "ulysses")}
     serving = {"serve_mlp": serve_mlp_phase(torch),
                "serve_seq_flash": serve_seq_flash_phase(torch)}
     log("median step: " + ", ".join(

@@ -12,8 +12,7 @@ too, under the same name and cast, and listed in ``UNPORTED``; a config
 that sets one to anything but its default raises ``NotImplementedError``
 naming, by its title, the ROADMAP.md Queue 1 item that ports it, so a
 launch environment is never half obeyed.  Every such knob is ported
-now, so the table is empty; arguments and calls the port does not run
-yet are refused through :func:`unported`.
+now, so the table is empty.
 """
 
 from __future__ import annotations
@@ -324,10 +323,3 @@ class GeoConfig:
         cfg.update(overrides)
         return cls(**cfg)
 
-
-def unported(what: str, item: str) -> NotImplementedError:
-    """The refusal of a knob, argument or call the port does not run
-    yet, naming the ROADMAP.md Queue 1 item that ports it by its title
-    (raise the returned error)."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, {item!r})")

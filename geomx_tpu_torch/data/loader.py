@@ -25,7 +25,12 @@ Two overlap mechanisms, as in the JAX package:
   crop and flip drawn on the device from an explicit ``torch.Generator``
   seeded by the epoch (:func:`gather_batch`).  The JAX package draws
   them with ``jax.random``, whose bits the port cannot reproduce: without
-  augmentation the cached batches are the host loader's bytes.
+  augmentation the cached batches are the host loader's bytes.  On a
+  device mesh (``mesh=``) each distinct mesh device holds one copy of
+  the dataset, as the JAX package replicates it over its mesh; each step
+  gathers the rows of a device's slots there (the crop and flip drawn
+  once, on the first device, as the stacked loader draws them) and
+  yields placed batches, each slot's block on its device.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 from geomx_tpu_torch.data.samplers import (ClassSplitSampler, SplitSampler,
                                            class_sorted_indices)
 from geomx_tpu_torch.device import resolve_device
+from geomx_tpu_torch.topology import PlacedTree
 
 
 def _reflect(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -49,33 +55,43 @@ def _reflect(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx > n - 1, 2 * (n - 1) - idx, idx)
 
 
+def _draws(n: int, generator: Optional[torch.Generator], dev, pad: int):
+    """The crop offsets and flips of ``n`` images: ``(oy, ox, flip)``."""
+    oy = torch.randint(0, 2 * pad + 1, (n,), generator=generator,
+                       device=dev)
+    ox = torch.randint(0, 2 * pad + 1, (n,), generator=generator,
+                       device=dev)
+    flip = torch.rand(n, generator=generator, device=dev) < 0.5
+    return oy, ox, flip
+
+
+def _crop(xb: torch.Tensor, oy, ox, flip, pad: int) -> torch.Tensor:
+    """``xb`` (``[..., H, W, C]``) cropped and flipped by the draws, one
+    gather whose row and column indices carry the offsets, the
+    reflection and the flip."""
+    lead = xb.shape[:-3]
+    h, w, c = xb.shape[-3:]
+    flat = xb.reshape((-1, h, w, c))
+    dev = flat.device
+    rows = _reflect(oy[:, None] + torch.arange(h, device=dev) - pad, h)
+    cols = _reflect(ox[:, None] + torch.arange(w, device=dev) - pad, w)
+    cols = torch.where(flip[:, None], cols.flip(1), cols)
+    crops = flat[torch.arange(flat.shape[0], device=dev)[:, None, None],
+                 rows[:, :, None], cols[:, None, :]]
+    return crops.reshape(lead + (h, w, c))
+
+
 def gather_batch(dx: torch.Tensor, dy: torch.Tensor, sel: torch.Tensor,
                  generator: Optional[torch.Generator], augment: bool,
                  pad: int):
     """On-device batch assembly: gather by index, then the CIFAR
     crop/flip recipe (a ``pad``-pixel reflect border, a random window,
-    a horizontal flip with probability 1/2) as one gather whose row and
-    column indices carry the offsets, the reflection and the flip.  The
-    draws come from ``generator`` (on ``dx``'s device)."""
+    a horizontal flip with probability 1/2).  The draws come from
+    ``generator`` (on ``dx``'s device)."""
     xb = dx[sel]                      # [P, W, b, H, W, C]
     yb = dy[sel]
     if augment:
-        lead = xb.shape[:-3]
-        h, w, c = xb.shape[-3:]
-        flat = xb.reshape((-1, h, w, c))
-        n = flat.shape[0]
-        dev = flat.device
-        oy = torch.randint(0, 2 * pad + 1, (n,), generator=generator,
-                           device=dev)
-        ox = torch.randint(0, 2 * pad + 1, (n,), generator=generator,
-                           device=dev)
-        flip = torch.rand(n, generator=generator, device=dev) < 0.5
-        rows = _reflect(oy[:, None] + torch.arange(h, device=dev) - pad, h)
-        cols = _reflect(ox[:, None] + torch.arange(w, device=dev) - pad, w)
-        cols = torch.where(flip[:, None], cols.flip(1), cols)
-        crops = flat[torch.arange(n, device=dev)[:, None, None],
-                     rows[:, :, None], cols[:, None, :]]
-        xb = crops.reshape(lead + (h, w, c))
+        xb = _crop(xb, *_draws(sel.numel(), generator, xb.device, pad), pad)
     return xb, yb
 
 
@@ -84,11 +100,16 @@ class GeoDataLoader:
                  batch_size: int, split_by_class: bool = False,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = True,
                  augment: bool = False, pad: int = 4, device=None,
-                 device_cache: bool = False):
+                 device_cache: bool = False, mesh=None,
+                 seq_dim: Optional[int] = None):
         """``batch_size`` is per replica (the reference's -bs flag).
         ``augment=True`` applies the CIFAR recipe: random crop from a
         ``pad``-pixel reflection border + horizontal flip (on the host,
-        or on the device with ``device_cache=True``)."""
+        or on the device with ``device_cache=True``).  ``mesh``: with
+        ``device_cache``, a ``topology.ReplicaMesh`` whose slots get
+        placed batches (the loader's device is then its first device);
+        ``seq_dim``: the batch dim its sp slots split (a token batch's
+        sequence, ``mesh.place``)."""
         self.topology = topology
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -113,11 +134,22 @@ class GeoDataLoader:
                 f"shard of {min(len(s) for s in shards)} samples cannot fill "
                 f"a batch of {self.batch_size}")
         self.device_cache = bool(device_cache)
+        self.mesh, self.seq_dim = mesh, seq_dim
+        if mesh is not None:
+            if not self.device_cache:
+                raise ValueError("a loader takes a mesh with device_cache="
+                                 "True (the step places host batches "
+                                 "itself)")
+            self.device = mesh.first_device
         if self.device_cache:
-            self._dev_x = torch.as_tensor(np.ascontiguousarray(x),
-                                          device=self.device)
-            self._dev_y = torch.as_tensor(np.asarray(y).astype(np.int64),
-                                          device=self.device)
+            # one copy of the dataset a distinct device
+            self._cache = {
+                d: (torch.as_tensor(np.ascontiguousarray(x), device=d),
+                    torch.as_tensor(np.asarray(y).astype(np.int64),
+                                    device=d))
+                for d in ([self.device] if mesh is None
+                          else mesh.distinct_devices())}
+            self._dev_x, self._dev_y = self._cache[self.device]
         self._copy_stream = None
 
     def _epoch_order(self, epoch: int) -> list:
@@ -151,10 +183,58 @@ class GeoDataLoader:
     def cached_batches(self, sel: torch.Tensor, generator
                        ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         """The device-cached epoch: one on-device gather a step from the
-        uploaded ``[steps, P, W, b]`` indices."""
+        uploaded ``[steps, P, W, b]`` indices (on a mesh, one a distinct
+        device, yielding placed batches)."""
+        if self.mesh is not None:
+            yield from self._placed_batches(sel, generator)
+            return
         for step in range(sel.shape[0]):
             yield gather_batch(self._dev_x, self._dev_y, sel[step],
                                generator, self.augment, self.pad)
+
+    def _placed_batches(self, sel: torch.Tensor, generator
+                        ) -> Iterator[Tuple[PlacedTree, PlacedTree]]:
+        """:meth:`cached_batches` on a mesh: each distinct device gathers
+        the ``(p, w)`` rows of its slots from its own copy of the data
+        (their indices uploaded there once an epoch), and each slot takes
+        its row's ``[1, 1, b, ...]`` block, its sp chunk of the sequence
+        where ``seq_dim`` says so."""
+        mesh = self.mesh
+        P, W = mesh.shape
+        S = mesh.sp
+        steps, b = sel.shape[0], sel.shape[-1]
+        flat_sel = sel.reshape(steps, P * W, b)
+        rows = {}  # device -> the (p, w) rows of its slots, in order
+        for p, w, d in mesh.slots():
+            rows.setdefault(d, [])
+            if p * W + w not in rows[d]:
+                rows[d].append(p * W + w)
+        dev_sel = {d: flat_sel[:, r].to(d) for d, r in rows.items()}
+        for step in range(steps):
+            draws = _draws(P * W * b, generator, self.device, self.pad) \
+                if self.augment else None
+            xs, ys = {}, {}
+            for d, r in rows.items():
+                dx, dy = self._cache[d]
+                idx = dev_sel[d][step]
+                xd = dx[idx]                 # [len(r), b, H, W, C]
+                if draws is not None:
+                    pick = torch.as_tensor(r, device=self.device)
+                    xd = _crop(xd, *(t.view(P * W, b)[pick].reshape(-1)
+                                     .to(d) for t in draws), self.pad)
+                xs[d], ys[d] = xd, dy[idx]
+            xslots, yslots = [], []
+            for p, w, s, d in mesh.slot_coords():
+                j = rows[d].index(p * W + w)
+                xb = xs[d][j:j + 1].unsqueeze(0)
+                if self.seq_dim is not None and S > 1:
+                    n = xb.shape[self.seq_dim] // S
+                    xb = xb.narrow(self.seq_dim, s * n, n)
+                xslots.append(xb)
+                yslots.append(ys[d][j:j + 1].unsqueeze(0))
+            yield (PlacedTree(mesh, xslots,
+                              self.seq_dim if S > 1 else None),
+                   PlacedTree(mesh, yslots))
 
     def host_batches(self, epoch: int = 0
                      ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:

@@ -34,8 +34,12 @@ cotangent by ``1/n``, and the step ``psum``s the gradients over sp.  In
 the port one replica's ``S`` shards run in one autograd graph: the pool
 is the mean of the equal-size chunk means (:func:`pmean_sp`), the logits
 are computed once from it, and autograd of that graph is already the
-true gradient — so the port needs neither ``_scale_bwd`` nor the psum
-(``tests/test_torch_seq.py`` holds it against the JAX sp step).
+true gradient — so the stacked form needs neither ``_scale_bwd`` nor
+the psum (``tests/test_torch_seq.py`` holds it against the JAX sp step).
+On a ``[P, W, S]`` device mesh each sp slot runs its own shard, as a
+JAX sp device does: there the logits pass :class:`_ScaleBwd` (the
+counterpart of ``_scale_bwd``, a cotangent scaled by ``1/S``) and the
+step psums the gradients over sp (``train/step.py``).
 """
 
 from __future__ import annotations
@@ -49,12 +53,28 @@ from torch.profiler import record_function
 
 from geomx_tpu_torch.models.resnet import _variance_scaling_
 from geomx_tpu_torch.ops.flash_attention import fused_attention
-from geomx_tpu_torch.parallel.collectives import pmean_sp
+from geomx_tpu_torch.parallel.collectives import current_slot, pmean_sp
 from geomx_tpu_torch.parallel.ring_attention import ring_attention
 from geomx_tpu_torch.parallel.ulysses import ulysses_attention
 from geomx_tpu_torch.tree import leaf_names
 
 SP_MODES = (None, "ring", "ulysses")
+
+
+class _ScaleBwd(torch.autograd.Function):
+    """Identity forward; the backward scales the cotangent by ``s``: in an
+    sp mesh slot the head downstream of the pooled ``pmean_sp`` sees the
+    whole loss on every sp slot, and ``1/S`` keeps the step's psum over
+    sp from counting it ``S`` times (the reference's ``_scale_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, s: float):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
 
 
 class Embed(nn.Module):
@@ -213,5 +233,9 @@ class SeqClassifier(nn.Module):
         if sp:
             # the mean of the equal-size chunk means: the global mean
             pooled = pmean_sp(pooled)[0]
-        return self.head(pooled.float()).float()
+        logits = self.head(pooled.float()).float()
+        slot = current_slot() if sp else None
+        if slot is not None and torch.is_grad_enabled():
+            logits = _ScaleBwd.apply(logits, 1.0 / slot.S)
+        return logits
 

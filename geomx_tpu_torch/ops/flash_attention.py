@@ -55,7 +55,9 @@ from typing import Optional, Tuple
 import torch
 from torch.profiler import record_function
 
+from geomx_tpu_torch.ops import _launches
 from geomx_tpu_torch.ops.bucket import on_cuda
+from geomx_tpu_torch.parallel.collectives import current_slot
 
 NEG_INF = -1e30  # large-but-finite: -inf breaks the m-correction exp
 HEAD_DIMS = (8, 16, 32, 64, 128)  # head dims the kernels are built for
@@ -229,9 +231,9 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
         if with_lse else None
     kernels().flash_fwd(kernel_operand(q), kernel_operand(k),
                         kernel_operand(v), causal, _scale(D), out, lse)
-    flash_attention_with_lse.launches += 1
+    _launches.count(flash_attention_with_lse)
     if not with_lse:
-        flash_attention.launches += 1
+        _launches.count(flash_attention)
     return out[..., :D], lse
 
 
@@ -274,7 +276,7 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = False) -> torch.Tensor:
         kernel_operand(q), kernel_operand(k), kernel_operand(v),
         kernel_operand(do), lse.float().contiguous(),
         delta.float().contiguous(), causal, _scale(D), dq)
-    flash_dq.launches += 1
+    _launches.count(flash_dq)
     return dq[..., :D]
 
 
@@ -292,7 +294,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = False):
         kernel_operand(q), kernel_operand(k), kernel_operand(v),
         kernel_operand(do), lse.float().contiguous(),
         delta.float().contiguous(), causal, _scale(D), dk, dv)
-    flash_dkv.launches += 1
+    _launches.count(flash_dkv)
     return dk[..., :D], dv[..., :D]
 
 
@@ -337,12 +339,14 @@ class _FusedAttention(torch.autograd.Function):
         out, lse = flash_attention_with_lse(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
+        ctx.slot = current_slot()  # the backward's launches are its
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        with record_function("attention/backward"):
+        with record_function("attention/backward"), \
+                _launches.attributed_to(ctx.slot):
             dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                              g.contiguous(), ctx.causal)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None

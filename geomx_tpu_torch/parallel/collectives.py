@@ -18,12 +18,23 @@ gathered in ``(p, w)`` order onto the mesh's first device, the one-device
 function below runs on the full ``[P, W, ...]`` stack, and each slot
 gets a copy of its ``[1, 1, ...]`` block on its own device.  The same
 code on the same shapes gives the stacked path's bits; the axis sizes
-come from the slot's context, never from the operand's shape.
+come from the slot's context, never from the operand's shape.  On a
+``[P, W, S]`` mesh a dc or worker collective reduces within each sp
+plane (the slots of one ``s``), as the JAX collectives over a named axis
+of a 3-D mesh do.
 
 The sequence-parallel axis ``sp`` is not a state axis: an sp-aware model
 holds one replica's ``S`` sequence shards as dim 0 of its activations
 (``[S, ...]``), and the ``*_sp`` helpers below exchange data over that
-dim as the per-device collectives over the ``sp`` mesh axis do.
+dim as the per-device collectives over the ``sp`` mesh axis do.  In an
+sp mesh slot that dim is 1, the slot's own shard, and the helpers meet
+the ``S`` slots of its ``(p, w)``.  There the exchange sits in the
+middle of the model's autograd graph, and its transpose is a collective
+too: the slot's :class:`SpTape` cuts the graph at every exchange and
+runs the backward segment by segment in the slot's own thread, the
+cotangents exchanged between segments (:meth:`SpTape.grad`), so no slot
+ever waits at a rendezvous inside an autograd backward node (on the card
+those run on the device's autograd thread, not the slot's).
 """
 
 from __future__ import annotations
@@ -39,6 +50,9 @@ from geomx_tpu_torch.topology import DC_AXIS, SP_AXIS, WORKER_AXIS
 _DIM = {DC_AXIS: 0, WORKER_AXIS: 1}
 
 _recorder = None
+# set in the thread that computes a meshed collective once more for
+# another sp plane or group: the program's record takes one entry a call
+_muted = threading.local()
 
 
 def set_recorder(fn):
@@ -47,6 +61,12 @@ def set_recorder(fn):
     global _recorder
     prev, _recorder = _recorder, fn
     return prev
+
+
+def _record(op: str, axis: str, x: torch.Tensor, lead: int,
+            extras: tuple = ()) -> None:
+    if _recorder is not None and not getattr(_muted, "on", False):
+        _recorder(op, axis, x, lead, extras)
 
 
 def axis_dim(axis_name: str) -> int:
@@ -86,45 +106,73 @@ class _Rendezvous:
                                          timeout=mesh.timeout_s)
 
     def _meet(self) -> None:
-        fn, args, x0 = self.calls[0]
-        for i, (f, a, x) in enumerate(self.calls):
-            if f is not fn or a != args or x.shape != x0.shape \
-                    or x.dtype != x0.dtype:
+        fn, args, sp, x0 = self.calls[0]
+        for i, (f, a, q, x) in enumerate(self.calls):
+            if f is not fn or a != args or q != sp or \
+                    x.shape != x0.shape or x.dtype != x0.dtype:
                 raise RuntimeError(
                     f"mesh slots diverged at a collective: slot 0 called "
                     f"{fn.__name__}{args} on {tuple(x0.shape)} "
-                    f"{x0.dtype}, slot {divmod(i, self.mesh.shape[1])} "
+                    f"{x0.dtype}, slot {self.mesh.coords(i)} "
                     f"{f.__name__}{a} on {tuple(x.shape)} {x.dtype}")
-        first = self.mesh.first_device
-        full = torch.cat([x.to(first) for _, _, x in self.calls])
-        self.calls = [None] * self.mesh.size
-        self.out = fn(full.view(self.mesh.shape + tuple(x0.shape[2:])),
-                      *args)
+        mesh = self.mesh
+        first = mesh.first_device
+        S = mesh.sp
+        xs = [x.to(first) for _, _, _, x in self.calls]
+        self.calls = [None] * mesh.size
+        if sp:
+            # one [S, ...] stack a (p, w): the slot takes its shard's row
+            groups = [torch.cat(xs[g * S:(g + 1) * S])
+                      for g in range(len(xs) // S)]
+        else:
+            # one [P, W, ...] stack an sp plane: the slot takes its block
+            shape = mesh.shape + tuple(x0.shape[2:])
+            groups = [torch.cat(xs[s::S]).view(shape) for s in range(S)]
+        outs = []
+        try:
+            for g in groups:
+                outs.append(fn(g, *args))
+                _muted.on = True  # one record a collective call
+        finally:
+            _muted.on = False
+        self.out = outs
 
 
 class MeshSlot:
     """The context of the slot a thread runs (:func:`run_on_mesh`): its
-    coordinates ``(p, w)``, the axis sizes ``P, W``, its device."""
+    coordinates ``(p, w, s)``, the axis sizes ``P, W, S``, its device."""
 
-    def __init__(self, p: int, w: int, mesh, rendezvous: _Rendezvous):
-        self.p, self.w = p, w
+    def __init__(self, p: int, w: int, s: int, mesh,
+                 rendezvous: _Rendezvous):
+        self.p, self.w, self.s = p, w, s
         self.P, self.W = mesh.shape
-        self.index = p * self.W + w
-        self.device = mesh.devices[p][w]
+        self.S = mesh.sp
+        self.index = mesh.index(p, w, s)
+        self.coords = mesh.coords(self.index)
+        self.device = mesh.devices[p][w][s]
         self._rv = rendezvous
+        self.tape: Optional["SpTape"] = None
 
-    def collective(self, fn: Callable, x: torch.Tensor, *args):
+    def collective(self, fn: Callable, x: torch.Tensor, *args,
+                   sp: bool = False):
         """``fn(stack, *args)`` on every slot's ``x`` stacked to ``[P, W,
-        ...]``; returns this slot's ``[1, 1, ...]`` block of the result,
-        copied onto its device."""
-        if tuple(x.shape[:2]) != (1, 1):
-            raise ValueError(f"a slot's collective operand is [1, 1, ...], "
-                             f"got {tuple(x.shape)}")
+        ...]`` within the slot's sp plane; returns this slot's ``[1, 1,
+        ...]`` block of the result, copied onto its device.  ``sp``:
+        ``x`` is the slot's ``[1, ...]`` sp shard instead, stacked to
+        ``[S, ...]`` with the other shards of its ``(p, w)``, and the
+        slot gets its shard's ``[1, ...]`` row back."""
+        lead = (1,) if sp else (1, 1)
+        if tuple(x.shape[:len(lead)]) != lead:
+            raise ValueError(f"a slot's collective operand is "
+                             f"{list(lead) + ['...']}, got {tuple(x.shape)}")
         rv = self._rv
-        rv.calls[self.index] = (fn, args, x)
+        rv.calls[self.index] = (fn, args, sp, x)
         rv.barrier.wait()
-        return rv.out[self.p:self.p + 1, self.w:self.w + 1] \
-            .to(self.device, copy=True)
+        if sp:
+            out = rv.out[self.p * self.W + self.w][self.s:self.s + 1]
+        else:
+            out = rv.out[self.s][self.p:self.p + 1, self.w:self.w + 1]
+        return out.to(self.device, copy=True)
 
 
 def current_slot() -> Optional[MeshSlot]:
@@ -145,7 +193,7 @@ def run_on_mesh(fn: Callable, mesh, per_slot_args: Sequence) -> list:
     """``fn(*per_slot_args[i])`` once a slot of ``mesh``, a thread each,
     under the slot's context (and ``torch.cuda.device`` on a card), as
     ``shard_map`` runs one program a device.  Returns the results in
-    ``(p, w)`` order.  A slot that raises aborts the rendezvous, so the
+    slot order.  A slot that raises aborts the rendezvous, so the
     others raise at their next collective instead of waiting; a slot
     that waits ``mesh.timeout_s`` at a collective raises too.  The first
     error (one that is not a slot's broken wait, where there is one)
@@ -158,8 +206,8 @@ def run_on_mesh(fn: Callable, mesh, per_slot_args: Sequence) -> list:
     results: list = [None] * n
     errors: list = [None] * n
 
-    def body(p: int, w: int, args) -> None:
-        slot = MeshSlot(p, w, mesh, rv)
+    def body(p: int, w: int, s: int, args) -> None:
+        slot = MeshSlot(p, w, s, mesh, rv)
         _slot_ctx.slot = slot
         scope = torch.cuda.device(slot.device) \
             if slot.device.type == "cuda" else contextlib.nullcontext()
@@ -172,9 +220,10 @@ def run_on_mesh(fn: Callable, mesh, per_slot_args: Sequence) -> list:
         finally:
             _slot_ctx.slot = None
 
-    threads = [threading.Thread(target=body, args=(p, w, per_slot_args[i]),
-                                name=f"mesh-slot-{p}-{w}", daemon=True)
-               for i, (p, w, _) in enumerate(mesh.slots())]
+    threads = [threading.Thread(
+        target=body, args=(p, w, s, per_slot_args[i]),
+        name="mesh-slot-" + "-".join(map(str, mesh.coords(i))), daemon=True)
+        for i, (p, w, s, _) in enumerate(mesh.slot_coords())]
     for t in threads:
         t.start()
     for t in threads:
@@ -185,7 +234,7 @@ def run_on_mesh(fn: Callable, mesh, per_slot_args: Sequence) -> list:
     for i, e in enumerate(errors):
         if e is not None:
             raise RuntimeError(
-                f"mesh slot {divmod(i, mesh.shape[1])} waited "
+                f"mesh slot {mesh.coords(i)} waited "
                 f"{mesh.timeout_s} s at a collective: the slots diverged "
                 "or one of them hangs") from e
     return results
@@ -203,8 +252,7 @@ def _slotted(fn: Callable, x: torch.Tensor, *args):
 
 def _psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     d = axis_dim(axis_name)
-    if _recorder is not None:
-        _recorder("psum", axis_name, x, 2, ())
+    _record("psum", axis_name, x, 2)
     return x.sum(dim=d, keepdim=True).expand_as(x)
 
 
@@ -302,8 +350,7 @@ def _psum_scatter(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     if x.dim() != 3 or x.shape[-1] % A:
         raise ValueError(f"psum_scatter takes [P, W, {A} * s] rows, got "
                          f"{tuple(x.shape)}")
-    if _recorder is not None:
-        _recorder("reduce_scatter", axis_name, x, 2, ())
+    _record("reduce_scatter", axis_name, x, 2)
     s = x.shape[-1] // A
     if d == 1:
         # out[p, w] = sum_q x[p, q, w*s:(w+1)*s]
@@ -315,8 +362,7 @@ def _psum_scatter(x: torch.Tensor, axis_name: str) -> torch.Tensor:
 def _all_gather(x: torch.Tensor, axis_name: str,
                 tiled: bool = False) -> torch.Tensor:
     P, W = x.shape[:2]
-    if _recorder is not None:
-        _recorder("all_gather", axis_name, x, 2, ())
+    _record("all_gather", axis_name, x, 2)
     if axis_dim(axis_name) == 0:
         # out[p, w, q] = x[q, w]
         out = x.transpose(0, 1).unsqueeze(0).expand(P, W, P, *x.shape[2:])
@@ -328,15 +374,13 @@ def _all_gather(x: torch.Tensor, axis_name: str,
 
 def _pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     d = axis_dim(axis_name)
-    if _recorder is not None:
-        _recorder("pmax", axis_name, x, 2, ())
+    _record("pmax", axis_name, x, 2)
     return x.amax(dim=d, keepdim=True).expand_as(x)
 
 
 def _all_to_all(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     d = axis_dim(axis_name)
-    if _recorder is not None:
-        _recorder("all_to_all", axis_name, x, 2, ())
+    _record("all_to_all", axis_name, x, 2)
     if d == 0:
         # out[p, w, q] = x[q, w, p]
         return x.transpose(0, 2)
@@ -385,33 +429,42 @@ def global_worker_rank(P: int, W: int, device=None) -> torch.Tensor:
 
 # ---- the sp axis: dim 0 of a replica's activations ------------------------
 
-def ppermute_sp(x: torch.Tensor) -> torch.Tensor:
-    """The ring step ``lax.ppermute(x, "sp", [(i, (i + 1) % n)])``: shard
-    ``i`` receives shard ``i - 1``'s block."""
-    if _recorder is not None:
-        n = x.shape[0]
-        _recorder("ppermute", SP_AXIS, x, 1,
-                  (("perm", tuple((i, (i + 1) % n) for i in range(n))),))
-    return torch.roll(x, 1, dims=0)
+def sp_axis_size(x: torch.Tensor) -> int:
+    """The sp axis size as ``x``'s program sees it: the slot's ``S`` in a
+    mesh slot (where ``x`` holds the slot's one shard), else ``x``'s dim
+    0 (``lax.psum(1, "sp")``)."""
+    slot = current_slot()
+    return int(x.shape[0]) if slot is None else slot.S
 
 
-def pmean_sp(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the sp shards, as every shard receives it."""
-    if _recorder is not None:
-        _recorder("psum", SP_AXIS, x, 1, ())
+def sp_axis_index() -> Optional[int]:
+    """The slot's sp index in a mesh slot (``lax.axis_index("sp")``),
+    None on the stacked path, where dim 0 holds every shard."""
+    slot = current_slot()
+    return None if slot is None else slot.s
+
+
+def _ppermute_sp(x: torch.Tensor, shift: int) -> torch.Tensor:
+    n = x.shape[0]
+    _record("ppermute", SP_AXIS, x, 1,
+            (("perm", tuple((i, (i + shift) % n) for i in range(n))),))
+    return torch.roll(x, shift, dims=0)
+
+
+def _pmean_sp(x: torch.Tensor) -> torch.Tensor:
+    _record("psum", SP_AXIS, x, 1)
     return x.mean(dim=0, keepdim=True).expand_as(x)
 
 
-def all_to_all_sp(x: torch.Tensor, split_dim: int,
-                  concat_dim: int) -> torch.Tensor:
-    """``lax.all_to_all(x, "sp", split_axis, concat_axis, tiled=True)``
-    over the shards of ``x = [S, *s]``: ``split_dim`` and ``concat_dim``
-    index a shard's own dims ``s``.  Shard ``j`` of the result is the
-    concatenation, along ``concat_dim`` and in shard order, of chunk
-    ``j`` (of ``S`` along ``split_dim``) of every shard.  A copy."""
+def _psum_sp(x: torch.Tensor) -> torch.Tensor:
+    _record("psum", SP_AXIS, x, 1)
+    return x.sum(dim=0, keepdim=True).expand_as(x)
+
+
+def _all_to_all_sp(x: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
     S = x.shape[0]
-    if _recorder is not None:
-        _recorder("all_to_all", SP_AXIS, x, 1, ())
+    _record("all_to_all", SP_AXIS, x, 1)
     nd = x.dim() - 1
     split, concat = split_dim % nd + 1, concat_dim % nd + 1
     if x.shape[split] % S:
@@ -424,3 +477,167 @@ def all_to_all_sp(x: torch.Tensor, split_dim: int,
     c += (c < split)               # shifted by the move to the front
     y = y.movedim(1, c - 1)        # src just before the concat dim
     return y.flatten(c - 1, c)
+
+
+def _sp_exchange(fn: Callable, x: torch.Tensor, args: tuple,
+                 t_args: tuple) -> torch.Tensor:
+    """``fn(x, *args)`` over the sp shards; in a mesh slot a rendezvous
+    of the ``S`` slots of its ``(p, w)``, taped for the backward when
+    ``x`` carries a gradient (``fn(ct, *t_args)`` is the transpose)."""
+    slot = current_slot()
+    if slot is None:
+        return fn(x, *args)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return slot.collective(fn, x, *args, sp=True)
+    if slot.tape is None:
+        raise RuntimeError(
+            "an sp exchange in a mesh slot carries a gradient but the slot "
+            "records no sp tape: run the forward under collectives.sp_tape() "
+            "and its backward through SpTape.grad (train/step.py)")
+    y = slot.collective(fn, x.detach(), *args, sp=True).requires_grad_()
+    slot.tape.record(x, y, fn, t_args)
+    return y
+
+
+def ppermute_sp(x: torch.Tensor) -> torch.Tensor:
+    """The ring step ``lax.ppermute(x, "sp", [(i, (i + 1) % n)])``: shard
+    ``i`` receives shard ``i - 1``'s block."""
+    return _sp_exchange(_ppermute_sp, x, (1,), (-1,))
+
+
+def pmean_sp(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the sp shards, as every shard receives it."""
+    return _sp_exchange(_pmean_sp, x, (), ())
+
+
+def psum_sp(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the sp shards, as every shard receives it."""
+    return _sp_exchange(_psum_sp, x, (), ())
+
+
+def all_to_all_sp(x: torch.Tensor, split_dim: int,
+                  concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(x, "sp", split_axis, concat_axis, tiled=True)``
+    over the shards of ``x = [S, *s]``: ``split_dim`` and ``concat_dim``
+    index a shard's own dims ``s``.  Shard ``j`` of the result is the
+    concatenation, along ``concat_dim`` and in shard order, of chunk
+    ``j`` (of ``S`` along ``split_dim``) of every shard.  A copy.  Its
+    transpose swaps the two dims."""
+    return _sp_exchange(_all_to_all_sp, x, (split_dim, concat_dim),
+                        (concat_dim, split_dim))
+
+
+class SpTape:
+    """The sp exchanges of one slot's forward, for its backward.
+
+    Each taped exchange cuts the autograd graph: its output is a fresh
+    leaf ``y`` and the tape keeps ``(x, y, transpose)``.  :meth:`grad`
+    back-propagates the loss to the inputs and to every ``y``, then walks
+    the exchanges in reverse: a ``y``'s cotangent is complete once every
+    later segment has run, so its transpose (a collective of the slot's
+    own thread, never of an autograd node) hands the cotangent of ``x``
+    back, and one ``torch.autograd.grad`` carries it on through ``x``'s
+    segment.  Exchanges recorded under :meth:`group` (independent ones,
+    such as the ring's K and V rotations) share one backward call."""
+
+    def __init__(self, slot: MeshSlot):
+        self.slot = slot
+        self.entries: list = []  # (x, y, fn, t_args, group)
+        self._group: Optional[int] = None
+        self._groups = 0
+
+    @contextlib.contextmanager
+    def group(self):
+        """Exchanges recorded inside share one backward segment: none of
+        their inputs may depend on another's output."""
+        prev, self._group = self._group, self._new_group()
+        try:
+            yield
+        finally:
+            self._group = prev
+
+    def _new_group(self) -> int:
+        self._groups += 1
+        return self._groups
+
+    def record(self, x: torch.Tensor, y: torch.Tensor, fn: Callable,
+               t_args: tuple) -> None:
+        g = self._group if self._group is not None else self._new_group()
+        self.entries.append((x, y, fn, t_args, g))
+
+    def grad(self, loss: torch.Tensor, inputs: Sequence[torch.Tensor]
+             ) -> tuple:
+        """``torch.autograd.grad(loss, inputs)`` through the taped
+        exchanges (zeros for an input the loss does not reach)."""
+        inputs = list(inputs)
+        ys = [e[1] for e in self.entries]
+        y_at = {id(y): i for i, y in enumerate(ys)}
+        in_at = {id(t): i for i, t in enumerate(inputs)}
+        acc_in: list = [None] * len(inputs)
+        acc_y: list = [None] * len(ys)
+
+        def add(acc, i, g):
+            acc[i] = g if acc[i] is None else acc[i] + g
+
+        def backprop(outs, cts, upto: int) -> None:
+            got = torch.autograd.grad(outs, inputs + ys[:upto], cts,
+                                      retain_graph=True, allow_unused=True)
+            for i, g in enumerate(got):
+                if g is not None:
+                    if i < len(inputs):
+                        add(acc_in, i, g)
+                    else:
+                        add(acc_y, i - len(inputs), g)
+
+        backprop([loss], None, len(ys))
+        end = len(self.entries)
+        while end:
+            group = self.entries[end - 1][4]
+            start = end
+            while start and self.entries[start - 1][4] == group:
+                start -= 1
+            outs, cts = [], []
+            for k in range(end - 1, start - 1, -1):
+                x, y, fn, t_args, _ = self.entries[k]
+                ct = acc_y[k] if acc_y[k] is not None else torch.zeros_like(y)
+                ct_x = self.slot.collective(fn, ct, *t_args, sp=True)
+                if id(x) in y_at:
+                    if y_at[id(x)] >= start:
+                        raise RuntimeError("an sp exchange group feeds "
+                                           "itself")
+                    add(acc_y, y_at[id(x)], ct_x)
+                elif id(x) in in_at:
+                    add(acc_in, in_at[id(x)], ct_x)
+                else:
+                    outs.append(x)
+                    cts.append(ct_x)
+            if outs:
+                backprop(outs, cts, start)
+            end = start
+        return tuple(torch.zeros_like(t) if g is None else g
+                     for g, t in zip(acc_in, inputs))
+
+
+@contextlib.contextmanager
+def sp_tape():
+    """Tape the sp exchanges of the slot's forward (:class:`SpTape`);
+    yields the tape, None outside a mesh slot."""
+    slot = current_slot()
+    if slot is None:
+        yield None
+        return
+    tape = SpTape(slot)
+    prev, slot.tape = slot.tape, tape
+    try:
+        yield tape
+    finally:
+        slot.tape = prev
+
+
+def sp_exchange_group():
+    """A context in which the slot's taped sp exchanges share one
+    backward segment (:meth:`SpTape.group`); a no-op elsewhere."""
+    slot = current_slot()
+    if slot is None or slot.tape is None:
+        return contextlib.nullcontext()
+    return slot.tape.group()

@@ -8,6 +8,10 @@ streaming softmax.  The port holds one replica's ``S`` shards as dim 0
 of ``[S, B, L/S, H, D]`` activations: a hop updates every shard's
 carries at once (the shards are extra rows of the batch), and the
 rotation is :func:`~geomx_tpu_torch.parallel.collectives.ppermute_sp`.
+In a slot of a ``[P, W, S]`` mesh dim 0 is the slot's one shard: the
+loop runs over the slot's ``S`` and picks the diagonal, full or skipped
+hop from its sp index, as the reference does with ``axis_index``, and
+each rotation meets the other shards' slots.
 
 The hop is the fused kernel of ``parallel/_fused_block.py`` when
 :func:`~geomx_tpu_torch.ops.flash_attention.fused_attention_supported`
@@ -24,7 +28,10 @@ from typing import Optional
 
 import torch
 
-from geomx_tpu_torch.parallel.collectives import ppermute_sp
+from geomx_tpu_torch.parallel.collectives import (ppermute_sp,
+                                                  sp_axis_index,
+                                                  sp_axis_size,
+                                                  sp_exchange_group)
 
 
 def _block(q, k, v, m, l_acc, o, scale, mask):
@@ -61,12 +68,15 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Sequence-parallel attention over the in-process sp axis.
 
     q, k, v: ``[S, B, L_local, H, D]``, shard ``i`` holding sequence
-    block ``i``.  Returns ``[S, B, L_local, H, D]`` in q's dtype.  With
-    ``causal=True`` positions attend only to earlier global positions:
-    at hop ``t`` shard ``i`` holds block ``src = (i - t) mod S`` and
-    takes the diagonal mask where ``src == i``, the whole block where
-    ``src < i``, and skips it otherwise."""
-    S, B, Lq, H, D = q.shape
+    block ``i`` (in a mesh slot ``[1, ...]``, the slot's shard).
+    Returns them in q's shape and dtype.  With ``causal=True`` positions
+    attend only to earlier global positions: at hop ``t`` shard ``i``
+    holds block ``src = (i - t) mod S`` and takes the diagonal mask
+    where ``src == i``, the whole block where ``src < i``, and skips it
+    otherwise."""
+    shards, B, Lq, H, D = q.shape
+    S = sp_axis_size(q)
+    idx = sp_axis_index()
     hop_block = min(128, Lq)
     if use_fused is None:
         from geomx_tpu_torch.ops.flash_attention import \
@@ -76,7 +86,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"fused ring hop needs L_local ({Lq}) divisible "
                          f"by the hop block ({hop_block})")
     dev = q.device
-    n = S * B
+    n = shards * B
     m = torch.full((n, H, Lq), -math.inf, device=dev)
     l_acc = torch.zeros((n, H, Lq), device=dev)
     o = torch.zeros((n, Lq, H, D), device=dev)
@@ -100,9 +110,12 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           tri if diag else None)
 
     for step in range(S):
-        if not causal:
+        src = None if idx is None else (idx - step) % S
+        if not causal or (src is not None and src < idx):
             m, l_acc, o = hop(qf, kk.reshape(n, Lq, H, D),
                               vv.reshape(n, Lq, H, D), m, l_acc, o, False)
+        elif src is not None and src > idx:
+            pass  # a later block: skipped
         elif step == 0:
             # every shard holds its own block: the diagonal
             m, l_acc, o = hop(qf, kk.reshape(n, Lq, H, D),
@@ -118,10 +131,11 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             l_acc = torch.cat([l_acc[:r], ln])
             o = torch.cat([o[:r], on])
         # rotate K/V around the ring
-        kk, vv = ppermute_sp(kk), ppermute_sp(vv)
+        with sp_exchange_group():
+            kk, vv = ppermute_sp(kk), ppermute_sp(vv)
     l_acc = torch.clamp_min(l_acc, 1e-20)
     out = o / l_acc.transpose(1, 2)[..., None]
-    return out.to(q.dtype).reshape(S, B, Lq, H, D)
+    return out.to(q.dtype).reshape(shards, B, Lq, H, D)
 
 
 def full_attention_reference(q, k, v, causal: bool = False):

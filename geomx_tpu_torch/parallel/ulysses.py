@@ -9,7 +9,10 @@ port's shards are dim 0 of ``[S, B, L/S, H, D]``
 per-shard attentions run as ONE call of
 :func:`~geomx_tpu_torch.ops.flash_attention.fused_attention` over
 ``[S * B, L, H/S, D]``: the flash kernels, forward and backward, on the
-sp path.  Where the reference's gate fails (head dim not a multiple of
+sp path.  In a slot of a ``[P, W, S]`` mesh dim 0 is the slot's one
+shard, each all-to-all meets the other shards' slots, and the slot
+attends over the whole sequence for its own ``H/S`` heads.  Where the
+reference's gate fails (head dim not a multiple of
 8, or a short sequence whose block is not 8-aligned), the plain
 :func:`_streaming_attention` runs, as in the reference.
 """
@@ -21,7 +24,9 @@ from typing import Optional
 
 import torch
 
-from geomx_tpu_torch.parallel.collectives import all_to_all_sp
+from geomx_tpu_torch.parallel.collectives import (all_to_all_sp,
+                                                  sp_axis_size,
+                                                  sp_exchange_group)
 from geomx_tpu_torch.parallel.ring_attention import _block
 
 
@@ -67,9 +72,10 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Sequence-parallel attention via the head/sequence all-to-all.
 
     q, k, v: ``[S, B, L_local, H, D]`` (shard ``i`` holds sequence block
-    ``i``); needs ``H % S == 0``.  Returns ``[S, B, L_local, H, D]`` in
-    q's dtype."""
-    S, B, Lq, H, D = q.shape
+    ``i``; in a mesh slot ``[1, ...]``, the slot's shard); needs ``H % S
+    == 0``.  Returns them in q's shape and dtype."""
+    shards, B, Lq, H, D = q.shape
+    S = sp_axis_size(q)
     if H % S:
         raise ValueError(f"ulysses needs heads ({H}) divisible by the "
                          f"sequence axis size ({S})")
@@ -79,10 +85,11 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         use_fused = (fused_attention_supported() and D % 8 == 0
                      and _fused_block_aligned(Lq * S))
     # sequence shards -> head shards: [S, B, L, H/S, D]
-    qa, ka, va = (all_to_all_sp(t, split_dim=-2, concat_dim=-3)
-                  for t in (q, k, v))
+    with sp_exchange_group():
+        qa, ka, va = (all_to_all_sp(t, split_dim=-2, concat_dim=-3)
+                      for t in (q, k, v))
     L, hs = Lq * S, H // S
-    qa, ka, va = (t.reshape(S * B, L, hs, D) for t in (qa, ka, va))
+    qa, ka, va = (t.reshape(shards * B, L, hs, D) for t in (qa, ka, va))
     if use_fused:
         from geomx_tpu_torch.ops.flash_attention import fused_attention
         out = fused_attention(qa, ka, va, causal)
@@ -90,5 +97,5 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = _streaming_attention(qa, ka, va, causal)
     # cast before the return trip (pure data movement), then head shards
     # -> sequence shards: [S, B, L_local, H, D]
-    out = out.to(q.dtype).reshape(S, B, L, hs, D)
+    out = out.to(q.dtype).reshape(shards, B, L, hs, D)
     return all_to_all_sp(out, split_dim=-3, concat_dim=-2)

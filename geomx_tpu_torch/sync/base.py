@@ -128,14 +128,20 @@ class SyncAlgorithm(abc.ABC):
         float32 ``[P, 1, 1, ...]`` tensor on ``like``'s device that
         broadcasts against ``like`` (``[P, W, ...]``); None when every
         party is live.  Built once a bind and device: the JAX package's
-        ``m[axis_index(dc)]``, as a tensor operand."""
+        ``m[axis_index(dc)]``, as a tensor operand.  In a mesh slot
+        (``like`` a ``[1, 1, ...]`` block) the slot's own party's entry,
+        ``[1, 1, ...]``."""
         if self.live_parties is None:
             return None
+        from geomx_tpu_torch.parallel.collectives import current_slot
         w = self._party_weights.get(like.device)
         if w is None:
             w = self._party_weights[like.device] = torch.tensor(
                 self.live_parties, dtype=torch.float32,
                 device=like.device).view(-1, 1)
+        slot = current_slot()
+        if slot is not None:
+            w = w[slot.p:slot.p + 1]
         return w.view(w.shape + (1,) * (like.dim() - 2))
 
     def mask_parties(self, x: torch.Tensor) -> torch.Tensor:

@@ -21,9 +21,12 @@ sequence; ``chip_smoke.py`` counts the kernels on the card).
 
 Every tensor the port's step holds carries the ``[P, W]`` replica axes,
 so a party-local value is a ``[P, W]`` tensor (one value a replica), and
-:func:`_replicate` folds it the way the JAX package's ``pmean`` over the
-worker axis and live-party mean over the dc axis do.  The probe catalog
-is the JAX package's:
+:func:`_replicate` folds it through the collectives the JAX package's
+probes run: the ``pmean`` over the worker axis, then the dc ``pmean`` or
+the survivors' ``psum`` over ``num_live``.  In a device-mesh slot the
+same calls meet the other slots (``parallel/collectives.py``), so a
+slot's probes are the stacked probes' bits.  The probe catalog is the
+JAX package's:
 
 - ``grad_norm_global``       L2 norm of the applied (post-sync) gradient
 - ``grad_all_finite``        1.0 iff the applied gradient has no NaN/Inf
@@ -131,31 +134,40 @@ def tree_norm(tree) -> torch.Tensor:
 def replica_norms(tree, P: int, W: int) -> torch.Tensor:
     """The L2 norm of each replica's part of a ``[P, W, ...]`` state tree
     (every floating leaf carries the replica axes), a ``[P, W]`` fp32
-    tensor: :func:`tree_norm` of what one JAX device holds."""
+    tensor: :func:`tree_norm` of what one JAX device holds.  In a mesh
+    slot the slot's own ``[1, 1]``.  Each replica's sum of squares is
+    its own reduction over its flat copy: a CUDA reduction's order
+    depends on how many rows it reduces, and a slot holds one."""
+    from geomx_tpu_torch.parallel.collectives import current_slot
+    if current_slot() is not None:
+        P = W = 1
     leaves = _float_leaves(tree)
     if not leaves:
         return torch.zeros((P, W), dtype=torch.float32)
-    return torch.sqrt(sum(leaf.float().reshape(P, W, -1).square().sum(-1)
-                          for leaf in leaves))
+    return torch.sqrt(sum(
+        torch.stack([leaf[p, w].float().square().sum()
+                     for p in range(P) for w in range(W)]).view(P, W)
+        for leaf in leaves))
 
 
 def _replicate(x: torch.Tensor, sync: Any) -> torch.Tensor:
     """A ``[P, W]`` party-local value -> the mesh mean over LIVE parties:
-    the worker mean, then the parties' mean, or under a degraded
-    membership mask the survivor-weighted sum over ``num_live`` (a dead
+    the worker pmean, then the parties' pmean, or under a degraded
+    membership mask the survivors' psum over ``num_live`` (a dead
     party's replicas still run the step, and a plain mean would dilute
-    every probe by dead/total)."""
-    P, W = x.shape[:2]
+    every probe by dead/total); one replica's copy, 0-d."""
+    from geomx_tpu_torch.parallel.collectives import (pmean_dc,
+                                                      pmean_worker, psum_dc)
     x = x.float()
-    if W > 1:
-        x = x.mean(1, keepdim=True)
-    if P > 1:
+    if getattr(sync, "workers_per_party", 1) > 1:
+        x = pmean_worker(x)
+    if getattr(sync, "num_parties", 1) > 1:
         w = sync.party_weight(x)
         if w is None:
-            x = x.mean(0, keepdim=True)
+            x = pmean_dc(x)
         else:
-            x = (x * w).sum(0, keepdim=True) / sync.num_live
-    return x.reshape(())
+            x = psum_dc(x * w) / sync.num_live
+    return x[0, 0]
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -190,17 +202,23 @@ def collect_step_probes(raw_grads: Any, synced_grads: Optional[Any],
     wire accounting when the caller cached it (else computed from
     ``params``).  Tensor values are 0-d, ``party_grad_nonfinite`` a
     ``[P]`` vector; the wire accounting is Python floats."""
+    from geomx_tpu_torch.parallel.collectives import all_gather, psum
+    from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
     raw = _float_leaves(raw_grads)
     P, W = tuple(raw[0].shape[:2])
     out: Dict[str, Any] = {}
 
     # per-party NaN/Inf flag from the RAW gradients: aggregation (and a
     # mean over healthy parties) can mask one party's poison — the
-    # per-party vector points at the culprit
-    per_party = torch.cat([g.reshape(P, -1) for g in raw], dim=1) \
-        if len(raw) > 1 else raw[0].reshape(P, -1)
-    party_bad = torch.logical_not(torch.isfinite(per_party)).sum(1)
-    out["party_grad_nonfinite"] = (party_bad > 0).to(torch.float32)
+    # per-party vector points at the culprit.  Each replica's count, the
+    # worker psum, the flag, and its all_gather over dc, as in the JAX
+    # probes (integer counts: every order sums them exactly)
+    local_bad = sum(torch.logical_not(torch.isfinite(g)).reshape(P, W, -1)
+                    .sum(-1) for g in raw)
+    if getattr(sync, "workers_per_party", 1) > 1:
+        local_bad = psum(local_bad, WORKER_AXIS)
+    party_flag = (local_bad > 0).to(torch.float32)
+    out["party_grad_nonfinite"] = all_gather(party_flag, DC_AXIS)[0, 0]
     out["grad_nonfinite_parties"] = out["party_grad_nonfinite"].sum()
 
     if synced_grads is not None:

@@ -21,7 +21,12 @@ With an sp-aware model (one with an ``sp_mode``) on a topology with
 chunks the JAX step's ``P(dc, worker, None, sp)`` input spec gives each
 sp device — and the model runs them in one graph
 (``models/seq_classifier.py``), so its gradients are already the true
-ones: no psum over sp follows.
+ones: no psum over sp follows.  On a ``[P, W, S]`` mesh each sp slot
+runs one chunk, as a JAX sp device does: its forward's sp exchanges meet
+the other shards' slots and are taped, the backward runs segment by
+segment in the slot's thread (``collectives.SpTape``), then the
+gradients are psummed over sp and floating model state and the metrics
+pmeaned over it (``geomx_tpu/train/step.py:434-443``).
 
 With ``GeoConfig(zero=True)`` (``train/zero.py``) the sync and the
 update fuse: ``sync.sync_grad_shards`` returns each worker's ``1/W``
@@ -50,11 +55,12 @@ ReplicaMesh``) the same program runs once a replica slot at local leading
 dims ``[1, 1]`` (``parallel/collectives.run_on_mesh``), as the JAX
 ``_device_step`` sees ``[1, 1]`` blocks under ``P(dc, worker)``; its
 collectives meet the other slots' and give the stacked path's bits.  The
-mesh runs every sync algorithm (FSA, MixedSync with DCASGD, HFA, the
-pipeline), every dc-tier compressor (BSC gathered or owner-routed, DGT,
-2-bit, FP16, MPQ), a worker-tier compressor, per-leaf or fused
-optimizers, ZeRO and MultiGPS; sp, a membership mask, telemetry,
-control and the audit refuse (:func:`mesh_refusal`).
+mesh runs every step the stacked path runs: every sync algorithm, every
+dc-tier compressor, a worker-tier compressor, per-leaf or fused
+optimizers, ZeRO and MultiGPS, a membership mask, telemetry, control,
+and sp on a ``[P, W, S]`` mesh.  The step runs on the mesh its state is
+placed on (the audit records a meshed program on a CPU twin of the
+mesh, ``train/trainer.py``).
 
 With control on (``GEOMX_CONTROL``, ``control/``, decided when the step
 is built) the state's ``sync_state["control"]`` operands are detached
@@ -68,6 +74,7 @@ raises.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import os
 import threading
@@ -83,8 +90,10 @@ from geomx_tpu_torch.compression.bucketing import BucketedCompressor
 from geomx_tpu_torch.control import actuators as _control
 from geomx_tpu_torch.ops.optim import (fused_apply, fused_optim_enabled,
                                        fused_spec_of)
-from geomx_tpu_torch.parallel.collectives import (pmean_dc, pmean_worker,
-                                                  psum_dc, run_on_mesh)
+from geomx_tpu_torch.parallel.collectives import (current_slot, pmean_dc,
+                                                  pmean_sp, pmean_worker,
+                                                  psum_dc, psum_sp,
+                                                  run_on_mesh, sp_tape)
 from geomx_tpu_torch.telemetry import probes as _probes
 from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS, PlacedTree
 from geomx_tpu_torch.train.state import TrainState
@@ -139,6 +148,7 @@ def make_loss_fn(model: torch.nn.Module, compute_dtype=None) -> Callable:
                                  {"train": True})
         return cross_entropy_loss(logits, y), (new_state, logits)
 
+    loss_fn.model, loss_fn.compute_dtype = model, compute_dtype
     return loss_fn
 
 
@@ -274,31 +284,6 @@ def sp_chunks(x: torch.Tensor, sp: int) -> torch.Tensor:
 _LIVE_COUNTS: dict = {}
 _LIVE_COUNTS_LOCK = threading.Lock()
 
-# the ROADMAP.md Queue 1 item that ports what the device mesh refuses
-MESH_OTHER_PATHS = "Device mesh: the other paths"
-
-
-def mesh_refusal(sync, config=None, sp_model: bool = False) -> None:
-    """Raise the ``unported`` refusal of a step the device mesh does not
-    run yet: sp, a membership mask, telemetry, control and the audit."""
-    from geomx_tpu_torch.analysis import audit_enabled
-    from geomx_tpu_torch.config import unported
-
-    def refuse(what: str):
-        raise unported(f"{what} on a device mesh", MESH_OTHER_PATHS)
-
-    if sp_model:
-        refuse("sequence parallelism")
-    if sync.live_parties is not None:
-        refuse("a membership mask")
-    if _probes.telemetry_enabled(config):
-        refuse("telemetry")
-    if _control.control_enabled(config):
-        refuse("control")
-    if audit_enabled(config):
-        refuse("the collective audit")
-
-
 def _locked(loss_fn: Callable) -> Callable:
     """``loss_fn`` called under a lock: the slots of a mesh share the
     model, and ``functional_call`` swaps the module's tensors while the
@@ -311,6 +296,28 @@ def _locked(loss_fn: Callable) -> Callable:
     return locked
 
 
+def _per_slot(loss_fn: Callable) -> Callable:
+    """``loss_fn`` on a copy of its model a mesh slot: an sp slot's
+    forward meets the other slots at its exchanges, so the slots cannot
+    take turns on one module under a lock (:func:`_locked`)."""
+    model = getattr(loss_fn, "model", None)
+    if model is None:
+        raise ValueError("an sp step on a device mesh needs a loss_fn made "
+                         "by make_loss_fn (it runs a model copy a slot)")
+    copies: dict = {}
+    lock = threading.Lock()
+
+    def slotted(*args):
+        index = current_slot().index
+        with lock:
+            fn = copies.get(index)
+            if fn is None:
+                fn = copies[index] = make_loss_fn(copy.deepcopy(model),
+                                                  loss_fn.compute_dtype)
+        return fn(*args)
+    return slotted
+
+
 def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                      sp_model: bool = False, mesh=None):
     """Build ``train_step(state, x, y) -> (state, metrics)``.
@@ -320,10 +327,12 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
     - metrics are global means (0-d tensors on the device);
     - ``sp_model``: the model takes its sequence as sp chunks
       (:func:`sp_chunks`, ``topology.sp_degree`` of them);
-    - ``mesh``: a ``topology.ReplicaMesh`` of the topology's shape.  The
-      step then takes a placed state (``mesh.place``; a stacked one is
-      placed first) and placed or stacked batches, runs the program
-      once a slot at leading dims ``[1, 1]``, and returns the placed
+    - ``mesh``: a ``topology.ReplicaMesh`` of the topology's shape
+      (``[P, W, S]`` with ``sp_degree = S``).  The step then takes a
+      placed state (``mesh.place``; a stacked one is placed first) and
+      placed or stacked batches (a token batch's sequence split over the
+      sp slots), runs the program once a slot at leading dims ``[1,
+      1]`` on the mesh the state is placed on, and returns the placed
       state and slot ``(0, 0)``'s metrics (every slot holds the same
       global means).
     """
@@ -332,14 +341,21 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
     # dims of the program's own tensors: the same stacked, [1, 1] a slot
     nP, nW = P, W = topology.replica_shape
     sp = getattr(topology, "sp_degree", 1) if sp_model else None
+    taped = False
     if mesh is not None:
-        if tuple(mesh.shape) != (P, W):
-            raise ValueError(f"mesh {list(mesh.shape)} does not match the "
-                             f"topology's [P, W] = {[P, W]}")
-        mesh_refusal(sync, config, sp_model)
+        S = getattr(topology, "sp_degree", 1)
+        if tuple(mesh.shape) != (P, W) or mesh.sp != S:
+            raise ValueError(f"mesh {list(mesh.shape)} x sp {mesh.sp} does "
+                             f"not match the topology's [P, W] = {[P, W]} x "
+                             f"sp {S}")
         # the slot program's own replica dims, as _device_step sees them
         P, W = 1, 1
-        loss_fn = _locked(loss_fn)
+        if sp_model:
+            # a slot runs one sequence chunk and tapes its sp exchanges
+            sp, taped = 1, True
+            loss_fn = _per_slot(loss_fn)
+        else:
+            loss_fn = _locked(loss_fn)
     mgps = _mgps_plan(sync, topology, config)
     sync, zplan = _bind_zero_plan(sync, topology, config)
     fopt_spec = _fused_spec(tx, config)
@@ -518,15 +534,33 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                               for k in names}
                     ms = {k: t[p, w] for k, t in state.model_state.items()}
                     xb = x[p, w] if sp is None else sp_chunks(x[p, w], sp)
-                    loss, (new_ms, logits) = loss_fn(leaves, ms, xb,
-                                                     y[p, w])
-                    grads = torch.autograd.grad(loss,
-                                                [leaves[k] for k in names])
+                    if taped:
+                        with sp_tape() as tape:
+                            loss, (new_ms, logits) = loss_fn(leaves, ms, xb,
+                                                             y[p, w])
+                            grads = tape.grad(loss,
+                                              [leaves[k] for k in names])
+                        # each sp slot back-propagated its own shard: the
+                        # replica's gradient is their sum, and the floating
+                        # model state and the metrics their mean
+                        grads = [psum_sp(g[None])[0] for g in grads]
+                        new_ms = {k: pmean_sp(t[None])[0]
+                                  if t.is_floating_point() else t
+                                  for k, t in new_ms.items()}
+                        loss = pmean_sp(loss.detach()[None])[0]
+                        logits = logits.detach()
+                    else:
+                        loss, (new_ms, logits) = loss_fn(leaves, ms, xb,
+                                                         y[p, w])
+                        grads = torch.autograd.grad(
+                            loss, [leaves[k] for k in names])
                     per_grads.append(grads)
                     per_stats.append(new_ms)
                     losses.append(loss.detach())
                     accs.append((logits.detach().argmax(-1) == y[p, w])
                                 .to(torch.float32).mean())
+                    if taped:
+                        accs[-1] = pmean_sp(accs[-1][None])[0]
             grads = {k: torch.stack([g[i] for g in per_grads])
                      .view((P, W) + tuple(state.params[k].shape[2:]))
                      for i, k in enumerate(names)}
@@ -591,10 +625,12 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
 
     if mesh is not None:
         def mesh_step(state, x, y):
-            state, x, y = mesh.place(state), mesh.place(x), mesh.place(y)
-            outs = run_on_mesh(train_step, mesh,
+            on = state.mesh if isinstance(state, PlacedTree) else mesh
+            state, y = on.place(state), on.place(y)
+            x = on.place(x, seq_dim=3 if sp_model else None)
+            outs = run_on_mesh(train_step, on,
                                list(zip(state.slots, x.slots, y.slots)))
-            return PlacedTree(mesh, [s for s, _ in outs]), outs[0][1]
+            return PlacedTree(on, [s for s, _ in outs]), outs[0][1]
 
         mesh_step.mgps = mgps  # as train_step.mgps: a slot's shards
         return mesh_step

@@ -82,11 +82,19 @@ state is placed per slot (``mesh.place``), the step runs one program a
 slot (``train/step.py``), ``fit`` scatters each batch to the slots,
 evaluation runs on slot ``(0, 0)``'s device, and checkpoints gather and
 place, so a meshed run writes the stacked run's tensors.  The mesh runs
-every sync algorithm and dc-tier compressor, per-leaf or fused
-optimizers, ZeRO and MultiGPS (``init_state`` shapes a slot's state by
-the step's plan), and ``drain_pipeline`` drains once a slot;
-membership, catch-up, control, telemetry, the audit and the
-device-cached epoch refuse under it.
+everything the stacked trainer runs (``init_state`` shapes a slot's
+state by the step's plan), one program a slot: ``drain_pipeline``
+drains once a slot; a membership change or a depth switch runs its
+residual policy on slot ``(0, 0)``'s copy and places the result over
+every slot; a catch-up payload comes from slot ``(0, 0)`` (under ZeRO
+from party 0's worker row); a ratio decision writes every slot's own
+scale operand; ``fit`` publishes slot ``(0, 0)``'s probes; the audit
+records the meshed program on a CPU twin of the mesh (one record a
+collective); the device-cached loader keeps one copy of the dataset a
+distinct mesh device and hands each slot its block of each batch.  An
+sp model runs on a ``[P, W, S]`` mesh
+(``HiPSTopology(P, W, sp_degree=S).build_mesh()``), one sequence chunk
+a slot.
 """
 
 from __future__ import annotations
@@ -113,10 +121,9 @@ from geomx_tpu_torch.sync import get_sync_algorithm
 from geomx_tpu_torch.topology import HiPSTopology, PlacedTree
 from geomx_tpu_torch.train.state import (TrainState, replicate_tree,
                                          unreplicate_tree)
-from geomx_tpu_torch.train.step import (MESH_OTHER_PATHS, build_eval_step,
-                                        build_logits_fn, build_train_step,
-                                        fused_bucketer, make_loss_fn,
-                                        resolve_precision)
+from geomx_tpu_torch.train.step import (build_eval_step, build_logits_fn,
+                                        build_train_step, fused_bucketer,
+                                        make_loss_fn, resolve_precision)
 from geomx_tpu_torch.train.zero import (ZeroPlan, host_zero_state,
                                         place_zero_state,
                                         reshard_zero_state,
@@ -188,8 +195,6 @@ class Trainer:
                 "state.  Pass a fresh (unbound) sync algorithm, or "
                 "enable GEOMX_ZERO/GeoConfig(zero=True) to match")
         self._sp_model = sp_model
-        if mesh is not None:
-            self._refuse_telemetry_on_mesh()
         self.train_step = build_train_step(self.loss_fn, self.tx, self.sync,
                                            topology, self.config,
                                            sp_model=sp_model, mesh=mesh)
@@ -226,24 +231,28 @@ class Trainer:
         self.audit_record_ms: list = []  # host ms of each recording
         self._init_telemetry()
 
-    def _refuse_telemetry_on_mesh(self) -> None:
-        """The telemetry plane's refusal under a mesh, before anything is
-        armed (the step refuses the rest, ``train/step.py``
-        ``mesh_refusal``)."""
-        from geomx_tpu_torch.telemetry.capsule import capsule_enabled
-        from geomx_tpu_torch.telemetry.flight import flight_enabled
-        if flight_enabled(self.config) or capsule_enabled(self.config) \
-                or getattr(self.config, "telemetry_events", ""):
-            self._refuse_on_mesh("telemetry")
-
-    def _refuse_on_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            from geomx_tpu_torch.config import unported
-            raise unported(f"{what} on a device mesh", MESH_OTHER_PATHS)
-
     def _slot00(self, state):
         """Slot ``(0, 0)``'s copy of a placed state, else ``state``."""
         return state.slots[0] if isinstance(state, PlacedTree) else state
+
+    def _stacked_replica00(self, tree):
+        """Copy ``(0, 0)`` of a ``[P, W]`` tree (a slot's ``[1, 1]`` one
+        too) replicated to ``[P, W]`` on this trainer's device."""
+        return self._replicate_state(unreplicate_tree(tree))
+
+    def _with_sync_state(self, state, sync_state):
+        """``state`` with the stacked ``sync_state`` (control operands
+        apart); a placed state gets it placed over every slot, each slot
+        keeping its own control operands."""
+        if not isinstance(state, PlacedTree):
+            ctl = _split_control(state.sync_state)[1]
+            return dataclasses.replace(
+                state, sync_state=_join_control(sync_state, ctl))
+        placed = self.mesh.place(sync_state)
+        return PlacedTree(self.mesh, [
+            dataclasses.replace(s, sync_state=_join_control(
+                placed.slots[i], _split_control(s.sync_state)[1]))
+            for i, s in enumerate(state.slots)])
 
     def _init_telemetry(self) -> None:
         """Arm the telemetry plane the config asks for, as the JAX
@@ -445,8 +454,9 @@ class Trainer:
 
         Re-admission: call :meth:`catchup_payload` for the blob the
         returning party installs (:meth:`admit_party`) before this rebind
-        widens the collective back over it."""
-        self._refuse_on_mesh("a membership change")
+        widens the collective back over it.  A placed state keeps its
+        params and optimizer state in every slot and gets the policy's
+        sync state placed over the mesh."""
         from geomx_tpu_torch.topology import normalize_live_mask
         mask = normalize_live_mask(getattr(epoch, "live_mask", epoch),
                                    self.topology.num_parties)
@@ -475,7 +485,8 @@ class Trainer:
         if step_fn is None:
             step_fn = build_train_step(self.loss_fn, self.tx, self.sync,
                                        self.topology, self.config,
-                                       sp_model=self._sp_model)
+                                       sp_model=self._sp_model,
+                                       mesh=self.mesh)
             self._step_cache[key] = step_fn
         # the audit at the swap (GEOMX_AUDIT): the new mask's step must
         # make the same ordered collective calls as the reference — a
@@ -493,13 +504,13 @@ class Trainer:
         self.train_step = step_fn
         if self._zero_plan is not None and policy == "carry":
             return state
-        sync_state, ctl = _split_control(state.sync_state)
-        sync_state = self._replicate_state(self._replica_00(sync_state))
-        return TrainState(
-            step=state.step, params=state.params,
-            opt_state=state.opt_state, model_state=state.model_state,
-            sync_state=_join_control(self.sync.reset_comm_state(
-                state.params, sync_state, policy), ctl))
+        s00 = self._slot00(state)
+        sync_state = self._replicate_state(self._replica_00(
+            _split_control(s00.sync_state)[0]))
+        params = s00.params if s00 is state \
+            else self._stacked_replica00(s00.params)
+        return self._with_sync_state(state, self.sync.reset_comm_state(
+            params, sync_state, policy))
 
     # ---- the collective audit (analysis/) ---------------------------------
 
@@ -516,6 +527,10 @@ class Trainer:
         spec, xb, yb = self._audit_args
         st = _map_state(_cpu_zeros, spec)
         xb, yb = _cpu_zeros(xb), _cpu_zeros(yb)
+        if self.mesh is not None:
+            # the meshed program on a CPU twin of the mesh: the step runs
+            # on the mesh its state is placed on
+            st = self.mesh.on("cpu").place(st)
         with torch.random.fork_rng(devices=[]):
             rec = record_program(step_fn, st, xb, yb)
         ctx = AuditContext()
@@ -529,7 +544,8 @@ class Trainer:
         Trainer; the first fit batch with GEOMX_AUDIT on)."""
         if not self._audit or self._audit_args is not None:
             return
-        self._audit_args = (_map_state(_spec, state), _spec(xb), _spec(yb))
+        self._audit_args = (_map_state(_spec, _stacked(state)),
+                            _spec(_stacked(xb)), _spec(_stacked(yb)))
         self._audit_sigs[self._membership] = self._step_signature(
             self.train_step)
 
@@ -564,11 +580,14 @@ class Trainer:
         tree format, what the survivors hand a returning party before
         ``apply_membership`` widens the collective back over it.  Copy
         ``(0, 0)``, except under ZeRO, where the shard-bearing fields
-        keep party 0's whole worker axis (``host_zero_state``)."""
-        self._refuse_on_mesh("a catch-up")
+        keep party 0's whole worker axis (``host_zero_state``; on a mesh
+        the slots of party 0, gathered)."""
         from geomx_tpu_torch.resilience.liveness import pack_catchup
         if self._zero_plan is not None:
+            if isinstance(state, PlacedTree):
+                state = self.mesh.gather(state, party=0)
             return pack_catchup(host_zero_state(state))
+        state = self._slot00(state)
         return pack_catchup(TrainState(
             step=state.step, params=unreplicate_tree(state.params),
             opt_state=self._replica_00(state.opt_state),
@@ -580,17 +599,18 @@ class Trainer:
         returning party's half of the protocol): the inverse of
         :meth:`catchup_payload`, replicated over every slot on this
         trainer's device (under ZeRO, each worker slot gets back its own
-        shard, ``place_zero_state``)."""
-        self._refuse_on_mesh("a catch-up")
+        shard, ``place_zero_state``); placed over the mesh on one."""
         from geomx_tpu_torch.resilience.liveness import unpack_catchup
         t = unpack_catchup(payload)
         if self._zero_plan is not None:
-            return place_zero_state(t, self.topology, self.device)
-        return TrainState(
-            step=t["step"], params=self._replicate_state(t["params"]),
-            opt_state=self._replicate_state(t["opt_state"]),
-            model_state=self._replicate_state(t["model_state"]),
-            sync_state=self._replicate_state(t["sync_state"]))
+            state = place_zero_state(t, self.topology, self.device)
+        else:
+            state = TrainState(
+                step=t["step"], params=self._replicate_state(t["params"]),
+                opt_state=self._replicate_state(t["opt_state"]),
+                model_state=self._replicate_state(t["model_state"]),
+                sync_state=self._replicate_state(t["sync_state"]))
+        return state if self.mesh is None else self.mesh.place(state)
 
     # ---- the control plane's actuation boundary (control/) ----------------
 
@@ -628,8 +648,8 @@ class Trainer:
           in-flight aggregate first so no gradient is lost).
 
         Relay decisions are host-plane only and never reach this method
-        (``ControlActuator`` routes them to the transport)."""
-        self._refuse_on_mesh("control")
+        (``ControlActuator`` routes them to the transport).  A placed
+        state gets the ratio in every slot's own operand."""
         if not self._control:
             raise ValueError(
                 "apply_control needs GEOMX_CONTROL/GeoConfig(control="
@@ -654,7 +674,8 @@ class Trainer:
         # selects below it (the shapes never change)
         scale = min(max(target / float(comp.ratio), 1e-6), 1.0)
         # in place, on the current stream: the step reads the same tensor
-        state.sync_state[CONTROL_KEY]["bsc_ratio_scale"].fill_(scale)
+        for s in state.slots if isinstance(state, PlacedTree) else [state]:
+            s.sync_state[CONTROL_KEY]["bsc_ratio_scale"].fill_(scale)
         return state
 
     def _apply_depth(self, state: TrainState, decision) -> TrainState:
@@ -681,7 +702,11 @@ class Trainer:
             # land the in-flight aggregate before the swap: the parked
             # gradient applies exactly once, nothing is lost
             state = self.drain_pipeline(state)
-        old_ss, ctl = _split_control(self._replica_00(state.sync_state))
+        s00 = self._slot00(state)
+        old_ss = _split_control(self._replica_00(s00.sync_state))[0]
+        params, model_state = (state.params, state.model_state) \
+            if s00 is state else (self._stacked_replica00(s00.params),
+                                  self._stacked_replica00(s00.model_state))
         cache_key = (target, self._membership)
         step_fn = self._control_cache.get(cache_key)
         if step_fn is not None:
@@ -701,7 +726,7 @@ class Trainer:
         # state transition with EF carry: the dc-tier residuals live at
         # the same bucket coordinates on both sides of the swap
         fresh = self._replica_00(new_sync.init_state(
-            state.params, model_state=state.model_state))
+            params, model_state=model_state))
         if target == 1:
             inner_fresh = dict(fresh["inner"])
             for key, val in old_ss.items():
@@ -718,23 +743,22 @@ class Trainer:
                     fresh["dc_comp"] = val["inner"]
                 elif key in fresh:
                     fresh[key] = val
-        sync_state = _join_control(self._replicate_state(fresh), ctl)
         if step_fn is None:
             step_fn = build_train_step(self.loss_fn, self.tx, new_sync,
                                        self.topology, self.config,
-                                       sp_model=self._sp_model)
+                                       sp_model=self._sp_model,
+                                       mesh=self.mesh)
             step_fn.sync = new_sync
             self._control_cache[cache_key] = step_fn
-        new_state = TrainState(step=state.step, params=state.params,
-                               opt_state=state.opt_state,
-                               model_state=state.model_state,
-                               sync_state=sync_state)
+        new_state = self._with_sync_state(state,
+                                          self._replicate_state(fresh))
         # the audit across the swap: a depth change legitimately changes
         # the collective sequence, so the reference is re-armed on the new
         # step (its own findings gate before it is installed)
         if self._audit and self._audit_args is not None:
             _, xb_s, yb_s = self._audit_args
-            self._audit_args = (_map_state(_spec, new_state), xb_s, yb_s)
+            self._audit_args = (_map_state(_spec, _stacked(new_state)),
+                                xb_s, yb_s)
             sig, findings = self._step_signature(step_fn)
             from geomx_tpu_torch.analysis import enforce
             leftover = enforce(list(findings), self._audit_gate)
@@ -875,14 +899,15 @@ class Trainer:
                     seed: int = 0, augment: bool = False,
                     device_cache: bool = False) -> GeoDataLoader:
         """``device_cache=True`` keeps the dataset on this trainer's
-        device and gathers each batch there (``data/loader.py``), the
-        input of ``fit(scan_epochs=True)``; not under a mesh."""
-        if device_cache:
-            self._refuse_on_mesh("the device-cached loader")
+        device (on a mesh, on each distinct mesh device) and gathers each
+        batch there (``data/loader.py``), the input of
+        ``fit(scan_epochs=True)``."""
         return GeoDataLoader(x, y, self.topology, batch_size,
                              split_by_class=split_by_class, seed=seed,
                              augment=augment, device=self.device,
-                             device_cache=device_cache)
+                             device_cache=device_cache,
+                             mesh=self.mesh if device_cache else None,
+                             seq_dim=3 if self._sp_model else None)
 
     def predict_logits(self, state: TrainState, x: np.ndarray,
                        batch_size: int = 512) -> np.ndarray:
@@ -922,8 +947,9 @@ class Trainer:
         uploaded once, each step's batch gathered on the device, the
         metrics kept on the device and stacked at the end, so the host
         never waits inside the epoch.  Returns ``(state, {"loss":
-        [steps], "accuracy": [steps]})`` on the device."""
-        self._refuse_on_mesh("the device-cached epoch")
+        [steps], "accuracy": [steps]})`` on the device.  On a mesh each
+        batch is gathered on every mesh device, each slot taking its
+        block, and the metrics are slot ``(0, 0)``'s."""
         sel, gen = loader.epoch_indices(epoch)
         sel = torch.as_tensor(sel, device=self.device)
         losses, accs = [], []
@@ -972,7 +998,6 @@ class Trainer:
         fit_since_us = prof.now_us() if prof.running else None
         self._attr_window_us = fit_since_us
         if scan_epochs:
-            self._refuse_on_mesh("the device-cached epoch")
             if not getattr(loader, "device_cache", False):
                 raise ValueError("scan_epochs requires device_cache=True "
                                  "on the loader")
@@ -1259,6 +1284,13 @@ def _spec(x):
     if isinstance(x, torch.Tensor):
         return _Spec(tuple(x.shape), x.dtype)
     return x
+
+
+def _stacked(tree):
+    """A placed tree's stacked shapes (meta tensors), else ``tree``."""
+    if isinstance(tree, PlacedTree):
+        return tree.mesh.gather(tree, device="meta")
+    return tree
 
 
 def _cpu_zeros(x):

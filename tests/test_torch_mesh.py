@@ -43,7 +43,6 @@ from geomx_tpu_torch.tree import from_nested
 torch.set_num_threads(2)
 
 TIMEOUT_S = 20.0  # no rendezvous of these tests waits longer
-ITEM = "Device mesh: the other paths"
 
 
 def cpu_mesh(P_=2, W_=4, timeout_s=TIMEOUT_S) -> ReplicaMesh:
@@ -122,7 +121,9 @@ def test_build_mesh_matches_jax(shape, n):
 
 def test_build_mesh_takes_the_cards_and_never_the_cpu(monkeypatch):
     """No devices: ``cuda:0 .. cuda:n-1``, raising with fewer cards than
-    slots; an sp mesh is refused."""
+    slots; an sp mesh lays its ``[P, W, S]`` slots out as the JAX
+    package's ``build_mesh`` does on the conftest's virtual devices, sp
+    innermost."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     with pytest.raises(ValueError, match="needs 8 devices, only 3"):
         HiPSTopology(2, 4).build_mesh()
@@ -132,8 +133,21 @@ def test_build_mesh_takes_the_cards_and_never_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(ValueError, match="needs 1 devices, only 0"):
         HiPSTopology(1, 1).build_mesh()
-    with pytest.raises(NotImplementedError, match=ITEM):
-        HiPSTopology(1, 2, sp_degree=2).build_mesh(["cpu"] * 4)
+    for shape in ((1, 2, 2), (2, 2, 2), (1, 1, 4)):
+        jmesh = JaxTopology(*shape).build_mesh(jax.devices())
+        mesh = HiPSTopology(*shape).build_mesh(["cpu"] * 8)
+        assert (mesh.shape + (mesh.sp,)) == jmesh.devices.shape == shape
+        assert mesh.axis_names == tuple(jmesh.axis_names)
+        ids = [d.id for d in jmesh.devices.reshape(-1)]
+        assert [mesh.index(p, w, s) for p, w, s, _ in mesh.slot_coords()] \
+            == ids == list(range(mesh.size))
+        for p, w, s, _ in mesh.slot_coords():
+            assert jmesh.devices[p, w, s].id == mesh.index(p, w, s)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    mesh = HiPSTopology(1, 2, sp_degree=2).build_mesh()
+    assert [d.index for _, _, _, d in mesh.slot_coords()] == [0, 1, 2, 3]
+    with pytest.raises(ValueError, match="needs 8 devices, only 4"):
+        HiPSTopology(2, 2, sp_degree=2).build_mesh()
 
 
 def test_place_and_gather_round_trip():
@@ -474,44 +488,175 @@ def test_meshed_fit_checkpoint_reads_back_into_a_stacked_trainer(tmp_path):
     assert_bits_equal(mt.mesh.gather(back), ss, "meshed load")
 
 
+def _decision(kind: str, value):
+    from geomx_tpu_torch.control.policy import Decision
+    return Decision(step=0, kind=kind, value=value, prev=None, reason="test")
+
+
+def twin_steps(st, mt, ss, ms, batches, what, meshed_batches=None):
+    """Each batch through a stacked and a meshed trainer: the same loss
+    and accuracy, and the gathered meshed state the stacked bits after
+    every step.  Returns both states and the last metrics."""
+    sm = mm = None
+    for i, (xb, yb) in enumerate(batches):
+        mx, my = (xb, yb) if meshed_batches is None else meshed_batches[i]
+        ss, sm = st.train_step(ss, xb, yb)
+        ms, mm = mt.train_step(ms, mx, my)
+        assert float(mm["loss"]) == float(sm["loss"]), (what, i)
+        assert float(mm["accuracy"]) == float(sm["accuracy"]), (what, i)
+        assert float(mm["num_live_parties"]) == \
+            float(sm["num_live_parties"])
+        assert_bits_equal(mt.mesh.gather(ms), ss, f"{what} step {i + 1}")
+    return ss, ms, sm, mm
+
+
+def _sp_parity():
+    """A small ring SeqClassifier on [1, 2] x sp 2, meshed and stacked:
+    losses within 2e-4 and params within 2e-3 (tests/test_torch_seq.py's
+    tolerances: the shards sum in another order)."""
+    from geomx_tpu_torch.models import SeqClassifier
+    from geomx_tpu_torch.sync import FSA
+    mk = dict(vocab=32, max_len=32, dim=16, num_heads=2, num_layers=1,
+              num_classes=4)
+    topo = HiPSTopology(1, 2, sp_degree=2)
+    rng = np.random.RandomState(2)
+    tok = rng.randint(0, 32, (2, 1, 2, 2, 32))
+    pos = np.broadcast_to(np.arange(32), tok.shape)
+    xs = torch.from_numpy(np.stack([tok, pos], -1).astype(np.int32))
+    ys = torch.from_numpy(rng.randint(0, 4, (2, 1, 2, 2))).long()
+
+    def trainer(mesh):
+        kw = dict(mesh=mesh) if mesh is not None else dict(device="cpu")
+        return Trainer(SeqClassifier(sp_mode="ring", **mk), topo, sgd(0.1),
+                       sync=FSA(), single_device_model=SeqClassifier(**mk),
+                       **kw)
+    st = trainer(None)
+    mt = trainer(topo.build_mesh(["cpu"] * 4, timeout_s=TIMEOUT_S))
+    ss, ms = st.init_state(seed=0), mt.init_state(seed=0)
+    assert len(ms.slots) == 4 and mt.mesh.sp == 2
+    for xb, yb in zip(xs, ys):
+        ss, sm = st.train_step(ss, xb, yb)
+        ms, mm = mt.train_step(ms, xb, yb)
+        np.testing.assert_allclose(float(mm["loss"]), float(sm["loss"]),
+                                   rtol=2e-4, atol=2e-4)
+    got = mt.mesh.gather(ms)
+    for k, v in ss.params.items():
+        np.testing.assert_allclose(got.params[k].numpy(), v.numpy(),
+                                   rtol=2e-3, atol=2e-3, err_msg=k)
+
+
 @pytest.mark.parametrize("case", [
     "telemetry", "control", "audit", "flight", "membership", "catchup",
     "device_cache", "scan_epochs", "sp"])
-def test_refusals_under_a_mesh(case, monkeypatch):
-    """What the mesh does not run yet refuses through ``unported`` with
-    the Queue 1 item's title; the stacked trainer is untouched.  (The
-    sync algorithms and dc tiers run on the mesh:
-    ``tests/test_torch_mesh_paths.py``.)"""
+def test_refusals_under_a_mesh(case, monkeypatch, tmp_path):
+    """What the mesh refused until "Device mesh: the other paths" closed
+    runs there and gives the stacked trainer's bits: the probe dict,
+    ratio and depth actuations, the audit signature of a swap (and a
+    refused divergence), the flight recorder's records, a membership
+    blackout and return, a catch-up, the device-cached batches and the
+    scanned epoch; sp within the tolerances of tests/test_torch_seq.py
+    (tests/test_torch_mesh_sp.py holds the sp mesh at length)."""
+    from geomx_tpu_torch.telemetry.probes import host_probes
     for var in ("GEOMX_TELEMETRY", "GEOMX_CONTROL", "GEOMX_AUDIT",
                 "GEOMX_FLIGHT", "GEOMX_CAPSULE"):
         monkeypatch.delenv(var, raising=False)
     if case == "sp":
-        topo = HiPSTopology(2, 2, sp_degree=2)
-        assert topo.replica_shape == (2, 2)  # stacked, the sp axis runs
-        with pytest.raises(NotImplementedError, match=ITEM):
-            topo.build_mesh(["cpu"] * 8)
+        _sp_parity()
         return
     fields = {"telemetry": dict(telemetry=True),
               "control": dict(control=True),
               "audit": dict(audit=True),
-              "flight": dict(flight=True)}.get(case, {})
-    x, y = _data(5, 64, 8)
-    _mlp_trainer(**fields)  # the stacked trainer builds
-    if fields:
-        with pytest.raises(NotImplementedError, match=ITEM):
-            _mlp_trainer(cpu_mesh(), **fields)
-        return
-    t = _mlp_trainer(cpu_mesh())
-    state = t.init_state(seed=0, sample_input=x[:2])
-    with pytest.raises(NotImplementedError, match=ITEM):
-        if case == "membership":
-            t.apply_membership(state, (True, False))
-        elif case == "catchup":
-            t.catchup_payload(state)
-        elif case == "device_cache":
-            t.make_loader(x, y, 4, device_cache=True)
+              "flight": dict(telemetry=True, flight=True,
+                             flight_dir=str(tmp_path))}.get(case, {})
+    x, y = _data(5, 128, 8)
+    st, mt = _mlp_trainer(**fields), _mlp_trainer(cpu_mesh(), **fields)
+    ss = st.init_state(seed=0, sample_input=x[:2])
+    ms = mt.init_state(seed=0, sample_input=x[:2])
+    batches = list(st.make_loader(x, y, 4, seed=0).epoch(0))
+    assert len(batches) == 4
+    if case == "telemetry":
+        ss, ms, sm, mm = twin_steps(st, mt, ss, ms, batches, case)
+        assert host_probes(mm["telemetry"]) == host_probes(sm["telemetry"])
+    elif case == "control":
+        ss, ms, _, _ = twin_steps(st, mt, ss, ms, batches[:1], case)
+        for d in (_decision("ratio", 0.005), _decision("depth", 1), None,
+                  _decision("depth", 0)):
+            if d is not None:
+                ss, ms = st.apply_control(ss, d), mt.apply_control(ms, d)
+                assert_bits_equal(mt.mesh.gather(ms), ss, f"{d.kind}")
+                assert all(torch.equal(s.sync_state["control"]
+                                       ["bsc_ratio_scale"],
+                                       ss.sync_state["control"]
+                                       ["bsc_ratio_scale"])
+                           for s in ms.slots)
+            ss, ms, _, _ = twin_steps(st, mt, ss, ms, batches[1:2], case)
+        assert mt.control_depth() == st.control_depth() == 0
+    elif case == "audit":
+        from geomx_tpu_torch.analysis import AuditError
+        ss, _ = st.fit(ss, st.make_loader(x, y, 4, seed=0), epochs=1,
+                       log_fn=lambda s: None)
+        ms, _ = mt.fit(ms, mt.make_loader(x, y, 4, seed=0), epochs=1,
+                       log_fn=lambda s: None)
+        mask = (True, False)
+        ss, ms = st.apply_membership(ss, mask), mt.apply_membership(ms, mask)
+        assert mt._audit_sigs[None][0] == st._audit_sigs[None][0]
+        assert mt._audit_sigs[mask] == st._audit_sigs[mask]
+        assert len(mt._audit_sigs[mask][0]) > 0
+        ss, ms = st.apply_membership(ss, (True, True)), \
+            mt.apply_membership(ms, (True, True))
+        for t, state in ((st, ss), (mt, ms)):
+            sig, found = t._audit_sigs[None]
+            t._audit_sigs[None] = (sig[:-1], found)
+            step = t.train_step
+            with pytest.raises(AuditError):
+                t.apply_membership(state, mask)
+            assert t.train_step is step and t._membership is None
+    elif case == "flight":
+        ss, _ = st.fit(ss, st.make_loader(x, y, 4, seed=0), epochs=1,
+                       log_every=1, log_fn=lambda s: None)
+        ms, _ = mt.fit(ms, mt.make_loader(x, y, 4, seed=0), epochs=1,
+                       log_every=1, log_fn=lambda s: None)
+        assert_bits_equal(mt.mesh.gather(ms), ss, "flight")
+        got, want = mt._flight.snapshot(), st._flight.snapshot()
+        assert len(got) == len(want) == 4 and got == want
+    elif case == "membership":
+        ss, ms, _, _ = twin_steps(st, mt, ss, ms, batches[:1], case)
+        for mask, span in (((True, False), batches[1:3]),
+                           ((True, True), batches[3:])):
+            ss = st.apply_membership(ss, mask)
+            ms = mt.apply_membership(ms, mask)
+            assert_bits_equal(mt.mesh.gather(ms), ss, f"swap to {mask}")
+            ss, ms, sm, _ = twin_steps(st, mt, ss, ms, span, f"{mask}")
+            assert float(sm["num_live_parties"]) == sum(mask)
+    elif case == "catchup":
+        ss, ms, _, _ = twin_steps(st, mt, ss, ms, batches[:2], case)
+        blob = mt.catchup_payload(ms)
+        assert blob == st.catchup_payload(ss)
+        back = mt.admit_party(blob)
+        assert isinstance(back, PlacedTree)
+        assert_bits_equal(mt.mesh.gather(back), st.admit_party(blob),
+                          "admitted")
+        twin_steps(st, mt, st.admit_party(blob), back, batches[2:], case)
+    else:  # the device-cached loader, then the scanned epoch
+        sl = st.make_loader(x, y, 4, seed=0, augment=True,
+                            device_cache=True)
+        ml = mt.make_loader(x, y, 4, seed=0, augment=True,
+                            device_cache=True)
+        if case == "device_cache":
+            sb, mb = list(sl.epoch(1)), list(ml.epoch(1))
+            for (sx, sy), (mx, my) in zip(sb, mb):
+                assert isinstance(mx, PlacedTree)
+                assert torch.equal(mt.mesh.gather(mx), sx)
+                assert torch.equal(mt.mesh.gather(my), sy)
+            twin_steps(st, mt, ss, ms, sb, case, meshed_batches=mb)
         else:
-            t.fit(state, t.make_loader(x, y, 4), scan_epochs=True)
+            ss, srec = st.fit(ss, sl, epochs=2, log_every=1,
+                              scan_epochs=True, log_fn=lambda s: None)
+            ms, mrec = mt.fit(ms, ml, epochs=2, log_every=1,
+                              scan_epochs=True, log_fn=lambda s: None)
+            assert [(r["loss"], r["train_acc"]) for r in mrec] == \
+                [(r["loss"], r["train_acc"]) for r in srec]
+            assert_bits_equal(mt.mesh.gather(ms), ss, "scanned epochs")
 
 
 def test_mesh_arguments_are_checked():

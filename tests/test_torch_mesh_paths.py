@@ -29,7 +29,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from test_torch_mesh import ITEM, assert_bits_equal, cpu_mesh, tensors_of
+from test_torch_mesh import assert_bits_equal, cpu_mesh, tensors_of
 from test_torch_train import FILTERS, STAGES
 
 from geomx_tpu.config import GeoConfig as JaxConfig
@@ -432,14 +432,83 @@ def test_fused_drain_raises_under_a_mesh_as_stacked():
 
 
 def test_sp_and_membership_still_refuse():
-    """What stays open refuses through the Queue 1 item's title."""
-    with pytest.raises(NotImplementedError, match=ITEM):
-        HiPSTopology(2, 4, sp_degree=2).build_mesh(["cpu"] * 16)
-    from geomx_tpu_torch.train.step import mesh_refusal
+    """Nothing refuses any longer: an sp topology builds its [P, W, S]
+    mesh, a membership-bound sync builds a meshed step, and the step
+    module keeps no refusal (sp, membership, telemetry, control and the
+    audit run on the mesh: tests/test_torch_mesh.py
+    test_refusals_under_a_mesh)."""
+    from geomx_tpu_torch.train import step as step_mod
+    from geomx_tpu_torch.train.step import build_train_step
+    mesh = HiPSTopology(2, 4, sp_degree=2).build_mesh(["cpu"] * 16)
+    assert mesh.size == 16 and mesh.shape == (2, 4) and mesh.sp == 2
+    assert not hasattr(step_mod, "mesh_refusal")
+    assert not hasattr(step_mod, "MESH_OTHER_PATHS")
     sync = FSA().bind_topology(HiPSTopology(2, 4)) \
         .bind_membership((True, False))
-    with pytest.raises(NotImplementedError, match=ITEM):
-        mesh_refusal(sync)
-    with pytest.raises(NotImplementedError, match=ITEM):
-        mesh_refusal(FSA(), sp_model=True)
-    mesh_refusal(_fsa_worker_2bit())  # no longer refused
+    step = build_train_step(lambda *a: None, sgd(0.1), sync,
+                            HiPSTopology(2, 4), mesh=cpu_mesh())
+    assert callable(step)
+
+
+# ---- membership, catch-up and the probes on the ResNet paths ----------------
+
+# path -> ([P, W], GeoConfig fields, port optimizer): resilience_fsa's and
+# resilience_zero's configurations at the small ResNet's size, and the
+# pipeline, whose in-flight buffers the residual policy resets
+RESILIENCE = {
+    "fsa": ((4, 2), dict(compression=BSC, fused_optim=True),
+            lambda: po.fused_optimizer("sgd", learning_rate=0.1,
+                                       momentum=0.9)),
+    "zero": ((4, 2), dict(compression=BSC, zero=True),
+             lambda: sgd(0.1, momentum=0.9)),
+    "pipelined": ((2, 4), dict(compression=BSC, pipeline_depth=1),
+                  lambda: sgd(0.1, momentum=0.9)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESILIENCE))
+def test_meshed_membership_and_catchup_equal_stacked(case, monkeypatch):
+    """A blackout of the last party (residuals reset), two degraded steps,
+    its return with a catch-up (residuals carried), and a step after:
+    with telemetry on, the gathered state, the metrics and the probe
+    dict (a dead party's flag and the survivor means) are the stacked
+    trainer's bits after every step and swap, the catch-up payload is
+    the stacked one's bytes (under ZeRO party 0's worker row, gathered
+    from its slots), and the admitted state is placed."""
+    from geomx_tpu_torch.telemetry.probes import host_probes
+    monkeypatch.delenv("GEOMX_TELEMETRY", raising=False)
+    shape, fields, tx = RESILIENCE[case]
+    x, y = _data(7, 160, 8)
+
+    def trainer(mesh=None):
+        kw = dict(mesh=mesh) if mesh is not None else dict(device="cpu")
+        return Trainer(ResNet(STAGES, FILTERS, dtype=torch.float32),
+                       HiPSTopology(*shape), tx(), config=GeoConfig(
+                           num_parties=shape[0], workers_per_party=shape[1],
+                           precision="fp32", telemetry=True, **fields), **kw)
+    st, mt = trainer(), trainer(cpu_mesh(*shape))
+    ss, ms = st.init_state(seed=0), mt.init_state(seed=0)
+    batches = list(st.make_loader(x, y, 4, seed=0).epoch(0))[:5]
+    dead = tuple(p != shape[0] - 1 for p in range(shape[0]))
+    live = (True,) * shape[0]
+    plan = [(None, batches[0]), ((dead, "reset"), batches[1]),
+            (None, batches[2]), ((live, "carry"), batches[3]),
+            (None, batches[4])]
+    for i, (swap, (xb, yb)) in enumerate(plan):
+        if swap is not None and swap[0] == live:
+            blob = mt.catchup_payload(ms)
+            assert blob == st.catchup_payload(ss), i
+            ss, ms = st.admit_party(blob), mt.admit_party(blob)
+            assert isinstance(ms, PlacedTree)
+            assert_bits_equal(mt.mesh.gather(ms), ss, f"{case} admitted")
+        if swap is not None:
+            ss = st.apply_membership(ss, swap[0], policy=swap[1])
+            ms = mt.apply_membership(ms, swap[0], policy=swap[1])
+            assert_bits_equal(mt.mesh.gather(ms), ss, f"{case} swap {i}")
+        ss, sm = st.train_step(ss, xb, yb)
+        ms, mm = mt.train_step(ms, xb, yb)
+        for k in ("loss", "accuracy", "num_live_parties"):
+            assert float(mm[k]) == float(sm[k]), (case, i, k)
+        assert host_probes(mm["telemetry"]) == host_probes(sm["telemetry"])
+        assert_bits_equal(mt.mesh.gather(ms), ss, f"{case} step {i + 1}")
+    assert float(sm["num_live_parties"]) == shape[0]
