@@ -54,7 +54,6 @@ import os
 from typing import Any, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.compression import sparseagg
 from geomx_tpu_torch.compression.base import REPLICA_DIMS, Compressor
@@ -65,6 +64,7 @@ from geomx_tpu_torch.ops.topk import top_k
 from geomx_tpu_torch.parallel.collectives import (all_gather, psum,
                                                   records_here)
 from geomx_tpu_torch.telemetry.probes import record_inline
+from geomx_tpu_torch.utils.profiler import span
 
 MOMENTUM = bsc_ops.MOMENTUM  # hardcoded in the reference (gc.cc:200)
 
@@ -151,18 +151,18 @@ class BiSparseCompressor(Compressor):
             eff_k = torch.round(scale * k).clamp(1.0, float(k)) \
                 .to(torch.int32)
         if self.select == "sampled":
-            with record_function("bsc/threshold"):
+            with span("bsc/threshold"):
                 thr = bsc_ops.sampled_boundary_guv(
                     g_flat, u, v, k if eff_k is None else eff_k,
                     positions=self._probe(n, g_flat.device))
-            with record_function("bsc/select_pack"):
+            with span("bsc/select_pack"):
                 vals, idx, u, v = bsc_ops.select_pack(g_flat, u, v, thr, k)
             # in-situ achieved payload: the sampled boundary emits <= k
             # real pairs, the rest ride as sentinels
             record_inline("bsc_emitted_fraction",
                           lambda: (idx >= 0).sum(-1) / k)
             return vals, idx, u, v
-        with record_function("bsc/topk"):
+        with span("bsc/topk"):
             u = u * MOMENTUM + g_flat
             v = v + u
             _, idx = top_k(v.abs(), k)
@@ -198,7 +198,7 @@ class BiSparseCompressor(Compressor):
         """Scatter-add (value, index) pairs into dense ``[*B, n]`` rows
         (reference BSCDecompress, gc.cc:310-336); negative indices are
         sentinels.  ``run``: pairs fold run by run in order."""
-        with record_function("bsc/scatter_add"):
+        with span("bsc/scatter_add"):
             return bsc_ops.scatter_add(vals, idx, n, run)
 
     def allreduce_leaf(self, g: torch.Tensor, state: Any, axis_name: str,

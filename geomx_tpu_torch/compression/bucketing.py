@@ -29,11 +29,11 @@ import os
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.compression.base import REPLICA_DIMS, Compressor
 from geomx_tpu_torch.ops import bucket as bucket_ops
 from geomx_tpu_torch.tree import leaf_names
+from geomx_tpu_torch.utils.profiler import span
 
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
 
@@ -91,14 +91,14 @@ class GradientBucketer:
         (zero-padded tails).  A non-fp32 leaf is cast first, outside the
         kernel."""
         flat = [leaf.to(torch.float32) for leaf in leaves]
-        with record_function("bucket/flatten"):
+        with span("bucket/flatten"):
             return bucket_ops.flatten(flat, self.layout(), self.bucket_sizes,
                                       self.batch_dims)
 
     def unflatten(self, buckets: Sequence[torch.Tensor]
                   ) -> List[torch.Tensor]:
         """Buckets -> leaves with their original shapes and dtypes."""
-        with record_function("bucket/unflatten"):
+        with span("bucket/unflatten"):
             flat = bucket_ops.unflatten(buckets, self.layout(),
                                         self.batch_dims)
         batch = tuple(buckets[0].shape[:self.batch_dims]) if buckets else ()
@@ -175,7 +175,7 @@ class BucketedCompressor(Compressor):
         out_buckets, new_states = [], []
         for i, (b, s) in enumerate(zip(buckets, state)):
             # a profiler span per bucket, as the JAX package's trace spans
-            with record_function(f"{axis_name}_allreduce/bucket{i}"):
+            with span(f"{axis_name}_allreduce/bucket{i}"):
                 ob, ns = self.inner.allreduce_leaf(b, s, axis_name,
                                                    axis_size)
             out_buckets.append(ob)
@@ -239,7 +239,7 @@ class BucketedCompressor(Compressor):
                 "must see the same pytree structure)")
         out_shards, new_states = [], []
         for i, (b, s) in enumerate(zip(shards, state)):
-            with record_function(f"{axis_name}_allreduce/bucket{i}_shard"):
+            with span(f"{axis_name}_allreduce/bucket{i}_shard"):
                 ob, ns = self.inner.allreduce_leaf(b, s, axis_name,
                                                    axis_size)
             out_shards.append(ob)

@@ -16,11 +16,11 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.compression import sparseagg
 from geomx_tpu_torch.compression.base import REPLICA_DIMS, Compressor
 from geomx_tpu_torch.parallel.collectives import all_gather
+from geomx_tpu_torch.utils.profiler import span
 
 
 class FP16Compressor(Compressor):
@@ -35,7 +35,7 @@ class FP16Compressor(Compressor):
 
     def allreduce_leaf(self, g: torch.Tensor, state: Any, axis_name: str,
                        axis_size: int) -> Tuple[torch.Tensor, Any]:
-        with record_function("fp16/allreduce"):
+        with span("fp16/allreduce"):
             if axis_size == 1:
                 return g.to(self.wire_dtype).to(g.dtype), state
             if self.sparse_agg:

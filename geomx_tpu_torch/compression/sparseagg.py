@@ -43,13 +43,13 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.ops.merge import merge_sorted_pairs
 from geomx_tpu_torch.ops.topk import top_k
 from geomx_tpu_torch.parallel.collectives import (all_gather, all_to_all,
                                                   axis_replicas, pmax, psum)
 from geomx_tpu_torch.telemetry.probes import record_inline
+from geomx_tpu_torch.utils.profiler import span
 
 
 def sparse_agg_enabled() -> bool:
@@ -163,7 +163,7 @@ def sparse_allreduce(vals: torch.Tensor, idx: torch.Tensor, n: int,
     slots = push_slots(k, P)
     kr = min(P * slots, pull_budget(k, P))
     lead = tuple(vals.shape[:2])
-    with record_function("sparseagg/route"):
+    with span("sparseagg/route"):
         buf_v, buf_i, of_vals, of_idx = owner_route(vals, idx, n, P, slots)
         if ef_buffer is not None:
             ef_buffer = reinject(ef_buffer, of_vals, of_idx)
@@ -171,9 +171,9 @@ def sparse_allreduce(vals: torch.Tensor, idx: torch.Tensor, n: int,
         # their rows in party order
         rv = all_to_all(buf_v, axis_name).reshape(lead + (P * slots,))
         ri = all_to_all(buf_i, axis_name).reshape(lead + (P * slots,))
-    with record_function("sparseagg/merge"):
+    with span("sparseagg/merge"):
         mvals, midx = merge_sorted_pairs(rv, ri, P)
-    with record_function("sparseagg/reselect"):
+    with span("sparseagg/reselect"):
         score = torch.where(midx >= 0, mvals.abs(),
                             torch.full((), -1.0, device=mvals.device))
         top_score, top_pos = top_k(score, kr)

@@ -33,12 +33,12 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.compression import sparseagg
 from geomx_tpu_torch.compression.base import REPLICA_DIMS, Compressor
 from geomx_tpu_torch.ops import twobit as twobit_ops
 from geomx_tpu_torch.parallel.collectives import all_gather, records_here
+from geomx_tpu_torch.utils.profiler import span
 
 
 class TwoBitCompressor(Compressor):
@@ -69,11 +69,11 @@ class TwoBitCompressor(Compressor):
         shape, dtype = g.shape, g.dtype
         lead = tuple(shape[:REPLICA_DIMS])
         n = math.prod(shape[REPLICA_DIMS:])
-        with record_function("twobit/quantize"):
+        with span("twobit/quantize"):
             packed, new_res = twobit_ops.quantize_2bit(
                 g.reshape(lead + (n,)).to(torch.float32),
                 residual.reshape(lead + (n,)), self.threshold)
-        with record_function("twobit/dequantize"):
+        with span("twobit/dequantize"):
             if axis_size == 1:
                 wire = packed
                 out = twobit_ops.dequantize_2bit(packed, n, self.threshold)
@@ -92,7 +92,7 @@ class TwoBitCompressor(Compressor):
                            ) -> Tuple[torch.Tensor, Any]:
         """Sign codes with the same error feedback, summed on the int8
         lattice and scaled once (``twobit.py:132-150``)."""
-        with record_function("twobit/lattice"):
+        with span("twobit/lattice"):
             r = residual + g.to(torch.float32)
             one = torch.ones((), dtype=torch.int8, device=r.device)
             zero = torch.zeros((), dtype=torch.int8, device=r.device)

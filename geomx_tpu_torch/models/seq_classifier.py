@@ -49,7 +49,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from geomx_tpu_torch.models.resnet import _variance_scaling_
 from geomx_tpu_torch.ops.flash_attention import fused_attention
@@ -57,6 +56,7 @@ from geomx_tpu_torch.parallel.collectives import current_slot, pmean_sp
 from geomx_tpu_torch.parallel.ring_attention import ring_attention
 from geomx_tpu_torch.parallel.ulysses import ulysses_attention
 from geomx_tpu_torch.tree import leaf_names
+from geomx_tpu_torch.utils.profiler import span
 
 SP_MODES = (None, "ring", "ulysses")
 
@@ -165,7 +165,7 @@ class SPAttention(nn.Module):
         """``h``: ``[B, L, D]``, or ``[S, B, L/S, D]`` on an sp mode."""
         # q, k, v [*, L, H, hd]: strided views of the projection
         q, k, v = self.qkv(h).unbind(-3)
-        with record_function("attention/forward"):
+        with span("attention/forward"):
             if self.sp_mode == "ring":
                 out = ring_attention(q, k, v, causal=self.causal)
             elif self.sp_mode == "ulysses":

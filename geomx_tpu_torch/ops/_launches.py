@@ -6,37 +6,23 @@ A wrapper adds the launches it made through :func:`count`: to its
 under one lock, since a mesh's slots launch from threads of their own.
 A backward node runs on the card's autograd thread, not the slot's: a
 differentiable kernel keeps its forward's slot and counts its backward
-launches for it (:func:`attributed_to`).
+launches for it (``collectives.attributed_to``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import threading
 
-from geomx_tpu_torch.parallel.collectives import current_slot
+from geomx_tpu_torch.parallel.collectives import owning_slot
 
 _lock = threading.Lock()
 _by_slot: dict = {}  # slot coords -> {wrapper: launches}
-_owner = threading.local()
-
-
-@contextlib.contextmanager
-def attributed_to(slot):
-    """Count this thread's launches for ``slot`` (a ``MeshSlot`` or
-    None): a backward node's, for the slot whose forward made it."""
-    prev = getattr(_owner, "slot", None)
-    _owner.slot = slot
-    try:
-        yield
-    finally:
-        _owner.slot = prev
 
 
 def count(wrapper, n: int = 1) -> None:
     with _lock:
         wrapper.launches += n
-        slot = getattr(_owner, "slot", None) or current_slot()
+        slot = owning_slot()
         if slot is not None:
             tally = _by_slot.setdefault(slot.coords, {})
             tally[wrapper] = tally.get(wrapper, 0) + n

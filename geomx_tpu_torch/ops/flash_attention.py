@@ -53,11 +53,11 @@ import os
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.ops import _launches
 from geomx_tpu_torch.ops.bucket import on_cuda
-from geomx_tpu_torch.parallel.collectives import current_slot
+from geomx_tpu_torch.parallel.collectives import attributed_to, current_slot
+from geomx_tpu_torch.utils.profiler import span
 
 NEG_INF = -1e30  # large-but-finite: -inf breaks the m-correction exp
 HEAD_DIMS = (8, 16, 32, 64, 128)  # head dims the kernels are built for
@@ -345,8 +345,7 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        with record_function("attention/backward"), \
-                _launches.attributed_to(ctx.slot):
+        with attributed_to(ctx.slot), span("attention/backward"):
             dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                              g.contiguous(), ctx.causal)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None

@@ -12,9 +12,10 @@ Lq]``, all carries fp32.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.ops.ring_hop import hop
+from geomx_tpu_torch.parallel.collectives import attributed_to, current_slot
+from geomx_tpu_torch.utils.profiler import span
 
 
 def _plain_block(q, k, v, m, l_acc, o, scale, diag):
@@ -29,12 +30,14 @@ class _FusedBlock(torch.autograd.Function):
     def forward(ctx, q, k, v, m, l_acc, o, scale, diag, block):
         ctx.save_for_backward(q, k, v, m, l_acc, o)
         ctx.scale, ctx.diag = scale, diag
+        ctx.slot = current_slot()  # the backward's step is its
         return hop(q, k, v, m, l_acc, o, scale, diag, block)
 
     @staticmethod
     def backward(ctx, gm, gl, go):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with record_function("attention/backward"), torch.enable_grad():
+        with attributed_to(ctx.slot), span("attention/backward"), \
+                torch.enable_grad():
             outs = _plain_block(*inputs, ctx.scale, ctx.diag)
             pairs = [(o_, g) for o_, g in zip(outs, (gm, gl, go))
                      if g is not None]

@@ -40,6 +40,7 @@ those run on the device's autograd thread, not the slot's).
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Callable, Optional, Sequence
 
@@ -49,10 +50,21 @@ from geomx_tpu_torch.topology import DC_AXIS, SP_AXIS, WORKER_AXIS
 
 _DIM = {DC_AXIS: 0, WORKER_AXIS: 1}
 
+DC_WIRE_BYTES = "geomx_dc_wire_bytes_total"
+
+
+class _Local(threading.local):
+    """A thread's own ``slot`` and ``on``, read without a miss: an
+    attribute a thread never set reads the class default."""
+
+    slot = None
+    on = False
+
+
 _recorder = None
 # set in the thread that computes a meshed collective once more for
 # another sp plane or group: the program's record takes one entry a call
-_muted = threading.local()
+_muted = _Local()
 
 
 def set_recorder(fn):
@@ -65,7 +77,19 @@ def set_recorder(fn):
 
 def _record(op: str, axis: str, x: torch.Tensor, lead: int,
             extras: tuple = ()) -> None:
-    if _recorder is not None and not getattr(_muted, "on", False):
+    """One entry a collective call: the bytes of one replica's block of a
+    collective over ``dc`` (what one party puts on the WAN tier) go to
+    the registry's ``geomx_dc_wire_bytes_total``, and the call to the
+    recorder slot's callable."""
+    if _muted.on:
+        return
+    if axis == DC_AXIS:
+        # imported here: the telemetry package imports the collectives
+        from geomx_tpu_torch.telemetry.registry import get_registry
+        get_registry().counter(
+            DC_WIRE_BYTES, "dc-tier bytes put on the wire per party").inc(
+            math.prod(x.shape[lead:]) * x.element_size())
+    if _recorder is not None:
         _recorder(op, axis, x, lead, extras)
 
 
@@ -90,7 +114,7 @@ def axis_replicas(x: torch.Tensor, axis_name: str) -> int:
 
 # ---- the device mesh: one program a slot ---------------------------------
 
-_slot_ctx = threading.local()
+_slot_ctx = _Local()
 
 
 class _Rendezvous:
@@ -177,7 +201,30 @@ class MeshSlot:
 
 def current_slot() -> Optional[MeshSlot]:
     """The mesh slot this thread runs, None outside :func:`run_on_mesh`."""
-    return getattr(_slot_ctx, "slot", None)
+    return _slot_ctx.slot
+
+
+_owner = _Local()
+
+
+@contextlib.contextmanager
+def attributed_to(slot: Optional[MeshSlot]):
+    """Book this thread's work (kernel launches, step-clock spans) to
+    ``slot`` (a ``MeshSlot`` or None): a backward node runs on the
+    card's autograd thread, not the slot's, and counts for the slot
+    whose forward made it."""
+    prev = _owner.slot
+    _owner.slot = slot
+    try:
+        yield
+    finally:
+        _owner.slot = prev
+
+
+def owning_slot() -> Optional[MeshSlot]:
+    """The slot this thread's work counts for: the one
+    :func:`attributed_to` names, else :func:`current_slot`."""
+    return _owner.slot or _slot_ctx.slot
 
 
 def records_here() -> bool:

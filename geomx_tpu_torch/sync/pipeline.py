@@ -26,7 +26,7 @@ The JAX package pins the flattened party mean with
 ``lax.optimization_barrier`` so XLA cannot fuse across the tier
 boundary.  Eager PyTorch runs the ops in program order and has no
 counterpart; the ``dc_pipeline/launch`` and ``dc_pipeline/apply`` spans
-stay, as ``record_function``.
+stay, as ``utils/profiler.span``.
 
 Composes with FSA and MixedSync by wrapping their dc-tier compressor;
 HFA is rejected (its global tier already fires off the critical path,
@@ -51,7 +51,6 @@ import os
 from typing import Any, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.compression.base import Compressor
 from geomx_tpu_torch.compression.bucketing import BucketedCompressor
@@ -60,6 +59,7 @@ from geomx_tpu_torch.sync.base import SyncAlgorithm
 from geomx_tpu_torch.sync.mixed import dcasgd_term
 from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS
 from geomx_tpu_torch.tree import leaf_names, tree_map
+from geomx_tpu_torch.utils.profiler import span
 
 
 def _resolve_depth(depth: Optional[int]) -> int:
@@ -135,10 +135,10 @@ class PipelinedCompressor(Compressor):
         """The double-buffered ZeRO dc tier: launch this step's per-shard
         compressed collectives and return the previous step's completed
         shard aggregates."""
-        with record_function(f"{axis_name}_pipeline/launch"):
+        with span(f"{axis_name}_pipeline/launch"):
             launched, inner_state = self.inner.allreduce_shards(
                 shards, state["inner"], axis_name, axis_size, bk)
-        with record_function(f"{axis_name}_pipeline/apply"):
+        with span(f"{axis_name}_pipeline/apply"):
             out = list(state["inflight"])
         return out, {"inflight": launched, "inner": inner_state}
 
@@ -158,17 +158,17 @@ class PipelinedCompressor(Compressor):
         if self._bucketed:
             bk = self.inner._bucketer(leaves)
             buckets = bk.flatten(leaves)
-            with record_function(f"{axis_name}_pipeline/launch"):
+            with span(f"{axis_name}_pipeline/launch"):
                 launched, inner_state = self.inner.allreduce_buckets(
                     buckets, state["inner"], axis_name, axis_size, bk)
-            with record_function(f"{axis_name}_pipeline/apply"):
+            with span(f"{axis_name}_pipeline/apply"):
                 out = dict(zip(names, bk.unflatten(prev)))
         else:
-            with record_function(f"{axis_name}_pipeline/launch"):
+            with span(f"{axis_name}_pipeline/launch"):
                 launched_tree, inner_state = self.inner.allreduce(
                     grads, state["inner"], axis_name, axis_size)
             launched = [launched_tree[k] for k in names]
-            with record_function(f"{axis_name}_pipeline/apply"):
+            with span(f"{axis_name}_pipeline/apply"):
                 out = dict(zip(names, prev))
         return out, {"inflight": launched, "inner": inner_state}
 

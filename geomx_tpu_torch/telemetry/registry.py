@@ -225,11 +225,9 @@ class MetricRegistry:
         with self._lock:
             fam = self._families.get(name)
             if fam is not None:
-                want_buckets = tuple(sorted(set(float(b)
-                                                for b in buckets)))
                 if fam.type != type or fam.label_names != tuple(labels) \
-                        or (type == "histogram"
-                            and fam.buckets != want_buckets):
+                        or (type == "histogram" and fam.buckets != tuple(
+                            sorted(set(float(b) for b in buckets)))):
                     raise ValueError(
                         f"metric {name!r} re-registered with a different "
                         f"schema: existing ({fam.type}, {fam.label_names}"

@@ -69,6 +69,13 @@ before the sync hooks, opened as a context the dc-tier compressors read
 carry ``control_ratio_scale``, a copy of the scale the step ran with.
 With it off the step runs exactly the ops of a build whose control hook
 raises.
+
+Every call of the step opens a record of the step clock
+(``utils/profiler.StepClock``; on a mesh, one a slot) under span
+``train/train_step``: the host time of each span inside it, and the
+device time between two events on the step's stream.  Spans
+``train/forward`` and ``train/backward`` (one a replica), ``train/stack``
+and ``train/metrics`` split ``train/forward_backward`` and the tail.
 """
 
 from __future__ import annotations
@@ -84,7 +91,6 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from geomx_tpu_torch.compression.bucketing import BucketedCompressor
 from geomx_tpu_torch.control import actuators as _control
@@ -98,6 +104,7 @@ from geomx_tpu_torch.telemetry import probes as _probes
 from geomx_tpu_torch.topology import DC_AXIS, WORKER_AXIS, PlacedTree
 from geomx_tpu_torch.train.state import TrainState
 from geomx_tpu_torch.tree import leaf_names, tree_map
+from geomx_tpu_torch.utils.profiler import STEP_SPAN, span, step_clock
 
 
 def cross_entropy_loss(logits: torch.Tensor,
@@ -383,10 +390,10 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
     def zero_sync_update(grads, params, opt_state, sync_state, step):
         """ZeRO: the shard-form sync, the shard-local optimizer and the
         all-gather of the params (train/zero.py)."""
-        with record_function("train/sync_grads"):
+        with span("train/sync_grads"):
             shard_g, sync_state = sync.sync_grad_shards(grads, params,
                                                         sync_state, step)
-        with record_function("train/optimizer"):
+        with span("train/optimizer"):
             params, opt_state = zplan.apply_shard_update(
                 tx, shard_g, params, opt_state, WORKER_AXIS)
         return params, opt_state, sync_state
@@ -397,7 +404,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
         tree, the big leaves all-gathered back."""
         names = leaf_names(params)
         sizes = [math.prod(params[k].shape[2:]) for k in names]
-        with record_function("train/sync_grads"):
+        with span("train/sync_grads"):
             mixed_g, new_ws = {}, {}
             ws_all = sync_state["worker_comp"]
             for k, n in zip(names, sizes):
@@ -434,7 +441,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                                                DC_AXIS, nP)
             if nP > 1:
                 mixed_g = tree_map(lambda x: x / nP, mixed_g)
-        with record_function("train/optimizer"):
+        with span("train/optimizer"):
             mixed_p = {k: mgps.shard_param_leaf(params[k])
                        if mgps.is_big(n) else params[k]
                        for k, n in zip(names, sizes)}
@@ -452,11 +459,11 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
         Also returns, with telemetry on and a replicated sync output,
         one replica's applied gradient and its unpadded element count
         for the probes (else None)."""
-        with record_function("train/sync_grads"):
+        with span("train/sync_grads"):
             grads, sync_state = sync.sync_grads(grads, state.params,
                                                 sync_state, step)
         applied = None
-        with record_function("train/optimizer"):
+        with span("train/optimizer"):
             if fopt_spec is not None:
                 # fused apply: params and grads flatten onto the dc tier's
                 # bucket layout (opt_state lives there too,
@@ -506,7 +513,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                                                  device=device)
             return _LIVE_COUNTS[key]
 
-    def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+    def step_body(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         names = list(state.params)
         step = state.step
         sync_state = state.sync_state
@@ -524,7 +531,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                     "control-enabled Trainer (init_state adds the "
                     f"{_control.CONTROL_KEY!r} subtree)")
         per_grads, per_stats, losses, accs = [], [], [], []
-        with record_function("train/forward_backward"):
+        with span("train/forward_backward"):
             # the weights each replica computes its gradients at, taken
             # on the whole [P, W] tree (MixedSync: the stale copy)
             fwd = sync.forward_params(state.params, sync_state)
@@ -536,10 +543,12 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                     xb = x[p, w] if sp is None else sp_chunks(x[p, w], sp)
                     if taped:
                         with sp_tape() as tape:
-                            loss, (new_ms, logits) = loss_fn(leaves, ms, xb,
-                                                             y[p, w])
-                            grads = tape.grad(loss,
-                                              [leaves[k] for k in names])
+                            with span("train/forward", annotation=False):
+                                loss, (new_ms, logits) = loss_fn(
+                                    leaves, ms, xb, y[p, w])
+                            with span("train/backward", annotation=False):
+                                grads = tape.grad(
+                                    loss, [leaves[k] for k in names])
                         # each sp slot back-propagated its own shard: the
                         # replica's gradient is their sum, and the floating
                         # model state and the metrics their mean
@@ -550,10 +559,12 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                         loss = pmean_sp(loss.detach()[None])[0]
                         logits = logits.detach()
                     else:
-                        loss, (new_ms, logits) = loss_fn(leaves, ms, xb,
-                                                         y[p, w])
-                        grads = torch.autograd.grad(
-                            loss, [leaves[k] for k in names])
+                        with span("train/forward", annotation=False):
+                            loss, (new_ms, logits) = loss_fn(leaves, ms, xb,
+                                                             y[p, w])
+                        with span("train/backward", annotation=False):
+                            grads = torch.autograd.grad(
+                                loss, [leaves[k] for k in names])
                     per_grads.append(grads)
                     per_stats.append(new_ms)
                     losses.append(loss.detach())
@@ -561,12 +572,13 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                                 .to(torch.float32).mean())
                     if taped:
                         accs[-1] = pmean_sp(accs[-1][None])[0]
-            grads = {k: torch.stack([g[i] for g in per_grads])
-                     .view((P, W) + tuple(state.params[k].shape[2:]))
-                     for i, k in enumerate(names)}
-            model_state = {k: torch.stack([s[k] for s in per_stats])
-                           .view(state.model_state[k].shape)
-                           for k in state.model_state}
+            with span("train/stack", annotation=False):
+                grads = {k: torch.stack([g[i] for g in per_grads])
+                         .view((P, W) + tuple(state.params[k].shape[2:]))
+                         for i, k in enumerate(names)}
+                model_state = {k: torch.stack([s[k] for s in per_stats])
+                               .view(state.model_state[k].shape)
+                               for k in state.model_state}
 
         # kept for the probes: the gradients before any cross-party
         # aggregation (an alias, no op)
@@ -589,7 +601,7 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
             else:
                 params, opt_state, sync_state, applied = replicated_update(
                     grads, state, sync_state, step)
-            with record_function("train/sync_model_state"):
+            with span("train/sync_model_state"):
                 if mgps is None:
                     params, sync_state = sync.sync_params(params,
                                                           sync_state, step)
@@ -602,13 +614,14 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
 
         # global mean over every replica: workers first, then parties
         # (under a membership mask, the survivors' mean)
-        metrics = global_means({"loss": losses, "accuracy": accs})
-        metrics["num_live_parties"] = num_live_metric(losses[0].device)
+        with span("train/metrics", annotation=False):
+            metrics = global_means({"loss": losses, "accuracy": accs})
+            metrics["num_live_parties"] = num_live_metric(losses[0].device)
         if telem:
             if "wire" not in wire_cache:
                 wire_cache["wire"] = _probes.static_wire_accounting(
                     sync, params)
-            with record_function("train/probes"):
+            with span("train/probes"):
                 metrics["telemetry"] = _probes.collect_step_probes(
                     raw_grads, None if applied is None else applied[0],
                     sync, sync_state, inline_sink, params,
@@ -623,6 +636,18 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
                           model_state=model_state,
                           sync_state=sync_state), metrics
 
+    clock = step_clock()
+    clock_fn = clock.new_fn()
+
+    def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        """One step under its own step-clock record (a mesh slot's own)."""
+        rec = clock.open(clock_fn, next(iter(state.params.values())).device)
+        try:
+            with span(STEP_SPAN, annotation=False):
+                return step_body(state, x, y)
+        finally:
+            clock.close(rec)
+
     if mesh is not None:
         def mesh_step(state, x, y):
             on = state.mesh if isinstance(state, PlacedTree) else mesh
@@ -633,8 +658,10 @@ def build_train_step(loss_fn: Callable, tx, sync, topology, config=None,
             return PlacedTree(on, [s for s, _ in outs]), outs[0][1]
 
         mesh_step.mgps = mgps  # as train_step.mgps: a slot's shards
+        mesh_step.clock_fn = clock_fn
         return mesh_step
     train_step.mgps = mgps  # Trainer.init_state shapes the state by it
+    train_step.clock_fn = clock_fn  # the fn of its step-clock records
     return train_step
 
 

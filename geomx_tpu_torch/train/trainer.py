@@ -108,7 +108,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from geomx_tpu_torch.config import GeoConfig
 from geomx_tpu_torch.control.actuators import (CONTROL_KEY, control_enabled,
@@ -131,6 +130,7 @@ from geomx_tpu_torch.train.zero import (ZeroPlan, host_zero_state,
 from geomx_tpu_torch.tree import leaf_names, state_map
 from geomx_tpu_torch.utils import checkpoint
 from geomx_tpu_torch.utils.metrics import Measure
+from geomx_tpu_torch.utils.profiler import span
 
 
 class Trainer:
@@ -267,7 +267,6 @@ class Trainer:
             flight_recorder_from_config, install_incident_recorder)
         from geomx_tpu_torch.telemetry.probes import telemetry_enabled
         self._telemetry = telemetry_enabled(self.config)
-        self._telem_last_it = 0
         self._memory_gauge_published = False
         self._flight = flight_recorder_from_config(self.config)
         if self._flight is not None:
@@ -875,7 +874,7 @@ class Trainer:
         sync = self.sync
         zplan = self._zero_plan
         if zplan is not None:
-            with record_function("train/drain"):
+            with span("train/drain"):
                 g_sh, sync_state = sync.drain_grad_shards(state.params,
                                                           state.sync_state)
                 params, opt_state = zplan.apply_shard_update(
@@ -885,7 +884,7 @@ class Trainer:
             return TrainState(step=state.step, params=params,
                               opt_state=opt_state, model_state=model_state,
                               sync_state=sync_state)
-        with record_function("train/drain"):
+        with span("train/drain"):
             g, sync_state = sync.drain_grads(state.params, state.sync_state)
             params, opt_state = self.tx.update(g, state.opt_state,
                                                state.params)
@@ -991,9 +990,7 @@ class Trainer:
         from geomx_tpu_torch.utils.profiler import get_profiler
         measure = measure if measure is not None else Measure()
         measure.reset_clock()
-        # iteration numbering restarts per fit, so the telemetry delta
-        # base does too; the attribution windows start at this fit
-        self._telem_last_it = 0
+        # the attribution windows start at this fit
         prof = get_profiler()
         fit_since_us = prof.now_us() if prof.running else None
         self._attr_window_us = fit_since_us
@@ -1080,9 +1077,9 @@ class Trainer:
         event log, the capsule and the flight recorder.  The tensors come
         to the host in one copy (``host_probes``).  Scalars become
         ``geomx_step_probe{probe=...}`` gauges, per-party vectors
-        ``geomx_step_probe_party{probe=...,party=...}``; the static wire
-        accounting also feeds the byte and step counters, scaled by the
-        steps since the last publish."""
+        ``geomx_step_probe_party{probe=...,party=...}``.  The byte and
+        step counters are the program's own (``collectives._record``,
+        ``utils/profiler.StepClock``)."""
         from geomx_tpu_torch.telemetry import get_registry, log_event
         from geomx_tpu_torch.telemetry.probes import host_probes
         reg = get_registry()
@@ -1098,16 +1095,6 @@ class Trainer:
                     fam_p.labels(probe=name, party=str(p)).set(v)
             else:
                 fam.labels(probe=name).set(val)
-        steps = iteration - self._telem_last_it
-        if steps > 0:
-            reg.counter("geomx_train_steps_total",
-                        "Training steps published").inc(steps)
-            if "dc_wire_bytes" in flat:
-                reg.counter(
-                    "geomx_dc_wire_bytes_total",
-                    "dc-tier bytes put on the wire per party"
-                ).inc(flat["dc_wire_bytes"] * steps)
-            self._telem_last_it = iteration
         dc = getattr(self.sync, "dc_compressor", None)
         if dc is None:  # PipelinedSync wraps the algorithm that has it
             dc = getattr(getattr(self.sync, "inner", None),

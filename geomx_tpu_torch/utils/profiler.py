@@ -10,6 +10,17 @@ package uses ``jax.profiler``: a ``profile`` over the CPU and CUDA
 activities between ``start_device_trace``/``stop_device_trace``, written
 as a Chrome trace, and ``record_function`` annotations for the scopes.
 
+:func:`span` is the port's one span API: every named region of the
+program enters it, so ``torch.profiler`` sees it as a
+``record_function`` range, a running :class:`Profiler` as a Chrome
+event (:meth:`Profiler.scope`), and the step clock as host time.
+
+The step clock (:class:`StepClock`, read by :func:`step_records`) keeps
+each training step's own timing without the profiler: the step
+(``train/step.py``) opens a :class:`StepRecord` for its mesh slot, every
+span inside it adds its host time there, and two CUDA events on the
+step's stream give its device time.  It is always on.
+
 The reference can also drive profilers on *remote PS servers* from a worker
 via kvstore commands (kSetProfilerParams, src/kvstore/kvstore_dist.h:197-203;
 server side src/kvstore/kvstore_dist_server.h:383-430, filename prefixed
@@ -20,14 +31,19 @@ COMMAND {cmd: "set_profiler_params"|"profiler_start"|"profiler_stop"|
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 from torch.profiler import ProfilerActivity, record_function
+
+from geomx_tpu_torch.parallel.collectives import owning_slot, records_here
 
 class Profiler:
     """Host-side Chrome-trace profiler with optional device trace capture.
@@ -151,26 +167,16 @@ class Profiler:
                 "args": dict(values),
             })
 
-    @contextlib.contextmanager
     def scope(self, name: str, category: str = "host",
-              args: Optional[Dict] = None):
-        """Record a named duration; also annotates the torch.profiler
-        trace (``record_function``) so the scope shows up inside device
-        profiles (the analogue of
-        engine ops carrying profiler names, kvstore_dist.h:654).
+              args: Optional[Dict] = None) -> "span":
+        """A :func:`span` that also records a named duration in this
+        profiler while it runs (the analogue of engine ops carrying
+        profiler names, kvstore_dist.h:654).
 
         ``args`` attaches structured metadata to the Chrome-trace event —
         the bucketed communication engine uses it to report per-bucket
         payload sizes ({"bucket", "elems", "padded", "payload_bytes"})."""
-        if not self.running:
-            yield
-            return
-        begin = self._now_us()
-        try:
-            with record_function(name):
-                yield
-        finally:
-            self.add_event(name, begin, self._now_us(), category, args)
+        return span(name, category, args, profiler=self)
 
     # ---- device traces ---------------------------------------------------------
     def start_device_trace(self, logdir: str) -> None:
@@ -284,3 +290,225 @@ def profile_scope(name: str, category: str = "host",
                   args: Optional[Dict] = None):
     with get_profiler().scope(name, category, args=args):
         yield
+
+
+class span:
+    """A named region of the program: always a range of the profiler's
+    own record functions (so ``torch.profiler`` times it on its clock and
+    its trace can put an idle gap down to it), a Chrome event of
+    ``profiler`` while that :class:`Profiler` runs, and host time
+    (``time.perf_counter_ns``) added under ``name`` to the step record
+    open for the calling thread's slot (``collectives.owning_slot``: on
+    the autograd thread, the slot a backward node is attributed to).
+
+    ``annotation``: the range is a ``record_function`` user annotation:
+    the device trace books to it every kernel launched inside it and in
+    no annotation nested deeper, and draws the span's device-side
+    interval around them.  False: a host range alone
+    (``_RecordFunctionFast``, a fraction of the host cost), as the step
+    clock's own spans are: nested in ``train/forward_backward``, whose
+    device interval is read, an annotation would take the phase's
+    kernels from it."""
+
+    __slots__ = ("name", "category", "args", "profiler", "annotation",
+                 "_rf", "_rec", "_t0", "_begin_us")
+
+    def __init__(self, name: str, category: str = "host",
+                 args: Optional[Dict] = None,
+                 profiler: Optional[Profiler] = None,
+                 annotation: bool = True):
+        self.name = name
+        self.category = category
+        self.args = args
+        self.profiler = profiler
+        self.annotation = annotation
+
+    def __enter__(self) -> "span":
+        prof = self.profiler
+        if prof is not None and prof.running:
+            self._begin_us = prof._now_us()
+        else:
+            self._begin_us = None
+        self._rec = _CLOCK.current()
+        self._rf = record_function(self.name) if self.annotation \
+            else _RecordFunctionFast(self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dt = time.perf_counter_ns() - self._t0
+        self._rf.__exit__(*exc)
+        rec = self._rec
+        if rec is not None:
+            h = rec.host_ns
+            h[self.name] = h.get(self.name, 0) + dt
+        if self._begin_us is not None:
+            self.profiler.add_event(self.name, self._begin_us,
+                                    self.profiler._now_us(), self.category,
+                                    self.args)
+
+
+# ---- the step clock ---------------------------------------------------------
+
+STEP_SPAN = "train/train_step"
+STEPS_TOTAL = "geomx_train_steps_total"
+
+
+class StepRecord:
+    """One training step's own timing, kept by :class:`StepClock`.
+
+    ``host_ns``: host nanoseconds by span name, summed over the step's
+    spans of that name (the replica loop's repeats, the backward the
+    autograd thread runs for the step); ``wall_ns``: the step's host
+    wall; ``device_ms``: the device time between the two events recorded
+    on the step's stream at its entry and exit (None on the CPU, while
+    the stream captures a graph, or while the events are unresolved);
+    ``profiled``: whether ``torch.profiler`` was active; ``slot``: the
+    mesh slot's coordinates (None off a mesh); ``fn``: the id of the
+    step function that made it (:meth:`StepClock.new_fn`)."""
+
+    __slots__ = ("fn", "slot", "profiled", "host_ns", "wall_ns",
+                 "device_ms", "_stream", "_events", "_t0", "_prev")
+
+    def __init__(self, fn: int, slot, profiled: bool):
+        self.fn = fn
+        self.slot = slot
+        self.profiled = profiled
+        self.host_ns: Dict[str, int] = {}
+        self.wall_ns = 0
+        self.device_ms: Optional[float] = None
+        self._stream = self._events = self._prev = None
+
+    def __repr__(self) -> str:
+        return (f"StepRecord(fn={self.fn}, slot={self.slot}, "
+                f"profiled={self.profiled}, wall_ns={self.wall_ns}, "
+                f"device_ms={self.device_ms}, host_ns={self.host_ns})")
+
+
+class StepClock:
+    """The records of every training step, the newest ``ring`` a slot.
+
+    A step's two events come from a pool a device; an older record's
+    events are resolved with ``Event.query()`` when a later step opens,
+    so a step never waits for the device, and :meth:`records` waits once
+    for what is still unresolved.  Off a mesh the process is one slot
+    (None), which the autograd thread's spans find: two threads stepping
+    at once outside a mesh would share its open record."""
+
+    def __init__(self, ring: int = 4096):
+        self.ring = ring
+        self._lock = threading.Lock()
+        self._fn_ids = itertools.count(1)
+        self._rings: Dict[Any, collections.deque] = {}
+        self._unresolved: Dict[Any, collections.deque] = {}
+        self._pool: Dict[torch.device, list] = {}
+        # slot coords -> the record open there; a slot's thread writes
+        # only its own key
+        self._open: Dict[Any, StepRecord] = {}
+
+    def new_fn(self) -> int:
+        """A fresh id for a step function."""
+        return next(self._fn_ids)
+
+    def current(self) -> Optional[StepRecord]:
+        """The record open for the calling thread's slot, if any."""
+        if not self._open:
+            return None
+        slot = owning_slot()
+        return self._open.get(None if slot is None else slot.coords)
+
+    def open(self, fn: int, device: torch.device) -> StepRecord:
+        """Open a step's record for the calling thread's slot and record
+        its entry event on ``device``'s current stream."""
+        slot = owning_slot()
+        key = None if slot is None else slot.coords
+        rec = StepRecord(fn, key, torch._C._autograd._profiler_enabled())
+        if device.type == "cuda" and \
+                not torch.cuda.is_current_stream_capturing():
+            self._resolve(key, wait=False)
+            rec._stream = torch.cuda.current_stream(device)
+            rec._events = (self._take(rec._stream.device),
+                           self._take(rec._stream.device))
+            rec._events[0].record(rec._stream)
+        rec._prev = self._open.get(key)
+        self._open[key] = rec
+        rec._t0 = time.perf_counter_ns()
+        return rec
+
+    def close(self, rec: StepRecord) -> None:
+        """Close ``rec``: its exit event, its host wall, its place in the
+        slot's ring; one more ``geomx_train_steps_total`` (slot (0, 0)
+        alone on a mesh, as a step's collectives count once)."""
+        if rec._events is not None:
+            rec._events[1].record(rec._stream)
+        rec.wall_ns = time.perf_counter_ns() - rec._t0
+        key = rec.slot
+        if rec._prev is None:
+            self._open.pop(key, None)
+        else:
+            self._open[key] = rec._prev
+        rec._prev = None
+        with self._lock:
+            ring = self._rings.get(key)
+            if ring is None:
+                ring = self._rings[key] = collections.deque(maxlen=self.ring)
+                self._unresolved[key] = collections.deque()
+            ring.append(rec)
+            if rec._events is not None:
+                self._unresolved[key].append(rec)
+        if records_here():
+            # imported here: the telemetry package imports this module
+            from geomx_tpu_torch.telemetry.registry import get_registry
+            get_registry().counter(STEPS_TOTAL, "Training steps run").inc()
+
+    def _take(self, device: torch.device):
+        with self._lock:
+            pool = self._pool.get(device)
+            if pool:
+                return pool.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def _resolve(self, key, wait: bool) -> None:
+        """Read the device times of ``key``'s unresolved records, oldest
+        first: those whose exit event has completed, or every one with
+        ``wait`` (the caller synchronized)."""
+        with self._lock:
+            pending = self._unresolved.get(key)
+            while pending:
+                rec = pending[0]
+                start, end = rec._events
+                if not wait and not end.query():
+                    break
+                pending.popleft()
+                rec.device_ms = start.elapsed_time(end)
+                rec._events = None
+                self._pool.setdefault(rec._stream.device, []).extend(
+                    (start, end))
+
+    def records(self) -> List[StepRecord]:
+        """Every kept record, a slot's oldest first, after one wait for
+        the devices whose events are still unresolved."""
+        with self._lock:
+            devices = {r._stream.device for q in self._unresolved.values()
+                       for r in q}
+            keys = list(self._rings)
+        for device in devices:
+            torch.cuda.synchronize(device)
+        for key in keys:
+            self._resolve(key, wait=True)
+        with self._lock:
+            return [r for key in keys for r in self._rings[key]]
+
+
+_CLOCK = StepClock()
+
+
+def step_clock() -> StepClock:
+    """The process's step clock."""
+    return _CLOCK
+
+
+def step_records() -> List[StepRecord]:
+    """The step clock's records (:meth:`StepClock.records`)."""
+    return _CLOCK.records()
